@@ -1,0 +1,92 @@
+// (2, 1) frequency max-pool on the channels-last (B, T, F, C) layout:
+// y[b, t, f, c] = max(x[b, t, 2f, c], x[b, t, 2f + 1, c]), bf16 in and out.
+//
+// Replaces: pb_sed_tpu/ops/pallas/conv.py:_pool_fwd_kernel (reached
+// through _pool_fwd / maxpool2_rows_packed), the row-pair max of the
+// freq-major packed tower.
+//
+// What bounds it on the H100: it is pure data movement, 1.5 bytes moved
+// per input byte and one compare per output, so device-memory bandwidth.
+//
+// What the design does about it: with F = 2 * Fo, output row
+// r = (b * T + t) * Fo + f reads input rows 2r and 2r + 1, so the pool is a
+// max over adjacent C-vectors of a (R, 2, C) view. Each thread moves
+// 8 channels as one 16-byte load from each row and one 16-byte store
+// (scalar path when C % 8 != 0). The compare follows PyTorch's maximum on
+// the card (NaN wins, otherwise the first operand unless it is smaller),
+// so the kernel is bit-exact against the plain torch.maximum version.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ __nv_bfloat16 max_bf16(__nv_bfloat16 a,
+                                                  __nv_bfloat16 b) {
+  const float fa = __bfloat162float(a);
+  const float fb = __bfloat162float(b);
+  if (fa != fa) return a;
+  if (fb != fb) return b;
+  return fa < fb ? b : a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+maxpool_freq2_vec8(const uint4* __restrict__ x, uint4* __restrict__ y,
+                   long long rows_out, int vecs_per_row) {
+  const long long n = rows_out * vecs_per_row;
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long r = e / vecs_per_row;
+    const int v = static_cast<int>(e % vecs_per_row);
+    const uint4 a = x[(2 * r) * vecs_per_row + v];
+    const uint4 b = x[(2 * r + 1) * vecs_per_row + v];
+    const __nv_bfloat16* pa = reinterpret_cast<const __nv_bfloat16*>(&a);
+    const __nv_bfloat16* pb = reinterpret_cast<const __nv_bfloat16*>(&b);
+    uint4 out;
+    __nv_bfloat16* po = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) po[i] = max_bf16(pa[i], pb[i]);
+    y[e] = out;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+maxpool_freq2_scalar(const __nv_bfloat16* __restrict__ x,
+                     __nv_bfloat16* __restrict__ y, long long rows_out,
+                     int C) {
+  const long long n = rows_out * C;
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long r = e / C;
+    const int c = static_cast<int>(e % C);
+    y[e] = max_bf16(x[(2 * r) * C + c], x[(2 * r + 1) * C + c]);
+  }
+}
+
+}  // namespace
+
+// x (B, T, F, C) bf16 with F even, y (B, T, F / 2, C) bf16; contiguous and
+// 16-byte aligned. rows_out = B * T * (F / 2). Returns a cudaError_t.
+extern "C" int pbsed_maxpool_freq2(const void* x, void* y, long long rows_out,
+                                   int C, void* stream) {
+  if (rows_out < 0 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_out == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long work = (C % 8 == 0) ? rows_out * (C / 8) : rows_out * C;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;  // grid-stride beyond
+  if (C % 8 == 0) {
+    maxpool_freq2_vec8<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(y), rows_out,
+        C / 8);
+  } else {
+    maxpool_freq2_scalar<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<__nv_bfloat16*>(y), rows_out, C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

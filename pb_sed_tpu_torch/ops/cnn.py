@@ -1,0 +1,303 @@
+"""CNN towers: masked batch norm, the 2-D tower on the conv/pool kernels,
+the 1-D tower, and the hybrid ``CNN`` (2-D -> flatten freq -> 1-D).
+
+Counterpart of ``pb_sed_tpu/ops/cnn.py`` in eval mode, with its layouts
+((B, T, F, C) and (B, T, C)), parameter layouts (conv kernels HWIO
+(kt, kf, Cin, Cout) / (k, Cin, Cout)) and state names (``conv_{i}``,
+``norm_{i}`` with ``scale``/``shift`` and ``mean``/``var``/
+``initialized``). The 2-D tower follows the rounding points of the JAX
+package's kernel tower: BN and activation in f32, activations stored in
+bf16 between layers, the conv in bf16 with f32 accumulation and f32
+bias (``ops/kernels/conv.py``), the pool on bf16.
+
+Layers get their input channel counts from ``in_channels`` or, when a
+config leaves it unset, from their parent (``CNN`` / the CRNN glue), which
+calls ``build``. Residual connections (deep recipe), pools other than
+1 and (2, 1) in the 2-D tower and time pools in the 1-D tower are not
+ported yet and raise.
+"""
+import torch
+from torch import nn
+
+from pb_sed_tpu.utils.config import Configurable
+from pb_sed_tpu.utils.misc import to_list
+from pb_sed_tpu_torch.ops.kernels.conv import conv2d_same, maxpool_freq2
+
+
+class MaskedBatchNorm(nn.Module):
+    """Batch norm over the channel (last) axis, eval mode: running
+    statistics, f32 math whatever the input dtype."""
+
+    def __init__(self, channels, eps=1e-3, momentum=0.95):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum  # training only
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.shift = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('mean', torch.zeros(channels))
+        self.register_buffer('var', torch.ones(channels))
+        self.register_buffer('initialized', torch.zeros(()))
+
+    def forward(self, x):
+        return ((x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+                * self.scale + self.shift)
+
+
+def _act(name):
+    if name in (None, 'identity', 'linear'):
+        return lambda x: x
+    if name == 'relu':
+        return torch.relu
+    if name in ('sigmoid', 'tanh'):
+        return getattr(torch, name)
+    raise NotImplementedError(f'activation {name!r} is not ported yet')
+
+
+def _check_common(module, residual_connections, norm, compute_dtype):
+    if residual_connections and any(r is not None
+                                    for r in residual_connections):
+        raise NotImplementedError(
+            f'{type(module).__name__}: residual connections (deep recipe) '
+            f'are not ported yet')
+    if norm not in ('batch', None):
+        raise NotImplementedError(f'norm {norm!r} is not ported yet')
+    if compute_dtype != 'bfloat16':
+        raise NotImplementedError(
+            f'compute_dtype {compute_dtype!r}: the port computes convs in '
+            f'bfloat16 only')
+
+
+def _pool_fp_tp(pool):
+    """Reference pool notation (freq, time) or scalar -> ints."""
+    if isinstance(pool, (tuple, list)):
+        return int(pool[0]), int(pool[1])
+    return int(pool), int(pool)
+
+
+class Conv2d(nn.Module):
+    """SAME conv with an odd kernel on (B, T, F, Cin) bf16 -> bf16."""
+
+    def __init__(self, in_channels, out_channels, kernel_size):
+        super().__init__()
+        kt, kf = kernel_size
+        self.kernel = nn.Parameter(
+            torch.zeros(kt, kf, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x):
+        return conv2d_same(x, self.kernel, self.bias)
+
+
+class Conv1d(nn.Module):
+    """SAME conv over time on (B, T, Cin): bf16 operands with f32
+    accumulation rounded to bf16, bias added in bf16 (the arithmetic of
+    the JAX package's ``nn.Conv(dtype=bfloat16)``), returned as f32. Runs
+    as one matmul over the k time-shifted copies of the input."""
+
+    def __init__(self, in_channels, out_channels, kernel_size):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.zeros(kernel_size, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x):
+        k, cin, cout = self.kernel.shape
+        x = x.to(torch.bfloat16)
+        if k > 1:
+            t = x.shape[1]
+            front = (k - 1) // 2
+            xp = nn.functional.pad(x, (0, 0, front, k - 1 - front))
+            x = torch.cat([xp[:, i:i + t] for i in range(k)], dim=-1)
+        y = torch.matmul(x, self.kernel.reshape(k * cin, cout).to(
+            torch.bfloat16))
+        return (y + self.bias.to(torch.bfloat16)).float()
+
+
+class _Tower(nn.Module, Configurable):
+    """Shared layer plumbing of the 2-D and 1-D towers."""
+
+    def _build_layers(self, in_channels, make_conv):
+        if self.built_channels is not None:
+            if self.built_channels != in_channels:
+                raise ValueError(
+                    f'{type(self).__name__} built for {self.built_channels} '
+                    f'input channels, asked for {in_channels}')
+            return
+        n = len(self.out_channels)
+        cin = in_channels
+        for i in range(n):
+            is_output = self.output_layer and i == n - 1
+            c_norm = cin if self.pre_activation else self.out_channels[i]
+            if self.norm == 'batch' and not is_output:
+                self.add_module(f'norm_{i}',
+                                MaskedBatchNorm(c_norm, **self.norm_kwargs))
+            self.add_module(f'conv_{i}',
+                            make_conv(cin, self.out_channels[i], i))
+            cin = self.out_channels[i]
+        self.built_channels = in_channels
+
+    def _norm_act(self, i, h):
+        if self.norm == 'batch':
+            h = getattr(self, f'norm_{i}')(h)
+        return self.act(h.float())
+
+
+class CNN2d(_Tower):
+    """Stack of 2-D convolutions over (time, freq) on (B, T, F, C).
+
+    ``use_pallas`` and ``fuse_bn`` come from the JAX package's configs
+    and have no effect: on CUDA the port always runs its kernels, on the
+    CPU their plain versions. ``dropout`` acts in training only."""
+
+    def __init__(self, out_channels, kernel_size=3, pool_size=1,
+                 residual_connections=None, norm='batch', norm_kwargs=None,
+                 activation_fn='relu', pre_activation=False, dropout=0.,
+                 output_layer=False, compute_dtype='bfloat16',
+                 use_pallas=False, fuse_bn=False, in_channels=None,
+                 input_height=None):
+        super().__init__()
+        n = len(out_channels)
+        _check_common(self, residual_connections, norm, compute_dtype)
+        self.out_channels = list(out_channels)
+        self.kernels = [(k, k) if not isinstance(k, (tuple, list))
+                        else tuple(k) for k in to_list(kernel_size, n)]
+        pools = (list(pool_size) if isinstance(pool_size, (list, tuple))
+                 and len(pool_size) == n else pool_size)
+        self.pools = [_pool_fp_tp(p) for p in to_list(pools, n)]
+        for pf, pt in self.pools:
+            if pt != 1 or pf not in (1, 2):
+                raise NotImplementedError(
+                    f'CNN2d pools other than 1 and (2, 1) are not ported '
+                    f'yet: {pool_size}')
+        self.norm = norm
+        self.norm_kwargs = dict(norm_kwargs or {})
+        self.act = _act(activation_fn)
+        self.pre_activation = pre_activation
+        self.output_layer = output_layer
+        self.built_channels = None
+        if in_channels is not None:
+            self.build(in_channels)
+
+    def build(self, in_channels):
+        self._build_layers(in_channels, lambda cin, cout, i: Conv2d(
+            cin, cout, self.kernels[i]))
+
+    def out_height(self, height):
+        for pf, _ in self.pools:
+            height //= pf
+        return height
+
+    def forward(self, x, seq_len):
+        """(B, T, F, C) -> ((B, T, F', C') bf16, seq_len)."""
+        n = len(self.out_channels)
+        h = x
+        for i in range(n):
+            is_output = self.output_layer and i == n - 1
+            if self.pre_activation and not is_output:
+                h = self._norm_act(i, h)
+            h = getattr(self, f'conv_{i}')(h.to(torch.bfloat16))
+            if not self.pre_activation and not is_output:
+                h = self._norm_act(i, h).to(torch.bfloat16)
+            if self.pools[i][0] == 2:
+                h = maxpool_freq2(h)
+        return h, seq_len
+
+
+class CNN1d(_Tower):
+    """Stack of 1-D convolutions over time on (B, T, C)."""
+
+    def __init__(self, out_channels, kernel_size=3, pool_size=1,
+                 residual_connections=None, norm='batch', norm_kwargs=None,
+                 activation_fn='relu', pre_activation=False, dropout=0.,
+                 output_layer=False, compute_dtype='bfloat16',
+                 in_channels=None):
+        super().__init__()
+        n = len(out_channels)
+        _check_common(self, residual_connections, norm, compute_dtype)
+        self.out_channels = list(out_channels)
+        self.kernels = to_list(
+            list(kernel_size) if isinstance(kernel_size, (list, tuple))
+            else kernel_size, n)
+        if any(int(p) != 1 for p in to_list(pool_size, n)):
+            raise NotImplementedError(
+                f'CNN1d time pools are not ported yet: {pool_size}')
+        self.norm = norm
+        self.norm_kwargs = dict(norm_kwargs or {})
+        self.act = _act(activation_fn)
+        self.pre_activation = pre_activation
+        self.output_layer = output_layer
+        self.built_channels = None
+        if in_channels is not None:
+            self.build(in_channels)
+
+    def build(self, in_channels):
+        self._build_layers(in_channels, lambda cin, cout, i: Conv1d(
+            cin, cout, int(self.kernels[i])))
+
+    def forward(self, x, seq_len):
+        """(B, T, C) -> ((B, T, C') f32, seq_len)."""
+        n = len(self.out_channels)
+        h = x
+        for i in range(n):
+            is_output = self.output_layer and i == n - 1
+            if self.pre_activation and not is_output:
+                h = self._norm_act(i, h)
+            h = getattr(self, f'conv_{i}')(h)
+            if not self.pre_activation and not is_output:
+                h = self._norm_act(i, h)
+        return h, seq_len
+
+
+class CNN(nn.Module, Configurable):
+    """2-D tower -> flatten freq into channels -> 1-D tower.
+
+    Input (B, T, F) features are lifted to (B, T, F, 1) (or carry delta
+    channels), optionally with a positional channel and a broadcast
+    condition; the surviving freq bins fold into channels for the 1-D
+    tower. Output (B, T, C) embeddings. The towers come in built by the
+    config (``instantiate``); ``build`` sizes their layers."""
+
+    def __init__(self, cnn_2d, cnn_1d, input_height=None,
+                 positional_encoding=False, conditional_dims=0):
+        super().__init__()
+        self.cnn_2d = cnn_2d
+        self.cnn_1d = cnn_1d
+        self.input_height = input_height
+        self.positional_encoding = positional_encoding
+        self.conditional_dims = conditional_dims
+
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        config['cnn_2d'] = {'factory': CNN2d}
+        config['cnn_1d'] = {'factory': CNN1d}
+
+    @property
+    def out_channels(self):
+        return self.cnn_1d.out_channels[-1]
+
+    def build(self, in_channels):
+        """Create the towers' layers for ``in_channels`` feature channels
+        at ``input_height`` freq bins."""
+        if self.input_height is None:
+            raise ValueError('CNN needs input_height to size its 1-D tower')
+        c2d = (in_channels + int(self.positional_encoding)
+               + self.conditional_dims)
+        self.cnn_2d.build(c2d)
+        self.cnn_1d.build(self.cnn_2d.out_height(self.input_height)
+                          * self.cnn_2d.out_channels[-1])
+
+    def forward(self, x, seq_len, condition=None):
+        h = x[..., None] if x.dim() == 3 else x  # (B, T, F, C)
+        b, t, f = h.shape[:3]
+        if self.positional_encoding:
+            pos = torch.linspace(-1., 1., f, device=h.device)
+            h = torch.cat([h, pos.reshape(1, 1, f, 1).expand(b, t, f, 1)],
+                          dim=-1)
+        if self.conditional_dims and condition is not None:
+            cond = condition[:, None, None, :].expand(
+                b, t, f, condition.shape[-1])
+            h = torch.cat([h, cond.to(h.dtype)], dim=-1)
+        h, seq_len = self.cnn_2d(h, seq_len)
+        b, t2, f2, c2 = h.shape
+        h, seq_len = self.cnn_1d(h.reshape(b, t2, f2 * c2), seq_len)
+        return h, seq_len

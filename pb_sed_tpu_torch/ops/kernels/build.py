@@ -1,0 +1,128 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The CUDA C++ sources in ``pb_sed_tpu_torch/csrc/*.cu`` are compiled at
+first use with ``nvcc`` for Hopper (``sm_90a``) into ONE shared library
+with a plain C interface, under ``build/kernels/`` next to the package,
+and loaded with ``ctypes``. The library name carries a hash of the
+sources and flags, so an edited source is rebuilt and a stale library is
+never loaded. There is no fallback: if ``nvcc`` fails, the build raises.
+
+Each wrapper in ``ops/kernels/`` launches its kernel only on a CUDA
+tensor (``require_cuda``), raises if the C function returns a CUDA error,
+and adds one to its entry in ``LAUNCHES`` for every launch.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
+NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+)
+
+# launches per kernel wrapper since the last reset_launches()
+LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # name: argtypes (every pointer and the stream as c_void_p)
+    'pbsed_conv2d_same': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    'pbsed_maxpool_freq2': (_P, _P, ctypes.c_longlong, _I, _P),
+    'pbsed_gru_scan': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+_lib = None
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def require_cuda(*tensors):
+    """Raise unless CUDA is available and every tensor lies on a CUDA
+    device (the kernels have no other path)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('the CUDA kernels need a CUDA device; none is '
+                           'available')
+    for t in tensors:
+        if t.device.type != 'cuda':
+            raise RuntimeError(
+                f'expected a CUDA tensor, got one on {t.device}')
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = Path('/usr/local/cuda/bin/nvcc')
+    if default.exists():
+        return str(default)
+    raise RuntimeError('nvcc not found: the CUDA kernels are built from '
+                       'source at first use and need the CUDA toolkit')
+
+
+def library_path():
+    sources = sorted(CSRC_DIR.glob('*.cu'))
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f'libpbsed_kernels_{digest.hexdigest()[:16]}.so'
+
+
+def build():
+    """Compile ``csrc/*.cu`` into the shared library unless it exists.
+    Returns its path; the compiler's output is kept beside it (``.log``,
+    with ``-Xptxas -v`` register and shared-memory use per kernel)."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+           *map(str, sorted(CSRC_DIR.glob('*.cu')))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    path.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
+            f'{proc.stdout}{proc.stderr}')
+    os.replace(tmp, path)
+    return path
+
+
+def lib():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        loaded.pbsed_error_string.argtypes = (ctypes.c_int,)
+        loaded.pbsed_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def launch(counter, fn_name, device, *args):
+    """Call ``fn_name`` with ``args`` plus the current stream of
+    ``device``, raise on a CUDA error, count the launch."""
+    library = lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(library, fn_name)(*args, stream)
+    if rc != 0:
+        msg = library.pbsed_error_string(rc).decode()
+        raise RuntimeError(f'{fn_name} failed: CUDA error {rc} ({msg})')
+    LAUNCHES[counter] += 1

@@ -1,0 +1,54 @@
+"""The port's GRU recurrence (plain version on the CPU) against the JAX
+package's Pallas GRU kernel in interpret mode and its ``lax.scan``
+reference, at D=1 and D=2 and with T not a multiple of the TPU kernel's
+time block (32)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pb_sed_tpu.ops.pallas.gru import gru_scan as jax_gru_scan
+from pb_sed_tpu.ops.pallas.gru import gru_scan_reference
+from pb_sed_tpu_torch.ops.kernels import build
+from pb_sed_tpu_torch.ops.kernels.gru import gru_scan
+
+torch.set_num_threads(2)
+
+
+def _inputs(d, b, t, h, seed=0):
+    rng = np.random.RandomState(seed)
+    xw = rng.randn(d, b, t, 3 * h).astype(np.float32)
+    w_hh = (rng.randn(d, h, 3 * h) / np.sqrt(h)).astype(np.float32)
+    b_hh = (.1 * rng.randn(d, 3 * h)).astype(np.float32)
+    h0 = (.5 * rng.randn(d, b, h)).astype(np.float32)
+    return xw, w_hh, b_hh, h0
+
+
+@pytest.mark.parametrize('d,b,t,h', [(1, 3, 37, 32), (2, 4, 45, 32)])
+def test_gru_scan_matches_jax(d, b, t, h):
+    xw, w_hh, b_hh, h0 = _inputs(d, b, t, h)
+    build.reset_launches()
+    got = gru_scan(*map(torch.from_numpy, (xw, w_hh, b_hh, h0)))
+    assert got.dtype == torch.float32 and got.shape == (d, b, t, h)
+    assert build.LAUNCHES['gru_scan'] == 0
+    got = got.numpy()
+    kernel = np.asarray(jax_gru_scan(*map(jnp.asarray, (xw, w_hh, b_hh, h0)),
+                                     True))
+    # same rounding points as the Pallas kernel (bf16 xw and matmul
+    # operands, f32 gates); the f32 summation order differs, which can
+    # flip a bf16 rounding of h (2^-8 relative) before the next step's
+    # matmul and so move later states by ~1e-3 at these weights: 2e-3
+    np.testing.assert_allclose(got, kernel, atol=2e-3, rtol=0)
+    scan = np.asarray(gru_scan_reference(*map(jnp.asarray,
+                                              (xw, w_hh, b_hh, h0))))
+    # the all-f32 scan: the TPU kernel's own measured drift against it,
+    # 5.3e-3, is the ceiling
+    np.testing.assert_allclose(got, scan, atol=5.3e-3, rtol=0)
+
+
+def test_gru_scan_rejects_inconsistent_shapes():
+    xw, w_hh, b_hh, h0 = map(torch.from_numpy, _inputs(1, 2, 5, 32))
+    with pytest.raises(ValueError):
+        gru_scan(xw, w_hh[:, :16], b_hh, h0)
+    with pytest.raises(ValueError):
+        gru_scan(xw[0], w_hh, b_hh, h0)
