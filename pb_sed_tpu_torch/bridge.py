@@ -26,6 +26,12 @@ def _entries(module):
     return out
 
 
+def param_keys(module):
+    """Flat keys of the module's parameters in ``named_parameters``
+    order (the order of the trainer's optimizer state)."""
+    return [f'params.{name}' for name, _ in module.named_parameters()]
+
+
 def export_flat(module):
     """The module's state as the JAX package's flat dict (float32
     numpy)."""

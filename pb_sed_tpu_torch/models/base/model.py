@@ -2,9 +2,12 @@
 model API (``pb_sed_tpu/models/base/model.py``).
 
 The wrapper owns the module, the device it runs on and the label
-metadata. Inference methods run under ``torch.inference_mode()`` with the
-batch moved to the model's device. ``state_dict``/``load_state_dict`` speak
-the JAX package's flat dotted-key numpy dict (``params.*`` /
+metadata. Inference methods put the module in eval mode and run under
+``torch.inference_mode()`` with the batch moved to the model's device;
+training (``train/trainer.py``) puts it in train mode and calls the
+subclass's ``loss`` on the same device batch.
+``state_dict``/``load_state_dict`` speak the JAX package's flat
+dotted-key numpy dict (``params.*`` /
 ``batch_stats.*``, see ``bridge.py``), and checkpoints are the same
 ``{'model': flat}`` pickle, so a checkpoint written by JAX training serves
 here and the other way round.
@@ -108,15 +111,20 @@ class SoundEventModel(Configurable):
         override; this default is the blocking method."""
         return getattr(self, method)(batch, **params)
 
+    def to_device(self, batch):
+        """The batch's array entries as tensors on the model's device
+        (lists such as example ids are left out)."""
+        return {k: _to_tensor(v, self.device) for k, v in batch.items()
+                if isinstance(v, (np.ndarray, torch.Tensor))}
+
     def _apply(self, batch, method, **kwargs):
-        """``self.module.<method>(batch, **kwargs)`` in inference mode on
-        the model's device; the batch's array entries are moved there."""
+        """``self.module.<method>(batch, **kwargs)`` in eval and inference
+        mode on the model's device; the batch's array entries are moved
+        there."""
         self.module.eval()
-        device_batch = {
-            k: _to_tensor(v, self.device) for k, v in batch.items()
-            if isinstance(v, (np.ndarray, torch.Tensor))}
         with torch.inference_mode():
-            return getattr(self.module, method)(device_batch, **kwargs)
+            return getattr(self.module, method)(self.to_device(batch),
+                                                **kwargs)
 
     # -- checkpoint IO ------------------------------------------------------
     def state_dict(self):

@@ -1,15 +1,14 @@
-"""FBCRNN (forward-backward CRNN) for weak-label sound event detection:
-the serving path.
+"""FBCRNN (forward-backward CRNN) for weak-label sound event detection.
 
 Counterpart of ``pb_sed_tpu/models/weak_label/crnn.py``: log-mel front
 end, hybrid CNN, a forward and a time-reversed backward GRU head, bounded
-sigmoid scores, and the inference methods ``tagging`` (mean of the
+sigmoid scores, the training loss (:meth:`CRNN.loss`, the JAX
+``CRNN.loss_fn``) and the inference methods ``tagging`` (mean of the
 forward head's last and the backward head's first frame),
 ``boundaries_detection`` (min of the heads) and sliding-window
 ``sound_event_detection`` (windows folded into the batch, scalar,
 per-class or per-paramset window lengths). Scores are time-last
-``(B, K, T)``. The training loss and the tuning wrappers are not ported
-yet.
+``(B, K, T)``. The tuning wrappers are not ported yet.
 """
 import numpy as np
 import torch
@@ -18,7 +17,8 @@ from torch import nn
 from pb_sed_tpu_torch.models.base.model import SoundEventModel, to_numpy
 from pb_sed_tpu_torch.ops.cnn import CNN
 from pb_sed_tpu_torch.ops.features import NormalizedLogMelExtractor
-from pb_sed_tpu_torch.ops.masking import compute_mask, take_last
+from pb_sed_tpu_torch.ops.masking import (compute_mask, masked_mean,
+                                          take_last)
 from pb_sed_tpu_torch.ops.rnn import GRU, paired_gru_apply, paired_heads
 
 
@@ -43,14 +43,20 @@ class FBCRNNModule(nn.Module):
         return self.minimum_score + (
             1. - 2. * self.minimum_score) * torch.sigmoid(logits)
 
-    def features(self, batch):
-        """Features from 'audio_data' (device STFT) or a shipped 'stft'."""
+    def features(self, batch, generator=None):
+        """Features from 'audio_data' (device STFT) or a shipped 'stft';
+        ``generator`` feeds the training augmentation."""
         seq_len = batch['seq_len']
+        if self.training and 'warp_anchor_out' in batch:
+            raise NotImplementedError(
+                'the device-side time warp of the STFT (warp_anchor_out) '
+                'is not ported yet')
         x = batch['audio_data'] if 'audio_data' in batch else batch['stft']
-        return self.feature_extractor(x, seq_len), seq_len
+        return self.feature_extractor(x, seq_len, generator=generator), \
+            seq_len
 
-    def encode(self, batch):
-        x, seq_len = self.features(batch)
+    def encode(self, batch, generator=None):
+        x, seq_len = self.features(batch, generator)
         h, seq_len_h = self.cnn(x, seq_len)
         return h, seq_len_h, x, seq_len
 
@@ -63,8 +69,8 @@ class FBCRNNModule(nn.Module):
                  else self.rnn_bwd(h, seq_len)[0])
         return y_fwd, y_bwd, seq_len_y
 
-    def forward(self, batch):
-        h, seq_len_h, x, seq_len_x = self.encode(batch)
+    def forward(self, batch, generator=None):
+        h, seq_len_h, x, seq_len_x = self.encode(batch, generator)
         y_fwd, y_bwd, seq_len_y = self._heads(h, seq_len_h)
         y_fwd = self._bounded_sigmoid(y_fwd).transpose(1, 2)
         if y_bwd is not None:
@@ -151,9 +157,7 @@ def multi_window_sed(run_window, window_length, materialize=True):
 
 
 class CRNN(SoundEventModel):
-    """FBCRNN wrapper: inference API and config glue. The loss settings
-    (label smoothing, SLAT, loss weights, class weights) are kept for
-    config compatibility and act in training only."""
+    """FBCRNN wrapper: training loss, inference API and config glue."""
 
     def __init__(
             self, feature_extractor, cnn, rnn_fwd, rnn_bwd,
@@ -174,6 +178,102 @@ class CRNN(SoundEventModel):
         self.strong_fwd_bwd_loss_weight = strong_fwd_bwd_loss_weight
         self.class_weights = (
             None if class_weights is None else np.asarray(class_weights))
+
+    # -- training loss --------------------------------------------------------
+    def loss(self, batch, generator=None):
+        """The JAX ``CRNN.loss_fn`` (``pb_sed_tpu/models/weak_label/
+        crnn.py:219-320``) on a batch of device tensors, in the module's
+        current mode (``train()`` for batch statistics and augmentation),
+        all in f32:
+
+        - weak targets in (.01, .99) are soft (unlabeled) and masked out;
+        - weak loss: BCE(max(y_fwd, y_bwd), weak) over frames;
+        - strong loss: BCE against the boundary targets' cummax forward
+          (y_fwd) and backward (y_bwd), for classes that are fully
+          frame-labeled and weakly positive, mixed in by
+          ``strong_fwd_bwd_loss_weight`` (SLAT: weak targets as boundary
+          targets);
+        - label smoothing clips targets, BCE clips scores at 1e-7;
+        - masked mean over frames, class-weighted mean over (B, K).
+
+        Returns ``(loss, aux)`` with ``aux = {'scalars': ..., 'buffers':
+        ...}``, the JAX function's scalars and buffers.
+        """
+        y_fwd, y_bwd, seq_len_y, _, _ = self.module(batch, generator)
+        weak_targets = batch['weak_targets'].float()
+        wt_mask = ((weak_targets < .01) | (weak_targets > .99)).float()
+        weak_targets = weak_targets * wt_mask
+        loss = self._weak_fwd_bwd_loss(
+            y_fwd, y_bwd, weak_targets, seq_len_y) * wt_mask[..., None]
+        boundary_label_rate = torch.zeros((), device=y_fwd.device)
+        if self.strong_fwd_bwd_loss_weight > 0.:
+            if self.slat:
+                boundary_targets = weak_targets[..., None].expand(
+                    y_fwd.shape)
+            else:
+                boundary_targets = batch['boundary_targets'].float()
+            bt_mask = ((boundary_targets > .99)
+                       | (boundary_targets < .01)).float()
+            frame_mask = compute_mask(boundary_targets, seq_len_y,
+                                      sequence_axis=-1)
+            fully_labeled = (masked_mean(bt_mask, seq_len_y, axis=-1,
+                                         keepdims=True) > .999).float()
+            bt_mask = (bt_mask * fully_labeled
+                       * (weak_targets > .99)[..., None].float()
+                       * frame_mask)
+            boundary_label_rate = bt_mask.mean()
+            strong_loss = self._strong_fwd_bwd_loss(
+                y_fwd, y_bwd, boundary_targets)
+            w = bt_mask * self.strong_fwd_bwd_loss_weight
+            loss = w * strong_loss + (1. - w) * loss
+        loss = masked_mean(loss, seq_len_y, axis=-1)  # (B, K)
+        weights = wt_mask
+        if self.class_weights is not None:
+            weights = weights * torch.as_tensor(
+                self.class_weights, dtype=torch.float32,
+                device=weights.device)
+        loss = (loss * weights).sum() / weights.sum().clamp(min=1.)
+        y_weak = take_last(y_fwd, seq_len_y, axis=-1)
+        if y_bwd is not None:
+            y_weak = y_weak / 2 + y_bwd[..., 0] / 2
+        scalars = {
+            'seq_len': batch['seq_len'].float().mean(),
+            'weak_label_rate': wt_mask.mean(),
+            'boundary_label_rate': boundary_label_rate,
+        }
+        buffers = {
+            'y_weak': y_weak.detach(),
+            'targets_weak': weak_targets,
+            'labeled_mask': (wt_mask == 1.).all(-1),
+        }
+        return loss, {'scalars': scalars, 'buffers': buffers}
+
+    def _clip_targets(self, targets):
+        if self.label_smoothing > 0.:
+            return targets.clamp(self.label_smoothing,
+                                 1. - self.label_smoothing)
+        return targets
+
+    @staticmethod
+    def _bce(y, t):
+        y = y.clamp(1e-7, 1. - 1e-7)
+        return -(t * torch.log(y) + (1. - t) * torch.log(1. - y))
+
+    def _weak_fwd_bwd_loss(self, y_fwd, y_bwd, targets, seq_len):
+        targets = self._clip_targets(targets)
+        if y_bwd is None:
+            y_weak = take_last(y_fwd, seq_len, axis=-1)
+            return self._bce(y_weak, targets)[..., None].expand(y_fwd.shape)
+        return self._bce(torch.maximum(y_fwd, y_bwd), targets[..., None])
+
+    def _strong_fwd_bwd_loss(self, y_fwd, y_bwd, targets):
+        targets = self._clip_targets(targets)
+        t_fwd = torch.cummax(targets, dim=-1).values
+        t_bwd = torch.cummax(targets.flip(-1), dim=-1).values.flip(-1)
+        loss = self._bce(y_fwd, t_fwd)
+        if y_bwd is not None:
+            loss = loss / 2 + self._bce(y_bwd, t_bwd) / 2
+        return loss
 
     # -- inference API (numpy out) ------------------------------------------
     def tagging(self, batch, **params):

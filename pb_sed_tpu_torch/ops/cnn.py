@@ -1,14 +1,17 @@
 """CNN towers: masked batch norm, the 2-D tower on the conv/pool kernels,
 the 1-D tower, and the hybrid ``CNN`` (2-D -> flatten freq -> 1-D).
 
-Counterpart of ``pb_sed_tpu/ops/cnn.py`` in eval mode, with its layouts
-((B, T, F, C) and (B, T, C)), parameter layouts (conv kernels HWIO
-(kt, kf, Cin, Cout) / (k, Cin, Cout)) and state names (``conv_{i}``,
-``norm_{i}`` with ``scale``/``shift`` and ``mean``/``var``/
-``initialized``). The 2-D tower follows the rounding points of the JAX
-package's kernel tower: BN and activation in f32, activations stored in
-bf16 between layers, the conv in bf16 with f32 accumulation and f32
-bias (``ops/kernels/conv.py``), the pool on bf16.
+Counterpart of ``pb_sed_tpu/ops/cnn.py`` with its layouts ((B, T, F, C)
+and (B, T, C)), parameter layouts (conv kernels HWIO (kt, kf, Cin, Cout)
+/ (k, Cin, Cout)) and state names (``conv_{i}``, ``norm_{i}`` with
+``scale``/``shift`` and ``mean``/``var``/``initialized``). The 2-D tower
+follows the rounding points of the JAX package's kernel tower: BN and
+activation in f32, activations stored in bf16 between layers, the conv in
+bf16 with f32 accumulation and f32 bias, the pool on bf16; both run as
+autograd Functions whose backward is a kernel too
+(``ops/kernels/conv.py:Conv2dSame``, ``MaxPoolFreq2``). The
+``nn.Module.training`` flag selects batch statistics over the valid
+frames (``seq_len``) and the running-stat update.
 
 Layers get their input channel counts from ``in_channels`` or, when a
 config leaves it unset, from their parent (``CNN`` / the CRNN glue), which
@@ -16,31 +19,62 @@ calls ``build``. Residual connections (deep recipe), pools other than
 1 and (2, 1) in the 2-D tower and time pools in the 1-D tower are not
 ported yet and raise.
 """
+import math
+
 import torch
 from torch import nn
 
 from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu.utils.misc import to_list
-from pb_sed_tpu_torch.ops.kernels.conv import conv2d_same, maxpool_freq2
+from pb_sed_tpu_torch.ops.kernels.conv import Conv2dSame, MaxPoolFreq2
+from pb_sed_tpu_torch.ops.masking import sequence_mask
+
+
+def update_running_stats(module, mean, var, momentum):
+    """The running-stat update of the JAX package's norms: the first
+    training call seeds the statistics (momentum 0 while ``initialized``
+    is 0), later ones mix them in with ``momentum``."""
+    with torch.no_grad():
+        m = torch.where(module.initialized > 0, momentum, 0.)
+        module.mean.mul_(m).add_((1. - m) * mean.detach())
+        module.var.mul_(m).add_((1. - m) * var.detach())
+        module.initialized.fill_(1.)
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over the channel (last) axis, eval mode: running
-    statistics, f32 math whatever the input dtype."""
+    """Batch norm over the channel (last) axis in f32 whatever the input
+    dtype. In training (``self.training``) the statistics are taken over
+    the valid frames only (``seq_len`` along axis 1), single-pass sum and
+    sum of squares in f32, ``var = max(E[x^2] - mean^2, 0)``
+    (``pb_sed_tpu/ops/cnn.py:190-214``), and the running statistics are
+    updated; in eval mode the running statistics normalize."""
 
     def __init__(self, channels, eps=1e-3, momentum=0.95):
         super().__init__()
+        self.train(False)  # the JAX default: training=False
         self.eps = eps
-        self.momentum = momentum  # training only
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.shift = nn.Parameter(torch.zeros(channels))
         self.register_buffer('mean', torch.zeros(channels))
         self.register_buffer('var', torch.ones(channels))
         self.register_buffer('initialized', torch.zeros(()))
 
-    def forward(self, x):
-        return ((x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
-                * self.scale + self.shift)
+    def forward(self, x, seq_len):
+        xf = x.float()
+        if not self.training:
+            mean, var = self.mean, self.var
+        else:
+            mask = sequence_mask(seq_len, x.shape[1])
+            mask = mask.reshape(mask.shape + (1,) * (x.dim() - 2))
+            axes = tuple(range(x.dim() - 1))
+            count = (mask.sum() * math.prod(x.shape[2:-1])).clamp(min=1.)
+            mean = (xf * mask).sum(axes) / count
+            var = ((xf.square() * mask).sum(axes) / count
+                   - mean.square()).clamp(min=0.)
+            update_running_stats(self, mean, var, self.momentum)
+        return (xf - mean) * torch.rsqrt(var + self.eps) * self.scale \
+            + self.shift
 
 
 def _act(name):
@@ -51,6 +85,14 @@ def _act(name):
     if name in ('sigmoid', 'tanh'):
         return getattr(torch, name)
     raise NotImplementedError(f'activation {name!r} is not ported yet')
+
+
+def check_dropout(module, dropout):
+    """Raise when dropout would act: it is not ported yet."""
+    if module.training and dropout > 0:
+        raise NotImplementedError(
+            f'{type(module).__name__}: dropout > 0 in training is not '
+            f'ported yet')
 
 
 def _check_common(module, residual_connections, norm, compute_dtype):
@@ -85,7 +127,7 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
-        return conv2d_same(x, self.kernel, self.bias)
+        return Conv2dSame.apply(x, self.kernel, self.bias)
 
 
 class Conv1d(nn.Module):
@@ -136,9 +178,9 @@ class _Tower(nn.Module, Configurable):
             cin = self.out_channels[i]
         self.built_channels = in_channels
 
-    def _norm_act(self, i, h):
+    def _norm_act(self, i, h, seq_len):
         if self.norm == 'batch':
-            h = getattr(self, f'norm_{i}')(h)
+            h = getattr(self, f'norm_{i}')(h, seq_len)
         return self.act(h.float())
 
 
@@ -147,7 +189,8 @@ class CNN2d(_Tower):
 
     ``use_pallas`` and ``fuse_bn`` come from the JAX package's configs
     and have no effect: on CUDA the port always runs its kernels, on the
-    CPU their plain versions. ``dropout`` acts in training only."""
+    CPU their plain versions. ``dropout`` > 0 raises in training (not
+    ported yet)."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -156,6 +199,7 @@ class CNN2d(_Tower):
                  use_pallas=False, fuse_bn=False, in_channels=None,
                  input_height=None):
         super().__init__()
+        self.train(False)  # the JAX default: training=False
         n = len(out_channels)
         _check_common(self, residual_connections, norm, compute_dtype)
         self.out_channels = list(out_channels)
@@ -173,6 +217,7 @@ class CNN2d(_Tower):
         self.norm_kwargs = dict(norm_kwargs or {})
         self.act = _act(activation_fn)
         self.pre_activation = pre_activation
+        self.dropout = dropout
         self.output_layer = output_layer
         self.built_channels = None
         if in_channels is not None:
@@ -189,17 +234,18 @@ class CNN2d(_Tower):
 
     def forward(self, x, seq_len):
         """(B, T, F, C) -> ((B, T, F', C') bf16, seq_len)."""
+        check_dropout(self, self.dropout)
         n = len(self.out_channels)
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
             if self.pre_activation and not is_output:
-                h = self._norm_act(i, h)
+                h = self._norm_act(i, h, seq_len)
             h = getattr(self, f'conv_{i}')(h.to(torch.bfloat16))
             if not self.pre_activation and not is_output:
-                h = self._norm_act(i, h).to(torch.bfloat16)
+                h = self._norm_act(i, h, seq_len).to(torch.bfloat16)
             if self.pools[i][0] == 2:
-                h = maxpool_freq2(h)
+                h = MaxPoolFreq2.apply(h)
         return h, seq_len
 
 
@@ -212,6 +258,7 @@ class CNN1d(_Tower):
                  output_layer=False, compute_dtype='bfloat16',
                  in_channels=None):
         super().__init__()
+        self.train(False)  # the JAX default: training=False
         n = len(out_channels)
         _check_common(self, residual_connections, norm, compute_dtype)
         self.out_channels = list(out_channels)
@@ -225,6 +272,7 @@ class CNN1d(_Tower):
         self.norm_kwargs = dict(norm_kwargs or {})
         self.act = _act(activation_fn)
         self.pre_activation = pre_activation
+        self.dropout = dropout
         self.output_layer = output_layer
         self.built_channels = None
         if in_channels is not None:
@@ -236,15 +284,16 @@ class CNN1d(_Tower):
 
     def forward(self, x, seq_len):
         """(B, T, C) -> ((B, T, C') f32, seq_len)."""
+        check_dropout(self, self.dropout)
         n = len(self.out_channels)
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
             if self.pre_activation and not is_output:
-                h = self._norm_act(i, h)
+                h = self._norm_act(i, h, seq_len)
             h = getattr(self, f'conv_{i}')(h)
             if not self.pre_activation and not is_output:
-                h = self._norm_act(i, h)
+                h = self._norm_act(i, h, seq_len)
         return h, seq_len
 
 

@@ -1,21 +1,30 @@
-"""Normalized log-mel feature extractor (eval mode).
+"""Normalized log-mel feature extractor.
 
 Counterpart of ``pb_sed_tpu/ops/features.py:NormalizedLogMelExtractor``:
 
-    waveform -> STFT -> |.| -> mel -> log(x + 1e-4) -> running-stat
-    normalization -> learnable affine -> sequence mask [-> deltas]
+    waveform -> STFT -> |.| -> (warped) mel -> log(x + 1e-4) -> masked
+    normalization -> learnable affine -> [training: time masks, frequency
+    masks, additive noise] -> sequence mask [-> deltas]
 
 The state (``scale``/``shift`` parameters, ``mean``/``var``/
 ``initialized`` buffers) carries the JAX package's names so checkpoints
-move across through ``bridge.py``. The augmentation and warping settings
-of a training config are accepted so its ``config.json`` loads; they act
-only in training, which the port does not run yet.
+move across through ``bridge.py``. In training (``self.training``) the
+normalization uses the batch's two-pass masked statistics and updates the
+running ones, and the augmentations act. Their random numbers are drawn
+(:meth:`NormalizedLogMelExtractor.draw_augmentation`, from an explicit
+``torch.Generator``) apart from where they are applied
+(:func:`apply_augmentation`), so a test can hand fixed draws in. The
+device-side time warp of the STFT (JAX ``STFT.frame_warped``) is not
+ported yet.
 """
+import math
+
 import torch
 from torch import nn
 
 from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu_torch.ops import mel as mel_ops
+from pb_sed_tpu_torch.ops.cnn import update_running_stats
 from pb_sed_tpu_torch.ops.masking import sequence_mask, take_last
 from pb_sed_tpu_torch.ops.stft import STFT
 
@@ -34,6 +43,24 @@ def _time_delta(x, n=2):
     out = sum(i * (xp[:, n + i:t + n + i] - xp[:, n - i:t + n - i])
               for i in range(1, n + 1))
     return out / denom
+
+
+def apply_augmentation(y, draws):
+    """Time masks, frequency masks and additive noise on (B, T, M)
+    features from drawn parameters (``pb_sed_tpu/ops/features.py:
+    214-249``): each mask zeroes ``[start, start + w)`` per example, the
+    noise adds ``scale * noise``."""
+    b, t, m = y.shape
+    for axis, key in ((1, 'time_masks'), (2, 'freq_masks')):
+        size = y.shape[axis]
+        pos = torch.arange(size, device=y.device)[None, :]
+        for w, start in draws.get(key, ()):
+            hole = (pos >= start[:, None]) & (pos < (start + w)[:, None])
+            hole = hole[:, :, None] if axis == 1 else hole[:, None, :]
+            y = torch.where(hole, 0., y)
+    if 'noise' in draws:
+        y = y + draws['noise_scale'] * draws['noise']
+    return y
 
 
 class NormalizedLogMelExtractor(nn.Module, Configurable):
@@ -58,12 +85,31 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
         ``norm_momentum`` and the augmentation settings act in training
         only."""
         super().__init__()
+        self.train(False)  # the JAX default: training=False
         self.sample_rate = sample_rate
+        self.stft_size = stft_size
         self.number_of_filters = number_of_filters
+        self.lowest_frequency = lowest_frequency
+        self.highest_frequency = highest_frequency
         self.add_deltas = add_deltas
         self.add_delta_deltas = add_delta_deltas
+        self.norm_momentum = norm_momentum
         self.norm_eps = norm_eps
         self.learnable_affine = learnable_affine
+        self.frequency_warping = frequency_warping
+        self.warp_factor_scale = warp_factor_scale
+        self.warp_factor_truncation = (
+            math.log(1.3) if warp_factor_truncation is None
+            else warp_factor_truncation)
+        self.boundary_ratio_scale = boundary_ratio_scale
+        self.boundary_ratio_truncation = boundary_ratio_truncation
+        self.n_time_masks = n_time_masks
+        self.max_masked_time_steps = max_masked_time_steps
+        self.max_masked_time_rate = max_masked_time_rate
+        self.n_frequency_masks = n_frequency_masks
+        self.max_masked_frequency_bands = max_masked_frequency_bands
+        self.max_masked_frequency_rate = max_masked_frequency_rate
+        self.max_noise_scale = max_noise_scale
         self.stft = STFT(shift=stft_shift, window_length=stft_window_length,
                          size=stft_size, fading=stft_fading,
                          window=stft_window)
@@ -84,12 +130,64 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
         """Channels of the feature map handed to the CNN."""
         return 1 + int(self.add_deltas) + int(self.add_delta_deltas)
 
-    def forward(self, x, seq_len):
+    def draw_augmentation(self, seq_len, num_frames, generator=None):
+        """The random parameters of one training call's augmentation
+        (``pb_sed_tpu/ops/features.py:136-148, 214-249``), drawn with
+        ``generator`` on ``seq_len``'s device: warp factor and boundary
+        ratio per example, ``(w, start)`` per time and frequency mask,
+        noise scale and noise. Only the augmentations the config turns on
+        are drawn."""
+        b = seq_len.shape[0]
+        m = self.number_of_filters
+        dev = seq_len.device
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        draws = {}
+        if self.frequency_warping:
+            trunc = self.warp_factor_truncation
+            normal = torch.randn((b,), generator=generator, device=dev)
+            draws['warp_factor'] = torch.exp(
+                (self.warp_factor_scale * normal).clamp(-trunc, trunc))
+            expo = torch.empty((b,), device=dev).exponential_(
+                generator=generator)
+            draws['boundary_ratio'] = (
+                expo * self.boundary_ratio_scale).clamp(
+                    max=self.boundary_ratio_truncation)
+        if self.n_time_masks > 0:
+            max_w = (seq_len * self.max_masked_time_rate).to(
+                torch.int32).clamp(max=self.max_masked_time_steps)
+            draws['time_masks'] = []
+            for _ in range(self.n_time_masks):
+                w = (uniform(b) * (max_w + 1).float()).to(torch.int32)
+                start = (uniform(b) * (seq_len - w).clamp(min=1).float()).to(
+                    torch.int32)
+                draws['time_masks'].append((w, start))
+        if self.n_frequency_masks > 0:
+            max_w = min(self.max_masked_frequency_bands,
+                        int(m * self.max_masked_frequency_rate))
+            draws['freq_masks'] = []
+            for _ in range(self.n_frequency_masks):
+                w = (uniform(b) * (max_w + 1)).to(torch.int32)
+                start = (uniform(b) * (m - w).float()).to(torch.int32)
+                draws['freq_masks'].append((w, start))
+        if self.max_noise_scale > 0:
+            draws['noise_scale'] = uniform(b, 1, 1) * self.max_noise_scale
+            draws['noise'] = torch.randn((b, num_frames, m),
+                                         generator=generator, device=dev)
+        return draws
+
+    def forward(self, x, seq_len, generator=None, draws=None):
         """
         Args:
             x: (B, S) waveforms (float or int16 at AUDIO_INT16_SCALE),
                 (B, T, F) magnitudes or (B, T, F, 2) real/imag STFT.
             seq_len: (B,) valid frames after the STFT.
+            generator: the ``torch.Generator`` the training augmentation
+                draws from (torch's default generator when None).
+            draws: fixed augmentation parameters
+                (:meth:`draw_augmentation`) instead of drawing them.
 
         Returns: (B, T, M) features, or (B, T, M, C) with deltas.
         """
@@ -101,11 +199,32 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
             mag = torch.sqrt(torch.sum(x.float() ** 2, dim=-1) + 1e-18)
         else:
             mag = x.float()
-        logmel = torch.log(mag @ self.fbank + 1e-4)
-        mask = sequence_mask(seq_len, logmel.shape[1])[:, :, None]
-        y = (logmel - self.mean) * torch.rsqrt(self.var + self.norm_eps)
+        t = mag.shape[1]
+        if self.training and draws is None:
+            draws = self.draw_augmentation(seq_len, t, generator)
+        if self.training and self.frequency_warping:
+            fbank = mel_ops.warped_mel_filterbank(
+                draws['warp_factor'], draws['boundary_ratio'],
+                self.number_of_filters, self.sample_rate, self.stft_size,
+                self.lowest_frequency, self.highest_frequency)
+            melspec = torch.einsum('btf,bfm->btm', mag, fbank)
+        else:
+            melspec = mag @ self.fbank
+        logmel = torch.log(melspec + 1e-4)
+        mask = sequence_mask(seq_len, t)[:, :, None]
+        if self.training:
+            # two-pass masked statistics over batch and valid frames
+            count = mask.sum().clamp(min=1.)
+            mean = (logmel * mask).sum((0, 1)) / count
+            var = ((logmel - mean).square() * mask).sum((0, 1)) / count
+            update_running_stats(self, mean, var, self.norm_momentum)
+        else:
+            mean, var = self.mean, self.var
+        y = (logmel - mean) * torch.rsqrt(var + self.norm_eps)
         if self.learnable_affine:
             y = y * self.scale + self.shift
+        if self.training:
+            y = apply_augmentation(y, draws)
         y = y * mask
         if not (self.add_deltas or self.add_delta_deltas):
             return y

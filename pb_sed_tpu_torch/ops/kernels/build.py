@@ -1,11 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The CUDA C++ sources in ``pb_sed_tpu_torch/csrc/*.cu`` are compiled at
-first use with ``nvcc`` for Hopper (``sm_90a``) into ONE shared library
-with a plain C interface, under ``build/kernels/`` next to the package,
-and loaded with ``ctypes``. The library name carries a hash of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded. There is no fallback: if ``nvcc`` fails, the build raises.
+The CUDA C++ sources in ``pb_sed_tpu_torch/csrc/*.cu`` (and the headers
+they include, ``*.cuh``) are compiled at first use with ``nvcc`` for
+Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+under ``build/kernels/`` next to the package, and loaded with
+``ctypes``. The library name carries a hash of the sources and flags, so
+an edited source is rebuilt and a stale library is never loaded. There is no fallback: if ``nvcc`` fails, the build raises.
 
 Each wrapper in ``ops/kernels/`` launches its kernel only on a CUDA
 tensor (``require_cuda``), raises if the C function returns a CUDA error,
@@ -24,11 +24,12 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+    '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0}
+LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
+            'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +38,11 @@ _SIGNATURES = {
     'pbsed_conv2d_same': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     'pbsed_maxpool_freq2': (_P, _P, ctypes.c_longlong, _I, _P),
     'pbsed_gru_scan': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
+    'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),
+    'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
 }
 
 _lib = None
@@ -71,7 +77,7 @@ def _nvcc():
 
 
 def library_path():
-    sources = sorted(CSRC_DIR.glob('*.cu'))
+    sources = sorted(CSRC_DIR.glob('*.cu')) + sorted(CSRC_DIR.glob('*.cuh'))
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
@@ -79,23 +85,42 @@ def library_path():
     return BUILD_DIR / f'libpbsed_kernels_{digest.hexdigest()[:16]}.so'
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc) for cmd, proc in procs]
+    return [(cmd, proc.returncode, out) for cmd, out, proc in outs]
+
+
 def build():
-    """Compile ``csrc/*.cu`` into the shared library unless it exists.
+    """Compile ``csrc/*.cu`` into the shared library unless it exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns its path; the compiler's output is kept beside it (``.log``,
     with ``-Xptxas -v`` register and shared-memory use per kernel)."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f'{path.stem}.{os.getpid()}'
+    sources = sorted(CSRC_DIR.glob('*.cu'))
+    objects = [BUILD_DIR / f'{tag}.{src.stem}.o' for src in sources]
+    nvcc = _nvcc()
+    results = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+                        for src, obj in zip(sources, objects)])
     tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *map(str, sorted(CSRC_DIR.glob('*.cu')))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-            f'{proc.stdout}{proc.stderr}')
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, '-shared', '-o', str(tmp),
+                              *map(str, objects)]])
+    path.with_suffix('.log').write_text(
+        ''.join(f'$ {" ".join(cmd)}\n{out}' for cmd, _, out in results))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f'nvcc failed ({rc}):\n{" ".join(cmd)}\n{out}')
     os.replace(tmp, path)
     return path
 

@@ -1,13 +1,19 @@
 """2-D conv tower kernels: the 3x3-class SAME conv and the (2, 1) freq
-max-pool, each as a hand-written CUDA kernel with its plain PyTorch
-version beside it.
+max-pool, forward and backward, each as a hand-written CUDA kernel with
+its plain PyTorch version beside it, and the autograd Functions that tie
+each forward to its backward (``Conv2dSame``, ``MaxPoolFreq2``).
 
-Both work on the channels-last ``(B, T, F, C)`` layout of the tower and
+All work on the channels-last ``(B, T, F, C)`` layout of the tower and
 keep the JAX package's parameter layout (conv kernel HWIO
 ``(kt, kf, Cin, Cout)``). On a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel (``csrc/conv2d.cu``,
-``csrc/maxpool.cu``) or raises.
+``csrc/conv2d_bwd.cu``, ``csrc/maxpool.cu``) or raises. The Functions'
+backward calls the backward wrapper, so on the CPU the tests reach the
+plain backward's own formula (tie rule, rounding points), not autograd
+of the plain forward.
 """
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -76,6 +82,99 @@ def conv2d_same(x, w, b):
     return y
 
 
+def _check_conv_bwd(x, w, gy):
+    _check_conv(x, w, None)
+    want = tuple(x.shape[:3]) + (w.shape[-1],)
+    if tuple(gy.shape) != want:
+        raise ValueError(f'cotangent shape {tuple(gy.shape)} != {want}')
+    if gy.device != x.device:
+        raise ValueError('x and gy must be on one device')
+
+
+def conv2d_same_bwd_plain(x, w, gy):
+    """Plain backward: dx is the SAME conv of the cotangent with the
+    spatially flipped, channel-transposed bf16 weights in f32, rounded
+    once to bf16 (no bias); dw the f32 correlation of the bf16 input with
+    the bf16-rounded cotangent."""
+    kt, kf, cin, cout = w.shape
+    pad = ((kt - 1) // 2, (kf - 1) // 2)
+    gf = gy.to(torch.bfloat16).float().permute(0, 3, 1, 2)  # (B, Cout, T, F)
+    w_flip = w.to(torch.bfloat16).float().flip(0, 1)        # (kt, kf, Ci, Co)
+    dx = F.conv2d(gf, w_flip.permute(2, 3, 0, 1), padding=pad)
+    dw = torch.nn.grad.conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (cout, cin, kt, kf), gf, padding=pad)
+    return (dx.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
+            dw.permute(2, 3, 1, 0).contiguous())
+
+
+def _dw_chunks(pixels, cin, cout, taps, device):
+    """Pixel chunks of the dw pass: about four blocks per SM over the
+    (16 x CO_T channel tile, 9-tap group) grid, chunks of >= 64 pixels
+    (``csrc/conv2d_bwd.cu``)."""
+    co_t = 64 if cout % 64 == 0 else 32 if cout % 32 == 0 else 16
+    tiles = -(-cin // 16) * (cout // co_t) * -(-taps // 9)
+    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = max(1, min(-(-target // tiles), -(-pixels // 64)))
+    per_chunk = -(-pixels // chunks)
+    chunk_px = 64 * -(-per_chunk // 64)
+    return -(-pixels // chunk_px)
+
+
+def conv2d_same_bwd(x, w, gy):
+    """Backward of :func:`conv2d_same` w.r.t. x and w.
+
+    Args:
+        x: (B, T, F, Cin) bfloat16 forward input.
+        w: (kt, kf, Cin, Cout) weights (rounded to bf16).
+        gy: (B, T, F, Cout) cotangent of the bf16 output (rounded to
+            bf16, as the output's type).
+
+    Returns: dx (B, T, F, Cin) bfloat16 and dw (kt, kf, Cin, Cout)
+    float32. The bias gradient is the f32 sum of gy, left to the caller.
+    """
+    _check_conv_bwd(x, w, gy)
+    if x.device.type == 'cpu':
+        return conv2d_same_bwd_plain(x, w, gy)
+    build.require_cuda(x, gy)
+    bsz, t, f, cin = x.shape
+    kt, kf, _, cout = w.shape
+    x = x.contiguous()
+    gy = gy.to(torch.bfloat16).contiguous()
+    w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
+                     device=x.device)
+    chunks = _dw_chunks(bsz * t * f, cin, cout, kt * kf, x.device)
+    workspace = torch.empty((chunks, kt * kf, 16 * math.ceil(cin / 16), cout),
+                            dtype=torch.float32, device=x.device)
+    if any(a.data_ptr() % 16 for a in (x, gy, w_flip, dx, workspace)):
+        raise ValueError('conv2d_same_bwd needs 16-byte aligned buffers')
+    build.launch('conv2d_same_bwd', 'pbsed_conv2d_same_bwd', x.device,
+                 x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), workspace.data_ptr(),
+                 bsz, t, f, cin, cout, kt, kf, chunks)
+    return dx, dw
+
+
+class Conv2dSame(torch.autograd.Function):
+    """:func:`conv2d_same` with its backward: dx and dw from
+    :func:`conv2d_same_bwd`, db the f32 sum of the bf16 cotangent
+    (``pb_sed_tpu/ops/pallas/conv.py:959-962``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return conv2d_same(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx, dw = conv2d_same_bwd(x, w, gy)
+        db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
+        return dx, dw.to(w.dtype), db
+
+
 def _check_pool(x):
     if x.dtype != torch.bfloat16:
         raise TypeError(f'maxpool_freq2 takes bfloat16, got {x.dtype}')
@@ -104,3 +203,56 @@ def maxpool_freq2(x):
     build.launch('maxpool_freq2', 'pbsed_maxpool_freq2', x.device,
                  x.data_ptr(), y.data_ptr(), bsz * t * (f // 2), c)
     return y
+
+
+def maxpool_freq2_bwd_plain(x, gy):
+    """Plain backward: the cotangent (in bf16) goes to the row that won,
+    ``keep = f32(even) >= f32(odd)``; ties and a NaN in either row go to
+    the row the compare picks (NaN -> the odd row), as the TPU kernel
+    does (``pb_sed_tpu/ops/pallas/conv.py:1773-1787``)."""
+    xf = x.float()
+    keep = xf[:, :, 0::2] >= xf[:, :, 1::2]
+    g = gy.to(x.dtype)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    dx = torch.stack([torch.where(keep, g, zero), torch.where(keep, zero, g)],
+                     dim=3)
+    return dx.reshape(x.shape)
+
+
+def maxpool_freq2_bwd(x, gy):
+    """Backward of :func:`maxpool_freq2`: ``(B, T, F, C)`` input and
+    ``(B, T, F/2, C)`` cotangent -> ``(B, T, F, C)`` bf16, bit-exact
+    against the plain version."""
+    _check_pool(x)
+    want = (x.shape[0], x.shape[1], x.shape[2] // 2, x.shape[3])
+    if tuple(gy.shape) != want:
+        raise ValueError(f'cotangent shape {tuple(gy.shape)} != {want}')
+    if x.device.type == 'cpu':
+        return maxpool_freq2_bwd_plain(x, gy)
+    build.require_cuda(x, gy)
+    bsz, t, f, c = x.shape
+    x = x.contiguous()
+    gy = gy.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    if any(a.data_ptr() % 16 for a in (x, gy, dx)):
+        raise ValueError('maxpool_freq2_bwd needs 16-byte aligned buffers')
+    build.launch('maxpool_freq2_bwd', 'pbsed_maxpool_freq2_bwd', x.device,
+                 x.data_ptr(), gy.data_ptr(), dx.data_ptr(),
+                 bsz * t * (f // 2), c)
+    return dx
+
+
+class MaxPoolFreq2(torch.autograd.Function):
+    """:func:`maxpool_freq2` with its backward
+    (:func:`maxpool_freq2_bwd`: ties to the first row, not the even split
+    that autograd of ``torch.maximum`` would give)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return maxpool_freq2(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x,) = ctx.saved_tensors
+        return maxpool_freq2_bwd(x, gy)

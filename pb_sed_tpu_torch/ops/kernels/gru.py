@@ -1,11 +1,16 @@
-"""GRU recurrence kernel (``csrc/gru.cu``) with its plain PyTorch version.
+"""GRU recurrence kernels, forward (``csrc/gru.cu``) and backward
+(``csrc/gru_bwd.cu``), with their plain PyTorch versions and the autograd
+Function ``GruScan`` that ties them together.
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
 projections ``xw (D, B, T, 3H)``, recurrent weights ``w_hh (D, H, 3H)``
 and bias ``b_hh (D, 3H)`` in torch gate order (r, z, n). On a CPU tensor
-it runs the plain version; on a CUDA tensor it launches the kernel or
-raises.
+a wrapper runs the plain version; on a CUDA tensor it launches the kernel
+or raises. The backward is the JAX package's split variant
+(``_gru_scan_pallas_bwd(split=True)``): the kernel sweeps t in reverse
+and emits bf16 dxw, bf16 r and f32 dh0; dw_hh and db_hh are one
+contraction over the (B*T) axis afterwards.
 """
 import torch
 
@@ -89,3 +94,123 @@ def gru_scan(xw, w_hh, b_hh, h0):
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  h32.data_ptr(), y.data_ptr(), d, b, t, hdim)
     return y
+
+
+def _check_bwd(xw, w_hh, b_hh, h0, y, g):
+    _check(xw, w_hh, b_hh, h0)
+    want = tuple(h0.shape[:2]) + (xw.shape[2], h0.shape[-1])
+    for name, t in (('y', y), ('g', g)):
+        if tuple(t.shape) != want:
+            raise ValueError(f'{name} shape {tuple(t.shape)} != {want}')
+        if t.device != xw.device:
+            raise ValueError('all GRU operands must be on one device')
+
+
+def _h_prev(h0, y):
+    """(D, B, T, H) bf16 state before each step: concat(h0, y[:-1])."""
+    t = y.shape[2]
+    return torch.cat([h0[:, :, None].float(), y[:, :, :max(t - 1, 0)]],
+                     dim=2)[:, :, :t].to(torch.bfloat16)
+
+
+def _weight_grads(h_prev, dxw, r):
+    """dw_hh (D, H, 3H) and db_hh (D, 3H) in f32 from bf16 operands:
+    dgates = [dxw_r, dxw_z, dxw_n * r] (a bf16 product of the two bf16
+    outputs) contracted with bf16 h_prev over (B, T)
+    (``pb_sed_tpu/ops/pallas/gru.py:546-552``)."""
+    hdim = r.shape[-1]
+    dgates = torch.cat([dxw[..., :2 * hdim], dxw[..., 2 * hdim:] * r],
+                       dim=-1).float()
+    dw_hh = torch.einsum('dbth,dbtg->dhg', h_prev.float(), dgates)
+    return dw_hh, dgates.sum((1, 2))
+
+
+def gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g):
+    """Plain backward: a reverse Python loop with the split kernel's
+    rounding points (bf16 h_prev in the recompute and in dz, dxw and r
+    rounded to bf16, dh in f32, dh's matmul on bf16 dgates)."""
+    xw = xw.to(torch.bfloat16).float()
+    w = w_hh.to(torch.bfloat16).float()
+    bias = b_hh.float()[:, None, :]
+    h_prev = _h_prev(h0, y)
+    hp = h_prev.float()
+    g = g.float()
+    d, b, t, three_h = xw.shape
+    hdim = three_h // 3
+    dh = torch.zeros((d, b, hdim), dtype=torch.float32, device=xw.device)
+    dxw = torch.empty((d, b, t, three_h), dtype=torch.bfloat16,
+                      device=xw.device)
+    r_all = torch.empty((d, b, t, hdim), dtype=torch.bfloat16,
+                        device=xw.device)
+    w_t = w.transpose(1, 2)
+    for s in reversed(range(t)):
+        h_p = hp[:, :, s]
+        hw = torch.bmm(h_p, w) + bias
+        x_t = xw[:, :, s]
+        hn = hw[..., 2 * hdim:]
+        r = torch.sigmoid(x_t[..., :hdim] + hw[..., :hdim])
+        z = torch.sigmoid(x_t[..., hdim:2 * hdim] + hw[..., hdim:2 * hdim])
+        n = torch.tanh(x_t[..., 2 * hdim:] + r * hn)
+        dht = g[:, :, s] + dh
+        dz = dht * (h_p - n) * z * (1. - z)
+        dpn = dht * (1. - z) * (1. - n * n)
+        dpr = dpn * hn * r * (1. - r)
+        dxw[:, :, s] = torch.cat([dpr, dz, dpn], dim=-1).to(torch.bfloat16)
+        r_all[:, :, s] = r.to(torch.bfloat16)
+        dgates = torch.cat([dpr, dz, dpn * r], dim=-1).to(torch.bfloat16)
+        dh = dht * z + torch.bmm(dgates.float(), w_t)
+    dw_hh, db_hh = _weight_grads(h_prev, dxw, r_all)
+    return dxw, dw_hh, db_hh, dh
+
+
+def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g):
+    """Backward of :func:`gru_scan` for cotangent ``g`` of its output
+    ``y``.
+
+    Returns: dxw (D, B, T, 3H) bfloat16, dw_hh (D, H, 3H), db_hh (D, 3H)
+    and dh0 (D, B, H), all float32 but dxw.
+    """
+    _check_bwd(xw, w_hh, b_hh, h0, y, g)
+    if xw.device.type == 'cpu':
+        return gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
+    build.require_cuda(xw)
+    d, b, t, g3 = xw.shape
+    hdim = g3 // 3
+    if hdim % 32 or hdim > 512:
+        raise ValueError(f'the GRU backward kernel takes H % 32 == 0, '
+                         f'H <= 512; got H={hdim}')
+    xw16 = xw.to(torch.bfloat16).contiguous()
+    h_prev = _h_prev(h0, y).contiguous()
+    w16 = w_hh.to(torch.bfloat16).contiguous()
+    b32 = b_hh.float().contiguous()
+    g32 = g.float().contiguous()
+    dxw = torch.empty_like(xw16)
+    r = torch.empty_like(h_prev)
+    dh0 = torch.empty((d, b, hdim), dtype=torch.float32, device=xw.device)
+    if h_prev.data_ptr() % 16:
+        raise ValueError('gru_scan_bwd needs a 16-byte aligned h_prev')
+    build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
+                 xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
+                 b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
+                 r.data_ptr(), dh0.data_ptr(), d, b, t, hdim)
+    dw_hh, db_hh = _weight_grads(h_prev, dxw, r)
+    return dxw, dw_hh, db_hh, dh0
+
+
+class GruScan(torch.autograd.Function):
+    """:func:`gru_scan` with its backward (:func:`gru_scan_bwd`). Saves
+    what the forward already has: xw, the weights, h0 and the f32
+    output y (the gates are recomputed in the backward)."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, b_hh, h0):
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        ctx.save_for_backward(xw, w_hh, b_hh, h0, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xw, w_hh, b_hh, h0, y = ctx.saved_tensors
+        dxw, dw_hh, db_hh, dh0 = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+        return (dxw.to(xw.dtype), dw_hh.to(w_hh.dtype),
+                db_hh.to(b_hh.dtype), dh0.to(h0.dtype))

@@ -3,19 +3,20 @@ the stacked GRU, the FBCRNN ``GRU`` head (optionally time-reversed) with
 its 1x1-conv output net, and the paired application of the forward and
 backward heads as one D=2 recurrence per layer.
 
-Counterpart of ``pb_sed_tpu/ops/rnn.py`` (eval mode) with its parameter
-layouts and names: ``layer_{i}_fwd.{w_ih (F, 3H), w_hh (H, 3H), b_ih,
-b_hh}`` in torch gate order (r, z, n). The input projections of all
-timesteps are one bf16 matmul outside the recurrence; the recurrence is
-``ops/kernels/gru.py:gru_scan``. Bidirectional layers and the Transformer
-head are not ported yet and raise.
+Counterpart of ``pb_sed_tpu/ops/rnn.py`` with its parameter layouts and
+names: ``layer_{i}_fwd.{w_ih (F, 3H), w_hh (H, 3H), b_ih, b_hh}`` in
+torch gate order (r, z, n). The input projections of all timesteps are
+one bf16 matmul outside the recurrence; the recurrence is the autograd
+Function ``ops/kernels/gru.py:GruScan`` (forward and backward kernels).
+Bidirectional layers, the Transformer head and inter-layer dropout in
+training are not ported yet and raise.
 """
 import torch
 from torch import nn
 
 from pb_sed_tpu.utils.config import Configurable
-from pb_sed_tpu_torch.ops.cnn import CNN1d
-from pb_sed_tpu_torch.ops.kernels.gru import gru_scan
+from pb_sed_tpu_torch.ops.cnn import CNN1d, check_dropout
+from pb_sed_tpu_torch.ops.kernels.gru import GruScan
 from pb_sed_tpu_torch.ops.masking import reverse_sequence
 
 
@@ -38,10 +39,15 @@ class GRULayer(nn.Module):
 
     def project(self, x):
         """(B, T, F) -> (B, T, 3H) input projections plus input bias: one
-        bf16 matmul with f32 accumulation, the bias added to the
-        accumulator, rounded once to bf16 (the type the recurrence reads).
-        The (for sliding windows, large) result is written once, at half
-        the size of f32."""
+        bf16 ``addmm`` with f32 accumulation, its result rounded once to
+        bf16 (the type the recurrence reads), so the (for sliding
+        windows, large) result is written once, at half the size of f32.
+
+        Known deviation from the JAX package (``pb_sed_tpu/ops/rnn.py:
+        99-101``), kept for speed: ``b_ih`` is rounded to bf16 before
+        ``addmm`` adds it, where JAX adds the f32 bias to the f32
+        product; in training the gradient of ``b_ih`` is bf16-rounded
+        too."""
         if x.shape[-1] != self.input_size:
             raise ValueError(f'GRU layer expects {self.input_size} input '
                              f'features, got {x.shape[-1]}')
@@ -54,26 +60,29 @@ class GRULayer(nn.Module):
         b = x.shape[0]
         if h0 is None:
             h0 = torch.zeros(b, self.hidden_size, device=x.device)
-        return gru_scan(self.project(x)[None], self.w_hh[None],
-                        self.b_hh[None], h0[None])[0]
+        return GruScan.apply(self.project(x)[None], self.w_hh[None],
+                             self.b_hh[None], h0[None])[0]
 
 
 class StackedGRU(nn.Module, Configurable):
     """Multi-layer unidirectional GRU.
 
     ``use_pallas`` comes from the JAX package's configs and has no effect:
-    on CUDA the port always runs the GRU kernel, on the CPU its plain
-    version. ``dropout`` acts in training only."""
+    on CUDA the port always runs the GRU kernels, on the CPU their plain
+    versions. ``dropout`` > 0 between layers raises in training (not
+    ported yet)."""
 
     def __init__(self, hidden_size, num_layers=1, bias=True, dropout=0.,
                  bidirectional=False, use_pallas=False, input_size=None):
         super().__init__()
+        self.train(False)  # the JAX default: training=False
         if bidirectional:
             raise NotImplementedError(
                 'bidirectional GRU layers are not ported yet')
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.bias = bias
+        self.dropout = dropout
         self.input_size = None
         if input_size is not None:
             self.build(input_size)
@@ -97,7 +106,12 @@ class StackedGRU(nn.Module, Configurable):
         return [getattr(self, f'layer_{i}_fwd')
                 for i in range(self.num_layers)]
 
+    def check_dropout(self):
+        """Dropout acts between layers in training (not ported yet)."""
+        check_dropout(self, self.dropout if self.num_layers > 1 else 0.)
+
     def forward(self, x, seq_len=None):
+        self.check_dropout()
         h = x
         for layer in self.gru_layers:
             h = layer(h)
@@ -174,6 +188,9 @@ def paired_heads(head_f, head_b):
     if head_f.reverse or not head_b.reverse:
         return False
     cf, cb = head_f.rnn, head_b.rnn
+    for core in (cf, cb):
+        if isinstance(core, StackedGRU):
+            core.check_dropout()
     return (isinstance(cf, StackedGRU) and isinstance(cb, StackedGRU)
             and cf.num_layers == cb.num_layers
             and cf.hidden_size == cb.hidden_size)
@@ -195,7 +212,7 @@ def paired_gru_apply(head_f, head_b, x, seq_len):
         w_hh = torch.stack([lf.w_hh, lb.w_hh])
         b_hh = torch.stack([lf.b_hh, lb.b_hh])
         h0 = torch.zeros(2, b, lf.hidden_size, device=x.device)
-        h_f, h_b = gru_scan(xw, w_hh, b_hh, h0)
+        h_f, h_b = GruScan.apply(xw, w_hh, b_hh, h0)
     y_f, seq_out = head_f.output_net(h_f, seq_len)
     y_b, _ = head_b.output_net(reverse_sequence(h_b, rev_len, axis=1),
                                seq_len)

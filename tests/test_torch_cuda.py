@@ -1,7 +1,10 @@
-"""The port's CUDA kernels against their plain versions on the card, at
-edge shapes the serving path does not reach (ragged tiles, channel counts
-off the vector width, small hidden sizes). They need a CUDA card and
-skip without one; ``chip_smoke.py`` covers the serving path's shapes.
+"""The port's CUDA kernels, forward and backward, against their plain
+versions on the card, at edge shapes the main path does not reach (ragged
+tiles, channel counts off the vector width, small hidden sizes, the
+Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
+pools), and the determinism of the conv weight gradient. They need a CUDA
+card and skip without one; ``chip_smoke.py`` covers the main path's
+shapes.
 
 On the card (no JAX there, so without this directory's conftest):
 
@@ -11,11 +14,13 @@ import pytest
 import torch
 
 from pb_sed_tpu_torch.ops.kernels import build
-from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same,
-                                               conv2d_same_plain,
-                                               maxpool_freq2,
-                                               maxpool_freq2_plain)
-from pb_sed_tpu_torch.ops.kernels.gru import gru_scan, gru_scan_plain
+from pb_sed_tpu_torch.ops.kernels.conv import (
+    conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain,
+    maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
+    maxpool_freq2_plain)
+from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
+                                              gru_scan_bwd_plain,
+                                              gru_scan_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +91,69 @@ def test_kernels_raise_on_unsupported_shapes(gen):
         gru_scan(xw, torch.zeros(1, 48, 144, device='cuda'),
                  torch.zeros(1, 144, device='cuda'),
                  torch.zeros(1, 2, 48, device='cuda'))
+
+
+def _max_err(got, ref):
+    return float((got.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
+    (1, 7, 5, 1, 16, 3, 3),      # Cin = 1 dx, odd B*T*F = 35
+    (2, 9, 6, 5, 32, 3, 3),      # Cin off the vector width
+    (3, 13, 8, 24, 48, 5, 3),    # Cout 48, kt = 5, B*T*F = 312
+    (2, 50, 16, 128, 256, 3, 3), # the layer-9 channel counts
+])
+def test_conv2d_backward_kernel_matches_plain(gen, b, t, f, cin, cout, kt,
+                                              kf):
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    n = build.LAUNCHES['conv2d_same_bwd']
+    dx, dw = conv2d_same_bwd(x, w, gy)
+    assert build.LAUNCHES['conv2d_same_bwd'] == n + 1
+    ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    # dx: one f32 sum rounded once to bf16 on both sides (one ulp);
+    # dw: f32 sums in another order
+    assert _max_err(dx, ref_dx) <= 2. ** -7 * float(ref_dx.float().abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+    # the chunked reduction runs in a fixed order: bit-identical reruns
+    dx2, dw2 = conv2d_same_bwd(x, w, gy)
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.parametrize('shape', [(2, 3, 6, 16), (1, 5, 4, 12),
+                                   (2, 7, 128, 16)])
+def test_maxpool_backward_kernel_bit_exact(gen, shape):
+    x = (torch.randn(*shape, generator=gen, device='cuda') * 4).round() / 4
+    x[:, -1] = 1.5                       # constant frames: every pair ties
+    x[:, :, 1::4] = x[:, :, 0::4]        # more ties
+    x[0, 0, 0, :3] = float('nan')        # NaN in the first row
+    x[0, 1, 1, :3] = float('nan')        # NaN in the second row
+    x = x.to(torch.bfloat16)
+    gy = torch.randn(shape[0], shape[1], shape[2] // 2, shape[3],
+                     generator=gen, device='cuda').to(torch.bfloat16)
+    got = maxpool_freq2_bwd(x, gy)
+    ref = maxpool_freq2_bwd_plain(x, gy)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize('d,b,t,h', [(1, 5, 9, 32), (2, 33, 17, 64),
+                                     (2, 3, 4, 512)])
+def test_gru_backward_kernel_matches_plain(gen, d, b, t, h):
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
+    b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+    h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    g = torch.randn(d, b, t, h, generator=gen, device='cuda')
+    got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
+    # same bf16 rounding points; f32 summation order may flip a bf16
+    # rounding of dgates before the next step: the GRU ceiling, 5.3e-3
+    for a, r in zip(got, ref):
+        assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())

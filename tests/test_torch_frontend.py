@@ -131,3 +131,129 @@ def test_masking_matches_jax():
     np.testing.assert_allclose(
         masking.masked_mean(torch.from_numpy(xt), tl).numpy(),
         np.asarray(jmasking.masked_mean(jnp.asarray(xt), jl)), rtol=1e-6)
+
+
+def test_warped_mel_filterbank_matches_jax():
+    """Per-example VTLP-warped filterbanks on the same numpy warp factors
+    and boundary ratios (identity, compress, stretch, breakpoints below
+    and above f_max)."""
+    warp = np.array([1., .8, 1.25, 1.1], np.float32)
+    ratio = np.array([.5, .05, .9, 3.], np.float32)
+    for args in ((128, 16000, 1024), (40, 22050, 512, 20., 8000.)):
+        got = mel.warped_mel_filterbank(torch.from_numpy(warp),
+                                        torch.from_numpy(ratio), *args)
+        ref = np.asarray(jmel.warped_mel_filterbank(
+            jnp.asarray(warp), jnp.asarray(ratio), *args))
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        # both f32 triangle arithmetic on the same f32 warped edges
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('initialized', [0., 1.])
+def test_extractor_training_statistics_match_jax(initialized):
+    """Training mode without augmentation: the two-pass masked batch
+    statistics normalize, and the running statistics are seeded (first
+    call) or mixed in with momentum 0.95."""
+    cfg = dict(sample_rate=16000, stft_size=512, stft_shift=160,
+               stft_window_length=480, number_of_filters=24)
+    rng = np.random.RandomState(8)
+    x = (.3 * rng.randn(2, 8000)).astype(np.float32)
+    x[1, 31 * 160:] = 0.
+    seq_len = np.array([50, 31], np.int32)
+    jmod = jfeatures.NormalizedLogMelExtractor(**cfg)
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                          jnp.asarray(seq_len))
+    flat = random_flat(flatten_variables(variables), 5)
+    flat['batch_stats.initialized'] = np.float32(initialized)
+    ref, mutated = jmod.apply(unflatten_variables(flat), jnp.asarray(x),
+                              jnp.asarray(seq_len), training=True,
+                              mutable=['batch_stats'])
+    ours = features.NormalizedLogMelExtractor(**cfg)
+    load_flat(ours, flat)
+    ours.train()
+    got = ours(torch.from_numpy(x), torch.from_numpy(seq_len))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-3, atol=1e-3)
+    stats = mutated['batch_stats']
+    for name in ('mean', 'var'):
+        np.testing.assert_allclose(getattr(ours, name).numpy(),
+                                   np.asarray(stats[name]), rtol=1e-4,
+                                   atol=1e-4)
+    assert float(ours.initialized) == 1.
+
+
+def _augment_numpy(y, draws):
+    """features.py:214-249 on numpy: zero [start, start + w) per mask,
+    then add scale * noise."""
+    y = y.copy()
+    for w, start in draws.get('time_masks', ()):
+        for b in range(y.shape[0]):
+            y[b, start[b]:start[b] + w[b]] = 0.
+    for w, start in draws.get('freq_masks', ()):
+        for b in range(y.shape[0]):
+            y[b, :, start[b]:start[b] + w[b]] = 0.
+    if 'noise' in draws:
+        y = y + draws['noise_scale'] * draws['noise']
+    return y
+
+
+def test_augmentation_apply_matches_numpy_formulas():
+    rng = np.random.RandomState(9)
+    b, t, m = 3, 40, 16
+    y = rng.randn(b, t, m).astype(np.float32)
+    draws = {
+        'time_masks': [(np.array([0, 5, 12]), np.array([3, 0, 28])),
+                       (np.array([2, 2, 0]), np.array([38, 10, 0]))],
+        'freq_masks': [(np.array([3, 0, 16]), np.array([13, 5, 0]))],
+        'noise_scale': rng.uniform(0, .2, (b, 1, 1)).astype(np.float32),
+        'noise': rng.randn(b, t, m).astype(np.float32),
+    }
+    ref = _augment_numpy(y, draws)
+    tdraws = {
+        key: ([tuple(torch.from_numpy(a) for a in pair) for pair in value]
+              if isinstance(value, list) else torch.from_numpy(value))
+        for key, value in draws.items()}
+    got = features.apply_augmentation(torch.from_numpy(y), tdraws).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_augmentation_draws_respect_their_bounds():
+    cfg = dict(sample_rate=16000, stft_size=512, stft_shift=160,
+               stft_window_length=480, number_of_filters=24,
+               frequency_warping=True, warp_factor_truncation=float(
+                   np.log(1.3)), n_time_masks=2, max_masked_time_steps=10,
+               max_masked_time_rate=.2, n_frequency_masks=1,
+               max_masked_frequency_bands=4, max_masked_frequency_rate=.2,
+               max_noise_scale=.2)
+    ours = features.NormalizedLogMelExtractor(**cfg)
+    seq_len = torch.tensor([50, 31, 7, 2] * 50, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    draws = ours.draw_augmentation(seq_len, 50, gen)
+    again = ours.draw_augmentation(seq_len, 50,
+                                   torch.Generator().manual_seed(3))
+    torch.testing.assert_close(draws['noise'], again['noise'])
+    warp = draws['warp_factor']
+    assert float(warp.min()) >= 1 / 1.3 - 1e-6
+    assert float(warp.max()) <= 1.3 + 1e-6
+    assert 0. <= float(draws['boundary_ratio'].min())
+    assert float(draws['boundary_ratio'].max()) <= 5.
+    max_w = torch.clamp((seq_len * .2).to(torch.int32), max=10)
+    for w, start in draws['time_masks']:
+        assert bool((w >= 0).all() and (w <= max_w).all())
+        assert bool((start >= 0).all())
+        assert bool((start < torch.clamp(seq_len - w, min=1)).all())
+    for w, start in draws['freq_masks']:
+        assert bool((w >= 0).all() and (w <= min(4, int(24 * .2))).all())
+        assert bool((start >= 0).all() and (start + w <= 24).all())
+    scale = draws['noise_scale']
+    assert scale.shape == (200, 1, 1)
+    assert 0. <= float(scale.min()) and float(scale.max()) <= .2
+    assert draws['noise'].shape == (200, 50, 24)
+    # the extractor in training mode with these draws: finite, padded
+    # frames zero, and the same draws give the same features
+    x = torch.randn(200, 8000, generator=gen) * .3
+    ours.train()
+    y = ours(x, seq_len, draws=draws)
+    assert bool(torch.isfinite(y).all())
+    assert float(y[2, 7:].detach().abs().max()) == 0.
+    torch.testing.assert_close(ours(x, seq_len, draws=draws), y)

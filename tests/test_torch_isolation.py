@@ -1,7 +1,9 @@
 """The port runs where there is no JAX: every module of
-``pb_sed_tpu_torch`` imports, and the tiny serving slice runs on the CPU,
-in a process where importing jax, flax, optax or pandas fails. And
-``chip_smoke.py`` refuses to run without a CUDA card."""
+``pb_sed_tpu_torch`` imports, and the tiny serving slice and two
+``Trainer`` steps run on the CPU, in a process where importing jax,
+flax, optax or pandas fails; none of the six kernel launch counters
+moves on the CPU. And ``chip_smoke.py`` refuses to run without a CUDA
+card."""
 import os
 import subprocess
 import sys
@@ -51,6 +53,15 @@ assert sed['a'].shape == (50, 10)
 for scores in (tags, bounds, sed):
     for v in scores.values():
         assert np.isfinite(v).all()
+from pb_sed_tpu_torch.train.trainer import Trainer
+batch = {k: v for k, v in data[0].items() if k != 'example_id'}
+batch['weak_targets'] = (rng.rand(2, 10) > .5).astype(np.float32)
+batch['boundary_targets'] = (rng.rand(2, 10, 50) > .5).astype(np.float32)
+trainer = Trainer(model, stop_trigger=(2, 'iteration'))
+trainer.train([batch, batch])
+assert trainer.iteration == 2
+assert np.isfinite(float(trainer.train_step(batch)))
+assert len(build.LAUNCHES) == 6
 assert all(v == 0 for v in build.LAUNCHES.values())
 assert not any(sys.modules.get(n) for n in ('jax', 'flax', 'optax', 'pandas'))
 print('ISOLATED_OK', len(names))
