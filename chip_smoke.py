@@ -8,12 +8,16 @@ runs, in order:
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions, kernel build time. Without a CUDA card it raises: there is
    no CPU path.
-2. kernel vs plain: every forward kernel of the serving path against
-   its plain PyTorch version on the card, at the shapes the full-width
-   shallow FBCRNN gives it, with max|delta| against the stated tolerance
-   and median CUDA-event times of both.
-2b. backward kernel vs plain: the conv, pool and GRU backward kernels
-   the same way, at the training step's shapes.
+2, 2b. kernel vs plain: every kernel, forward (2) and backward (2b),
+   against its plain PyTorch version on the card at the shapes the
+   full-width shallow FBCRNN gives it (B=32 ten-second clips), with
+   max|delta| against the stated tolerance and median CUDA-event times
+   of both.
+2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
+   layers (L14 and L16 are the shapes where the JAX package takes its
+   channel-blocked kernel), the max-pool at the deep tower's four pools,
+   the residual average pool at the four pool crossings (bit-exact), the
+   GRU at H = 512; then the 1x1 convs, which run as a bf16 matmul.
 3. serving: the full-width shallow FBCRNN (random weights from a seed,
    passed through the weight bridge) serves batches of 32 ten-second
    clips through ``models.base.inference``'s tagging, boundaries
@@ -28,7 +32,17 @@ runs, in order:
    step agrees with the same model on the CPU (loss and every
    gradient); one step is profiled; the checkpoint restores with
    ``CRNN.from_storage_dir`` and serves a batch through tagging.
+5. the deep recipe (``fbcrnn_config('deep')``, full width, random
+   weights): tagging of 3 batches of 32 ten-second clips by the 527-class
+   AudioSet model and SED at window 51 / shift 1 of one batch by a
+   10-class model, checked like phase 3; ``Trainer.train`` for 8 steps at
+   32 clips with the AudioSet recipe's settings (lr 1e-4 with a ramp,
+   gradient clipping 0.1, no strong loss, augmentation on), then the
+   checks of phase 4. Every launch counter must rise in the training run,
+   the avg-pool pair's too.
 
+Each path (shallow serving and training, deep serving and training) runs
+with the launch counters set to 0 just before it and read just after.
 Any failure raises (non-zero exit). The line before the last is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
@@ -44,28 +58,47 @@ import torch
 from pb_sed_tpu.train.hooks import Hook
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
-    conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain,
-    maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
-    maxpool_freq2_plain)
+    avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
+    avgpool_freq2_plain, conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain,
+    conv2d_same_plain, maxpool_freq2, maxpool_freq2_bwd,
+    maxpool_freq2_bwd_plain, maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
 
 BATCH, FRAMES = 32, 500           # 32 ten-second 16 kHz clips, shift 320
-# (F, Cin, Cout) of the shallow CNN2d (net_configs.cnn_config('shallow'))
-CONV_LAYERS = [(128, 1, 16), (128, 16, 16), (64, 16, 32), (64, 32, 32),
-               (32, 32, 64), (32, 64, 64), (16, 64, 128), (16, 128, 128),
-               (8, 128, 256)]
+# (name, F, Cin, Cout) of the shallow CNN2d's layers
+# (net_configs.cnn_config('shallow'))
+CONV_LAYERS = [
+    ('L0', 128, 1, 16), ('L1', 128, 16, 16), ('L2', 64, 16, 32),
+    ('L3', 64, 32, 32), ('L4', 32, 32, 64), ('L5', 32, 64, 64),
+    ('L6', 16, 64, 128), ('L7', 16, 128, 128), ('L8', 8, 128, 256)]
 # (F, C) entering each (2, 1) freq pool (after layers 1, 3, 5, 7)
 POOLS = [(128, 16), (64, 32), (32, 64), (16, 128)]
-# (D, B, T, H): tagging/boundaries (B clips x T frames) and sliding-window
-# SED at window 51, shift 1 (B * T windows x 51 frames)
+# (D, B, T, H): tagging/boundaries and training (B clips x T frames) and
+# sliding-window SED at window 51, shift 1 (B * T windows x 51 frames)
 GRU_SHAPES = [(2, BATCH, FRAMES, 256), (2, BATCH * FRAMES, 51, 256)]
+# (name, F, Cin, Cout) of the deep CNN2d's 3x3 layers
+# (net_configs.cnn_config('deep')); the 1x1 layers sit between them
+DEEP_CONV_LAYERS = [
+    ('L0', 128, 1, 32), ('L2', 128, 32, 32), ('L4', 64, 32, 64),
+    ('L6', 64, 64, 64), ('L8', 32, 64, 128), ('L10', 32, 128, 128),
+    ('L12', 16, 128, 256), ('L14', 16, 256, 256), ('L16', 8, 256, 512)]
+# the deep layers where the JAX package takes _fwd_kernel_cb (_cb_of(Cin))
+CHANNEL_BLOCKED = ('L14', 'L16')
+# (F, C) entering each of the deep tower's (2, 1) max-pools (after
+# layers 3, 7, 11, 15)
+DEEP_POOLS = [(128, 32), (64, 64), (32, 128), (16, 256)]
+# (F, C) of the residuals that cross a (2, 1) pool: 2 -> 4, 6 -> 8,
+# 10 -> 12, 14 -> 16, each matched to F / 2 rows and 2C channels
+DEEP_CROSSINGS = [(128, 32), (64, 64), (32, 128), (16, 256)]
+DEEP_GRU_SHAPES = [(2, BATCH, FRAMES, 512), (2, BATCH * FRAMES, 51, 512)]
 
 KERNELS = {
     'conv2d_same': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d.cu',
-        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:413'},
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:413, '
+                    'pb_sed_tpu/ops/pallas/conv.py:508'},
     'maxpool_freq2': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/maxpool.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1759'},
@@ -83,16 +116,16 @@ KERNELS = {
     'gru_scan_bwd': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:357'},
+    'avgpool_freq2': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/avgpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1862'},
+    'avgpool_freq2_bwd': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/avgpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1875'},
 }
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan')
-# conv biases of the shallow FBCRNN that feed a training-mode batch norm
-# (pre-activation towers, the output nets' first conv): their gradient is
-# identically zero in exact arithmetic
-BN_FED_BIASES = (
-    {f'cnn.cnn_2d.conv_{i}.bias' for i in range(len(CONV_LAYERS))}
-    | {f'cnn.cnn_1d.conv_{i}.bias' for i in range(4)}
-    | {f'rnn_{d}.output_net.conv_0.bias' for d in ('fwd', 'bwd')})
-BACKWARD = ('conv2d_same_bwd', 'maxpool_freq2_bwd', 'gru_scan_bwd')
+SHALLOW = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_bwd',
+           'maxpool_freq2_bwd', 'gru_scan_bwd')
 TRAIN_STEPS = 8
 
 
@@ -141,7 +174,7 @@ def phase_card():
     return card
 
 
-def _check(name, shape, got, ref, tol, k_ms, p_ms, record):
+def _check(name, shape, got, ref, tol, k_ms, p_ms, record, label):
     err = float((got.float() - ref.float()).abs().max())
     ok = err <= tol
     log(f'{name} {shape}: max|d|={err:.3e} tol={tol:.3e} '
@@ -151,133 +184,179 @@ def _check(name, shape, got, ref, tol, k_ms, p_ms, record):
         raise AssertionError(f'{name} {shape}: kernel differs from plain '
                              f'version by {err} > {tol}')
     record['max_abs_err'] = max(record['max_abs_err'], err)
-    record['ms'] += k_ms
-    record['plain_ms'] += p_ms
+    record[f'{label}_ms'] += k_ms
+    record[f'{label}_plain_ms'] += p_ms
 
 
-def phase_kernels(records):
-    """Kernel vs plain at the serving path's shapes. TF32 is off for the
+def check_kernels(records, label, seed, convs, pools, grus, crossings=()):
+    """Every kernel vs its plain version at one model's shapes (B=32,
+    T=500), forward and backward, with the launch-counted wrappers; the
+    kernel and plain times (median CUDA-event ms) add up into
+    ``records[name][label + '_ms' / '_plain_ms']``. TF32 is off for the
     plain versions' f32 conv/matmul (cuDNN would default to TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    log('TF32 off for cuDNN and cuBLAS (plain versions in full f32)')
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     # conv: both sides round the same f32 sum once to bf16; a different
-    # summation order may flip that rounding by one bf16 ulp (2^-8
-    # relative), so the bound is 2^-7 * max|ref|
-    for f, cin, cout in CONV_LAYERS:
+    # summation order may flip that rounding by one bf16 ulp, so y and dx
+    # are held to 2^-7 * max|ref|; dw: f32 sums over up to 2,048,000
+    # pixels in another order, 1e-3 * max|ref|, and the same in two runs
+    for layer, f, cin, cout in convs:
         x = randn(BATCH, FRAMES, f, cin).to(torch.bfloat16)
         w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
         b = randn(cout, scale=.1)
+        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3).to(torch.bfloat16)
+        shape = (layer, BATCH, FRAMES, f, cin, cout)
+        if layer in CHANNEL_BLOCKED:
+            shape += ('_fwd_kernel_cb',)
         got = conv2d_same(x, w, b)
         ref = conv2d_same_plain(x, w, b)
         torch.cuda.synchronize()
-        tol = 2. ** -7 * float(ref.float().abs().max())
-        _check('conv2d_same', (BATCH, FRAMES, f, cin, cout), got, ref, tol,
-               cuda_ms(lambda: conv2d_same(x, w, b)),
-               cuda_ms(lambda: conv2d_same_plain(x, w, b)),
-               records['conv2d_same'])
-    # max-pool: a compare and a copy, bit-exact
-    for f, c in POOLS:
+        _check('conv2d_same', shape, got, ref,
+               2. ** -7 * float(ref.float().abs().max()),
+               cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
+               cuda_ms(lambda: conv2d_same_plain(x, w, b), reps=5),
+               records['conv2d_same'], label)
+        dx, dw = conv2d_same_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(lambda: conv2d_same_bwd(x, w, gy), reps=5)
+        p_ms = cuda_ms(lambda: conv2d_same_bwd_plain(x, w, gy), reps=5)
+        _check('conv2d_same_bwd dx', shape, dx, ref_dx,
+               2. ** -7 * float(ref_dx.float().abs().max()), k_ms, p_ms,
+               records['conv2d_same_bwd'], label)
+        _check('conv2d_same_bwd dw', shape, dw, ref_dw,
+               1e-3 * float(ref_dw.abs().max()), 0., 0.,
+               records['conv2d_same_bwd'], label)
+        if not torch.equal(dw, conv2d_same_bwd(x, w, gy)[1]):
+            raise AssertionError(f'conv2d_same_bwd {shape}: dw differs '
+                                 f'between two runs')
+        del x, gy, got, ref, dx, dw, ref_dx, ref_dw
+    # max-pool: a compare and a copy (forward), a compare and a select
+    # (backward), bit-exact, on tie-heavy input (every padded frame ties)
+    for f, c in pools:
         x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
+        x[:, FRAMES - 100:] = 0.
+        gy = randn(BATCH, FRAMES, f // 2, c).to(torch.bfloat16)
         got = maxpool_freq2(x)
         ref = maxpool_freq2_plain(x)
         torch.cuda.synchronize()
         _check('maxpool_freq2', (BATCH, FRAMES, f, c), got, ref, 0.,
                cuda_ms(lambda: maxpool_freq2(x)),
                cuda_ms(lambda: maxpool_freq2_plain(x)),
-               records['maxpool_freq2'])
-    # GRU: same bf16 rounding points on both sides; the recurrence
-    # carries accumulation-order differences through T steps. Bound:
-    # the kernel-vs-scan drift measured for the TPU kernel, 5.3e-3.
-    for d, b, t, h in GRU_SHAPES:
-        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
-        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
-        b_hh = randn(d, 3 * h, scale=.1)
-        h0 = torch.zeros(d, b, h, device=dev)
-        got = gru_scan(xw, w_hh, b_hh, h0)
-        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
-        torch.cuda.synchronize()
-        _check('gru_scan', (d, b, t, h), got, ref, 5.3e-3,
-               cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
-               cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
-                       warmup=1),
-               records['gru_scan'])
-        del xw, got, ref
-    torch.cuda.empty_cache()
-
-
-def phase_backward_kernels(records):
-    """Backward kernel vs plain at the training step's shapes (B=32,
-    T=500), TF32 off as in phase 2."""
-    dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def randn(*shape, scale=1.):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    # dx: one f32 sum rounded once to bf16 on both sides (one bf16 ulp,
-    # 2^-7 relative to max|ref|); dw: f32 sums over up to 2,048,000
-    # pixels in another order, 1e-3 * max|ref|
-    for f, cin, cout in CONV_LAYERS:
-        x = randn(BATCH, FRAMES, f, cin).to(torch.bfloat16)
-        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
-        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3).to(torch.bfloat16)
-        dx, dw = conv2d_same_bwd(x, w, gy)
-        ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
-        torch.cuda.synchronize()
-        shape = (BATCH, FRAMES, f, cin, cout)
-        k_ms = cuda_ms(lambda: conv2d_same_bwd(x, w, gy), reps=5)
-        p_ms = cuda_ms(lambda: conv2d_same_bwd_plain(x, w, gy), reps=5)
-        _check('conv2d_same_bwd dx', shape, dx, ref_dx,
-               2. ** -7 * float(ref_dx.float().abs().max()), k_ms, p_ms,
-               records['conv2d_same_bwd'])
-        _check('conv2d_same_bwd dw', shape, dw, ref_dw,
-               1e-3 * float(ref_dw.abs().max()), 0., 0.,
-               records['conv2d_same_bwd'])
-        if not torch.equal(dw, conv2d_same_bwd(x, w, gy)[1]):
-            raise AssertionError(f'conv2d_same_bwd {shape}: dw differs '
-                                 f'between two runs')
-        del x, gy, dx, dw, ref_dx, ref_dw
-    # pool backward: a compare and a select, bit-exact, on tie-heavy
-    # input (every padded frame ties)
-    for f, c in POOLS:
-        x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
-        x[:, FRAMES - 100:] = 0.
-        gy = randn(BATCH, FRAMES, f // 2, c).to(torch.bfloat16)
+               records['maxpool_freq2'], label)
         got = maxpool_freq2_bwd(x, gy)
         ref = maxpool_freq2_bwd_plain(x, gy)
         torch.cuda.synchronize()
         _check('maxpool_freq2_bwd', (BATCH, FRAMES, f, c), got, ref, 0.,
                cuda_ms(lambda: maxpool_freq2_bwd(x, gy)),
                cuda_ms(lambda: maxpool_freq2_bwd_plain(x, gy)),
-               records['maxpool_freq2_bwd'])
-    # GRU backward: same rounding points; summation order may flip a
-    # bf16 rounding that the reverse sweep carries: 5.3e-3 * max|ref|
-    d, b, t, h = GRU_SHAPES[0]
-    xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
-    w_hh = randn(d, h, 3 * h, scale=h ** -.5)
-    b_hh = randn(d, 3 * h, scale=.1)
-    h0 = torch.zeros(d, b, h, device=dev)
-    y = gru_scan(xw, w_hh, b_hh, h0)
-    g = randn(d, b, t, h, scale=1e-2)
-    got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
-    ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
-    torch.cuda.synchronize()
-    k_ms = cuda_ms(lambda: gru_scan_bwd(xw, w_hh, b_hh, h0, y, g), reps=5)
-    p_ms = cuda_ms(lambda: gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g),
-                   reps=3, warmup=1)
-    for name, a, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), got, ref):
-        _check(f'gru_scan_bwd {name}', (d, b, t, h), a, r,
-               5.3e-3 * float(r.float().abs().max()),
-               k_ms if name == 'dxw' else 0., p_ms if name == 'dxw' else 0.,
-               records['gru_scan_bwd'])
-    torch.cuda.empty_cache()
+               records['maxpool_freq2_bwd'], label)
+    # the residual average pool (F, C -> F / 2, 2C): an add and an exact
+    # halving, bit-exact
+    for f, c in crossings:
+        x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
+        gy = randn(BATCH, FRAMES, f // 2, 2 * c)
+        shape = (BATCH, FRAMES, f, c, 2 * c)
+        got = avgpool_freq2(x, 2 * c)
+        ref = avgpool_freq2_plain(x, 2 * c)
+        torch.cuda.synchronize()
+        _check('avgpool_freq2', shape, got, ref, 0.,
+               cuda_ms(lambda: avgpool_freq2(x, 2 * c)),
+               cuda_ms(lambda: avgpool_freq2_plain(x, 2 * c)),
+               records['avgpool_freq2'], label)
+        got = avgpool_freq2_bwd(gy, c, x.dtype)
+        ref = avgpool_freq2_bwd_plain(gy, c, x.dtype)
+        torch.cuda.synchronize()
+        _check('avgpool_freq2_bwd', shape, got, ref, 0.,
+               cuda_ms(lambda: avgpool_freq2_bwd(gy, c, x.dtype)),
+               cuda_ms(lambda: avgpool_freq2_bwd_plain(gy, c, x.dtype)),
+               records['avgpool_freq2_bwd'], label)
+    # GRU: same bf16 rounding points on both sides; the recurrence carries
+    # accumulation-order differences through T steps. Bound: the
+    # kernel-vs-scan drift measured for the TPU kernel, 5.3e-3 (forward),
+    # 5.3e-3 * max|ref| (backward). Forward at every serving shape,
+    # backward at the training step's (B clips).
+    for d, b, t, h in grus:
+        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+        b_hh = randn(d, 3 * h, scale=.1)
+        h0 = torch.zeros(d, b, h, device=dev)
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        torch.cuda.synchronize()
+        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3,
+               cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
+               cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
+                       warmup=1),
+               records['gru_scan'], label)
+        del ref
+        if b == BATCH:
+            g = randn(d, b, t, h, scale=1e-2)
+            grads = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+            refs = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
+            torch.cuda.synchronize()
+            k_ms = cuda_ms(lambda: gru_scan_bwd(xw, w_hh, b_hh, h0, y, g),
+                           reps=5)
+            p_ms = cuda_ms(
+                lambda: gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g),
+                reps=3, warmup=1)
+            for name, a, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), grads,
+                                  refs):
+                _check(f'gru_scan_bwd {name}', (d, b, t, h), a, r,
+                       5.3e-3 * float(r.float().abs().max()),
+                       k_ms if name == 'dxw' else 0.,
+                       p_ms if name == 'dxw' else 0.,
+                       records['gru_scan_bwd'], label)
+            del grads, refs, g
+        del xw, y
+        torch.cuda.empty_cache()
+
+
+def check_1x1():
+    """The deep tower's 1x1 convs (F, C -> C), the bf16 matmul with the
+    bias inside its rounding that ``ops/cnn.py:Conv2d`` runs for them,
+    forward and backward through autograd against the plain conv: y and
+    dx within one bf16 ulp (2^-7 of max|ref|) as for the conv kernel; dw
+    rounded to bf16 as the JAX package rounds it, also 2^-7 of max|ref|."""
+    from pb_sed_tpu_torch.ops.cnn import Conv2d
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for f, c in ((128, 32), (64, 64), (32, 128), (16, 256), (8, 512)):
+        conv = Conv2d(c, c, (1, 1)).to(dev)
+        with torch.no_grad():
+            conv.kernel.copy_(randn(1, 1, c, c, scale=c ** -.5))
+            conv.bias.copy_(randn(c, scale=.1))
+        x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16).requires_grad_()
+        gy = randn(BATCH, FRAMES, f, c, scale=1e-3).to(torch.bfloat16)
+        w, b = conv.kernel.detach(), conv.bias.detach()
+        ref = conv2d_same_plain(x.detach(), w, b)
+        ref_dx, ref_dw = conv2d_same_bwd_plain(x.detach(), w, gy)
+        y = conv(x)
+        dx, dw = torch.autograd.grad(y, (x, conv.kernel), gy)
+        errs = [float((a.detach().float() - r.float()).abs().max())
+                for a, r in ((y, ref), (dx, ref_dx), (dw, ref_dw))]
+        tols = [2. ** -7 * float(r.float().abs().max())
+                for r in (ref, ref_dx, ref_dw)]
+        if any(e > t for e, t in zip(errs, tols)):
+            raise AssertionError(f'1x1 conv ({f}, {c}): max|d| y, dx, dw '
+                                 f'{errs} > {tols}')
+        both = cuda_ms(lambda: torch.autograd.grad(conv(x), (x, conv.kernel),
+                                                   gy), reps=5)
+        log(f'1x1 conv (32, 500, {f}, {c} -> {c}) as a bf16 matmul: '
+            f'max|d| y, dx, dw {", ".join(f"{e:.3e}" for e in errs)} '
+            f'(tol {", ".join(f"{t:.3e}" for t in tols)}); fwd+bwd '
+            f'{both:.3f} ms')
+        del x, gy, ref, ref_dx, y, dx
 
 
 def _synthetic_batches(stft, seed=0):
@@ -327,36 +406,33 @@ def _expected_frames(name, seq_len):
     return seq_len
 
 
-def phase_slice():
-    """The full-width shallow FBCRNN served on the card through the
-    inference engine; returns the kernels' launch counts of that run."""
+def _random_flat(config):
+    """Seeded random weights for ``config``'s CRNN in the JAX flat layout,
+    passed once through the bridge (``bridge.random_flat``, ``load_flat``,
+    ``export_flat``)."""
     from pb_sed_tpu_torch import bridge
-    from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
     from pb_sed_tpu_torch.models.weak_label import CRNN
+    template = CRNN.from_config(CRNN.get_config(config))
+    template.load_state_dict(bridge.random_flat(template.state_dict(),
+                                                seed=0))
+    return template.state_dict()
 
-    def make_model(flat=None):
-        model = CRNN.from_config(CRNN.get_config(fbcrnn_config('shallow')))
-        if flat is not None:
-            model.load_state_dict(flat)   # bridge.load_flat
-        return model
 
-    template = make_model()
-    flat = bridge.random_flat(template.state_dict(), seed=0)
-    template.load_state_dict(flat)
-    flat = template.state_dict()          # bridge.export_flat
-    model = make_model(flat).to('cuda')
-    log(f'FBCRNN shallow: {model.num_parameters()} parameters, '
-        f'{len(flat)} flat tensors')
-    stft = model.module.feature_extractor.stft
-    batches = _synthetic_batches(stft)
-    k = 10
-    methods = _methods(base)
+def _model(config, flat, device='cpu'):
+    from pb_sed_tpu_torch.models.weak_label import CRNN
+    model = CRNN.from_config(CRNN.get_config(config))
+    model.load_state_dict(flat)           # bridge.load_flat
+    return model.to(device)
+
+
+def _serve(model, methods, batches, k, label):
+    """Run ``methods`` (name, function, kwargs) on ``batches`` with the
+    launch counters set to 0 first; check shapes, finiteness and the score
+    range; return (scores by method, launches)."""
     for name, fn, kwargs in methods:      # warm-up: cuFFT/cuBLAS plans
         fn(model, batches[:1], **kwargs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
     build.reset_launches()
     results = {}
     for name, fn, kwargs in methods:
@@ -364,18 +440,18 @@ def phase_slice():
         results[name] = fn(model, batches, **kwargs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        log(f'{name}: {3 * BATCH} clips in {dt:.3f} s = '
-            f'{3 * BATCH / dt:.1f} clips/s (host clock, inference engine '
+        clips = len(batches) * BATCH
+        log(f'{label} {name}: {clips} clips in {dt:.3f} s = '
+            f'{clips / dt:.1f} clips/s (host clock, inference engine '
             f'included)')
     launches = dict(build.LAUNCHES)
-    log(f'launches in the served run: {launches}')
-    log(f'peak device memory: '
+    log(f'launches in the {label} served run: {launches}')
+    log(f'peak device memory ({label} serving): '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     for name in FORWARD:
         if launches[name] <= 0:
             raise AssertionError(f'kernel {name} never launched on the '
-                                 f'served path')
-
+                                 f'{label} served path')
     for name, scores in results.items():
         for batch in batches:
             for clip, sl in zip(batch['example_id'], batch['seq_len']):
@@ -390,13 +466,15 @@ def phase_slice():
                     raise AssertionError(
                         f'{name} {clip}: scores outside [1e-5, 1 - 1e-5]: '
                         f'[{y.min()}, {y.max()}]')
-    log('shapes, finiteness and score range: ok')
+    log(f'{label}: shapes, finiteness and score range: ok')
+    return results, launches
 
-    # the same model on the CPU (plain versions) for the first two clips
-    # of the unequal-length batch; tolerance atol = 1e-4 + 3e-2 * max|ref|
-    # (bf16 paths that round at different points)
-    cpu_model = make_model(flat)
-    first = {key: val[:2] for key, val in batches[1].items()}
+
+def _agree_with_cpu(cpu_model, methods, results, batch):
+    """The same model on the CPU (plain versions) for the first two clips
+    of ``batch``; tolerance atol = 1e-4 + 3e-2 * max|ref| (bf16 paths that
+    round at different points)."""
+    first = {key: val[:2] for key, val in batch.items()}
     for name, fn, kwargs in methods:
         ref = fn(cpu_model, [first], **kwargs)
         for clip in first['example_id']:
@@ -408,6 +486,49 @@ def phase_slice():
             if not err <= tol:
                 raise AssertionError(f'{name} {clip}: card and CPU differ '
                                      f'by {err} > {tol}')
+
+
+def phase_slice():
+    """The full-width shallow FBCRNN served on the card through the
+    inference engine; returns the kernels' launch counts of that run."""
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
+    config = fbcrnn_config('shallow')
+    flat = _random_flat(config)
+    model = _model(config, flat, 'cuda')
+    log(f'FBCRNN shallow: {model.num_parameters()} parameters, '
+        f'{len(flat)} flat tensors')
+    batches = _synthetic_batches(model.module.feature_extractor.stft)
+    methods = _methods(base)
+    results, launches = _serve(model, methods, batches, 10, 'shallow')
+    _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+    return launches
+
+
+def phase_deep_serving():
+    """The full-width deep FBCRNN served on the card: tagging of 3 x 32
+    clips by the 527-class AudioSet model, SED at window 51 / shift 1 of
+    one batch by a 10-class model (the DESED fine-tune's shape), both
+    compared with the CPU on the batch of unequal lengths; returns the
+    launch counts of both runs together."""
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
+    launches = {name: 0 for name in KERNELS}
+    for k, methods, served in ((527, _methods(base)[:1], slice(0, 3)),
+                               (10, _methods(base)[2:3], slice(1, 2))):
+        config = fbcrnn_config('deep', num_events=k)
+        flat = _random_flat(config)
+        model = _model(config, flat, 'cuda')
+        log(f'FBCRNN deep, {k} classes: {model.num_parameters()} '
+            f'parameters, {len(flat)} flat tensors')
+        batches = _synthetic_batches(model.module.feature_extractor.stft)
+        results, counts = _serve(model, methods, batches[served], k,
+                                 f'deep/{k}')
+        for name, count in counts.items():
+            launches[name] += count
+        _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+        del model
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -446,20 +567,41 @@ def _cosine(a, b):
     return float(a @ b / (a.norm() * b.norm() + 1e-30))
 
 
-def _card_vs_cpu(make_model, stft):
+def bn_fed_biases(module):
+    """Conv biases whose output reaches the loss only through a
+    training-mode batch norm (pre-activation towers): their gradient is
+    identically zero in exact arithmetic. In a tower, conv i feeds norm
+    i + 1 unless its output reaches the tower's end along residual skips;
+    the 2-D tower's end feeds the 1-D tower's first norm; the output nets'
+    first conv feeds their norm."""
+    fed = {f'rnn_{d}.output_net.conv_0.bias' for d in ('fwd', 'bwd')}
+    for name, tower, end_fed in (('cnn_2d', module.cnn.cnn_2d, True),
+                                 ('cnn_1d', module.cnn.cnn_1d, False)):
+        n = len(tower.out_channels)
+        reaches = [False] * n
+        for i in reversed(range(n)):
+            j = tower.residuals[i]
+            reaches[i] = i == n - 1 or (j is not None and reaches[j])
+        fed |= {f'cnn.{name}.conv_{i}.bias' for i in range(n)
+                if end_fed or not reaches[i]}
+    return fed
+
+
+def _card_vs_cpu(make_model, stft, k):
     """One B=4, T=100 step, augmentation off, on the card and on the CPU
     (plain versions). The loss within 1e-4 + 3e-2 * |ref|. The CPU's own
     noise is the largest gap between its step and three CPU steps on the
     same clips in other batch orders (the same function; bf16 roundings
-    through nine training-mode norms move the tower's gradients by ~25%
+    through the training-mode norms move the tower's gradients by ~25%
     there, cosine ~0.96). Each gradient tensor of 16 or more entries
-    that is not a norm-fed bias lies within 1e-4 + 3.5e-2 * max|ref| or
-    three times that noise. The entry norm's two scalars and the norm-fed biases (an
-    identically zero gradient) are printed only: a single sum that
-    cancels to near zero has no stable noise estimate. All gradients
-    together agree with the CPU's at a cosine no more than 0.02 below
-    the lowest cosine between the CPU's own batch orders."""
-    batch = _train_batches(stft, 1, 4, 2, seed=3)[0]
+    that is not a norm-fed bias (:func:`bn_fed_biases`) lies within
+    1e-4 + 3.5e-2 * max|ref| or three times that noise. The entry norm's
+    two scalars and the norm-fed biases (an identically zero gradient)
+    are printed only: a single sum that cancels to near zero has no
+    stable noise estimate. All gradients together agree with the CPU's
+    at a cosine no more than 0.02 below the lowest cosine between the
+    CPU's own batch orders."""
+    batch = _train_batches(stft, 1, 4, 2, seed=3, k=k)[0]
     orders = ([0, 1, 2, 3], [3, 2, 1, 0], [1, 2, 3, 0], [2, 3, 0, 1])
     runs = [('cuda', orders[0])] + [('cpu', order) for order in orders]
     grads, losses = [], []
@@ -472,6 +614,7 @@ def _card_vs_cpu(make_model, stft):
         losses.append(float(loss.detach()))
         grads.append({n: p.grad.detach().float().cpu()
                       for n, p in model.module.named_parameters()})
+    bn_fed = bn_fed_biases(model.module)
     card, cpu, others = grads[0], grads[1], grads[2:]
     log(f'card vs CPU, B=4 T=100 step: loss {losses[0]:.6f} vs '
         f'{losses[1]:.6f} (CPU in other batch orders: '
@@ -486,7 +629,7 @@ def _card_vs_cpu(make_model, stft):
         gap = float((got - ref).abs().max())
         noise = max(float((o[name] - ref).abs().max()) for o in others)
         bound = max(1e-4 + 3.5e-2 * float(ref.abs().max()), 3 * noise)
-        checked = ref.numel() >= 16 and name not in BN_FED_BIASES
+        checked = ref.numel() >= 16 and name not in bn_fed
         log(f'  grad {name}: |d| {gap:.3e} bound {bound:.3e} (CPU noise '
             f'{noise:.3e}) cos {_cosine(got, ref):.4f}'
             f'{"" if checked else " (printed only)"}')
@@ -526,7 +669,7 @@ class _StepLog(Hook):
         self.times.append(time.perf_counter())
 
 
-def _profile_step(trainer, batch):
+def _profile_step(trainer, batch, label):
     """Device time of one training step by kernel (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -549,46 +692,55 @@ def _profile_step(trainer, batch):
     rows.sort(reverse=True)
     total = sum(ms for ms, _, _ in rows)
     ours = ('conv2d_igemm', 'conv2d_dw_', 'gru_scan_kernel', 'gru_bwd',
-            'maxpool_freq2')
+            'maxpool_freq2', 'avgpool_freq2')
     mine = sum(ms for ms, key, _ in rows if any(k in key for k in ours))
-    log(f'profiled step: wall {wall:.1f} ms (profiler on), kernels busy '
-        f'{total:.1f} ms (idle share {100 * (1 - total / wall):.0f}%), '
+    log(f'{label} profiled step: wall {wall:.1f} ms (profiler on), kernels '
+        f'busy {total:.1f} ms (idle share {100 * (1 - total / wall):.0f}%), '
         f'hand-written kernels {mine:.1f} ms '
         f'({100 * mine / max(total, 1e-9):.0f}% of busy)')
     for ms, key, count in rows[:15]:
         log(f'  {ms:8.2f} ms  x{count:<5d} {key[:90]}')
 
 
-def phase_training():
-    """The full-width shallow FBCRNN trained on the card through
+# Trainer settings per recipe: classes, Adam, strong loss weight. Deep:
+# the AudioSet recipe (experiments/weak_label_crnn/training.py:118-151).
+RECIPES = {
+    'shallow': {'k': 10, 'adam': {'lr': 5e-4}, 'strong': 1.,
+                'kernels': SHALLOW},
+    'deep': {'k': 527, 'adam': {'lr': 1e-4, 'gradient_clipping': .1},
+             'strong': 0., 'kernels': tuple(KERNELS)},
+}
+
+
+def phase_training(net='shallow'):
+    """The full-width FBCRNN ``net`` trained on the card through
     ``Trainer``; returns the kernels' launch counts of that run."""
     from pb_sed_tpu.train.hooks import LRAnnealingHook
     from pb_sed_tpu.utils.config import config_to_json
     from pb_sed_tpu.utils.misc import dump_json
-    from pb_sed_tpu_torch import bridge
     from pb_sed_tpu_torch.models import base
     from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
     from pb_sed_tpu_torch.models.weak_label import CRNN
     from pb_sed_tpu_torch.train.optimizer import Adam
     from pb_sed_tpu_torch.train.trainer import Trainer
+    recipe = RECIPES[net]
 
     def config(augment):
-        return CRNN.get_config(fbcrnn_config('shallow', augment=augment))
+        return fbcrnn_config(net, num_events=recipe['k'], augment=augment,
+                             strong_fwd_bwd_loss_weight=recipe['strong'])
 
-    flat = bridge.random_flat(CRNN.from_config(config(True)).state_dict(),
-                              seed=0)
+    flat = _random_flat(config(True))
 
     def make_model(augment):
-        model = CRNN.from_config(config(augment))
-        model.load_state_dict(flat)
-        return model
+        return _model(config(augment), flat)
 
     model = make_model(augment=True).to('cuda')
     stft = model.module.feature_extractor.stft
-    batches = _train_batches(stft, 4, BATCH, 10, seed=1)
+    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=recipe['k'])
     step_log = _StepLog()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(model, optimizer=Adam(lr=5e-4), storage_dir=tmp,
+        trainer = Trainer(model, optimizer=Adam(**recipe['adam']),
+                          storage_dir=tmp,
                           summary_trigger=(4, 'iteration'),
                           stop_trigger=(TRAIN_STEPS, 'iteration'))
         trainer.register_hook(LRAnnealingHook(
@@ -600,33 +752,33 @@ def phase_training():
         trainer.train(batches * (TRAIN_STEPS // len(batches)))
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
-        log(f'launches in the training run: {launches}')
-        for name in KERNELS:
+        log(f'launches in the {net} training run: {launches}')
+        for name in recipe['kernels']:
             if launches[name] <= 0:
                 raise AssertionError(f'kernel {name} never launched in '
-                                     f'the training run')
-        log('loss per step: ' + ', '.join(f'{x:.5f}'
-                                          for x in step_log.losses))
+                                     f'the {net} training run')
+        log(f'{net} loss per step: ' + ', '.join(
+            f'{x:.5f}' for x in step_log.losses))
         if len(step_log.losses) != TRAIN_STEPS or not np.isfinite(
                 step_log.losses).all():
             raise AssertionError(f'training losses: {step_log.losses}')
         steps = np.diff(step_log.times)
         steady = steps[2:]  # steps 1-2: cuBLAS/cuFFT plans, allocator
-        log(f'step times (host clock, synchronized): '
+        log(f'{net} step times (host clock, synchronized): '
             + ', '.join(f'{1e3 * x:.1f}' for x in steps) + ' ms')
-        log(f'training: {1 / steady.mean():.3f} steps/s = '
+        log(f'{net} training: {1 / steady.mean():.3f} steps/s = '
             f'{BATCH / steady.mean():.1f} clips/s over steps 3-'
             f'{TRAIN_STEPS} (batch {BATCH} x 10 s clips, augmentation '
             f'on, host clock)')
-        log(f'peak device memory (training): '
+        log(f'peak device memory ({net} training): '
             f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
         with open(f'{tmp}/summary.jsonl') as fid:
             summary = [json.loads(line) for line in fid]
         log(f'summary.jsonl: {len(summary)} lines, last {summary[-1]}')
 
         # the checkpoint restores and serves
-        dump_json({'trainer': {'model': config_to_json(config(True))}},
-                  f'{tmp}/1/config.json')
+        dump_json({'trainer': {'model': config_to_json(
+            CRNN.get_config(config(True)))}}, f'{tmp}/1/config.json')
         restored = CRNN.from_storage_dir(tmp, checkpoint_name='ckpt_latest.pkl',
                                          device='cuda')
         serve = {'audio_data': batches[0]['audio_data'][:8],
@@ -641,7 +793,7 @@ def phase_training():
                                       for v in tags.values()):
             raise AssertionError('the restored checkpoint serves other '
                                  'scores than the trained model')
-        _profile_step(trainer, batches[0])
+        _profile_step(trainer, batches[0], net)
     del trainer, model, restored
     torch.cuda.empty_cache()
 
@@ -649,29 +801,44 @@ def phase_training():
     model = make_model(augment=False).to('cuda')
     trainer = Trainer(model, optimizer=Adam(lr=1e-3))
     losses = [float(trainer.train_step(batches[1])) for _ in range(5)]
-    log('repeated batch, augmentation off: loss ' + ', '.join(
+    log(f'{net} repeated batch, augmentation off: loss ' + ', '.join(
         f'{x:.5f}' for x in losses))
     if not losses[-1] < losses[0]:
         raise AssertionError(f'the loss did not fall: {losses}')
     del trainer, model
     torch.cuda.empty_cache()
-    _card_vs_cpu(make_model, stft)
+    _card_vs_cpu(make_model, stft, recipe['k'])
     return launches
 
 
 def main():
     card = phase_card()
-    records = {name: {'max_abs_err': 0., 'ms': 0., 'plain_ms': 0.}
-               for name in KERNELS}
-    phase_kernels(records)
-    phase_backward_kernels(records)
-    serving = phase_slice()
-    training = phase_training()
-    kernels = [
-        {'name': name, **KERNELS[name], 'launches': training[name],
-         **({'launches_serving': serving[name]} if name in FORWARD else {}),
-         **records[name]}
-        for name in KERNELS]
+    records = {name: {'max_abs_err': 0., 'shallow_ms': 0.,
+                      'shallow_plain_ms': 0., 'deep_ms': 0.,
+                      'deep_plain_ms': 0.} for name in KERNELS}
+    log('TF32 off for cuDNN and cuBLAS (plain versions in full f32)')
+    check_kernels(records, 'shallow', 0, CONV_LAYERS, POOLS, GRU_SHAPES)
+    check_kernels(records, 'deep', 2, DEEP_CONV_LAYERS, DEEP_POOLS,
+                  DEEP_GRU_SHAPES, DEEP_CROSSINGS)
+    check_1x1()
+    launches = {'shallow_serving': phase_slice(),
+                'shallow_training': phase_training('shallow'),
+                'deep_serving': phase_deep_serving(),
+                'deep_training': phase_training('deep')}
+    kernels = []
+    for name in KERNELS:
+        rec = records[name]
+        kernels.append({
+            'name': name, **KERNELS[name],
+            # the deep training run drives every kernel
+            'launches': launches['deep_training'][name],
+            'launches_by_path': {path: counts[name]
+                                 for path, counts in launches.items()},
+            'max_abs_err': rec['max_abs_err'],
+            'ms': rec['shallow_ms'] + rec['deep_ms'],
+            'plain_ms': rec['shallow_plain_ms'] + rec['deep_plain_ms'],
+            **{key: rec[key] for key in ('shallow_ms', 'shallow_plain_ms',
+                                         'deep_ms', 'deep_plain_ms')}})
     print(card)                           # nvidia-smi name, power.limit
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

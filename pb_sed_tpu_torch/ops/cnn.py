@@ -5,19 +5,26 @@ Counterpart of ``pb_sed_tpu/ops/cnn.py`` with its layouts ((B, T, F, C)
 and (B, T, C)), parameter layouts (conv kernels HWIO (kt, kf, Cin, Cout)
 / (k, Cin, Cout)) and state names (``conv_{i}``, ``norm_{i}`` with
 ``scale``/``shift`` and ``mean``/``var``/``initialized``). The 2-D tower
-follows the rounding points of the JAX package's kernel tower: BN and
-activation in f32, activations stored in bf16 between layers, the conv in
-bf16 with f32 accumulation and f32 bias, the pool on bf16; both run as
-autograd Functions whose backward is a kernel too
-(``ops/kernels/conv.py:Conv2dSame``, ``MaxPoolFreq2``). The
+follows the rounding points of the JAX package's packed kernel tower
+(``pb_sed_tpu/ops/cnn.py:_packed_forward``): BN and activation in f32,
+activations stored in bf16 between layers, every conv (3x3 and 1x1) in
+bf16 with f32 accumulation and f32 bias rounded once, the pool on bf16;
+both run as autograd Functions whose backward is a kernel too
+(``ops/kernels/conv.py:Conv2dSame``, ``MaxPoolFreq2``), but for the 1x1
+convs: one bf16 matmul each (``ops/linear.py:Bf16Linear``), as the JAX
+package computes them outside its kernels. Residual skips
+(the deep recipe) follow the same tower: a pending residual is matched
+to the use site (row pairs averaged in f32 once per crossed (2, 1) pool,
+``AvgPoolFreq2``, grown channels zero-padded), added in f32 to the bf16
+conv output and rounded once; the residual is saved after that add and
+before the pool. In the 1-D tower the adds stay in f32. The
 ``nn.Module.training`` flag selects batch statistics over the valid
 frames (``seq_len``) and the running-stat update.
 
 Layers get their input channel counts from ``in_channels`` or, when a
 config leaves it unset, from their parent (``CNN`` / the CRNN glue), which
-calls ``build``. Residual connections (deep recipe), pools other than
-1 and (2, 1) in the 2-D tower and time pools in the 1-D tower are not
-ported yet and raise.
+calls ``build``. Pools other than 1 and (2, 1) in the 2-D tower and time
+pools in the 1-D tower are not ported yet and raise.
 """
 import math
 
@@ -26,7 +33,9 @@ from torch import nn
 
 from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu.utils.misc import to_list
-from pb_sed_tpu_torch.ops.kernels.conv import Conv2dSame, MaxPoolFreq2
+from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2, Conv2dSame,
+                                               MaxPoolFreq2)
+from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import sequence_mask
 
 
@@ -95,18 +104,44 @@ def check_dropout(module, dropout):
             f'ported yet')
 
 
-def _check_common(module, residual_connections, norm, compute_dtype):
-    if residual_connections and any(r is not None
-                                    for r in residual_connections):
-        raise NotImplementedError(
-            f'{type(module).__name__}: residual connections (deep recipe) '
-            f'are not ported yet')
+def _check_common(norm, compute_dtype):
     if norm not in ('batch', None):
         raise NotImplementedError(f'norm {norm!r} is not ported yet')
     if compute_dtype != 'bfloat16':
         raise NotImplementedError(
             f'compute_dtype {compute_dtype!r}: the port computes convs in '
             f'bfloat16 only')
+
+
+def _match_residual(res, shape):
+    """A saved residual matched to a use site of ``shape`` as f32: row
+    pairs averaged once per crossed (2, 1) freq pool (4-D), grown
+    channels zero-padded (``pb_sed_tpu/ops/cnn.py:_match_residual``,
+    ``_match_residual_packed``). The last average pass writes the padded
+    channels itself."""
+    cout = shape[-1]
+    if cout < res.shape[-1]:
+        raise ValueError(f'residual of {res.shape[-1]} channels cannot '
+                         f'join {cout}')
+    if res.dim() == 4:
+        while res.shape[2] > shape[2]:
+            last = res.shape[2] == 2 * shape[2]
+            res = AvgPoolFreq2.apply(res, cout if last else res.shape[3])
+    res = res.float()
+    if res.shape[-1] < cout:
+        res = nn.functional.pad(res, (0, cout - res.shape[-1]))
+    return res
+
+
+def _add_pending(pending, i, h):
+    """``h`` plus the residuals pending at layer ``i``, summed in f32 in
+    the order they were saved."""
+    if i not in pending:
+        return h
+    acc = h.float()
+    for res in pending.pop(i):
+        acc = acc + _match_residual(res, acc.shape)
+    return acc
 
 
 def _pool_fp_tp(pool):
@@ -117,7 +152,11 @@ def _pool_fp_tp(pool):
 
 
 class Conv2d(nn.Module):
-    """SAME conv with an odd kernel on (B, T, F, Cin) bf16 -> bf16."""
+    """SAME conv with an odd kernel on (B, T, F, Cin) bf16 -> bf16: the
+    conv kernel, or for a 1x1 kernel one bf16 matmul with the same
+    rounding (``ops/linear.py:Bf16Linear``; forward and backward 3x
+    faster than the conv kernel at the deep recipe's L17 on an NVIDIA
+    H100 80GB HBM3 at 700 W, ``PERF.md``)."""
 
     def __init__(self, in_channels, out_channels, kernel_size):
         super().__init__()
@@ -127,6 +166,10 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
+        if self.kernel.shape[:2] == (1, 1):
+            y = Bf16Linear.apply(x.reshape(-1, x.shape[-1]),
+                                 self.kernel[0, 0], self.bias)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
         return Conv2dSame.apply(x, self.kernel, self.bias)
 
 
@@ -189,8 +232,9 @@ class CNN2d(_Tower):
 
     ``use_pallas`` and ``fuse_bn`` come from the JAX package's configs
     and have no effect: on CUDA the port always runs its kernels, on the
-    CPU their plain versions. ``dropout`` > 0 raises in training (not
-    ported yet)."""
+    CPU their plain versions (with ``fuse_bn`` the JAX tower computes the
+    same function). ``residual_connections[i] = j`` adds layer i's output
+    to layer j's. ``dropout`` > 0 raises in training (not ported yet)."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -201,7 +245,8 @@ class CNN2d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(self, residual_connections, norm, compute_dtype)
+        _check_common(norm, compute_dtype)
+        self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
         self.kernels = [(k, k) if not isinstance(k, (tuple, list))
                         else tuple(k) for k in to_list(kernel_size, n)]
@@ -236,6 +281,7 @@ class CNN2d(_Tower):
         """(B, T, F, C) -> ((B, T, F', C') bf16, seq_len)."""
         check_dropout(self, self.dropout)
         n = len(self.out_channels)
+        pending = {}
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
@@ -244,13 +290,17 @@ class CNN2d(_Tower):
             h = getattr(self, f'conv_{i}')(h.to(torch.bfloat16))
             if not self.pre_activation and not is_output:
                 h = self._norm_act(i, h, seq_len).to(torch.bfloat16)
+            h = _add_pending(pending, i, h).to(torch.bfloat16)
+            if self.residuals[i] is not None:
+                pending.setdefault(int(self.residuals[i]), []).append(h)
             if self.pools[i][0] == 2:
                 h = MaxPoolFreq2.apply(h)
         return h, seq_len
 
 
 class CNN1d(_Tower):
-    """Stack of 1-D convolutions over time on (B, T, C)."""
+    """Stack of 1-D convolutions over time on (B, T, C), with residual
+    skips (``residual_connections[i] = j``) added in f32."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -260,7 +310,8 @@ class CNN1d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(self, residual_connections, norm, compute_dtype)
+        _check_common(norm, compute_dtype)
+        self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
         self.kernels = to_list(
             list(kernel_size) if isinstance(kernel_size, (list, tuple))
@@ -286,6 +337,7 @@ class CNN1d(_Tower):
         """(B, T, C) -> ((B, T, C') f32, seq_len)."""
         check_dropout(self, self.dropout)
         n = len(self.out_channels)
+        pending = {}
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
@@ -294,6 +346,9 @@ class CNN1d(_Tower):
             h = getattr(self, f'conv_{i}')(h)
             if not self.pre_activation and not is_output:
                 h = self._norm_act(i, h, seq_len)
+            h = _add_pending(pending, i, h)
+            if self.residuals[i] is not None:
+                pending.setdefault(int(self.residuals[i]), []).append(h)
         return h, seq_len
 
 

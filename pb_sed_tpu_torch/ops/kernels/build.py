@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
-            'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0}
+            'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
+            'avgpool_freq2': 0, 'avgpool_freq2_bwd': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,8 @@ _SIGNATURES = {
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),
     'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
+    'pbsed_avgpool_freq2': (_P, _I, _P, ctypes.c_longlong, _I, _I, _P),
+    'pbsed_avgpool_freq2_bwd': (_P, _P, _I, ctypes.c_longlong, _I, _I, _P),
 }
 
 _lib = None

@@ -1,16 +1,18 @@
-"""2-D conv tower kernels: the 3x3-class SAME conv and the (2, 1) freq
-max-pool, forward and backward, each as a hand-written CUDA kernel with
-its plain PyTorch version beside it, and the autograd Functions that tie
-each forward to its backward (``Conv2dSame``, ``MaxPoolFreq2``).
+"""2-D conv tower kernels: the odd-kernel SAME conv (3x3 and 1x1), the
+(2, 1) freq max-pool and the (2, 1) freq average pool that matches a
+residual across a pool, forward and backward, each as a hand-written CUDA
+kernel with its plain PyTorch version beside it, and the autograd
+Functions that tie each forward to its backward (``Conv2dSame``,
+``MaxPoolFreq2``, ``AvgPoolFreq2``).
 
 All work on the channels-last ``(B, T, F, C)`` layout of the tower and
 keep the JAX package's parameter layout (conv kernel HWIO
 ``(kt, kf, Cin, Cout)``). On a CPU tensor a wrapper runs the plain
 version; on a CUDA tensor it launches the kernel (``csrc/conv2d.cu``,
-``csrc/conv2d_bwd.cu``, ``csrc/maxpool.cu``) or raises. The Functions'
-backward calls the backward wrapper, so on the CPU the tests reach the
-plain backward's own formula (tie rule, rounding points), not autograd
-of the plain forward.
+``csrc/conv2d_bwd.cu``, ``csrc/maxpool.cu``, ``csrc/avgpool.cu``) or
+raises. The Functions' backward calls the backward wrapper, so on the
+CPU the tests reach the plain backward's own formula (tie rule, rounding
+points), not autograd of the plain forward.
 """
 import math
 
@@ -256,3 +258,90 @@ class MaxPoolFreq2(torch.autograd.Function):
     def backward(ctx, gy):
         (x,) = ctx.saved_tensors
         return maxpool_freq2_bwd(x, gy)
+
+
+def _check_avg(x, cout):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'avgpool_freq2 takes bfloat16 or float32, got '
+                        f'{x.dtype}')
+    if x.dim() != 4 or x.shape[2] % 2:
+        raise ValueError(f'expected (B, T, F, C) with even F, got '
+                         f'{tuple(x.shape)}')
+    if cout < x.shape[3]:
+        raise ValueError(f'cannot pad {x.shape[3]} channels to {cout}')
+
+
+def avgpool_freq2_plain(x, cout=None):
+    """Plain version: the f32 mean of the even and odd freq rows, zero
+    channels appended up to ``cout``."""
+    c = x.shape[3]
+    y = (x[:, :, 0::2].float() + x[:, :, 1::2].float()) * .5
+    return F.pad(y, (0, (cout or c) - c)).contiguous()
+
+
+def avgpool_freq2(x, cout=None):
+    """(2, 1) freq average pool of a residual: ``(B, T, F, C)`` bf16 or
+    f32 -> ``(B, T, F/2, cout)`` f32 (``cout`` defaults to C; channels
+    from C on are zeros), bit-exact against the plain version."""
+    cout = x.shape[3] if cout is None else int(cout)
+    _check_avg(x, cout)
+    if x.device.type == 'cpu':
+        return avgpool_freq2_plain(x, cout)
+    build.require_cuda(x)
+    bsz, t, f, c = x.shape
+    x = x.contiguous()
+    y = torch.empty((bsz, t, f // 2, cout), dtype=torch.float32,
+                    device=x.device)
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError('avgpool_freq2 needs 16-byte aligned buffers')
+    build.launch('avgpool_freq2', 'pbsed_avgpool_freq2', x.device,
+                 x.data_ptr(), int(x.dtype == torch.float32), y.data_ptr(),
+                 bsz * t * (f // 2), c, cout)
+    return y
+
+
+def avgpool_freq2_bwd_plain(gy, c, dtype):
+    """Plain backward: half the (f32) cotangent of the first ``c``
+    channels to both rows, cast to ``dtype`` (the Pallas kernel's
+    ``(gy * 0.5).astype(dx.dtype)``)."""
+    g = (gy[..., :c].float() * .5).to(dtype)
+    return torch.stack([g, g], dim=3).reshape(
+        gy.shape[0], gy.shape[1], 2 * gy.shape[2], c)
+
+
+def avgpool_freq2_bwd(gy, c, dtype):
+    """Backward of :func:`avgpool_freq2` for an input of ``c`` channels
+    and type ``dtype``: ``(B, T, F/2, cout)`` cotangent -> ``(B, T, F, c)``
+    in ``dtype``, bit-exact against the plain version."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'avgpool_freq2_bwd gives bfloat16 or float32, got '
+                        f'{dtype}')
+    if gy.dim() != 4 or gy.shape[3] < c:
+        raise ValueError(f'cotangent {tuple(gy.shape)} for {c} channels')
+    if gy.device.type == 'cpu':
+        return avgpool_freq2_bwd_plain(gy, c, dtype)
+    build.require_cuda(gy)
+    bsz, t, fo, cout = gy.shape
+    gy = gy.float().contiguous()
+    dx = torch.empty((bsz, t, 2 * fo, c), dtype=dtype, device=gy.device)
+    if gy.data_ptr() % 16 or dx.data_ptr() % 16:
+        raise ValueError('avgpool_freq2_bwd needs 16-byte aligned buffers')
+    build.launch('avgpool_freq2_bwd', 'pbsed_avgpool_freq2_bwd', gy.device,
+                 gy.data_ptr(), dx.data_ptr(), int(dtype == torch.float32),
+                 bsz * t * fo, c, cout)
+    return dx
+
+
+class AvgPoolFreq2(torch.autograd.Function):
+    """:func:`avgpool_freq2` (with the channel pad to ``cout``) and its
+    backward :func:`avgpool_freq2_bwd`: a residual matched across a
+    (2, 1) pool (``pb_sed_tpu/ops/cnn.py:_match_residual_packed``)."""
+
+    @staticmethod
+    def forward(ctx, x, cout):
+        ctx.c, ctx.dtype = x.shape[3], x.dtype
+        return avgpool_freq2(x, cout)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return avgpool_freq2_bwd(gy, ctx.c, ctx.dtype), None

@@ -6,7 +6,8 @@ backward heads as one D=2 recurrence per layer.
 Counterpart of ``pb_sed_tpu/ops/rnn.py`` with its parameter layouts and
 names: ``layer_{i}_fwd.{w_ih (F, 3H), w_hh (H, 3H), b_ih, b_hh}`` in
 torch gate order (r, z, n). The input projections of all timesteps are
-one bf16 matmul outside the recurrence; the recurrence is the autograd
+one bf16 matmul outside the recurrence, with the f32 input bias inside
+its one rounding (``ops/linear.py:Bf16Linear``); the recurrence is the autograd
 Function ``ops/kernels/gru.py:GruScan`` (forward and backward kernels).
 Bidirectional layers, the Transformer head and inter-layer dropout in
 training are not ported yet and raise.
@@ -17,6 +18,7 @@ from torch import nn
 from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu_torch.ops.cnn import CNN1d, check_dropout
 from pb_sed_tpu_torch.ops.kernels.gru import GruScan
+from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import reverse_sequence
 
 
@@ -38,22 +40,16 @@ class GRULayer(nn.Module):
             self.register_buffer('b_hh', torch.zeros(g), persistent=False)
 
     def project(self, x):
-        """(B, T, F) -> (B, T, 3H) input projections plus input bias: one
-        bf16 ``addmm`` with f32 accumulation, its result rounded once to
-        bf16 (the type the recurrence reads), so the (for sliding
-        windows, large) result is written once, at half the size of f32.
-
-        Known deviation from the JAX package (``pb_sed_tpu/ops/rnn.py:
-        99-101``), kept for speed: ``b_ih`` is rounded to bf16 before
-        ``addmm`` adds it, where JAX adds the f32 bias to the f32
-        product; in training the gradient of ``b_ih`` is bf16-rounded
-        too."""
+        """(B, T, F) -> (B, T, 3H) bf16 input projections plus input bias,
+        rounded once, the type the recurrence reads: the JAX package's
+        ``jnp.dot(..., preferred_element_type=f32) + b_ih``
+        (``pb_sed_tpu/ops/rnn.py:95-101``) streamed as bf16
+        (``ops/pallas/gru.py:178``). ``dw_ih`` is the bf16 matmul's."""
         if x.shape[-1] != self.input_size:
             raise ValueError(f'GRU layer expects {self.input_size} input '
                              f'features, got {x.shape[-1]}')
-        y = torch.addmm(self.b_ih.to(torch.bfloat16),
-                        x.reshape(-1, x.shape[-1]).to(torch.bfloat16),
-                        self.w_ih.to(torch.bfloat16))
+        y = Bf16Linear.apply(x.reshape(-1, x.shape[-1]), self.w_ih,
+                             self.b_ih)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
     def forward(self, x, h0=None):

@@ -15,9 +15,10 @@ import torch
 
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
-    conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain,
-    maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
-    maxpool_freq2_plain)
+    avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
+    avgpool_freq2_plain, conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain,
+    conv2d_same_plain, maxpool_freq2, maxpool_freq2_bwd,
+    maxpool_freq2_bwd_plain, maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -40,6 +41,8 @@ def gen():
     (2, 9, 6, 5, 32, 3, 3),      # Cin off the 8-wide vector path
     (2, 11, 8, 24, 48, 5, 3),    # Cin not a multiple of 16, Cout 48
     (1, 4, 3, 16, 64, 1, 3),     # kt = 1
+    (2, 5, 8, 256, 512, 3, 3),   # deep L16's channels, ragged pixel tile
+    (1, 7, 8, 512, 512, 1, 1),   # deep L17: the 1x1 conv
 ])
 def test_conv2d_kernel_matches_plain(gen, b, t, f, cin, cout, kt, kf):
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
@@ -82,6 +85,27 @@ def test_gru_kernel_matches_plain(gen, d, b, t, h):
     assert float((got - ref).abs().max()) <= 5.3e-3
 
 
+@pytest.mark.parametrize('shape,cout,dtype', [
+    ((2, 3, 6, 16), 16, torch.bfloat16),
+    ((2, 3, 6, 16), 32, torch.bfloat16),   # the fused channel pad
+    ((1, 5, 4, 12), 20, torch.bfloat16),   # C off the vector width
+    ((2, 7, 8, 24), 48, torch.float32),    # a residual's second pool
+])
+def test_avgpool_kernel_bit_exact(gen, shape, cout, dtype):
+    x = torch.randn(*shape, generator=gen, device='cuda').to(dtype)
+    n = build.LAUNCHES['avgpool_freq2']
+    got = avgpool_freq2(x, cout)
+    assert build.LAUNCHES['avgpool_freq2'] == n + 1
+    assert torch.equal(got, avgpool_freq2_plain(x, cout))
+    gy = torch.randn(shape[0], shape[1], shape[2] // 2, cout, generator=gen,
+                     device='cuda')
+    n = build.LAUNCHES['avgpool_freq2_bwd']
+    dx = avgpool_freq2_bwd(gy, shape[3], dtype)
+    assert build.LAUNCHES['avgpool_freq2_bwd'] == n + 1
+    assert dx.dtype == dtype
+    assert torch.equal(dx, avgpool_freq2_bwd_plain(gy, shape[3], dtype))
+
+
 def test_kernels_raise_on_unsupported_shapes(gen):
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
     with pytest.raises(ValueError):
@@ -102,6 +126,8 @@ def _max_err(got, ref):
     (2, 9, 6, 5, 32, 3, 3),      # Cin off the vector width
     (3, 13, 8, 24, 48, 5, 3),    # Cout 48, kt = 5, B*T*F = 312
     (2, 50, 16, 128, 256, 3, 3), # the layer-9 channel counts
+    (2, 9, 8, 256, 512, 3, 3),   # deep L16
+    (1, 9, 8, 512, 512, 1, 1),   # deep L17, 1x1
 ])
 def test_conv2d_backward_kernel_matches_plain(gen, b, t, f, cin, cout, kt,
                                               kf):

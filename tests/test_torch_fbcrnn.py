@@ -177,10 +177,25 @@ def test_jax_keys_are_the_ports(models):
 
 
 def test_unported_recipes_raise():
-    """Residual skips (deep recipe) are not ported: the config raises
-    instead of building a different network."""
+    """The deep recipe (residual skips, 3x3/1x1 towers, H = 512) builds at
+    full width; what is still unported raises instead of building a
+    different network: a bidirectional GRU head, dropout in training."""
+    deep = tweak.CRNN.from_config(tweak.CRNN.get_config(
+        fbcrnn_config('deep', num_events=527)))
+    module = deep.module
+    assert module.cnn.cnn_2d.residuals[2] == 4
+    assert module.rnn_fwd.rnn.hidden_size == 512
+    assert module.rnn_bwd.output_net.conv_1.kernel.shape == (1, 512, 527)
+    config = fbcrnn_config('deep', num_events=527)
+    config['rnn_fwd']['rnn']['bidirectional'] = True
     with pytest.raises(NotImplementedError):
-        tweak.CRNN.from_config(tweak.CRNN.get_config(fbcrnn_config('deep')))
+        tweak.CRNN.from_config(tweak.CRNN.get_config(config))
+    module.cnn.cnn_1d.dropout = .1
+    module.train()
+    batch = {'audio_data': np.zeros((1, 16000), np.float32),
+             'seq_len': np.array([51], np.int32)}
+    with pytest.raises(NotImplementedError):
+        module(deep.to_device(batch))
 
 
 def test_cnn_lift_channels_match_jax():

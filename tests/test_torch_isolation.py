@@ -1,7 +1,7 @@
 """The port runs where there is no JAX: every module of
 ``pb_sed_tpu_torch`` imports, and the tiny serving slice and two
 ``Trainer`` steps run on the CPU, in a process where importing jax,
-flax, optax or pandas fails; none of the six kernel launch counters
+flax, optax or pandas fails; none of the eight kernel launch counters
 moves on the CPU. And ``chip_smoke.py`` refuses to run without a CUDA
 card."""
 import os
@@ -61,7 +61,7 @@ trainer = Trainer(model, stop_trigger=(2, 'iteration'))
 trainer.train([batch, batch])
 assert trainer.iteration == 2
 assert np.isfinite(float(trainer.train_step(batch)))
-assert len(build.LAUNCHES) == 6
+assert len(build.LAUNCHES) == 8
 assert all(v == 0 for v in build.LAUNCHES.values())
 assert not any(sys.modules.get(n) for n in ('jax', 'flax', 'optax', 'pandas'))
 print('ISOLATED_OK', len(names))
