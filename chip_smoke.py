@@ -11,13 +11,23 @@ runs, in order:
 2, 2b. kernel vs plain: every kernel, forward (2) and backward (2b),
    against its plain PyTorch version on the card at the shapes the
    full-width shallow FBCRNN gives it (B=32 ten-second clips), with
-   max|delta| against the stated tolerance and median CUDA-event times
-   of both.
+   max|delta| against the stated tolerance, median CUDA-event times of
+   both and of one PyTorch library call that computes the same function
+   where there is one (cuDNN's bf16 channels-last conv and its backward,
+   the max and average pools), and the least time the card could take
+   (bytes at 3.35 TB/s or operations at 989 TFLOP/s bf16 / 67 TFLOP/s
+   f32, whichever is larger). The BN+ReLU-fused conv and its backward
+   run at the shallow tower's fused layers L1-L8, with a scale and shift
+   that make about half the pre-activations negative and the shift often
+   positive (a lit SAME halo or a wrong gate shows).
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
-   channel-blocked kernel), the max-pool at the deep tower's four pools,
-   the residual average pool at the four pool crossings (bit-exact), the
-   GRU at H = 512; then the 1x1 convs, which run as a bf16 matmul.
+   channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
+   deep tower's four pools, the residual average pool at the four pool
+   crossings (bit-exact), the GRU at H = 512; the fused GRU backward
+   (split=False, no path selects it, as in the JAX package) at H = 256
+   and 512 against its plain version and the split kernel; then the 1x1
+   convs, which run as a bf16 matmul.
 3. serving: the full-width shallow FBCRNN (random weights from a seed,
    passed through the weight bridge) serves batches of 32 ten-second
    clips through ``models.base.inference``'s tagging, boundaries
@@ -40,9 +50,18 @@ runs, in order:
    gradient clipping 0.1, no strong loss, augmentation on), then the
    checks of phase 4. Every launch counter must rise in the training run,
    the avg-pool pair's too.
+6. the deep recipe with ``cnn_2d.fuse_bn = True`` from phase 5's weights:
+   527-class tagging of the same 3 x 32 clips, which must agree with phase
+   5's unfused model and with the CPU, and 8 ``Trainer`` steps with
+   phase 4's checks, steps/s, clips/s and peak memory beside phase 5's.
+   Per forward, ``bnrelu_conv2d_same`` launches 8 times (L2-L16) and
+   ``conv2d_same`` once (L0); the fused backward rises in training. Then
+   the shallow recipe with ``fuse_bn``: one batch served, 2 training
+   steps, the card-vs-CPU step.
 
-Each path (shallow serving and training, deep serving and training) runs
-with the launch counters set to 0 just before it and read just after.
+Each path (shallow serving and training, deep serving and training, the
+fused ones) runs with the launch counters set to 0 just before it and
+read just after.
 Any failure raises (non-zero exit). The line before the last is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
@@ -54,17 +73,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from pb_sed_tpu.train.hooks import Hook
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
-    avgpool_freq2_plain, conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain,
-    conv2d_same_plain, maxpool_freq2, maxpool_freq2_bwd,
-    maxpool_freq2_bwd_plain, maxpool_freq2_plain)
+    avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
+    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, maxpool_freq2,
+    maxpool_freq2_bwd, maxpool_freq2_bwd_plain, maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
+from pb_sed_tpu_torch.train.hooks import Hook
 
 BATCH, FRAMES = 32, 500           # 32 ten-second 16 kHz clips, shift 320
 # (name, F, Cin, Cout) of the shallow CNN2d's layers
@@ -94,6 +115,8 @@ DEEP_POOLS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 DEEP_CROSSINGS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 DEEP_GRU_SHAPES = [(2, BATCH, FRAMES, 512), (2, BATCH * FRAMES, 51, 512)]
 
+# name: route, source, the TPU kernel(s) it replaces, and the path whose
+# launch count the kernels line reports as ``launches``
 KERNELS = {
     'conv2d_same': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d.cu',
@@ -122,11 +145,38 @@ KERNELS = {
     'avgpool_freq2_bwd': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/avgpool.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1875'},
+    'bnrelu_conv2d_same': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1306, '
+                    'pb_sed_tpu/ops/pallas/conv.py:1362'},
+    'bnrelu_conv2d_same_bwd': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_bwd.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1403, '
+                    'pb_sed_tpu/ops/pallas/conv.py:552, '
+                    'pb_sed_tpu/ops/pallas/conv.py:1469'},
+    'gru_scan_bwd_fused': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd_fused.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:237'},
 }
+# the path each kernel's ``launches`` is read from: the deep training run
+# drives the unfused kernels, the deep fuse_bn training run the fused
+# conv pair; no path selects the fused GRU backward (as in the JAX
+# package), so its count is that of its kernel phase
+MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
+                 bnrelu_conv2d_same='deep_fuse_bn_training',
+                 bnrelu_conv2d_same_bwd='deep_fuse_bn_training',
+                 gru_scan_bwd_fused='kernel_phase')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan')
 SHALLOW = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_bwd',
            'maxpool_freq2_bwd', 'gru_scan_bwd')
+DEEP = SHALLOW + ('avgpool_freq2', 'avgpool_freq2_bwd')
+FUSED = ('bnrelu_conv2d_same', 'bnrelu_conv2d_same_bwd')
 TRAIN_STEPS = 8
+# the card's peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
+# bf16 tensor-core and f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(*args):
@@ -174,25 +224,116 @@ def phase_card():
     return card
 
 
-def _check(name, shape, got, ref, tol, k_ms, p_ms, record, label):
+def bound(nbytes, tensor_flops=0., vector_ops=0.):
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` (each input read once, each output written once) and does
+    ``tensor_flops`` bf16 tensor-core and ``vector_ops`` f32 operations,
+    and which of the two binds: (ms, 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tensor_flops / BF16_FLOPS + vector_ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def new_record():
+    """A kernel's sums. A time no check measured stays None (printed as
+    null), never 0."""
+    return {'max_abs_err': 0., 'bound_ms': 0., 'bound_bytes_ms': 0.,
+            'bound_operations_ms': 0., 'library_ms': None,
+            **{f'{label}_{kind}': None for label in ('shallow', 'deep')
+               for kind in ('ms', 'plain_ms', 'library_ms')}}
+
+
+def _add(record, key, value):
+    record[key] = (record[key] or 0.) + value
+
+
+def _total(*values):
+    """Sum of the measured values; None when none was measured."""
+    measured = [v for v in values if v is not None]
+    return sum(measured) if measured else None
+
+
+def _check(name, shape, got, ref, tol, k_ms, p_ms, record, label,
+           lib_ms=None, work=None):
+    """Hold a kernel's result against its plain version; add its times
+    (kernel, plain, library call) and its bound (``work``: (ms, side))
+    to ``record``."""
     err = float((got.float() - ref.float()).abs().max())
     ok = err <= tol
+    extra = '' if lib_ms is None else f' library={lib_ms:.3f} ms'
+    if work is not None:
+        extra += f' bound={work[0]:.3f} ms ({work[1]})'
     log(f'{name} {shape}: max|d|={err:.3e} tol={tol:.3e} '
-        f'kernel={k_ms:.3f} ms plain={p_ms:.3f} ms '
+        f'kernel={k_ms:.3f} ms plain={p_ms:.3f} ms{extra} '
         f'{"ok" if ok else "FAIL"}')
     if not ok:
         raise AssertionError(f'{name} {shape}: kernel differs from plain '
                              f'version by {err} > {tol}')
     record['max_abs_err'] = max(record['max_abs_err'], err)
-    record[f'{label}_ms'] += k_ms
-    record[f'{label}_plain_ms'] += p_ms
+    _add(record, f'{label}_ms', k_ms)
+    _add(record, f'{label}_plain_ms', p_ms)
+    if lib_ms is not None:
+        _add(record, f'{label}_library_ms', lib_ms)
+        _add(record, 'library_ms', lib_ms)
+    if work is not None:
+        record['bound_ms'] += work[0]
+        record[f'bound_{work[1]}_ms'] += work[0]
 
 
-def check_kernels(records, label, seed, convs, pools, grus, crossings=()):
+def _nchw(x):
+    """(B, T, F, C) -> its NCHW view, channels-last in memory."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _oihw(w):
+    """(kt, kf, Cin, Cout) weights -> bf16 OIHW, channels-last."""
+    return w.to(torch.bfloat16).permute(3, 0, 1, 2).contiguous().permute(
+        0, 3, 1, 2)
+
+
+def conv_work(p, cin, cout, taps=9, affine=False, backward=False):
+    """Bytes and operations of the SAME conv (forward, or its dx + dw
+    backward) over ``p`` pixels: bf16 activations and weights, f32 bias,
+    dw and scale/shift; the fused conv's affine + ReLU is 3 f32
+    operations per input element, once more for the backward's recompute
+    of the post-activation buffer."""
+    if backward:
+        nbytes = 2 * p * cin + 2 * taps * cin * cout + 2 * p * cout \
+            + 2 * p * cin + 4 * taps * cin * cout
+        flops = 4. * p * taps * cin * cout
+    else:
+        nbytes = 2 * p * cin + 2 * taps * cin * cout + 4 * cout \
+            + 2 * p * cout
+        flops = 2. * p * taps * cin * cout
+    if affine:
+        nbytes += 8 * cin
+    return bound(nbytes, flops, 3. * p * cin if affine else 0.)
+
+
+def gru_work(d, b, t, h, backward=False):
+    """Bytes and operations of the GRU recurrence (forward: xw bf16, w_hh
+    bf16, b_hh and h0 f32 in, y f32 out; backward: also y and g f32 in,
+    dxw bf16, dw_hh, db_hh and dh0 f32 out): the recurrent matmul (twice
+    more backward: dh and dw_hh) and about 12 f32 gate operations per
+    hidden unit and step (24 backward)."""
+    rows = d * b * t
+    nbytes = 2 * rows * 3 * h + 2 * d * h * 3 * h + 4 * d * 3 * h \
+        + 4 * d * b * h + 4 * rows * h
+    if backward:
+        nbytes += 4 * rows * h + 2 * rows * 3 * h + 4 * d * h * 3 * h \
+            + 4 * d * 3 * h + 4 * d * b * h
+    return bound(nbytes, (3 if backward else 1) * 2. * rows * h * 3 * h,
+                 (24 if backward else 12) * rows * h)
+
+
+def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
+                  fused=()):
     """Every kernel vs its plain version at one model's shapes (B=32,
     T=500), forward and backward, with the launch-counted wrappers; the
-    kernel and plain times (median CUDA-event ms) add up into
-    ``records[name][label + '_ms' / '_plain_ms']``. TF32 is off for the
+    kernel, plain and library times (median CUDA-event ms) and the bounds
+    add up into ``records[name]``. ``fused`` names the conv layers of
+    ``convs`` that the BN+ReLU-fused conv runs at. TF32 is off for the
     plain versions' f32 conv/matmul (cuDNN would default to TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,15 +346,19 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=()):
     # conv: both sides round the same f32 sum once to bf16; a different
     # summation order may flip that rounding by one bf16 ulp, so y and dx
     # are held to 2^-7 * max|ref|; dw: f32 sums over up to 2,048,000
-    # pixels in another order, 1e-3 * max|ref|, and the same in two runs
+    # pixels in another order, 1e-3 * max|ref|, and the same in two runs.
+    # The library call: cuDNN's bf16 conv on the channels-last tensors
+    # (forward, and convolution_backward for dx and dw together).
     for layer, f, cin, cout in convs:
         x = randn(BATCH, FRAMES, f, cin).to(torch.bfloat16)
         w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
         b = randn(cout, scale=.1)
         gy = randn(BATCH, FRAMES, f, cout, scale=1e-3).to(torch.bfloat16)
+        p = BATCH * FRAMES * f
         shape = (layer, BATCH, FRAMES, f, cin, cout)
         if layer in CHANNEL_BLOCKED:
             shape += ('_fwd_kernel_cb',)
+        xn, wn, bn = _nchw(x), _oihw(w), b.to(torch.bfloat16)
         got = conv2d_same(x, w, b)
         ref = conv2d_same_plain(x, w, b)
         torch.cuda.synchronize()
@@ -221,67 +366,133 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=()):
                2. ** -7 * float(ref.float().abs().max()),
                cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
                cuda_ms(lambda: conv2d_same_plain(x, w, b), reps=5),
-               records['conv2d_same'], label)
+               records['conv2d_same'], label,
+               cuda_ms(lambda: F.conv2d(xn, wn, bn, padding=1), reps=5),
+               conv_work(p, cin, cout))
+        del got, ref
         dx, dw = conv2d_same_bwd(x, w, gy)
         ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
         torch.cuda.synchronize()
         k_ms = cuda_ms(lambda: conv2d_same_bwd(x, w, gy), reps=5)
         p_ms = cuda_ms(lambda: conv2d_same_bwd_plain(x, w, gy), reps=5)
+        gyn = _nchw(gy)
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False]), reps=5)
         _check('conv2d_same_bwd dx', shape, dx, ref_dx,
                2. ** -7 * float(ref_dx.float().abs().max()), k_ms, p_ms,
-               records['conv2d_same_bwd'], label)
+               records['conv2d_same_bwd'], label, lib_ms,
+               conv_work(p, cin, cout, backward=True))
         _check('conv2d_same_bwd dw', shape, dw, ref_dw,
                1e-3 * float(ref_dw.abs().max()), 0., 0.,
                records['conv2d_same_bwd'], label)
         if not torch.equal(dw, conv2d_same_bwd(x, w, gy)[1]):
             raise AssertionError(f'conv2d_same_bwd {shape}: dw differs '
                                  f'between two runs')
-        del x, gy, got, ref, dx, dw, ref_dx, ref_dw
+        del dx, dw, ref_dx, ref_dw
+        if layer in fused:
+            # scale in [.5, 1.5), shift ~ N(0, .5^2): about half the
+            # pre-activations negative, the shift often positive
+            scale = .5 + torch.rand(cin, generator=gen, device=dev)
+            shift = randn(cin, scale=.5)
+            args = (x, scale, shift, w)
+            got = bnrelu_conv2d_same(*args, b)
+            ref = bnrelu_conv2d_same_plain(*args, b)
+            torch.cuda.synchronize()
+            _check('bnrelu_conv2d_same', shape, got, ref,
+                   2. ** -7 * float(ref.float().abs().max()),
+                   cuda_ms(lambda: bnrelu_conv2d_same(*args, b), reps=5),
+                   cuda_ms(lambda: bnrelu_conv2d_same_plain(*args, b),
+                           reps=5),
+                   records['bnrelu_conv2d_same'], label, None,
+                   conv_work(p, cin, cout, affine=True))
+            del got, ref
+            da, dw = bnrelu_conv2d_same_bwd(*args, gy)
+            ref_da, ref_dw = bnrelu_conv2d_same_bwd_plain(*args, gy)
+            torch.cuda.synchronize()
+            k_ms = cuda_ms(lambda: bnrelu_conv2d_same_bwd(*args, gy), reps=5)
+            p_ms = cuda_ms(lambda: bnrelu_conv2d_same_bwd_plain(*args, gy),
+                           reps=5)
+            _check('bnrelu_conv2d_same_bwd da', shape, da, ref_da,
+                   2. ** -7 * float(ref_da.float().abs().max()), k_ms, p_ms,
+                   records['bnrelu_conv2d_same_bwd'], label, None,
+                   conv_work(p, cin, cout, affine=True, backward=True))
+            _check('bnrelu_conv2d_same_bwd dw', shape, dw, ref_dw,
+                   1e-3 * float(ref_dw.abs().max()), 0., 0.,
+                   records['bnrelu_conv2d_same_bwd'], label)
+            if not torch.equal(dw, bnrelu_conv2d_same_bwd(*args, gy)[1]):
+                raise AssertionError(f'bnrelu_conv2d_same_bwd {shape}: dw '
+                                     f'differs between two runs')
+            del da, dw, ref_da, ref_dw
+        del x, gy
+        torch.cuda.empty_cache()
     # max-pool: a compare and a copy (forward), a compare and a select
-    # (backward), bit-exact, on tie-heavy input (every padded frame ties)
+    # (backward), bit-exact, on tie-heavy input (every padded frame ties);
+    # the library calls: max_pool2d and its backward with the indices
     for f, c in pools:
         x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
         x[:, FRAMES - 100:] = 0.
         gy = randn(BATCH, FRAMES, f // 2, c).to(torch.bfloat16)
+        n = BATCH * FRAMES * f * c
+        xn, gyn = _nchw(x), _nchw(gy)
         got = maxpool_freq2(x)
         ref = maxpool_freq2_plain(x)
         torch.cuda.synchronize()
         _check('maxpool_freq2', (BATCH, FRAMES, f, c), got, ref, 0.,
                cuda_ms(lambda: maxpool_freq2(x)),
                cuda_ms(lambda: maxpool_freq2_plain(x)),
-               records['maxpool_freq2'], label)
+               records['maxpool_freq2'], label,
+               cuda_ms(lambda: F.max_pool2d(xn, (1, 2))),
+               bound(2 * n + n, 0., n / 2))
         got = maxpool_freq2_bwd(x, gy)
         ref = maxpool_freq2_bwd_plain(x, gy)
         torch.cuda.synchronize()
+        _, idx = F.max_pool2d(xn, (1, 2), return_indices=True)
         _check('maxpool_freq2_bwd', (BATCH, FRAMES, f, c), got, ref, 0.,
                cuda_ms(lambda: maxpool_freq2_bwd(x, gy)),
                cuda_ms(lambda: maxpool_freq2_bwd_plain(x, gy)),
-               records['maxpool_freq2_bwd'], label)
+               records['maxpool_freq2_bwd'], label,
+               cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   gyn, xn, [1, 2], [1, 2], [0, 0], [1, 1], False, idx)),
+               bound(2 * n + n + 2 * n, 0., n / 2))
+        del idx
     # the residual average pool (F, C -> F / 2, 2C): an add and an exact
-    # halving, bit-exact
+    # halving, bit-exact; the library calls: avg_pool2d and its backward
+    # (without the channel pad)
     for f, c in crossings:
         x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
         gy = randn(BATCH, FRAMES, f // 2, 2 * c)
         shape = (BATCH, FRAMES, f, c, 2 * c)
+        n = BATCH * FRAMES * f * c
+        xn, gyn = _nchw(x), _nchw(gy[..., :c].to(x.dtype))
         got = avgpool_freq2(x, 2 * c)
         ref = avgpool_freq2_plain(x, 2 * c)
         torch.cuda.synchronize()
         _check('avgpool_freq2', shape, got, ref, 0.,
                cuda_ms(lambda: avgpool_freq2(x, 2 * c)),
                cuda_ms(lambda: avgpool_freq2_plain(x, 2 * c)),
-               records['avgpool_freq2'], label)
+               records['avgpool_freq2'], label,
+               cuda_ms(lambda: F.avg_pool2d(xn, (1, 2))),
+               bound(2 * n + 4 * n, 0., n))
         got = avgpool_freq2_bwd(gy, c, x.dtype)
         ref = avgpool_freq2_bwd_plain(gy, c, x.dtype)
         torch.cuda.synchronize()
         _check('avgpool_freq2_bwd', shape, got, ref, 0.,
                cuda_ms(lambda: avgpool_freq2_bwd(gy, c, x.dtype)),
                cuda_ms(lambda: avgpool_freq2_bwd_plain(gy, c, x.dtype)),
-               records['avgpool_freq2_bwd'], label)
+               records['avgpool_freq2_bwd'], label,
+               cuda_ms(lambda: torch.ops.aten.avg_pool2d_backward(
+                   gyn, xn, [1, 2], [1, 2], [0, 0], False, True, None)),
+               bound(4 * n + 2 * n, 0., n))
     # GRU: same bf16 rounding points on both sides; the recurrence carries
     # accumulation-order differences through T steps. Bound: the
     # kernel-vs-scan drift measured for the TPU kernel, 5.3e-3 (forward),
     # 5.3e-3 * max|ref| (backward). Forward at every serving shape,
-    # backward at the training step's (B clips).
+    # backward at the training step's (B clips), the fused backward there
+    # too, against its own plain version and against the split kernel's
+    # dw_hh/db_hh (the two differ in where dgates_n rounds). No PyTorch
+    # call computes the recurrence alone (cuDNN's GRU adds the input
+    # projection): no library time.
     for d, b, t, h in grus:
         xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
         w_hh = randn(d, h, 3 * h, scale=h ** -.5)
@@ -294,26 +505,50 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=()):
                cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
                cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
                        warmup=1),
-               records['gru_scan'], label)
+               records['gru_scan'], label, None, gru_work(d, b, t, h))
         del ref
         if b == BATCH:
             g = randn(d, b, t, h, scale=1e-2)
-            grads = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
-            refs = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
-            torch.cuda.synchronize()
-            k_ms = cuda_ms(lambda: gru_scan_bwd(xw, w_hh, b_hh, h0, y, g),
-                           reps=5)
-            p_ms = cuda_ms(
-                lambda: gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g),
-                reps=3, warmup=1)
-            for name, a, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), grads,
-                                  refs):
-                _check(f'gru_scan_bwd {name}', (d, b, t, h), a, r,
-                       5.3e-3 * float(r.float().abs().max()),
-                       k_ms if name == 'dxw' else 0.,
-                       p_ms if name == 'dxw' else 0.,
-                       records['gru_scan_bwd'], label)
-            del grads, refs, g
+            args = (xw, w_hh, b_hh, h0, y, g)
+            for split, name in ((True, 'gru_scan_bwd'),
+                                (False, 'gru_scan_bwd_fused')):
+                grads = gru_scan_bwd(*args, split=split)
+                refs = gru_scan_bwd_plain(*args, split=split)
+                torch.cuda.synchronize()
+                k_ms = cuda_ms(lambda: gru_scan_bwd(*args, split=split),
+                               reps=5)
+                p_ms = cuda_ms(lambda: gru_scan_bwd_plain(*args, split),
+                               reps=3, warmup=1)
+                for i, part in enumerate(('dxw', 'dw_hh', 'db_hh', 'dh0')):
+                    _check(f'{name} {part}', (d, b, t, h), grads[i], refs[i],
+                           5.3e-3 * float(refs[i].float().abs().max()),
+                           k_ms if i == 0 else 0., p_ms if i == 0 else 0.,
+                           records[name], label, None,
+                           gru_work(d, b, t, h, True) if i == 0 else None)
+                if split:
+                    split_grads = grads
+                else:
+                    # the fused kernel against the split one: dxw and dh0
+                    # from the same sweep (bit-exact); dw_hh and db_hh
+                    # within the backward's bound
+                    for i, part in enumerate(('dxw', 'dw_hh', 'db_hh',
+                                              'dh0')):
+                        a, r = grads[i], split_grads[i]
+                        tol = (0. if part in ('dxw', 'dh0') else
+                               5.3e-3 * float(r.float().abs().max()))
+                        err = float((a.float() - r.float()).abs().max())
+                        log(f'{name} vs split kernel {part} {(d, b, t, h)}:'
+                            f' max|d|={err:.3e} tol={tol:.3e}')
+                        if err > tol:
+                            raise AssertionError(
+                                f'{name} {part}: fused and split kernels '
+                                f'differ by {err} > {tol}')
+                    again = gru_scan_bwd(*args, split=False)
+                    if not all(torch.equal(a, r)
+                               for a, r in zip(grads, again)):
+                        raise AssertionError(f'{name}: two runs differ')
+                del grads, refs
+            del split_grads, g, args
         del xw, y
         torch.cuda.empty_cache()
 
@@ -412,7 +647,7 @@ def _random_flat(config):
     ``export_flat``)."""
     from pb_sed_tpu_torch import bridge
     from pb_sed_tpu_torch.models.weak_label import CRNN
-    template = CRNN.from_config(CRNN.get_config(config))
+    template = CRNN.from_config(CRNN.get_config(config), device='cpu')
     template.load_state_dict(bridge.random_flat(template.state_dict(),
                                                 seed=0))
     return template.state_dict()
@@ -420,15 +655,26 @@ def _random_flat(config):
 
 def _model(config, flat, device='cpu'):
     from pb_sed_tpu_torch.models.weak_label import CRNN
-    model = CRNN.from_config(CRNN.get_config(config))
+    model = CRNN.from_config(CRNN.get_config(config), device='cpu')
     model.load_state_dict(flat)           # bridge.load_flat
     return model.to(device)
 
 
-def _serve(model, methods, batches, k, label):
+def _config(net, k, fuse_bn=False, augment=True, strong=1.):
+    """``fbcrnn_config(net)`` at full width with ``k`` classes, the 2-D
+    tower's ``fuse_bn`` set as asked (the weights do not depend on it)."""
+    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
+    config = fbcrnn_config(net, num_events=k, augment=augment,
+                           strong_fwd_bwd_loss_weight=strong)
+    config['cnn']['cnn_2d']['fuse_bn'] = fuse_bn
+    return config
+
+
+def _serve(model, methods, batches, k, label, kernels=FORWARD):
     """Run ``methods`` (name, function, kwargs) on ``batches`` with the
-    launch counters set to 0 first; check shapes, finiteness and the score
-    range; return (scores by method, launches)."""
+    launch counters set to 0 first; check that ``kernels`` launched and
+    the shapes, finiteness and score range; return (scores by method,
+    launches)."""
     for name, fn, kwargs in methods:      # warm-up: cuFFT/cuBLAS plans
         fn(model, batches[:1], **kwargs)
     torch.cuda.synchronize()
@@ -448,7 +694,7 @@ def _serve(model, methods, batches, k, label):
     log(f'launches in the {label} served run: {launches}')
     log(f'peak device memory ({label} serving): '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
-    for name in FORWARD:
+    for name in kernels:
         if launches[name] <= 0:
             raise AssertionError(f'kernel {name} never launched on the '
                                  f'{label} served path')
@@ -492,8 +738,7 @@ def phase_slice():
     """The full-width shallow FBCRNN served on the card through the
     inference engine; returns the kernels' launch counts of that run."""
     from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
-    config = fbcrnn_config('shallow')
+    config = _config('shallow', 10)
     flat = _random_flat(config)
     model = _model(config, flat, 'cuda')
     log(f'FBCRNN shallow: {model.num_parameters()} parameters, '
@@ -510,13 +755,13 @@ def phase_deep_serving():
     clips by the 527-class AudioSet model, SED at window 51 / shift 1 of
     one batch by a 10-class model (the DESED fine-tune's shape), both
     compared with the CPU on the batch of unequal lengths; returns the
-    launch counts of both runs together."""
+    launch counts of both runs together and the 527-class tags."""
     from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
     launches = {name: 0 for name in KERNELS}
+    tags = None
     for k, methods, served in ((527, _methods(base)[:1], slice(0, 3)),
                                (10, _methods(base)[2:3], slice(1, 2))):
-        config = fbcrnn_config('deep', num_events=k)
+        config = _config('deep', k)
         flat = _random_flat(config)
         model = _model(config, flat, 'cuda')
         log(f'FBCRNN deep, {k} classes: {model.num_parameters()} '
@@ -527,9 +772,102 @@ def phase_deep_serving():
         for name, count in counts.items():
             launches[name] += count
         _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+        tags = results['tagging'] if k == 527 else tags
         del model
         torch.cuda.empty_cache()
+    return launches, tags
+
+
+def phase_fuse_bn_serving(unfused_tags):
+    """Phase 6, served: the deep AudioSet model with ``fuse_bn`` on the
+    same weights and the same 3 x 32 clips as phase 5's tagging; the tags
+    must agree with the unfused model's (atol 1e-4 + 3e-2 * max|ref|: the
+    towers differ in the affine's association and its rounding points)
+    and with the CPU. Each forward launches the fused conv at the 8
+    fused layers (L2-L16) and the plain conv at L0 only."""
+    from pb_sed_tpu_torch.models import base
+    config = _config('deep', 527, fuse_bn=True)
+    flat = _random_flat(config)
+    model = _model(config, flat, 'cuda')
+    fused = sorted(model.module.cnn.cnn_2d.fused)
+    log(f'FBCRNN deep fuse_bn: fused layers {fused}')
+    if fused != list(range(2, 17, 2)):
+        raise AssertionError(f'fused layers {fused} != L2-L16')
+    batches = _synthetic_batches(model.module.feature_extractor.stft)
+    methods = _methods(base)[:1]
+    results, launches = _serve(model, methods, batches, 527,
+                               'deep_fuse_bn/527', FORWARD + FUSED[:1])
+    forwards = len(batches)
+    if (launches['conv2d_same'] != forwards
+            or launches['bnrelu_conv2d_same'] != 8 * forwards):
+        raise AssertionError(f'{forwards} forwards launched conv2d_same '
+                             f'{launches["conv2d_same"]} and '
+                             f'bnrelu_conv2d_same '
+                             f'{launches["bnrelu_conv2d_same"]} times, not '
+                             f'1 and 8 each')
+    worst = 0.
+    for clip, ref in unfused_tags.items():
+        got = results['tagging'][clip]
+        err = float(np.abs(got - ref).max())
+        tol = 1e-4 + 3e-2 * float(np.abs(ref).max())
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f'{clip}: fuse_bn and unfused tags differ '
+                                 f'by {err} > {tol}')
+    log(f'deep fuse_bn vs unfused tags, {len(unfused_tags)} clips: worst '
+        f'max|d|/tol {worst:.3f}')
+    _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+    del model
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_shallow_fuse_bn():
+    """The shallow recipe with ``fuse_bn`` (fused layers L1-L8): one batch
+    of 32 clips tagged (vs the CPU), ``Trainer.train`` for 2 steps, the
+    card-vs-CPU step. Returns the launch counts of the served and the
+    training run."""
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    config = _config('shallow', 10, fuse_bn=True)
+    flat = _random_flat(config)
+    model = _model(config, flat, 'cuda')
+    fused = sorted(model.module.cnn.cnn_2d.fused)
+    if fused != list(range(1, 9)):
+        raise AssertionError(f'shallow fused layers {fused} != L1-L8')
+    batches = _synthetic_batches(model.module.feature_extractor.stft)
+    methods = _methods(base)[:1]
+    results, served = _serve(model, methods, batches[1:2], 10,
+                             'shallow_fuse_bn', FORWARD + FUSED[:1])
+    _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+
+    def make_model(augment):
+        return _model(_config('shallow', 10, fuse_bn=True, augment=augment),
+                      flat)
+
+    stft = model.module.feature_extractor.stft
+    train = _train_batches(stft, 2, BATCH, 10, seed=5)
+    trainer = Trainer(model, optimizer=Adam(lr=5e-4),
+                      stop_trigger=(2, 'iteration'))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    trainer.train(train)
+    torch.cuda.synchronize()
+    trained = dict(build.LAUNCHES)
+    log(f'launches in the shallow fuse_bn training run (2 steps): '
+        f'{trained}')
+    for name in SHALLOW + FUSED:
+        if trained[name] <= 0:
+            raise AssertionError(f'kernel {name} never launched in the '
+                                 f'shallow fuse_bn training run')
+    loss = float(trainer.train_step(train[0]))
+    if not np.isfinite(loss):
+        raise AssertionError(f'shallow fuse_bn loss {loss}')
+    del trainer, model
+    torch.cuda.empty_cache()
+    _card_vs_cpu(make_model, stft, 10)
+    return served, trained
 
 
 def _train_batches(stft, n, batch_size, seconds, seed, k=10):
@@ -704,30 +1042,32 @@ def _profile_step(trainer, batch, label):
 
 # Trainer settings per recipe: classes, Adam, strong loss weight. Deep:
 # the AudioSet recipe (experiments/weak_label_crnn/training.py:118-151).
+_DEEP_RECIPE = {'net': 'deep', 'k': 527,
+                'adam': {'lr': 1e-4, 'gradient_clipping': .1}, 'strong': 0.}
 RECIPES = {
-    'shallow': {'k': 10, 'adam': {'lr': 5e-4}, 'strong': 1.,
-                'kernels': SHALLOW},
-    'deep': {'k': 527, 'adam': {'lr': 1e-4, 'gradient_clipping': .1},
-             'strong': 0., 'kernels': tuple(KERNELS)},
+    'shallow': {'net': 'shallow', 'k': 10, 'adam': {'lr': 5e-4},
+                'strong': 1., 'fuse_bn': False, 'kernels': SHALLOW},
+    'deep': dict(_DEEP_RECIPE, fuse_bn=False, kernels=DEEP),
+    'deep_fuse_bn': dict(_DEEP_RECIPE, fuse_bn=True, kernels=DEEP + FUSED),
 }
 
 
-def phase_training(net='shallow'):
-    """The full-width FBCRNN ``net`` trained on the card through
-    ``Trainer``; returns the kernels' launch counts of that run."""
-    from pb_sed_tpu.train.hooks import LRAnnealingHook
-    from pb_sed_tpu.utils.config import config_to_json
-    from pb_sed_tpu.utils.misc import dump_json
+def phase_training(recipe_name='shallow'):
+    """The full-width FBCRNN of recipe ``recipe_name`` trained on the card
+    through ``Trainer``; returns the kernels' launch counts of that run
+    and its steps/s, clips/s and peak device memory."""
     from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
     from pb_sed_tpu_torch.models.weak_label import CRNN
+    from pb_sed_tpu_torch.train.hooks import LRAnnealingHook
     from pb_sed_tpu_torch.train.optimizer import Adam
     from pb_sed_tpu_torch.train.trainer import Trainer
-    recipe = RECIPES[net]
+    from pb_sed_tpu_torch.utils.config import config_to_json
+    from pb_sed_tpu_torch.utils.misc import dump_json
+    recipe = RECIPES[recipe_name]
 
     def config(augment):
-        return fbcrnn_config(net, num_events=recipe['k'], augment=augment,
-                             strong_fwd_bwd_loss_weight=recipe['strong'])
+        return _config(recipe['net'], recipe['k'], recipe['fuse_bn'],
+                       augment, recipe['strong'])
 
     flat = _random_flat(config(True))
 
@@ -752,26 +1092,29 @@ def phase_training(net='shallow'):
         trainer.train(batches * (TRAIN_STEPS // len(batches)))
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
-        log(f'launches in the {net} training run: {launches}')
-        for name in recipe['kernels']:
-            if launches[name] <= 0:
-                raise AssertionError(f'kernel {name} never launched in '
-                                     f'the {net} training run')
-        log(f'{net} loss per step: ' + ', '.join(
+        log(f'launches in the {recipe_name} training run: {launches}')
+        for kernel in recipe['kernels']:
+            if launches[kernel] <= 0:
+                raise AssertionError(f'kernel {kernel} never launched in '
+                                     f'the {recipe_name} training run')
+        log(f'{recipe_name} loss per step: ' + ', '.join(
             f'{x:.5f}' for x in step_log.losses))
         if len(step_log.losses) != TRAIN_STEPS or not np.isfinite(
                 step_log.losses).all():
             raise AssertionError(f'training losses: {step_log.losses}')
         steps = np.diff(step_log.times)
         steady = steps[2:]  # steps 1-2: cuBLAS/cuFFT plans, allocator
-        log(f'{net} step times (host clock, synchronized): '
+        log(f'{recipe_name} step times (host clock, synchronized): '
             + ', '.join(f'{1e3 * x:.1f}' for x in steps) + ' ms')
-        log(f'{net} training: {1 / steady.mean():.3f} steps/s = '
-            f'{BATCH / steady.mean():.1f} clips/s over steps 3-'
+        metrics = {'steps_per_s': 1 / steady.mean(),
+                   'clips_per_s': BATCH / steady.mean(),
+                   'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f'{recipe_name} training: {metrics["steps_per_s"]:.3f} steps/s = '
+            f'{metrics["clips_per_s"]:.1f} clips/s over steps 3-'
             f'{TRAIN_STEPS} (batch {BATCH} x 10 s clips, augmentation '
             f'on, host clock)')
-        log(f'peak device memory ({net} training): '
-            f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+        log(f'peak device memory ({recipe_name} training): '
+            f'{metrics["peak_gib"]:.2f} GiB')
         with open(f'{tmp}/summary.jsonl') as fid:
             summary = [json.loads(line) for line in fid]
         log(f'summary.jsonl: {len(summary)} lines, last {summary[-1]}')
@@ -779,8 +1122,8 @@ def phase_training(net='shallow'):
         # the checkpoint restores and serves
         dump_json({'trainer': {'model': config_to_json(
             CRNN.get_config(config(True)))}}, f'{tmp}/1/config.json')
-        restored = CRNN.from_storage_dir(tmp, checkpoint_name='ckpt_latest.pkl',
-                                         device='cuda')
+        restored = CRNN.from_storage_dir(
+            tmp, checkpoint_name='ckpt_latest.pkl', device='cuda')
         serve = {'audio_data': batches[0]['audio_data'][:8],
                  'seq_len': batches[0]['seq_len'][:8],
                  'example_id': [f'clip{j}' for j in range(8)]}
@@ -793,7 +1136,7 @@ def phase_training(net='shallow'):
                                       for v in tags.values()):
             raise AssertionError('the restored checkpoint serves other '
                                  'scores than the trained model')
-        _profile_step(trainer, batches[0], net)
+        _profile_step(trainer, batches[0], recipe_name)
     del trainer, model, restored
     torch.cuda.empty_cache()
 
@@ -801,44 +1144,60 @@ def phase_training(net='shallow'):
     model = make_model(augment=False).to('cuda')
     trainer = Trainer(model, optimizer=Adam(lr=1e-3))
     losses = [float(trainer.train_step(batches[1])) for _ in range(5)]
-    log(f'{net} repeated batch, augmentation off: loss ' + ', '.join(
+    log(f'{recipe_name} repeated batch, augmentation off: loss ' + ', '.join(
         f'{x:.5f}' for x in losses))
     if not losses[-1] < losses[0]:
         raise AssertionError(f'the loss did not fall: {losses}')
     del trainer, model
     torch.cuda.empty_cache()
     _card_vs_cpu(make_model, stft, recipe['k'])
-    return launches
+    return launches, metrics
 
 
 def main():
     card = phase_card()
-    records = {name: {'max_abs_err': 0., 'shallow_ms': 0.,
-                      'shallow_plain_ms': 0., 'deep_ms': 0.,
-                      'deep_plain_ms': 0.} for name in KERNELS}
+    records = {name: new_record() for name in KERNELS}
     log('TF32 off for cuDNN and cuBLAS (plain versions in full f32)')
-    check_kernels(records, 'shallow', 0, CONV_LAYERS, POOLS, GRU_SHAPES)
+    build.reset_launches()
+    check_kernels(records, 'shallow', 0, CONV_LAYERS, POOLS, GRU_SHAPES,
+                  fused=[name for name, *_ in CONV_LAYERS[1:]])
     check_kernels(records, 'deep', 2, DEEP_CONV_LAYERS, DEEP_POOLS,
-                  DEEP_GRU_SHAPES, DEEP_CROSSINGS)
+                  DEEP_GRU_SHAPES, DEEP_CROSSINGS,
+                  fused=[name for name, *_ in DEEP_CONV_LAYERS[1:]])
+    kernel_phase = dict(build.LAUNCHES)
     check_1x1()
-    launches = {'shallow_serving': phase_slice(),
-                'shallow_training': phase_training('shallow'),
-                'deep_serving': phase_deep_serving(),
-                'deep_training': phase_training('deep')}
+    launches = {'shallow_serving': phase_slice()}
+    launches['shallow_training'], _ = phase_training('shallow')
+    launches['deep_serving'], unfused_tags = phase_deep_serving()
+    launches['deep_training'], unfused = phase_training('deep')
+    launches['deep_fuse_bn_serving'] = phase_fuse_bn_serving(unfused_tags)
+    launches['deep_fuse_bn_training'], fused = phase_training('deep_fuse_bn')
+    log('deep training, unfused vs fuse_bn (B=32, steps 3-8, host clock): '
+        + ', '.join(f'{key} {unfused[key]:.3f} vs {fused[key]:.3f}'
+                    for key in ('steps_per_s', 'clips_per_s', 'peak_gib')))
+    (launches['shallow_fuse_bn_serving'],
+     launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
+    launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:
         rec = records[name]
+        side = ('bytes' if rec['bound_bytes_ms'] >= rec['bound_operations_ms']
+                else 'operations')
         kernels.append({
             'name': name, **KERNELS[name],
-            # the deep training run drives every kernel
-            'launches': launches['deep_training'][name],
+            'launches': launches[MAIN_PATH[name]][name],
+            'launches_from': MAIN_PATH[name],
             'launches_by_path': {path: counts[name]
                                  for path, counts in launches.items()},
             'max_abs_err': rec['max_abs_err'],
-            'ms': rec['shallow_ms'] + rec['deep_ms'],
-            'plain_ms': rec['shallow_plain_ms'] + rec['deep_plain_ms'],
-            **{key: rec[key] for key in ('shallow_ms', 'shallow_plain_ms',
-                                         'deep_ms', 'deep_plain_ms')}})
+            'ms': _total(rec['shallow_ms'], rec['deep_ms']),
+            'plain_ms': _total(rec['shallow_plain_ms'],
+                               rec['deep_plain_ms']),
+            'bound_ms': rec['bound_ms'], 'bound_by': side,
+            'library_ms': rec['library_ms'],
+            **{key: rec[key] for key in (
+                'shallow_ms', 'shallow_plain_ms', 'shallow_library_ms',
+                'deep_ms', 'deep_plain_ms', 'deep_library_ms')}})
     print(card)                           # nvidia-smi name, power.limit
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -38,6 +38,18 @@
 // f32 accumulators) for every (tap, 16-column) pair of the tile, so gy
 // is read once for all taps. The chunk count is chosen so that about
 // four blocks per SM run. No pipelining of the staging yet.
+//
+// pbsed_bnrelu_conv2d_same_bwd is the backward of the BN+ReLU-fused conv
+// (conv2d.cu, pbsed_bnrelu_conv2d_same): it returns da, the gradient with
+// respect to the post-activation buffer a = bf16(relu(x * scale +
+// shift)) (launch 1 unchanged: it never reads x), and dw with the x tiles
+// of launch 2 recomputed through that transform at staging (zero halo),
+// summed in the same fixed chunk order. Replaces
+// pb_sed_tpu/ops/pallas/conv.py:_bwd_kernel_bn, the bn path of
+// _bwd_dx_kernel_cb and _bwd_dw_kernel_cb_bn (reached through
+// _bwd_fused_bn). The chain through the affine (dz = da * 1[x*s + t > 0],
+// dx, dscale, dshift) runs outside, in PyTorch, as the JAX package runs
+// it outside its kernels (conv.py:1731-1743).
 #include "conv2d_igemm.cuh"
 
 namespace {
@@ -46,10 +58,12 @@ constexpr int kDwPx = 64;         // pixels per staged K step
 constexpr int kDwThreads = 128;   // 4 warps
 constexpr int kDwMaxTaps = 9;     // taps per block; grid.z covers more
 
-template <int CO_T>
+template <int CO_T, bool AFFINE>
 __global__ void __launch_bounds__(kDwThreads)
 conv2d_dw_partial_kernel(const __nv_bfloat16* __restrict__ x,   // (B,T,F,Cin)
                          const __nv_bfloat16* __restrict__ gy,  // (B,T,F,Cout)
+                         const float* __restrict__ scale,  // (Cin,) if AFFINE
+                         const float* __restrict__ shift,  // (Cin,) if AFFINE
                          float* __restrict__ partial,  // (chunks,KK,Cin_pad,Cout)
                          int T, int F, int Cin, int Cin_pad, int Cout,
                          int kt, int kf, long long P, long long chunk_px) {
@@ -71,7 +85,6 @@ conv2d_dw_partial_kernel(const __nv_bfloat16* __restrict__ x,   // (B,T,F,Cin)
   const int ht = (kt - 1) / 2;
   const int hf = (kf - 1) / 2;
   const bool vec_in = (Cin % 8) == 0;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kPairsPerWarp];
 #pragma unroll
@@ -110,15 +123,8 @@ conv2d_dw_partial_kernel(const __nv_bfloat16* __restrict__ x,   // (B,T,F,Cin)
       const bool inside = p_ok && st >= 0 && st < T && sf >= 0 && sf < F;
       const long long src =
           inside ? ((static_cast<long long>(pb) * T + st) * F + sf) * Cin : 0;
-      __nv_bfloat16* dst = x_tile + (tap * kDwPx + s_px) * 16 + s_c;
-      if (inside && vec_in && c < Cin) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(x + src + c);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          dst[i] = (inside && c + i < Cin) ? x[src + c + i] : zero;
-      }
+      stage_x8<AFFINE>(x_tile + (tap * kDwPx + s_px) * 16 + s_c, x + src, c,
+                       Cin, inside, vec_in, scale, shift);
     }
     __syncthreads();
 #pragma unroll
@@ -177,19 +183,68 @@ __global__ void conv2d_dw_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int CO_T>
-cudaError_t launch_dw(const void* x, const void* gy, void* ws, int Cin_pad,
-                      int T, int F, int Cin, int Cout, int kt, int kf,
-                      long long P, int chunks, long long chunk_px,
-                      cudaStream_t s) {
+template <int CO_T, bool AFFINE>
+cudaError_t launch_dw(const void* x, const void* gy, const float* scale,
+                      const float* shift, void* ws, int Cin_pad, int T,
+                      int F, int Cin, int Cout, int kt, int kf, long long P,
+                      int chunks, long long chunk_px, cudaStream_t s) {
   const int kk = kt * kf;
   const dim3 grid(chunks, (Cin_pad / 16) * (Cout / CO_T),
                   (kk + kDwMaxTaps - 1) / kDwMaxTaps);
-  conv2d_dw_partial_kernel<CO_T><<<grid, kDwThreads, 0, s>>>(
+  conv2d_dw_partial_kernel<CO_T, AFFINE><<<grid, kDwThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(gy), static_cast<float*>(ws), T, F,
-      Cin, Cin_pad, Cout, kt, kf, P, chunk_px);
+      static_cast<const __nv_bfloat16*>(gy), scale, shift,
+      static_cast<float*>(ws), T, F, Cin, Cin_pad, Cout, kt, kf, P, chunk_px);
   return cudaGetLastError();
+}
+
+template <bool AFFINE>
+cudaError_t launch_dw_n(const void* x, const void* gy, const float* scale,
+                        const float* shift, void* ws, int Cin_pad, int T,
+                        int F, int Cin, int Cout, int kt, int kf, long long P,
+                        int chunks, long long chunk_px, cudaStream_t s) {
+  if (Cout % 64 == 0)
+    return launch_dw<64, AFFINE>(x, gy, scale, shift, ws, Cin_pad, T, F, Cin,
+                                 Cout, kt, kf, P, chunks, chunk_px, s);
+  if (Cout % 32 == 0)
+    return launch_dw<32, AFFINE>(x, gy, scale, shift, ws, Cin_pad, T, F, Cin,
+                                 Cout, kt, kf, P, chunks, chunk_px, s);
+  return launch_dw<16, AFFINE>(x, gy, scale, shift, ws, Cin_pad, T, F, Cin,
+                               Cout, kt, kf, P, chunks, chunk_px, s);
+}
+
+// The three launches of both entry points; scale/shift null for the
+// plain conv, (Cin,) f32 for the BN+ReLU-fused one (dw side only).
+int conv_bwd(const void* x, const void* gy, const void* w_flip,
+             const float* scale, const float* shift, void* dx, void* dw,
+             void* workspace, int B, int T, int F, int Cin, int Cout, int kt,
+             int kf, int chunks, void* stream) {
+  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1 || chunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long P = static_cast<long long>(B) * T * F;
+  if (P == 0) return 0;
+  const long long per = (P + chunks - 1) / chunks;
+  const long long chunk_px = (per + kDwPx - 1) / kDwPx * kDwPx;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      conv2d_igemm(gy, w_flip, nullptr, dx, B, T, F, Cout, Cin, kt, kf, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int Cin_pad = (Cin + 15) / 16 * 16;
+  err = scale != nullptr
+            ? launch_dw_n<true>(x, gy, scale, shift, workspace, Cin_pad, T, F,
+                                Cin, Cout, kt, kf, P, chunks, chunk_px, s)
+            : launch_dw_n<false>(x, gy, nullptr, nullptr, workspace, Cin_pad,
+                                 T, F, Cin, Cout, kt, kf, P, chunks, chunk_px,
+                                 s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(kt) * kf * Cin * Cout;
+  const int threads = 256;
+  long long blocks = (n + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  conv2d_dw_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+      static_cast<const float*>(workspace), static_cast<float*>(dw), chunks,
+      kt * kf, Cin, Cin_pad, Cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -207,33 +262,18 @@ extern "C" int pbsed_conv2d_same_bwd(const void* x, const void* gy,
                                      void* workspace, int B, int T, int F,
                                      int Cin, int Cout, int kt, int kf,
                                      int chunks, void* stream) {
-  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1 || chunks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long P = static_cast<long long>(B) * T * F;
-  if (P == 0) return 0;
-  const long long per = (P + chunks - 1) / chunks;
-  const long long chunk_px = (per + kDwPx - 1) / kDwPx * kDwPx;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      conv2d_igemm(gy, w_flip, nullptr, dx, B, T, F, Cout, Cin, kt, kf, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int Cin_pad = (Cin + 15) / 16 * 16;
-  if (Cout % 64 == 0)
-    err = launch_dw<64>(x, gy, workspace, Cin_pad, T, F, Cin, Cout, kt, kf, P,
-                        chunks, chunk_px, s);
-  else if (Cout % 32 == 0)
-    err = launch_dw<32>(x, gy, workspace, Cin_pad, T, F, Cin, Cout, kt, kf, P,
-                        chunks, chunk_px, s);
-  else
-    err = launch_dw<16>(x, gy, workspace, Cin_pad, T, F, Cin, Cout, kt, kf, P,
-                        chunks, chunk_px, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(kt) * kf * Cin * Cout;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  conv2d_dw_reduce_kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-      static_cast<const float*>(workspace), static_cast<float*>(dw), chunks,
-      kt * kf, Cin, Cin_pad, Cout);
-  return static_cast<int>(cudaGetLastError());
+  return conv_bwd(x, gy, w_flip, nullptr, nullptr, dx, dw, workspace, B, T, F,
+                  Cin, Cout, kt, kf, chunks, stream);
+}
+
+// pbsed_conv2d_same_bwd's contract plus scale and shift (Cin,) f32 of the
+// fused forward: da (B, T, F, Cin) bf16 is the gradient w.r.t. the
+// post-activation buffer, dw contracts the recomputed buffer with gy.
+extern "C" int pbsed_bnrelu_conv2d_same_bwd(
+    const void* x, const void* gy, const void* w_flip, const void* scale,
+    const void* shift, void* da, void* dw, void* workspace, int B, int T,
+    int F, int Cin, int Cout, int kt, int kf, int chunks, void* stream) {
+  return conv_bwd(x, gy, w_flip, static_cast<const float*>(scale),
+                  static_cast<const float*>(shift), da, dw, workspace, B, T,
+                  F, Cin, Cout, kt, kf, chunks, stream);
 }

@@ -17,6 +17,14 @@
 // stored. Loads are 16 bytes wide where the channel counts are
 // multiples of 8. There is no pipelining of the staging yet: a later
 // change can double-buffer it with cp.async/TMA and move to wgmma.
+//
+// With AFFINE (the BN+ReLU-fused conv, conv2d.cu's
+// pbsed_bnrelu_conv2d_same and the weight gradient of conv2d_bwd.cu) the
+// input is staged through a = bf16(relu(f32(x) * scale[c] + shift[c])):
+// the normalized, activated buffer never exists in device memory. The
+// transform runs on in-image elements only; the SAME halo stays 0 (a
+// positive shift must not light it up), as the TPU kernels' mask does
+// after their affine (pb_sed_tpu/ops/pallas/conv.py:_stage_bnrelu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,11 +38,55 @@ constexpr int kIgemmBM = 64;       // output pixels per block: 4 warps x 16 rows
 constexpr int kIgemmBK = 16;       // input channels per K step
 constexpr int kIgemmThreads = 128;
 
-template <int BN>
+// relu(v * s + t) with ONE f32 rounding of v * s + t (a fused
+// multiply-add, as XLA computes the JAX package's affine and as the plain
+// version does through float64), then one rounding to bf16; a NaN stays
+// NaN as in torch.relu
+__device__ __forceinline__ __nv_bfloat16 bnrelu(__nv_bfloat16 v, float s,
+                                                float t) {
+  const float a = __fmaf_rn(__bfloat162float(v), s, t);
+  return __float2bfloat16(a < 0.f ? 0.f : a);
+}
+
+// Stage input channels [c, c + 8) of one pixel (src = its first channel)
+// into dst: zeros outside the image (the SAME halo) and past Cin, else x,
+// or bnrelu(x) with AFFINE. 16-byte loads where Cin % 8 == 0.
+template <bool AFFINE>
+__device__ __forceinline__ void stage_x8(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src, int c,
+                                         int Cin, bool inside, bool vec_in,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ shift) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  if (inside && vec_in && c < Cin) {
+    uint4 raw = *reinterpret_cast<const uint4*>(src + c);
+    if constexpr (AFFINE) {
+      __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = bnrelu(v[i], scale[c + i], shift[c + i]);
+    }
+    *reinterpret_cast<uint4*>(dst) = raw;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      __nv_bfloat16 v = zero;
+      if (inside && c + i < Cin) {
+        v = src[c + i];
+        if constexpr (AFFINE) v = bnrelu(v, scale[c + i], shift[c + i]);
+      }
+      dst[i] = v;
+    }
+  }
+}
+
+template <int BN, bool AFFINE>
 __global__ void __launch_bounds__(kIgemmThreads)
 conv2d_igemm_kernel(const __nv_bfloat16* __restrict__ x,  // (B, T, F, Cin)
                     const __nv_bfloat16* __restrict__ w,  // (kt, kf, Cin, N)
                     const float* __restrict__ bias,       // (N,) or null
+                    const float* __restrict__ scale,      // (Cin,) if AFFINE
+                    const float* __restrict__ shift,      // (Cin,) if AFFINE
                     __nv_bfloat16* __restrict__ y,        // (B, T, F, N)
                     int T, int F, int Cin, int N, int kt, int kf,
                     long long M) {
@@ -83,16 +135,8 @@ conv2d_igemm_kernel(const __nv_bfloat16* __restrict__ x,  // (B, T, F, Cin)
           w + static_cast<long long>(dt * kf + df) * Cin * N;
       for (int ks = 0; ks < k_slices; ++ks) {
         const int c0 = ks * kIgemmBK;
-        __nv_bfloat16* a_dst = a_tile + a_row * kIgemmBK + a_col;
-        const int c = c0 + a_col;
-        if (inside && vec_in && c < Cin) {
-          *reinterpret_cast<uint4*>(a_dst) =
-              *reinterpret_cast<const uint4*>(x + src_off + c);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            a_dst[i] = (inside && c + i < Cin) ? x[src_off + c + i] : zero;
-        }
+        stage_x8<AFFINE>(a_tile + a_row * kIgemmBK + a_col, x + src_off,
+                         c0 + a_col, Cin, inside, vec_in, scale, shift);
         for (int v = tid; v < kIgemmBK * BN / 8; v += kIgemmThreads) {
           const int r = v / (BN / 8);
           const int col = (v % (BN / 8)) * 8;
@@ -142,32 +186,49 @@ conv2d_igemm_kernel(const __nv_bfloat16* __restrict__ x,  // (B, T, F, Cin)
   }
 }
 
-template <int BN>
+template <int BN, bool AFFINE>
 cudaError_t conv2d_igemm_launch(const void* x, const void* w, const void* b,
+                                const float* scale, const float* shift,
                                 void* y, int B, int T, int F, int Cin, int N,
                                 int kt, int kf, cudaStream_t stream) {
   const long long M = static_cast<long long>(B) * T * F;
   const dim3 grid(static_cast<unsigned>((M + kIgemmBM - 1) / kIgemmBM),
                   (N + BN - 1) / BN);
-  conv2d_igemm_kernel<BN><<<grid, kIgemmThreads, 0, stream>>>(
+  conv2d_igemm_kernel<BN, AFFINE><<<grid, kIgemmThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
-      static_cast<__nv_bfloat16*>(y), T, F, Cin, N, kt, kf, M);
+      scale, shift, static_cast<__nv_bfloat16*>(y), T, F, Cin, N, kt, kf, M);
   return cudaGetLastError();
 }
 
+template <bool AFFINE>
+cudaError_t conv2d_igemm_n(const void* x, const void* w, const void* b,
+                           const float* scale, const float* shift, void* y,
+                           int B, int T, int F, int Cin, int N, int kt,
+                           int kf, cudaStream_t stream) {
+  if (N % 64 == 0)
+    return conv2d_igemm_launch<64, AFFINE>(x, w, b, scale, shift, y, B, T, F,
+                                           Cin, N, kt, kf, stream);
+  if (N % 32 == 0)
+    return conv2d_igemm_launch<32, AFFINE>(x, w, b, scale, shift, y, B, T, F,
+                                           Cin, N, kt, kf, stream);
+  return conv2d_igemm_launch<16, AFFINE>(x, w, b, scale, shift, y, B, T, F,
+                                         Cin, N, kt, kf, stream);
+}
+
 // y = conv(x, w) [+ b] for any N >= 1: the widest tile that divides N,
-// 16 (masked) below that.
+// 16 (masked) below that. With scale and shift (both (Cin,) f32) the
+// input is staged through bnrelu (the BN+ReLU-fused conv).
 inline cudaError_t conv2d_igemm(const void* x, const void* w, const void* b,
                                 void* y, int B, int T, int F, int Cin, int N,
-                                int kt, int kf, cudaStream_t stream) {
-  if (N % 64 == 0)
-    return conv2d_igemm_launch<64>(x, w, b, y, B, T, F, Cin, N, kt, kf,
-                                   stream);
-  if (N % 32 == 0)
-    return conv2d_igemm_launch<32>(x, w, b, y, B, T, F, Cin, N, kt, kf,
-                                   stream);
-  return conv2d_igemm_launch<16>(x, w, b, y, B, T, F, Cin, N, kt, kf, stream);
+                                int kt, int kf, cudaStream_t stream,
+                                const float* scale = nullptr,
+                                const float* shift = nullptr) {
+  if (scale != nullptr)
+    return conv2d_igemm_n<true>(x, w, b, scale, shift, y, B, T, F, Cin, N,
+                                kt, kf, stream);
+  return conv2d_igemm_n<false>(x, w, b, nullptr, nullptr, y, B, T, F, Cin, N,
+                               kt, kf, stream);
 }
 
 }  // namespace

@@ -17,9 +17,9 @@ Not ported yet: score dataframes (``timestamps``/``event_classes``/
 """
 import numpy as np
 
-from pb_sed_tpu.utils.segment import merge_segments, segment_batch
 from pb_sed_tpu_torch.models.base.model import to_numpy
 from pb_sed_tpu_torch.ops.filters import boundariesfilt, medfilt
+from pb_sed_tpu_torch.utils.segment import merge_segments, segment_batch
 
 
 def tagging(models, dataset, max_segment_length=None, segment_overlap=None,

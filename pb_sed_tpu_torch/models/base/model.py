@@ -2,7 +2,12 @@
 model API (``pb_sed_tpu/models/base/model.py``).
 
 The wrapper owns the module, the device it runs on and the label
-metadata. Inference methods put the module in eval mode and run under
+metadata. The device is the CUDA card unless the caller asks for another
+(``from_config(..., device='cpu')``, ``from_storage_dir(...,
+device='cpu')``, ``to('cpu')``); without a card and without that request
+the model raises (:func:`default_device`) instead of falling back to the
+CPU. A wrapper built directly from its class is placed at first use, the
+same way. Inference methods put the module in eval mode and run under
 ``torch.inference_mode()`` with the batch moved to the model's device;
 training (``train/trainer.py``) puts it in train mode and calls the
 subclass's ``loss`` on the same device batch.
@@ -18,8 +23,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pb_sed_tpu.utils.config import Configurable, instantiate
-from pb_sed_tpu.utils.misc import load_json
+from pb_sed_tpu_torch.utils.config import Configurable, instantiate
+from pb_sed_tpu_torch.utils.misc import load_json
+
+
+def default_device(device=None):
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and
+    raises when there is none (the port's entry points run on the card
+    unless the caller passes ``device='cpu'``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the card by "
+            "default; pass device='cpu' to run on the CPU")
+    return torch.device('cuda')
 
 
 def flatten_variables(variables, prefix=''):
@@ -82,13 +100,26 @@ class SoundEventModel(Configurable):
         self.label_mapping = label_mapping
         self.test_labels = test_labels
         self.module = None  # set by subclass
-        self.device = torch.device('cpu')
+        self.device = None  # placed by from_config / to / first use
 
     def to(self, device):
-        """Move the module to ``device``; inference runs there."""
+        """Move the module to ``device``; inference and training run
+        there."""
         self.device = torch.device(device)
         self.module.to(self.device)
         return self
+
+    def placed_device(self):
+        """The model's device; an unplaced model goes to
+        :func:`default_device` (the card) first."""
+        if self.device is None:
+            self.to(default_device())
+        return self.device
+
+    @classmethod
+    def from_config(cls, config, device=None):
+        """Instantiate ``config`` on ``device`` (default: the card)."""
+        return instantiate(config).to(default_device(device))
 
     def num_parameters(self):
         return sum(p.numel() for p in self.module.parameters())
@@ -114,7 +145,8 @@ class SoundEventModel(Configurable):
     def to_device(self, batch):
         """The batch's array entries as tensors on the model's device
         (lists such as example ids are left out)."""
-        return {k: _to_tensor(v, self.device) for k, v in batch.items()
+        device = self.placed_device()
+        return {k: _to_tensor(v, device) for k, v in batch.items()
                 if isinstance(v, (np.ndarray, torch.Tensor))}
 
     def _apply(self, batch, method, **kwargs):
@@ -159,9 +191,11 @@ class SoundEventModel(Configurable):
     def from_storage_dir(
             cls, storage_dir, config_name='1/config.json',
             checkpoint_name='ckpt_best_macro_fscore_weak.pkl',
-            device='cpu'):
+            device=None):
         """Restore a model from a training run directory (its
-        ``config.json`` may name the JAX package's classes)."""
+        ``config.json`` may name the JAX package's classes) on ``device``
+        (default: the card)."""
+        device = default_device(device)
         storage_dir = Path(storage_dir)
         config = load_json(storage_dir / config_name)
         model = instantiate(port_config(config['trainer']['model']))

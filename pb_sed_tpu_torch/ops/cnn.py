@@ -12,7 +12,10 @@ bf16 with f32 accumulation and f32 bias rounded once, the pool on bf16;
 both run as autograd Functions whose backward is a kernel too
 (``ops/kernels/conv.py:Conv2dSame``, ``MaxPoolFreq2``), but for the 1x1
 convs: one bf16 matmul each (``ops/linear.py:Bf16Linear``), as the JAX
-package computes them outside its kernels. Residual skips
+package computes them outside its kernels. With ``fuse_bn`` the layers
+the JAX package fuses (:meth:`CNN2d.fused_layers`) fold their batch norm
+into ``(scale, shift)`` (``MaskedBatchNorm(fold=True)``) and run
+``BnReluConv2dSame``: the normalized buffer never exists. Residual skips
 (the deep recipe) follow the same tower: a pending residual is matched
 to the use site (row pairs averaged in f32 once per crossed (2, 1) pool,
 ``AvgPoolFreq2``, grown channels zero-padded), added in f32 to the bf16
@@ -31,12 +34,13 @@ import math
 import torch
 from torch import nn
 
-from pb_sed_tpu.utils.config import Configurable
-from pb_sed_tpu.utils.misc import to_list
-from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2, Conv2dSame,
+from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2,
+                                               BnReluConv2dSame, Conv2dSame,
                                                MaxPoolFreq2)
 from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import sequence_mask
+from pb_sed_tpu_torch.utils.config import Configurable
+from pb_sed_tpu_torch.utils.misc import to_list
 
 
 def update_running_stats(module, mean, var, momentum):
@@ -50,13 +54,37 @@ def update_running_stats(module, mean, var, momentum):
         module.initialized.fill_(1.)
 
 
+class MaskedMoments(torch.autograd.Function):
+    """Masked f32 sum and sum of squares of ``x`` over all axes but the
+    last. Autograd of ``x.float().square()`` would keep the f32 copy of
+    ``x`` for the backward; this keeps ``x`` in its own dtype and
+    recomputes the copy. The gradient is the same expression autograd
+    forms, ``(g1 + 2·x·g2)·mask`` in f32, cast to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mask):
+        ctx.save_for_backward(x, mask)
+        xf = x.float()
+        axes = tuple(range(x.dim() - 1))
+        return (xf * mask).sum(axes), (xf.square() * mask).sum(axes)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x, mask = ctx.saved_tensors
+        return ((g1 + 2. * x.float() * g2) * mask).to(x.dtype), None
+
+
 class MaskedBatchNorm(nn.Module):
     """Batch norm over the channel (last) axis in f32 whatever the input
     dtype. In training (``self.training``) the statistics are taken over
     the valid frames only (``seq_len`` along axis 1), single-pass sum and
     sum of squares in f32, ``var = max(E[x^2] - mean^2, 0)``
     (``pb_sed_tpu/ops/cnn.py:190-214``), and the running statistics are
-    updated; in eval mode the running statistics normalize."""
+    updated; in eval mode the running statistics normalize. With
+    ``fold=True`` the same statistics (and updates) give the affine
+    ``(scale, shift) = (rsqrt(var + eps) * gamma, beta - mean * scale)``
+    instead of the normalized buffer (``pb_sed_tpu/ops/cnn.py:184-187``);
+    gradients reach gamma, beta and, in training, x through it."""
 
     def __init__(self, channels, eps=1e-3, momentum=0.95):
         super().__init__()
@@ -69,19 +97,23 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(channels))
         self.register_buffer('initialized', torch.zeros(()))
 
-    def forward(self, x, seq_len):
-        xf = x.float()
+    def forward(self, x, seq_len, fold=False):
+        # unfolded, the normalize reads the f32 copy too: the moments take
+        # it, so both cotangents meet in f32 and round to x's dtype once
+        xf = x if fold else x.float()
         if not self.training:
             mean, var = self.mean, self.var
         else:
             mask = sequence_mask(seq_len, x.shape[1])
             mask = mask.reshape(mask.shape + (1,) * (x.dim() - 2))
-            axes = tuple(range(x.dim() - 1))
             count = (mask.sum() * math.prod(x.shape[2:-1])).clamp(min=1.)
-            mean = (xf * mask).sum(axes) / count
-            var = ((xf.square() * mask).sum(axes) / count
-                   - mean.square()).clamp(min=0.)
+            total, total_sq = MaskedMoments.apply(xf, mask)
+            mean = total / count
+            var = (total_sq / count - mean.square()).clamp(min=0.)
             update_running_stats(self, mean, var, self.momentum)
+        if fold:
+            scale = torch.rsqrt(var + self.eps) * self.scale
+            return scale, self.shift - mean * scale
         return (xf - mean) * torch.rsqrt(var + self.eps) * self.scale \
             + self.shift
 
@@ -230,11 +262,12 @@ class _Tower(nn.Module, Configurable):
 class CNN2d(_Tower):
     """Stack of 2-D convolutions over (time, freq) on (B, T, F, C).
 
-    ``use_pallas`` and ``fuse_bn`` come from the JAX package's configs
-    and have no effect: on CUDA the port always runs its kernels, on the
-    CPU their plain versions (with ``fuse_bn`` the JAX tower computes the
-    same function). ``residual_connections[i] = j`` adds layer i's output
-    to layer j's. ``dropout`` > 0 raises in training (not ported yet)."""
+    ``use_pallas`` comes from the JAX package's configs and has no
+    effect: on CUDA the port always runs its kernels, on the CPU their
+    plain versions. ``fuse_bn`` folds each eligible layer's batch norm
+    and ReLU into its conv's input load (:meth:`fused_layers`).
+    ``residual_connections[i] = j`` adds layer i's output to layer j's.
+    ``dropout`` > 0 raises in training (not ported yet)."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -264,6 +297,9 @@ class CNN2d(_Tower):
         self.pre_activation = pre_activation
         self.dropout = dropout
         self.output_layer = output_layer
+        self.fuse_bn = (fuse_bn and pre_activation and norm == 'batch'
+                        and activation_fn == 'relu')
+        self.fused = frozenset()
         self.built_channels = None
         if in_channels is not None:
             self.build(in_channels)
@@ -271,6 +307,25 @@ class CNN2d(_Tower):
     def build(self, in_channels):
         self._build_layers(in_channels, lambda cin, cout, i: Conv2d(
             cin, cout, self.kernels[i]))
+        self.fused = self.fused_layers(in_channels)
+
+    def fused_layers(self, in_channels):
+        """The layers whose batch norm and ReLU fold into the conv with
+        ``fuse_bn``, by the JAX package's rule
+        (``pb_sed_tpu/ops/cnn.py:_packed_plan``): a pre-activation ReLU
+        batch-norm tower, an odd kernel larger than 1x1, input channels a
+        multiple of 16 (not the channel-padded entry layer, Cin < 16),
+        and not the output layer. The JAX plan also drops a layer whose
+        staging slab exceeds its TPU memory model; the card has no such
+        limit, so every eligible layer fuses here."""
+        if not self.fuse_bn:
+            return frozenset()
+        n = len(self.out_channels)
+        cins = [in_channels] + self.out_channels[:-1]
+        return frozenset(
+            i for i, ((kt, kf), cin) in enumerate(zip(self.kernels, cins))
+            if kt % 2 and kf % 2 and kt * kf > 1 and cin % 16 == 0
+            and not (self.output_layer and i == n - 1))
 
     def out_height(self, height):
         for pf, _ in self.pools:
@@ -285,9 +340,17 @@ class CNN2d(_Tower):
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
-            if self.pre_activation and not is_output:
-                h = self._norm_act(i, h, seq_len)
-            h = getattr(self, f'conv_{i}')(h.to(torch.bfloat16))
+            conv = getattr(self, f'conv_{i}')
+            if i in self.fused:
+                h = h.to(torch.bfloat16)
+                scale, shift = getattr(self, f'norm_{i}')(h, seq_len,
+                                                           fold=True)
+                h = BnReluConv2dSame.apply(h, scale, shift, conv.kernel,
+                                           conv.bias)
+            else:
+                if self.pre_activation and not is_output:
+                    h = self._norm_act(i, h, seq_len)
+                h = conv(h.to(torch.bfloat16))
             if not self.pre_activation and not is_output:
                 h = self._norm_act(i, h, seq_len).to(torch.bfloat16)
             h = _add_pending(pending, i, h).to(torch.bfloat16)

@@ -22,11 +22,11 @@ import math
 import torch
 from torch import nn
 
-from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu_torch.ops import mel as mel_ops
 from pb_sed_tpu_torch.ops.cnn import update_running_stats
 from pb_sed_tpu_torch.ops.masking import sequence_mask, take_last
 from pb_sed_tpu_torch.ops.stft import STFT
+from pb_sed_tpu_torch.utils.config import Configurable
 
 # int16 waveform transport scale (the Collate(audio_dtype='int16')
 # contract of the data pipeline)

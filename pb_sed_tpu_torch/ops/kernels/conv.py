@@ -1,9 +1,11 @@
 """2-D conv tower kernels: the odd-kernel SAME conv (3x3 and 1x1), the
-(2, 1) freq max-pool and the (2, 1) freq average pool that matches a
-residual across a pool, forward and backward, each as a hand-written CUDA
-kernel with its plain PyTorch version beside it, and the autograd
-Functions that tie each forward to its backward (``Conv2dSame``,
-``MaxPoolFreq2``, ``AvgPoolFreq2``).
+same conv with batch norm and ReLU folded into its input load (the
+``fuse_bn`` tower), the (2, 1) freq max-pool and the (2, 1) freq average
+pool that matches a residual across a pool, forward and backward, each as
+a hand-written CUDA kernel with its plain PyTorch version beside it, and
+the autograd Functions that tie each forward to its backward
+(``Conv2dSame``, ``BnReluConv2dSame``, ``MaxPoolFreq2``,
+``AvgPoolFreq2``).
 
 All work on the channels-last ``(B, T, F, C)`` layout of the tower and
 keep the JAX package's parameter layout (conv kernel HWIO
@@ -68,7 +70,14 @@ def conv2d_same(x, w, b):
     _check_conv(x, w, b)
     if x.device.type == 'cpu':
         return conv2d_same_plain(x, w, b)
-    build.require_cuda(x)
+    return _launch_conv('conv2d_same', x, w, b)
+
+
+def _launch_conv(counter, x, w, b, affine=()):
+    """Launch ``pbsed_<counter>`` on CUDA tensors: the SAME conv, with
+    ``affine = (scale, shift)`` f32 pointers before the output for the
+    BN+ReLU-fused one."""
+    build.require_cuda(x, w, *affine)
     bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape
     x = x.contiguous()
@@ -77,9 +86,10 @@ def conv2d_same(x, w, b):
            else b.float().contiguous())
     y = torch.empty((bsz, t, f, cout), dtype=torch.bfloat16, device=x.device)
     if x.data_ptr() % 16 or w16.data_ptr() % 16:
-        raise ValueError('conv2d_same needs 16-byte aligned buffers')
-    build.launch('conv2d_same', 'pbsed_conv2d_same', x.device,
-                 x.data_ptr(), w16.data_ptr(), b32.data_ptr(), y.data_ptr(),
+        raise ValueError(f'{counter} needs 16-byte aligned buffers')
+    build.launch(counter, f'pbsed_{counter}', x.device,
+                 x.data_ptr(), w16.data_ptr(), b32.data_ptr(),
+                 *(a.data_ptr() for a in affine), y.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf)
     return y
 
@@ -137,7 +147,14 @@ def conv2d_same_bwd(x, w, gy):
     _check_conv_bwd(x, w, gy)
     if x.device.type == 'cpu':
         return conv2d_same_bwd_plain(x, w, gy)
-    build.require_cuda(x, gy)
+    return _launch_conv_bwd('conv2d_same_bwd', x, w, gy)
+
+
+def _launch_conv_bwd(counter, x, w, gy, affine=()):
+    """Launch ``pbsed_<counter>`` on CUDA tensors: dx (or da) and dw of
+    the SAME conv, with ``affine = (scale, shift)`` f32 pointers after
+    the flipped weights for the BN+ReLU-fused one."""
+    build.require_cuda(x, w, gy, *affine)
     bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape
     x = x.contiguous()
@@ -150,10 +167,11 @@ def conv2d_same_bwd(x, w, gy):
     workspace = torch.empty((chunks, kt * kf, 16 * math.ceil(cin / 16), cout),
                             dtype=torch.float32, device=x.device)
     if any(a.data_ptr() % 16 for a in (x, gy, w_flip, dx, workspace)):
-        raise ValueError('conv2d_same_bwd needs 16-byte aligned buffers')
-    build.launch('conv2d_same_bwd', 'pbsed_conv2d_same_bwd', x.device,
+        raise ValueError(f'{counter} needs 16-byte aligned buffers')
+    build.launch(counter, f'pbsed_{counter}', x.device,
                  x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
-                 dx.data_ptr(), dw.data_ptr(), workspace.data_ptr(),
+                 *(a.data_ptr() for a in affine), dx.data_ptr(),
+                 dw.data_ptr(), workspace.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, chunks)
     return dx, dw
 
@@ -175,6 +193,120 @@ class Conv2dSame(torch.autograd.Function):
         dx, dw = conv2d_same_bwd(x, w, gy)
         db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
         return dx, dw.to(w.dtype), db
+
+
+def _check_affine(x, scale, shift):
+    cin = x.shape[-1]
+    for name, a in (('scale', scale), ('shift', shift)):
+        if tuple(a.shape) != (cin,):
+            raise ValueError(f'{name} shape {tuple(a.shape)} != ({cin},)')
+        if not a.is_floating_point():
+            raise TypeError(f'{name} must be floating point, got {a.dtype}')
+        if a.device != x.device:
+            raise ValueError('x, scale and shift must be on one device')
+
+
+def bnrelu_plain(x, scale, shift):
+    """The post-activation buffer ``a = bf16(relu(f32(x * scale +
+    shift)))`` with ONE f32 rounding of the affine: XLA contracts the JAX
+    package's ``v * sc + sh`` (``pb_sed_tpu/ops/pallas/conv.py:
+    _stage_bnrelu``) into a fused multiply-add, and so does the kernel.
+    Here the product of a bf16 and an f32 value is exact in float64 and
+    the sum is rounded there and then to f32, which equals the fused
+    multiply-add but where the float64 sum lands exactly halfway between
+    two f32 values."""
+    a = x.double() * scale.double() + shift.double()
+    return torch.relu(a.float()).to(torch.bfloat16)
+
+
+def bnrelu_conv2d_same_plain(x, scale, shift, w, b):
+    """Plain version: :func:`conv2d_same_plain` of :func:`bnrelu_plain`
+    (the conv's zero padding is added after the transform: the SAME halo
+    stays 0 whatever the shift)."""
+    return conv2d_same_plain(bnrelu_plain(x, scale, shift), w, b)
+
+
+def bnrelu_conv2d_same(x, scale, shift, w, b):
+    """The BN+ReLU-fused SAME conv: ``conv2d_same(bnrelu_plain(x, scale,
+    shift), w, b)`` with the transform applied while the kernel stages
+    its input, so the post-activation buffer never exists in device
+    memory.
+
+    Args:
+        x: (B, T, F, Cin) bfloat16 pre-norm activations.
+        scale, shift: (Cin,) folded batch norm (f32).
+        w: (kt, kf, Cin, Cout) weights (rounded to bf16), Cout % 16 == 0.
+        b: (Cout,) bias (f32) or None.
+    """
+    _check_conv(x, w, b)
+    _check_affine(x, scale, shift)
+    if x.device.type == 'cpu':
+        return bnrelu_conv2d_same_plain(x, scale, shift, w, b)
+    return _launch_conv('bnrelu_conv2d_same', x, w, b,
+                        (scale.float().contiguous(),
+                         shift.float().contiguous()))
+
+
+def bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy):
+    """Plain backward: :func:`conv2d_same_bwd_plain` of the recomputed
+    post-activation buffer."""
+    return conv2d_same_bwd_plain(bnrelu_plain(x, scale, shift), w, gy)
+
+
+def bnrelu_conv2d_same_bwd(x, scale, shift, w, gy):
+    """Backward of :func:`bnrelu_conv2d_same` w.r.t. the post-activation
+    buffer and w.
+
+    Returns: da (B, T, F, Cin) bfloat16, the gradient w.r.t. ``a`` (it
+    never reads x), and dw (kt, kf, Cin, Cout) float32 with ``a``
+    recomputed from x, scale and shift. The chain through the affine is
+    :func:`bnrelu_chain`.
+    """
+    _check_conv_bwd(x, w, gy)
+    _check_affine(x, scale, shift)
+    if x.device.type == 'cpu':
+        return bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy)
+    return _launch_conv_bwd('bnrelu_conv2d_same_bwd', x, w, gy,
+                            (scale.float().contiguous(),
+                             shift.float().contiguous()))
+
+
+def bnrelu_chain(x, scale, shift, da):
+    """dx (bf16), dscale and dshift (f32) from ``da`` through ``a =
+    relu(x * scale + shift)``: ``dz = da * 1[x * scale + shift > 0]``,
+    ``dx = bf16(dz * scale)``, ``dscale = sum(dz * x)``, ``dshift =
+    sum(dz)`` (``pb_sed_tpu/ops/pallas/conv.py:1731-1743``; plain PyTorch
+    there and here). The gate's affine is f32 with two roundings: it can
+    differ from the forward's only where ``x * scale + shift`` is within
+    one f32 rounding of 0."""
+    xf = x.float()
+    s, t = scale.float(), shift.float()
+    dz = torch.where(xf * s + t > 0., da.float(), 0.)
+    axes = tuple(range(x.dim() - 1))
+    return ((dz * s).to(x.dtype), (dz * xf).sum(axes), dz.sum(axes))
+
+
+class BnReluConv2dSame(torch.autograd.Function):
+    """:func:`bnrelu_conv2d_same` with its backward
+    (``pb_sed_tpu/ops/pallas/conv.py:bnrelu_conv2d_packed``'s custom VJP):
+    da and dw from :func:`bnrelu_conv2d_same_bwd`, the chain to x, scale
+    and shift from :func:`bnrelu_chain`, db the f32 sum of the bf16
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, w, b):
+        ctx.save_for_backward(x, scale, shift, w)
+        ctx.has_bias = b is not None
+        return bnrelu_conv2d_same(x, scale, shift, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, shift, w = ctx.saved_tensors
+        da, dw = bnrelu_conv2d_same_bwd(x, scale, shift, w, gy)
+        dx, dscale, dshift = bnrelu_chain(x, scale, shift, da)
+        db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
+        return (dx, dscale.to(scale.dtype), dshift.to(shift.dtype),
+                dw.to(w.dtype), db)
 
 
 def _check_pool(x):

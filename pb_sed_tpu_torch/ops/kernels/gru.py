@@ -1,6 +1,7 @@
 """GRU recurrence kernels, forward (``csrc/gru.cu``) and backward
-(``csrc/gru_bwd.cu``), with their plain PyTorch versions and the autograd
-Function ``GruScan`` that ties them together.
+(``csrc/gru_bwd.cu``, and the fused ``csrc/gru_bwd_fused.cu``), with
+their plain PyTorch versions and the autograd Function ``GruScan`` that
+ties them together.
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
@@ -10,7 +11,10 @@ a wrapper runs the plain version; on a CUDA tensor it launches the kernel
 or raises. The backward is the JAX package's split variant
 (``_gru_scan_pallas_bwd(split=True)``): the kernel sweeps t in reverse
 and emits bf16 dxw, bf16 r and f32 dh0; dw_hh and db_hh are one
-contraction over the (B*T) axis afterwards.
+contraction over the (B*T) axis afterwards. ``gru_scan_bwd(...,
+split=False)`` is the fused variant (``_gru_scan_pallas_bwd(split=False)``),
+which accumulates dw_hh and db_hh inside the sweep; as in the JAX
+package, no training path selects it.
 """
 import torch
 
@@ -125,10 +129,14 @@ def _weight_grads(h_prev, dxw, r):
     return dw_hh, dgates.sum((1, 2))
 
 
-def gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g):
-    """Plain backward: a reverse Python loop with the split kernel's
-    rounding points (bf16 h_prev in the recompute and in dz, dxw and r
-    rounded to bf16, dh in f32, dh's matmul on bf16 dgates)."""
+def gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=True):
+    """Plain backward: a reverse Python loop with the kernels' rounding
+    points (bf16 h_prev in the recompute and in dz, dxw and r rounded to
+    bf16, dh in f32, dh's matmul on bf16 dgates). ``split`` picks how
+    dw_hh and db_hh are formed: from bf16 dxw and r afterwards (the split
+    kernel), or, with ``split=False`` (the fused kernel,
+    ``pb_sed_tpu/ops/pallas/gru.py:335-341``), dw_hh from the bf16
+    dgates of each step and db_hh from the f32 ones."""
     xw = xw.to(torch.bfloat16).float()
     w = w_hh.to(torch.bfloat16).float()
     bias = b_hh.float()[:, None, :]
@@ -142,6 +150,10 @@ def gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g):
                       device=xw.device)
     r_all = torch.empty((d, b, t, hdim), dtype=torch.bfloat16,
                         device=xw.device)
+    if not split:
+        dg_all = torch.empty_like(dxw)
+        db_hh = torch.zeros((d, three_h), dtype=torch.float32,
+                            device=xw.device)
     w_t = w.transpose(1, 2)
     for s in reversed(range(t)):
         h_p = hp[:, :, s]
@@ -157,23 +169,32 @@ def gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g):
         dpr = dpn * hn * r * (1. - r)
         dxw[:, :, s] = torch.cat([dpr, dz, dpn], dim=-1).to(torch.bfloat16)
         r_all[:, :, s] = r.to(torch.bfloat16)
-        dgates = torch.cat([dpr, dz, dpn * r], dim=-1).to(torch.bfloat16)
+        dgates = torch.cat([dpr, dz, dpn * r], dim=-1)
+        if not split:
+            db_hh += dgates.sum(1)
+        dgates = dgates.to(torch.bfloat16)
+        if not split:
+            dg_all[:, :, s] = dgates
         dh = dht * z + torch.bmm(dgates.float(), w_t)
-    dw_hh, db_hh = _weight_grads(h_prev, dxw, r_all)
+    if split:
+        dw_hh, db_hh = _weight_grads(h_prev, dxw, r_all)
+    else:
+        dw_hh = torch.einsum('dbth,dbtg->dhg', hp, dg_all.float())
     return dxw, dw_hh, db_hh, dh
 
 
-def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g):
+def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
     """Backward of :func:`gru_scan` for cotangent ``g`` of its output
-    ``y``.
+    ``y``: the split kernel (default), or with ``split=False`` the fused
+    one (:func:`gru_scan_bwd_plain` names the rounding difference).
 
     Returns: dxw (D, B, T, 3H) bfloat16, dw_hh (D, H, 3H), db_hh (D, 3H)
     and dh0 (D, B, H), all float32 but dxw.
     """
     _check_bwd(xw, w_hh, b_hh, h0, y, g)
     if xw.device.type == 'cpu':
-        return gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
-    build.require_cuda(xw)
+        return gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split)
+    build.require_cuda(xw, w_hh, b_hh, h0, y, g)
     d, b, t, g3 = xw.shape
     hdim = g3 // 3
     if hdim % 32 or hdim > 512:
@@ -185,15 +206,43 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g):
     b32 = b_hh.float().contiguous()
     g32 = g.float().contiguous()
     dxw = torch.empty_like(xw16)
-    r = torch.empty_like(h_prev)
     dh0 = torch.empty((d, b, hdim), dtype=torch.float32, device=xw.device)
     if h_prev.data_ptr() % 16:
         raise ValueError('gru_scan_bwd needs a 16-byte aligned h_prev')
+    if not split:
+        return _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0)
+    r = torch.empty_like(h_prev)
     build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
                  xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
                  b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
                  r.data_ptr(), dh0.data_ptr(), d, b, t, hdim)
     dw_hh, db_hh = _weight_grads(h_prev, dxw, r)
+    return dxw, dw_hh, db_hh, dh0
+
+
+def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):
+    """The fused kernel with its workspace (``csrc/gru_bwd_fused.cu``):
+    per sweep block (32 rows up to H = 256, 16 above) a zeroed f32
+    (H, 3H) dw_hh slice, an f32 (3H,) db_hh slice and a bf16 ring of 16
+    steps of h_prev and dgates rows."""
+    d, b, t, three_h = xw16.shape
+    hdim = three_h // 3
+    rows = 32 if hdim <= 256 else 16
+    parts = d * -(-b // rows)
+    dev = xw16.device
+    dw_part = torch.zeros((parts, hdim, three_h), dtype=torch.float32,
+                          device=dev)
+    db_part = torch.empty((parts, three_h), dtype=torch.float32, device=dev)
+    scratch = torch.empty((parts, 16 * rows, 4 * hdim), dtype=torch.bfloat16,
+                          device=dev)
+    dw_hh = torch.empty((d, hdim, three_h), dtype=torch.float32, device=dev)
+    db_hh = torch.empty((d, three_h), dtype=torch.float32, device=dev)
+    build.launch('gru_scan_bwd_fused', 'pbsed_gru_scan_bwd_fused', dev,
+                 xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
+                 b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
+                 dw_hh.data_ptr(), db_hh.data_ptr(), dh0.data_ptr(),
+                 dw_part.data_ptr(), db_part.data_ptr(), scratch.data_ptr(),
+                 d, b, t, hdim)
     return dxw, dw_hh, db_hh, dh0
 
 

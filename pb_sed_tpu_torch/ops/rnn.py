@@ -15,11 +15,11 @@ training are not ported yet and raise.
 import torch
 from torch import nn
 
-from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu_torch.ops.cnn import CNN1d, check_dropout
 from pb_sed_tpu_torch.ops.kernels.gru import GruScan
 from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import reverse_sequence
+from pb_sed_tpu_torch.utils.config import Configurable
 
 
 class GRULayer(nn.Module):

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pb_sed_tpu.utils.config import Configurable
+from pb_sed_tpu_torch.utils.config import Configurable
 
 
 def global_norm(tensors):

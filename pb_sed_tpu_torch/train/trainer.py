@@ -15,8 +15,10 @@ What it does, with the JAX surface: ``__init__`` triggers
 
 The learning-rate schedule is the one ``LRAnnealingHook``'s breakpoints,
 interpolated at the iteration before the step as the JAX step does
-(``trainer.py:184-193``). The augmentation draws from a
-``torch.Generator`` on the model's device, seeded with ``seed``.
+(``trainer.py:184-193``). The step runs on the model's device: the card,
+unless the model was built or moved with ``device='cpu'``
+(``models/base/model.py:default_device``). The augmentation draws from a
+``torch.Generator`` on that device, seeded with ``seed``.
 Checkpoints are ``{'model': flat, 'iteration', 'epoch',
 'lr_factor_backoff', 'optimizer', 'rng'}`` pickles with the model in the
 JAX package's flat layout (``bridge.py``), so both packages restore the
@@ -40,10 +42,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pb_sed_tpu.train.hooks import EndTrigger, Hook, IntervalTrigger
-from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu_torch.bridge import param_keys
+from pb_sed_tpu_torch.train.hooks import (EndTrigger, Hook, IntervalTrigger,
+                                          LRAnnealingHook)
 from pb_sed_tpu_torch.train.optimizer import Adam
+from pb_sed_tpu_torch.utils.config import Configurable
 
 
 class Trainer(Configurable):
@@ -86,7 +89,12 @@ class Trainer(Configurable):
     # -- registration ---------------------------------------------------------
     def register_hook(self, hook):
         if not isinstance(hook, Hook):
-            raise TypeError(f'expected a Hook, got {type(hook)}')
+            # A hook of another package (e.g. the JAX package's
+            # LRAnnealingHook) would be silently ignored by the schedule.
+            raise TypeError(
+                f'expected a pb_sed_tpu_torch.train.hooks.Hook (e.g. '
+                f'pb_sed_tpu_torch.train.hooks.LRAnnealingHook), got '
+                f'{type(hook).__module__}.{type(hook).__qualname__}')
         self.hooks.append(hook)
 
     def register_validation_hook(self, *args, **kwargs):
@@ -112,7 +120,6 @@ class Trainer(Configurable):
     def _annealing_points(self):
         """The one iteration-unit LRAnnealingHook's breakpoints (xs, ys),
         or None (the JAX trainer's rule, ``trainer.py:145-168``)."""
-        from pb_sed_tpu.train.hooks import LRAnnealingHook
         hooks = [h for h in self.hooks
                  if isinstance(h, LRAnnealingHook) and h.breakpoints]
         if not hooks:
@@ -139,11 +146,12 @@ class Trainer(Configurable):
 
     # -- train loop -----------------------------------------------------------
     def _ensure_ready(self):
+        device = self.model.placed_device()
         params = [p for _, p in self.model.module.named_parameters()]
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(params)
         if self.generator is None:
-            self.generator = torch.Generator(device=self.model.device)
+            self.generator = torch.Generator(device=device)
             self.generator.manual_seed(self.seed)
         return params
 

@@ -2,7 +2,7 @@
 the JAX package's Pallas backward kernels in interpret mode, on the same
 numpy inputs: the SAME-conv backward (fused shapes, the Cin = 1 entry,
 and a channel-blocked split shape), the freq max-pool backward
-(bit-exact, ties and NaN) and the split GRU backward.
+(bit-exact, ties and NaN) and the split and fused GRU backward.
 
 Tolerances: conv ``1e-4 + 3.5e-2 * max|ref|`` per tensor, the JAX
 package's own bound for packed-vs-XLA gradients
@@ -169,6 +169,35 @@ def test_gru_backward_matches_jax_split_kernel(d, b, t, h):
     assert all(a.dtype == torch.float32 for a in got[1:])
     for name, a, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), got, ref):
         _close(a.float().numpy(), np.asarray(r, np.float32), 5.3e-3)
+
+
+@pytest.mark.parametrize('d,b,t,h', [(1, 6, 11, 8), (2, 6, 11, 16),
+                                     (2, 3, 13, 32)])
+def test_gru_fused_backward_matches_jax_fused_kernel(d, b, t, h):
+    """``gru_scan_bwd(split=False)`` against
+    ``_gru_scan_pallas_bwd(split=False)``, the kernel that accumulates
+    dw_hh/db_hh in its sweep (the blocks and shapes of the split test
+    above); dxw and dh0 come from the same sweep as the split variant's,
+    bit for bit."""
+    xw, w_hh, b_hh, h0, g = _gru_inputs(d, b, t, h, seed=d * 10 + h + 1)
+    xw = jnp.asarray(xw).astype(jnp.bfloat16).astype(jnp.float32)
+    y = _gru_scan_pallas(xw, w_hh, b_hh, h0, interpret=True,
+                         block_b=4, block_t=8)
+    ref = _gru_scan_pallas_bwd(_to_tm(xw), w_hh, b_hh, h0, y, g,
+                               interpret=True, block_b=4, block_t=8,
+                               split=False)
+    args = [torch.from_numpy(np.array(a, np.float32))
+            for a in (xw, w_hh, b_hh, h0, y, g)]
+    build.reset_launches()
+    got = gru_scan_bwd(*args, split=False)
+    assert got[0].dtype == torch.bfloat16
+    assert all(a.dtype == torch.float32 for a in got[1:])
+    for name, a, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), got, ref):
+        _close(a.float().numpy(), np.asarray(r, np.float32), 5.3e-3)
+    split = gru_scan_bwd(*args)
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], split[i], rtol=0, atol=0)
+    assert build.LAUNCHES == {name: 0 for name in build.LAUNCHES}
 
 
 def test_gru_scan_function_matches_jax_vjp(interpret_mode):

@@ -2,9 +2,10 @@
 versions on the card, at edge shapes the main path does not reach (ragged
 tiles, channel counts off the vector width, small hidden sizes, the
 Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
-pools), and the determinism of the conv weight gradient. They need a CUDA
-card and skip without one; ``chip_smoke.py`` covers the main path's
-shapes.
+pools, the BN+ReLU-fused conv with a positive shift at the borders, the
+fused GRU backward at batches off its tile), the determinism of the
+weight gradients, and the wrappers' raises. They need a CUDA card and
+skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
 On the card (no JAX there, so without this directory's conftest):
 
@@ -16,9 +17,10 @@ import torch
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
-    avgpool_freq2_plain, conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain,
-    conv2d_same_plain, maxpool_freq2, maxpool_freq2_bwd,
-    maxpool_freq2_bwd_plain, maxpool_freq2_plain)
+    avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
+    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, maxpool_freq2,
+    maxpool_freq2_bwd, maxpool_freq2_bwd_plain, maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -183,3 +185,85 @@ def test_gru_backward_kernel_matches_plain(gen, d, b, t, h):
     # rounding of dgates before the next step: the GRU ceiling, 5.3e-3
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
+    (1, 7, 5, 16, 16, 3, 3),     # Cin 16, ragged pixel tile, odd F
+    (2, 9, 8, 16, 32, 3, 3),     # F = 8
+    (1, 5, 4, 256, 256, 3, 3),   # Cin 256 (deep L14), T off the tile
+    (2, 11, 8, 24, 48, 5, 3),    # Cin not a multiple of 16, kt = 5
+    (1, 6, 8, 5, 16, 3, 3),      # Cin off the 8-wide vector path
+])
+def test_bnrelu_conv2d_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
+    """The fused conv forward and backward with a positive shift on every
+    channel, so a halo lit with relu(shift) would show at the borders."""
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(cin, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    n = dict(build.LAUNCHES)
+    y = bnrelu_conv2d_same(x, scale, shift, w, bias)
+    da, dw = bnrelu_conv2d_same_bwd(x, scale, shift, w, gy)
+    assert build.LAUNCHES['bnrelu_conv2d_same'] == n['bnrelu_conv2d_same'] + 1
+    assert (build.LAUNCHES['bnrelu_conv2d_same_bwd']
+            == n['bnrelu_conv2d_same_bwd'] + 1)
+    ref = bnrelu_conv2d_same_plain(x, scale, shift, w, bias)
+    ref_da, ref_dw = bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy)
+    # y and da: one f32 sum of the same bf16 products rounded once (one
+    # ulp); dw: f32 sums in another order
+    assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+    assert _max_err(da, ref_da) <= 2. ** -7 * float(
+        ref_da.float().abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+    assert torch.equal(dw, bnrelu_conv2d_same_bwd(x, scale, shift, w, gy)[1])
+
+
+@pytest.mark.parametrize('d,b,t,h', [(1, 5, 9, 32), (2, 3, 17, 64),
+                                     (2, 3, 40, 512), (2, 33, 21, 256)])
+def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
+    """B = 3 (rows past the batch in the tile), T past one and across
+    several 16-step accumulation groups, two batch tiles (B = 33)."""
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
+    b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+    h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    g = torch.randn(d, b, t, h, generator=gen, device='cuda')
+    n = build.LAUNCHES['gru_scan_bwd_fused']
+    got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
+    assert build.LAUNCHES['gru_scan_bwd_fused'] == n + 1
+    ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=False)
+    for a, r in zip(got, ref):
+        assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+    # the same sweep as the split kernel; dw_hh/db_hh reduced in a fixed
+    # order: bit-identical reruns
+    split = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
+    again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_new_kernels_raise_on_what_they_do_not_take(gen):
+    x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
+    w = torch.zeros(3, 3, 16, 16, device='cuda')
+    s = torch.ones(16, device='cuda')
+    with pytest.raises(TypeError):          # f32 input
+        bnrelu_conv2d_same(x.float(), s, s, w, None)
+    with pytest.raises(ValueError):         # scale of the wrong length
+        bnrelu_conv2d_same(x, s[:8], s, w, None)
+    with pytest.raises(ValueError):         # shift on another device
+        bnrelu_conv2d_same(x, s, s.cpu(), w, None)
+    with pytest.raises(ValueError):         # cotangent of the wrong shape
+        bnrelu_conv2d_same_bwd(x, s, s, w, x[..., :8])
+    y = torch.zeros(1, 2, 3, 48, device='cuda')
+    with pytest.raises(ValueError):         # H = 48: not a multiple of 32
+        gru_scan_bwd(torch.zeros(1, 2, 3, 144, device='cuda'),
+                     torch.zeros(1, 48, 144, device='cuda'),
+                     torch.zeros(1, 144, device='cuda'),
+                     torch.zeros(1, 2, 48, device='cuda'), y, y, split=False)

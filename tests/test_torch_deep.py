@@ -45,6 +45,8 @@ from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2, Conv2dSame,
                                                avgpool_freq2,
                                                avgpool_freq2_bwd,
                                                conv2d_same)
+from pb_sed_tpu_torch.train.hooks import \
+    LRAnnealingHook as PortLRAnnealingHook
 from pb_sed_tpu_torch.train.optimizer import Adam
 from pb_sed_tpu_torch.train.trainer import Trainer
 from chip_smoke import bn_fed_biases
@@ -348,7 +350,7 @@ def _jax_deep(flat):
 
 def _port_deep(flat):
     model = tweak.CRNN.from_config(tweak.CRNN.get_config(
-        pickle.loads(pickle.dumps(DEEP))))
+        pickle.loads(pickle.dumps(DEEP))), device='cpu')
     bridge.load_flat(model.module, flat)
     return model
 
@@ -421,8 +423,11 @@ def test_three_deep_trainer_steps_match_jax(deep_flat, interpret_mode):
     batches = [_train_batch(seed) for seed in (1, 2, 3)]
     jtrainer._ensure_ready(batches[0])
     frozen = _freeze_2d(2)
+    # each trainer takes its own package's hook (the port's trainer reads
+    # the schedule from its own LRAnnealingHook class)
+    jtrainer.register_hook(LRAnnealingHook(breakpoints=breakpoints))
+    ttrainer.register_hook(PortLRAnnealingHook(breakpoints=breakpoints))
     for trainer in (jtrainer, ttrainer):
-        trainer.register_hook(LRAnnealingHook(breakpoints=breakpoints))
         trainer.freeze(frozen)
     assert ttrainer._frozen and ttrainer._frozen_stats
     p0 = bridge.export_flat(ttrainer.model.module)
@@ -467,7 +472,7 @@ def test_full_width_deep_keys_match_jax():
               tuple(leaf.shape) for path, leaf in
               jax.tree_util.tree_flatten_with_path(dict(tree))[0]}
     tmodel = tweak.CRNN.from_config(tweak.CRNN.get_config(
-        fbcrnn_config('deep', num_events=527)))
+        fbcrnn_config('deep', num_events=527)), device='cpu')
     flat = {key: np.zeros(shape, np.float32) for key, shape in shapes.items()}
     bridge.load_flat(tmodel.module, flat)
     out = bridge.export_flat(tmodel.module)

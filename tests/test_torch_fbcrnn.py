@@ -88,7 +88,7 @@ def models():
     jrnn.set_pallas_mode('force_interpret')
     try:
         tmodel = tweak.CRNN.from_config(tweak.CRNN.get_config(
-            pickle.loads(pickle.dumps(CONFIG))))
+            pickle.loads(pickle.dumps(CONFIG))), device='cpu')
         bridge.load_flat(tmodel.module, jmodel.state_dict())
         yield jmodel, tmodel
     finally:
@@ -153,7 +153,7 @@ def test_jax_checkpoint_serves_in_port(models, tmp_path):
     config = jweak.CRNN.get_config(pickle.loads(pickle.dumps(CONFIG)))
     dump_json({'trainer': {'model': config_to_json(config)}},
               tmp_path / '1' / 'config.json')
-    port = tweak.CRNN.from_storage_dir(tmp_path)
+    port = tweak.CRNN.from_storage_dir(tmp_path, device='cpu')
     assert isinstance(port, tweak.CRNN)
     batch = _batches()[1]
     _close(port.tagging(batch)[0], jmodel.tagging(batch)[0])
@@ -181,7 +181,7 @@ def test_unported_recipes_raise():
     full width; what is still unported raises instead of building a
     different network: a bidirectional GRU head, dropout in training."""
     deep = tweak.CRNN.from_config(tweak.CRNN.get_config(
-        fbcrnn_config('deep', num_events=527)))
+        fbcrnn_config('deep', num_events=527)), device='cpu')
     module = deep.module
     assert module.cnn.cnn_2d.residuals[2] == 4
     assert module.rnn_fwd.rnn.hidden_size == 512
@@ -189,7 +189,7 @@ def test_unported_recipes_raise():
     config = fbcrnn_config('deep', num_events=527)
     config['rnn_fwd']['rnn']['bidirectional'] = True
     with pytest.raises(NotImplementedError):
-        tweak.CRNN.from_config(tweak.CRNN.get_config(config))
+        tweak.CRNN.from_config(tweak.CRNN.get_config(config), device='cpu')
     module.cnn.cnn_1d.dropout = .1
     module.train()
     batch = {'audio_data': np.zeros((1, 16000), np.float32),
@@ -242,7 +242,8 @@ def test_single_head_matches_the_paired_forward_head(models):
     _, tmodel = models
     config = pickle.loads(pickle.dumps(CONFIG))
     config['rnn_bwd'] = None
-    single = tweak.CRNN.from_config(tweak.CRNN.get_config(config))
+    single = tweak.CRNN.from_config(tweak.CRNN.get_config(config),
+                                    device='cpu')
     flat = bridge.export_flat(tmodel.module)
     single.load_state_dict({k: v for k, v in flat.items()
                             if '.rnn_bwd.' not in k})

@@ -42,6 +42,8 @@ from pb_sed_tpu.utils.misc import dump_json
 from pb_sed_tpu_torch import bridge
 from pb_sed_tpu_torch.models import weak_label as tweak
 from pb_sed_tpu_torch.ops.kernels import build
+from pb_sed_tpu_torch.train.hooks import \
+    LRAnnealingHook as PortLRAnnealingHook
 from pb_sed_tpu_torch.train.optimizer import Adam
 from pb_sed_tpu_torch.train.trainer import Trainer
 from tests.test_torch_fbcrnn import CONFIG, K, SAMPLES
@@ -103,7 +105,8 @@ def _jax_model(flat, **updates):
 
 
 def _port_model(flat, **updates):
-    model = tweak.CRNN.from_config(tweak.CRNN.get_config(_config(**updates)))
+    model = tweak.CRNN.from_config(tweak.CRNN.get_config(_config(**updates)),
+                                   device='cpu')
     bridge.load_flat(model.module, flat)
     return model
 
@@ -228,8 +231,10 @@ def _trainers(flat, storage=None):
                           stop_trigger=(3, 'iteration'))
     ttrainer = Trainer(_port_model(flat), optimizer=Adam(**kwargs),
                        storage_dir=storage, stop_trigger=(3, 'iteration'))
-    for trainer in (jtrainer, ttrainer):
-        trainer.register_hook(LRAnnealingHook(breakpoints=breakpoints))
+    # each trainer takes its own package's hook (the port's trainer reads
+    # the schedule from its own LRAnnealingHook class)
+    jtrainer.register_hook(LRAnnealingHook(breakpoints=breakpoints))
+    ttrainer.register_hook(PortLRAnnealingHook(breakpoints=breakpoints))
     return jtrainer, ttrainer
 
 
@@ -290,7 +295,8 @@ def test_checkpoint_round_trip_into_both_packages(flat, interpret_mode,
               storage / '1' / 'config.json')
     name = 'ckpt_latest.pkl'
     jax_restored = jweak.CRNN.from_storage_dir(storage, checkpoint_name=name)
-    port_restored = tweak.CRNN.from_storage_dir(storage, checkpoint_name=name)
+    port_restored = tweak.CRNN.from_storage_dir(storage, checkpoint_name=name,
+                                                device='cpu')
     batch = {k: v for k, v in _train_batch(6).items()
              if k in ('audio_data', 'seq_len')}
     ref = np.asarray(jax_restored.tagging(batch)[0])
@@ -305,6 +311,16 @@ def test_checkpoint_round_trip_into_both_packages(flat, interpret_mode,
     for key, value in bridge.export_flat(trainer.model.module).items():
         np.testing.assert_array_equal(
             bridge.export_flat(resumed.model.module)[key], value)
+
+
+def test_jax_hook_on_port_trainer_raises(flat):
+    """The JAX package's LRAnnealingHook is not the port's: registering
+    it raises, naming the port's class, instead of dropping the ramp."""
+    trainer = Trainer(_port_model(flat))
+    with pytest.raises(TypeError,
+                       match='pb_sed_tpu_torch.train.hooks.LRAnnealingHook'):
+        trainer.register_hook(LRAnnealingHook(breakpoints=[(0, 1.)]))
+    assert not any(isinstance(h, LRAnnealingHook) for h in trainer.hooks)
 
 
 def test_unported_training_options_raise(flat):
