@@ -6,8 +6,9 @@ Builds the hand-written CUDA kernels from ``pb_sed_tpu_torch/csrc`` and
 runs, in order:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
-   versions, kernel build time. Without a CUDA card it raises: there is
-   no CPU path.
+   versions, kernel build time, each kernel's registers, shared memory
+   and spills (``-Xptxas -v``) and ptxas's performance advisories.
+   Without a CUDA card it raises: there is no CPU path.
 2, 2b. kernel vs plain: every kernel, forward (2) and backward (2b),
    against its plain PyTorch version on the card at the shapes the
    full-width shallow FBCRNN gives it (B=32 ten-second clips), with
@@ -19,7 +20,14 @@ runs, in order:
    f32, whichever is larger). The BN+ReLU-fused conv and its backward
    run at the shallow tower's fused layers L1-L8, with a scale and shift
    that make about half the pre-activations negative and the shift often
-   positive (a lit SAME halo or a wrong gate shows).
+   positive (a lit SAME halo or a wrong gate shows). Per conv layer one
+   line says which design ran for each pass (the wgmma kernels of
+   ``csrc/conv2d_wgmma.cuh`` with their ring depth and shared memory, or
+   the narrow ones; from Cin = 16 up anything but wgmma with a ring of
+   >= 3 stages fails the run), the achieved TFLOP/s beside cuDNN's time
+   and the bound, and the backward's device time by launch (dx GEMM, dw
+   partials, reduce, glue; ``torch.profiler``); after the kernel phases,
+   the per-layer record as JSON and the sums over both towers.
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
    channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
@@ -40,7 +48,8 @@ runs, in order:
    counters must have risen in that run. A repeated batch with
    augmentation off must lower the loss over 5 steps; one B=4, T=100
    step agrees with the same model on the CPU (loss and every
-   gradient); one step is profiled; the checkpoint restores with
+   gradient); one step is profiled (device time by kernel family and
+   the 15 largest kernels); the checkpoint restores with
    ``CRNN.from_storage_dir`` and serves a batch through tagging.
 5. the deep recipe (``fbcrnn_config('deep')``, full width, random
    weights): tagging of 3 batches of 32 ten-second clips by the 527-class
@@ -80,8 +89,9 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
     avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
     bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
-    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, maxpool_freq2,
-    maxpool_freq2_bwd, maxpool_freq2_bwd_plain, maxpool_freq2_plain)
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
+    maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
+    maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -217,11 +227,43 @@ def phase_card():
     path = build.build()
     build.lib()
     log(f'kernel build+load: {time.perf_counter() - t0:.1f} s -> {path}')
-    ptxas = [line for line in path.with_suffix('.log').read_text()
-             .splitlines() if 'registers' in line or 'spill' in line]
-    for line in ptxas:
-        log(f'  ptxas: {line.strip()}')
+    log_ptxas(path.with_suffix('.log').read_text())
     return card
+
+
+def log_ptxas(text):
+    """Print ``-Xptxas -v``'s registers, static shared memory and spills
+    per kernel (template arguments kept, the rest of the mangled name
+    cut), once per kernel although two sources instantiate some, and
+    ptxas's performance advisories (a serialized wgmma pipeline). The
+    wgmma kernels' dynamic shared memory is in the per-layer lines."""
+    name = ''
+    seen = set()
+    for line in text.splitlines():
+        if 'Compiling entry function' in line:
+            mangled = line.split("'")[1]
+            for kernel in ('conv2d_wgmma_kernel', 'conv2d_dw_wgmma_kernel',
+                           'conv2d_igemm_kernel', 'conv2d_dw_partial_kernel',
+                           'conv2d_dw_reduce_kernel', 'gru_scan_kernel',
+                           'gru_bwd_kernel', 'gru_part_reduce_kernel',
+                           'maxpool_freq2', 'avgpool_freq2'):
+                if kernel in mangled:
+                    args = mangled.split(kernel, 1)[1]
+                    # template arguments end in EE, a plain name in E
+                    args = (args[:args.find('EE') + 1] if 'EE' in args
+                            else args[:args.find('E')])
+                    name = kernel + args.replace('ILi', '<').replace(
+                        'ELi', ',').replace('ELb', ',').replace('E', '>')
+                    break
+            else:
+                name = mangled[-40:]
+        elif 'registers' in line or 'spill' in line:
+            info = line.replace('ptxas info    :', '').strip()
+            if (name, info) not in seen:
+                seen.add((name, info))
+                log(f'  ptxas {name}: {info}')
+        elif 'Potential Performance Loss' in line:
+            log(f'  ptxas advisory: {line.split(":", 1)[1].strip()[:160]}')
 
 
 def bound(nbytes, tensor_flops=0., vector_ops=0.):
@@ -327,6 +369,87 @@ def gru_work(d, b, t, h, backward=False):
                  (24 if backward else 12) * rows * h)
 
 
+# per conv layer: times (kernel, cuDNN, bound) of each pass, the backward's
+# device time by launch, and which design ran (printed as one JSON line)
+CONV_ROWS = []
+
+
+def profile_kernels(fn):
+    """Run ``fn()`` under ``torch.profiler``; returns (ms, key, count)
+    of each device kernel by its self device time, largest first
+    (operator rows, which repeat their kernels' time, left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(event, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(event, 'self_cuda_time_total', 0.)
+        if us > 0:
+            rows.append((us / 1e3, event.key, event.count))
+    return sorted(rows, reverse=True)
+
+
+def bwd_split_ms(fn, reps=3):
+    """Device ms per call of a conv backward's launches, by part: the dx
+    (or da) GEMM, the dw partials, their reduce, and the wrapper's glue
+    (casts, the weight flip); None when the profiler recorded no device
+    kernel (it now and then records none)."""
+    fn()
+    torch.cuda.synchronize()
+    rows = profile_kernels(lambda: [fn() for _ in range(reps)])
+    if not rows:
+        return None
+    parts = {'dx': 0., 'dw': 0., 'reduce': 0., 'glue': 0.}
+    for ms, key, _ in rows:
+        part = ('reduce' if 'dw_reduce' in key else
+                'dw' if 'conv2d_dw_' in key else
+                'dx' if 'conv2d_wgmma_kernel' in key
+                or 'conv2d_igemm_kernel' in key else 'glue')
+        parts[part] += ms / reps
+    return parts
+
+
+def log_conv_layer(row, fwd_flops):
+    """One line per conv layer: the design of each pass (wgmma with the
+    depth of its activation ring and its dynamic shared memory, or
+    narrow), and per pass the kernel's ms and TFLOP/s beside cuDNN's ms
+    and the bound; the backward's split by launch."""
+    def design(key):
+        d = row['design'][key]
+        if d['design'] != 'wgmma':
+            return f'{key}={d["design"]}'
+        return (f'{key}=wgmma (ring {d["stages"]} stages, '
+                f'{d["smem"] / 1024:.0f} KiB)')
+
+    def part(key, flops):
+        if key not in row:
+            return ''
+        ms, lib, bnd = row[key]
+        lib_s = '' if lib is None else f', cuDNN {lib:.3f}'
+        return (f' | {key} {ms:.3f} ms {flops / ms / 1e9:.0f} TFLOP/s '
+                f'(bound {bnd:.3f}{lib_s})')
+
+    split = ''
+    for key in ('bwd_split', 'fused_bwd_split'):
+        if key in row:
+            split += f' | {key}: ' + ('not recorded' if row[key] is None
+                                      else ', '.join(f'{k} {v:.3f}' for k, v
+                                                     in row[key].items()))
+    log(f'conv layer {row["tower"]} {row["layer"]} ({row["F"]}, '
+        f'{row["Cin"]} -> {row["Cout"]}): design '
+        + ' '.join(design(key) for key in ('fwd', 'dx', 'dw'))
+        + part('fwd', fwd_flops)
+        + part('bwd', 2 * fwd_flops) + part('fused_fwd', fwd_flops)
+        + part('fused_bwd', 2 * fwd_flops) + split)
+
+
 def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                   fused=()):
     """Every kernel vs its plain version at one model's shapes (B=32,
@@ -362,12 +485,22 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         got = conv2d_same(x, w, b)
         ref = conv2d_same_plain(x, w, b)
         torch.cuda.synchronize()
+        row = {'tower': label, 'layer': layer, 'F': f, 'Cin': cin,
+               'Cout': cout, 'design': conv_designs(f, cin, cout)}
+        # from Cin = 16 up every pass runs the wgmma kernels, each fed by
+        # a ring of >= 3 stages; the entry layer keeps the narrow ones
+        want = 'wgmma' if cin >= 16 else 'narrow'
+        if any(d['design'] != want or (want == 'wgmma' and d['stages'] < 3)
+               for d in row['design'].values()):
+            raise AssertionError(f'conv layer {shape}: designs '
+                                 f'{row["design"]}, expected {want}')
+        row['fwd'] =[cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
+                      cuda_ms(lambda: F.conv2d(xn, wn, bn, padding=1),
+                              reps=5), conv_work(p, cin, cout)[0]]
         _check('conv2d_same', shape, got, ref,
-               2. ** -7 * float(ref.float().abs().max()),
-               cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
+               2. ** -7 * float(ref.float().abs().max()), row['fwd'][0],
                cuda_ms(lambda: conv2d_same_plain(x, w, b), reps=5),
-               records['conv2d_same'], label,
-               cuda_ms(lambda: F.conv2d(xn, wn, bn, padding=1), reps=5),
+               records['conv2d_same'], label, row['fwd'][1],
                conv_work(p, cin, cout))
         del got, ref
         dx, dw = conv2d_same_bwd(x, w, gy)
@@ -390,6 +523,9 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
             raise AssertionError(f'conv2d_same_bwd {shape}: dw differs '
                                  f'between two runs')
         del dx, dw, ref_dx, ref_dw
+        row['bwd'] = [k_ms, lib_ms, conv_work(p, cin, cout,
+                                              backward=True)[0]]
+        row['bwd_split'] = bwd_split_ms(lambda: conv2d_same_bwd(x, w, gy))
         if layer in fused:
             # scale in [.5, 1.5), shift ~ N(0, .5^2): about half the
             # pre-activations negative, the shift often positive
@@ -399,9 +535,12 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
             got = bnrelu_conv2d_same(*args, b)
             ref = bnrelu_conv2d_same_plain(*args, b)
             torch.cuda.synchronize()
+            row['fused_fwd'] = [
+                cuda_ms(lambda: bnrelu_conv2d_same(*args, b), reps=5), None,
+                conv_work(p, cin, cout, affine=True)[0]]
             _check('bnrelu_conv2d_same', shape, got, ref,
                    2. ** -7 * float(ref.float().abs().max()),
-                   cuda_ms(lambda: bnrelu_conv2d_same(*args, b), reps=5),
+                   row['fused_fwd'][0],
                    cuda_ms(lambda: bnrelu_conv2d_same_plain(*args, b),
                            reps=5),
                    records['bnrelu_conv2d_same'], label, None,
@@ -424,6 +563,12 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                 raise AssertionError(f'bnrelu_conv2d_same_bwd {shape}: dw '
                                      f'differs between two runs')
             del da, dw, ref_da, ref_dw
+            row['fused_bwd'] = [k_ms, None, conv_work(
+                p, cin, cout, affine=True, backward=True)[0]]
+            row['fused_bwd_split'] = bwd_split_ms(
+                lambda: bnrelu_conv2d_same_bwd(*args, gy))
+        log_conv_layer(row, 2. * p * 9 * cin * cout)
+        CONV_ROWS.append(row)
         del x, gy
         torch.cuda.empty_cache()
     # max-pool: a compare and a copy (forward), a compare and a select
@@ -1009,33 +1154,36 @@ class _StepLog(Hook):
 
 def _profile_step(trainer, batch, label):
     """Device time of one training step by kernel (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def step():
         t0 = time.perf_counter()
         trainer.train_step(batch)
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
-            continue  # operator rows repeat their kernels' device time
-        us = getattr(event, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(event, 'self_cuda_time_total', 0.)
-        if us > 0:
-            rows.append((us / 1e3, event.key, event.count))
-    rows.sort(reverse=True)
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    rows = profile_kernels(step)
+    wall = walls[0]
     total = sum(ms for ms, _, _ in rows)
-    ours = ('conv2d_igemm', 'conv2d_dw_', 'gru_scan_kernel', 'gru_bwd',
-            'maxpool_freq2', 'avgpool_freq2')
-    mine = sum(ms for ms, key, _ in rows if any(k in key for k in ours))
+    families = {
+        'conv fwd/dx wgmma': ('conv2d_wgmma_kernel',),
+        'conv dw wgmma': ('conv2d_dw_wgmma_kernel',),
+        'conv narrow': ('conv2d_igemm_kernel', 'conv2d_dw_partial_kernel'),
+        'conv dw reduce': ('conv2d_dw_reduce_kernel',),
+        'GRU fwd': ('gru_scan_kernel',), 'GRU bwd': ('gru_bwd',),
+        'pools': ('maxpool_freq2', 'avgpool_freq2')}
+    by_family = {name: sum(ms for ms, key, _ in rows
+                           if any(k in key for k in keys))
+                 for name, keys in families.items()}
+    mine = sum(by_family.values())
     log(f'{label} profiled step: wall {wall:.1f} ms (profiler on), kernels '
         f'busy {total:.1f} ms (idle share {100 * (1 - total / wall):.0f}%), '
         f'hand-written kernels {mine:.1f} ms '
         f'({100 * mine / max(total, 1e-9):.0f}% of busy)')
+    log(f'{label} profiled step by family: ' + ', '.join(
+        f'{name} {ms:.2f}' for name, ms in by_family.items())
+        + f', PyTorch and libraries {total - mine:.2f} ms')
     for ms, key, count in rows[:15]:
         log(f'  {ms:8.2f} ms  x{count:<5d} {key[:90]}')
 
@@ -1165,6 +1313,12 @@ def main():
                   DEEP_GRU_SHAPES, DEEP_CROSSINGS,
                   fused=[name for name, *_ in DEEP_CONV_LAYERS[1:]])
     kernel_phase = dict(build.LAUNCHES)
+    log('conv layers: ' + json.dumps(CONV_ROWS))
+    for name in ('fwd', 'bwd', 'fused_fwd', 'fused_bwd'):
+        sums = [sum(r[name][i] for r in CONV_ROWS if name in r
+                    and r[name][i] is not None) for i in range(3)]
+        log(f'conv {name} summed over both towers: kernel {sums[0]:.3f} ms, '
+            f'cuDNN {sums[1]:.3f} ms, bound {sums[2]:.3f} ms')
     check_1x1()
     launches = {'shallow_serving': phase_slice()}
     launches['shallow_training'], _ = phase_training('shallow')

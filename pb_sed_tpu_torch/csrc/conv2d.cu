@@ -12,8 +12,11 @@
 // bytes of the activations; the wide late ones by tensor-core throughput.
 //
 // What the design does about it: an implicit GEMM that never writes the
-// im2col patch to device memory (conv2d_igemm.cuh, shared with the input
-// gradient of the backward, conv2d_bwd.cu).
+// im2col patch to device memory, shared with the input gradient of the
+// backward (conv2d_bwd.cu): wgmma fed by a TMA ring, one halo tile per K
+// slice for all taps (conv2d_wgmma.cuh); the entry layer (Cin < 16) and
+// shapes off that kernel's tiling keep the narrow kernel of
+// conv2d_igemm.cuh.
 //
 // pbsed_bnrelu_conv2d_same is the BN+ReLU-fused conv of CNN2d(fuse_bn):
 // y = bf16(conv(a, w) + b) with a = bf16(relu(f32(x) * scale + shift)) on
@@ -24,8 +27,30 @@
 // pbsed_conv2d_same is for the unfused pair. Bound as the plain conv
 // above; what it saves is the normalized buffer that the unfused tower
 // writes and reads back between its norm and its conv: the affine runs
-// while each input tile is staged (conv2d_igemm.cuh, AFFINE).
-#include "conv2d_igemm.cuh"
+// once on each staged halo tile (conv2d_wgmma.cuh, AFFINE).
+#include "conv2d_wgmma.cuh"
+
+namespace {
+
+// y = conv(x, w) + b: the wgmma kernel where conv2d_wgmma_ok, else the
+// narrow kernel; with scale and shift (both (Cin,) f32) the input goes
+// through bnrelu on the way (the BN+ReLU-fused conv)
+cudaError_t conv2d_gemm(const void* x, const void* w, const void* b, void* y,
+                        int B, int T, int F, int Cin, int N, int kt, int kf,
+                        cudaStream_t stream, const float* scale = nullptr,
+                        const float* shift = nullptr) {
+  if (!conv2d_wgmma_ok(F, Cin, N, kt, kf))
+    return conv2d_igemm(x, w, b, y, B, T, F, Cin, N, kt, kf, stream, scale,
+                        shift);
+  const float* bias = static_cast<const float*>(b);
+  if (scale != nullptr)
+    return conv2d_wgmma<true>(x, w, bias, scale, shift, y, B, T, F, Cin, N,
+                              kt, kf, stream);
+  return conv2d_wgmma<false>(x, w, bias, nullptr, nullptr, y, B, T, F, Cin,
+                             N, kt, kf, stream);
+}
+
+}  // namespace
 
 // x (B, T, F, Cin) bf16, w (kt, kf, Cin, Cout) bf16, b (Cout,) f32,
 // y (B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
@@ -36,8 +61,8 @@ extern "C" int pbsed_conv2d_same(const void* x, const void* w, const void* b,
   if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * T * F == 0) return 0;
-  return static_cast<int>(conv2d_igemm(x, w, b, y, B, T, F, Cin, Cout, kt,
-                                       kf, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(conv2d_gemm(x, w, b, y, B, T, F, Cin, Cout, kt,
+                                      kf, static_cast<cudaStream_t>(stream)));
 }
 
 // x (B, T, F, Cin) bf16, w (kt, kf, Cin, Cout) bf16, b (Cout,) f32,
@@ -52,8 +77,20 @@ extern "C" int pbsed_bnrelu_conv2d_same(const void* x, const void* w,
   if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * T * F == 0) return 0;
-  return static_cast<int>(conv2d_igemm(
+  return static_cast<int>(conv2d_gemm(
       x, w, b, y, B, T, F, Cin, Cout, kt, kf,
       static_cast<cudaStream_t>(stream), static_cast<const float*>(scale),
       static_cast<const float*>(shift)));
+}
+
+// Which kernel the forward-type GEMM of a (F, Cin -> N, kt x kf) conv runs:
+// 1 the wgmma kernel of conv2d_wgmma.cuh, with the depth of its halo ring
+// in *stages (its weight ring has kWgBStages) and its dynamic shared
+// memory in *smem; 0 the narrow one (*stages = *smem = 0).
+extern "C" int pbsed_conv2d_design(int F, int Cin, int N, int kt, int kf,
+                                   int* stages, int* smem) {
+  const bool wgmma = conv2d_wgmma_ok(F, Cin, N, kt, kf);
+  *stages = wgmma ? conv2d_wgmma_stages(F, Cin, N, kt, kf) : 0;
+  *smem = wgmma ? conv2d_wgmma_smem(F, Cin, N, kt, kf, *stages) : 0;
+  return wgmma ? 1 : 0;
 }

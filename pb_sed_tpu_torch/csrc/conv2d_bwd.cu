@@ -14,8 +14,8 @@
 //   1. dx = SAME conv of gy with the spatially flipped, channel-
 //      transposed weights (conv.py:835-836): f32 accumulation, one
 //      rounding to bf16, no bias. It runs the forward's implicit GEMM
-//      (conv2d_igemm.cuh) with N = Cin output channels, masked where
-//      Cin is not a multiple of 16 (Cin = 1 at the entry layer).
+//      (conv2d_wgmma.cuh) with N = Cin output channels; the
+//      entry layer's Cin = 1 takes the narrow kernel (conv2d_igemm.cuh).
 //   2. dw partials: dw[dt, df, ci, co] = sum_p x[p + (dt - ht, df - hf), ci]
 //      * gy[p, co] is a reduction over up to B*T*F = 2,048,000 pixels
 //      (layers 1-2 at 32 ten-second clips). The TPU kernel accumulated
@@ -32,12 +32,15 @@
 // the activation bytes, the wide late ones by the tensor cores. dx is
 // the forward's GEMM with the roles of Cin and Cout swapped.
 //
-// What the design does about it: per stage a block stages 64 pixels of
-// gy (64 x CO_T bf16) once and the kt*kf shifted 64 x 16 x tiles (zero
-// halo), and its 4 warps run bf16 tensor-core products (wmma 16x16x16,
-// f32 accumulators) for every (tap, 16-column) pair of the tile, so gy
-// is read once for all taps. The chunk count is chosen so that about
-// four blocks per SM run. No pipelining of the staging yet.
+// What the design does about it: conv2d_dw_wgmma_kernel
+// (conv2d_wgmma.cuh) stages each 128-pixel tile of x once, with its halo
+// rows, and the gy tile once, through a TMA ring of 3-6 stages; three
+// consumer warpgroups run wgmma for the 9 taps (one dt row each) from
+// shifted views of that one x tile. The chunks fill one wave of blocks
+// (conv2d_dw_chunks). The narrow kernel below (64 pixels x 16 input
+// channels, wmma, no pipelining) stays for what that one does not take:
+// Cin < 16 (the entry layer), channel counts off a multiple of 8, F not a
+// power of two dividing 128.
 //
 // pbsed_bnrelu_conv2d_same_bwd is the backward of the BN+ReLU-fused conv
 // (conv2d.cu, pbsed_bnrelu_conv2d_same): it returns da, the gradient with
@@ -50,7 +53,7 @@
 // _bwd_fused_bn). The chain through the affine (dz = da * 1[x*s + t > 0],
 // dx, dscale, dshift) runs outside, in PyTorch, as the JAX package runs
 // it outside its kernels (conv.py:1731-1743).
-#include "conv2d_igemm.cuh"
+#include "conv2d_wgmma.cuh"
 
 namespace {
 
@@ -227,15 +230,27 @@ int conv_bwd(const void* x, const void* gy, const void* w_flip,
   const long long chunk_px = (per + kDwPx - 1) / kDwPx * kDwPx;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      conv2d_igemm(gy, w_flip, nullptr, dx, B, T, F, Cout, Cin, kt, kf, s);
+      conv2d_wgmma_ok(F, Cout, Cin, kt, kf)
+          ? conv2d_wgmma<false>(gy, w_flip, nullptr, nullptr, nullptr, dx, B,
+                                T, F, Cout, Cin, kt, kf, s)
+          : conv2d_igemm(gy, w_flip, nullptr, dx, B, T, F, Cout, Cin, kt, kf,
+                         s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int Cin_pad = (Cin + 15) / 16 * 16;
-  err = scale != nullptr
-            ? launch_dw_n<true>(x, gy, scale, shift, workspace, Cin_pad, T, F,
-                                Cin, Cout, kt, kf, P, chunks, chunk_px, s)
-            : launch_dw_n<false>(x, gy, nullptr, nullptr, workspace, Cin_pad,
-                                 T, F, Cin, Cout, kt, kf, P, chunks, chunk_px,
-                                 s);
+  if (conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf))
+    err = scale != nullptr
+              ? conv2d_dw_wgmma<true>(x, gy, scale, shift, workspace, Cin_pad,
+                                      B, T, F, Cin, Cout, kt, kf, chunks, s)
+              : conv2d_dw_wgmma<false>(x, gy, nullptr, nullptr, workspace,
+                                       Cin_pad, B, T, F, Cin, Cout, kt, kf,
+                                       chunks, s);
+  else
+    err = scale != nullptr
+              ? launch_dw_n<true>(x, gy, scale, shift, workspace, Cin_pad, T,
+                                  F, Cin, Cout, kt, kf, P, chunks, chunk_px, s)
+              : launch_dw_n<false>(x, gy, nullptr, nullptr, workspace,
+                                   Cin_pad, T, F, Cin, Cout, kt, kf, P, chunks,
+                                   chunk_px, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(kt) * kf * Cin * Cout;
   const int threads = 256;
@@ -253,10 +268,9 @@ int conv_bwd(const void* x, const void* gy, const void* w_flip,
 // Cin) bf16 = w[::-1, ::-1].swap(Cin, Cout); outputs dx (B, T, F, Cin)
 // bf16 and dw (kt, kf, Cin, Cout) f32; workspace (chunks, kt*kf, Cin_pad,
 // Cout) f32 with Cin_pad = Cin rounded up to 16. All contiguous, 16-byte
-// aligned. Requires odd kt, kf and Cout % 16 == 0; block x of the dw
-// pass reduces pixels [x * chunk_px, (x + 1) * chunk_px) with chunk_px =
-// ceil(B*T*F / chunks) rounded up to 64 (a chunk past the end adds
-// zeros). Returns a cudaError_t.
+// aligned. Requires odd kt, kf and Cout % 16 == 0; chunks is
+// pbsed_conv2d_dw_chunks of the shape (any count >= 1 is right: a chunk
+// past the end adds zeros). Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_bwd(const void* x, const void* gy,
                                      const void* w_flip, void* dx, void* dw,
                                      void* workspace, int B, int T, int F,
@@ -276,4 +290,22 @@ extern "C" int pbsed_bnrelu_conv2d_same_bwd(
   return conv_bwd(x, gy, w_flip, static_cast<const float*>(scale),
                   static_cast<const float*>(shift), da, dw, workspace, B, T,
                   F, Cin, Cout, kt, kf, chunks, stream);
+}
+
+// The pixel chunks of the dw pass for this shape on a card with ``sms``
+// SMs (the workspace's first dimension): conv2d_dw_chunks.
+extern "C" int pbsed_conv2d_dw_chunks(int B, int T, int F, int Cin, int Cout,
+                                      int kt, int kf, int sms) {
+  return conv2d_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
+}
+
+// Which kernel the dw pass runs: 1 the wgmma kernel, with the depth of
+// its (x halo, gy) ring in *stages and its dynamic shared memory in
+// *smem; 0 the narrow one (*stages = *smem = 0).
+extern "C" int pbsed_conv2d_dw_design(int F, int Cin, int Cout, int kt,
+                                      int kf, int* stages, int* smem) {
+  const bool wgmma = conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf);
+  *stages = wgmma ? conv2d_dw_wgmma_stages(F, Cout, kt, kf) : 0;
+  *smem = wgmma ? conv2d_dw_wgmma_smem(F, Cout, kt, kf, *stages) : 0;
+  return wgmma ? 1 : 0;
 }

@@ -1,5 +1,7 @@
-// The implicit-GEMM SAME convolution shared by the forward conv
-// (conv2d.cu) and the input gradient of the backward (conv2d_bwd.cu):
+// The narrow implicit-GEMM SAME convolution: the shapes the wgmma kernel
+// (conv2d_wgmma.cuh) does not take, chiefly the entry layer (Cin = 1
+// forward, N = 1 input gradient), for the forward conv (conv2d.cu) and the
+// input gradient of the backward (conv2d_bwd.cu):
 //
 //   y[p, n] = bf16(sum_{dt, df, c} x[p + (dt - ht, df - hf), c] * w[dt, df, c, n]
 //                  + bias[n])
@@ -15,8 +17,7 @@
 // output channels past N (dx of the entry layer has N = 1) inside the
 // weight tile; the padded products add exact zeros and are never
 // stored. Loads are 16 bytes wide where the channel counts are
-// multiples of 8. There is no pipelining of the staging yet: a later
-// change can double-buffer it with cp.async/TMA and move to wgmma.
+// multiples of 8. No pipelining: at the entry layer its K is 9.
 //
 // With AFFINE (the BN+ReLU-fused conv, conv2d.cu's
 // pbsed_bnrelu_conv2d_same and the weight gradient of conv2d_bwd.cu) the

@@ -56,6 +56,16 @@ _SIGNATURES = {
                                  _P, _I, _I, _I, _I, _P),
 }
 
+# shape queries (no stream, no launch): which conv kernel a shape runs,
+# with its ring depth and shared memory written to the two int pointers,
+# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu)
+_IP = ctypes.POINTER(ctypes.c_int)
+_QUERIES = {
+    'pbsed_conv2d_design': (_I,) * 5 + (_IP, _IP),
+    'pbsed_conv2d_dw_design': (_I,) * 5 + (_IP, _IP),
+    'pbsed_conv2d_dw_chunks': (_I,) * 8,
+}
+
 _lib = None
 
 
@@ -141,7 +151,7 @@ def lib():
     global _lib
     if _lib is None:
         loaded = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -16,6 +16,7 @@ raises. The Functions' backward calls the backward wrapper, so on the
 CPU the tests reach the plain backward's own formula (tie rule, rounding
 points), not autograd of the plain forward.
 """
+import ctypes
 import math
 
 import torch
@@ -85,7 +86,7 @@ def _launch_conv(counter, x, w, b, affine=()):
     b32 = (torch.zeros(cout, device=x.device) if b is None
            else b.float().contiguous())
     y = torch.empty((bsz, t, f, cout), dtype=torch.bfloat16, device=x.device)
-    if x.data_ptr() % 16 or w16.data_ptr() % 16:
+    if any(a.data_ptr() % 16 for a in (x, w16, *affine)):
         raise ValueError(f'{counter} needs 16-byte aligned buffers')
     build.launch(counter, f'pbsed_{counter}', x.device,
                  x.data_ptr(), w16.data_ptr(), b32.data_ptr(),
@@ -119,17 +120,35 @@ def conv2d_same_bwd_plain(x, w, gy):
             dw.permute(2, 3, 1, 0).contiguous())
 
 
-def _dw_chunks(pixels, cin, cout, taps, device):
-    """Pixel chunks of the dw pass: about four blocks per SM over the
-    (16 x CO_T channel tile, 9-tap group) grid, chunks of >= 64 pixels
-    (``csrc/conv2d_bwd.cu``)."""
-    co_t = 64 if cout % 64 == 0 else 32 if cout % 32 == 0 else 16
-    tiles = -(-cin // 16) * (cout // co_t) * -(-taps // 9)
-    target = 4 * torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, min(-(-target // tiles), -(-pixels // 64)))
-    per_chunk = -(-pixels // chunks)
-    chunk_px = 64 * -(-per_chunk // 64)
-    return -(-pixels // chunk_px)
+def _dw_chunks(bsz, t, f, cin, cout, kt, kf, device):
+    """Pixel chunks of the dw pass (the workspace's first dimension), as
+    the C side tiles it (``csrc/conv2d_wgmma.cuh:conv2d_dw_chunks``): one
+    wave of blocks on the card's SMs for the wgmma kernel, about four
+    blocks per SM for the narrow one."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return build.lib().pbsed_conv2d_dw_chunks(bsz, t, f, cin, cout, kt, kf,
+                                              sms)
+
+
+def conv_designs(f, cin, cout, kt=3, kf=3):
+    """Which kernels the conv of a (F, Cin -> Cout, kt x kf) layer runs on
+    the card, as the C entry points decide: for each pass ``'fwd'``,
+    ``'dx'`` and ``'dw'`` a dict of ``design`` ('wgmma',
+    ``csrc/conv2d_wgmma.cuh``, or 'narrow'), ``stages`` (the depth of the
+    wgmma kernel's activation ring, 0 for the narrow one) and ``smem``
+    (its dynamic shared memory in bytes)."""
+    lib = build.lib()
+    queries = {'fwd': (lib.pbsed_conv2d_design, cin, cout),
+               'dx': (lib.pbsed_conv2d_design, cout, cin),
+               'dw': (lib.pbsed_conv2d_dw_design, cin, cout)}
+    designs = {}
+    for name, (query, c_in, c_out) in queries.items():
+        stages, smem = ctypes.c_int(), ctypes.c_int()
+        wgmma = query(f, c_in, c_out, kt, kf, ctypes.byref(stages),
+                      ctypes.byref(smem))
+        designs[name] = {'design': 'wgmma' if wgmma else 'narrow',
+                         'stages': stages.value, 'smem': smem.value}
+    return designs
 
 
 def conv2d_same_bwd(x, w, gy):
@@ -163,10 +182,11 @@ def _launch_conv_bwd(counter, x, w, gy, affine=()):
     dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
                      device=x.device)
-    chunks = _dw_chunks(bsz * t * f, cin, cout, kt * kf, x.device)
+    chunks = _dw_chunks(bsz, t, f, cin, cout, kt, kf, x.device)
     workspace = torch.empty((chunks, kt * kf, 16 * math.ceil(cin / 16), cout),
                             dtype=torch.float32, device=x.device)
-    if any(a.data_ptr() % 16 for a in (x, gy, w_flip, dx, workspace)):
+    if any(a.data_ptr() % 16 for a in (x, gy, w_flip, dx, workspace,
+                                       *affine)):
         raise ValueError(f'{counter} needs 16-byte aligned buffers')
     build.launch(counter, f'pbsed_{counter}', x.device,
                  x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),

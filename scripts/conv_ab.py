@@ -1,0 +1,126 @@
+"""A/B of the port's conv kernels between two checkouts, on one CUDA card.
+
+    python3 scripts/conv_ab.py TREE_A TREE_B [--rounds 2]
+
+Each TREE is the root of a checkout of this repository (for example the
+parent commit unpacked with ``git archive`` into a git-ignored directory,
+and ``.``). The trees are timed in turns, A B B A (``--rounds`` pairs), each
+in a process of its own that imports that tree's ``pb_sed_tpu_torch`` and
+builds its kernels there. A process times, at every 3x3 layer of both
+towers (``chip_smoke.CONV_LAYERS``, ``chip_smoke.DEEP_CONV_LAYERS``, B = 32,
+T = 500), the forward ``conv2d_same``, its backward ``conv2d_same_bwd``
+and, but at the entry layers, the BN+ReLU-fused pair: the median of 5
+CUDA-event times after 2 warm-up calls. The report gives per layer and
+pass the best time of each tree over its rounds, B / A, and the sums; a
+pass where B is more than 5% slower than A is marked ``SLOWER``. The card's
+name and power limit come first.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd')
+
+
+def time_tree():
+    """Run inside a tree: print one JSON line of {layer key: {pass: ms}}."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from pb_sed_tpu_torch.ops.kernels import conv as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for tower, layers in (('shallow', cs.CONV_LAYERS),
+                          ('deep', cs.DEEP_CONV_LAYERS)):
+        for layer, f, cin, cout in layers:
+            x = torch.randn(cs.BATCH, cs.FRAMES, f, cin, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            w = torch.randn(3, 3, cin, cout, generator=gen,
+                            device=dev) * (9 * cin) ** -.5
+            b = .1 * torch.randn(cout, generator=gen, device=dev)
+            gy = (1e-3 * torch.randn(cs.BATCH, cs.FRAMES, f, cout,
+                                     generator=gen, device=dev)).to(
+                                         torch.bfloat16)
+            scale = .5 + torch.rand(cin, generator=gen, device=dev)
+            shift = .5 * torch.randn(cin, generator=gen, device=dev)
+            times = {
+                'fwd': cs.cuda_ms(lambda: K.conv2d_same(x, w, b), reps=5),
+                'bwd': cs.cuda_ms(lambda: K.conv2d_same_bwd(x, w, gy),
+                                  reps=5)}
+            if cin > 1:
+                times['fused_fwd'] = cs.cuda_ms(
+                    lambda: K.bnrelu_conv2d_same(x, scale, shift, w, b),
+                    reps=5)
+                times['fused_bwd'] = cs.cuda_ms(
+                    lambda: K.bnrelu_conv2d_same_bwd(x, scale, shift, w, gy),
+                    reps=5)
+            out[f'{tower} {layer} ({f}, {cin} -> {cout})'] = times
+            del x, gy
+            torch.cuda.empty_cache()
+    print('TIMES ' + json.dumps(out), flush=True)
+
+
+def run_tree(tree):
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           '--time'], cwd=tree, capture_output=True,
+                          text=True, timeout=1500)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{tree}: rc {proc.returncode}\n'
+                           f'{proc.stderr[-3000:]}')
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('TIMES ')]
+    return json.loads(line[-1][len('TIMES '):])
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('trees', nargs='*')
+    parser.add_argument('--rounds', type=int, default=1)
+    parser.add_argument('--time', action='store_true')
+    args = parser.parse_args()
+    if args.time:
+        return time_tree()
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError('conv_ab.py needs a CUDA card')
+    tree_a, tree_b = args.trees
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f'card: {card}; A = {tree_a}, B = {tree_b}', flush=True)
+    runs = {'A': [], 'B': []}
+    for _ in range(args.rounds):
+        for label, tree in (('A', tree_a), ('B', tree_b), ('B', tree_b),
+                            ('A', tree_a)):
+            runs[label].append(run_tree(tree))
+            print(f'timed {label}', flush=True)
+    best = {label: {key: {p: min(r[key][p] for r in rs) for p in rs[0][key]}
+                    for key in rs[0]} for label, rs in runs.items()}
+    sums = {label: {p: 0. for p in PASSES} for label in best}
+    slower = []
+    for key in best['A']:
+        cells = []
+        for p in PASSES:
+            if p not in best['A'][key]:
+                continue
+            a, b = best['A'][key][p], best['B'][key][p]
+            sums['A'][p] += a
+            sums['B'][p] += b
+            flag = ' SLOWER' if b > 1.05 * a else ''
+            if flag:
+                slower.append(f'{key} {p}')
+            cells.append(f'{p} {a:.3f} -> {b:.3f} ms ({b / a:.3f}){flag}')
+        print(f'{key}: ' + ' | '.join(cells))
+    for p in PASSES:
+        print(f'sum {p}: A {sums["A"][p]:.3f} ms, B {sums["B"][p]:.3f} ms '
+              f'({sums["B"][p] / sums["A"][p]:.3f})')
+    print(f'passes where B is more than 5% slower than A: '
+          f'{slower if slower else "none"}')
+    print(json.dumps({'card': card, 'best': best}))
+
+
+if __name__ == '__main__':
+    main()

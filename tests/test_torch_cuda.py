@@ -3,8 +3,9 @@ versions on the card, at edge shapes the main path does not reach (ragged
 tiles, channel counts off the vector width, small hidden sizes, the
 Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
 pools, the BN+ReLU-fused conv with a positive shift at the borders, the
-fused GRU backward at batches off its tile), the determinism of the
-weight gradients, and the wrappers' raises. They need a CUDA card and
+fused GRU backward at batches off its tile, the wgmma conv kernels'
+ragged pixel tiles, frequency rows and channel widths), the determinism
+of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
 On the card (no JAX there, so without this directory's conftest):
@@ -19,8 +20,9 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
     avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
     bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
-    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, maxpool_freq2,
-    maxpool_freq2_bwd, maxpool_freq2_bwd_plain, maxpool_freq2_plain)
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
+    maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
+    maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -247,6 +249,55 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
     again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout', [
+    (1, 1, 8, 16, 16),       # B = T = 1: 8 of a tile's 128 pixels
+    (1, 3, 16, 32, 512),     # Cout 512: four 128-wide N tiles; dx N = 32
+    (2, 5, 128, 16, 32),     # F = 128: one frequency row per tile
+    (1, 7, 16, 256, 16),     # Cin 256: four K slices; dx N = 256
+    (3, 17, 8, 32, 16),      # T = 17 off the 16-row tile, B * T * F = 408
+    (1, 2, 128, 1, 16),      # Cin = 1: the narrow kernels
+])
+def test_wgmma_conv_kernels_match_plain(gen, b, t, f, cin, cout):
+    """The wgmma conv kernels (csrc/conv2d_wgmma.cuh), forward and
+    backward, plain and BN+ReLU-fused with a positive shift on every
+    channel (a halo lit with relu(shift) would show at every border), at
+    ragged pixel tiles, F of 8, 16 and 128 and channel counts from 1 to
+    512; dw bit-identical in two runs. Cin = 1 runs the narrow kernels."""
+    want = 'wgmma' if cin >= 16 else 'narrow'
+    designs = conv_designs(f, cin, cout)
+    assert {name: d['design'] for name, d in designs.items()} == {
+        'fwd': want, 'dx': want, 'dw': want}
+    # the wgmma kernels' activation rings hold at least 3 stages here
+    assert all((d['stages'] >= 3) == (want == 'wgmma')
+               for d in designs.values())
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(3, 3, cin, cout, generator=gen, device='cuda') * (
+        9 * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(cin, generator=gen, device='cuda')
+    affine = (scale, shift)
+    for fwd, fwd_plain, bwd, bwd_plain, pre in (
+            (conv2d_same, conv2d_same_plain, conv2d_same_bwd,
+             conv2d_same_bwd_plain, ()),
+            (bnrelu_conv2d_same, bnrelu_conv2d_same_plain,
+             bnrelu_conv2d_same_bwd, bnrelu_conv2d_same_bwd_plain, affine)):
+        y = fwd(x, *pre, w, bias)
+        ref = fwd_plain(x, *pre, w, bias)
+        # one f32 sum of the same bf16 products rounded once (one ulp)
+        assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+        dx, dw = bwd(x, *pre, w, gy)
+        ref_dx, ref_dw = bwd_plain(x, *pre, w, gy)
+        assert _max_err(dx, ref_dx) <= 2. ** -7 * float(
+            ref_dx.float().abs().max())
+        # dw: f32 sums in another order, reduced in a fixed order
+        assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+        assert torch.equal(dw, bwd(x, *pre, w, gy)[1])
 
 
 def test_new_kernels_raise_on_what_they_do_not_take(gen):

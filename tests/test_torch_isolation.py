@@ -150,6 +150,24 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert unplaced.device is None
 
 
+def test_package_data_ships_every_kernel_source():
+    """An installed port builds its kernels from the packaged ``csrc/``:
+    every file there (headers included) must match a package-data glob
+    of ``pyproject.toml``."""
+    import fnmatch
+    import tomllib
+    with open(REPO / 'pyproject.toml', 'rb') as fid:
+        data = tomllib.load(fid)['tool']['setuptools']['package-data']
+    globs = data['pb_sed_tpu_torch']
+    package = REPO / 'pb_sed_tpu_torch'
+    sources = [str(p.relative_to(package))
+               for p in sorted((package / 'csrc').iterdir()) if p.is_file()]
+    assert any(s.endswith('.cuh') for s in sources)
+    missing = [s for s in sources
+               if not any(fnmatch.fnmatch(s, g) for g in globs)]
+    assert not missing, missing
+
+
 def test_chip_smoke_refuses_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
     out = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=REPO,
