@@ -27,7 +27,16 @@ runs, in order:
    >= 3 stages fails the run), the achieved TFLOP/s beside cuDNN's time
    and the bound, and the backward's device time by launch (dx GEMM, dw
    partials, reduce, glue; ``torch.profiler``); after the kernel phases,
-   the per-layer record as JSON and the sums over both towers.
+   the per-layer record as JSON and the sums over both towers. Per GRU
+   shape one line per pass says which design ran (w_hh resident in a
+   thread-block cluster's shared memory, ``csrc/gru_cluster.cuh``, with
+   the cluster's size, its rows, the shared memory a block and the
+   clusters the card holds at once; or the row-tiled kernels) and one
+   gives the wrapper's ms, the kernel's alone, its time per serial step
+   and the row-tiled kernel's ms of before; at the training shape
+   (2, 32, 500, H) anything but the cluster design fails the run, as
+   does a spill in a cluster kernel or a second run of a GRU backward
+   that differs in any bit.
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
    channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
@@ -92,7 +101,8 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
     maxpool_freq2_plain)
-from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
+from pb_sed_tpu_torch.ops.kernels.gru import (gru_designs, gru_scan,
+                                              gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
 from pb_sed_tpu_torch.train.hooks import Hook
@@ -124,6 +134,13 @@ DEEP_POOLS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 # 10 -> 12, 14 -> 16, each matched to F / 2 rows and 2C channels
 DEEP_CROSSINGS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 DEEP_GRU_SHAPES = [(2, BATCH, FRAMES, 512), (2, BATCH * FRAMES, 51, 512)]
+# The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
+# design, kernel alone: the parent tree in `scripts/gru_ab.py
+# chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
+EARLIER_GRU_MS = {
+    ('fwd', 256): 15.751, ('bwd', 256): 32.225,
+    ('fwd', 512): 38.278, ('bwd', 512): 82.779}
 
 # name: route, source, the TPU kernel(s) it replaces, and the path whose
 # launch count the kernels line reports as ``launches``
@@ -236,7 +253,9 @@ def log_ptxas(text):
     per kernel (template arguments kept, the rest of the mangled name
     cut), once per kernel although two sources instantiate some, and
     ptxas's performance advisories (a serialized wgmma pipeline). The
-    wgmma kernels' dynamic shared memory is in the per-layer lines."""
+    wgmma kernels' dynamic shared memory is in the per-layer lines, the
+    GRU cluster kernels' in the per-shape lines; a spill in a GRU cluster
+    kernel fails the run."""
     name = ''
     seen = set()
     for line in text.splitlines():
@@ -245,7 +264,8 @@ def log_ptxas(text):
             for kernel in ('conv2d_wgmma_kernel', 'conv2d_dw_wgmma_kernel',
                            'conv2d_igemm_kernel', 'conv2d_dw_partial_kernel',
                            'conv2d_dw_reduce_kernel', 'gru_scan_kernel',
-                           'gru_bwd_kernel', 'gru_part_reduce_kernel',
+                           'gru_scan_cluster_kernel', 'gru_bwd_kernel',
+                           'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2'):
                 if kernel in mangled:
                     args = mangled.split(kernel, 1)[1]
@@ -262,6 +282,10 @@ def log_ptxas(text):
             if (name, info) not in seen:
                 seen.add((name, info))
                 log(f'  ptxas {name}: {info}')
+            if ('_cluster_kernel' in name and 'spill' in info
+                    and '0 bytes spill stores, 0 bytes spill loads'
+                    not in info):
+                raise AssertionError(f'{name} spills: {info}')
         elif 'Potential Performance Loss' in line:
             log(f'  ptxas advisory: {line.split(":", 1)[1].strip()[:160]}')
 
@@ -643,14 +667,28 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         w_hh = randn(d, h, 3 * h, scale=h ** -.5)
         b_hh = randn(d, 3 * h, scale=.1)
         h0 = torch.zeros(d, b, h, device=dev)
+        designs = gru_designs(d, b, t, h)
+        for key, v in designs.items():
+            log(f'gru design {(d, b, t, h)} {key}: {v["design"]}, cluster of '
+                f'{v["cluster"]}, {v["rows"]} rows a '
+                f'{"cluster" if v["cluster"] > 1 else "block"}, '
+                f'{v["smem"] / 1024:.0f} KiB shared memory a block, '
+                f'{v["coresident"]} clusters co-resident')
+            # B clips x T frames is the training and tagging shape: w_hh
+            # must be resident in a cluster's shared memory there
+            if b == BATCH and v['design'] != 'cluster':
+                raise AssertionError(f'GRU {key} at {(d, b, t, h)} runs the '
+                                     f'{v["design"]} kernel')
         y = gru_scan(xw, w_hh, b_hh, h0)
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
         torch.cuda.synchronize()
-        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3,
-               cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
+        k_ms = cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5)
+        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3, k_ms,
                cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
                        warmup=1),
                records['gru_scan'], label, None, gru_work(d, b, t, h))
+        _log_gru_step('fwd', (d, b, t, h), k_ms,
+                      lambda: gru_scan(xw, w_hh, b_hh, h0))
         del ref
         if b == BATCH:
             g = randn(d, b, t, h, scale=1e-2)
@@ -672,15 +710,16 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                            gru_work(d, b, t, h, True) if i == 0 else None)
                 if split:
                     split_grads = grads
+                    _log_gru_step('bwd', (d, b, t, h), k_ms,
+                                  lambda: gru_scan_bwd(*args))
                 else:
-                    # the fused kernel against the split one: dxw and dh0
-                    # from the same sweep (bit-exact); dw_hh and db_hh
+                    # the fused kernel against the split one, which sums
+                    # dh in another order (its cluster design): all four
                     # within the backward's bound
                     for i, part in enumerate(('dxw', 'dw_hh', 'db_hh',
                                               'dh0')):
                         a, r = grads[i], split_grads[i]
-                        tol = (0. if part in ('dxw', 'dh0') else
-                               5.3e-3 * float(r.float().abs().max()))
+                        tol = 5.3e-3 * float(r.float().abs().max())
                         err = float((a.float() - r.float()).abs().max())
                         log(f'{name} vs split kernel {part} {(d, b, t, h)}:'
                             f' max|d|={err:.3e} tol={tol:.3e}')
@@ -688,14 +727,38 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                             raise AssertionError(
                                 f'{name} {part}: fused and split kernels '
                                 f'differ by {err} > {tol}')
-                    again = gru_scan_bwd(*args, split=False)
-                    if not all(torch.equal(a, r)
-                               for a, r in zip(grads, again)):
-                        raise AssertionError(f'{name}: two runs differ')
+                # the split kernel adds its partials of dh in rank order,
+                # the fused one its dw_hh slices in block order: a second
+                # run agrees in every bit
+                again = gru_scan_bwd(*args, split=split)
+                if not all(torch.equal(a, r) for a, r in zip(grads, again)):
+                    raise AssertionError(f'{name} {(d, b, t, h)}: two runs '
+                                         f'differ')
+                log(f'{name} {(d, b, t, h)}: two runs agree in every bit')
+                del again
                 del grads, refs
             del split_grads, g, args
         del xw, y
         torch.cuda.empty_cache()
+
+
+def _log_gru_step(key, shape, k_ms, fn):
+    """A GRU wrapper's ms (``k_ms``, of ``fn()``) and its kernel's alone
+    (``torch.profiler``: the wrapper adds casts and, backward, the
+    weight-gradient contraction), the kernel's time per serial step, and
+    the row-tiled kernel's ms of before the cluster design where that was
+    recorded."""
+    t, h = shape[2], shape[3]
+    kernel = sum(ms for ms, name, _ in profile_kernels(fn)
+                 if 'gru_scan' in name or 'gru_bwd' in name)
+    earlier = EARLIER_GRU_MS.get((key, h)) if shape[1] == BATCH else None
+    was = ('' if earlier is None else
+           f'; the row-tiled kernel took {earlier:.3f} ms '
+           f'({1e3 * earlier / t:.1f} us a step)')
+    alone = ('kernel alone not recorded' if not kernel else
+             f'kernel alone {kernel:.3f} ms, {1e3 * kernel / t:.2f} us a '
+             f'serial step')
+    log(f'gru {key} {shape}: wrapper {k_ms:.3f} ms; {alone}{was}')
 
 
 def check_1x1():
@@ -1171,7 +1234,8 @@ def _profile_step(trainer, batch, label):
         'conv dw wgmma': ('conv2d_dw_wgmma_kernel',),
         'conv narrow': ('conv2d_igemm_kernel', 'conv2d_dw_partial_kernel'),
         'conv dw reduce': ('conv2d_dw_reduce_kernel',),
-        'GRU fwd': ('gru_scan_kernel',), 'GRU bwd': ('gru_bwd',),
+        'GRU fwd': ('gru_scan_kernel', 'gru_scan_cluster_kernel'),
+        'GRU bwd': ('gru_bwd',),
         'pools': ('maxpool_freq2', 'avgpool_freq2')}
     by_family = {name: sum(ms for ms, key, _ in rows
                            if any(k in key for k in keys))

@@ -1,7 +1,8 @@
-// The reverse sweep of the GRU backward, shared by the split variant
-// (gru_bwd.cu, the training default) and the fused one
-// (gru_bwd_fused.cu): one templated kernel, torch gate order (r, z, n),
-// D independent directions at once.
+// The row-tiled reverse sweep of the GRU backward: the fused variant
+// (gru_bwd_fused.cu) always runs it, the split variant (gru_bwd.cu, the
+// training default) at the shapes its cluster design does not take. One
+// templated kernel, torch gate order (r, z, n), D independent directions
+// at once.
 //
 //   hw    = bf16(h_prev) @ bf16(w_hh) (f32 accumulate) + b_hh
 //   r, z  = sigmoid(xw_{r,z} + hw_{r,z});  n = tanh(xw_n + r * hw_n)

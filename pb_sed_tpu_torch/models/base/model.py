@@ -179,11 +179,14 @@ class SoundEventModel(Configurable):
             pickle.dump(payload, fid)
 
     def load_checkpoint(self, path):
-        """Load a ``{'model': flat}`` pickle (written by this package or
-        by the JAX package's training). Only load checkpoints you trust:
-        unpickling runs code."""
-        with Path(path).open('rb') as fid:
-            payload = pickle.load(fid)
+        """Load the ``'model'`` entry (a flat dict) of a checkpoint
+        written by this package or by the JAX package's model or
+        ``Trainer``. The file is read with
+        ``utils.checkpoint.load_payload``: the JAX trainer's optimizer
+        state, whose classes are optax's, comes back as stand-ins and
+        needs no optax here."""
+        from pb_sed_tpu_torch.utils.checkpoint import load_payload
+        payload = load_payload(path)
         self.load_state_dict(payload['model'])
         return payload
 

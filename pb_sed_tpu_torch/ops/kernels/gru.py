@@ -3,6 +3,12 @@
 their plain PyTorch versions and the autograd Function ``GruScan`` that
 ties them together.
 
+The forward and the split backward each have two designs, chosen by
+shape inside the C entry points (``csrc/gru_cluster.cuh:
+gru_cluster_takes``): with few rows and many steps (training, tagging) a
+thread-block cluster per row tile that keeps w_hh in its shared memory;
+else one block per row tile. :func:`gru_designs` reports the choice.
+
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
 projections ``xw (D, B, T, 3H)``, recurrent weights ``w_hh (D, H, 3H)``
@@ -16,6 +22,8 @@ split=False)`` is the fused variant (``_gru_scan_pallas_bwd(split=False)``),
 which accumulates dw_hh and db_hh inside the sweep; as in the JAX
 package, no training path selects it.
 """
+import ctypes
+
 import torch
 
 from pb_sed_tpu_torch.ops.kernels import build
@@ -98,6 +106,32 @@ def gru_scan(xw, w_hh, b_hh, h0):
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  h32.data_ptr(), y.data_ptr(), d, b, t, hdim)
     return y
+
+
+def gru_designs(d, b, t, h):
+    """Which kernels the GRU runs on the card at xw (D, B, T, 3H), as the
+    C entry points decide: for ``'fwd'`` and ``'bwd'`` (the split
+    backward) a dict of ``design`` ('cluster': w_hh resident in a
+    thread-block cluster's shared memory, or 'row_tiled'), ``cluster``
+    (blocks a cluster, 1 row-tiled), ``rows`` (batch rows a cluster or
+    block), ``smem`` (dynamic shared memory a block, bytes) and
+    ``coresident`` (clusters the card holds at once, 0 row-tiled).
+    Raises where the card can hold no cluster of the design."""
+    lib = build.lib()
+    designs = {}
+    for name, query in (('fwd', lib.pbsed_gru_design),
+                        ('bwd', lib.pbsed_gru_bwd_design)):
+        out = [ctypes.c_int() for _ in range(4)]
+        rc = query(d, b, t, h, *map(ctypes.byref, out))
+        if rc < 0:
+            msg = lib.pbsed_error_string(-rc).decode()
+            raise RuntimeError(f'GRU {name} design query at {(d, b, t, h)} '
+                               f'failed: CUDA error {-rc} ({msg})')
+        designs[name] = dict(
+            zip(('cluster', 'rows', 'smem', 'coresident'),
+                (v.value for v in out)),
+            design='cluster' if rc else 'row_tiled')
+    return designs
 
 
 def _check_bwd(xw, w_hh, b_hh, h0, y, g):

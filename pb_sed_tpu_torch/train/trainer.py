@@ -46,6 +46,7 @@ from pb_sed_tpu_torch.bridge import param_keys
 from pb_sed_tpu_torch.train.hooks import (EndTrigger, Hook, IntervalTrigger,
                                           LRAnnealingHook)
 from pb_sed_tpu_torch.train.optimizer import Adam
+from pb_sed_tpu_torch.utils.checkpoint import adam_moments, load_payload
 from pb_sed_tpu_torch.utils.config import Configurable
 
 
@@ -282,30 +283,44 @@ class Trainer(Configurable):
                 pickle.dump(payload, fid)
 
     def load_latest_checkpoint(self):
-        """Resume from ``ckpt_latest.pkl`` (written by this trainer; only
-        load checkpoints you trust: unpickling runs code). Returns
-        whether one was found."""
+        """Resume from ``ckpt_latest.pkl``, written by this trainer or by
+        the JAX package's (read with ``utils.checkpoint.load_payload``,
+        which needs no optax for the latter's optimizer state). Adam's
+        moments are restored by flat parameter key from either; a state
+        that holds none raises a ``ValueError`` naming the cause. The JAX
+        trainer's rng is a uint32 key, not a ``torch.Generator`` state:
+        the generator then keeps the state its seed gave it, and the log
+        says so. Returns whether a checkpoint was found."""
         path = self.checkpoint_dir / 'ckpt_latest.pkl'
         if not path.exists():
             print('No checkpoint to resume from')
             return False
-        with path.open('rb') as fid:
-            payload = pickle.load(fid)
+        payload = load_payload(path)
         self.model.load_state_dict(payload['model'])
         self.iteration = payload['iteration']
         self.epoch = payload.get('epoch', 0)
         self.lr_factor_backoff = payload.get('lr_factor_backoff', 1.)
         self._ensure_ready()
-        optimizer = payload.get('optimizer')
-        if isinstance(optimizer, dict) and 'mu' in optimizer:
+        if payload.get('optimizer') is not None:
+            count, mu, nu = adam_moments(payload['optimizer'])
             names = param_keys(self.model.module)
-            self.opt_state['count'] = int(optimizer['count'])
-            for key in ('mu', 'nu'):
+            missing = [n for n in names if n not in mu or n not in nu]
+            if missing:
+                raise KeyError(f'the optimizer state of {path} has no '
+                               f'moments for {missing}')
+            self.opt_state['count'] = count
+            for key, moments in (('mu', mu), ('nu', nu)):
                 for t, n in zip(self.opt_state[key], names):
-                    t.copy_(torch.from_numpy(np.asarray(optimizer[key][n])))
+                    t.copy_(torch.from_numpy(
+                        np.array(moments[n], np.float32)).reshape(t.shape))
         if payload.get('rng') is not None:
-            self.generator.set_state(torch.from_numpy(
-                np.asarray(payload['rng'], np.uint8)))
+            rng = np.asarray(payload['rng'])
+            if rng.dtype == np.uint8:
+                self.generator.set_state(torch.from_numpy(rng.copy()))
+            else:
+                print(f'The rng of {path} is a JAX key ({rng.dtype}, shape '
+                      f'{rng.shape}), not a torch.Generator state: the '
+                      f'generator keeps the state of seed {self.seed}')
         for trigger in (self.checkpoint_trigger, self.summary_trigger):
             if trigger.unit == 'iteration':
                 trigger.last = self.iteration

@@ -1,0 +1,145 @@
+"""A/B of the port's GRU kernels between two checkouts, on one CUDA card.
+
+    python3 scripts/gru_ab.py TREE_A TREE_B [--rounds 2]
+
+Each TREE is the root of a checkout of this repository (for example the
+parent commit unpacked with ``git archive`` into a git-ignored directory,
+and ``.``). The trees are timed in turns, A B B A (``--rounds`` pairs), each
+in a process of its own that imports that tree's ``pb_sed_tpu_torch`` and
+builds its kernels there. A process times the forward kernel
+(``pbsed_gru_scan``) and the split backward kernel (``pbsed_gru_scan_bwd``,
+the sweep alone, without the wrapper's weight-gradient contraction) on
+prepared buffers at the training and tagging shape (2, 32, 500, H) and the
+sliding-window shape (2, 16 000, 51, H), H = 256 and 512: the median of 5
+CUDA-event times after 2 warm-up launches. The report gives per shape and
+pass the best time of each tree over its rounds, the time per serial step,
+B / A, and, where the tree can say, the design that ran; a pass where B is
+more than 5% slower than A is marked ``SLOWER``. The card's name and power
+limit come first.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SHAPES = [(2, 32, 500, 256), (2, 16000, 51, 256), (2, 32, 500, 512),
+          (2, 16000, 51, 512)]
+PASSES = ('fwd', 'bwd')
+
+
+def time_tree():
+    """Run inside a tree: print one JSON line of {shape: {pass: ms}} and
+    one of {shape: {pass: design}} (empty where the tree has no query)."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import chip_smoke as cs
+    from pb_sed_tpu_torch.ops.kernels import build
+    from pb_sed_tpu_torch.ops.kernels import gru as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times, designs = {}, {}
+    for d, b, t, h in SHAPES:
+        xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w_hh = (torch.randn(d, h, 3 * h, generator=gen, device=dev)
+                * h ** -.5).to(torch.bfloat16)
+        b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device=dev)
+        h0 = torch.zeros(d, b, h, device=dev)
+        y = torch.empty(d, b, t, h, device=dev)
+
+        def fwd():
+            build.launch('gru_scan', 'pbsed_gru_scan', dev, xw.data_ptr(),
+                         w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                         y.data_ptr(), d, b, t, h)
+
+        key = str((d, b, t, h))
+        times[key] = {'fwd': cs.cuda_ms(fwd, reps=5)}
+        h_prev = torch.cat([h0[:, :, None], y[:, :, :-1]], dim=2).to(
+            torch.bfloat16).contiguous()
+        del y
+        g = 1e-2 * torch.randn(d, b, t, h, generator=gen, device=dev)
+        dxw = torch.empty_like(xw)
+        r = torch.empty_like(h_prev)
+        dh0 = torch.empty(d, b, h, device=dev)
+
+        def bwd():
+            build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', dev,
+                         xw.data_ptr(), h_prev.data_ptr(), w_hh.data_ptr(),
+                         b_hh.data_ptr(), g.data_ptr(), dxw.data_ptr(),
+                         r.data_ptr(), dh0.data_ptr(), d, b, t, h)
+
+        times[key]['bwd'] = cs.cuda_ms(bwd, reps=5)
+        if hasattr(K, 'gru_designs'):
+            designs[key] = {
+                p: (f'{v["design"]} (cluster {v["cluster"]}, {v["rows"]} '
+                    f'rows, {v["smem"] / 1024:.0f} KiB, {v["coresident"]} '
+                    f'co-resident)')
+                for p, v in K.gru_designs(d, b, t, h).items()}
+        del xw, h_prev, g, dxw, r
+        torch.cuda.empty_cache()
+    print('TIMES ' + json.dumps(times), flush=True)
+    print('DESIGNS ' + json.dumps(designs), flush=True)
+
+
+def run_tree(tree):
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           '--time'], cwd=tree, capture_output=True,
+                          text=True, timeout=1500)
+    if proc.returncode != 0:
+        raise RuntimeError(f'{tree}: rc {proc.returncode}\n'
+                           f'{proc.stderr[-3000:]}')
+    found = {}
+    for tag in ('TIMES', 'DESIGNS'):
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith(tag + ' ')]
+        found[tag] = json.loads(line[-1][len(tag) + 1:])
+    return found['TIMES'], found['DESIGNS']
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('trees', nargs='*')
+    parser.add_argument('--rounds', type=int, default=1)
+    parser.add_argument('--time', action='store_true')
+    args = parser.parse_args()
+    if args.time:
+        return time_tree()
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError('gru_ab.py needs a CUDA card')
+    tree_a, tree_b = args.trees
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f'card: {card}; A = {tree_a}, B = {tree_b}', flush=True)
+    runs = {'A': [], 'B': []}
+    designs = {}
+    for _ in range(args.rounds):
+        for label, tree in (('A', tree_a), ('B', tree_b), ('B', tree_b),
+                            ('A', tree_a)):
+            times, designs[label] = run_tree(tree)
+            runs[label].append(times)
+            print(f'timed {label}', flush=True)
+    best = {label: {key: {p: min(r[key][p] for r in rs) for p in PASSES}
+                    for key in rs[0]} for label, rs in runs.items()}
+    slower = []
+    for d, b, t, h in SHAPES:
+        key = str((d, b, t, h))
+        for p in PASSES:
+            ms_a, ms_b = best['A'][key][p], best['B'][key][p]
+            flag = ' SLOWER' if ms_b > 1.05 * ms_a else ''
+            if flag:
+                slower.append(f'{key} {p}')
+            design = designs['B'].get(key, {}).get(p, 'not reported')
+            print(f'{key} {p}: {ms_a:.3f} -> {ms_b:.3f} ms '
+                  f'({ms_b / ms_a:.3f}); per step {1e3 * ms_a / t:.2f} -> '
+                  f'{1e3 * ms_b / t:.2f} us; B runs {design}{flag}')
+    print(f'passes where B is more than 5% slower than A: '
+          f'{slower if slower else "none"}')
+    print(json.dumps({'card': card, 'best': best, 'designs': designs}))
+
+
+if __name__ == '__main__':
+    main()

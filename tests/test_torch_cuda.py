@@ -3,7 +3,9 @@ versions on the card, at edge shapes the main path does not reach (ragged
 tiles, channel counts off the vector width, small hidden sizes, the
 Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
 pools, the BN+ReLU-fused conv with a positive shift at the borders, the
-fused GRU backward at batches off its tile, the wgmma conv kernels'
+fused GRU backward at batches off its tile, the GRU's cluster design at
+both widths with ragged row tiles and a random initial state beside the
+row-tiled one at small hidden sizes, the wgmma conv kernels'
 ragged pixel tiles, frequency rows and channel widths), the determinism
 of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
@@ -23,7 +25,8 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
     maxpool_freq2_plain)
-from pb_sed_tpu_torch.ops.kernels.gru import (gru_scan, gru_scan_bwd,
+from pb_sed_tpu_torch.ops.kernels.gru import (GruScan, gru_designs, gru_scan,
+                                              gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
 
@@ -74,19 +77,62 @@ def test_maxpool_kernel_bit_exact(gen, shape):
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
 
 
-@pytest.mark.parametrize('d,b,t,h', [(1, 5, 9, 32), (2, 33, 17, 64),
-                                     (2, 3, 4, 512)])
+# (D, B, T, H): H = 32 and 64 run the row-tiled kernels; H = 256 and 512
+# with few rows the cluster design, here with one and two row tiles, rows
+# past the batch in a tile (B = 5, 3, 33) and T odd and even
+GRU_SHAPES = [(1, 5, 9, 32), (2, 33, 17, 64), (2, 3, 4, 512),
+              (2, 32, 40, 256), (2, 33, 17, 512), (1, 5, 9, 256),
+              (2, 16, 1, 512)]
+
+
+def _gru_design_is_expected(d, b, t, h):
+    want = 'cluster' if h in (256, 512) else 'row_tiled'
+    designs = gru_designs(d, b, t, h)
+    return all(designs[k]['design'] == want for k in ('fwd', 'bwd'))
+
+
+@pytest.mark.parametrize('d,b,t,h', GRU_SHAPES)
 def test_gru_kernel_matches_plain(gen, d, b, t, h):
     xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda')
     w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
     b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
     h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    assert _gru_design_is_expected(d, b, t, h)
+    n = build.LAUNCHES['gru_scan']
     got = gru_scan(xw, w_hh, b_hh, h0)
+    assert build.LAUNCHES['gru_scan'] == n + 1
     ref = gru_scan_plain(xw, w_hh, b_hh, h0)
     # same bf16 rounding points; summation order may flip a bf16 rounding
     # of h before the next step's matmul: the TPU kernel's measured
     # drift, 5.3e-3, bounds it
     assert float((got - ref).abs().max()) <= 5.3e-3
+    assert torch.equal(got, gru_scan(xw, w_hh, b_hh, h0))
+
+
+def test_gru_design_by_shape(gen):
+    """The cluster design takes the training shapes (16 rows a cluster
+    while all clusters are on the card at once) and, at H = 512, the
+    sliding-window one (32 rows a cluster forward); at H = 256 that shape
+    keeps the row-tiled kernels."""
+    for h, cluster in ((256, 8), (512, 16)):
+        train = gru_designs(2, 32, 500, h)
+        for key in ('fwd', 'bwd'):
+            assert train[key]['design'] == 'cluster'
+            assert train[key]['cluster'] == cluster
+            assert train[key]['coresident'] >= 1
+            assert train[key]['smem'] <= 232448
+            # an H100 holds 7 clusters of 16 blocks and 15 of 8: the 4
+            # clusters of 16 rows are all on the card at once
+            assert train[key]['coresident'] >= 4
+            assert train[key]['rows'] == 16
+    sed = gru_designs(2, 16000, 51, 512)
+    assert sed['fwd']['design'] == sed['bwd']['design'] == 'cluster'
+    assert (sed['fwd']['rows'], sed['bwd']['rows']) == (32, 16)
+    sed = gru_designs(2, 16000, 51, 256)
+    for key in ('fwd', 'bwd'):
+        assert sed[key]['design'] == 'row_tiled'
+        assert sed[key]['cluster'] == 1
+    assert gru_designs(2, 16000, 51, 64)['fwd']['design'] == 'row_tiled'
 
 
 @pytest.mark.parametrize('shape,cout,dtype', [
@@ -171,8 +217,7 @@ def test_maxpool_backward_kernel_bit_exact(gen, shape):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize('d,b,t,h', [(1, 5, 9, 32), (2, 33, 17, 64),
-                                     (2, 3, 4, 512)])
+@pytest.mark.parametrize('d,b,t,h', GRU_SHAPES)
 def test_gru_backward_kernel_matches_plain(gen, d, b, t, h):
     xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
         torch.bfloat16)
@@ -181,12 +226,41 @@ def test_gru_backward_kernel_matches_plain(gen, d, b, t, h):
     h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
     y = gru_scan(xw, w_hh, b_hh, h0)
     g = torch.randn(d, b, t, h, generator=gen, device='cuda')
+    n = build.LAUNCHES['gru_scan_bwd']
     got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    assert build.LAUNCHES['gru_scan_bwd'] == n + 1
     ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
     # same bf16 rounding points; f32 summation order may flip a bf16
     # rounding of dgates before the next step: the GRU ceiling, 5.3e-3
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+    # the cluster design sums its partials of dh in rank order: reruns
+    # agree in every bit
+    again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize('d,b,t,h', [(2, 33, 17, 64), (2, 32, 40, 256),
+                                     (2, 5, 12, 512)])
+def test_gru_scan_gradients_match_autograd_over_plain(gen, d, b, t, h):
+    """``GruScan`` (both kernels) against autograd through the plain
+    forward, which differentiates the same f32 math but rounds other
+    things to bf16 than the backward kernel does (the gradient at each
+    cast, not h_prev, dgates, dxw and r): 2e-2 of each gradient's largest
+    entry."""
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
+        torch.bfloat16).float()
+    w_hh = (torch.randn(d, h, 3 * h, generator=gen, device='cuda')
+            * h ** -.5).to(torch.bfloat16).float()
+    b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+    h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    g = torch.randn(d, b, t, h, generator=gen, device='cuda')
+    grads = []
+    for fn in (GruScan.apply, gru_scan_plain):
+        leaves = [v.clone().requires_grad_() for v in (xw, w_hh, b_hh, h0)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    for a, r in zip(*grads):
+        assert _max_err(a, r) <= 2e-2 * float(r.abs().max())
 
 
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
@@ -243,10 +317,17 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=False)
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
-    # the same sweep as the split kernel; dw_hh/db_hh reduced in a fixed
-    # order: bit-identical reruns
+    # against the split kernel: the same sweep where that runs row-tiled
+    # (bit-exact dxw and dh0); where it takes the cluster design its dh is
+    # summed in another order (the GRU ceiling). dw_hh/db_hh are reduced
+    # in a fixed order: bit-identical reruns
     split = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
-    assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
+    if gru_designs(d, b, t, h)['bwd']['design'] == 'row_tiled':
+        assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
+    else:
+        for i in (0, 3):
+            assert _max_err(got[i], split[i]) <= 5.3e-3 * float(
+                split[i].float().abs().max())
     again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 

@@ -1,16 +1,19 @@
 """The port's GRU recurrence (plain version on the CPU) against the JAX
 package's Pallas GRU kernel in interpret mode and its ``lax.scan``
 reference, at D=1 and D=2 and with T not a multiple of the TPU kernel's
-time block (32)."""
+time block (32); forward and gradients with a batch off the port
+kernels' 16-row tile and a non-zero initial state."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pb_sed_tpu.ops import rnn as jrnn
 from pb_sed_tpu.ops.pallas.gru import gru_scan as jax_gru_scan
 from pb_sed_tpu.ops.pallas.gru import gru_scan_reference
 from pb_sed_tpu_torch.ops.kernels import build
-from pb_sed_tpu_torch.ops.kernels.gru import gru_scan
+from pb_sed_tpu_torch.ops.kernels.gru import GruScan, gru_scan
 
 torch.set_num_threads(2)
 
@@ -44,6 +47,40 @@ def test_gru_scan_matches_jax(d, b, t, h):
     # the all-f32 scan: the TPU kernel's own measured drift against it,
     # 5.3e-3, is the ceiling
     np.testing.assert_allclose(got, scan, atol=5.3e-3, rtol=0)
+
+
+@pytest.mark.parametrize('d,b,t,h', [(2, 21, 19, 32), (1, 17, 9, 64)])
+def test_gru_scan_and_gradients_match_jax_off_the_row_tile(d, b, t, h):
+    """B = 21 and 17 (not multiples of 16, the row tile of the port's
+    kernels) with a random h0: ``GruScan`` forward and its gradients for a
+    random cotangent against the JAX package's ``gru_scan`` and its custom
+    VJP, both Pallas kernels in interpret mode. Tolerance: the GRU
+    ceiling, 5.3e-3 forward and 5.3e-3 of each gradient's largest entry
+    (bf16 roundings of h and dgates that flip with the summation
+    order)."""
+    xw, w_hh, b_hh, h0 = _inputs(d, b, t, h, seed=b)
+    g = np.random.RandomState(b + 1).randn(d, b, t, h).astype(np.float32)
+    assert np.abs(h0).max() > .5 and b % 16
+    jrnn.set_pallas_mode('force_interpret')
+    try:
+        y_ref, vjp = jax.vjp(lambda *a: jax_gru_scan(*a, True),
+                             *map(jnp.asarray, (xw, w_hh, b_hh, h0)))
+        ref = vjp(jnp.asarray(g))
+    finally:
+        jrnn.set_pallas_mode('auto')
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (xw, w_hh, b_hh, h0)]
+    build.reset_launches()
+    y = GruScan.apply(*args)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_ref),
+                               atol=5.3e-3, rtol=0)
+    grads = torch.autograd.grad(y, args, torch.from_numpy(g))
+    assert build.LAUNCHES['gru_scan'] == build.LAUNCHES['gru_scan_bwd'] == 0
+    for name, got, r in zip(('dxw', 'dw_hh', 'db_hh', 'dh0'), grads, ref):
+        r = np.asarray(r, np.float32)
+        np.testing.assert_allclose(
+            got.numpy(), r, rtol=0, atol=5.3e-3 * float(np.abs(r).max()),
+            err_msg=name)
 
 
 def test_gru_scan_rejects_inconsistent_shapes():
