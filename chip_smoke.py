@@ -77,17 +77,43 @@ runs, in order:
    the shallow recipe with ``fuse_bn``: one batch served, 2 training
    steps, the card-vs-CPU step.
 
+7. the training entry point, from wav files on disk: a DESED-shaped
+   database is written from a seed into a temporary directory (16 kHz
+   mono int16 wav files of ten seconds, a few shorter, with tone-burst
+   events of ten classes; ``train_weak``, ``train_strong``,
+   ``train_synthetic20``, ``train_synthetic21`` and ``validation``), and
+   ``experiments.weak_label_crnn.training.ex.run`` trains the full-width
+   shallow FBCRNN on it with the DESED recipe (batch 32, two prefetch
+   workers, time warp, mixing and augmentation on) for 16 iterations with
+   a checkpoint every 8 (a ramp of 4 steps instead of the recipe's 1000,
+   so that 16 steps move the loss): ``test_run``, validations and the best
+   checkpoint happen. Every shallow kernel's launch counter must rise, the
+   loss be finite at every step and lower over the last 4 steps than the
+   first 4, ``summary.jsonl`` hold validation lines with a finite
+   ``macro_fscore_weak``, and ``ckpt_best_macro_fscore_weak.pkl`` load
+   through ``CRNN.from_storage_dir`` on the card and tag a batch with
+   scores in [1e-5, 1 - 1e-5]. A second run starts from that checkpoint
+   (``init_ckpt_path``, 4 iterations, gradient clipping 1), a third
+   resumes it for 4 more. The device time warp is held against the CPU's
+   on one batch of the loader. Printed: the run's steps/s over iterations
+   3-16 (validation taken out) beside phase 4's on in-memory batches, the
+   seconds in ``validate``, the host seconds per batch of the loader
+   alone, peak device memory.
+
 Each path (shallow serving and training, deep serving and training, the
-fused ones) runs with the launch counters set to 0 just before it and
-read just after.
+fused ones, the training entry point) runs with the launch counters set
+to 0 just before it and read just after.
 Any failure raises (non-zero exit). The line before the last is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
+import contextlib
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import wave
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1366,6 +1392,378 @@ def phase_training(recipe_name='shallow'):
     return launches, metrics
 
 
+
+# -- phase 7: the training entry point, from wav files on disk ---------------
+EVENT_CLASSES = [
+    'Alarm_bell_ringing', 'Blender', 'Cat', 'Dishes', 'Dog',
+    'Electric_shaver_toothbrush', 'Frying', 'Running_water', 'Speech',
+    'Vacuum_cleaner']
+# clips per dataset, in DESED's proportions (1578 : 3470 : 2576 : 10000):
+# with the recipe's repeats (10, 10, 2, 1) an epoch is 416 clips of which
+# 24%, 53%, 8% and 15% come from the four sets, so the recipe's quotas at
+# batch 32 (3 weak, 6 strong, 1 + 2 synthetic clips that were not mixed
+# across datasets) let about ten batches an epoch through
+DATABASE_CLIPS = {'train_weak': 10, 'train_strong': 22,
+                  'train_synthetic20': 16, 'train_synthetic21': 64,
+                  'validation': 32}
+CLI_ITERATIONS, CLI_CHECKPOINT = 16, 8
+
+
+def write_database(root, seed):
+    """A DESED-shaped database under ``root`` from ``seed``: 16 kHz mono
+    int16 wav files of ten seconds (every eighth clip 9.6 to 9.9 s, one
+    clip per dataset 6 s) holding one to three tone bursts, one frequency
+    per event class, over a noise floor, and ``desed.json`` with the
+    datasets of ``DATABASE_CLIPS`` (``train_weak`` with clip-level labels
+    only, the others with onsets and offsets). Returns the json's path
+    and the bytes of audio written."""
+    from pb_sed_tpu_torch.utils.misc import dump_json
+    rng = np.random.RandomState(seed)
+    sample_rate = 16000
+    datasets, nbytes, clip = {}, 0, 0
+    for name, count in DATABASE_CLIPS.items():
+        examples = {}
+        for i in range(count):
+            seconds = 10.
+            if i % 8 == 3:
+                seconds = float(rng.uniform(9.6, 9.9))
+            if i == 5:
+                seconds = 6.
+            n = int(seconds * sample_rate)
+            audio = .02 * rng.randn(n)
+            events, onsets, offsets = [], [], []
+            for j in range(1 + clip % 3):
+                k = (clip + 3 * j) % len(EVENT_CLASSES)
+                length = int(rng.uniform(1., 4.) * sample_rate)
+                start = int(rng.randint(0, n - length))
+                t = np.arange(length) / sample_rate
+                audio[start:start + length] += .3 * np.sin(
+                    2 * np.pi * 300. * 1.35 ** k * t)
+                events.append(EVENT_CLASSES[k])
+                onsets.append(start / sample_rate)
+                offsets.append((start + length) / sample_rate)
+            clip += 1
+            path = Path(root) / 'audio' / name / f'{name}_{i}.wav'
+            path.parent.mkdir(parents=True, exist_ok=True)
+            pcm = np.clip(audio * 32767, -32768, 32767).astype('<i2')
+            with wave.open(str(path), 'wb') as fid:
+                fid.setnchannels(1)
+                fid.setsampwidth(2)
+                fid.setframerate(sample_rate)
+                fid.writeframes(pcm.tobytes())
+            nbytes += pcm.nbytes
+            example = {'audio_path': str(path), 'audio_length': seconds}
+            if name == 'train_weak':
+                example['events'] = sorted(set(events))
+            else:
+                order = np.argsort(onsets)
+                example['events'] = [events[o] for o in order]
+                example['events_start_times'] = [
+                    round(onsets[o], 3) for o in order]
+                example['events_stop_times'] = [
+                    round(offsets[o], 3) for o in order]
+            examples[f'{name}_{i}'] = example
+        datasets[name] = examples
+    json_path = Path(root) / 'desed.json'
+    dump_json({'datasets': datasets}, json_path)
+    return json_path, nbytes
+
+
+@contextlib.contextmanager
+def timed_trainer():
+    """``Trainer.train_step`` / ``validate`` / ``test_run`` wrapped to
+    record, per call, the host clock after a device synchronize: yields
+    ``{'steps': [(iteration, start, end, loss)], 'validate': [seconds],
+    'test_run': [seconds]}``. The classes' methods are put back on exit."""
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    record = {'steps': [], 'validate': [], 'test_run': []}
+    originals = {name: getattr(Trainer, name)
+                 for name in ('train_step', 'validate', 'test_run')}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def train_step(self, batch):
+        start = clock()
+        spent = sum(record['validate'])
+        loss = originals['train_step'](self, batch)
+        # a validation inside the step (after a checkpoint) is not the
+        # step's time
+        end = clock() - (sum(record['validate']) - spent)
+        record['steps'].append((self.iteration, start, end, float(loss)))
+        return loss
+
+    def timed(name):
+        def call(self, *args, **kwargs):
+            start = clock()
+            out = originals[name](self, *args, **kwargs)
+            record[name].append(clock() - start)
+            return out
+        return call
+
+    Trainer.train_step = train_step
+    Trainer.validate = timed('validate')
+    Trainer.test_run = timed('test_run')
+    try:
+        yield record
+    finally:
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+
+
+def _read_jsonl(path):
+    with open(path) as fid:
+        return [json.loads(line) for line in fid]
+
+
+def _cli_updates(json_path, storage_dir, **more):
+    stamp = Path(storage_dir).name
+    updates = {
+        'timestamp': stamp, 'group_name': stamp,
+        'storage_dir': str(storage_dir),
+        'data_provider': {'json_path': str(json_path)},
+        'validation_set_name': None,  # the tuning chain is not ported
+        'num_iterations': CLI_ITERATIONS,
+        'checkpoint_interval': CLI_CHECKPOINT,
+        'summary_interval': 4,
+    }
+    updates.update(more)
+    return updates
+
+
+def check_device_warp(batch, stft):
+    """``STFT.magnitude_warped`` on the card against the CPU on one batch
+    of the loader: the frames' start indices equal except where the f32
+    source position lies within 1e-3 of an integer, the magnitudes of the
+    other frames within ``1e-4 + 1e-4 * max|ref|``."""
+    audio = torch.from_numpy(batch['audio_data'])
+    args = [torch.from_numpy(np.asarray(batch[key])) for key in (
+        'warp_anchor_out', 'warp_anchor_in', 'seq_len_samples')]
+    starts_cpu, _ = stft.warped_frame_starts(audio.shape[-1], *args)
+    starts, _ = stft.warped_frame_starts(
+        audio.shape[-1], *[a.cuda() for a in args])
+    moved = (starts.cpu() != starts_cpu)
+    ref = stft.magnitude_warped(audio, *args)
+    got = stft.magnitude_warped(audio.cuda(), *[a.cuda() for a in args])
+    torch.cuda.synchronize()
+    err = (got.cpu() - ref).abs().amax(-1)
+    tol = 1e-4 + 1e-4 * float(ref.abs().max())
+    worst = float(err[~moved].max())
+    log(f'device time warp vs CPU on one loader batch {tuple(ref.shape)}: '
+        f'{int(moved.sum())} of {moved.numel()} frame starts differ (f32 '
+        f'source position at an integer), max|d| of the others '
+        f'{worst:.3e} (tol {tol:.3e})')
+    if moved.sum() > .01 * moved.numel() or not worst <= tol:
+        raise AssertionError('the device time warp disagrees with the CPU')
+    shift = (starts_cpu.float() - torch.arange(starts_cpu.shape[1])
+             * stft.shift).abs().max()
+    if not shift > stft.shift:
+        raise AssertionError('the batch carries no time warp')
+
+
+def check_recipe(config):
+    """The saved config of the CLI run is the DESED recipe as it stands,
+    at the full width of the shallow FBCRNN; returns its train fetcher's
+    config."""
+    fetcher = config['data_provider']['train_fetcher']
+    transform = config['data_provider']['train_transform']
+    model_config = config['trainer']['model']
+    if not (config['net_config'] == 'shallow'
+            and config['batch_size'] == 32
+            and fetcher['prefetch_workers'] == 2
+            and fetcher['min_dataset_examples_in_batch'] == {
+                'train_weak': 3, 'train_strong': 6,
+                'train_synthetic20': 1, 'train_synthetic21': 2,
+                'train_unlabel_in_domain': 0}
+            and transform['anchor_shift_sampling_fn'] is not None
+            and config['data_provider']['mix_interval'] == 1.5
+            and model_config['feature_extractor']['n_time_masks'] > 0
+            and model_config['cnn']['cnn_2d']['out_channels'] == [
+                16, 16, 32, 32, 64, 64, 128, 128, 256]
+            and model_config['rnn_fwd']['rnn']['hidden_size'] == 256):
+        raise AssertionError('the run was not the DESED recipe at the '
+                             'full width of the shallow FBCRNN')
+    return fetcher
+
+
+def phase_cli_training(in_memory):
+    """Phase 7: ``experiments.weak_label_crnn.training`` on the card from
+    wav files on disk. ``in_memory`` is phase 4's metrics, printed beside
+    this run's. Returns the launch counts of the first (16-iteration) run
+    and its metrics."""
+    from pb_sed_tpu_torch.data.provider import DataProvider
+    from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.models.base.model import default_device
+    from pb_sed_tpu_torch.models.weak_label import CRNN
+    from pb_sed_tpu_torch.utils.checkpoint import load_payload
+    from pb_sed_tpu_torch.utils.misc import load_json
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        json_path, nbytes = write_database(Path(tmp) / 'db', seed=7)
+        log(f'database: {sum(DATABASE_CLIPS.values())} wav files, '
+            f'{nbytes / 2 ** 20:.1f} MiB, {DATABASE_CLIPS} written in '
+            f'{time.perf_counter() - t0:.1f} s')
+        run_dir = Path(tmp) / 'exp' / 'run1'
+        updates = _cli_updates(json_path, run_dir, lr_rampup_steps=4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        with timed_trainer() as record:
+            t0 = time.perf_counter()
+            result = ex.run(config_updates=updates)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f'launches in the CLI training run: {launches}')
+        for kernel in SHALLOW:
+            if launches[kernel] <= 0:
+                raise AssertionError(f'kernel {kernel} never launched in '
+                                     f'the CLI training run')
+        if result != str(run_dir):
+            raise AssertionError(f'the run returned {result}')
+        fetcher = check_recipe(load_json(run_dir / '1' / 'config.json'))
+        steps = record['steps']
+        losses = [loss for *_, loss in steps]
+        log(f'CLI loss per step: ' + ', '.join(f'{x:.5f}' for x in losses))
+        if [it for it, *_ in steps] != list(range(1, CLI_ITERATIONS + 1)) \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f'CLI training steps: {steps}')
+        first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+        log(f'CLI mean loss of steps 1-4: {first:.5f}, of steps 13-16: '
+            f'{last:.5f}')
+        if not last < first:
+            raise AssertionError('the loss did not fall over the CLI run')
+        if len(record['test_run']) != 1 or len(record['validate']) != 3:
+            raise AssertionError(
+                f'expected one test run and validations after iterations '
+                f'8, 16 and at the end: {record}')
+        # wall time from the end of step 2 to the end of step 16, the
+        # loader's waits included, the validation inside it taken out
+        span = steps[-1][2] - steps[1][2] - record['validate'][0]
+        metrics = {
+            'steps_per_s': (CLI_ITERATIONS - 2) / span,
+            'step_only_ms': 1e3 * float(np.mean(
+                [end - start for _, start, end, _ in steps[2:]])),
+            'validate_s': list(record['validate']),
+            'test_run_s': record['test_run'][0],
+            'peak_gib': peak_gib, 'wall_s': wall}
+        log(f'CLI step times (host clock, synchronized, validation taken '
+            f'out): ' + ', '.join(f'{1e3 * (end - start):.1f}'
+                                  for _, start, end, _ in steps) + ' ms')
+        log(f'CLI training from wav files: {metrics["steps_per_s"]:.3f} '
+            f'steps/s = {BATCH * metrics["steps_per_s"]:.1f} clips/s over '
+            f'iterations 3-{CLI_ITERATIONS} (loader waits included, mean '
+            f'step alone {metrics["step_only_ms"]:.1f} ms) beside '
+            f'{in_memory["steps_per_s"]:.3f} steps/s on in-memory batches '
+            f'(phase 4, steps 3-{TRAIN_STEPS})')
+        log(f'CLI seconds in validate ({DATABASE_CLIPS["validation"]} '
+            f'clips): ' + ', '.join(f'{x:.3f}' for x in record['validate'])
+            + f'; test_run {metrics["test_run_s"]:.3f} s; whole run '
+            f'{wall:.1f} s')
+        log(f'peak device memory (CLI training): {peak_gib:.2f} GiB')
+
+        rows = _read_jsonl(run_dir / 'summary.jsonl')
+        validation = [r for r in rows if r['prefix'] == 'validation']
+        training = [r for r in rows if r['prefix'] == 'training']
+        log(f'summary.jsonl: {len(training)} training and '
+            f'{len(validation)} validation lines; macro_fscore_weak '
+            f'(validation) ' + ', '.join(
+                f'{r["macro_fscore_weak"]:.4f}' for r in validation))
+        if len(validation) != 3 or not all(
+                np.isfinite(r['macro_fscore_weak'])
+                and 0. <= r['macro_fscore_weak'] <= 1.
+                and r['num_examples_weak'] == DATABASE_CLIPS['validation']
+                for r in validation):
+            raise AssertionError(f'validation lines: {validation}')
+        if not training or not all(
+                np.isfinite(r['macro_fscore_weak']) and 'lwlrap_weak' in r
+                for r in training):
+            raise AssertionError(f'training lines: {training}')
+        names = sorted(p.name for p in (run_dir / 'checkpoints').iterdir())
+        if names != [f'ckpt_{CLI_ITERATIONS}.pkl',
+                     'ckpt_best_macro_fscore_weak.pkl', 'ckpt_latest.pkl']:
+            raise AssertionError(f'checkpoints: {names}')
+
+        # the loader alone, and the best checkpoint served on the card
+        provider = DataProvider.from_config(
+            ex.build_config(updates)['data_provider'])
+        provider.train_transform.label_encoder.initialize_labels()
+        provider.test_transform.label_encoder.initialize_labels()
+        train_set = provider.get_train_set()
+        it = iter(train_set)
+        first_batch = next(it)
+        t0 = time.perf_counter()
+        n = 0
+        for batch in it:
+            n += 1
+            if n == 12:
+                break
+        loader_s = (time.perf_counter() - t0) / n
+        metrics['loader_s_per_batch'] = loader_s
+        log(f'loader alone: {loader_s:.4f} host s per batch of '
+            f'{len(batch["example_id"])} clips over {n} batches ('
+            f'{fetcher["prefetch_workers"]} prefetch workers, wav decode, '
+            f'gain, mixing, targets, collate; no model); keys '
+            f'{sorted(batch)}')
+        for _ in it:  # run the epoch out: the prefetch threads end
+            pass
+        if not {'warp_anchor_out', 'warp_anchor_in', 'seq_len_samples',
+                'boundary_targets'} <= set(first_batch):
+            raise AssertionError(f'loader batch keys: {sorted(first_batch)}')
+        if not any('+' in i for i in first_batch['example_id']):
+            raise AssertionError('no mixed example in the loader batch')
+        restored = CRNN.from_storage_dir(run_dir)
+        if restored.device.type != default_device().type:
+            raise AssertionError(f'restored on {restored.device}')
+        check_device_warp(first_batch,
+                          restored.module.feature_extractor.stft)
+        tags = base.tagging(restored, provider.get_validate_set())
+        scores = np.stack(list(tags.values()))
+        log(f'best checkpoint restored on the card tags '
+            f'{scores.shape[0]} validation clips: scores in '
+            f'[{scores.min():.5f}, {scores.max():.5f}]')
+        if scores.shape != (DATABASE_CLIPS['validation'], 1, 10) or not (
+                np.isfinite(scores).all() and scores.min() >= 1e-5
+                and scores.max() <= 1 - 1e-5):
+            raise AssertionError('the restored checkpoint tags out of range')
+        best = run_dir / 'checkpoints' / 'ckpt_best_macro_fscore_weak.pkl'
+        start = load_payload(best)['model']
+        del restored
+
+        # a second run from that checkpoint, then resumed
+        tuned_dir = Path(tmp) / 'exp' / 'run2'
+        more = dict(init_ckpt_path=str(best), frozen_cnn_2d_layers=2,
+                    num_iterations=4, checkpoint_interval=4)
+        ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
+        config = load_json(tuned_dir / '1' / 'config.json')
+        payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
+        key = 'params.cnn.cnn_2d.conv_8.kernel'
+        if not (config['finetune_mode'] is True
+                and config['trainer']['optimizer']['gradient_clipping'] == 1
+                and config['lr_rampup_steps'] is None
+                and payload['iteration'] == 4
+                and not np.array_equal(payload['model'][key], start[key])):
+            raise AssertionError('the run from init_ckpt_path')
+        more.update(resume=True, num_iterations=8)
+        ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
+        payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
+        rows = _read_jsonl(tuned_dir / 'summary.jsonl')
+        iterations = [r['iteration'] for r in rows
+                      if r['prefix'] == 'training']
+        log(f'run from init_ckpt_path (4 iterations, gradient clipping 1) '
+            f'and resumed to 8: training lines at iterations {iterations}, '
+            f'last loss {rows[-1]["loss"]:.5f}')
+        if payload['iteration'] != 8 or payload['optimizer']['count'] != 8 \
+                or iterations != [4, 8] \
+                or not all(np.isfinite(r['loss']) for r in rows):
+            raise AssertionError(f'the resumed run: {rows}')
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
 def main():
     card = phase_card()
     records = {name: new_record() for name in KERNELS}
@@ -1385,7 +1783,7 @@ def main():
             f'cuDNN {sums[1]:.3f} ms, bound {sums[2]:.3f} ms')
     check_1x1()
     launches = {'shallow_serving': phase_slice()}
-    launches['shallow_training'], _ = phase_training('shallow')
+    launches['shallow_training'], in_memory = phase_training('shallow')
     launches['deep_serving'], unfused_tags = phase_deep_serving()
     launches['deep_training'], unfused = phase_training('deep')
     launches['deep_fuse_bn_serving'] = phase_fuse_bn_serving(unfused_tags)
@@ -1395,6 +1793,7 @@ def main():
                     for key in ('steps_per_s', 'clips_per_s', 'peak_gib')))
     (launches['shallow_fuse_bn_serving'],
      launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
+    launches['cli_training'], _ = phase_cli_training(in_memory)
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

@@ -80,3 +80,39 @@ def random_flat(template, seed):
             value = rng.randn(*shape) / np.sqrt(fan_in)
         out[key] = value.astype(np.float32)
     return out
+
+
+def init_flat(template, seed):
+    """The initial state of a model that is trained from scratch, for the
+    keys and shapes of the flat dict ``template``: the JAX package's
+    initializers drawn from a seeded numpy ``RandomState``. Weight
+    matrices and conv kernels are LeCun normal (a normal truncated at two
+    standard deviations with variance 1 / fan_in), the recurrent ``w_hh``
+    (H, 3H) has orthonormal rows, scales are one, biases and shifts zero,
+    and the running statistics are those of a fresh module (mean 0, var 1,
+    not yet initialized)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key in sorted(template):
+        shape = np.shape(template[key])
+        name = key.rsplit('.', 1)[-1]
+        if name in ('var', 'scale'):
+            value = np.ones(shape)
+        elif name == 'w_hh':
+            rows, cols = shape
+            q, r = np.linalg.qr(rng.randn(max(rows, cols), min(rows, cols)))
+            q = q * np.sign(np.diag(r))
+            value = q.T if rows < cols else q
+        elif len(shape) >= 2:
+            fan_in = int(np.prod(shape[:-1]))
+            value = rng.randn(*shape)
+            outside = np.abs(value) > 2.
+            while outside.any():  # redraw the tails
+                value[outside] = rng.randn(int(outside.sum()))
+                outside = np.abs(value) > 2.
+            # .8796...: the standard deviation of the truncated normal
+            value = value / (.87962566103423978 * np.sqrt(fan_in))
+        else:
+            value = np.zeros(shape)
+        out[key] = value.astype(np.float32)
+    return out

@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pb_sed_tpu_torch.evaluation import instance_based
 from pb_sed_tpu_torch.utils.config import Configurable, instantiate
 from pb_sed_tpu_torch.utils.misc import load_json
 
@@ -169,6 +170,40 @@ class SoundEventModel(Configurable):
         from pb_sed_tpu_torch.bridge import load_flat
         load_flat(self.module, flat)
 
+    def init_parameters(self, seed=0):
+        """Give the model the initial weights of a run from scratch
+        (``bridge.init_flat``: the JAX package's initializers, seeded).
+        A module comes out of its constructor with zero weights, to be
+        loaded or initialized."""
+        from pb_sed_tpu_torch.bridge import init_flat
+        self.load_state_dict(init_flat(self.state_dict(), seed))
+
+    def as_constructed(self):
+        """Whether the module still has its constructor's zero weights:
+        nothing was loaded into it and it was not initialized."""
+        return not any(bool(p.detach().any())
+                       for p in self.module.parameters() if p.dim() >= 2)
+
+    def load_partial_state_dict(self, flat, verbose=True):
+        """Merge a (possibly partial) flat state dict into the model: the
+        transfer-learning path (an init checkpoint of another class count
+        with its output layer dropped). Keys that exist here with the
+        same shape are loaded; the others are skipped and reported.
+        Returns ``(loaded, skipped)`` key lists."""
+        current = self.state_dict()
+        loaded, skipped = [], []
+        for key, value in flat.items():
+            if key in current and np.shape(current[key]) == np.shape(
+                    value):
+                current[key] = np.asarray(value)
+                loaded.append(key)
+            else:
+                skipped.append(key)
+        self.load_state_dict(current)
+        if verbose:
+            print(f'Loaded {len(loaded)} tensors, skipped {len(skipped)}')
+        return loaded, skipped
+
     def save_checkpoint(self, path, extra=None):
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -204,3 +239,91 @@ class SoundEventModel(Configurable):
         model = instantiate(port_config(config['trainer']['model']))
         model.load_checkpoint(storage_dir / 'checkpoints' / checkpoint_name)
         return model.to(device)
+
+    # -- summaries ----------------------------------------------------------
+    def modify_summary(self, summary):
+        """Mean of every scalar list; image batches become one grid."""
+        for key, scalar in summary.get('scalars', {}).items():
+            summary['scalars'][key] = float(np.mean(scalar))
+        images = summary.get('images', {})
+        for key, image in list(images.items()):
+            images[key] = _image_grid(np.asarray(image))
+        return summary
+
+    def add_metrics_to_summary(self, summary, suffix):
+        """Instance-based metrics (best-threshold macro F-score and error
+        rate, lwlrap, and mAP / mAUC where sklearn is there) of the
+        buffered scores ``y_<suffix>`` against ``targets_<suffix>``."""
+        buffers = summary['buffers']
+        y = buffers.pop(f'y_{suffix}', None)
+        if y is None or len(y) == 0:
+            return
+        y = np.concatenate(y) if isinstance(y, list) else np.asarray(y)
+        if len(y) == 0:
+            return
+        targets = buffers.pop(f'targets_{suffix}')
+        targets = (np.concatenate(targets) if isinstance(targets, list)
+                   else np.asarray(targets))
+        summary['scalars'][f'num_examples_{suffix}'] = len(y)
+
+        test_labels = self.test_labels
+        if test_labels is not None:
+            if isinstance(test_labels[0], str):
+                assert self.label_mapping is not None
+                test_labels = [
+                    self.label_mapping.index(lb) for lb in test_labels]
+            y = y[..., test_labels]
+            targets = targets[..., test_labels]
+
+        def maybe_labelwise(key, values):
+            if key in self.labelwise_metrics:
+                for idx, value in enumerate(values):
+                    cls_idx = test_labels[idx] if test_labels is not None \
+                        else idx
+                    name = (self.label_mapping[cls_idx]
+                            if self.label_mapping is not None else cls_idx)
+                    summary['scalars'][f'z/{key}/{name}'] = float(value)
+
+        _, f, p, r = instance_based.get_best_fscore_thresholds(targets, y)
+        summary['scalars'][f'macro_fscore_{suffix}'] = float(np.mean(f))
+        maybe_labelwise(f'fscore_{suffix}', f)
+
+        _, er, ir, dr = instance_based.get_best_er_thresholds(targets, y)
+        summary['scalars'][f'macro_error_rate_{suffix}'] = float(np.mean(er))
+        maybe_labelwise(f'error_rate_{suffix}', er)
+
+        lw, per_class_lw, _ = instance_based.lwlrap(targets, y)
+        summary['scalars'][f'lwlrap_{suffix}'] = float(lw)
+        maybe_labelwise(f'lwlrap_{suffix}', per_class_lw)
+
+        if (targets.sum(0) > 1).all():
+            try:
+                from sklearn import metrics as skm
+                ap = skm.average_precision_score(targets, y, average=None)
+                summary['scalars'][f'map_{suffix}'] = float(np.mean(ap))
+                maybe_labelwise(f'ap_{suffix}', ap)
+                auc = skm.roc_auc_score(targets, y, average=None)
+                summary['scalars'][f'mauc_{suffix}'] = float(np.mean(auc))
+                maybe_labelwise(f'auc_{suffix}', auc)
+            except (ImportError, ValueError):
+                pass
+
+
+def _image_grid(images, max_images=3):
+    """(N, T, F) or (N, F, T) feature maps -> one normalized grid image."""
+    images = images[:max_images]
+    rows = []
+    for img in images:
+        img = np.asarray(img, dtype=float)
+        if img.ndim == 3:
+            img = img[..., 0]
+        lo, hi = img.min(), img.max()
+        img = (img - lo) / (hi - lo + 1e-12)
+        rows.append(img[::-1])  # flip freq axis for display
+    if not rows:
+        return np.zeros((1, 1))
+    h = max(r.shape[0] for r in rows)
+    w = max(r.shape[1] for r in rows)
+    rows = [np.pad(r, ((0, h - r.shape[0]), (0, w - r.shape[1])))
+            for r in rows]
+    return np.concatenate(rows, axis=0)

@@ -44,16 +44,22 @@ class FBCRNNModule(nn.Module):
             1. - 2. * self.minimum_score) * torch.sigmoid(logits)
 
     def features(self, batch, generator=None):
-        """Features from 'audio_data' (device STFT) or a shipped 'stft';
-        ``generator`` feeds the training augmentation."""
+        """Features from 'audio_data' (device STFT, time-warped in
+        training where the batch carries 'warp_anchor_out') or a shipped
+        'stft'; ``generator`` feeds the training augmentation."""
         seq_len = batch['seq_len']
-        if self.training and 'warp_anchor_out' in batch:
-            raise NotImplementedError(
-                'the device-side time warp of the STFT (warp_anchor_out) '
-                'is not ported yet')
-        x = batch['audio_data'] if 'audio_data' in batch else batch['stft']
-        return self.feature_extractor(x, seq_len, generator=generator), \
-            seq_len
+        if 'audio_data' in batch:
+            warp = None
+            if self.training and 'warp_anchor_out' in batch:
+                warp = (batch['warp_anchor_out'], batch['warp_anchor_in'],
+                        batch['seq_len_samples'])
+            x = self.feature_extractor(
+                batch['audio_data'], seq_len, generator=generator,
+                warp_params=warp)
+        else:
+            x = self.feature_extractor(batch['stft'], seq_len,
+                                       generator=generator)
+        return x, seq_len
 
     def encode(self, batch, generator=None):
         x, seq_len = self.features(batch, generator)
@@ -274,6 +280,27 @@ class CRNN(SoundEventModel):
         if y_bwd is not None:
             loss = loss / 2 + self._bce(y_bwd, t_bwd) / 2
         return loss
+
+    # -- host-facing review ---------------------------------------------------
+    def review_from_aux(self, loss, aux):
+        """One step's ``loss`` and ``aux`` (of :meth:`loss`) on the host:
+        float scalars and the clip scores and targets of the fully
+        labeled examples, for the summary's metrics."""
+        buffers = aux['buffers']
+        labeled = to_numpy(buffers['labeled_mask'])
+        return {
+            'loss': float(loss),
+            'scalars': {k: float(v) for k, v in aux['scalars'].items()},
+            'buffers': {
+                'y_weak': to_numpy(buffers['y_weak'])[labeled],
+                'targets_weak': to_numpy(buffers['targets_weak'])[labeled],
+            },
+        }
+
+    def modify_summary(self, summary):
+        if 'targets_weak' in summary.get('buffers', {}):
+            self.add_metrics_to_summary(summary, 'weak')
+        return super().modify_summary(summary)
 
     # -- inference API (numpy out) ------------------------------------------
     def tagging(self, batch, **params):

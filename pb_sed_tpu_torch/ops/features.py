@@ -13,9 +13,9 @@ normalization uses the batch's two-pass masked statistics and updates the
 running ones, and the augmentations act. Their random numbers are drawn
 (:meth:`NormalizedLogMelExtractor.draw_augmentation`, from an explicit
 ``torch.Generator``) apart from where they are applied
-(:func:`apply_augmentation`), so a test can hand fixed draws in. The
-device-side time warp of the STFT (JAX ``STFT.frame_warped``) is not
-ported yet.
+(:func:`apply_augmentation`), so a test can hand fixed draws in. With
+``warp_params`` a waveform batch is framed through the device-side time
+warp (``STFT.magnitude_warped``).
 """
 import math
 
@@ -178,7 +178,8 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
                                          generator=generator, device=dev)
         return draws
 
-    def forward(self, x, seq_len, generator=None, draws=None):
+    def forward(self, x, seq_len, generator=None, draws=None,
+                warp_params=None):
         """
         Args:
             x: (B, S) waveforms (float or int16 at AUDIO_INT16_SCALE),
@@ -188,13 +189,18 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
                 draws from (torch's default generator when None).
             draws: fixed augmentation parameters
                 (:meth:`draw_augmentation`) instead of drawing them.
+            warp_params: optional (anchor_out, anchor_in, valid_samples)
+                tensors for the time-warped framing of a waveform batch.
 
         Returns: (B, T, M) features, or (B, T, M, C) with deltas.
         """
         if x.dtype == torch.int16:
             x = x.float() / AUDIO_INT16_SCALE
         if x.dim() == 2:
-            mag = self.stft.magnitude(x.float())
+            if warp_params is not None:
+                mag = self.stft.magnitude_warped(x.float(), *warp_params)
+            else:
+                mag = self.stft.magnitude(x.float())
         elif x.dim() == 4:
             mag = torch.sqrt(torch.sum(x.float() ** 2, dim=-1) + 1e-18)
         else:

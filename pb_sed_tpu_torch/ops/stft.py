@@ -5,6 +5,14 @@ shift 320, window 960, size 1024, 'half' fading, end padding to a full
 frame grid, periodic Blackman window) and the magnitude via
 ``torch.fft.rfft``. Waveforms ``(B, S)`` ship to the device and are framed
 there.
+
+Time warping: a random anchor of the clip is moved by a random shift and
+the frames read their samples at piecewise-linearly warped positions. The
+warp parameters are sampled on the host (:func:`sample_time_warp`, so the
+host-side label alignment, :func:`warp_sample_position`, uses the same
+warp) and shipped as two scalars per example; the warped framing
+(:meth:`STFT.frame_warped`) runs on the device as plain tensor code: an
+index computation and a gather.
 """
 import dataclasses
 
@@ -38,6 +46,9 @@ class STFT:
     fading: str = 'half'
     pad: bool = True
     window: str = 'blackman'
+    # accepted for config parity with the JAX package's STFT (its DFT
+    # variant); the magnitude here is always torch.fft.rfft
+    backend: str = 'auto'
 
     def __post_init__(self):
         if self.size < self.window_length:
@@ -95,10 +106,96 @@ class STFT:
         x = torch.nn.functional.pad(audio, (self.fade_pad, max(pad_back, 0)))
         return x[:, :total].unfold(-1, self.window_length, self.shift)
 
-    def magnitude(self, audio):
-        """(B, S) -> (B, T, F) float32 magnitude spectrogram."""
-        frames = self.frame(audio)
+    def warped_frame_starts(self, num_samples, warp_anchor_out,
+                            warp_anchor_in, valid_len):
+        """(B, T) int64 start index of every warped frame in the
+        fade-padded buffer of a (B, ``num_samples``) batch, with the
+        buffer's length: the piecewise-linear source position per frame
+        in float32, clipped so the window fits, truncated."""
+        t = self.num_frames(num_samples)
+        total = self.window_length + (t - 1) * self.shift
+        padded = self.fade_pad + num_samples + max(
+            total - num_samples - self.fade_pad, 0)
+        dev = warp_anchor_out.device
+        u = torch.arange(t, dtype=torch.float32, device=dev)[None, :] \
+            * self.shift
+        a_out = warp_anchor_out[:, None].float()
+        a_in = warp_anchor_in[:, None].float()
+        length = valid_len[:, None].float()
+        lo = u * a_in / a_out.clamp(min=1.)
+        hi = a_in + (u - a_out) * (length - a_in) / (length - a_out).clamp(
+            min=1.)
+        src = torch.where(u < a_out, lo, hi)
+        src = src.clamp(0., float(padded - self.window_length))
+        return src.to(torch.int64), padded
+
+    def frame_warped(self, audio, warp_anchor_out, warp_anchor_in,
+                     valid_len):
+        """Warped framing: per-example piecewise-linear time warp.
+
+        Args:
+            audio: (B, S) waveforms (zero padded).
+            warp_anchor_out: (B,) anchor position on the output time axis
+                (samples).
+            warp_anchor_in: (B,) position on the input axis the anchor is
+                read from (samples).
+            valid_len: (B,) valid samples per example.
+
+        Returns: (B, T, window_length) frames.
+        """
+        s = audio.shape[-1]
+        starts, padded = self.warped_frame_starts(
+            s, warp_anchor_out, warp_anchor_in, valid_len)
+        x = torch.nn.functional.pad(
+            audio, (self.fade_pad, padded - s - self.fade_pad))
+        idx = starts[:, :, None] + torch.arange(
+            self.window_length, device=audio.device)[None, None, :]
+        idx = idx.clamp(0, padded - 1)
+        b, t, w = idx.shape
+        return torch.gather(x, 1, idx.reshape(b, t * w)).reshape(b, t, w)
+
+    def _frames_to_magnitude(self, frames):
         win = torch.as_tensor(_window(self.window, self.window_length),
                               device=frames.device)
         spec = torch.fft.rfft(frames * win, n=self.size, dim=-1)
         return spec.abs().float()
+
+    def magnitude(self, audio):
+        """(B, S) -> (B, T, F) float32 magnitude spectrogram."""
+        return self._frames_to_magnitude(self.frame(audio))
+
+    def magnitude_warped(self, audio, warp_anchor_out, warp_anchor_in,
+                         valid_len):
+        """(B, S) -> (B, T, F) magnitudes of the warped frames."""
+        return self._frames_to_magnitude(self.frame_warped(
+            audio, warp_anchor_out, warp_anchor_in, valid_len))
+
+
+def sample_time_warp(valid_len, anchor_sampling_fn, shift_sampling_fn):
+    """Host-side sampling of per-example warp parameters (the single
+    implementation: ``data/transform.py`` consumes it, so host target
+    alignment and device framing cannot drift apart).
+
+    The anchor is drawn as a fraction of the clip (the recipe's default
+    U(0.4, 0.6)), the shift likewise (U(-0.1, 0.1)). Returns
+    (anchor_out, anchor_in) in samples, both clipped into
+    [1, valid_len - 1].
+    """
+    anchor = float(anchor_sampling_fn()) * valid_len
+    delta = float(shift_sampling_fn()) * valid_len
+    anchor_out = float(np.clip(anchor, 1., valid_len - 1.))
+    anchor_in = float(np.clip(anchor + delta, 1., valid_len - 1.))
+    return anchor_out, anchor_in
+
+
+def warp_sample_position(s, anchor_out, anchor_in, valid_len):
+    """Map input sample positions to output positions under the warp.
+
+    Inverse of the framing map in :meth:`STFT.frame_warped`; used on the
+    host to co-warp event sample times before frame conversion.
+    """
+    s = np.asarray(s, dtype=np.float64)
+    lo = s * anchor_out / max(anchor_in, 1.)
+    hi = anchor_out + (s - anchor_in) * (valid_len - anchor_out) / max(
+        valid_len - anchor_in, 1.)
+    return np.where(s < anchor_in, lo, hi)

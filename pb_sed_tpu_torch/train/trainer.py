@@ -5,7 +5,10 @@ What it does, with the JAX surface: ``__init__`` triggers
 (``(N, 'iteration')`` summary / checkpoint / stop), ``register_hook``
 (``LRAnnealingHook``), ``train(train_set, resume=...)``,
 ``train_step(batch)``, ``freeze(predicate, freeze_norm_stats)``,
-``save_checkpoint`` and ``load_latest_checkpoint``. One step:
+``register_validation_hook`` / ``validate`` (metric tracking,
+``ckpt_best_<metric>.pkl``, learning-rate back-off, early stopping),
+``test_run``, ``save_checkpoint`` and ``load_latest_checkpoint``. One
+step:
 
     lr = optimizer.lr * lr_factor_backoff * interp(iteration, xs, ys)
     loss, aux = model.loss(batch, generator)       # module in train mode
@@ -25,13 +28,18 @@ JAX package's flat layout (``bridge.py``), so both packages restore the
 model; the optimizer state is the port's own layout
 (``{'count': int, 'mu': {flat key: array}, 'nu': {...}}``) and the rng
 the generator's state. ``summary.jsonl`` gets one line per summary
-trigger: ``{'iteration', 'prefix', 'time', **mean scalars}``.
+trigger (prefix ``training``) and per validation (prefix ``validation``):
+``{'iteration', 'prefix', 'time', **scalars}``, the scalars being the
+means of the steps' scalars and the metrics the model computes from the
+steps' buffered clip scores (``SoundEventModel.modify_summary``:
+``macro_fscore_weak``, ``lwlrap_weak``, ...). Validation runs after each
+checkpoint trigger and at the end of ``train``, with the module in eval
+mode under ``torch.no_grad()``.
 
-Not ported yet (raise): validation hooks with back-off and early
-stopping, the multi-step lane (``steps_per_call > 1``), the profiler
-(``profile_at``), emissions tracking. ``use_mesh`` and ``loss_scale`` are
-accepted for config compatibility: the port trains on the model's one
-device, and the JAX trainer never reads ``loss_scale``.
+Not ported yet (raise): the multi-step lane (``steps_per_call > 1``),
+the profiler (``profile_at``), emissions tracking. ``use_mesh`` and
+``loss_scale`` are accepted for config compatibility: the port trains on
+the model's one device, and the JAX trainer never reads ``loss_scale``.
 """
 import json
 import pickle
@@ -76,11 +84,12 @@ class Trainer(Configurable):
         self.hooks = []
         self.lr_factor_annealing = 1.
         self.lr_factor_backoff = 1.
+        self.validation_hook = None
         self.opt_state = None
         self.generator = None
         self._frozen = set()
         self._frozen_stats = set()
-        self._summary = {}
+        self._summary = _empty_summary()
         self._last_flush = None
 
     @classmethod
@@ -98,10 +107,28 @@ class Trainer(Configurable):
                 f'{type(hook).__module__}.{type(hook).__qualname__}')
         self.hooks.append(hook)
 
-    def register_validation_hook(self, *args, **kwargs):
-        raise NotImplementedError(
-            'validation hooks (metric tracking, back-off, early stopping) '
-            'are not ported yet')
+    def register_validation_hook(
+            self, validate_set, metric='loss', maximize=False,
+            back_off_patience=None, n_back_off=0, lr_update_factor=1.,
+            early_stopping_patience=None):
+        """Validate on ``validate_set`` after every checkpoint trigger and
+        at the end of training: track ``metric``, keep the best model as
+        ``ckpt_best_<metric>.pkl``, scale ``lr_factor_backoff`` by
+        ``lr_update_factor`` after ``back_off_patience`` validations
+        without a gain (at most ``n_back_off`` times) and stop after
+        ``early_stopping_patience`` of them."""
+        self.validation_hook = {
+            'validate_set': validate_set,
+            'metric': metric,
+            'maximize': maximize,
+            'back_off_patience': back_off_patience,
+            'n_back_off': n_back_off,
+            'back_offs_done': 0,
+            'lr_update_factor': lr_update_factor,
+            'early_stopping_patience': early_stopping_patience,
+            'best': -np.inf if maximize else np.inf,
+            'validations_since_best': 0,
+        }
 
     def freeze(self, predicate, freeze_norm_stats=True):
         """Freeze the parameters whose path (the flat key without
@@ -116,6 +143,11 @@ class Trainer(Configurable):
             {name for name in module.state_dict()
              if name not in params and predicate(name)}
             if freeze_norm_stats else set())
+
+    def num_frozen(self):
+        """How many tensors (parameters and running statistics)
+        :meth:`freeze` froze."""
+        return len(self._frozen) + len(self._frozen_stats)
 
     # -- learning rate --------------------------------------------------------
     def _annealing_points(self):
@@ -147,7 +179,14 @@ class Trainer(Configurable):
 
     # -- train loop -----------------------------------------------------------
     def _ensure_ready(self):
+        """Place the model, initialize its weights from ``seed`` if none
+        were loaded (as the JAX trainer initializes the variables of a
+        model that has none), and create the optimizer state and the
+        generator. Returns the parameters."""
         device = self.model.placed_device()
+        if self.opt_state is None and self.model.as_constructed():
+            self.model.init_parameters(self.seed)
+            print(f'Initialized the parameters from seed {self.seed}')
         params = [p for _, p in self.model.module.named_parameters()]
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(params)
@@ -164,13 +203,19 @@ class Trainer(Configurable):
             self.model.to(device)
         if resume:
             self.load_latest_checkpoint()
+        first_iteration = self.iteration
         while not self.stop_trigger(self.iteration, self.epoch):
             for batch in train_set:
                 if self.stop_trigger(self.iteration, self.epoch):
                     break
                 self.train_step(batch)
             self.epoch += 1
+        # final validation and checkpoint (resuming a run that had
+        # finished takes no step and validates nothing)
         self._flush_summary(prefix='training')
+        if (self.validation_hook is not None
+                and self.iteration > first_iteration):
+            self.validate()
         self.save_checkpoint()
 
     def train_step(self, batch):
@@ -205,39 +250,145 @@ class Trainer(Configurable):
         for p in params:
             p.grad = None
         self.iteration += 1
+        # device tensors: they are read on the host only at a flush
         scalars = dict(aux['scalars'], loss=loss.detach(),
                        grad_norm=grad_norm, lr=lr)
         for key, value in scalars.items():
-            self._summary.setdefault(key, []).append(value)
+            self._summary['scalars'].setdefault(key, []).append(value)
+        self._summary['raw'].append(aux['buffers'])
         if self.summary_trigger(self.iteration, self.epoch):
             self._flush_summary(prefix='training')
         if self.checkpoint_trigger(self.iteration, self.epoch):
             self.save_checkpoint()
+            if self.validation_hook is not None:
+                self.validate()
         for hook in self.hooks:
             hook.post_step(self, batch, loss, None)
         return loss.detach()
 
+    # -- validation -----------------------------------------------------------
+    def _validation_loss(self, batch):
+        """``model.loss`` on ``batch`` in eval mode without gradients."""
+        self.model.module.eval()
+        with torch.no_grad():
+            return self.model.loss(self.model.to_device(batch), None)
+
+    def validate(self):
+        """One pass over the validation set: the summary line, then the
+        hook's policy on its metric. Returns the metric's value."""
+        hook = self.validation_hook
+        summary = _empty_summary()
+        for batch in hook['validate_set']:
+            loss, aux = self._validation_loss(batch)
+            summary['scalars'].setdefault('loss', []).append(float(loss))
+            for key, value in aux['scalars'].items():
+                summary['scalars'].setdefault(key, []).append(float(value))
+            summary['raw'].append(aux['buffers'])
+        summary = self._reviewed(summary)
+        self._write_summary(summary['scalars'], prefix='validation')
+        metric_name = hook['metric']
+        value = summary['scalars'].get(metric_name)
+        if value is None:
+            raise KeyError(f'the validation summary has no {metric_name!r}: '
+                           f'{sorted(summary["scalars"])}')
+        improved = (value > hook['best'] if hook['maximize']
+                    else value < hook['best'])
+        if improved:
+            hook['best'] = value
+            hook['validations_since_best'] = 0
+            self.save_checkpoint(name=f'ckpt_best_{metric_name}.pkl')
+        else:
+            hook['validations_since_best'] += 1
+            patience = hook['back_off_patience']
+            if (patience is not None
+                    and hook['back_offs_done'] < hook['n_back_off']
+                    and hook['validations_since_best'] >= patience):
+                self.lr_factor_backoff *= hook['lr_update_factor']
+                hook['back_offs_done'] += 1
+                hook['validations_since_best'] = 0
+                print(f'Backing off lr to {self.learning_rate}')
+        print(f'Validation {metric_name}: {value:.4f} '
+              f'(best {hook["best"]:.4f})')
+        es = hook['early_stopping_patience']
+        if es is not None and hook['validations_since_best'] >= es:
+            print('Early stopping')
+            self.stop_trigger.period = 0
+        return value
+
+    @property
+    def learning_rate(self):
+        return (self.optimizer.lr * self.lr_factor_annealing
+                * self.lr_factor_backoff)
+
+    def test_run(self, train_set, validate_set=None):
+        """A forward and backward pass on the first training batch and a
+        validation pass on the first validation batch, with nothing kept:
+        no update, no trigger, no checkpoint, no summary; the running
+        statistics the training-mode forward moved and the generator's
+        state are restored. Raises if a loss is not finite."""
+        print('Starting test run')
+        module = self.model.module
+        params = self._ensure_ready()
+        rng_state = self.generator.get_state()
+        buffers = [(b, b.detach().clone()) for b in module.buffers()]
+        module.train()
+        loss, _ = self.model.loss(
+            self.model.to_device(next(iter(train_set))), self.generator)
+        loss.backward()
+        loss = loss.detach()
+        for p in params:
+            p.grad = None
+        with torch.no_grad():
+            for buffer, saved in buffers:
+                buffer.copy_(saved)
+        self.generator.set_state(rng_state)
+        if not np.isfinite(float(loss)):
+            raise FloatingPointError(f'test run: training loss {float(loss)}')
+        if validate_set is not None:
+            vloss, _ = self._validation_loss(next(iter(validate_set)))
+            if not np.isfinite(float(vloss)):
+                raise FloatingPointError(
+                    f'test run: validation loss {float(vloss)}')
+        print('Finished test run')
+
     # -- summaries ------------------------------------------------------------
+    def _reviewed(self, summary):
+        """``summary`` with its steps' raw buffers reviewed by the model
+        (``review_from_aux``: the labeled examples' scores on the host)
+        and the model's ``modify_summary`` applied: scalar means and the
+        buffered scores' metrics."""
+        for buffers in summary.pop('raw'):
+            review = self.model.review_from_aux(
+                0., {'scalars': {}, 'buffers': buffers})
+            for key, value in review['buffers'].items():
+                summary['buffers'].setdefault(key, []).append(value)
+        return self.model.modify_summary(summary)
+
     def _flush_summary(self, prefix):
         """Mean of each scalar since the last flush (converted to host
-        floats only here) as one ``summary.jsonl`` line."""
-        if not self._summary:
+        floats only here) and the metrics of the buffered scores as one
+        ``summary.jsonl`` line."""
+        if not self._summary['scalars']:
             return
-        scalars = {key: float(np.mean([float(v) for v in values]))
-                   for key, values in self._summary.items()}
-        self._summary = {}
+        summary, self._summary = self._summary, _empty_summary()
+        summary['scalars'] = {key: [float(v) for v in values]
+                              for key, values in summary['scalars'].items()}
         now = time.time()
         if self._last_flush is not None:
             it_last, t_last = self._last_flush
-            scalars['steps_per_second'] = (
-                (self.iteration - it_last) / max(now - t_last, 1e-9))
+            summary['scalars']['steps_per_second'] = [
+                (self.iteration - it_last) / max(now - t_last, 1e-9)]
         self._last_flush = (self.iteration, now)
+        summary = self._reviewed(summary)
+        self._write_summary(summary['scalars'], prefix=prefix)
+
+    def _write_summary(self, scalars, prefix):
         if self.storage_dir is None:
             return
         self.storage_dir.mkdir(parents=True, exist_ok=True)
         with (self.storage_dir / 'summary.jsonl').open('a') as fid:
             fid.write(json.dumps({'iteration': self.iteration,
-                                  'prefix': prefix, 'time': now,
+                                  'prefix': prefix, 'time': time.time(),
                                   **scalars}) + '\n')
 
     # -- checkpointing --------------------------------------------------------
@@ -326,3 +477,7 @@ class Trainer(Configurable):
                 trigger.last = self.iteration
         print(f'Resumed from iteration {self.iteration}')
         return True
+
+
+def _empty_summary():
+    return {'scalars': {}, 'buffers': {}, 'raw': []}

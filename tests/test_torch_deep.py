@@ -439,7 +439,8 @@ def test_three_deep_trainer_steps_match_jax(deep_flat, interpret_mode):
                                                                 jloss)
         assert ttrainer.step_lr() == pytest.approx(
             1e-4 * [.75, 1., 1.][step], rel=1e-6)
-    assert min(float(v) for v in ttrainer._summary['grad_norm']) > .1
+    grad_norms = ttrainer._summary['scalars']['grad_norm']
+    assert min(float(v) for v in grad_norms) > .1
     jflat = jtrainer.model.state_dict()
     tflat = bridge.export_flat(ttrainer.model.module)
     for key, before in p0.items():

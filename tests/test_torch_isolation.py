@@ -77,6 +77,14 @@ trainer = Trainer(model, stop_trigger=(2, 'iteration'))
 trainer.train([batch, batch])
 assert trainer.iteration == 2
 assert np.isfinite(float(trainer.train_step(batch)))
+for name in ('data.provider', 'data.cache', 'database.desed.provider',
+             'database.audioset.provider', 'evaluation.instance_based',
+             'experiments.core', 'experiments.weak_label_crnn.training',
+             'utils.nested', 'utils.random', 'paths'):
+    assert 'pb_sed_tpu_torch.' + name in names, name
+from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
+cfg = ex.build_config({'timestamp': 't', 'debug': True})
+assert cfg['trainer']['model']['factory'] is CRNN
 assert len(build.LAUNCHES) == 11
 assert all(v == 0 for v in build.LAUNCHES.values())
 loaded = [n for n, m in sys.modules.items() if m is not None and (
@@ -171,6 +179,23 @@ def test_package_data_ships_every_kernel_source():
     missing = [s for s in sources
                if not any(fnmatch.fnmatch(s, g) for g in globs)]
     assert not missing, missing
+
+
+def test_every_subpackage_of_the_port_is_packaged():
+    """``pyproject.toml``'s package discovery finds every directory of the
+    port that holds modules (each has an ``__init__.py``), the data,
+    database, evaluation and experiment subpackages among them."""
+    import tomllib
+    from setuptools import find_packages
+    with open(REPO / 'pyproject.toml', 'rb') as fid:
+        find = tomllib.load(fid)['tool']['setuptools']['packages']['find']
+    found = set(find_packages(str(REPO), include=find['include']))
+    holding = {'.'.join(p.parent.relative_to(REPO).parts)
+               for p in (REPO / 'pb_sed_tpu_torch').rglob('*.py')}
+    assert holding <= found, sorted(holding - found)
+    for name in ('data', 'database.desed', 'database.audioset', 'evaluation',
+                 'experiments.weak_label_crnn'):
+        assert f'pb_sed_tpu_torch.{name}' in found, name
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -256,7 +256,8 @@ def test_three_trainer_steps_match_jax(flat, interpret_mode):
             1e-3 * [.75, 1., .9][step], rel=1e-6)
     assert all(v == 0 for v in build.LAUNCHES.values())
     # the clipping bit: the raw gradient norm is above the bound
-    assert min(float(v) for v in ttrainer._summary['grad_norm']) > .1
+    grad_norms = ttrainer._summary['scalars']['grad_norm']
+    assert min(float(v) for v in grad_norms) > .1
     jflat = jtrainer.model.state_dict()
     tflat = bridge.export_flat(ttrainer.model.module)
     for key, before in p0.items():
@@ -323,13 +324,22 @@ def test_jax_hook_on_port_trainer_raises(flat):
     assert not any(isinstance(h, LRAnnealingHook) for h in trainer.hooks)
 
 
-def test_unported_training_options_raise(flat):
-    with pytest.raises(NotImplementedError):
-        Trainer(_port_model(flat), steps_per_call=2)
-    with pytest.raises(NotImplementedError):
-        Trainer(_port_model(flat)).register_validation_hook([])
+@pytest.mark.parametrize('option', ['steps_per_call', 'profile_at',
+                                    'track_emissions', 'dropout'])
+def test_unported_training_options_raise(flat, option):
+    """One case per option of the JAX trainer that the port does not have
+    yet: each raises where it is asked for. (Validation hooks and
+    ``test_run`` are ported: ``tests/test_torch_validation.py``.)"""
     model = _port_model(flat)
-    model.module.cnn.cnn_2d.dropout = .1
-    model.module.train()
     with pytest.raises(NotImplementedError):
-        model.loss(model.to_device(_train_batch(1)))
+        if option == 'steps_per_call':
+            Trainer(model, steps_per_call=2)
+        elif option == 'profile_at':
+            Trainer(model, profile_at=3)
+        elif option == 'track_emissions':
+            Trainer(model, stop_trigger=(1, 'iteration')).train(
+                [_train_batch(1)], track_emissions=True)
+        else:
+            model.module.cnn.cnn_2d.dropout = .1
+            model.module.train()
+            model.loss(model.to_device(_train_batch(1)))
