@@ -15,7 +15,9 @@ runs, in order:
    max|delta| against the stated tolerance, median CUDA-event times of
    both and of one PyTorch library call that computes the same function
    where there is one (cuDNN's bf16 channels-last conv and its backward,
-   the max and average pools), and the least time the card could take
+   the max and average pools, cuDNN's bf16 GRU with identity input
+   weights, timed also without that identity product, with its max|delta|
+   against the plain GRU), and the least time the card could take
    (bytes at 3.35 TB/s or operations at 989 TFLOP/s bf16 / 67 TFLOP/s
    f32, whichever is larger). The BN+ReLU-fused conv and its backward
    run at the shallow tower's fused layers L1-L8, with a scale and shift
@@ -27,16 +29,22 @@ runs, in order:
    >= 3 stages fails the run), the achieved TFLOP/s beside cuDNN's time
    and the bound, and the backward's device time by launch (dx GEMM, dw
    partials, reduce, glue; ``torch.profiler``); after the kernel phases,
-   the per-layer record as JSON and the sums over both towers. Per GRU
+   the per-layer record as JSON and the sums over both towers. The pools
+   are timed by replaying a CUDA graph of 10 calls (one call of the
+   max-pool forward timed on an idle card is logged beside it). Per GRU
    shape one line per pass says which design ran (w_hh resident in a
    thread-block cluster's shared memory, ``csrc/gru_cluster.cuh``, with
    the cluster's size, its rows, the shared memory a block and the
    clusters the card holds at once; or the row-tiled kernels) and one
    gives the wrapper's ms, the kernel's alone, its time per serial step
    and the row-tiled kernel's ms of before; at the training shape
-   (2, 32, 500, H) anything but the cluster design fails the run, as
-   does a spill in a cluster kernel or a second run of a GRU backward
-   that differs in any bit.
+   (2, 32, 500, H) anything but the cluster design fails the run (the
+   fused backward's too), as does a spill in a cluster kernel, a second
+   run of a GRU backward that differs in any bit, or a fused backward
+   whose dxw or dh0 differs from the split one's in any bit. After the
+   kernel phases: the max-pool forward's share of its bound over the 8
+   pools, the fused GRU backward's wrapper time against the split one's
+   at the two training shapes, and cuDNN's GRU times per shape as JSON.
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
    channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
@@ -107,6 +115,7 @@ Any failure raises (non-zero exit). The line before the last is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -236,6 +245,14 @@ def log(*args):
     print(*args, flush=True)
 
 
+def collect_garbage():
+    """Collect the cyclic garbage of earlier phases (up to ~140 000
+    objects) before a host-clock measurement: a full collection of it
+    takes 0.2-0.5 s on the card's host, and one that lands among 6 timed
+    steps moves steps/s by a quarter."""
+    gc.collect()
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     """Median milliseconds of ``fn()`` on the card (CUDA events)."""
     for _ in range(warmup):
@@ -251,6 +268,23 @@ def cuda_ms(fn, reps=10, warmup=2):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return float(np.median(times))
+
+
+def graph_ms(fn, calls=10):
+    """Median milliseconds a call of ``fn()`` takes replayed from a CUDA
+    graph of ``calls`` calls: the device's time without the host's. A
+    kernel of 0.03-0.15 ms (the pools) takes less than its wrapper's host
+    time, so one call timed by events on an idle card mostly measures the
+    host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps=5) / calls
+    del graph
+    return ms
 
 
 def phase_card():
@@ -422,6 +456,10 @@ def gru_work(d, b, t, h, backward=False):
 # per conv layer: times (kernel, cuDNN, bound) of each pass, the backward's
 # device time by launch, and which design ran (printed as one JSON line)
 CONV_ROWS = []
+# per GRU shape: cuDNN's times beside the kernels' (one JSON line)
+GRU_LIBRARY = []
+# the max-pool forward's time of one call on an idle card, per pool
+POOL_SINGLE_MS = []
 
 
 def profile_kernels(fn):
@@ -623,7 +661,9 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         torch.cuda.empty_cache()
     # max-pool: a compare and a copy (forward), a compare and a select
     # (backward), bit-exact, on tie-heavy input (every padded frame ties);
-    # the library calls: max_pool2d and its backward with the indices
+    # the library calls: max_pool2d and its backward with the indices. All
+    # pool times by CUDA-graph replay (graph_ms); one call of the forward
+    # timed by events on an idle card is logged beside it
     for f, c in pools:
         x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
         x[:, FRAMES - 100:] = 0.
@@ -633,27 +673,33 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         got = maxpool_freq2(x)
         ref = maxpool_freq2_plain(x)
         torch.cuda.synchronize()
+        single = cuda_ms(lambda: maxpool_freq2(x))
+        POOL_SINGLE_MS.append(single)
+        log(f'maxpool_freq2 {(BATCH, FRAMES, f, c)}: one call on an idle '
+            f'card {single:.4f} ms')
         _check('maxpool_freq2', (BATCH, FRAMES, f, c), got, ref, 0.,
-               cuda_ms(lambda: maxpool_freq2(x)),
-               cuda_ms(lambda: maxpool_freq2_plain(x)),
+               graph_ms(lambda: maxpool_freq2(x)),
+               graph_ms(lambda: maxpool_freq2_plain(x)),
                records['maxpool_freq2'], label,
-               cuda_ms(lambda: F.max_pool2d(xn, (1, 2))),
+               graph_ms(lambda: F.max_pool2d(xn, (1, 2))),
                bound(2 * n + n, 0., n / 2))
         got = maxpool_freq2_bwd(x, gy)
         ref = maxpool_freq2_bwd_plain(x, gy)
         torch.cuda.synchronize()
         _, idx = F.max_pool2d(xn, (1, 2), return_indices=True)
         _check('maxpool_freq2_bwd', (BATCH, FRAMES, f, c), got, ref, 0.,
-               cuda_ms(lambda: maxpool_freq2_bwd(x, gy)),
-               cuda_ms(lambda: maxpool_freq2_bwd_plain(x, gy)),
+               graph_ms(lambda: maxpool_freq2_bwd(x, gy)),
+               graph_ms(lambda: maxpool_freq2_bwd_plain(x, gy)),
                records['maxpool_freq2_bwd'], label,
-               cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+               graph_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                    gyn, xn, [1, 2], [1, 2], [0, 0], [1, 1], False, idx)),
                bound(2 * n + n + 2 * n, 0., n / 2))
         del idx
     # the residual average pool (F, C -> F / 2, 2C): an add and an exact
     # halving, bit-exact; the library calls: avg_pool2d and its backward
-    # (without the channel pad)
+    # (without the channel pad). The backward reads the cotangent of the
+    # C channels that are not pad (f32, half the rows: 2n bytes) and
+    # writes dx (bf16: 2n bytes)
     for f, c in crossings:
         x = randn(BATCH, FRAMES, f, c).to(torch.bfloat16)
         gy = randn(BATCH, FRAMES, f // 2, 2 * c)
@@ -664,30 +710,32 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         ref = avgpool_freq2_plain(x, 2 * c)
         torch.cuda.synchronize()
         _check('avgpool_freq2', shape, got, ref, 0.,
-               cuda_ms(lambda: avgpool_freq2(x, 2 * c)),
-               cuda_ms(lambda: avgpool_freq2_plain(x, 2 * c)),
+               graph_ms(lambda: avgpool_freq2(x, 2 * c)),
+               graph_ms(lambda: avgpool_freq2_plain(x, 2 * c)),
                records['avgpool_freq2'], label,
-               cuda_ms(lambda: F.avg_pool2d(xn, (1, 2))),
+               graph_ms(lambda: F.avg_pool2d(xn, (1, 2))),
                bound(2 * n + 4 * n, 0., n))
         got = avgpool_freq2_bwd(gy, c, x.dtype)
         ref = avgpool_freq2_bwd_plain(gy, c, x.dtype)
         torch.cuda.synchronize()
         _check('avgpool_freq2_bwd', shape, got, ref, 0.,
-               cuda_ms(lambda: avgpool_freq2_bwd(gy, c, x.dtype)),
-               cuda_ms(lambda: avgpool_freq2_bwd_plain(gy, c, x.dtype)),
+               graph_ms(lambda: avgpool_freq2_bwd(gy, c, x.dtype)),
+               graph_ms(lambda: avgpool_freq2_bwd_plain(gy, c, x.dtype)),
                records['avgpool_freq2_bwd'], label,
-               cuda_ms(lambda: torch.ops.aten.avg_pool2d_backward(
+               graph_ms(lambda: torch.ops.aten.avg_pool2d_backward(
                    gyn, xn, [1, 2], [1, 2], [0, 0], False, True, None)),
-               bound(4 * n + 2 * n, 0., n))
+               bound(2 * n + 2 * n, 0., n))
     # GRU: same bf16 rounding points on both sides; the recurrence carries
     # accumulation-order differences through T steps. Bound: the
     # kernel-vs-scan drift measured for the TPU kernel, 5.3e-3 (forward),
     # 5.3e-3 * max|ref| (backward). Forward at every serving shape,
     # backward at the training step's (B clips), the fused backward there
     # too, against its own plain version and against the split kernel's
-    # dw_hh/db_hh (the two differ in where dgates_n rounds). No PyTorch
-    # call computes the recurrence alone (cuDNN's GRU adds the input
-    # projection): no library time.
+    # dw_hh/db_hh (the two differ in where dgates_n rounds); its dxw and
+    # dh0 come from the same chain as the split kernel's, bit for bit. The
+    # library call: cuDNN's bf16 GRU with identity input weights
+    # (cudnn_gru), which computes the same recurrence plus one identity
+    # product.
     for d, b, t, h in grus:
         xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
         w_hh = randn(d, h, 3 * h, scale=h ** -.5)
@@ -709,15 +757,23 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
         torch.cuda.synchronize()
         k_ms = cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5)
+        g = randn(d, b, t, h, scale=1e-2) if b == BATCH else None
+        lib = cudnn_gru(xw, w_hh, b_hh, h0, ref, g)
+        lib.update(shape=(d, b, t, h), fwd_kernel_ms=k_ms)
         _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3, k_ms,
                cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
                        warmup=1),
-               records['gru_scan'], label, None, gru_work(d, b, t, h))
+               records['gru_scan'], label, lib['fwd'], gru_work(d, b, t, h))
         _log_gru_step('fwd', (d, b, t, h), k_ms,
                       lambda: gru_scan(xw, w_hh, b_hh, h0))
+        log(f'cudnn gru {(d, b, t, h)} forward: {lib["fwd"]:.3f} ms, '
+            f'{lib["fwd"] - lib["ident"]:.3f} without the identity product '
+            f'({lib["ident"]:.3f} ms); gru_scan / cuDNN '
+            f'{k_ms / lib["fwd"]:.3f}; max|d| against gru_scan_plain '
+            f'{lib["err"]:.3e} (cuDNN carries the state in bf16); its '
+            f'kernels: {lib["kernels"]}')
         del ref
         if b == BATCH:
-            g = randn(d, b, t, h, scale=1e-2)
             args = (xw, w_hh, b_hh, h0, y, g)
             for split, name in ((True, 'gru_scan_bwd'),
                                 (False, 'gru_scan_bwd_fused')):
@@ -726,26 +782,29 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                 torch.cuda.synchronize()
                 k_ms = cuda_ms(lambda: gru_scan_bwd(*args, split=split),
                                reps=5)
+                lib[f'{name}_ms'] = k_ms
                 p_ms = cuda_ms(lambda: gru_scan_bwd_plain(*args, split),
                                reps=3, warmup=1)
                 for i, part in enumerate(('dxw', 'dw_hh', 'db_hh', 'dh0')):
                     _check(f'{name} {part}', (d, b, t, h), grads[i], refs[i],
                            5.3e-3 * float(refs[i].float().abs().max()),
                            k_ms if i == 0 else 0., p_ms if i == 0 else 0.,
-                           records[name], label, None,
+                           records[name], label,
+                           lib['bwd'] if i == 0 else None,
                            gru_work(d, b, t, h, True) if i == 0 else None)
+                _log_gru_step('bwd' if split else 'bwd_fused', (d, b, t, h),
+                              k_ms, lambda: gru_scan_bwd(*args, split=split))
                 if split:
                     split_grads = grads
-                    _log_gru_step('bwd', (d, b, t, h), k_ms,
-                                  lambda: gru_scan_bwd(*args))
                 else:
-                    # the fused kernel against the split one, which sums
-                    # dh in another order (its cluster design): all four
+                    # the fused kernel against the split one: dxw and dh0
+                    # from the same chain, in every bit; dw_hh and db_hh
                     # within the backward's bound
                     for i, part in enumerate(('dxw', 'dw_hh', 'db_hh',
                                               'dh0')):
                         a, r = grads[i], split_grads[i]
-                        tol = 5.3e-3 * float(r.float().abs().max())
+                        tol = 0. if part in ('dxw', 'dh0') else \
+                            5.3e-3 * float(r.float().abs().max())
                         err = float((a.float() - r.float()).abs().max())
                         log(f'{name} vs split kernel {part} {(d, b, t, h)}:'
                             f' max|d|={err:.3e} tol={tol:.3e}')
@@ -754,7 +813,7 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                                 f'{name} {part}: fused and split kernels '
                                 f'differ by {err} > {tol}')
                 # the split kernel adds its partials of dh in rank order,
-                # the fused one its dw_hh slices in block order: a second
+                # the fused one its dw_hh slices in tile order: a second
                 # run agrees in every bit
                 again = gru_scan_bwd(*args, split=split)
                 if not all(torch.equal(a, r) for a, r in zip(grads, again)):
@@ -763,9 +822,101 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
                 log(f'{name} {(d, b, t, h)}: two runs agree in every bit')
                 del again
                 del grads, refs
-            del split_grads, g, args
-        del xw, y
+            log(f'cudnn gru {(d, b, t, h)} backward: {lib["bwd"]:.3f} ms, '
+                f'{lib["bwd"] - 2 * lib["ident"]:.3f} without the two '
+                f'identity products (dx through weight_ih, and its '
+                f'gradient); split wrapper / cuDNN '
+                f'{lib["gru_scan_bwd_ms"] / lib["bwd"]:.3f}, fused wrapper / '
+                f'cuDNN {lib["gru_scan_bwd_fused_ms"] / lib["bwd"]:.3f}')
+            del split_grads, args
+        GRU_LIBRARY.append(lib)
+        del xw, y, g
         torch.cuda.empty_cache()
+
+
+def cudnn_gru(xw, w_hh, b_hh, h0, ref, g=None):
+    """cuDNN's time for the GRU rows (timing only; the port never calls
+    it): per direction one bf16 ``torch.nn.GRU`` with weight_ih = I(3H),
+    bias_ih = 0, weight_hh = w_hh[d]^T and bias_hh = b_hh[d] computes
+    gru_scan's recurrence (PyTorch's gate order (r, z, n), b_hh inside
+    r * (h W_hn + b_hn)) plus one identity product. Returns the forward's
+    ms in eval mode (both directions), ``ident`` (the identity product
+    alone: a bf16 (B*T, 3H) x (3H, 3H) matmul a direction), ``err`` (max|d|
+    of its output against ``ref``, gru_scan_plain's), the three largest
+    device kernels of a forward, and with a cotangent ``g`` ``bwd``: the
+    time of forward and backward (dxw, dh0, dw_hh, db_hh) less that of the
+    training-mode forward."""
+    d, b, t, g3 = xw.shape
+    h = g3 // 3
+    dev = xw.device
+    bf16 = torch.bfloat16
+    grus = []
+    for i in range(d):
+        gru = torch.nn.GRU(g3, h, batch_first=True).to(dev, bf16)
+        with torch.no_grad():
+            gru.weight_ih_l0.copy_(torch.eye(g3))
+            gru.bias_ih_l0.zero_()
+            gru.weight_hh_l0.copy_(w_hh[i].t())
+            gru.bias_hh_l0.copy_(b_hh[i])
+        gru.weight_ih_l0.requires_grad_(False)
+        gru.bias_ih_l0.requires_grad_(False)
+        grus.append(gru.eval())
+    xs = [xw[i].to(bf16) for i in range(d)]
+    hs = [h0[i][None].to(bf16) for i in range(d)]
+
+    def forward():
+        return [gru(x, h_) for gru, x, h_ in zip(grus, xs, hs)]
+
+    eye = torch.eye(g3, device=dev, dtype=bf16)
+    with torch.no_grad():
+        out = torch.stack([o[0] for o in forward()]).float()
+        res = {'fwd': cuda_ms(forward, reps=5),
+               'ident': cuda_ms(lambda: [x.reshape(-1, g3) @ eye for x in xs],
+                                reps=5),
+               'err': float((out - ref).abs().max()),
+               'kernels': [key[:48] for _, key, _ in
+                           profile_kernels(forward)[:3]]}
+    del out
+    if g is not None:
+        for gru in grus:
+            gru.train()
+        xs = [x.detach().requires_grad_() for x in xs]
+        hs = [h_.detach().requires_grad_() for h_ in hs]
+        gys = [g[i].to(bf16) for i in range(d)]
+        wrt = xs + hs + [p for gru in grus
+                         for p in (gru.weight_hh_l0, gru.bias_hh_l0)]
+
+        def train_forward():
+            return [o for o, _ in forward()]
+
+        def forward_backward():
+            torch.autograd.grad(train_forward(), wrt, gys)
+
+        res['bwd'] = (cuda_ms(forward_backward, reps=5)
+                      - cuda_ms(train_forward, reps=5))
+    return res
+
+
+def log_redesigned(records):
+    """The sums the max-pool forward and the fused GRU backward are held
+    to: the pool's share of its bound over the 8 pools (CUDA-graph replay,
+    and one call on an idle card), the fused wrapper against the split one at
+    the two training shapes; and cuDNN's GRU times per shape (JSON)."""
+    pool = records['maxpool_freq2']
+    ms = _total(pool['shallow_ms'], pool['deep_ms'])
+    single = sum(POOL_SINGLE_MS)
+    log(f'maxpool_freq2 over the {len(POOL_SINGLE_MS)} pools: kernel '
+        f'{ms:.3f} ms (CUDA-graph replay), bound '
+        f'{pool["bound_ms"]:.3f} ms, share {pool["bound_ms"] / ms:.3f}; one '
+        f'call on an idle card {single:.3f} ms, share '
+        f'{pool["bound_ms"] / single:.3f}')
+    fused, split = (_total(records[name]['shallow_ms'],
+                           records[name]['deep_ms'])
+                    for name in ('gru_scan_bwd_fused', 'gru_scan_bwd'))
+    log(f'GRU backward wrappers at (2, 32, 500, 256) and (2, 32, 500, 512): '
+        f'fused {fused:.3f} ms, split {split:.3f} ms, fused / split '
+        f'{fused / split:.3f}')
+    log('gru library: ' + json.dumps(GRU_LIBRARY))
 
 
 def _log_gru_step(key, shape, k_ms, fn):
@@ -914,6 +1065,7 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
+    collect_garbage()
     results = {}
     for name, fn, kwargs in methods:
         t0 = time.perf_counter()
@@ -1327,6 +1479,7 @@ def phase_training(recipe_name='shallow'):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
+        collect_garbage()
         trainer.train(batches * (TRAIN_STEPS // len(batches)))
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
@@ -1610,6 +1763,7 @@ def phase_cli_training(in_memory):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
+        collect_garbage()
         with timed_trainer() as record:
             t0 = time.perf_counter()
             result = ex.run(config_updates=updates)
@@ -1781,6 +1935,7 @@ def main():
                     and r[name][i] is not None) for i in range(3)]
         log(f'conv {name} summed over both towers: kernel {sums[0]:.3f} ms, '
             f'cuDNN {sums[1]:.3f} ms, bound {sums[2]:.3f} ms')
+    log_redesigned(records)
     check_1x1()
     launches = {'shallow_serving': phase_slice()}
     launches['shallow_training'], in_memory = phase_training('shallow')

@@ -40,9 +40,10 @@ __device__ __forceinline__ float sigmoidf(float v) {
 // they add nothing to dh, dw_hh or db_hh. Split (FUSED false): writes
 // r_out, leaves dw_hh/db_hh to the caller. FUSED: no r_out; each block
 // accumulates h_prev^T @ bf16(dgates) over its rows and steps into its
-// own f32 slice of dw_part ((D * blocks, H, 3H), zeroed by the caller)
-// every kDwSteps steps, from the bf16 h_prev/dgates rows of those steps
-// copied to its slice of `scratch` ((kDwSteps * rows, H) then
+// own f32 slice of dw_part ((D * blocks, H, 3H); the first group stores
+// without reading it) every kDwSteps steps, from the bf16 h_prev/dgates
+// rows of those steps copied to its slice of `scratch` ((kDwSteps * rows,
+// H) then
 // (kDwSteps * rows, 3H)), and the f32 dgates row sums into db_part
 // ((D * blocks, 3H)). dw_part/db_part are reduced over the blocks in a
 // fixed order afterwards (gru_bwd_fused.cu).
@@ -276,7 +277,10 @@ gru_bwd_kernel(const __nv_bfloat16* __restrict__ xw,      // (D, B, T, 3H)
           const int n0 = (tile % n_tiles) * 16;  // columns: gate units
           float* c_ptr = dw_blk + static_cast<size_t>(m0) * G + n0;
           FragC acc;
-          wmma::load_matrix_sync(acc, c_ptr, G, wmma::mem_row_major);
+          if (T - 1 - t < kDwSteps)  // the first group: nothing to read
+            wmma::fill_fragment(acc, 0.f);
+          else
+            wmma::load_matrix_sync(acc, c_ptr, G, wmma::mem_row_major);
           for (int k = 0; k < k_rows; k += 16) {
             FragAT a_frag;  // h_prev^T: (hidden, rows), col-major in hs
             FragB b_frag;

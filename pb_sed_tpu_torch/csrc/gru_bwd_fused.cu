@@ -1,4 +1,4 @@
-// The fused GRU backward: the reverse sweep of gru_bwd.cuh with dw_hh
+// The fused GRU backward: the reverse sweep of gru_bwd.cu with dw_hh
 // and db_hh accumulated inside the kernel instead of emitting r for an
 // outside contraction.
 //
@@ -15,22 +15,26 @@
 // selects it: the split kernel (gru_bwd.cu) stays the default.
 //
 // What bounds it on the H100: the sweep as in gru_bwd.cu (serial in t,
-// w_hh re-read from L2 twice a step), plus the accumulator: (H, 3H) f32
-// per direction, 3 MiB at H = 512, far more than a block's shared
-// memory (on the TPU it was what kept this kernel out of VMEM above
-// H = 256).
+// the latency of a step's chain), plus the accumulator: (H, 3H) f32 per
+// direction, 3 MiB at H = 512, far more than a block's shared memory (on
+// the TPU it was what kept this kernel out of VMEM above H = 256).
 //
-// What the design does about it: blocks run in no order, so each sweep
-// block owns an f32 slice (H, 3H) of a device-memory workspace (L2
-// resident at the shapes of the recipes: 4 blocks x 3 MiB at H = 512,
-// B = 32). Each step it copies its bf16 h_prev and dgates rows to a
-// scratch ring of 16 steps; every 16 steps its warps add the product of
-// those rows into the slice with bf16 tensor-core products (wmma
-// 16x16x16, f32 accumulate), one read-modify-write of the slice per 16
-// steps instead of per step. db_hh is summed per thread in registers.
-// A second kernel adds the slices of each direction in block order: two
-// runs give bit-identical dw_hh and db_hh (no float atomics).
-#include "gru_bwd.cuh"
+// What the design does about it: the split backward's two designs, chosen
+// by the same rule (pbsed_gru_bwd_fused_design says which), each with the
+// accumulation added off its chain:
+// 1. the cluster sweep (gru_bwd_cluster.cuh, FUSED): block c of a cluster
+//    owns the gate columns cols(U_c), so it alone writes dw_hh[:, cols(U_c)]
+//    of its (direction, row tile): every 16 steps one K = 16 product a
+//    batch row from a global ring of its bf16 dgates and h_prev in global
+//    memory into that f32 slice, between the cluster barrier's arrive and
+//    wait; db_hh in per-thread registers;
+// 2. the row-tiled sweep (gru_bwd.cuh, FUSED): each block owns an f32
+//    (H, 3H) slice, filled every 16 steps from a scratch ring of its bf16
+//    h_prev and dgates rows.
+// Either way the slices are disjoint and need no zeroing; a second kernel
+// adds them over the row tiles in tile order: two runs give bit-identical
+// dw_hh and db_hh (no float atomics).
+#include "gru_bwd_cluster.cuh"
 
 namespace {
 
@@ -65,12 +69,14 @@ cudaError_t reduce_parts(const float* part, float* out, int D, int blocks,
 
 }  // namespace
 
-// Inputs as pbsed_gru_scan_bwd (gru_bwd.cu). Outputs dxw (D, B, T, 3H)
-// bf16, dw_hh (D, H, 3H) f32, db_hh (D, 3H) f32, dh0 (D, B, H) f32.
-// Workspace, with blocks = ceil(B / rows) and rows = 32 for H <= 256, 16
-// above: dw_part (D * blocks, H, 3H) f32 ZEROED, db_part (D * blocks,
-// 3H) f32, scratch (D * blocks, 16 * rows, 4H) bf16. Contiguous, h_prev
-// 16-byte aligned, dw_part and scratch 32-byte aligned. Requires
+// Inputs as pbsed_gru_scan_bwd (gru_bwd.cu), but h_prev followed in
+// memory by at least 15 H finite values (the cluster sweep reads up to 15
+// steps past the last row's end, with zero weight). Outputs dxw (D, B, T,
+// 3H) bf16, dw_hh (D, H, 3H) f32, db_hh (D, 3H) f32, dh0 (D, B, H) f32.
+// Workspace, with rows as pbsed_gru_bwd_fused_design reports and parts =
+// D * ceil(B / rows): dw_part (parts, H, 3H) f32, db_part (parts, 3H) f32,
+// scratch (parts, 16 * rows, 4H) bf16; none needs zeroing. Contiguous,
+// h_prev 16-byte aligned, dw_part and scratch 32-byte aligned. Requires
 // H % 32 == 0 and H <= 512. Returns a cudaError_t.
 extern "C" int pbsed_gru_scan_bwd_fused(
     const void* xw, const void* h_prev, const void* w_hh, const void* b_hh,
@@ -80,7 +86,6 @@ extern "C" int pbsed_gru_scan_bwd_fused(
   if (H % 32 != 0 || H < 32 || H > 512 || D < 1 || D > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (B + (H <= 256 ? 31 : 15)) / (H <= 256 ? 32 : 16);
   const long long G = 3LL * H;
   if (B == 0) {
     cudaError_t err = cudaMemsetAsync(dw_hh, 0, sizeof(float) * D * H * G, s);
@@ -88,14 +93,28 @@ extern "C" int pbsed_gru_scan_bwd_fused(
       err = cudaMemsetAsync(db_hh, 0, sizeof(float) * D * G, s);
     return static_cast<int>(err);
   }
-  cudaError_t err = gru_bwd_sweep<true>(xw, h_prev, w_hh, b_hh, g, dxw,
-                                        nullptr, dh0, dw_part, db_part,
-                                        scratch, D, B, T, H, s);
+  int rows = H <= 256 ? 32 : 16;
+  cudaError_t err =
+      gru_cluster_takes(D, B, T, H)
+          ? bwd_cluster<true>(xw, h_prev, w_hh, b_hh, g, dxw, nullptr, dh0,
+                              dw_part, db_part, scratch, D, B, T, H, s, &rows)
+          : gru_bwd_sweep<true>(xw, h_prev, w_hh, b_hh, g, dxw, nullptr, dh0,
+                                dw_part, db_part, scratch, D, B, T, H, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + rows - 1) / rows;
   err = reduce_parts(static_cast<const float*>(dw_part),
                      static_cast<float*>(dw_hh), D, blocks, H * G, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_parts(static_cast<const float*>(db_part),
                                        static_cast<float*>(db_hh), D, blocks,
                                        G, s));
+}
+
+// Which design pbsed_gru_scan_bwd_fused runs at (D, B, T, H); the
+// arguments and the result as pbsed_gru_design (gru.cu). `rows` sizes the
+// workspace.
+extern "C" int pbsed_gru_bwd_fused_design(int D, int B, int T, int H,
+                                          int* cluster, int* rows, int* smem,
+                                          int* coresident) {
+  return bwd_design<true>(D, B, T, H, cluster, rows, smem, coresident);
 }

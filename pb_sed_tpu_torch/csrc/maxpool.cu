@@ -14,11 +14,19 @@
 //
 // What the design does about it: with F = 2 * Fo, output row
 // r = (b * T + t) * Fo + f reads input rows 2r and 2r + 1, so the pool is a
-// max over adjacent C-vectors of a (R, 2, C) view. Each thread moves
-// 8 channels as one 16-byte load from each row and one 16-byte store
-// (scalar path when C % 8 != 0). The compare follows PyTorch's maximum on
-// the card (NaN wins, otherwise the first operand unless it is smaller),
-// so the kernel is bit-exact against the plain torch.maximum version.
+// max over adjacent C-vectors of a (R, 2, C) view: one contiguous read
+// stream and one write stream. The forward (maxpool_freq2_stream) moves
+// one 16-byte vector (8 channels) of each row a thread, with 32-bit
+// positions and streaming cache hints (__ldcs / __stcs: every byte is
+// touched once), in as many blocks of 256 as there are vectors. Measured
+// on an H100 (CUDA-graph replay, B = 32, T = 500, the 8 pools of both
+// towers) it moves its bytes at 0.87 of the card's 3.35 TB/s, where a
+// plain 2-read-1-write stream reaches about the same; grids of one wave
+// that loop over 4 or 8 vectors a thread, with or without the hints,
+// reached 0.81-0.84. A scalar path takes C % 8 != 0. The compare
+// follows PyTorch's maximum on the card (NaN wins, otherwise the first
+// operand unless it is smaller), so the kernel is bit-exact against the
+// plain torch.maximum version.
 // The backward walks the same view: per output vector it reads both
 // input rows and the cotangent and writes both rows of dx, bit-exact
 // against maxpool_freq2_bwd_plain.
@@ -39,25 +47,26 @@ __device__ __forceinline__ __nv_bfloat16 max_bf16(__nv_bfloat16 a,
   return fa < fb ? b : a;
 }
 
+// The forward as one read stream and one write stream over the (R, 2, V)
+// view (V = C / 8 vectors of 16 bytes): output vector e = rV + v is the
+// max of input vectors 2rV + v = e + rV and e + rV + V. One output vector
+// a thread, 32-bit positions (the entry point keeps 2 R V below 2^31),
+// both loads issued before the compare, streaming cache hints.
 __global__ void __launch_bounds__(kThreads)
-maxpool_freq2_vec8(const uint4* __restrict__ x, uint4* __restrict__ y,
-                   long long rows_out, int vecs_per_row) {
-  const long long n = rows_out * vecs_per_row;
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       e < n; e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long r = e / vecs_per_row;
-    const int v = static_cast<int>(e % vecs_per_row);
-    const uint4 a = x[(2 * r) * vecs_per_row + v];
-    const uint4 b = x[(2 * r + 1) * vecs_per_row + v];
-    const __nv_bfloat16* pa = reinterpret_cast<const __nv_bfloat16*>(&a);
-    const __nv_bfloat16* pb = reinterpret_cast<const __nv_bfloat16*>(&b);
-    uint4 out;
-    __nv_bfloat16* po = reinterpret_cast<__nv_bfloat16*>(&out);
+maxpool_freq2_stream(const uint4* __restrict__ x, uint4* __restrict__ y,
+                     int n, int V) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const uint4* p = x + e + (e / V) * V;
+  const uint4 a = __ldcs(p);
+  const uint4 b = __ldcs(p + V);
+  const __nv_bfloat16* pa = reinterpret_cast<const __nv_bfloat16*>(&a);
+  const __nv_bfloat16* pb = reinterpret_cast<const __nv_bfloat16*>(&b);
+  uint4 out;
+  __nv_bfloat16* po = reinterpret_cast<__nv_bfloat16*>(&out);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) po[i] = max_bf16(pa[i], pb[i]);
-    y[e] = out;
-  }
+  for (int i = 0; i < 8; ++i) po[i] = max_bf16(pa[i], pb[i]);
+  __stcs(y + e, out);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -144,17 +153,29 @@ extern "C" int pbsed_maxpool_freq2(const void* x, void* y, long long rows_out,
   if (rows_out < 0 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows_out == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long blocks = grid_blocks(rows_out, C);
-  if (C % 8 == 0) {
-    maxpool_freq2_vec8<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const uint4*>(x), static_cast<uint4*>(y), rows_out,
-        C / 8);
-  } else {
+  if (C % 8 != 0) {
+    const long long blocks = grid_blocks(rows_out, C);
     maxpool_freq2_scalar<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<__nv_bfloat16*>(y), rows_out, C);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  // launches of at most 2^29 output vectors keep the kernel's 32-bit
+  // positions (2 R V) below 2^31; one launch at every shape of the recipes
+  const int V = C / 8;
+  const long long max_rows = (1LL << 29) / V;
+  const uint4* xv = static_cast<const uint4*>(x);
+  uint4* yv = static_cast<uint4*>(y);
+  for (long long r0 = 0; r0 < rows_out; r0 += max_rows) {
+    const long long rows =
+        rows_out - r0 < max_rows ? rows_out - r0 : max_rows;
+    const int n = static_cast<int>(rows * V);
+    maxpool_freq2_stream<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        xv + 2 * r0 * V, yv + r0 * V, n, V);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // x (B, T, F, C) bf16 with F even, gy (B, T, F / 2, C) bf16, dx (B, T, F,

@@ -59,9 +59,9 @@ _SIGNATURES = {
 # shape queries (no stream, no launch): which conv kernel a shape runs,
 # with its ring depth and shared memory written to the two int pointers,
 # and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu);
-# which GRU kernel a shape runs, forward and backward, with its cluster
-# size, rows, shared memory and co-resident clusters written to the four
-# int pointers (csrc/gru.cu, csrc/gru_bwd.cu)
+# which GRU kernel a shape runs, forward, split and fused backward, with
+# its cluster size, rows, shared memory and co-resident clusters written
+# to the four int pointers (csrc/gru.cu, gru_bwd.cu, gru_bwd_fused.cu)
 _IP = ctypes.POINTER(ctypes.c_int)
 _QUERIES = {
     'pbsed_conv2d_design': (_I,) * 5 + (_IP, _IP),
@@ -69,6 +69,7 @@ _QUERIES = {
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 4,
     'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 4,
+    'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 4,
 }
 
 _lib = None

@@ -3,11 +3,11 @@
 their plain PyTorch versions and the autograd Function ``GruScan`` that
 ties them together.
 
-The forward and the split backward each have two designs, chosen by
-shape inside the C entry points (``csrc/gru_cluster.cuh:
-gru_cluster_takes``): with few rows and many steps (training, tagging) a
-thread-block cluster per row tile that keeps w_hh in its shared memory;
-else one block per row tile. :func:`gru_designs` reports the choice.
+The forward and both backwards each have two designs, chosen by shape
+inside the C entry points (``csrc/gru_cluster.cuh:gru_cluster_takes``):
+with few rows and many steps (training, tagging) a thread-block cluster
+per row tile that keeps w_hh in its shared memory; else one block per row
+tile. :func:`gru_designs` reports the choice.
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
@@ -108,30 +108,34 @@ def gru_scan(xw, w_hh, b_hh, h0):
     return y
 
 
+_DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
+                   'bwd_fused': 'pbsed_gru_bwd_fused_design'}
+
+
+def _design(name, d, b, t, h):
+    lib = build.lib()
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = getattr(lib, _DESIGN_QUERIES[name])(d, b, t, h,
+                                             *map(ctypes.byref, out))
+    if rc < 0:
+        msg = lib.pbsed_error_string(-rc).decode()
+        raise RuntimeError(f'GRU {name} design query at {(d, b, t, h)} '
+                           f'failed: CUDA error {-rc} ({msg})')
+    return dict(zip(('cluster', 'rows', 'smem', 'coresident'),
+                    (v.value for v in out)),
+                design='cluster' if rc else 'row_tiled')
+
+
 def gru_designs(d, b, t, h):
     """Which kernels the GRU runs on the card at xw (D, B, T, 3H), as the
-    C entry points decide: for ``'fwd'`` and ``'bwd'`` (the split
-    backward) a dict of ``design`` ('cluster': w_hh resident in a
-    thread-block cluster's shared memory, or 'row_tiled'), ``cluster``
+    C entry points decide: for ``'fwd'``, ``'bwd'`` (the split backward)
+    and ``'bwd_fused'`` a dict of ``design`` ('cluster': w_hh resident in
+    a thread-block cluster's shared memory, or 'row_tiled'), ``cluster``
     (blocks a cluster, 1 row-tiled), ``rows`` (batch rows a cluster or
     block), ``smem`` (dynamic shared memory a block, bytes) and
     ``coresident`` (clusters the card holds at once, 0 row-tiled).
     Raises where the card can hold no cluster of the design."""
-    lib = build.lib()
-    designs = {}
-    for name, query in (('fwd', lib.pbsed_gru_design),
-                        ('bwd', lib.pbsed_gru_bwd_design)):
-        out = [ctypes.c_int() for _ in range(4)]
-        rc = query(d, b, t, h, *map(ctypes.byref, out))
-        if rc < 0:
-            msg = lib.pbsed_error_string(-rc).decode()
-            raise RuntimeError(f'GRU {name} design query at {(d, b, t, h)} '
-                               f'failed: CUDA error {-rc} ({msg})')
-        designs[name] = dict(
-            zip(('cluster', 'rows', 'smem', 'coresident'),
-                (v.value for v in out)),
-            design='cluster' if rc else 'row_tiled')
-    return designs
+    return {name: _design(name, d, b, t, h) for name in _DESIGN_QUERIES}
 
 
 def _check_bwd(xw, w_hh, b_hh, h0, y, g):
@@ -144,11 +148,18 @@ def _check_bwd(xw, w_hh, b_hh, h0, y, g):
             raise ValueError('all GRU operands must be on one device')
 
 
-def _h_prev(h0, y):
-    """(D, B, T, H) bf16 state before each step: concat(h0, y[:-1])."""
-    t = y.shape[2]
-    return torch.cat([h0[:, :, None].float(), y[:, :, :max(t - 1, 0)]],
-                     dim=2)[:, :, :t].to(torch.bfloat16)
+def _h_prev(h0, y, pad=0):
+    """(D, B, T, H) bf16 state before each step: concat(h0, y[:-1]),
+    contiguous, followed in memory by ``pad`` rows of H zeros."""
+    d, b, t, h = y.shape
+    n = d * b * t * h
+    buf = torch.empty(n + pad * h, dtype=torch.bfloat16, device=y.device)
+    buf[n:].zero_()
+    h_prev = buf[:n].view(d, b, t, h)
+    if t:
+        h_prev[:, :, 0] = h0.float()
+        h_prev[:, :, 1:] = y[:, :, :t - 1]
+    return h_prev
 
 
 def _weight_grads(h_prev, dxw, r):
@@ -235,7 +246,8 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
         raise ValueError(f'the GRU backward kernel takes H % 32 == 0, '
                          f'H <= 512; got H={hdim}')
     xw16 = xw.to(torch.bfloat16).contiguous()
-    h_prev = _h_prev(h0, y).contiguous()
+    # the fused cluster sweep reads up to 15 steps past the last row
+    h_prev = _h_prev(h0, y, pad=0 if split else 16)
     w16 = w_hh.to(torch.bfloat16).contiguous()
     b32 = b_hh.float().contiguous()
     g32 = g.float().contiguous()
@@ -256,15 +268,15 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
 
 def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):
     """The fused kernel with its workspace (``csrc/gru_bwd_fused.cu``):
-    per sweep block (32 rows up to H = 256, 16 above) a zeroed f32
-    (H, 3H) dw_hh slice, an f32 (3H,) db_hh slice and a bf16 ring of 16
-    steps of h_prev and dgates rows."""
+    per (direction, row tile of the design's rows) an f32 (H, 3H) dw_hh
+    partial, an f32 (3H,) db_hh partial and a bf16 ring of 16 steps of
+    dgates (and, row-tiled, h_prev) rows."""
     d, b, t, three_h = xw16.shape
     hdim = three_h // 3
-    rows = 32 if hdim <= 256 else 16
+    rows = _design('bwd_fused', d, b, t, hdim)['rows']
     parts = d * -(-b // rows)
     dev = xw16.device
-    dw_part = torch.zeros((parts, hdim, three_h), dtype=torch.float32,
+    dw_part = torch.empty((parts, hdim, three_h), dtype=torch.float32,
                           device=dev)
     db_part = torch.empty((parts, three_h), dtype=torch.float32, device=dev)
     scratch = torch.empty((parts, 16 * rows, 4 * hdim), dtype=torch.bfloat16,

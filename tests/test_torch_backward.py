@@ -172,13 +172,14 @@ def test_gru_backward_matches_jax_split_kernel(d, b, t, h):
 
 
 @pytest.mark.parametrize('d,b,t,h', [(1, 6, 11, 8), (2, 6, 11, 16),
-                                     (2, 3, 13, 32)])
+                                     (2, 3, 13, 32), (2, 6, 37, 128)])
 def test_gru_fused_backward_matches_jax_fused_kernel(d, b, t, h):
     """``gru_scan_bwd(split=False)`` against
     ``_gru_scan_pallas_bwd(split=False)``, the kernel that accumulates
     dw_hh/db_hh in its sweep (the blocks and shapes of the split test
-    above); dxw and dh0 come from the same sweep as the split variant's,
-    bit for bit."""
+    above, and H = 128 with T past two 16-step groups of the card's
+    kernel); dxw and dh0 come from the same sweep as the split
+    variant's, bit for bit."""
     xw, w_hh, b_hh, h0, g = _gru_inputs(d, b, t, h, seed=d * 10 + h + 1)
     xw = jnp.asarray(xw).astype(jnp.bfloat16).astype(jnp.float32)
     y = _gru_scan_pallas(xw, w_hh, b_hh, h0, interpret=True,

@@ -67,10 +67,18 @@ def test_conv2d_kernel_matches_plain(gen, b, t, f, cin, cout, kt, kf):
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize('shape', [(2, 3, 6, 16), (1, 5, 4, 12)])
+# C = 16, 8 and 24 (an odd number of 16-byte vectors) take the vector
+# kernel, C = 12 the scalar path; the last shape's 162 825 rows of two
+# vectors leave a partial last block
+@pytest.mark.parametrize('shape', [(2, 3, 6, 16), (1, 5, 4, 12),
+                                   (2, 3, 6, 8), (3, 7, 10, 24),
+                                   (5, 501, 130, 16)])
 def test_maxpool_kernel_bit_exact(gen, shape):
     x = torch.randn(*shape, generator=gen, device='cuda').to(torch.bfloat16)
     x[0, 0, 0, :4] = float('nan')  # NaN wins, as in torch.maximum
+    x[0, 0, 3, :2] = float('nan')  # in the second row
+    x[0, 0, 2, 1] = float('nan')   # and in both rows
+    x[:, 1, 1::2] = x[:, 1, 0::2]  # ties
     got = maxpool_freq2(x)
     ref = maxpool_freq2_plain(x)
     assert torch.equal(got.isnan(), ref.isnan())
@@ -113,10 +121,11 @@ def test_gru_design_by_shape(gen):
     """The cluster design takes the training shapes (16 rows a cluster
     while all clusters are on the card at once) and, at H = 512, the
     sliding-window one (32 rows a cluster forward); at H = 256 that shape
-    keeps the row-tiled kernels."""
+    keeps the row-tiled kernels. The fused backward follows the split
+    one."""
     for h, cluster in ((256, 8), (512, 16)):
         train = gru_designs(2, 32, 500, h)
-        for key in ('fwd', 'bwd'):
+        for key in ('fwd', 'bwd', 'bwd_fused'):
             assert train[key]['design'] == 'cluster'
             assert train[key]['cluster'] == cluster
             assert train[key]['coresident'] >= 1
@@ -126,10 +135,11 @@ def test_gru_design_by_shape(gen):
             assert train[key]['coresident'] >= 4
             assert train[key]['rows'] == 16
     sed = gru_designs(2, 16000, 51, 512)
-    assert sed['fwd']['design'] == sed['bwd']['design'] == 'cluster'
+    assert all(sed[key]['design'] == 'cluster' for key in sed)
     assert (sed['fwd']['rows'], sed['bwd']['rows']) == (32, 16)
+    assert sed['bwd_fused']['rows'] == 16
     sed = gru_designs(2, 16000, 51, 256)
-    for key in ('fwd', 'bwd'):
+    for key in ('fwd', 'bwd', 'bwd_fused'):
         assert sed[key]['design'] == 'row_tiled'
         assert sed[key]['cluster'] == 1
     assert gru_designs(2, 16000, 51, 64)['fwd']['design'] == 'row_tiled'
@@ -300,34 +310,44 @@ def test_bnrelu_conv2d_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
 
 
 @pytest.mark.parametrize('d,b,t,h', [(1, 5, 9, 32), (2, 3, 17, 64),
-                                     (2, 3, 40, 512), (2, 33, 21, 256)])
+                                     (2, 3, 40, 512), (2, 33, 21, 256),
+                                     (2, 32, 500, 256), (2, 32, 500, 512),
+                                     (2, 16, 45, 512), (2, 40, 37, 256),
+                                     (2, 300, 20, 256)])
 def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     """B = 3 (rows past the batch in the tile), T past one and across
-    several 16-step accumulation groups, two batch tiles (B = 33)."""
+    several 16-step accumulation groups with a partial one (T = 45, 37,
+    500), two and three batch tiles (B = 33, 40), the training shapes;
+    H = 32 and 64 and (2, 300, 20, 256) keep the row-tiled sweep, the
+    rest the cluster one."""
     xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
         torch.bfloat16)
     w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
     b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
     h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
     y = gru_scan(xw, w_hh, b_hh, h0)
-    g = torch.randn(d, b, t, h, generator=gen, device='cuda')
+    # at T = 500 the training step's cotangent scale (as chip_smoke.py):
+    # summed over 500 steps a unit one grows dxw to where one bf16 ulp of
+    # it is more than the bound of its max
+    g = torch.randn(d, b, t, h, generator=gen, device='cuda') * (
+        1e-2 if t == 500 else 1.)
+    cluster = h in (256, 512) and (d, b, t, h) != (2, 300, 20, 256)
+    designs = gru_designs(d, b, t, h)
+    assert designs['bwd_fused']['design'] == ('cluster' if cluster
+                                              else 'row_tiled')
+    assert designs['bwd_fused']['rows'] == designs['bwd']['rows']
     n = build.LAUNCHES['gru_scan_bwd_fused']
     got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
     assert build.LAUNCHES['gru_scan_bwd_fused'] == n + 1
     ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=False)
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
-    # against the split kernel: the same sweep where that runs row-tiled
-    # (bit-exact dxw and dh0); where it takes the cluster design its dh is
-    # summed in another order (the GRU ceiling). dw_hh/db_hh are reduced
-    # in a fixed order: bit-identical reruns
+    # against the split kernel: the same sweep in either design (the fused
+    # one adds its accumulation off the chain), so dxw and dh0 agree in
+    # every bit. dw_hh/db_hh are reduced in a fixed order: bit-identical
+    # reruns
     split = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
-    if gru_designs(d, b, t, h)['bwd']['design'] == 'row_tiled':
-        assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
-    else:
-        for i in (0, 3):
-            assert _max_err(got[i], split[i]) <= 5.3e-3 * float(
-                split[i].float().abs().max())
+    assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
     again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
