@@ -45,6 +45,11 @@ runs, in order:
    kernel phases: the max-pool forward's share of its bound over the 8
    pools, the fused GRU backward's wrapper time against the split one's
    at the two training shapes, and cuDNN's GRU times per shape as JSON.
+   The GRU forward also runs at the two shapes that only the tuning chain
+   (phase 8) gives it: (2, 8 000, 11, 256), the shortest SED window over
+   16 clips (row-tiled), and (2, 32, 250, 256), scenario 2's window of 250
+   at shift 250 (the cluster design); held against its plain version,
+   its times printed and left out of the kernels line's sums.
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
    channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
@@ -107,10 +112,31 @@ runs, in order:
    3-16 (validation taken out) beside phase 4's on in-memory batches, the
    seconds in ``validate``, the host seconds per batch of the loader
    alone, peak device memory.
+8. the tuning and inference chain, inside phase 7's directory: 32
+   ``eval_public`` clips with onsets and offsets join its database, and
+   ``experiments.weak_label_crnn.tuning.ex.run`` tunes on its 32
+   validation clips with the recipe's grids (``num_jobs=8``, batches of
+   16 as the training CLI's chain passes them) the ensemble of phase 7's
+   two runs (their best checkpoints; the first alone if the second has
+   none), on the card: tagging thresholds, boundary step filters, SED
+   windows and median filters for PSDS scenarios 1 and 2, chained into
+   inference on ``eval_public`` for both scenarios; then one more
+   inference run saves scores and detections and pseudo-labels weakly
+   and strongly. It fails on a missing hyper-parameter file, a threshold
+   outside [0, 1] (an end of the sweep, +-inf, is the reference's answer
+   where no threshold qualifies), a length outside its grid, a non-finite
+   F-score, PSDS or AUC (over its max eFPR of 100) or one outside [0, 1],
+   a PSDS from the saved score files other than the in-memory one, no
+   pseudo-labeled database json, a forward kernel that did not launch or
+   a backward kernel that did. Printed: a pool's start under ``spawn``
+   and ``forkserver``; per run the host seconds in the inference engine
+   (model calls and their score frames) and in evaluation, the pools and
+   their start seconds, peak memory, clips/s of each engine call; all of
+   it as JSON.
 
 Each path (shallow serving and training, deep serving and training, the
-fused ones, the training entry point) runs with the launch counters set
-to 0 just before it and read just after.
+fused ones, the training entry point, the tuning chain) runs with the
+launch counters set to 0 just before it and read just after.
 Any failure raises (non-zero exit). The line before the last is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
@@ -169,6 +195,11 @@ DEEP_POOLS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 # 10 -> 12, 14 -> 16, each matched to F / 2 rows and 2C channels
 DEEP_CROSSINGS = [(128, 32), (64, 64), (32, 128), (16, 256)]
 DEEP_GRU_SHAPES = [(2, BATCH, FRAMES, 512), (2, BATCH * FRAMES, 51, 512)]
+# (D, B, T, H) that the tuning chain (phase 8, batches of 16 clips) gives
+# the GRU beyond those: sliding-window SED at its shortest window, 11
+# frames (16 x 500 windows), and scenario 2's window of 250 at shift 250
+# (16 clips x 2 windows of 250 steps)
+CHAIN_GRU_SHAPES = [(2, BATCH // 2 * FRAMES, 11, 256), (2, BATCH, 250, 256)]
 # The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
 # design, kernel alone: the parent tree in `scripts/gru_ab.py
 # chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
@@ -832,6 +863,45 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         GRU_LIBRARY.append(lib)
         del xw, y, g
         torch.cuda.empty_cache()
+
+
+def check_chain_gru_shapes(records):
+    """The GRU forward at ``CHAIN_GRU_SHAPES`` against its plain version,
+    with the design that ran: 32 rows of 250 steps must take the cluster
+    design (``gru_cluster_takes``), 8 000 rows of 11 steps take the
+    row-tiled one. The error joins the kernel's ``max_abs_err``; its times
+    are printed and stay out of the kernels line's sums, which keep the
+    shapes of the earlier runs."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for d, b, t, h in CHAIN_GRU_SHAPES:
+        xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w_hh = torch.randn(d, h, 3 * h, generator=gen, device=dev) * h ** -.5
+        b_hh = torch.randn(d, 3 * h, generator=gen, device=dev) * .1
+        h0 = torch.zeros(d, b, h, device=dev)
+        design = gru_designs(d, b, t, h)['fwd']
+        log(f'gru design {(d, b, t, h)} fwd (tuning chain): '
+            f'{design["design"]}, cluster of {design["cluster"]}, '
+            f'{design["rows"]} rows, {design["smem"] / 1024:.0f} KiB shared '
+            f'memory a block')
+        want = 'cluster' if b == BATCH else 'row_tiled'
+        if design['design'] != want:
+            raise AssertionError(f'GRU at {(d, b, t, h)} runs the '
+                                 f'{design["design"]} kernel, not {want}')
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        torch.cuda.synchronize()
+        scratch = new_record()
+        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3,
+               cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
+               cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
+                       warmup=1), scratch, 'shallow',
+               work=gru_work(d, b, t, h))
+        records['gru_scan']['max_abs_err'] = max(
+            records['gru_scan']['max_abs_err'], scratch['max_abs_err'])
+        del xw, y, ref
+    torch.cuda.empty_cache()
 
 
 def cudnn_gru(xw, w_hh, b_hh, h0, ref, g=None):
@@ -1555,10 +1625,12 @@ EVENT_CLASSES = [
 # with the recipe's repeats (10, 10, 2, 1) an epoch is 416 clips of which
 # 24%, 53%, 8% and 15% come from the four sets, so the recipe's quotas at
 # batch 32 (3 weak, 6 strong, 1 + 2 synthetic clips that were not mixed
-# across datasets) let about ten batches an epoch through
+# across datasets) let about ten batches an epoch through; phase 8 tunes
+# on 'validation' and evaluates on 'eval_public' (written last, so the
+# other sets stay what phase 7 had before them)
 DATABASE_CLIPS = {'train_weak': 10, 'train_strong': 22,
                   'train_synthetic20': 16, 'train_synthetic21': 64,
-                  'validation': 32}
+                  'validation': 32, 'eval_public': 32}
 CLI_ITERATIONS, CLI_CHECKPOINT = 16, 8
 
 
@@ -1676,7 +1748,8 @@ def _cli_updates(json_path, storage_dir, **more):
         'timestamp': stamp, 'group_name': stamp,
         'storage_dir': str(storage_dir),
         'data_provider': {'json_path': str(json_path)},
-        'validation_set_name': None,  # the tuning chain is not ported
+        # phase 8 runs the tuning chain itself, on both runs
+        'validation_set_name': None,
         'num_iterations': CLI_ITERATIONS,
         'checkpoint_interval': CLI_CHECKPOINT,
         'summary_interval': 4,
@@ -1740,11 +1813,12 @@ def check_recipe(config):
     return fetcher
 
 
-def phase_cli_training(in_memory):
+def phase_cli_training(in_memory, tmp):
     """Phase 7: ``experiments.weak_label_crnn.training`` on the card from
-    wav files on disk. ``in_memory`` is phase 4's metrics, printed beside
-    this run's. Returns the launch counts of the first (16-iteration) run
-    and its metrics."""
+    wav files on disk, written under the directory ``tmp``. ``in_memory``
+    is phase 4's metrics, printed beside this run's. Returns the launch
+    counts of the first (16-iteration) run, its metrics and the two run
+    directories (the first run and the one from its best checkpoint)."""
     from pb_sed_tpu_torch.data.provider import DataProvider
     from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
     from pb_sed_tpu_torch.models import base
@@ -1752,168 +1826,487 @@ def phase_cli_training(in_memory):
     from pb_sed_tpu_torch.models.weak_label import CRNN
     from pb_sed_tpu_torch.utils.checkpoint import load_payload
     from pb_sed_tpu_torch.utils.misc import load_json
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    json_path, nbytes = write_database(tmp / 'db', seed=7)
+    log(f'database: {sum(DATABASE_CLIPS.values())} wav files, '
+        f'{nbytes / 2 ** 20:.1f} MiB, {DATABASE_CLIPS} written in '
+        f'{time.perf_counter() - t0:.1f} s')
+    run_dir = tmp / 'exp' / 'run1'
+    updates = _cli_updates(json_path, run_dir, lr_rampup_steps=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    collect_garbage()
+    with timed_trainer() as record:
         t0 = time.perf_counter()
-        json_path, nbytes = write_database(Path(tmp) / 'db', seed=7)
-        log(f'database: {sum(DATABASE_CLIPS.values())} wav files, '
-            f'{nbytes / 2 ** 20:.1f} MiB, {DATABASE_CLIPS} written in '
-            f'{time.perf_counter() - t0:.1f} s')
-        run_dir = Path(tmp) / 'exp' / 'run1'
-        updates = _cli_updates(json_path, run_dir, lr_rampup_steps=4)
+        result = ex.run(config_updates=updates)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'launches in the CLI training run: {launches}')
+    for kernel in SHALLOW:
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in '
+                                 f'the CLI training run')
+    if result != str(run_dir):
+        raise AssertionError(f'the run returned {result}')
+    fetcher = check_recipe(load_json(run_dir / '1' / 'config.json'))
+    steps = record['steps']
+    losses = [loss for *_, loss in steps]
+    log(f'CLI loss per step: ' + ', '.join(f'{x:.5f}' for x in losses))
+    if [it for it, *_ in steps] != list(range(1, CLI_ITERATIONS + 1)) \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f'CLI training steps: {steps}')
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    log(f'CLI mean loss of steps 1-4: {first:.5f}, of steps 13-16: '
+        f'{last:.5f}')
+    if not last < first:
+        raise AssertionError('the loss did not fall over the CLI run')
+    if len(record['test_run']) != 1 or len(record['validate']) != 3:
+        raise AssertionError(
+            f'expected one test run and validations after iterations '
+            f'8, 16 and at the end: {record}')
+    # wall time from the end of step 2 to the end of step 16, the
+    # loader's waits included, the validation inside it taken out
+    span = steps[-1][2] - steps[1][2] - record['validate'][0]
+    metrics = {
+        'steps_per_s': (CLI_ITERATIONS - 2) / span,
+        'step_only_ms': 1e3 * float(np.mean(
+            [end - start for _, start, end, _ in steps[2:]])),
+        'validate_s': list(record['validate']),
+        'test_run_s': record['test_run'][0],
+        'peak_gib': peak_gib, 'wall_s': wall}
+    log(f'CLI step times (host clock, synchronized, validation taken '
+        f'out): ' + ', '.join(f'{1e3 * (end - start):.1f}'
+                              for _, start, end, _ in steps) + ' ms')
+    log(f'CLI training from wav files: {metrics["steps_per_s"]:.3f} '
+        f'steps/s = {BATCH * metrics["steps_per_s"]:.1f} clips/s over '
+        f'iterations 3-{CLI_ITERATIONS} (loader waits included, mean '
+        f'step alone {metrics["step_only_ms"]:.1f} ms) beside '
+        f'{in_memory["steps_per_s"]:.3f} steps/s on in-memory batches '
+        f'(phase 4, steps 3-{TRAIN_STEPS})')
+    log(f'CLI seconds in validate ({DATABASE_CLIPS["validation"]} '
+        f'clips): ' + ', '.join(f'{x:.3f}' for x in record['validate'])
+        + f'; test_run {metrics["test_run_s"]:.3f} s; whole run '
+        f'{wall:.1f} s')
+    log(f'peak device memory (CLI training): {peak_gib:.2f} GiB')
+
+    rows = _read_jsonl(run_dir / 'summary.jsonl')
+    validation = [r for r in rows if r['prefix'] == 'validation']
+    training = [r for r in rows if r['prefix'] == 'training']
+    log(f'summary.jsonl: {len(training)} training and '
+        f'{len(validation)} validation lines; macro_fscore_weak '
+        f'(validation) ' + ', '.join(
+            f'{r["macro_fscore_weak"]:.4f}' for r in validation))
+    if len(validation) != 3 or not all(
+            np.isfinite(r['macro_fscore_weak'])
+            and 0. <= r['macro_fscore_weak'] <= 1.
+            and r['num_examples_weak'] == DATABASE_CLIPS['validation']
+            for r in validation):
+        raise AssertionError(f'validation lines: {validation}')
+    if not training or not all(
+            np.isfinite(r['macro_fscore_weak']) and 'lwlrap_weak' in r
+            for r in training):
+        raise AssertionError(f'training lines: {training}')
+    names = sorted(p.name for p in (run_dir / 'checkpoints').iterdir())
+    if names != [f'ckpt_{CLI_ITERATIONS}.pkl',
+                 'ckpt_best_macro_fscore_weak.pkl', 'ckpt_latest.pkl']:
+        raise AssertionError(f'checkpoints: {names}')
+
+    # the loader alone, and the best checkpoint served on the card
+    provider = DataProvider.from_config(
+        ex.build_config(updates)['data_provider'])
+    provider.train_transform.label_encoder.initialize_labels()
+    provider.test_transform.label_encoder.initialize_labels()
+    train_set = provider.get_train_set()
+    it = iter(train_set)
+    first_batch = next(it)
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        n += 1
+        if n == 12:
+            break
+    loader_s = (time.perf_counter() - t0) / n
+    metrics['loader_s_per_batch'] = loader_s
+    log(f'loader alone: {loader_s:.4f} host s per batch of '
+        f'{len(batch["example_id"])} clips over {n} batches ('
+        f'{fetcher["prefetch_workers"]} prefetch workers, wav decode, '
+        f'gain, mixing, targets, collate; no model); keys '
+        f'{sorted(batch)}')
+    for _ in it:  # run the epoch out: the prefetch threads end
+        pass
+    if not {'warp_anchor_out', 'warp_anchor_in', 'seq_len_samples',
+            'boundary_targets'} <= set(first_batch):
+        raise AssertionError(f'loader batch keys: {sorted(first_batch)}')
+    if not any('+' in i for i in first_batch['example_id']):
+        raise AssertionError('no mixed example in the loader batch')
+    restored = CRNN.from_storage_dir(run_dir)
+    if restored.device.type != default_device().type:
+        raise AssertionError(f'restored on {restored.device}')
+    check_device_warp(first_batch,
+                      restored.module.feature_extractor.stft)
+    tags = base.tagging(restored, provider.get_validate_set())
+    scores = np.stack(list(tags.values()))
+    log(f'best checkpoint restored on the card tags '
+        f'{scores.shape[0]} validation clips: scores in '
+        f'[{scores.min():.5f}, {scores.max():.5f}]')
+    if scores.shape != (DATABASE_CLIPS['validation'], 1, 10) or not (
+            np.isfinite(scores).all() and scores.min() >= 1e-5
+            and scores.max() <= 1 - 1e-5):
+        raise AssertionError('the restored checkpoint tags out of range')
+    best = run_dir / 'checkpoints' / 'ckpt_best_macro_fscore_weak.pkl'
+    start = load_payload(best)['model']
+    del restored
+
+    # a second run from that checkpoint, then resumed
+    tuned_dir = tmp / 'exp' / 'run2'
+    more = dict(init_ckpt_path=str(best), frozen_cnn_2d_layers=2,
+                num_iterations=4, checkpoint_interval=4)
+    ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
+    config = load_json(tuned_dir / '1' / 'config.json')
+    payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
+    key = 'params.cnn.cnn_2d.conv_8.kernel'
+    if not (config['finetune_mode'] is True
+            and config['trainer']['optimizer']['gradient_clipping'] == 1
+            and config['lr_rampup_steps'] is None
+            and payload['iteration'] == 4
+            and not np.array_equal(payload['model'][key], start[key])):
+        raise AssertionError('the run from init_ckpt_path')
+    more.update(resume=True, num_iterations=8)
+    ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
+    payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
+    rows = _read_jsonl(tuned_dir / 'summary.jsonl')
+    iterations = [r['iteration'] for r in rows
+                  if r['prefix'] == 'training']
+    log(f'run from init_ckpt_path (4 iterations, gradient clipping 1) '
+        f'and resumed to 8: training lines at iterations {iterations}, '
+        f'last loss {rows[-1]["loss"]:.5f}')
+    if payload['iteration'] != 8 or payload['optimizer']['count'] != 8 \
+            or iterations != [4, 8] \
+            or not all(np.isfinite(r['loss']) for r in rows):
+        raise AssertionError(f'the resumed run: {rows}')
+    torch.cuda.empty_cache()
+    return launches, metrics, (run_dir, tuned_dir)
+
+
+# -- phase 8: tuning and inference on the card, from phase 7's checkpoints --
+BEST = 'ckpt_best_macro_fscore_weak.pkl'
+# the hyper-parameter files of a tuning run, and per file each tuned length
+# with the grid of the tuning config it comes from
+SCENARIO_1_GRIDS = {'window_length': 'detection_window_lengths_scenario_1',
+                    'medfilt_length': 'detection_medfilt_lengths_scenario_1'}
+HYPER_PARAMS = {
+    'tagging_hyper_params_f.json': {},
+    'boundaries_detection_hyper_params_f.json': {
+        'stepfilt_length': 'boundaries_filter_lengths'},
+    'sed_hyper_params_f.json': SCENARIO_1_GRIDS,
+    'sed_hyper_params_psds1.json': SCENARIO_1_GRIDS,
+    'sed_hyper_params_psds2.json': {
+        'window_length': 'detection_window_lengths_scenario_2',
+        'medfilt_length': 'detection_medfilt_lengths_scenario_2'}}
+PSDS_SCENARIOS = [
+    {'dtc_threshold': .7, 'gtc_threshold': .7, 'cttc_threshold': None,
+     'alpha_ct': 0., 'alpha_st': 1.},
+    {'dtc_threshold': .1, 'gtc_threshold': .1, 'cttc_threshold': .3,
+     'alpha_ct': .5, 'alpha_st': 1.}]
+MAX_EFPR = 100.
+# a staircase's area sums widths in float64: a perfect class's AUC comes
+# out as 100.00000000000001, so the [0, 1] checks allow this much above 1
+ROUNDING = 1e-12
+
+
+def pool_start_s(method):
+    """Host seconds from creating a pool of 8 workers to the last one's
+    answer: with ``spawn`` (the JAX package's context) each worker imports
+    this script, so torch, from scratch; ``forkserver`` goes through
+    ``evaluation.parallel.parallel_map``, whose server imports it once."""
+    import multiprocessing as mp
+    from pb_sed_tpu_torch.evaluation.parallel import parallel_map
+    start = time.perf_counter()
+    if method == 'spawn':
+        with mp.get_context('spawn').Pool(8) as pool:
+            pool.map(abs, range(8), chunksize=1)
+    else:
+        parallel_map(abs, range(8), (), num_jobs=8)
+    return time.perf_counter() - start
+
+
+@contextlib.contextmanager
+def timed_chain():
+    """Record the tuning run and each inference run it chains into (or
+    that follows it): host seconds (after a device synchronize), the
+    evaluation pools started and their start and shutdown seconds, peak
+    device memory, and per call of the inference engine
+    (``models.base.inference.inference``: the model calls and their post-
+    processing into score frames) the method, window lengths, clips and
+    seconds. Yields the list of records, the tuning run's first; the
+    wrapped functions are put back on exit."""
+    import importlib
+    from pb_sed_tpu_torch.evaluation import parallel
+    from pb_sed_tpu_torch.experiments.weak_label_crnn import inference
+    # the module (``models.base`` exports its function of the same name)
+    engine = importlib.import_module('pb_sed_tpu_torch.models.base.inference')
+    original_engine, original_run = engine.inference, inference.ex.run
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def begin(name):
+        if open_runs:  # the run it interrupts keeps its peak so far
+            open_runs[-1]['peak_gib'] = max(
+                open_runs[-1].get('peak_gib', 0.),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
         torch.cuda.reset_peak_memory_stats()
+        record = {'run': name, 'engine': [], 'nested_s': 0.,
+                  'pools_at_start': dict(parallel.POOL_STATS),
+                  'start': clock()}
+        records.append(record)
+        open_runs.append(record)
+        return record
+
+    def end(record):
+        record['wall_s'] = clock() - record['start']
+        record['peak_gib'] = max(record.get('peak_gib', 0.),
+                                 torch.cuda.max_memory_allocated() / 2 ** 30)
+        for key in ('pools', 'start_s', 'close_s'):
+            record[key] = (parallel.POOL_STATS[key]
+                           - record['pools_at_start'][key])
+        open_runs.pop()
+        if open_runs:  # the enclosing run's own time and pools exclude it
+            outer = open_runs[-1]
+            outer['nested_s'] += record['wall_s']
+            for key in ('pools', 'start_s', 'close_s'):
+                outer['pools_at_start'][key] += record[key]
+
+    def run_engine(model, method, dataset, *args, **kwargs):
+        start = clock()
+        out = original_engine(model, method, dataset, *args, **kwargs)
+        seconds = clock() - start
+        windows = (kwargs.get('model_kwargs') or {}).get('window_length')
+        open_runs[-1]['engine'].append({
+            'method': method, 'clips': len(out[0] if isinstance(out, list)
+                                           else out),
+            'window_length': (None if windows is None
+                              else np.unique(windows).tolist()),
+            's': seconds})
+        return out
+
+    def run_inference(config_updates=None):
+        names = (config_updates or {}).get('sed_hyper_params_name',
+                                           ['f', 'psds1'])
+        record = begin('inference ' + (names if isinstance(names, str)
+                                       else '+'.join(names)))
+        try:
+            return original_run(config_updates)
+        finally:
+            end(record)
+
+    records, open_runs = [], []
+    engine.inference = run_engine
+    inference.ex.run = run_inference
+    try:
+        yield records, begin, end
+    finally:
+        engine.inference = original_engine
+        inference.ex.run = original_run
+
+
+def _log_chain_record(record):
+    model_s = sum(call['s'] for call in record['engine'])
+    own_s = record['wall_s'] - record['nested_s']
+    log(f'{record["run"]}: {own_s:.2f} s on the host clock, of which '
+        f'{model_s:.2f} s in the inference engine (model calls and their '
+        f'score frames) and {own_s - model_s:.2f} s of evaluation; '
+        f'{record["pools"]} pools started in {record["start_s"]:.2f} s '
+        f'(shut down in {record["close_s"]:.2f} s); peak device memory '
+        f'{record["peak_gib"]:.2f} GiB')
+    for call in record['engine']:
+        windows = ('' if call['window_length'] is None
+                   else f' window {call["window_length"]}')
+        log(f'  engine {call["method"]}{windows}: {call["clips"]} clips in '
+            f'{call["s"]:.3f} s = {call["clips"] / call["s"]:.1f} clips/s')
+    return {'run': record['run'], 'own_s': own_s, 'model_s': model_s,
+            'evaluation_s': own_s - model_s, 'pools': record['pools'],
+            'pool_start_s': record['start_s'],
+            'pool_close_s': record['close_s'],
+            'peak_gib': record['peak_gib'],
+            'engine': [dict(call) for call in record['engine']]}
+
+
+def _check_hyper_params(hp_dir):
+    """Every hyper-parameter file, every threshold in [0, 1] or an end of
+    its sweep (-inf: every clip tagged; +inf: no threshold met the
+    boundaries' min_precision of .8, the reference's answer), every
+    length from its grid in the tuning config, every F and AUC (over
+    ``MAX_EFPR``) in [0, 1] (up to ``ROUNDING``)."""
+    from pb_sed_tpu_torch.utils.misc import load_json
+    config = load_json(hp_dir / '1' / 'config.json')
+    for name, grids in HYPER_PARAMS.items():
+        path = hp_dir / name
+        if not path.exists():
+            raise AssertionError(f'no {path}')
+        for event_class, values in load_json(path).items():
+            threshold = values['threshold']
+            if not (0. <= threshold <= 1. or abs(threshold) == np.inf):
+                raise AssertionError(f'{name} {event_class}: threshold '
+                                     f'{threshold}')
+            for key, grid in grids.items():
+                if values[key] not in config[grid]:
+                    raise AssertionError(f'{name} {event_class}: {key} '
+                                         f'{values[key]} not in {grid}')
+            for metric in ('f', 'auc'):
+                value = values.get(metric, 0.)
+                value = value / MAX_EFPR if metric == 'auc' else value
+                if not (np.isfinite(value) and 0. <= value <= 1. + ROUNDING):
+                    raise AssertionError(f'{name} {event_class}: {metric} '
+                                         f'{values.get(metric)}')
+    return config
+
+
+def _check_results(run_dir):
+    """Every results file of an inference run: all values finite; F-scores,
+    precisions, recalls, PSDS and AUC (over ``MAX_EFPR``) in [0, 1] (up to
+    ``ROUNDING``).
+    Returns {file name: values}."""
+    from pb_sed_tpu_torch.utils.misc import load_json
+    results = {}
+    for path in sorted(run_dir.glob('*_results_*.json')):
+        values = load_json(path)
+        for key, value in values.items():
+            scaled = value / MAX_EFPR if 'auc[' in key else value
+            bounded = (key.endswith(('_f', '_p', '_r')) or 'psds' in key
+                       or 'auc[' in key)
+            if not np.isfinite(value) or (
+                    bounded and not 0. <= scaled <= 1. + ROUNDING):
+                raise AssertionError(f'{path.name}: {key} = {value}')
+        results[path.name] = values
+    if not results:
+        raise AssertionError(f'no results in {run_dir}')
+    return results
+
+
+def phase_tuning_chain(tmp, runs):
+    """Phase 8: ``experiments.weak_label_crnn.tuning`` on the card (the
+    recipe's grids, ``num_jobs=8``, batch 16 as the training CLI's chain
+    passes it) on phase 7's run directories ``runs`` (both members where
+    both hold the best checkpoint, else the first), chained into inference
+    on ``eval_public`` for PSDS scenarios 1 and 2; then one more inference
+    run with score and detection files and weak and strong
+    pseudo-labels. Everything goes under ``tmp``. Returns the launch
+    counts of the phase and its measurements."""
+    from pb_sed_tpu_torch.data.provider import DataProvider
+    from pb_sed_tpu_torch.evaluation import parallel
+    from pb_sed_tpu_torch.evaluation.intersection_based import psds
+    from pb_sed_tpu_torch.evaluation.scores import lazy_sed_scores_loader
+    from pb_sed_tpu_torch.experiments.weak_label_crnn import (inference,
+                                                             tuning)
+    from pb_sed_tpu_torch.utils.misc import load_json
+    members = [r for r in runs if (r / 'checkpoints' / BEST).exists()]
+    members = members if len(members) == len(runs) else list(runs[:1])
+    # one spawn pool (9-14 s on the 8-core host of an NVIDIA H100 80GB
+    # HBM3 machine), then the forkserver's first pool (the server's
+    # start, which the tuning run would pay) and a second
+    starts = {'spawn': [pool_start_s('spawn')],
+              'forkserver': [pool_start_s('forkserver') for _ in range(2)]}
+    log('pool of 8 workers, seconds to start (the first forkserver pool '
+        'starts the server): ' + '; '.join(
+            f'{m} ' + ', '.join(f'{s:.3f}' for s in v)
+            for m, v in starts.items()))
+    saved_root = inference.storage_root
+    inference.storage_root = tmp / 'exp'
+    try:
         build.reset_launches()
+        parallel.reset_pool_stats()
         collect_garbage()
-        with timed_trainer() as record:
-            t0 = time.perf_counter()
-            result = ex.run(config_updates=updates)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        with timed_chain() as (records, begin, end):
+            record = begin('tuning')
+            hp_dir = Path(tuning.ex.run(config_updates={
+                'crnn_dirs': [str(r) for r in members],
+                'storage_dir': str(tmp / 'exp' / 'hyper_params'),
+                'data_provider': {'test_fetcher': {'batch_size': BATCH // 2}},
+                'eval_set_name': 'eval_public', 'device': None}))
+            end(record)
+            out_dir = Path(inference.ex.run(config_updates={
+                'hyper_params_dir': str(hp_dir), 'dataset_name': 'eval_public',
+                'sed_hyper_params_name': ['f', 'psds1'],
+                'storage_dir': str(tmp / 'exp' / 'pseudo'),
+                'save_scores': True, 'save_detections': True,
+                'weak_pseudo_labeling': True, 'strong_pseudo_labeling': True,
+                'device': None}))
         launches = dict(build.LAUNCHES)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f'launches in the CLI training run: {launches}')
-        for kernel in SHALLOW:
-            if launches[kernel] <= 0:
-                raise AssertionError(f'kernel {kernel} never launched in '
-                                     f'the CLI training run')
-        if result != str(run_dir):
-            raise AssertionError(f'the run returned {result}')
-        fetcher = check_recipe(load_json(run_dir / '1' / 'config.json'))
-        steps = record['steps']
-        losses = [loss for *_, loss in steps]
-        log(f'CLI loss per step: ' + ', '.join(f'{x:.5f}' for x in losses))
-        if [it for it, *_ in steps] != list(range(1, CLI_ITERATIONS + 1)) \
-                or not np.isfinite(losses).all():
-            raise AssertionError(f'CLI training steps: {steps}')
-        first, last = np.mean(losses[:4]), np.mean(losses[-4:])
-        log(f'CLI mean loss of steps 1-4: {first:.5f}, of steps 13-16: '
-            f'{last:.5f}')
-        if not last < first:
-            raise AssertionError('the loss did not fall over the CLI run')
-        if len(record['test_run']) != 1 or len(record['validate']) != 3:
-            raise AssertionError(
-                f'expected one test run and validations after iterations '
-                f'8, 16 and at the end: {record}')
-        # wall time from the end of step 2 to the end of step 16, the
-        # loader's waits included, the validation inside it taken out
-        span = steps[-1][2] - steps[1][2] - record['validate'][0]
-        metrics = {
-            'steps_per_s': (CLI_ITERATIONS - 2) / span,
-            'step_only_ms': 1e3 * float(np.mean(
-                [end - start for _, start, end, _ in steps[2:]])),
-            'validate_s': list(record['validate']),
-            'test_run_s': record['test_run'][0],
-            'peak_gib': peak_gib, 'wall_s': wall}
-        log(f'CLI step times (host clock, synchronized, validation taken '
-            f'out): ' + ', '.join(f'{1e3 * (end - start):.1f}'
-                                  for _, start, end, _ in steps) + ' ms')
-        log(f'CLI training from wav files: {metrics["steps_per_s"]:.3f} '
-            f'steps/s = {BATCH * metrics["steps_per_s"]:.1f} clips/s over '
-            f'iterations 3-{CLI_ITERATIONS} (loader waits included, mean '
-            f'step alone {metrics["step_only_ms"]:.1f} ms) beside '
-            f'{in_memory["steps_per_s"]:.3f} steps/s on in-memory batches '
-            f'(phase 4, steps 3-{TRAIN_STEPS})')
-        log(f'CLI seconds in validate ({DATABASE_CLIPS["validation"]} '
-            f'clips): ' + ', '.join(f'{x:.3f}' for x in record['validate'])
-            + f'; test_run {metrics["test_run_s"]:.3f} s; whole run '
-            f'{wall:.1f} s')
-        log(f'peak device memory (CLI training): {peak_gib:.2f} GiB')
-
-        rows = _read_jsonl(run_dir / 'summary.jsonl')
-        validation = [r for r in rows if r['prefix'] == 'validation']
-        training = [r for r in rows if r['prefix'] == 'training']
-        log(f'summary.jsonl: {len(training)} training and '
-            f'{len(validation)} validation lines; macro_fscore_weak '
-            f'(validation) ' + ', '.join(
-                f'{r["macro_fscore_weak"]:.4f}' for r in validation))
-        if len(validation) != 3 or not all(
-                np.isfinite(r['macro_fscore_weak'])
-                and 0. <= r['macro_fscore_weak'] <= 1.
-                and r['num_examples_weak'] == DATABASE_CLIPS['validation']
-                for r in validation):
-            raise AssertionError(f'validation lines: {validation}')
-        if not training or not all(
-                np.isfinite(r['macro_fscore_weak']) and 'lwlrap_weak' in r
-                for r in training):
-            raise AssertionError(f'training lines: {training}')
-        names = sorted(p.name for p in (run_dir / 'checkpoints').iterdir())
-        if names != [f'ckpt_{CLI_ITERATIONS}.pkl',
-                     'ckpt_best_macro_fscore_weak.pkl', 'ckpt_latest.pkl']:
-            raise AssertionError(f'checkpoints: {names}')
-
-        # the loader alone, and the best checkpoint served on the card
-        provider = DataProvider.from_config(
-            ex.build_config(updates)['data_provider'])
-        provider.train_transform.label_encoder.initialize_labels()
-        provider.test_transform.label_encoder.initialize_labels()
-        train_set = provider.get_train_set()
-        it = iter(train_set)
-        first_batch = next(it)
-        t0 = time.perf_counter()
-        n = 0
-        for batch in it:
-            n += 1
-            if n == 12:
-                break
-        loader_s = (time.perf_counter() - t0) / n
-        metrics['loader_s_per_batch'] = loader_s
-        log(f'loader alone: {loader_s:.4f} host s per batch of '
-            f'{len(batch["example_id"])} clips over {n} batches ('
-            f'{fetcher["prefetch_workers"]} prefetch workers, wav decode, '
-            f'gain, mixing, targets, collate; no model); keys '
-            f'{sorted(batch)}')
-        for _ in it:  # run the epoch out: the prefetch threads end
-            pass
-        if not {'warp_anchor_out', 'warp_anchor_in', 'seq_len_samples',
-                'boundary_targets'} <= set(first_batch):
-            raise AssertionError(f'loader batch keys: {sorted(first_batch)}')
-        if not any('+' in i for i in first_batch['example_id']):
-            raise AssertionError('no mixed example in the loader batch')
-        restored = CRNN.from_storage_dir(run_dir)
-        if restored.device.type != default_device().type:
-            raise AssertionError(f'restored on {restored.device}')
-        check_device_warp(first_batch,
-                          restored.module.feature_extractor.stft)
-        tags = base.tagging(restored, provider.get_validate_set())
-        scores = np.stack(list(tags.values()))
-        log(f'best checkpoint restored on the card tags '
-            f'{scores.shape[0]} validation clips: scores in '
-            f'[{scores.min():.5f}, {scores.max():.5f}]')
-        if scores.shape != (DATABASE_CLIPS['validation'], 1, 10) or not (
-                np.isfinite(scores).all() and scores.min() >= 1e-5
-                and scores.max() <= 1 - 1e-5):
-            raise AssertionError('the restored checkpoint tags out of range')
-        best = run_dir / 'checkpoints' / 'ckpt_best_macro_fscore_weak.pkl'
-        start = load_payload(best)['model']
-        del restored
-
-        # a second run from that checkpoint, then resumed
-        tuned_dir = Path(tmp) / 'exp' / 'run2'
-        more = dict(init_ckpt_path=str(best), frozen_cnn_2d_layers=2,
-                    num_iterations=4, checkpoint_interval=4)
-        ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
-        config = load_json(tuned_dir / '1' / 'config.json')
-        payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
-        key = 'params.cnn.cnn_2d.conv_8.kernel'
-        if not (config['finetune_mode'] is True
-                and config['trainer']['optimizer']['gradient_clipping'] == 1
-                and config['lr_rampup_steps'] is None
-                and payload['iteration'] == 4
-                and not np.array_equal(payload['model'][key], start[key])):
-            raise AssertionError('the run from init_ckpt_path')
-        more.update(resume=True, num_iterations=8)
-        ex.run(config_updates=_cli_updates(json_path, tuned_dir, **more))
-        payload = load_payload(tuned_dir / 'checkpoints' / 'ckpt_latest.pkl')
-        rows = _read_jsonl(tuned_dir / 'summary.jsonl')
-        iterations = [r['iteration'] for r in rows
-                      if r['prefix'] == 'training']
-        log(f'run from init_ckpt_path (4 iterations, gradient clipping 1) '
-            f'and resumed to 8: training lines at iterations {iterations}, '
-            f'last loss {rows[-1]["loss"]:.5f}')
-        if payload['iteration'] != 8 or payload['optimizer']['count'] != 8 \
-                or iterations != [4, 8] \
-                or not all(np.isfinite(r['loss']) for r in rows):
-            raise AssertionError(f'the resumed run: {rows}')
+    finally:
+        inference.storage_root = saved_root
+    log(f'launches in the tuning chain: {launches}')
+    for kernel, count in launches.items():
+        if (count > 0) != (kernel in FORWARD):
+            raise AssertionError(f'kernel {kernel} launched {count} times in '
+                                 f'the tuning chain (inference only)')
+    log(f'tuning members: {[str(m.relative_to(tmp)) for m in members]}')
+    metrics = {'members': len(members), 'pool_start_s': starts,
+               'runs': [_log_chain_record(r) for r in records]}
+    config = _check_hyper_params(hp_dir)
+    grids = {key: config[key] for name in HYPER_PARAMS
+             for key in HYPER_PARAMS[name].values()}
+    log(f'tuning grids: {grids}')
+    if [r['run'] for r in records] != [
+            'tuning', 'inference f+psds1', 'inference psds2',
+            'inference f+psds1']:
+        raise AssertionError(f'runs: {[r["run"] for r in records]}')
+    chained = sorted(p.resolve() for p in (hp_dir / 'inference').iterdir())
+    for member in members:
+        link = member / 'hyper_params' / hp_dir.name
+        if link.resolve() != hp_dir.resolve():
+            raise AssertionError(f'no symlink {link}')
+    if len(chained) != 3 or out_dir.resolve() not in chained:
+        raise AssertionError(f'inference symlinks: {chained}')
+    for run_dir in chained:
+        results = _check_results(run_dir)
+        for name, values in results.items():
+            if name.startswith('sed_'):
+                log(f'{run_dir.name} {name}: macro F '
+                    f'{values["macro_average_f"]:.4f}, PSDS1 '
+                    f'{values["psds[0]"]:.4f}, PSDS2 {values["psds[1]"]:.4f}, '
+                    f'approx. {values["approx_psds[0]"]:.4f} / '
+                    f'{values["approx_psds[1]"]:.4f}')
+    # PSDS from the last run's score files equals the first chained run's
+    # in-memory value (the same models, hyper-parameters and clips)
+    provider = DataProvider.from_config(config['data_provider'])
+    events, _, durations = tuning.ground_truth_from_json(provider,
+                                                         'eval_public')
+    (first,) = [r for r in chained if r != out_dir.resolve() and (
+        r / 'sed_f_results_eval_public.json').exists()]
+    results = _check_results(first)
+    for name in ('f', 'psds1'):
+        scores = lazy_sed_scores_loader(out_dir / 'scores' / 'eval_public'
+                                        / name)
+        if len(scores) != DATABASE_CLIPS['eval_public']:
+            raise AssertionError(f'{len(scores)} score files for {name}')
+        for j, scenario in enumerate(PSDS_SCENARIOS):
+            from_files = psds(scores, events, durations, **scenario,
+                              num_jobs=8)[0]
+            in_memory = results[f'sed_{name}_results_eval_public.json'][
+                f'psds[{j}]']
+            log(f'PSDS{j + 1} of {name} from its score files {from_files!r}, '
+                f'in memory {in_memory!r}')
+            if from_files != in_memory:
+                raise AssertionError('PSDS from the score files differs')
+        if not (out_dir / 'detections' / 'eval_public' / name
+                / 'cbf.tsv').exists():
+            raise AssertionError(f'no detections of {name}')
+    database = load_json(out_dir / 'desed.json')
+    labeled = database['datasets']['eval_public']
+    strong = sum(t == 'strong' for ex in labeled.values()
+                 for t in ex.get('label_types', []))
+    log(f'pseudo-labeled eval_public: {len(labeled)} clips, '
+        f'{sum(bool(ex["events"]) for ex in labeled.values())} with tags, '
+        f'{strong} strong labels')
+    if len(labeled) != DATABASE_CLIPS['eval_public'] or not all(
+            len(ex['label_types']) == len(ex['events'])
+            for ex in labeled.values()):
+        raise AssertionError('the pseudo-labeled database')
     torch.cuda.empty_cache()
     return launches, metrics
 
@@ -1925,6 +2318,7 @@ def main():
     build.reset_launches()
     check_kernels(records, 'shallow', 0, CONV_LAYERS, POOLS, GRU_SHAPES,
                   fused=[name for name, *_ in CONV_LAYERS[1:]])
+    check_chain_gru_shapes(records)
     check_kernels(records, 'deep', 2, DEEP_CONV_LAYERS, DEEP_POOLS,
                   DEEP_GRU_SHAPES, DEEP_CROSSINGS,
                   fused=[name for name, *_ in DEEP_CONV_LAYERS[1:]])
@@ -1948,7 +2342,11 @@ def main():
                     for key in ('steps_per_s', 'clips_per_s', 'peak_gib')))
     (launches['shallow_fuse_bn_serving'],
      launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
-    launches['cli_training'], _ = phase_cli_training(in_memory)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches['cli_training'], _, runs = phase_cli_training(
+            in_memory, Path(tmp))
+        launches['tuning_chain'], chain = phase_tuning_chain(Path(tmp), runs)
+    log('tuning chain (JSON): ' + json.dumps(chain))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

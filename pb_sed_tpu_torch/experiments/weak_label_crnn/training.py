@@ -13,14 +13,17 @@ DESED-test-clip filtering for AudioSet; validation hook on
 
 The run trains on the CUDA card (``device=None``); ``device=cpu`` runs it
 on the CPU, and without a card and without that request it raises. The
-init checkpoint may be one that either package's ``Trainer`` wrote. Where
-the original chains into the tuning experiment (``validation_set_name`` not
-``None``, the DESED default), this one trains, writes its checkpoints and
-then raises a ``NotImplementedError`` that names the missing tuning
-experiment; pass ``validation_set_name=None`` to end after training.
+init checkpoint may be one that either package's ``Trainer`` wrote. With
+``validation_set_name`` set (the DESED default) training chains into the
+tuning experiment on that set, and tuning into inference on
+``eval_set_name``, as in the original. One difference: the chain passes
+its ``device`` on, so tuning and inference restore the models where the
+training ran (the JAX chain passes none, and its tuning and inference
+read their ``device`` config nowhere). ``validation_set_name=None`` ends
+the run after training.
 
 Run: ``python -m pb_sed_tpu_torch.experiments.weak_label_crnn.training with
-database_name=desed batch_size=32 validation_set_name=None ...``
+database_name=desed batch_size=32 ...``
 """
 import time
 from pathlib import Path
@@ -210,7 +213,7 @@ def train(_config, debug, resume, delay, data_provider,
     if delay > 0:
         print(f'Sleep for {delay} seconds.')
         time.sleep(delay)
-    device = default_device(device)
+    placed = default_device(device)
 
     data_provider = DataProvider.from_config(data_provider)
     data_provider.train_transform.label_encoder.initialize_labels(
@@ -222,7 +225,7 @@ def train(_config, debug, resume, delay, data_provider,
     )
     data_provider.test_transform.label_encoder.initialize_labels()
     trainer = Trainer.from_config(trainer)
-    trainer.model.to(device)
+    trainer.model.to(placed)
     trainer.model.label_mapping = []
     encoder = data_provider.train_transform.label_encoder
     for idx, label in sorted(encoder.inverse_label_mapping.items()):
@@ -282,16 +285,27 @@ def train(_config, debug, resume, delay, data_provider,
         trainer.register_hook(LRAnnealingHook(
             breakpoints=breakpoints, unit='iteration'))
 
-    trainer.train(train_set, resume=resume, device=device,
+    trainer.train(train_set, resume=resume, device=placed,
                   track_emissions=track_emissions)
 
     if validation_set_name is not None:
-        raise NotImplementedError(
-            f'training finished and its checkpoints are in '
-            f'{trainer.storage_dir}, but the tuning experiment that '
-            f'follows it (experiments.weak_label_crnn.tuning on '
-            f'{validation_set_name!r}) is not part of this package yet; '
-            f'pass validation_set_name=None to end after training')
+        from pb_sed_tpu_torch.experiments.weak_label_crnn.tuning import (
+            ex as tuning)
+        tuning.run(config_updates={
+            'debug': debug,
+            'crnn_dirs': [str(trainer.storage_dir)],
+            'validation_set_name': validation_set_name,
+            'validation_ground_truth_filepath':
+                validation_ground_truth_filepath,
+            'eval_set_name': eval_set_name,
+            'eval_ground_truth_filepath': eval_ground_truth_filepath,
+            'data_provider': {
+                'test_fetcher': {
+                    'batch_size': hyper_params_tuning_batch_size,
+                },
+            },
+            'device': device,
+        })
     return str(trainer.storage_dir)
 
 

@@ -6,17 +6,24 @@ Counterpart of ``pb_sed_tpu/models/base/inference.py``: one generic
 member mean (members run in turn), sequence masking, per-class /
 per-paramset median filtering, ``boundariesfilt`` step filtering, tag
 masks and overlapped segment merging. Scores come back as
-``{example_id: (T, K) numpy array}`` (per-paramset ``(N, T, K)``).
+``{example_id: (T, K) numpy array}`` (per-paramset ``(N, T, K)``), or,
+given ``timestamps`` and ``event_classes``, as score frames
+(``evaluation.scores.ScoreFrame``, the port's pandas-free table;
+per-paramset: a list of dicts), written to ``score_storage_dir`` and
+read back lazily where one is given (``scores_to_dataframes``).
 
 Model calls are launched one segment ahead (``model.dispatch`` returns
 device tensors before the device is done), so the host post-processing
-of one segment overlaps the device work on the next.
-
-Not ported yet: score dataframes (``timestamps``/``event_classes``/
-``score_storage_dir`` need pandas) and stacked or meshed ensembles.
+of one segment overlaps the device work on the next. The members of an
+ensemble run in turn (the JAX engine stacks identical members into one
+program; stacked ensembles are not ported).
 """
+from pathlib import Path
+
 import numpy as np
 
+from pb_sed_tpu_torch.evaluation.scores import (
+    create_score_dataframe, lazy_sed_scores_loader, write_sed_scores)
 from pb_sed_tpu_torch.models.base.model import to_numpy
 from pb_sed_tpu_torch.ops.filters import boundariesfilt, medfilt
 from pb_sed_tpu_torch.utils.segment import merge_segments, segment_batch
@@ -83,11 +90,6 @@ def inference(model, method, dataset, max_segment_length=None,
               event_classes=None, score_storage_dir=None):
     """Run ``method`` of one model (or the mean of a list of models) over
     the batches of ``dataset`` and post-process the scores per clip."""
-    if (timestamps is not None or event_classes is not None
-            or score_storage_dir is not None):
-        raise NotImplementedError(
-            'score dataframes (timestamps / event_classes / '
-            'score_storage_dir) need pandas and are not ported yet')
     models = model if isinstance(model, (list, tuple)) else [model]
     if model_kwargs is None:
         model_kwargs = {}
@@ -187,7 +189,23 @@ def inference(model, method, dataset, max_segment_length=None,
                     segment_overlap=segment_overlap
                     if score_segment_overlap is None
                     else score_segment_overlap)
-        scores.update(local_cache)
+        if (timestamps is not None or event_classes is not None
+                or score_storage_dir is not None):
+            if timestamps is None or event_classes is None:
+                raise ValueError('score frames need both timestamps and '
+                                 'event_classes')
+            local_cache = scores_to_dataframes(
+                local_cache, timestamps, event_classes, score_storage_dir)
+        if score_storage_dir is None:
+            if not scores:
+                scores = local_cache
+            elif isinstance(scores, (list, tuple)):
+                for i in range(len(scores)):
+                    scores[i].update(local_cache[i])
+            else:
+                scores.update(local_cache)
+        else:
+            scores = local_cache
         score_cache = {}
 
     pending = None
@@ -237,3 +255,67 @@ def filtering(score_arr, filter_fn, filter_length):
                         axis=-1)
         return score_arr
     raise ValueError(filter_length.shape)
+
+
+def scores_to_dataframes(scores, timestamps, event_classes,
+                         storage_path=None):
+    """(T, K) arrays (or dicts / per-paramset stacks) -> score frames.
+
+    A (T, K) array gives one frame over ``timestamps[:T + 1]``, written to
+    the file ``storage_path`` where one is given. A dict ``{audio_id:
+    (T, K)}`` gives ``{audio_id: frame}`` (``timestamps`` one array or a
+    dict by audio id); with a directory ``storage_path`` each frame goes
+    to ``<dir>/<audio_id>.tsv`` and a ``lazy_sed_scores_loader`` of the
+    directory comes back. A dict of per-paramset stacks ``(N, T, K)``
+    gives a list of N such dicts, or with a list of N directories a list
+    of N loaders.
+    """
+    if isinstance(scores, np.ndarray):
+        t, k = scores.shape
+        assert len(timestamps) > t, (len(timestamps), t)
+        assert len(event_classes) == k, (event_classes, k)
+        df = create_score_dataframe(
+            scores, np.asarray(timestamps)[:t + 1], event_classes)
+        if storage_path is not None:
+            write_sed_scores(df, storage_path)
+        return df
+    assert isinstance(scores, dict), type(scores)
+    audio_ids = sorted(scores.keys())
+    if not audio_ids:
+        return {}
+    first = scores[audio_ids[0]]
+    if np.ndim(first) == 3:
+        n = np.shape(first)[0]
+        out = [dict() for _ in range(n)]
+        for audio_id in audio_ids:
+            ts = (timestamps[audio_id]
+                  if isinstance(timestamps, dict) else timestamps)
+            for i in range(n):
+                if storage_path is None:
+                    filepath = None
+                else:
+                    assert isinstance(storage_path, (list, tuple))
+                    assert len(storage_path) == n
+                    d = Path(storage_path[i])
+                    d.mkdir(parents=True, exist_ok=True)
+                    filepath = d / f'{audio_id}.tsv'
+                out[i][audio_id] = scores_to_dataframes(
+                    scores[audio_id][i], ts, event_classes, filepath)
+        if storage_path is not None:
+            return [lazy_sed_scores_loader(p) for p in storage_path]
+        return out
+    out = {}
+    for audio_id in audio_ids:
+        ts = (timestamps[audio_id]
+              if isinstance(timestamps, dict) else timestamps)
+        if storage_path is None:
+            filepath = None
+        else:
+            d = Path(storage_path)
+            d.mkdir(parents=True, exist_ok=True)
+            filepath = d / f'{audio_id}.tsv'
+        out[audio_id] = scores_to_dataframes(
+            scores[audio_id], ts, event_classes, filepath)
+    if storage_path is not None:
+        return lazy_sed_scores_loader(storage_path)
+    return out

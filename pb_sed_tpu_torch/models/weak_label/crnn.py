@@ -8,7 +8,11 @@ forward head's last and the backward head's first frame),
 ``boundaries_detection`` (min of the heads) and sliding-window
 ``sound_event_detection`` (windows folded into the batch, scalar,
 per-class or per-paramset window lengths). Scores are time-last
-``(B, K, T)``. The tuning wrappers are not ported yet.
+``(B, K, T)``. The tuning wrappers ``tune_tagging``,
+``tune_boundary_detection`` and ``tune_sound_event_detection`` run the
+models over a dataset into score frames and tune on them
+(``models/base/tuning.py``); ``device`` is accepted as in the JAX
+package, the models run on their own device.
 """
 import numpy as np
 import torch
@@ -350,3 +354,66 @@ class CRNN(SoundEventModel):
         if rnn_cfg is not None:
             rnn_cfg['input_size'] = config['cnn']['cnn_1d'][
                 'out_channels'][-1]
+
+
+# ----------------------------------------------------------------------
+# tuning wrappers (the JAX package's crnn.py:402-463)
+# ----------------------------------------------------------------------
+def tune_tagging(crnns, dataset, timestamps, event_classes, metrics,
+                 minimize=False, storage_dir=None, device=None):
+    from pb_sed_tpu_torch.models import base
+    print('\nTagging Tuning')
+    tagging_scores = base.tagging(
+        crnns, dataset, timestamps=timestamps, event_classes=event_classes)
+    return base.tune_tagging(
+        tagging_scores, medfilt_length_candidates=[1], metrics=metrics,
+        minimize=minimize, storage_dir=storage_dir)
+
+
+def tune_boundary_detection(
+        crnns, dataset, timestamps, event_classes, tags, metrics,
+        stepfilt_lengths, minimize=False, tag_masking='?',
+        storage_dir=None, device=None):
+    from pb_sed_tpu_torch.models import base
+    print('\nBoundaries Detection Tuning')
+    boundaries_scores = base.boundaries_detection(
+        crnns, dataset, stepfilt_length=None, apply_mask=False, masks=tags,
+        timestamps=timestamps, event_classes=event_classes)
+    return base.tune_boundaries_detection(
+        boundaries_scores, medfilt_length_candidates=[1],
+        stepfilt_length_candidates=stepfilt_lengths, tags=tags,
+        metrics=metrics, minimize=minimize, tag_masking=tag_masking,
+        storage_dir=storage_dir)
+
+
+def tune_sound_event_detection(
+        crnns, dataset, timestamps, event_classes, tags, metrics,
+        window_lengths, window_shift, medfilt_lengths,
+        minimize=False, tag_masking='?', storage_dir=None, device=None):
+    from pb_sed_tpu_torch.models import base
+    print('\nSound Event Detection Tuning')
+    leaderboard = {}
+    for win_len in window_lengths:
+        print(f'\n### window_length={win_len} ###')
+        detection_scores = base.sound_event_detection(
+            crnns, dataset,
+            model_kwargs={'window_length': win_len,
+                          'window_shift': window_shift},
+            timestamps=timestamps[::window_shift],
+            event_classes=event_classes)
+        lb = base.tune_sound_event_detection(
+            detection_scores, medfilt_lengths, tags, metrics=metrics,
+            minimize=minimize, tag_masking=tag_masking,
+            storage_dir=storage_dir)
+        for metric_name, (metric_values, hyper_params, scores) in lb.items():
+            for event_class in event_classes:
+                hyper_params[event_class]['window_length'] = win_len
+                hyper_params[event_class]['window_shift'] = window_shift
+            leaderboard = base.update_leaderboard(
+                leaderboard, metric_name, metric_values, hyper_params,
+                scores, minimize=minimize)
+    print('\nbest overall:')
+    for metric_name in metrics:
+        print(f'\n{metric_name}:')
+        print(leaderboard[metric_name][0])
+    return leaderboard

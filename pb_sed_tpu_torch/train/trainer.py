@@ -36,8 +36,8 @@ steps' buffered clip scores (``SoundEventModel.modify_summary``:
 checkpoint trigger and at the end of ``train``, with the module in eval
 mode under ``torch.no_grad()``.
 
-Not ported yet (raise): the multi-step lane (``steps_per_call > 1``),
-the profiler (``profile_at``), emissions tracking. ``use_mesh`` and
+Not ported yet (raise): the multi-step lane (``steps_per_call > 1``)
+and the profiler (``profile_at``). ``use_mesh`` and
 ``loss_scale`` are accepted for config compatibility: the port trains on
 the model's one device, and the JAX trainer never reads ``loss_scale``.
 """
@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from pb_sed_tpu_torch.bridge import param_keys
+from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.train.hooks import (EndTrigger, Hook, IntervalTrigger,
                                           LRAnnealingHook)
 from pb_sed_tpu_torch.train.optimizer import Adam
@@ -197,26 +198,35 @@ class Trainer(Configurable):
 
     def train(self, train_set, resume=False, device=None,
               track_emissions=False):
-        if track_emissions:
-            raise NotImplementedError('emissions tracking is not ported yet')
+        """Train until the stop trigger; with ``track_emissions`` (and a
+        ``storage_dir``) the run's estimated energy goes to
+        ``<storage_dir>/emissions.csv`` (``train/emissions.py``)."""
         if device is not None:
             self.model.to(device)
-        if resume:
-            self.load_latest_checkpoint()
-        first_iteration = self.iteration
-        while not self.stop_trigger(self.iteration, self.epoch):
-            for batch in train_set:
-                if self.stop_trigger(self.iteration, self.epoch):
-                    break
-                self.train_step(batch)
-            self.epoch += 1
-        # final validation and checkpoint (resuming a run that had
-        # finished takes no step and validates nothing)
-        self._flush_summary(prefix='training')
-        if (self.validation_hook is not None
-                and self.iteration > first_iteration):
-            self.validate()
-        self.save_checkpoint()
+        tracker = None
+        if track_emissions and self.storage_dir is not None:
+            tracker = EmissionsTracker(output_dir=self.storage_dir)
+            tracker.start()
+        try:
+            if resume:
+                self.load_latest_checkpoint()
+            first_iteration = self.iteration
+            while not self.stop_trigger(self.iteration, self.epoch):
+                for batch in train_set:
+                    if self.stop_trigger(self.iteration, self.epoch):
+                        break
+                    self.train_step(batch)
+                self.epoch += 1
+            # final validation and checkpoint (resuming a run that had
+            # finished takes no step and validates nothing)
+            self._flush_summary(prefix='training')
+            if (self.validation_hook is not None
+                    and self.iteration > first_iteration):
+                self.validate()
+            self.save_checkpoint()
+        finally:
+            if tracker is not None:
+                tracker.stop()
 
     def train_step(self, batch):
         """One optimizer step on ``batch`` (numpy arrays or tensors);

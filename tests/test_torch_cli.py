@@ -6,8 +6,9 @@ checkpoint every 3; the 2-D convs are 16 wide, the least the port's conv
 kernels take): the run directory's files, the summary's training and
 validation lines, the best checkpoint served by both packages alike,
 ``resume=True``, a second run from ``init_ckpt_path`` with frozen layers,
-the ``NotImplementedError`` where the JAX experiment would go on to
-tuning, and the refusal to run without a card unless ``device='cpu'``.
+the chain into tuning (debug grids) and inference on ``eval_public`` at
+the default ``validation_set_name``, an inference run that pseudo-labels,
+and the refusal to run without a card unless ``device='cpu'``.
 """
 import copy
 import json
@@ -21,7 +22,8 @@ import torch
 
 from pb_sed_tpu.models import weak_label as jweak
 from pb_sed_tpu.ops import rnn as jrnn
-from pb_sed_tpu_torch.experiments.weak_label_crnn import training
+from pb_sed_tpu_torch.experiments.weak_label_crnn import (inference,
+                                                         training, tuning)
 from pb_sed_tpu_torch.models import weak_label as tweak
 from pb_sed_tpu_torch.utils.checkpoint import load_payload
 from tests.util_synth import build_database
@@ -216,18 +218,101 @@ def test_init_checkpoint_freezes_and_trains(first_run, capsys, tmp_path):
     assert moved and trained['iteration'] == 3
 
 
-def test_run_stops_where_the_tuning_chain_would_start(first_run, tmp_path):
+# the debug grids of experiments/weak_label_crnn/tuning.py, by file and key
+GRIDS = {
+    'boundaries_detection_hyper_params_f.json': {
+        'medfilt_length': [1], 'stepfilt_length': [20]},
+    'sed_hyper_params_f.json': {
+        'medfilt_length': [11], 'window_length': [11], 'window_shift': [1]},
+    'sed_hyper_params_psds1.json': {
+        'medfilt_length': [11], 'window_length': [11], 'window_shift': [1]},
+    'sed_hyper_params_psds2.json': {
+        'medfilt_length': [1], 'window_length': [250],
+        'window_shift': [250]},
+    'tagging_hyper_params_f.json': {'medfilt_length': [1]},
+}
+KEYS = {
+    'boundaries_detection_hyper_params_f.json': [
+        'f', 'medfilt_length', 'offset_bias', 'onset_bias',
+        'stepfilt_length', 'tag_masked', 'threshold'],
+    'sed_hyper_params_f.json': [
+        'f', 'medfilt_length', 'offset_bias', 'onset_bias', 'tag_masked',
+        'threshold', 'window_length', 'window_shift'],
+    'sed_hyper_params_psds1.json': [
+        'auc', 'medfilt_length', 'tag_masked', 'threshold', 'window_length',
+        'window_shift'],
+    'tagging_hyper_params_f.json': ['f', 'medfilt_length', 'threshold'],
+}
+KEYS['sed_hyper_params_psds2.json'] = KEYS['sed_hyper_params_psds1.json']
+
+
+def test_run_chains_into_tuning_and_inference(first_run, tmp_path,
+                                              monkeypatch):
+    """At the default ``validation_set_name`` the run trains, tunes on
+    ``validation`` with the debug grids (``debug=True``) and runs inference
+    on ``eval_public`` for both scenarios, all on the CPU: the
+    hyper-parameter files with each class's keys, every length from its
+    grid, every threshold in [0, 1] or at an end of the sweep (+-inf);
+    finite results; the symlinks from
+    the training run to the tuning directory and from there to both
+    inference runs. A second inference run pseudo-labels
+    ``train_unlabel_in_domain`` (weak and strong) into a database json."""
     json_path, _ = first_run
-    run_dir = tmp_path / TS / TS
-    with pytest.raises(NotImplementedError,
-                       match='weak_label_crnn.tuning') as info:
-        training.ex.run(config_updates=_updates(
-            json_path, run_dir, validation_set_name='validation',
-            num_iterations=3))
-    assert str(run_dir) in str(info.value)
-    names = sorted(p.name for p in (run_dir / 'checkpoints').iterdir())
-    assert names == ['ckpt_3.pkl', 'ckpt_best_macro_fscore_weak.pkl',
-                     'ckpt_latest.pkl']
+    monkeypatch.setattr(tuning, 'storage_root', tmp_path / 'exp')
+    monkeypatch.setattr(inference, 'storage_root', tmp_path / 'exp')
+    run_dir = tmp_path / 'train' / TS / TS
+    updates = _updates(json_path, run_dir, num_iterations=3)
+    del updates['validation_set_name']
+    assert training.ex.run(config_updates=updates) == str(run_dir)
+    root = tmp_path / 'exp' / 'weak_label_crnn' / 'desed'
+    (hp_dir,) = (root / 'hyper_params').iterdir()
+    assert sorted(p.name for p in hp_dir.glob('*.json')) == sorted(GRIDS)
+    for name, grid in GRIDS.items():
+        params = json.loads((hp_dir / name).read_text())
+        assert sorted(params) == ['beep', 'chirp', 'hum'], name
+        for values in params.values():
+            assert sorted(values) == KEYS[name], name
+            for key, choices in grid.items():
+                assert values[key] in choices, (name, key)
+            # or an end of the sweep: -inf (every clip tagged) or +inf
+            # (no threshold met the boundaries' min_precision .8)
+            assert (0. <= values['threshold'] <= 1.
+                    or abs(values['threshold']) == np.inf), name
+    config = json.loads((hp_dir / '1' / 'config.json').read_text())
+    assert config['device'] == 'cpu'
+    assert config['data_provider']['test_fetcher']['batch_size'] == 4
+    assert (run_dir / 'hyper_params' / hp_dir.name).resolve() == hp_dir
+    inference_dirs = sorted((root / 'inference').iterdir())
+    assert sorted(p.resolve() for p in (hp_dir / 'inference').iterdir()) \
+        == inference_dirs and len(inference_dirs) == 2
+    results = {p.name: json.loads(p.read_text())
+               for d in inference_dirs for p in d.glob('*_results_*.json')}
+    assert sorted(results) == [
+        'boundaries_detection_results_eval_public.json',
+        'sed_f_results_eval_public.json',
+        'sed_psds1_results_eval_public.json',
+        'sed_psds2_results_eval_public.json',
+        'tagging_results_eval_public.json']
+    for name, values in results.items():
+        assert values and all(np.isfinite(v) for v in values.values()), name
+    for key in ('psds[0]', 'psds[1]', 'macro_average_f'):
+        value = results['sed_psds1_results_eval_public.json'][key]
+        assert 0. <= value <= 1. + 1e-12  # float sums of a staircase
+
+    out_dir = inference.ex.run(config_updates={
+        'debug': True, 'device': 'cpu', 'hyper_params_dir': str(hp_dir),
+        'storage_dir': str(tmp_path / 'pseudo'),
+        'dataset_name': ['train_unlabel_in_domain'],
+        'weak_pseudo_labeling': [True], 'strong_pseudo_labeling': [True],
+        'pseudo_labeled_dataset_name': ['train_unlabel_in_domain']})
+    database = json.loads((tmp_path / 'pseudo' / json_path.name).read_text())
+    assert out_dir == str(tmp_path / 'pseudo')
+    clips = database['datasets']['train_unlabel_in_domain']
+    assert clips
+    for example in clips.values():
+        assert len(example['label_types']) == len(example['events'])
+        assert len(example['events_start_times']) == len(example['events'])
+        assert set(example['label_types']) <= {'strong', 'weak'}
 
 
 def test_module_runs_from_the_command_line(first_run, tmp_path):

@@ -9,7 +9,8 @@ card unless the caller asks for the CPU. ``chip_smoke.py`` refuses to
 run without a CUDA card. And a run directory written by the JAX
 ``Trainer`` (optax state and a JAX rng key in its checkpoints) restores in
 that process: the model serves the JAX model's scores, the port's trainer
-resumes with Adam's moments."""
+resumes with Adam's moments. The training CLI, chained into tuning and
+inference, runs there too."""
 import ast
 import os
 import pickle
@@ -79,7 +80,12 @@ assert trainer.iteration == 2
 assert np.isfinite(float(trainer.train_step(batch)))
 for name in ('data.provider', 'data.cache', 'database.desed.provider',
              'database.audioset.provider', 'evaluation.instance_based',
+             'evaluation.scores', 'evaluation.parallel',
+             'evaluation.intersection_based', 'models.base.tuning',
+             'models.base.pseudo_label', 'train.emissions',
              'experiments.core', 'experiments.weak_label_crnn.training',
+             'experiments.weak_label_crnn.tuning',
+             'experiments.weak_label_crnn.inference',
              'utils.nested', 'utils.random', 'paths'):
     assert 'pb_sed_tpu_torch.' + name in names, name
 from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
@@ -393,3 +399,87 @@ def test_unknown_optimizer_state_raises_naming_the_cause(jax_run, tmp_path,
     with pytest.raises(ValueError,
                        match='optimizer state written by the JAX trainer'):
         trainer.load_latest_checkpoint()
+
+
+# Runs where the JAX package, jax, flax, optax and pandas cannot be
+# imported (an import finder refuses them, as if they were not installed:
+# sklearn, which the summaries use where it is there, looks pandas up in
+# ``sys.modules`` and cannot take a None there): ``python -m
+# pb_sed_tpu_torch.experiments.weak_label_crnn.training with <argv[1], a
+# JSON list of key=value>``, which trains, tunes and runs inference; the
+# tuning and inference directories go under $STORAGE_ROOT.
+CHAIN_SCRIPT = r'''
+import importlib.abc, sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ModuleNotFoundError(f'no module named {name!r}')
+
+
+sys.meta_path.insert(0, Refuse())
+for name in BLOCKED:
+    try:
+        __import__(name)
+    except ModuleNotFoundError:
+        continue
+    raise AssertionError(f'{name} imported')
+import json, os, runpy
+from pathlib import Path
+import torch
+torch.set_num_threads(2)
+sys.argv = ['training', 'with', *json.loads(sys.argv[1])]
+runpy.run_module('pb_sed_tpu_torch.experiments.weak_label_crnn.training',
+                 run_name='__main__', alter_sys=True)
+root = Path(os.environ['STORAGE_ROOT']) / 'weak_label_crnn' / 'desed'
+(hp_dir,) = (root / 'hyper_params').iterdir()
+names = sorted(p.name for p in hp_dir.glob('*_hyper_params_*.json'))
+assert names == ['boundaries_detection_hyper_params_f.json',
+                 'sed_hyper_params_f.json', 'sed_hyper_params_psds1.json',
+                 'sed_hyper_params_psds2.json',
+                 'tagging_hyper_params_f.json'], names
+runs = sorted((hp_dir / 'inference').iterdir())
+assert len(runs) == 2, runs
+results = sorted(p.name for run in runs for p in run.glob('sed_*.json'))
+assert results == ['sed_f_results_eval_public.json',
+                   'sed_psds1_results_eval_public.json',
+                   'sed_psds2_results_eval_public.json'], results
+loaded = [n for n, m in sys.modules.items() if m is not None and (
+    n.split('.')[0] in BLOCKED)]
+assert not loaded, loaded
+print('CHAIN_OK')
+'''.replace('BLOCKED', repr(BLOCKED))
+
+
+def test_training_cli_chain_runs_without_jax_and_pandas(tmp_path):
+    """``python -m pb_sed_tpu_torch.experiments.weak_label_crnn.training
+    with device=cpu ...`` (the tiny configuration of
+    ``tests/test_torch_cli.py``, ``validation_set_name`` at its default)
+    trains, tunes with the debug grids and runs inference on
+    ``eval_public`` for both scenarios, in a process where the JAX
+    package, jax, flax, optax and pandas cannot be imported."""
+    import json
+    from tests.test_torch_cli import TS, _updates
+    from tests.util_synth import build_database
+    _, json_path = build_database(tmp_path / 'db', num_train=8, num_weak=6,
+                                  num_validate=4)
+    updates = _updates(json_path, tmp_path / 'train' / TS / TS,
+                       num_iterations=3)
+    del updates['validation_set_name']
+
+    def flat(node, prefix=''):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from flat(value, f'{prefix}{key}.')
+            else:
+                yield f'{prefix}{key}={value!r}'
+
+    env = dict(os.environ, STORAGE_ROOT=str(tmp_path / 'exp'),
+               OMP_NUM_THREADS='2')
+    out = subprocess.run(
+        [sys.executable, '-c', CHAIN_SCRIPT, json.dumps(list(flat(updates)))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert '##### Training #####' in out.stdout
+    assert 'CHAIN_OK' in out.stdout

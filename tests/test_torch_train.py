@@ -325,7 +325,7 @@ def test_jax_hook_on_port_trainer_raises(flat):
 
 
 @pytest.mark.parametrize('option', ['steps_per_call', 'profile_at',
-                                    'track_emissions', 'dropout'])
+                                    'dropout'])
 def test_unported_training_options_raise(flat, option):
     """One case per option of the JAX trainer that the port does not have
     yet: each raises where it is asked for. (Validation hooks and
@@ -336,10 +336,31 @@ def test_unported_training_options_raise(flat, option):
             Trainer(model, steps_per_call=2)
         elif option == 'profile_at':
             Trainer(model, profile_at=3)
-        elif option == 'track_emissions':
-            Trainer(model, stop_trigger=(1, 'iteration')).train(
-                [_train_batch(1)], track_emissions=True)
         else:
             model.module.cnn.cnn_2d.dropout = .1
             model.module.train()
             model.loss(model.to_device(_train_batch(1)))
+
+
+def test_track_emissions_writes_the_jax_columns(flat, tmp_path):
+    """``train(..., track_emissions=True)`` on the CPU appends one row to
+    ``<storage_dir>/emissions.csv`` under the JAX package's header, with
+    the platform read from torch."""
+    import csv
+    from pb_sed_tpu.train.emissions import EmissionsTracker as JaxTracker
+    jax_dir = tmp_path / 'jax'
+    tracker = JaxTracker(output_dir=jax_dir)
+    tracker.start()
+    tracker.stop()
+    trainer = Trainer(_port_model(flat), storage_dir=tmp_path / 'port',
+                      stop_trigger=(1, 'iteration'))
+    trainer.train([_train_batch(1)], track_emissions=True)
+    with (tmp_path / 'port' / 'emissions.csv').open() as fid:
+        rows = list(csv.reader(fid))
+    with (jax_dir / 'emissions.csv').open() as fid:
+        header = next(csv.reader(fid))
+    assert rows[0] == header == [
+        'timestamp', 'duration_s', 'platform', 'num_devices',
+        'energy_kwh_estimated', 'emissions_kg_estimated']
+    assert len(rows) == 2 and rows[1][2] == 'cpu' and rows[1][3] == '1'
+    assert float(rows[1][1]) >= 0. and float(rows[1][4]) >= 0.
