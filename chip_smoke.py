@@ -137,12 +137,16 @@ runs, in order:
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain) runs with the
 launch counters set to 0 just before it and read just after.
-Any failure raises (non-zero exit). The line before the last is the
-kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
+Any failure raises (non-zero exit). Before it prints its last lines, or
+fails, the run stops every process it started: the evaluation pools'
+forkserver and resource tracker, and any other process still below it
+(logged). The line before the last is the kernels' JSON record, the last
+line ``{"ok": true, "device": ...}``.
 """
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -2311,7 +2315,73 @@ def phase_tuning_chain(tmp, runs):
     return launches, metrics
 
 
+def _descendants():
+    """{pid: command line} of every live process below this one, from
+    ``/proc``."""
+    parents = {}
+    for entry in Path('/proc').iterdir():
+        if entry.name.isdigit():
+            try:
+                stat = (entry / 'stat').read_text()
+            except OSError:                        # it ended meanwhile
+                continue
+            # pid (comm) state ppid ...: comm may hold spaces and parentheses
+            parents[int(entry.name)] = int(stat.rsplit(')', 1)[1].split()[1])
+    found, frontier = {}, [os.getpid()]
+    while frontier:
+        pid = frontier.pop()
+        for child, parent in parents.items():
+            if parent == pid and child not in found:
+                try:
+                    found[child] = (Path(f'/proc/{child}/cmdline').read_bytes()
+                                    .replace(b'\0', b' ').decode()[:120])
+                except OSError:
+                    found[child] = '?'
+                frontier.append(child)
+    return found
+
+
+def stop_processes():
+    """Stop every process this run started before it ends: the evaluation
+    pools' forkserver and resource tracker (which would otherwise exit only
+    after this process has), then any other process below this one
+    (logged by pid and command line, terminated, killed after 10 s)."""
+    import multiprocessing
+    import signal
+    from pb_sed_tpu_torch.evaluation import parallel
+    parallel.stop_pools()
+    multiprocessing.active_children()               # joins finished ones
+    left = _descendants()
+    if not left:
+        return
+    log(f'processes left at the end, stopped: {left}')
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 10.
+        while time.monotonic() < deadline:
+            for pid in left:                         # reap our own children
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, os.WNOHANG)
+            if not _descendants():
+                return
+            time.sleep(.1)
+
+
 def main():
+    try:
+        card, kernels = run()
+    finally:
+        stop_processes()
+    print(card)                           # nvidia-smi name, power.limit
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+def run():
     card = phase_card()
     records = {name: new_record() for name in KERNELS}
     log('TF32 off for cuDNN and cuBLAS (plain versions in full f32)')
@@ -2368,11 +2438,7 @@ def main():
             **{key: rec[key] for key in (
                 'shallow_ms', 'shallow_plain_ms', 'shallow_library_ms',
                 'deep_ms', 'deep_plain_ms', 'deep_library_ms')}})
-    print(card)                           # nvidia-smi name, power.limit
-    print(json.dumps({'kernels': kernels}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+    return card, kernels
 
 
 if __name__ == '__main__':

@@ -20,7 +20,7 @@ evaluation modules import numpy only.
 ``POOL_STATS`` counts the pools started, the host seconds from a pool's
 creation until the last of its workers that ran an item was ready, and
 the seconds to shut the pools down (``reset_pool_stats`` sets them to
-0).
+0). ``stop_pools`` stops the server and the resource tracker.
 """
 import multiprocessing as mp
 import os
@@ -63,6 +63,20 @@ def _context():
     elif path is not None:
         ctx.set_forkserver_preload([Path(path).stem])
     return ctx
+
+
+def stop_pools():
+    """Stop the forkserver and the resource tracker that the pools started.
+
+    Both otherwise outlive the last pool: they exit only when they read
+    the end of their pipe from this process, which is after it has exited.
+    A caller that must leave no process behind when it returns (a smoke
+    script) calls this once its last pool is closed; a later pool starts
+    both anew. The server goes first, since its workers hold the tracker's
+    pipe."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
 
 
 def parallel_map(fn, items, data, num_jobs=1):

@@ -194,3 +194,23 @@ def test_two_jobs_equal_one(data):
                     fn(*args, **kwargs, num_jobs=1))
     assert parallel.POOL_STATS['pools'] == 2
     assert parallel.POOL_STATS['start_s'] > 0.
+
+
+def test_stop_pools_stops_the_server_and_a_later_pool_restarts_it():
+    """``stop_pools`` ends the forkserver and the resource tracker before
+    the caller exits (both are reaped, so their pids are gone); the next
+    pool starts them anew and gives the same answer."""
+    import os
+    from multiprocessing import forkserver, resource_tracker
+    expected = [abs(i) for i in range(-4, 4)]
+    assert parallel.parallel_map(abs, range(-4, 4), (), num_jobs=2) == expected
+    pids = [forkserver._forkserver._forkserver_pid,
+            resource_tracker._resource_tracker._pid]
+    assert None not in pids
+    parallel.stop_pools()
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+    assert forkserver._forkserver._forkserver_pid is None
+    assert parallel.parallel_map(abs, range(-4, 4), (), num_jobs=2) == expected
+    parallel.stop_pools()
