@@ -49,7 +49,11 @@ runs, in order:
    (phase 8) gives it: (2, 8 000, 11, 256), the shortest SED window over
    16 clips (row-tiled), and (2, 32, 250, 256), scenario 2's window of 250
    at shift 250 (the cluster design); held against its plain version,
-   its times printed and left out of the kernels line's sums.
+   its times printed and left out of the kernels line's sums. So do the
+   shapes only the strong-label BiCRNN gives the kernels (phase 9): the
+   tag-conditioned entry conv at 11 input channels, (32, 500, 128, 11 ->
+   16), forward, dx and dw, with its design, cuDNN's time and its bound,
+   and the GRU forward at (2, 16, 500, 256), a strong tuning batch.
 2c. the same at the deep recipe's shapes: the conv at the nine deep 3x3
    layers (L14 and L16 are the shapes where the JAX package takes its
    channel-blocked kernel), the fused conv at L2-L16, the max-pool at the
@@ -134,9 +138,42 @@ runs, in order:
    their start seconds, peak memory, clips/s of each engine call; all of
    it as JSON.
 
+9. the strong-label side. 9a, in memory: the full-width tag-conditioned
+   shallow BiCRNN (``bicrnn_config('shallow', tag_conditioning=True)``,
+   random weights from a seed, through the bridge) serves the 3 x 32
+   clips of phase 3 with seeded tags through ``models.base``'s tagging and
+   sound event detection (checked like phase 3; a tag is the max of the
+   clip's valid frames), trains for 8 steps with the DESED strong recipe's
+   settings (strong targets with soft frames, tags as the condition;
+   phase 4's checks, steps/s beside phase 4's FBCRNN numbers), and the
+   AudioSet strong configuration (456 classes, no conditioning,
+   ``eval_segment_length`` 50, clipping 0.1) takes 2 steps. 9b, inside
+   phase 7-8's directory: 32 ``train_unlabel_in_domain`` clips (written
+   with phase 7's database, after its other sets) are pseudo-labeled
+   weakly and strongly by a weak inference run from phase 8's
+   hyper-parameters; on that json
+   ``experiments.strong_label_crnn.training.ex.run`` trains the BiCRNN
+   with the DESED recipe (batch 32, two prefetch workers,
+   ``train_unlabel_in_domain: 2``) for 16 iterations, a checkpoint and a
+   validation every 8 (a ramp of 4), chained into the strong tuning (the
+   recipe's 12 median filters, ``num_jobs=8``, batch 16, phase 8's weak
+   ensemble tagging) and inference on ``eval_public`` (sets f and psds1);
+   then inference for psds2, and one with score and detection files and
+   strong pseudo-labels of ``train_unlabel_in_domain``. It fails on a
+   non-finite loss, no validation line with a finite
+   ``macro_fscore_strong``, a best checkpoint that is missing or does not
+   serve on the card, a missing hyper-parameter file, a median filter
+   outside the grid or a threshold outside [0, 1] (beyond the ends of its
+   sweep), a metric outside [0, 1], a missing TSV or a wrong TSV header,
+   a forward kernel that did not launch after training or a backward one
+   that did. Printed: steps/s over iterations 3-16, host seconds in tuning
+   and inference (engine and evaluation), pools, clips/s of each engine
+   call, peak memory; all of it as JSON.
+
 Each path (shallow serving and training, deep serving and training, the
-fused ones, the training entry point, the tuning chain) runs with the
-launch counters set to 0 just before it and read just after.
+fused ones, the training entry point, the tuning chain, the strong
+serving and training, the strong CLI training and its chain) runs with
+the launch counters set to 0 just before it and read just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -204,6 +241,12 @@ DEEP_GRU_SHAPES = [(2, BATCH, FRAMES, 512), (2, BATCH * FRAMES, 51, 512)]
 # frames (16 x 500 windows), and scenario 2's window of 250 at shift 250
 # (16 clips x 2 windows of 250 steps)
 CHAIN_GRU_SHAPES = [(2, BATCH // 2 * FRAMES, 11, 256), (2, BATCH, 250, 256)]
+# the shapes only the strong-label BiCRNN (phase 9) gives the kernels: the
+# tag-conditioned entry conv (1 mel channel + 10 tag channels), forward and
+# backward, and both directions of a bidirectional layer over the 16 clips
+# of a strong tuning batch (its training batch of 32 is GRU_SHAPES[0])
+STRONG_CONV_LAYERS = [('L0', 128, 11, 16)]
+STRONG_GRU_SHAPES = [(2, BATCH // 2, FRAMES, 256)]
 # The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
 # design, kernel alone: the parent tree in `scripts/gru_ab.py
 # chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
@@ -908,6 +951,28 @@ def check_chain_gru_shapes(records):
     torch.cuda.empty_cache()
 
 
+def check_strong_shapes(records):
+    """The kernels at the shapes only the strong-label BiCRNN gives them
+    (``STRONG_CONV_LAYERS``, ``STRONG_GRU_SHAPES``), with
+    :func:`check_kernels`' checks, designs, times, cuDNN's and the bounds:
+    the entry conv at 11 input channels (the narrow kernels, their
+    16-byte loads off: 11 is no multiple of 8) forward, dx and dw, and
+    the GRU forward over 16 clips. The errors join the kernels'
+    ``max_abs_err``; the times are printed (the conv layer also as JSON)
+    and stay out of the kernels line's sums, which keep the shapes of the
+    earlier runs."""
+    scratch = {name: new_record() for name in KERNELS}
+    rows = len(CONV_ROWS)
+    check_kernels(scratch, 'shallow', 9, STRONG_CONV_LAYERS, (),
+                  STRONG_GRU_SHAPES)
+    strong_rows = CONV_ROWS[rows:]
+    del CONV_ROWS[rows:]
+    log('strong conv layers: ' + json.dumps(strong_rows))
+    for name, rec in scratch.items():
+        records[name]['max_abs_err'] = max(records[name]['max_abs_err'],
+                                           rec['max_abs_err'])
+
+
 def cudnn_gru(xw, w_hh, b_hh, h0, ref, g=None):
     """cuDNN's time for the GRU rows (timing only; the port never calls
     it): per direction one bf16 ``torch.nn.GRU`` with weight_ih = I(3H),
@@ -1100,21 +1165,27 @@ def _expected_frames(name, seq_len):
     return seq_len
 
 
-def _random_flat(config):
-    """Seeded random weights for ``config``'s CRNN in the JAX flat layout,
-    passed once through the bridge (``bridge.random_flat``, ``load_flat``,
+def _model_class(strong=False):
+    from pb_sed_tpu_torch.models import strong_label, weak_label
+    return strong_label.CRNN if strong else weak_label.CRNN
+
+
+def _random_flat(config, strong=False):
+    """Seeded random weights for ``config``'s CRNN (the weak FBCRNN, or
+    with ``strong`` the BiCRNN) in the JAX flat layout, passed once
+    through the bridge (``bridge.random_flat``, ``load_flat``,
     ``export_flat``)."""
     from pb_sed_tpu_torch import bridge
-    from pb_sed_tpu_torch.models.weak_label import CRNN
-    template = CRNN.from_config(CRNN.get_config(config), device='cpu')
+    cls = _model_class(strong)
+    template = cls.from_config(cls.get_config(config), device='cpu')
     template.load_state_dict(bridge.random_flat(template.state_dict(),
                                                 seed=0))
     return template.state_dict()
 
 
-def _model(config, flat, device='cpu'):
-    from pb_sed_tpu_torch.models.weak_label import CRNN
-    model = CRNN.from_config(CRNN.get_config(config), device='cpu')
+def _model(config, flat, device='cpu', strong=False):
+    cls = _model_class(strong)
+    model = cls.from_config(cls.get_config(config), device='cpu')
     model.load_state_dict(flat)           # bridge.load_flat
     return model.to(device)
 
@@ -1129,11 +1200,12 @@ def _config(net, k, fuse_bn=False, augment=True, strong=1.):
     return config
 
 
-def _serve(model, methods, batches, k, label, kernels=FORWARD):
+def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5):
     """Run ``methods`` (name, function, kwargs) on ``batches`` with the
     launch counters set to 0 first; check that ``kernels`` launched and
-    the shapes, finiteness and score range; return (scores by method,
-    launches)."""
+    the shapes, finiteness and score range ([low, 1 - low]: the FBCRNN's
+    bounded sigmoid, or [0, 1] for the BiCRNN's plain one); return
+    (scores by method, launches)."""
     for name, fn, kwargs in methods:      # warm-up: cuFFT/cuBLAS plans
         fn(model, batches[:1], **kwargs)
     torch.cuda.synchronize()
@@ -1168,9 +1240,9 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD):
                                          f'!= {want}')
                 if not np.isfinite(y).all():
                     raise AssertionError(f'{name} {clip}: non-finite')
-                if y.min() < 1e-5 or y.max() > 1 - 1e-5:
+                if y.min() < low or y.max() > 1 - low:
                     raise AssertionError(
-                        f'{name} {clip}: scores outside [1e-5, 1 - 1e-5]: '
+                        f'{name} {clip}: scores outside [{low}, 1 - {low}]: '
                         f'[{y.min()}, {y.max()}]')
     log(f'{label}: shapes, finiteness and score range: ok')
     return results, launches
@@ -1330,12 +1402,16 @@ def phase_shallow_fuse_bn():
     return served, trained
 
 
-def _train_batches(stft, n, batch_size, seconds, seed, k=10):
+def _train_batches(stft, n, batch_size, seconds, seed, k=10, strong=False):
     """``n`` training batches of ``batch_size`` clips of ``seconds`` s at
     16 kHz: noise with zeroed tails (unequal lengths, the first clip
     full), weak targets with some soft (.5) entries, boundary targets
     for the weakly positive classes, and every third clip without frame
-    labels (.5: not fully labeled)."""
+    labels (.5: not fully labeled). With ``strong`` (the BiCRNN's
+    batches): the weak targets as ``tag_condition``, as the strong
+    recipe maps them, and ``strong_targets``: the boundary targets, with
+    every third clip's frames soft (.5) over a span of one class only, as
+    a pseudo-labeled clip's undetected tag leaves them."""
     rng = np.random.RandomState(seed)
     samples = seconds * 16000
     frames = stft.num_frames(samples)
@@ -1353,6 +1429,13 @@ def _train_batches(stft, n, batch_size, seconds, seed, k=10):
             for c in np.flatnonzero(weak[j] > .99):
                 on, off = np.sort(rng.randint(0, seq_len[j], 2))
                 boundary[j, c, on:off + 1] = 1.
+        if strong:
+            for j in range(0, batch_size, 3):
+                on, off = np.sort(rng.randint(0, seq_len[j], 2))
+                boundary[j, rng.randint(k), on:off + 1] = .5
+            out.append({'audio_data': audio, 'seq_len': seq_len,
+                        'strong_targets': boundary, 'tag_condition': weak})
+            continue
         boundary[::3] = .5
         out.append({'audio_data': audio, 'seq_len': seq_len,
                     'weak_targets': weak, 'boundary_targets': boundary})
@@ -1371,8 +1454,9 @@ def bn_fed_biases(module):
     identically zero in exact arithmetic. In a tower, conv i feeds norm
     i + 1 unless its output reaches the tower's end along residual skips;
     the 2-D tower's end feeds the 1-D tower's first norm; the output nets'
-    first conv feeds their norm."""
-    fed = {f'rnn_{d}.output_net.conv_0.bias' for d in ('fwd', 'bwd')}
+    first conv feeds their norm (both FBCRNN heads, the BiCRNN's one)."""
+    fed = {f'{head}.output_net.conv_0.bias'
+           for head in ('rnn_fwd', 'rnn_bwd', 'rnn')}
     for name, tower, end_fed in (('cnn_2d', module.cnn.cnn_2d, True),
                                  ('cnn_1d', module.cnn.cnn_1d, False)):
         n = len(tower.out_channels)
@@ -1385,7 +1469,7 @@ def bn_fed_biases(module):
     return fed
 
 
-def _card_vs_cpu(make_model, stft, k):
+def _card_vs_cpu(make_model, stft, k, strong=False):
     """One B=4, T=100 step, augmentation off, on the card and on the CPU
     (plain versions). The loss within 1e-4 + 3e-2 * |ref|. The CPU's own
     noise is the largest gap between its step and three CPU steps on the
@@ -1399,7 +1483,7 @@ def _card_vs_cpu(make_model, stft, k):
     stable noise estimate. All gradients together agree with the CPU's
     at a cosine no more than 0.02 below the lowest cosine between the
     CPU's own batch orders."""
-    batch = _train_batches(stft, 1, 4, 2, seed=3, k=k)[0]
+    batch = _train_batches(stft, 1, 4, 2, seed=3, k=k, strong=strong)[0]
     orders = ([0, 1, 2, 3], [3, 2, 1, 0], [1, 2, 3, 0], [2, 3, 0, 1])
     runs = [('cuda', orders[0])] + [('cpu', order) for order in orders]
     grads, losses = [], []
@@ -1508,39 +1592,59 @@ def _profile_step(trainer, batch, label):
 # the AudioSet recipe (experiments/weak_label_crnn/training.py:118-151).
 _DEEP_RECIPE = {'net': 'deep', 'k': 527,
                 'adam': {'lr': 1e-4, 'gradient_clipping': .1}, 'strong': 0.}
+# Strong: the tag-conditioned BiCRNN with the DESED strong recipe's
+# settings (experiments/strong_label_crnn/training.py: lr 5e-4 with a
+# ramp, no clipping).
 RECIPES = {
     'shallow': {'net': 'shallow', 'k': 10, 'adam': {'lr': 5e-4},
                 'strong': 1., 'fuse_bn': False, 'kernels': SHALLOW},
     'deep': dict(_DEEP_RECIPE, fuse_bn=False, kernels=DEEP),
     'deep_fuse_bn': dict(_DEEP_RECIPE, fuse_bn=True, kernels=DEEP + FUSED),
+    'strong': {'net': 'shallow', 'k': 10, 'adam': {'lr': 5e-4},
+               'bicrnn': True, 'kernels': SHALLOW},
 }
 
 
+def _strong_config(k=10, augment=True, tag_conditioning=True,
+                   eval_segment_length=1):
+    """``bicrnn_config('shallow')`` at full width with ``k`` classes."""
+    from pb_sed_tpu_torch.models.net_configs import bicrnn_config
+    config = bicrnn_config('shallow', num_events=k, augment=augment,
+                           tag_conditioning=tag_conditioning)
+    config['eval_segment_length'] = eval_segment_length
+    return config
+
+
 def phase_training(recipe_name='shallow'):
-    """The full-width FBCRNN of recipe ``recipe_name`` trained on the card
-    through ``Trainer``; returns the kernels' launch counts of that run
-    and its steps/s, clips/s and peak device memory."""
+    """The full-width FBCRNN (or, recipe ``strong``, the tag-conditioned
+    BiCRNN) of recipe ``recipe_name`` trained on the card through
+    ``Trainer``; returns the kernels' launch counts of that run and its
+    steps/s, clips/s and peak device memory."""
     from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.models.weak_label import CRNN
     from pb_sed_tpu_torch.train.hooks import LRAnnealingHook
     from pb_sed_tpu_torch.train.optimizer import Adam
     from pb_sed_tpu_torch.train.trainer import Trainer
     from pb_sed_tpu_torch.utils.config import config_to_json
     from pb_sed_tpu_torch.utils.misc import dump_json
     recipe = RECIPES[recipe_name]
+    strong = recipe.get('bicrnn', False)
+    CRNN = _model_class(strong)
 
     def config(augment):
+        if strong:
+            return _strong_config(recipe['k'], augment)
         return _config(recipe['net'], recipe['k'], recipe['fuse_bn'],
                        augment, recipe['strong'])
 
-    flat = _random_flat(config(True))
+    flat = _random_flat(config(True), strong)
 
     def make_model(augment):
-        return _model(config(augment), flat)
+        return _model(config(augment), flat, strong=strong)
 
     model = make_model(augment=True).to('cuda')
     stft = model.module.feature_extractor.stft
-    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=recipe['k'])
+    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=recipe['k'],
+                             strong=strong)
     step_log = _StepLog()
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(model, optimizer=Adam(**recipe['adam']),
@@ -1589,9 +1693,9 @@ def phase_training(recipe_name='shallow'):
             CRNN.get_config(config(True)))}}, f'{tmp}/1/config.json')
         restored = CRNN.from_storage_dir(
             tmp, checkpoint_name='ckpt_latest.pkl', device='cuda')
-        serve = {'audio_data': batches[0]['audio_data'][:8],
-                 'seq_len': batches[0]['seq_len'][:8],
-                 'example_id': [f'clip{j}' for j in range(8)]}
+        serve = {key: batches[0][key][:8] for key in (
+            'audio_data', 'seq_len', 'tag_condition') if key in batches[0]}
+        serve['example_id'] = [f'clip{j}' for j in range(8)]
         tags = base.tagging(restored, [serve])
         ref = base.tagging(model, [serve])
         err = max(float(np.abs(tags[c] - ref[c]).max()) for c in ref)
@@ -1615,7 +1719,7 @@ def phase_training(recipe_name='shallow'):
         raise AssertionError(f'the loss did not fall: {losses}')
     del trainer, model
     torch.cuda.empty_cache()
-    _card_vs_cpu(make_model, stft, recipe['k'])
+    _card_vs_cpu(make_model, stft, recipe['k'], strong)
     return launches, metrics
 
 
@@ -1630,11 +1734,13 @@ EVENT_CLASSES = [
 # 24%, 53%, 8% and 15% come from the four sets, so the recipe's quotas at
 # batch 32 (3 weak, 6 strong, 1 + 2 synthetic clips that were not mixed
 # across datasets) let about ten batches an epoch through; phase 8 tunes
-# on 'validation' and evaluates on 'eval_public' (written last, so the
-# other sets stay what phase 7 had before them)
+# on 'validation' and evaluates on 'eval_public', phase 9 pseudo-labels
+# 'train_unlabel_in_domain' (each written after the sets before it, so
+# those stay what the earlier phases had)
 DATABASE_CLIPS = {'train_weak': 10, 'train_strong': 22,
                   'train_synthetic20': 16, 'train_synthetic21': 64,
-                  'validation': 32, 'eval_public': 32}
+                  'validation': 32, 'eval_public': 32,
+                  'train_unlabel_in_domain': 32}
 CLI_ITERATIONS, CLI_CHECKPOINT = 16, 8
 
 
@@ -1644,8 +1750,9 @@ def write_database(root, seed):
     clip per dataset 6 s) holding one to three tone bursts, one frequency
     per event class, over a noise floor, and ``desed.json`` with the
     datasets of ``DATABASE_CLIPS`` (``train_weak`` with clip-level labels
-    only, the others with onsets and offsets). Returns the json's path
-    and the bytes of audio written."""
+    only, ``train_unlabel_in_domain`` with none, the others with onsets
+    and offsets). Returns the json's path and the bytes of audio
+    written."""
     from pb_sed_tpu_torch.utils.misc import dump_json
     rng = np.random.RandomState(seed)
     sample_rate = 16000
@@ -1682,7 +1789,9 @@ def write_database(root, seed):
                 fid.writeframes(pcm.tobytes())
             nbytes += pcm.nbytes
             example = {'audio_path': str(path), 'audio_length': seconds}
-            if name == 'train_weak':
+            if name == 'train_unlabel_in_domain':
+                pass                           # unlabeled: no events
+            elif name == 'train_weak':
                 example['events'] = sorted(set(events))
             else:
                 order = np.argsort(onsets)
@@ -2038,18 +2147,21 @@ def pool_start_s(method):
 
 
 @contextlib.contextmanager
-def timed_chain():
+def timed_chain(inference=None):
     """Record the tuning run and each inference run it chains into (or
     that follows it): host seconds (after a device synchronize), the
     evaluation pools started and their start and shutdown seconds, peak
     device memory, and per call of the inference engine
     (``models.base.inference.inference``: the model calls and their post-
     processing into score frames) the method, window lengths, clips and
-    seconds. Yields the list of records, the tuning run's first; the
-    wrapped functions are put back on exit."""
+    seconds. ``inference`` is the inference experiment's module whose
+    runs are recorded (default: the weak one). Yields the list of
+    records, the tuning run's first, and the functions that open and
+    close a record; the wrapped functions are put back on exit."""
     import importlib
     from pb_sed_tpu_torch.evaluation import parallel
-    from pb_sed_tpu_torch.experiments.weak_label_crnn import inference
+    if inference is None:
+        from pb_sed_tpu_torch.experiments.weak_label_crnn import inference
     # the module (``models.base`` exports its function of the same name)
     engine = importlib.import_module('pb_sed_tpu_torch.models.base.inference')
     original_engine, original_run = engine.inference, inference.ex.run
@@ -2140,30 +2252,33 @@ def _log_chain_record(record):
             'engine': [dict(call) for call in record['engine']]}
 
 
-def _check_hyper_params(hp_dir):
-    """Every hyper-parameter file, every threshold in [0, 1] or an end of
-    its sweep (-inf: every clip tagged; +inf: no threshold met the
-    boundaries' min_precision of .8, the reference's answer), every
-    length from its grid in the tuning config, every F and AUC (over
-    ``MAX_EFPR``) in [0, 1] (up to ``ROUNDING``)."""
+def _check_hyper_params(hp_dir, files=None):
+    """Every hyper-parameter file of ``files`` (default ``HYPER_PARAMS``),
+    every threshold in [0, 1] or at an end of its sweep (-inf: every clip
+    tagged; +inf: no threshold met the boundaries' min_precision of .8, the
+    reference's answer; 1e-3 beyond the lowest or highest score: the
+    collar sweep's ends, every frame detected, or none), every length from
+    its grid in the tuning config, every F and AUC (over ``MAX_EFPR``) in
+    [0, 1] (up to ``ROUNDING``)."""
     from pb_sed_tpu_torch.utils.misc import load_json
     config = load_json(hp_dir / '1' / 'config.json')
-    for name, grids in HYPER_PARAMS.items():
+    for name, grids in (files or HYPER_PARAMS).items():
         path = hp_dir / name
         if not path.exists():
             raise AssertionError(f'no {path}')
         for event_class, values in load_json(path).items():
             threshold = values['threshold']
-            if not (0. <= threshold <= 1. or abs(threshold) == np.inf):
+            if not (-1e-3 <= threshold <= 1. + 1e-3
+                    or abs(threshold) == np.inf):
                 raise AssertionError(f'{name} {event_class}: threshold '
                                      f'{threshold}')
             for key, grid in grids.items():
                 if values[key] not in config[grid]:
                     raise AssertionError(f'{name} {event_class}: {key} '
                                          f'{values[key]} not in {grid}')
-            for metric in ('f', 'auc'):
+            for metric in ('f', 'auc', 'auc1', 'auc2'):
                 value = values.get(metric, 0.)
-                value = value / MAX_EFPR if metric == 'auc' else value
+                value = value if metric == 'f' else value / MAX_EFPR
                 if not (np.isfinite(value) and 0. <= value <= 1. + ROUNDING):
                     raise AssertionError(f'{name} {event_class}: {metric} '
                                          f'{values.get(metric)}')
@@ -2312,7 +2427,370 @@ def phase_tuning_chain(tmp, runs):
             for ex in labeled.values()):
         raise AssertionError('the pseudo-labeled database')
     torch.cuda.empty_cache()
-    return launches, metrics
+    return launches, metrics, hp_dir
+
+
+# -- phase 9: the strong-label BiCRNN, in memory and from the weak chain ----
+STRONG_BEST = 'ckpt_best_macro_fscore_strong.pkl'
+# the strong tuning's hyper-parameter files, each tuned length with the
+# grid of its config (experiments/strong_label_crnn/tuning.py)
+STRONG_HYPER_PARAMS = {f'sed_hyper_params_{name}.json': {
+    'medfilt_length': 'medfilt_lengths'} for name in ('f', 'psds1', 'psds2')}
+AUDIOSET_STRONG_STEPS = 2
+
+
+def _tagged(batches, seed):
+    """``batches`` with a ``tag_condition`` of 0/1 tags drawn from
+    ``seed`` (about 3 of 10 classes a clip)."""
+    rng = np.random.RandomState(seed)
+    return [dict(b, tag_condition=(rng.rand(len(b['seq_len']), 10) > .7
+                                   ).astype(np.float32)) for b in batches]
+
+
+def phase_strong(in_memory):
+    """Phase 9a: the full-width tag-conditioned shallow BiCRNN (random
+    weights from a seed, through the bridge) served on the card (tagging
+    and SED of the 3 x 32 clips of phase 3 with seeded tags, against the
+    CPU), trained for 8 steps with the DESED strong recipe's settings
+    (phase 4's checks, steps/s beside its FBCRNN numbers), and the AudioSet
+    strong configuration (456 classes, no conditioning,
+    ``eval_segment_length`` 50, clipping 0.1) for 2 steps. Returns the
+    measurements with the launch counts of each run."""
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    out = {'launches': {}}
+    config = _strong_config()
+    flat = _random_flat(config, strong=True)
+    model = _model(config, flat, 'cuda', strong=True)
+    log(f'BiCRNN shallow, tag-conditioned: {model.num_parameters()} '
+        f'parameters, {len(flat)} flat tensors, GRU input '
+        f'{model.module.rnn.rnn.input_size}, entry conv '
+        f'{tuple(model.module.cnn.cnn_2d.conv_0.kernel.shape)}')
+    batches = _tagged(_synthetic_batches(model.module.feature_extractor.stft),
+                      seed=9)
+    methods = [('tagging', base.tagging, {}),
+               ('sound_event_detection', base.sound_event_detection, {})]
+    results, out['launches']['strong_serving'] = _serve(
+        model, methods, batches, 10, 'strong', low=0.)
+    _agree_with_cpu(_model(config, flat, strong=True), methods, results,
+                    batches[1])
+    for clip, sl in zip(batches[1]['example_id'], batches[1]['seq_len']):
+        tag = results['tagging'][clip][0]
+        frames = results['sound_event_detection'][clip][:sl]
+        if not np.allclose(tag, frames.max(0), rtol=0, atol=1e-6):
+            raise AssertionError(f'{clip}: the tag is not the max over the '
+                                 f'valid frames')
+    del model
+    torch.cuda.empty_cache()
+    out['launches']['strong_training'], out['training'] = phase_training(
+        'strong')
+    log('training steps/s, clips/s, peak GiB (B=32, steps 3-8, host '
+        'clock): BiCRNN ' + ', '.join(
+            f'{out["training"][key]:.3f}' for key in (
+                'steps_per_s', 'clips_per_s', 'peak_gib'))
+        + ' beside the FBCRNN (phase 4) ' + ', '.join(
+            f'{in_memory[key]:.3f}' for key in (
+                'steps_per_s', 'clips_per_s', 'peak_gib')))
+
+    # the AudioSet strong configuration on in-memory batches
+    config = _strong_config(456, tag_conditioning=False,
+                            eval_segment_length=50)
+    model = _model(config, _random_flat(config, strong=True), 'cuda',
+                   strong=True)
+    if model.module.cnn.cnn_2d.conv_0.kernel.shape[2] != 1:
+        raise AssertionError('the AudioSet configuration is conditioned')
+    stft = model.module.feature_extractor.stft
+    train = _train_batches(stft, AUDIOSET_STRONG_STEPS, BATCH, 10, seed=11,
+                           k=456, strong=True)
+    trainer = Trainer(model, optimizer=Adam(lr=1e-4, gradient_clipping=.1),
+                      stop_trigger=(AUDIOSET_STRONG_STEPS, 'iteration'))
+    step_log = _StepLog()
+    trainer.register_hook(step_log)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    trainer.train(train)
+    torch.cuda.synchronize()
+    launches = out['launches']['strong_audioset_training'] = dict(
+        build.LAUNCHES)
+    with torch.no_grad():
+        _, aux = model.loss(model.to_device(train[0]))
+    n_seg = aux['buffers']['y_strong'].shape[1]
+    log(f'AudioSet strong configuration, 456 classes: losses '
+        f'{step_log.losses}, step times ' + ', '.join(
+            f'{1e3 * x:.1f}' for x in np.diff(step_log.times))
+        + f' ms, {n_seg} review segments of 50 frames, launches {launches}')
+    if (len(step_log.losses) != AUDIOSET_STRONG_STEPS
+            or not np.isfinite(step_log.losses).all() or n_seg != 10):
+        raise AssertionError('the AudioSet strong configuration')
+    for kernel in SHALLOW:
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'AudioSet strong training run')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_strong_recipe(config):
+    """The saved config of the strong CLI run is the DESED strong recipe
+    as it stands at the full width of the tag-conditioned shallow
+    BiCRNN."""
+    fetcher = config['data_provider']['train_fetcher']
+    model_config = config['trainer']['model']
+    rnn = model_config['rnn']['rnn']
+    if not (config['net_config'] == 'shallow'
+            and config['batch_size'] == 32
+            and fetcher['prefetch_workers'] == 2
+            and fetcher['min_dataset_examples_in_batch'] == {
+                'train_weak': 3, 'train_strong': 6,
+                'train_synthetic20': 1, 'train_synthetic21': 2,
+                'train_unlabel_in_domain': 0}
+            and config['data_provider']['train_set'][
+                'train_unlabel_in_domain'] == 2
+            and config['data_provider']['train_transform'][
+                'provide_strong_targets']
+            and config['tag_conditioning'] is True
+            and config['hyper_params_tuning_batch_size'] == 16
+            and model_config['cnn']['conditional_dims'] == 10
+            and model_config['cnn']['cnn_2d']['out_channels'] == [
+                16, 16, 32, 32, 64, 64, 128, 128, 256]
+            and model_config['feature_extractor']['n_time_masks'] > 0
+            and (rnn['hidden_size'], rnn['num_layers'], rnn['input_size'],
+                 rnn['bidirectional']) == (256, 2, 266, True)):
+        raise AssertionError('the strong run was not the DESED recipe at '
+                             'the full width of the shallow BiCRNN')
+
+
+def _check_tsv(path):
+    with open(path) as fid:
+        lines = fid.read().splitlines()
+    if not lines or lines[0] != 'filename\tonset\toffset\tevent_label':
+        raise AssertionError(f'{path}: header {lines[:1]}')
+    return lines[1:]
+
+
+def phase_strong_chain(tmp, weak_hp_dir, in_memory):
+    """Phase 9b, inside phase 7-8's directory ``tmp``: one weak inference
+    run from phase 8's hyper-parameters (``weak_hp_dir``) pseudo-labels the
+    32 ``train_unlabel_in_domain`` clips weakly and strongly; on that json
+    ``experiments.strong_label_crnn.training`` trains the full-width
+    tag-conditioned BiCRNN with the DESED recipe (batch 32, two prefetch
+    workers, ``train_unlabel_in_domain: 2``) for 16 iterations with a
+    checkpoint and a validation every 8 (a ramp of 4), chained into the
+    strong tuning (the recipe's 12 median filters, ``num_jobs=8``, batch
+    16, phase 8's weak ensemble tagging) and into inference on
+    ``eval_public`` (sets f and psds1); then inference runs for psds2 and
+    one that saves scores and detections and pseudo-labels
+    ``train_unlabel_in_domain`` strongly. ``in_memory`` is phase 9a's
+    training metrics, printed beside this run's. Returns the measurements
+    with the launch counts of the training run and of the chain after
+    it."""
+    from pb_sed_tpu_torch.data.provider import DataProvider
+    from pb_sed_tpu_torch.evaluation import parallel
+    from pb_sed_tpu_torch.experiments.strong_label_crnn import (
+        inference, training, tuning)
+    from pb_sed_tpu_torch.experiments.weak_label_crnn import (
+        inference as weak_inference)
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.models.base.model import default_device
+    from pb_sed_tpu_torch.models.strong_label import CRNN
+    from pb_sed_tpu_torch.utils.misc import load_json
+    out = {'launches': {}}
+    exp = tmp / 'exp'
+    saved = (tuning.storage_root, inference.storage_root,
+             weak_inference.storage_root)
+    tuning.storage_root = inference.storage_root = exp
+    weak_inference.storage_root = exp
+    original_tuning = tuning.ex.run
+    try:
+        build.reset_launches()
+        parallel.reset_pool_stats()
+        collect_garbage()
+        with timed_chain(inference) as (records, begin, end):
+            # 1-2. the weak ensemble pseudo-labels the unlabeled clips
+            record = begin('weak pseudo-labeling')
+            pseudo_dir = Path(weak_inference.ex.run(config_updates={
+                'hyper_params_dir': str(weak_hp_dir),
+                'dataset_name': ['train_unlabel_in_domain'],
+                'weak_pseudo_labeling': [True],
+                'strong_pseudo_labeling': [True],
+                'storage_dir': str(exp / 'weak_pseudo'), 'device': None}))
+            end(record)
+            json_path = pseudo_dir / 'desed.json'
+            unlabeled = load_json(json_path)['datasets'][
+                'train_unlabel_in_domain']
+            label_types = [t for ex in unlabeled.values()
+                           for t in ex['label_types']]
+            log(f'weak pseudo-labels of train_unlabel_in_domain: '
+                f'{len(unlabeled)} clips, '
+                f'{sum(bool(ex["events"]) for ex in unlabeled.values())} '
+                f'tagged, {label_types.count("strong")} strong and '
+                f'{label_types.count("weak")} weak labels')
+            if len(unlabeled) != DATABASE_CLIPS['train_unlabel_in_domain']:
+                raise AssertionError('the weakly pseudo-labeled json')
+            pre = dict(build.LAUNCHES)
+
+            # 3. strong training, chained into tuning and inference
+            def run_tuning(config_updates=None):
+                out['launches']['strong_cli_training'] = dict(build.LAUNCHES)
+                out['training_peak_gib'] = (torch.cuda.max_memory_allocated()
+                                            / 2 ** 30)
+                build.reset_launches()
+                tuning_record = begin('strong tuning')
+                try:
+                    return original_tuning(config_updates)
+                finally:
+                    end(tuning_record)
+
+            tuning.ex.run = run_tuning
+            run_dir = exp / 'strong' / 'run1'
+            updates = _cli_updates(
+                json_path, run_dir, lr_rampup_steps=4,
+                validation_set_name='validation',
+                weak_label_crnn_hyper_params_dir=str(weak_hp_dir))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            with timed_trainer() as record:
+                t0 = time.perf_counter()
+                result = training.ex.run(config_updates=updates)
+                wall = time.perf_counter() - t0
+            tuning.ex.run = original_tuning
+            # 4. the set psds2, then scores, detections and pseudo-labels
+            (hp_dir,) = (exp / 'strong_label_crnn' / 'desed'
+                         / 'hyper_params').iterdir()
+            inference.ex.run(config_updates={
+                'strong_label_crnn_hyper_params_dir': str(hp_dir),
+                'sed_hyper_params_name': 'psds2', 'device': None})
+            labeled_dir = Path(inference.ex.run(config_updates={
+                'strong_label_crnn_hyper_params_dir': str(hp_dir),
+                'sed_hyper_params_name': 'f',
+                'dataset_name': ['train_unlabel_in_domain'],
+                'strong_pseudo_labeling': [True], 'save_scores': True,
+                'save_detections': True,
+                'storage_dir': str(exp / 'strong_pseudo'), 'device': None}))
+        chain = dict(build.LAUNCHES)
+    finally:
+        tuning.ex.run = original_tuning
+        (tuning.storage_root, inference.storage_root,
+         weak_inference.storage_root) = saved
+    trained = out['launches']['strong_cli_training']
+    out['launches']['strong_chain'] = {k: chain[k] + pre[k] for k in chain}
+    log(f'launches in the strong CLI training run: {trained}; in the weak '
+        f'pseudo-labeling, strong tuning and inference runs: '
+        f'{out["launches"]["strong_chain"]}')
+    for kernel in SHALLOW:
+        if trained[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'strong CLI training run')
+    for kernel, count in out['launches']['strong_chain'].items():
+        if (count > 0) != (kernel in FORWARD):
+            raise AssertionError(f'kernel {kernel} launched {count} times in '
+                                 f'the strong tuning chain (inference only)')
+    if result != str(run_dir):
+        raise AssertionError(f'the strong run returned {result}')
+    check_strong_recipe(load_json(run_dir / '1' / 'config.json'))
+
+    # the training run: steps, losses, validation, the best checkpoint
+    steps = record['steps']
+    losses = [loss for *_, loss in steps]
+    log('strong CLI loss per step: ' + ', '.join(f'{x:.5f}' for x in losses))
+    if [it for it, *_ in steps] != list(range(1, CLI_ITERATIONS + 1)) \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f'strong CLI training steps: {steps}')
+    span = steps[-1][2] - steps[1][2] - record['validate'][0]
+    metrics = {
+        'steps_per_s': (CLI_ITERATIONS - 2) / span,
+        'step_only_ms': 1e3 * float(np.mean(
+            [end_ - start for _, start, end_, _ in steps[2:]])),
+        'validate_s': list(record['validate']),
+        'test_run_s': record['test_run'][0], 'wall_s': wall}
+    log(f'strong CLI training from wav files and pseudo-labels: '
+        f'{metrics["steps_per_s"]:.3f} steps/s = '
+        f'{BATCH * metrics["steps_per_s"]:.1f} clips/s over iterations '
+        f'3-{CLI_ITERATIONS} (loader waits included, mean step alone '
+        f'{metrics["step_only_ms"]:.1f} ms) beside '
+        f'{in_memory["steps_per_s"]:.3f} steps/s on in-memory batches '
+        f'(phase 9a); seconds in validate ' + ', '.join(
+            f'{x:.3f}' for x in record['validate'])
+        + f'; training, tuning and chained inference {wall:.1f} s; peak '
+        f'device memory in training {out["training_peak_gib"]:.2f} GiB')
+    rows = _read_jsonl(run_dir / 'summary.jsonl')
+    validation = [r for r in rows if r['prefix'] == 'validation']
+    log('strong summary.jsonl: macro_fscore_strong (validation) '
+        + ', '.join(f'{r["macro_fscore_strong"]:.4f}' for r in validation)
+        + '; strong_label_rate (training) ' + ', '.join(
+            f'{r["strong_label_rate"]:.3f}' for r in rows
+            if r['prefix'] == 'training'))
+    if not validation or not all(
+            np.isfinite(r['macro_fscore_strong'])
+            and 0. <= r['macro_fscore_strong'] <= 1. for r in validation):
+        raise AssertionError(f'strong validation lines: {validation}')
+    names = sorted(p.name for p in (run_dir / 'checkpoints').iterdir())
+    if STRONG_BEST not in names:
+        raise AssertionError(f'strong checkpoints: {names}')
+    restored = CRNN.from_storage_dir(run_dir, checkpoint_name=STRONG_BEST)
+    if restored.device.type != default_device().type:
+        raise AssertionError(f'restored on {restored.device}')
+    provider = DataProvider.from_config(
+        load_json(run_dir / '1' / 'config.json')['data_provider'])
+    provider.test_transform.label_encoder.initialize_labels()
+    scores = base.sound_event_detection(
+        restored, provider.get_validate_set().map(training.add_tag_condition))
+    values = np.concatenate([v.ravel() for v in scores.values()])
+    log(f'best strong checkpoint restored on the card scores '
+        f'{len(scores)} validation clips: frame scores in '
+        f'[{values.min():.5f}, {values.max():.5f}]')
+    if len(scores) != DATABASE_CLIPS['validation'] or not (
+            np.isfinite(values).all() and 0. <= values.min()
+            and values.max() <= 1.):
+        raise AssertionError('the restored strong checkpoint')
+    del restored
+
+    # tuning and inference
+    config = _check_hyper_params(hp_dir, STRONG_HYPER_PARAMS)
+    log(f'strong tuning: median filters {config["medfilt_lengths"]}, '
+        f'batch {config["data_provider"]["test_fetcher"]["batch_size"]}, '
+        f'weak members {len(config["weak_label_crnn_dirs"])}')
+    if [r['run'] for r in records] != [
+            'weak pseudo-labeling', 'strong tuning', 'inference f+psds1',
+            'inference psds2', 'inference f']:
+        raise AssertionError(f'runs: {[r["run"] for r in records]}')
+    if (run_dir / 'hyper_params' / hp_dir.name).resolve() != hp_dir.resolve():
+        raise AssertionError('no symlink from the strong run to its tuning')
+    chained = sorted(p.resolve() for p in (hp_dir / 'inference').iterdir())
+    if len(chained) != 3:
+        raise AssertionError(f'strong inference symlinks: {chained}')
+    for run in chained:
+        if run == labeled_dir.resolve():
+            continue
+        for name, values in _check_results(run).items():
+            log(f'{run.name} {name}: macro F '
+                f'{values.get("macro_average_f", float("nan")):.4f}, PSDS1 '
+                f'{values["psds[0]"]:.4f}, PSDS2 {values["psds[1]"]:.4f}, '
+                f'approx. {values["approx_psds[0]"]:.4f} / '
+                f'{values["approx_psds[1]"]:.4f}')
+    rows = _check_tsv(
+        labeled_dir / 'train_unlabel_in_domain_pseudo_labeled.tsv')
+    database = load_json(labeled_dir / 'desed.json')
+    relabeled = database['datasets']['train_unlabel_in_domain']
+    strong_labels = sum(t == 'strong' for ex in relabeled.values()
+                        for t in ex['label_types'])
+    n_scores = len(list((labeled_dir / 'scores' / 'train_unlabel_in_domain'
+                         / 'f').iterdir()))
+    log(f'strong pseudo-labels of train_unlabel_in_domain: {len(rows)} TSV '
+        f'rows, {strong_labels} strong labels, {n_scores} score files')
+    if (len(relabeled) != DATABASE_CLIPS['train_unlabel_in_domain']
+            or n_scores != len(relabeled) or not (
+                labeled_dir / 'detections' / 'train_unlabel_in_domain' / 'f'
+                / 'cbf.tsv').exists()):
+        raise AssertionError('the strongly pseudo-labeled set')
+    out['training'] = metrics
+    out['runs'] = [_log_chain_record(r) for r in records]
+    out['peak_gib'] = max(r['peak_gib'] for r in records)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _descendants():
@@ -2389,6 +2867,7 @@ def run():
     check_kernels(records, 'shallow', 0, CONV_LAYERS, POOLS, GRU_SHAPES,
                   fused=[name for name, *_ in CONV_LAYERS[1:]])
     check_chain_gru_shapes(records)
+    check_strong_shapes(records)
     check_kernels(records, 'deep', 2, DEEP_CONV_LAYERS, DEEP_POOLS,
                   DEEP_GRU_SHAPES, DEEP_CROSSINGS,
                   fused=[name for name, *_ in DEEP_CONV_LAYERS[1:]])
@@ -2415,8 +2894,16 @@ def run():
     with tempfile.TemporaryDirectory() as tmp:
         launches['cli_training'], _, runs = phase_cli_training(
             in_memory, Path(tmp))
-        launches['tuning_chain'], chain = phase_tuning_chain(Path(tmp), runs)
-    log('tuning chain (JSON): ' + json.dumps(chain))
+        launches['tuning_chain'], chain, weak_hp_dir = phase_tuning_chain(
+            Path(tmp), runs)
+        log('tuning chain (JSON): ' + json.dumps(chain))
+        strong = phase_strong(in_memory)
+        launches.update(strong.pop('launches'))
+        strong_chain = phase_strong_chain(Path(tmp), weak_hp_dir,
+                                          strong['training'])
+        launches.update(strong_chain.pop('launches'))
+    log('strong phase (JSON): ' + json.dumps(strong))
+    log('strong chain (JSON): ' + json.dumps(strong_chain))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

@@ -87,9 +87,12 @@ def init_flat(template, seed):
     keys and shapes of the flat dict ``template``: the JAX package's
     initializers drawn from a seeded numpy ``RandomState``. Weight
     matrices and conv kernels are LeCun normal (a normal truncated at two
-    standard deviations with variance 1 / fan_in), the recurrent ``w_hh``
-    (H, 3H) has orthonormal rows, scales are one, biases and shifts zero,
-    and the running statistics are those of a fresh module (mean 0, var 1,
+    standard deviations with variance 1 / fan_in, fan_in the product of
+    all but the last axis: 2F for a bidirectional layer's stacked
+    ``w_ih (2, F, 3H)``, as flax counts it), the recurrent ``w_hh``
+    (H, 3H) has orthonormal rows, each direction's of a stacked
+    (2, H, 3H), scales are one, biases and shifts zero, and the running
+    statistics are those of a fresh module (mean 0, var 1,
     not yet initialized)."""
     rng = np.random.RandomState(seed)
     out = {}
@@ -99,10 +102,11 @@ def init_flat(template, seed):
         if name in ('var', 'scale'):
             value = np.ones(shape)
         elif name == 'w_hh':
-            rows, cols = shape
-            q, r = np.linalg.qr(rng.randn(max(rows, cols), min(rows, cols)))
-            q = q * np.sign(np.diag(r))
-            value = q.T if rows < cols else q
+            # one orthonormal (H, 3H) per direction of a stacked
+            # (2, H, 3H), as the JAX package's _stacked_orthogonal
+            value = np.stack([_orthogonal(rng, *shape[-2:])
+                              for _ in range(int(np.prod(shape[:-2])))])
+            value = value.reshape(shape)
         elif len(shape) >= 2:
             fan_in = int(np.prod(shape[:-1]))
             value = rng.randn(*shape)
@@ -116,3 +120,11 @@ def init_flat(template, seed):
             value = np.zeros(shape)
         out[key] = value.astype(np.float32)
     return out
+
+
+def _orthogonal(rng, rows, cols):
+    """A (rows, cols) matrix with orthonormal rows or columns (whichever
+    are fewer), from a normal draw's QR with the signs of R's diagonal."""
+    q, r = np.linalg.qr(rng.randn(max(rows, cols), min(rows, cols)))
+    q = q * np.sign(np.diag(r))
+    return q.T if rows < cols else q

@@ -30,6 +30,15 @@ def masked_mean(x, seq_len, axis=-1, keepdims=False):
     return total / count.clamp(min=1.)
 
 
+def masked_max(x, seq_len, axis=-1, keepdims=False):
+    """Max over the valid frames (padding set to the dtype's lowest
+    value, as the JAX package does)."""
+    mask = compute_mask(x, seq_len, sequence_axis=axis)
+    low = torch.finfo(x.dtype).min
+    return torch.where(mask > 0, x, torch.full_like(x, low)).amax(
+        dim=axis, keepdim=keepdims)
+
+
 def take_last(x, seq_len, axis=-1, keepdims=False):
     """Value at the last valid frame of each example."""
     axis = axis % x.dim()

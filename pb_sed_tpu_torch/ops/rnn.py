@@ -1,16 +1,20 @@
-"""Recurrent heads: unidirectional GRU layers on the ``gru_scan`` kernel,
-the stacked GRU, the FBCRNN ``GRU`` head (optionally time-reversed) with
-its 1x1-conv output net, and the paired application of the forward and
-backward heads as one D=2 recurrence per layer.
+"""Recurrent heads: unidirectional and bidirectional GRU layers on the
+``gru_scan`` kernel, the stacked GRU, the ``GRU`` head (optionally
+time-reversed, the FBCRNN's backward head) with its 1x1-conv output net,
+and the paired application of the FBCRNN's forward and backward heads as
+one D=2 recurrence per layer.
 
 Counterpart of ``pb_sed_tpu/ops/rnn.py`` with its parameter layouts and
-names: ``layer_{i}_fwd.{w_ih (F, 3H), w_hh (H, 3H), b_ih, b_hh}`` in
-torch gate order (r, z, n). The input projections of all timesteps are
-one bf16 matmul outside the recurrence, with the f32 input bias inside
-its one rounding (``ops/linear.py:Bf16Linear``); the recurrence is the autograd
-Function ``ops/kernels/gru.py:GruScan`` (forward and backward kernels).
-Bidirectional layers, the Transformer head and inter-layer dropout in
-training are not ported yet and raise.
+names: ``layer_{i}_fwd.{w_ih (F, 3H), w_hh (H, 3H), b_ih, b_hh}`` and,
+stacked over the two directions, ``layer_{i}_bi.{w_ih (2, F, 3H),
+w_hh (2, H, 3H), b_ih (2, 1, 3H), b_hh (2, 1, 3H)}``, in torch gate order
+(r, z, n). The input projections of all timesteps are one bf16 matmul
+outside the recurrence, with the f32 input bias inside its one rounding
+(``ops/linear.py:Bf16Linear``); the recurrence is the autograd Function
+``ops/kernels/gru.py:GruScan`` (forward and backward kernels). A
+bidirectional layer runs both directions as one D=2 recurrence. The
+Transformer head and inter-layer dropout in training are not ported yet
+and raise.
 """
 import torch
 from torch import nn
@@ -45,12 +49,7 @@ class GRULayer(nn.Module):
         ``jnp.dot(..., preferred_element_type=f32) + b_ih``
         (``pb_sed_tpu/ops/rnn.py:95-101``) streamed as bf16
         (``ops/pallas/gru.py:178``). ``dw_ih`` is the bf16 matmul's."""
-        if x.shape[-1] != self.input_size:
-            raise ValueError(f'GRU layer expects {self.input_size} input '
-                             f'features, got {x.shape[-1]}')
-        y = Bf16Linear.apply(x.reshape(-1, x.shape[-1]), self.w_ih,
-                             self.b_ih)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
+        return _project(x, self.w_ih, self.b_ih, self.input_size)
 
     def forward(self, x, h0=None):
         b = x.shape[0]
@@ -60,8 +59,59 @@ class GRULayer(nn.Module):
                              self.b_hh[None], h0[None])[0]
 
 
+def _project(x, w_ih, b_ih, input_size):
+    """(B, T, F) -> (B, T, 3H): ``Bf16Linear`` over all timesteps."""
+    if x.shape[-1] != input_size:
+        raise ValueError(f'GRU layer expects {input_size} input features, '
+                         f'got {x.shape[-1]}')
+    y = Bf16Linear.apply(x.reshape(-1, x.shape[-1]), w_ih, b_ih)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+class BiGRULayer(nn.Module):
+    """One bidirectional GRU layer, (B, T, F) -> (B, T, 2H) = [fwd, bwd].
+
+    The counterpart of the JAX package's ``BiGRULayer``
+    (``pb_sed_tpu/ops/rnn.py:141-207``): parameters stacked over the two
+    directions, both directions' input projections as bf16 matmuls with
+    the f32 input bias inside their one rounding (the einsum at
+    ``:168-171``, streamed as bf16), and both recurrences in ONE D=2
+    ``gru_scan`` from a zero state. The backward direction reads its
+    input mask-reversed (``x[sl - 1 - t]`` for ``t < sl``) and its output
+    is reversed back with the same lengths, so padding never enters its
+    recurrence before a valid frame."""
+
+    def __init__(self, hidden_size, input_size, bias=True):
+        super().__init__()
+        g = 3 * hidden_size
+        self.hidden_size = hidden_size
+        self.input_size = input_size
+        self.w_ih = nn.Parameter(torch.zeros(2, input_size, g))
+        self.w_hh = nn.Parameter(torch.zeros(2, hidden_size, g))
+        if bias:
+            self.b_ih = nn.Parameter(torch.zeros(2, 1, g))
+            self.b_hh = nn.Parameter(torch.zeros(2, 1, g))
+        else:
+            self.register_buffer('b_ih', torch.zeros(2, 1, g),
+                                 persistent=False)
+            self.register_buffer('b_hh', torch.zeros(2, 1, g),
+                                 persistent=False)
+
+    def forward(self, x, seq_len):
+        rev = reverse_sequence(x, seq_len, axis=1)
+        xw = torch.stack([
+            _project(h, self.w_ih[d], self.b_ih[d, 0], self.input_size)
+            for d, h in enumerate((x, rev))])
+        h0 = torch.zeros(2, x.shape[0], self.hidden_size, device=x.device)
+        y_f, y_b = GruScan.apply(xw, self.w_hh, self.b_hh[:, 0], h0)
+        return torch.cat([y_f, reverse_sequence(y_b, seq_len, axis=1)],
+                         dim=-1)
+
+
 class StackedGRU(nn.Module, Configurable):
-    """Multi-layer unidirectional GRU.
+    """Multi-layer GRU, unidirectional (``layer_{i}_fwd``) or
+    bidirectional (``layer_{i}_bi``, each layer after the first reading
+    the 2H features of the one before).
 
     ``use_pallas`` comes from the JAX package's configs and has no effect:
     on CUDA the port always runs the GRU kernels, on the CPU their plain
@@ -72,16 +122,19 @@ class StackedGRU(nn.Module, Configurable):
                  bidirectional=False, use_pallas=False, input_size=None):
         super().__init__()
         self.train(False)  # the JAX default: training=False
-        if bidirectional:
-            raise NotImplementedError(
-                'bidirectional GRU layers are not ported yet')
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.bias = bias
         self.dropout = dropout
+        self.bidirectional = bidirectional
         self.input_size = None
         if input_size is not None:
             self.build(input_size)
+
+    @property
+    def output_size(self):
+        return 2 * self.hidden_size if self.bidirectional else \
+            self.hidden_size
 
     def build(self, input_size):
         """Create the layers for ``input_size`` input features (configs
@@ -91,15 +144,18 @@ class StackedGRU(nn.Module, Configurable):
                 raise ValueError(f'StackedGRU built for {self.input_size} '
                                  f'input features, asked for {input_size}')
             return
+        layer, suffix = ((BiGRULayer, 'bi') if self.bidirectional
+                         else (GRULayer, 'fwd'))
         for i in range(self.num_layers):
-            self.add_module(f'layer_{i}_fwd', GRULayer(
-                self.hidden_size, input_size if i == 0 else self.hidden_size,
+            self.add_module(f'layer_{i}_{suffix}', layer(
+                self.hidden_size, input_size if i == 0 else self.output_size,
                 self.bias))
         self.input_size = input_size
 
     @property
     def gru_layers(self):
-        return [getattr(self, f'layer_{i}_fwd')
+        suffix = 'bi' if self.bidirectional else 'fwd'
+        return [getattr(self, f'layer_{i}_{suffix}')
                 for i in range(self.num_layers)]
 
     def check_dropout(self):
@@ -107,15 +163,17 @@ class StackedGRU(nn.Module, Configurable):
         check_dropout(self, self.dropout if self.num_layers > 1 else 0.)
 
     def forward(self, x, seq_len=None):
+        """``seq_len`` (None: every sequence full) places the backward
+        direction's reversal in a bidirectional GRU."""
         self.check_dropout()
         h = x
         for layer in self.gru_layers:
-            h = layer(h)
+            h = layer(h, seq_len) if self.bidirectional else layer(h)
         return h
 
 
 class GRU(nn.Module, Configurable):
-    """GRU + output net, the FBCRNN's recurrent head.
+    """GRU + output net, the recurrent head of the FBCRNN and the BiCRNN.
 
     ``reverse=True`` is the backward head: the input is sequence-reversed
     before the recurrence and the output reversed back, so ``y[t]``
@@ -129,7 +187,7 @@ class GRU(nn.Module, Configurable):
         self.output_net = output_net
         self.reverse = reverse
         if rnn is not None:
-            output_net.build(rnn.hidden_size)
+            output_net.build(rnn.output_size)
 
     @classmethod
     def finalize_dogmatic_config(cls, config):
@@ -188,6 +246,7 @@ def paired_heads(head_f, head_b):
         if isinstance(core, StackedGRU):
             core.check_dropout()
     return (isinstance(cf, StackedGRU) and isinstance(cb, StackedGRU)
+            and not (cf.bidirectional or cb.bidirectional)
             and cf.num_layers == cb.num_layers
             and cf.hidden_size == cb.hidden_size)
 

@@ -46,6 +46,7 @@ def gen():
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
     (1, 7, 5, 1, 16, 3, 3),      # entry layer, ragged pixel tile
     (2, 9, 6, 5, 32, 3, 3),      # Cin off the 8-wide vector path
+    (2, 9, 16, 11, 16, 3, 3),    # the tag-conditioned entry layer
     (2, 11, 8, 24, 48, 5, 3),    # Cin not a multiple of 16, Cout 48
     (1, 4, 3, 16, 64, 1, 3),     # kt = 1
     (2, 5, 8, 256, 512, 3, 3),   # deep L16's channels, ragged pixel tile
@@ -184,6 +185,7 @@ def _max_err(got, ref):
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
     (1, 7, 5, 1, 16, 3, 3),      # Cin = 1 dx, odd B*T*F = 35
     (2, 9, 6, 5, 32, 3, 3),      # Cin off the vector width
+    (2, 9, 16, 11, 16, 3, 3),    # the tag-conditioned entry layer's dx
     (3, 13, 8, 24, 48, 5, 3),    # Cout 48, kt = 5, B*T*F = 312
     (2, 50, 16, 128, 256, 3, 3), # the layer-9 channel counts
     (2, 9, 8, 256, 512, 3, 3),   # deep L16

@@ -178,18 +178,35 @@ def test_jax_keys_are_the_ports(models):
 
 def test_unported_recipes_raise():
     """The deep recipe (residual skips, 3x3/1x1 towers, H = 512) builds at
-    full width; what is still unported raises instead of building a
-    different network: a bidirectional GRU head, dropout in training."""
+    full width, and so do its bidirectional GRU heads, with the JAX
+    module's flat keys and shapes (built abstractly with
+    ``jax.eval_shape``); what is still unported raises instead of building
+    a different network: dropout in training."""
+    from pb_sed_tpu.models.net_configs import fbcrnn_config as jax_config
     deep = tweak.CRNN.from_config(tweak.CRNN.get_config(
         fbcrnn_config('deep', num_events=527)), device='cpu')
     module = deep.module
     assert module.cnn.cnn_2d.residuals[2] == 4
     assert module.rnn_fwd.rnn.hidden_size == 512
     assert module.rnn_bwd.output_net.conv_1.kernel.shape == (1, 512, 527)
-    config = fbcrnn_config('deep', num_events=527)
-    config['rnn_fwd']['rnn']['bidirectional'] = True
-    with pytest.raises(NotImplementedError):
-        tweak.CRNN.from_config(tweak.CRNN.get_config(config), device='cpu')
+    configs = [fbcrnn_config('deep', num_events=527),
+               jax_config('deep', num_events=527)]
+    for config in configs:
+        config['rnn_fwd']['rnn']['bidirectional'] = True
+    bidi = tweak.CRNN.from_config(tweak.CRNN.get_config(configs[0]),
+                                  device='cpu')
+    jmodel = jweak.CRNN.from_config(jweak.CRNN.get_config(configs[1]))
+    batch = {'audio_data': jax.ShapeDtypeStruct((1, 16000), np.float32),
+             'seq_len': jax.ShapeDtypeStruct((1,), np.int32)}
+    tree = jax.eval_shape(lambda b: jmodel.module.init(
+        {'params': jax.random.PRNGKey(0)}, b, training=False), batch)
+    shapes = {jax.tree_util.keystr(path, simple=True, separator='.'):
+              tuple(leaf.shape) for path, leaf in
+              jax.tree_util.tree_flatten_with_path(dict(tree))[0]}
+    assert {k: v.shape for k, v in bidi.state_dict().items()} == shapes
+    assert shapes['params.rnn_bwd.rnn.layer_1_bi.w_ih'] == (2, 1024, 1536)
+    assert shapes['params.rnn_fwd.output_net.conv_0.kernel'] == (1, 1024,
+                                                                  512)
     module.cnn.cnn_1d.dropout = .1
     module.train()
     batch = {'audio_data': np.zeros((1, 16000), np.float32),

@@ -9,8 +9,9 @@ card unless the caller asks for the CPU. ``chip_smoke.py`` refuses to
 run without a CUDA card. And a run directory written by the JAX
 ``Trainer`` (optax state and a JAX rng key in its checkpoints) restores in
 that process: the model serves the JAX model's scores, the port's trainer
-resumes with Adam's moments. The training CLI, chained into tuning and
-inference, runs there too."""
+resumes with Adam's moments; a strong-label run directory of the JAX
+``Trainer`` serves there too. The weak and the strong training CLIs,
+chained into tuning and inference, run there."""
 import ast
 import os
 import pickle
@@ -86,11 +87,20 @@ for name in ('data.provider', 'data.cache', 'database.desed.provider',
              'experiments.core', 'experiments.weak_label_crnn.training',
              'experiments.weak_label_crnn.tuning',
              'experiments.weak_label_crnn.inference',
+             'models.strong_label.crnn',
+             'experiments.strong_label_crnn.training',
+             'experiments.strong_label_crnn.tuning',
+             'experiments.strong_label_crnn.inference',
              'utils.nested', 'utils.random', 'paths'):
     assert 'pb_sed_tpu_torch.' + name in names, name
 from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
 cfg = ex.build_config({'timestamp': 't', 'debug': True})
 assert cfg['trainer']['model']['factory'] is CRNN
+from pb_sed_tpu_torch.experiments.strong_label_crnn import training
+from pb_sed_tpu_torch.models import strong_label
+cfg = training.ex.build_config({'timestamp': 't', 'debug': True})
+assert cfg['trainer']['model']['factory'] is strong_label.CRNN
+assert cfg['trainer']['model']['rnn']['rnn']['bidirectional'] is True
 assert len(build.LAUNCHES) == 11
 assert all(v == 0 for v in build.LAUNCHES.values())
 loaded = [n for n, m in sys.modules.items() if m is not None and (
@@ -169,6 +179,45 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert unplaced.device is None
 
 
+def test_strong_entry_points_default_to_the_card(tmp_path):
+    """The strong-label model's entry points go to the card as the weak
+    one's do: ``from_config`` / ``from_storage_dir`` without a device, the
+    inference functions and the trainer on a model built without one,
+    and the strong training experiment's ``device`` config is None (the
+    card)."""
+    from pb_sed_tpu_torch.experiments.strong_label_crnn import training
+    from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.models.base.model import default_device
+    from pb_sed_tpu_torch.models.strong_label import CRNN
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    from pb_sed_tpu_torch.utils.config import instantiate
+    from tests.test_torch_strong import CONFIG
+    config = CRNN.get_config(dict(CONFIG, tag_conditioning=True))
+    assert CRNN.from_config(config, device='cpu').device.type == 'cpu'
+    assert training.ex.build_config({'timestamp': 't'})['device'] is None
+    unplaced = instantiate(config)
+    assert unplaced.device is None
+    batch = {'audio_data': np.zeros((1, 1600), np.float32),
+             'seq_len': np.array([10], np.int32),
+             'tag_condition': np.ones((1, 5), np.float32)}
+    if torch.cuda.is_available():
+        assert default_device().type == 'cuda'
+        assert CRNN.from_config(config).device.type == 'cuda'
+        return
+    train = dict(batch, strong_targets=np.zeros((1, 5, 10), np.float32))
+    calls = [lambda: CRNN.from_config(config),
+             lambda: CRNN.from_storage_dir(
+                 tmp_path,
+                 checkpoint_name='ckpt_best_macro_fscore_strong.pkl'),
+             lambda: base.sound_event_detection(
+                 unplaced, [dict(batch, example_id=['a'])]),
+             lambda: Trainer(unplaced).train_step(train)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert unplaced.device is None
+
+
 def test_package_data_ships_every_kernel_source():
     """An installed port builds its kernels from the packaged ``csrc/``:
     every file there (headers included) must match a package-data glob
@@ -200,7 +249,8 @@ def test_every_subpackage_of_the_port_is_packaged():
                for p in (REPO / 'pb_sed_tpu_torch').rglob('*.py')}
     assert holding <= found, sorted(holding - found)
     for name in ('data', 'database.desed', 'database.audioset', 'evaluation',
-                 'experiments.weak_label_crnn'):
+                 'experiments.weak_label_crnn', 'models.strong_label',
+                 'experiments.strong_label_crnn'):
         assert f'pb_sed_tpu_torch.{name}' in found, name
 
 
@@ -483,3 +533,144 @@ def test_training_cli_chain_runs_without_jax_and_pandas(tmp_path):
     assert out.returncode == 0, out.stderr[-4000:]
     assert '##### Training #####' in out.stdout
     assert 'CHAIN_OK' in out.stdout
+
+
+# Runs where the JAX package, jax, flax, optax and pandas cannot be
+# imported: argv[1] is a strong-label run directory of the JAX
+# ``Trainer`` with ``expected.npz`` (a tag-conditioned batch and the JAX
+# model's frame scores for it) beside it.
+STRONG_CHECKPOINT_SCRIPT = r'''
+import sys
+for name in BLOCKED:
+    sys.modules[name] = None
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from pb_sed_tpu_torch.models.strong_label import CRNN
+from pb_sed_tpu_torch.train.trainer import Trainer
+storage = Path(sys.argv[1])
+expected = np.load(storage / 'expected.npz')
+model = CRNN.from_storage_dir(
+    storage, checkpoint_name='ckpt_best_macro_fscore_strong.pkl',
+    device='cpu')
+assert model.tag_conditioning
+batch = {k: expected[k] for k in ('audio_data', 'seq_len', 'tag_condition')}
+scores, seq_len = model.sound_event_detection(batch)
+ref = expected['scores']
+assert scores.shape == ref.shape, (scores.shape, ref.shape)
+np.testing.assert_array_equal(seq_len, batch['seq_len'])
+assert np.abs(scores - ref).max() <= 1e-4 + 3e-2 * np.abs(ref).max()
+trainer = Trainer(model, storage_dir=storage,
+                  checkpoint_trigger=(1000, 'iteration'))
+assert trainer.load_latest_checkpoint()
+assert trainer.iteration == 2 and trainer.opt_state['count'] == 2
+train_batch = dict(batch, strong_targets=expected['strong_targets'])
+assert np.isfinite(float(trainer.train_step(train_batch)))
+loaded = [n for n, m in sys.modules.items() if m is not None and (
+    n.split('.')[0] in BLOCKED)]
+assert not loaded, loaded
+print('STRONG_CHECKPOINT_OK')
+'''.replace('BLOCKED', repr(BLOCKED))
+
+
+def test_jax_strong_run_serves_without_jax(tmp_path):
+    """A run directory of the JAX ``Trainer`` for the tiny tag-conditioned
+    BiCRNN of ``tests/test_torch_strong.py`` (2 steps on the CPU, its
+    config naming the JAX classes, checkpoints with the optax state)
+    restores through the port's ``from_storage_dir`` where the JAX
+    package, jax, flax, optax and pandas cannot be imported, scores a
+    batch as the JAX model does (``1e-4 + 3e-2 * max|ref|``) and resumes
+    for a step."""
+    import jax
+    from pb_sed_tpu.models import strong_label as jstrong
+    from pb_sed_tpu.train.optimizer import Adam as JaxAdam
+    from pb_sed_tpu.train.trainer import Trainer as JaxTrainer
+    from pb_sed_tpu.utils.config import config_to_json
+    from pb_sed_tpu.utils.misc import dump_json
+    from pb_sed_tpu_torch import bridge
+    from tests.test_torch_strong import _arrays, _batch, _config
+    config = jstrong.CRNN.get_config(_config(True))
+    model = jstrong.CRNN.from_config(config)
+    model.variables = jax.jit(lambda b: model.module.init(
+        {'params': jax.random.PRNGKey(0)}, b, training=False))(
+            _arrays(_batch(0)))
+    model.load_state_dict(bridge.random_flat(model.state_dict(), 7))
+    trainer = JaxTrainer(model, optimizer=JaxAdam(lr=1e-3),
+                         storage_dir=tmp_path, use_mesh=False,
+                         stop_trigger=(2, 'iteration'))
+    trainer.train([_arrays(_batch(seed)) for seed in (1, 2)])
+    trainer.save_checkpoint(name='ckpt_best_macro_fscore_strong.pkl')
+    dump_json({'trainer': {'model': config_to_json(config)}},
+              tmp_path / '1' / 'config.json')
+    batch = _arrays(_batch(4))
+    serve = {k: batch[k] for k in ('audio_data', 'seq_len', 'tag_condition')}
+    np.savez(tmp_path / 'expected.npz', **batch,
+             scores=np.asarray(model.sound_event_detection(serve)[0]))
+    out = subprocess.run([sys.executable, '-c', STRONG_CHECKPOINT_SCRIPT,
+                          str(tmp_path)], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert 'STRONG_CHECKPOINT_OK' in out.stdout
+
+
+# ``python -m pb_sed_tpu_torch.experiments.strong_label_crnn.training
+# with <argv[1], a JSON list of key=value>`` where the JAX package, jax,
+# flax, optax and pandas cannot be imported (the finder of CHAIN_SCRIPT):
+# it trains, tunes and runs inference on eval_public; the tuning and
+# inference directories go under $STORAGE_ROOT.
+STRONG_CHAIN_SCRIPT = CHAIN_SCRIPT[:CHAIN_SCRIPT.index('runpy.run_module')] \
+    + r'''
+runpy.run_module('pb_sed_tpu_torch.experiments.strong_label_crnn.training',
+                 run_name='__main__', alter_sys=True)
+root = Path(os.environ['STORAGE_ROOT']) / 'strong_label_crnn' / 'desed'
+(hp_dir,) = (root / 'hyper_params').iterdir()
+names = sorted(p.name for p in hp_dir.glob('sed_hyper_params_*.json'))
+assert names == ['sed_hyper_params_f.json', 'sed_hyper_params_psds1.json',
+                 'sed_hyper_params_psds2.json'], names
+(run,) = (hp_dir / 'inference').iterdir()
+results = sorted(p.name for p in run.glob('sed_*.json'))
+assert results == ['sed_f_results_eval_public.json',
+                   'sed_psds1_results_eval_public.json'], results
+loaded = [n for n, m in sys.modules.items() if m is not None and (
+    n.split('.')[0] in BLOCKED)]
+assert not loaded, loaded
+print('STRONG_CHAIN_OK')
+'''.replace('BLOCKED', repr(BLOCKED))
+
+
+def test_strong_cli_chain_runs_without_jax_and_pandas(tmp_path):
+    """``python -m pb_sed_tpu_torch.experiments.strong_label_crnn.training
+    with device=cpu ...`` (the tiny configuration of
+    ``tests/test_torch_strong_cli.py``, a weak ensemble of one 2-iteration
+    run) trains, tunes with the debug median filter and runs inference on
+    ``eval_public``, in a process where the JAX package, jax, flax, optax
+    and pandas cannot be imported."""
+    import json
+    from tests.test_torch_cli import TS
+    from tests.test_torch_strong_cli import (strong_updates,
+                                             weak_hyper_params_dir)
+    from tests.util_synth import build_database
+    _, json_path = build_database(tmp_path / 'db', num_train=8, num_weak=6,
+                                  num_validate=4)
+    weak_hp_dir = weak_hyper_params_dir(tmp_path, json_path)
+    updates = strong_updates(json_path, tmp_path / 'strong' / TS / TS,
+                             weak_hp_dir)
+    del updates['validation_set_name']
+
+    def flat(node, prefix=''):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from flat(value, f'{prefix}{key}.')
+            else:
+                yield f'{prefix}{key}={value!r}'
+
+    env = dict(os.environ, STORAGE_ROOT=str(tmp_path / 'exp'),
+               OMP_NUM_THREADS='2')
+    out = subprocess.run(
+        [sys.executable, '-c', STRONG_CHAIN_SCRIPT,
+         json.dumps(list(flat(updates)))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert '##### Training #####' in out.stdout
+    assert 'STRONG_CHAIN_OK' in out.stdout
