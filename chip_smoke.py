@@ -170,10 +170,36 @@ runs, in order:
    and inference (engine and evaluation), pools, clips/s of each engine
    call, peak memory; all of it as JSON.
 
+10. the stacked ensemble (``models/base/ensemble.py``). 10a: the
+   member-axis conv forward, plain and BN+ReLU-fused, at the shallow
+   tower's shapes with 10 members and the deep tower's with 3 (L0 on the
+   narrow kernel): ONE launch must equal M single launches in every bit
+   and lie within the conv's tolerance of its plain version; per layer
+   the ms of the one launch, of M single launches, of the plain version,
+   of cuDNN's grouped conv (``groups=M``) and the bound. The GRU forward
+   at D = 2N, (20, 32, 500, 256), (20, 16, 500, 256), one SED chunk's
+   windows (20, 4 000, 51, 256), (20, 64, 500, 256) and two members' SED
+   windows over a tuning batch (4, 8 000, 51, 256), under both designs
+   (``gru_scan_as``),
+   each against its plain version, with the design the shape rule
+   (``gru_cluster_takes``) takes. 10b: 10 shallow FBCRNNs (random weights
+   from seeds 0-9) serve phase 3's 3 x 32 clips through ``models.base``'s
+   tagging, boundaries detection and SED 51/1 (a ``StackedEnsemble`` of
+   ``chunk_size`` 8 there), stacked (the engine's default) and with
+   ``auto_stack=False`` (in turn): the two agree within 1e-4 + 3e-2 *
+   max|ref| on every clip (the deviation logged), clips/s, peak memory
+   and launches a batch of both; the stacked lane launches each kernel
+   once per layer and forward whatever the members (the in-turn lane's
+   launches over 10). Then 3 deep 527-class FBCRNNs tag the clips, plain
+   and ``fuse_bn``, checked the same way. Phases 8 and 9b serve their
+   weak ensemble stacked by default (each engine call logs it, and a call
+   that served an ensemble in turn fails the run).
+
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
-serving and training, the strong CLI training and its chain) runs with
-the launch counters set to 0 just before it and read just after.
+serving and training, the strong CLI training and its chain, the stacked
+ensembles) runs with the launch counters set to 0 just before it and
+read just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -199,12 +225,14 @@ from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
     avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
-    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
-    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
+    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_members,
+    bnrelu_conv2d_same_members_plain, bnrelu_conv2d_same_plain, conv2d_same,
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
+    conv2d_same_members_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
     maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_designs, gru_scan,
-                                              gru_scan_bwd,
+                                              gru_scan_as, gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
 from pb_sed_tpu_torch.train.hooks import Hook
@@ -247,6 +275,24 @@ CHAIN_GRU_SHAPES = [(2, BATCH // 2 * FRAMES, 11, 256), (2, BATCH, 250, 256)]
 # of a strong tuning batch (its training batch of 32 is GRU_SHAPES[0])
 STRONG_CONV_LAYERS = [('L0', 128, 11, 16)]
 STRONG_GRU_SHAPES = [(2, BATCH // 2, FRAMES, 256)]
+# phase 10, the stacked ensemble: 10 shallow FBCRNNs (their convs on the
+# member axis at M = 10, their paired heads one GRU at D = 20) and 3 deep
+# ones (M = 3, D = 6 at H = 512); sliding-window SED in chunks of 8 clips
+# (8 x 500 windows a chunk), which keeps the D = 20 recurrence's buffers
+# near 20 GiB
+ENSEMBLE_MEMBERS = 10
+DEEP_MEMBERS = 3
+SED_CHUNK = 8
+# the GRU forward at D = 2N, timed under both designs: tagging (32 clips),
+# a tuning batch (16 clips) and one SED chunk of windows at 51 / 1; and
+# two shapes on either side of the rule's limit of 128 row tiles of 16:
+# 64 clips (80 tiles) and the tuning chain's two members at 51 / 1 over
+# its 16 clips (2 000 tiles)
+ENSEMBLE_GRU_SHAPES = [(2 * ENSEMBLE_MEMBERS, BATCH, FRAMES, 256),
+                       (2 * ENSEMBLE_MEMBERS, BATCH // 2, FRAMES, 256),
+                       (2 * ENSEMBLE_MEMBERS, SED_CHUNK * FRAMES, 51, 256),
+                       (2 * ENSEMBLE_MEMBERS, 2 * BATCH, FRAMES, 256),
+                       (4, BATCH // 2 * FRAMES, 51, 256)]
 # The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
 # design, kernel alone: the parent tree in `scripts/gru_ab.py
 # chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
@@ -449,7 +495,7 @@ def new_record():
 
 
 def _add(record, key, value):
-    record[key] = (record[key] or 0.) + value
+    record[key] = (record.get(key) or 0.) + value
 
 
 def _total(*values):
@@ -1170,7 +1216,7 @@ def _model_class(strong=False):
     return strong_label.CRNN if strong else weak_label.CRNN
 
 
-def _random_flat(config, strong=False):
+def _random_flat(config, strong=False, seed=0):
     """Seeded random weights for ``config``'s CRNN (the weak FBCRNN, or
     with ``strong`` the BiCRNN) in the JAX flat layout, passed once
     through the bridge (``bridge.random_flat``, ``load_flat``,
@@ -1179,7 +1225,7 @@ def _random_flat(config, strong=False):
     cls = _model_class(strong)
     template = cls.from_config(cls.get_config(config), device='cpu')
     template.load_state_dict(bridge.random_flat(template.state_dict(),
-                                                seed=0))
+                                                seed=seed))
     return template.state_dict()
 
 
@@ -1200,12 +1246,14 @@ def _config(net, k, fuse_bn=False, augment=True, strong=1.):
     return config
 
 
-def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5):
+def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5,
+           stats=None):
     """Run ``methods`` (name, function, kwargs) on ``batches`` with the
     launch counters set to 0 first; check that ``kernels`` launched and
     the shapes, finiteness and score range ([low, 1 - low]: the FBCRNN's
     bounded sigmoid, or [0, 1] for the BiCRNN's plain one); return
-    (scores by method, launches)."""
+    (scores by method, launches). ``stats``, a dict, receives the clips/s
+    of each method and the peak memory (GiB)."""
     for name, fn, kwargs in methods:      # warm-up: cuFFT/cuBLAS plans
         fn(model, batches[:1], **kwargs)
     torch.cuda.synchronize()
@@ -1222,6 +1270,10 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5):
         log(f'{label} {name}: {clips} clips in {dt:.3f} s = '
             f'{clips / dt:.1f} clips/s (host clock, inference engine '
             f'included)')
+        if stats is not None:
+            stats[f'{name}_clips_per_s'] = clips / dt
+    if stats is not None:
+        stats['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(build.LAUNCHES)
     log(f'launches in the {label} served run: {launches}')
     log(f'peak device memory ({label} serving): '
@@ -2154,17 +2206,28 @@ def timed_chain(inference=None):
     device memory, and per call of the inference engine
     (``models.base.inference.inference``: the model calls and their post-
     processing into score frames) the method, window lengths, clips and
-    seconds. ``inference`` is the inference experiment's module whose
-    runs are recorded (default: the weak one). Yields the list of
-    records, the tuning run's first, and the functions that open and
-    close a record; the wrapped functions are put back on exit."""
+    seconds, and how many members it served stacked
+    (``models.base.ensemble.maybe_stack``; 0: one model, or in turn).
+    ``inference`` is the inference experiment's module whose runs are
+    recorded (default: the weak one). Yields the list of records, the
+    tuning run's first, and the functions that open and close a record;
+    the wrapped functions are put back on exit."""
     import importlib
     from pb_sed_tpu_torch.evaluation import parallel
+    from pb_sed_tpu_torch.models.base import ensemble
     if inference is None:
         from pb_sed_tpu_torch.experiments.weak_label_crnn import inference
     # the module (``models.base`` exports its function of the same name)
     engine = importlib.import_module('pb_sed_tpu_torch.models.base.inference')
     original_engine, original_run = engine.inference, inference.ex.run
+    original_stack = ensemble.maybe_stack
+    stacked = []
+
+    def stack(models, model_kwargs, mesh=None):
+        models, model_kwargs = original_stack(models, model_kwargs, mesh)
+        stacked.append(len(models[0]) if isinstance(
+            models[0], ensemble.StackedEnsemble) else 0)
+        return models, model_kwargs
 
     def clock():
         torch.cuda.synchronize()
@@ -2198,6 +2261,7 @@ def timed_chain(inference=None):
                 outer['pools_at_start'][key] += record[key]
 
     def run_engine(model, method, dataset, *args, **kwargs):
+        stacked.clear()
         start = clock()
         out = original_engine(model, method, dataset, *args, **kwargs)
         seconds = clock() - start
@@ -2207,7 +2271,8 @@ def timed_chain(inference=None):
                                            else out),
             'window_length': (None if windows is None
                               else np.unique(windows).tolist()),
-            's': seconds})
+            'models': len(model) if isinstance(model, (list, tuple)) else 1,
+            'stacked': stacked[-1] if stacked else 0, 's': seconds})
         return out
 
     def run_inference(config_updates=None):
@@ -2223,11 +2288,13 @@ def timed_chain(inference=None):
     records, open_runs = [], []
     engine.inference = run_engine
     inference.ex.run = run_inference
+    ensemble.maybe_stack = stack
     try:
         yield records, begin, end
     finally:
         engine.inference = original_engine
         inference.ex.run = original_run
+        ensemble.maybe_stack = original_stack
 
 
 def _log_chain_record(record):
@@ -2242,8 +2309,11 @@ def _log_chain_record(record):
     for call in record['engine']:
         windows = ('' if call['window_length'] is None
                    else f' window {call["window_length"]}')
+        lane = (f'{call["stacked"]} members stacked' if call['stacked']
+                else f'{call["models"]} model(s) in turn')
         log(f'  engine {call["method"]}{windows}: {call["clips"]} clips in '
-            f'{call["s"]:.3f} s = {call["clips"] / call["s"]:.1f} clips/s')
+            f'{call["s"]:.3f} s = {call["clips"] / call["s"]:.1f} clips/s, '
+            f'{lane}')
     return {'run': record['run'], 'own_s': own_s, 'model_s': model_s,
             'evaluation_s': own_s - model_s, 'pools': record['pools'],
             'pool_start_s': record['start_s'],
@@ -2366,6 +2436,14 @@ def phase_tuning_chain(tmp, runs):
     log(f'tuning members: {[str(m.relative_to(tmp)) for m in members]}')
     metrics = {'members': len(members), 'pool_start_s': starts,
                'runs': [_log_chain_record(r) for r in records]}
+    # the engine's default stacks the ensemble in every call
+    calls = [c for r in records for c in r['engine']]
+    if len(members) > 1 and any(c['stacked'] != len(members)
+                                for c in calls):
+        raise AssertionError(f'the tuning chain served its {len(members)} '
+                             f'members in turn: {calls}')
+    log(f'tuning chain: {len(calls)} engine calls, each with '
+        f'{len(members)} member(s) {"stacked" if len(members) > 1 else ""}')
     config = _check_hyper_params(hp_dir)
     grids = {key: config[key] for name in HYPER_PARAMS
              for key in HYPER_PARAMS[name].values()}
@@ -2753,6 +2831,13 @@ def phase_strong_chain(tmp, weak_hp_dir, in_memory):
     log(f'strong tuning: median filters {config["medfilt_lengths"]}, '
         f'batch {config["data_provider"]["test_fetcher"]["batch_size"]}, '
         f'weak members {len(config["weak_label_crnn_dirs"])}')
+    calls = [c for r in records for c in r['engine']]
+    ensembles = [c for c in calls if c['models'] > 1]
+    if any(c['stacked'] != c['models'] for c in ensembles):
+        raise AssertionError(f'the strong chain served an ensemble in turn: '
+                             f'{ensembles}')
+    log(f'strong chain: {len(ensembles)} engine calls served the weak '
+        f'ensemble stacked, {len(calls) - len(ensembles)} one model')
     if [r['run'] for r in records] != [
             'weak pseudo-labeling', 'strong tuning', 'inference f+psds1',
             'inference psds2', 'inference f']:
@@ -2791,6 +2876,338 @@ def phase_strong_chain(tmp, weak_hp_dir, in_memory):
     out['peak_gib'] = max(r['peak_gib'] for r in records)
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 10: the stacked ensemble --------------------------------------
+# per conv layer and member count: the member-axis launch beside M single
+# launches, the plain version, cuDNN's grouped conv and the bound (JSON)
+MEMBER_ROWS = []
+# per GRU shape at D = 2N: both designs' ms and the one the rule takes
+MEMBER_GRU_ROWS = []
+
+
+def member_conv_work(m, p, cin, cout, affine=False):
+    """Bytes and operations of M members' SAME 3x3 convs over ``p``
+    pixels each (every member's activations, weights, bias and, fused,
+    scale and shift read once, its output written once)."""
+    nbytes = m * (2 * p * cin + 2 * 9 * cin * cout + 4 * cout + 2 * p * cout
+                  + (8 * cin if affine else 0))
+    return bound(nbytes, m * 2. * p * 9 * cin * cout,
+                 m * 3. * p * cin if affine else 0.)
+
+
+def _grouped(x, w, b):
+    """cuDNN's grouped bf16 conv of M members (the library call, timing
+    only): x (M, B, T, F, Cin) as one (B, M Cin, T, F) channels-last
+    input, w as (M Cout, Cin, 3, 3), ``groups=M``."""
+    m, bsz, t, f, cin = x.shape
+    xn = _nchw(x.permute(1, 2, 3, 0, 4).reshape(bsz, t, f, m * cin)
+               .contiguous())
+    wn = w.to(torch.bfloat16).permute(0, 4, 3, 1, 2).reshape(
+        m * w.shape[-1], cin, 3, 3).contiguous(
+            memory_format=torch.channels_last)
+    return lambda: F.conv2d(xn, wn, b.reshape(-1).to(torch.bfloat16),
+                            padding=1, groups=m)
+
+
+def check_member_kernels(records, label, seed, m, convs, fused):
+    """The member-axis conv forward (plain and BN+ReLU-fused at the layers
+    ``fused``) at ``m`` members and one model's shapes (B=32, T=500): ONE
+    launch must equal m single launches in every bit (each tile's K order
+    does not depend on M) and lie within the conv's tolerance of the
+    plain version; logged per layer with the ms of the member-axis
+    launch, of m single launches, of the plain version, of cuDNN's grouped
+    conv (plain conv only; the fused one has no single library call) and
+    the bound. The errors join the kernels' ``max_abs_err``, the times the
+    records' ``member_*`` sums."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for layer, f, cin, cout in convs:
+        x = randn(m, BATCH, FRAMES, f, cin).to(torch.bfloat16)
+        w = randn(m, 3, 3, cin, cout, scale=(9 * cin) ** -.5)
+        b = randn(m, cout, scale=.1)
+        scale = .5 + torch.rand(m, cin, generator=gen, device=dev)
+        shift = randn(m, cin, scale=.5)
+        p = BATCH * FRAMES * f
+        runs = [('conv2d_same', conv2d_same_members, conv2d_same,
+                 conv2d_same_members_plain, (), _grouped(x, w, b))]
+        if layer in fused:
+            runs.append(('bnrelu_conv2d_same', bnrelu_conv2d_same_members,
+                         bnrelu_conv2d_same, bnrelu_conv2d_same_members_plain,
+                         (scale, shift), None))
+        for name, members, single, plain, pre, library in runs:
+            def singles():
+                return torch.stack([single(x[i], *(a[i] for a in pre), w[i],
+                                           b[i]) for i in range(m)])
+            got = members(x, *pre, w, b)
+            if not torch.equal(got, singles()):
+                raise AssertionError(f'{name} {layer} at M = {m}: one '
+                                     f'member-axis launch differs from '
+                                     f'{m} single launches')
+            ref = plain(x, *pre, w, b)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tol = 2. ** -7 * float(ref.float().abs().max())
+            del got, ref
+            work = member_conv_work(m, p, cin, cout, affine=bool(pre))
+            row = {'tower': label, 'layer': layer, 'members': m, 'F': f,
+                   'Cin': cin, 'Cout': cout, 'kernel': name,
+                   'max_abs_err': err, 'tol': tol,
+                   'ms': cuda_ms(lambda: members(x, *pre, w, b), reps=5),
+                   'singles_ms': cuda_ms(singles, reps=5),
+                   'plain_ms': cuda_ms(lambda: plain(x, *pre, w, b),
+                                       reps=2, warmup=1),
+                   'library_ms': (None if library is None
+                                  else cuda_ms(library, reps=5)),
+                   'bound_ms': work[0], 'bound_by': work[1]}
+            lib = ('' if row['library_ms'] is None
+                   else f', cuDNN grouped {row["library_ms"]:.3f}')
+            log(f'{name} members {label} {layer} (M={m}, {BATCH}, {FRAMES},'
+                f' {f}, {cin} -> {cout}): bit-equal to {m} single launches;'
+                f' max|d| vs plain {err:.3e} tol {tol:.3e}; one launch '
+                f'{row["ms"]:.3f} ms, {m} launches {row["singles_ms"]:.3f}, '
+                f'plain {row["plain_ms"]:.3f}{lib}, bound '
+                f'{work[0]:.3f} ({work[1]})')
+            if not err <= tol:
+                raise AssertionError(f'{name} {layer} at M = {m}: kernel '
+                                     f'differs from plain by {err} > {tol}')
+            rec = records[name]
+            rec['max_abs_err'] = max(rec['max_abs_err'], err)
+            for key in ('ms', 'singles_ms', 'plain_ms', 'library_ms',
+                        'bound_ms'):
+                if row[key] is not None:
+                    _add(rec, f'member_{label}_{key}', row[key])
+            MEMBER_ROWS.append(row)
+        del x
+        torch.cuda.empty_cache()
+
+
+def check_member_gru(records):
+    """The GRU forward at D = 2N (``ENSEMBLE_GRU_SHAPES``) under both
+    designs (``gru_scan_as``), each against the plain version (5.3e-3),
+    with the ms of each, the design the rule takes
+    (``gru_cluster_takes``) and the bound; the errors join
+    ``max_abs_err``."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for d, b, t, h in ENSEMBLE_GRU_SHAPES:
+        xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w_hh = torch.randn(d, h, 3 * h, generator=gen, device=dev) * h ** -.5
+        b_hh = torch.randn(d, 3 * h, generator=gen, device=dev) * .1
+        h0 = torch.zeros(d, b, h, device=dev)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        row = {'shape': (d, b, t, h),
+               'takes': gru_designs(d, b, t, h)['fwd']['design'],
+               'bound_ms': gru_work(d, b, t, h)[0]}
+        for design in ('cluster', 'row_tiled'):
+            y = gru_scan_as(design, xw, w_hh, b_hh, h0)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            del y
+            if not err <= 5.3e-3:
+                raise AssertionError(f'gru_scan {design} at {(d, b, t, h)} '
+                                     f'differs from plain by {err}')
+            records['gru_scan']['max_abs_err'] = max(
+                records['gru_scan']['max_abs_err'], err)
+            row[f'{design}_ms'] = cuda_ms(
+                lambda: gru_scan_as(design, xw, w_hh, b_hh, h0), reps=3)
+            row[f'{design}_max_abs_err'] = err
+        rec = records['gru_scan']
+        _add(rec, 'member_ms', row[f'{row["takes"]}_ms'])
+        _add(rec, 'member_cluster_ms', row['cluster_ms'])
+        _add(rec, 'member_row_tiled_ms', row['row_tiled_ms'])
+        _add(rec, 'member_bound_ms', row['bound_ms'])
+        faster = min(('cluster', 'row_tiled'), key=lambda k: row[f'{k}_ms'])
+        log(f'gru_scan at D = 2N {(d, b, t, h)}: cluster '
+            f'{row["cluster_ms"]:.3f} ms, row-tiled {row["row_tiled_ms"]:.3f}'
+            f' ms (max|d| vs plain {row["cluster_max_abs_err"]:.2e}, '
+            f'{row["row_tiled_max_abs_err"]:.2e}); the rule takes '
+            f'{row["takes"]}, the faster is {faster}; bound '
+            f'{row["bound_ms"]:.3f} ms')
+        MEMBER_GRU_ROWS.append(row)
+        del xw, ref
+        torch.cuda.empty_cache()
+
+
+def _members(config, n, seed0=0):
+    """``n`` models of ``config`` on the card, member i with the seeded
+    random weights of seed ``seed0 + i``."""
+    return [_model(config, _random_flat(config, seed=seed0 + i), 'cuda')
+            for i in range(n)]
+
+
+def _lanes(members, methods, batches, k, label, expected, chunk=None):
+    """Serve ``methods`` stacked (the engine's default, or a
+    ``StackedEnsemble`` of ``chunk`` clips a chunk for SED) and with the
+    members in turn (``auto_stack=False``); the two within 1e-4 +
+    3e-2 * max|ref| on every clip (the deviation logged); clips/s, peak
+    memory and launches of both. The stacked lane launches each kernel
+    once per layer and forward (one forward a batch, or a chunk), whatever
+    the members: per method its launches of each kernel in ``expected``
+    must be ``expected[kernel]`` a forward, and of every kernel the
+    in-turn lane's divided by the members (times the chunks a batch).
+    Returns (the measurements, the stacked lanes' launches summed over
+    the methods)."""
+    from pb_sed_tpu_torch.models.base.ensemble import StackedEnsemble
+    n = len(members)
+    out = {}
+    total = {name: 0 for name in KERNELS}
+    for name, fn, kwargs in methods:
+        windows = 'window_length' in kwargs.get('model_kwargs', {})
+        stacked = ([StackedEnsemble(members, chunk_size=chunk)]
+                   if windows and chunk else members)
+        lanes = {}
+        for lane, model, extra in (
+                ('stacked', stacked, {}),
+                ('in_turn', members, {'auto_stack': False})):
+            stats = {}
+            results, launches = _serve(model, [(name, fn, kwargs | extra)],
+                                       batches, k, f'{label} {lane}',
+                                       stats=stats)
+            lanes[lane] = (results[name], launches, stats)
+        chunks = BATCH // chunk if windows and chunk else 1
+        forwards = len(batches) * chunks
+        stacked_launches = lanes['stacked'][1]
+        for kernel, per_forward in expected.items():
+            if stacked_launches[kernel] != per_forward * forwards:
+                raise AssertionError(
+                    f'{label} {name} stacked: {kernel} launched '
+                    f'{stacked_launches[kernel]} times for {forwards} '
+                    f'forwards, not {per_forward} each')
+        for kernel, count in stacked_launches.items():
+            total[kernel] += count
+            if count * n != lanes['in_turn'][1][kernel] * chunks:
+                raise AssertionError(
+                    f'{label} {name}: {kernel} launched {count} times '
+                    f'stacked, {lanes["in_turn"][1][kernel]} in turn by '
+                    f'{n} members')
+        worst, worst_err = 0., 0.
+        for clip, ref in lanes['in_turn'][0].items():
+            got = lanes['stacked'][0][clip]
+            err = float(np.abs(got - ref).max())
+            tol = 1e-4 + 3e-2 * float(np.abs(ref).max())
+            worst, worst_err = max(worst, err / tol), max(worst_err, err)
+            if not err <= tol:
+                raise AssertionError(f'{label} {name} {clip}: stacked and '
+                                     f'in-turn scores differ by {err} > '
+                                     f'{tol}')
+        row = {'members': n, 'max_abs_dev': worst_err,
+               'worst_dev_over_tol': worst}
+        for lane, (_, launches, stats) in lanes.items():
+            row[lane] = {'clips_per_s': stats[f'{name}_clips_per_s'],
+                         'peak_gib': stats['peak_gib'],
+                         'launches_per_batch': {
+                             key: v / len(batches)
+                             for key, v in launches.items() if v}}
+        stacked_cps = row['stacked']['clips_per_s']
+        in_turn_cps = row['in_turn']['clips_per_s']
+        log(f'{label} {name}, {n} members: stacked {stacked_cps:.1f} '
+            f'clips/s vs in turn {in_turn_cps:.1f} '
+            f'({stacked_cps / in_turn_cps:.2f}x);'
+            f' peak {row["stacked"]["peak_gib"]:.2f} vs '
+            f'{row["in_turn"]["peak_gib"]:.2f} GiB; launches a batch '
+            f'{row["stacked"]["launches_per_batch"]} vs '
+            f'{row["in_turn"]["launches_per_batch"]}; max|stacked - in '
+            f'turn| {worst_err:.3e} ({worst:.3f} of the tolerance)')
+        out[name] = row
+    return out, total
+
+
+def _profile_lanes(members, batch):
+    """Where a batch's time goes: one batch of 32 clips tagged by a
+    ``StackedEnsemble`` built once (its stacking timed apart) and by the
+    members in turn, each on the host clock (after a synchronize, no
+    profiler) and under ``torch.profiler``: the device's busy ms (the
+    kernels' self time summed), the idle share of the host-clock time and
+    the five largest kernels."""
+    from pb_sed_tpu_torch.models.base.ensemble import StackedEnsemble
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    runner = StackedEnsemble(members)
+    torch.cuda.synchronize()
+    out = {'stack_s': time.perf_counter() - start}
+    lanes = {'stacked': lambda: runner.tagging(batch),
+             'in_turn': lambda: [m.tagging(batch) for m in members]}
+    for lane, fn in lanes.items():
+        fn()
+        torch.cuda.synchronize()
+        collect_garbage()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - start)
+        rows = profile_kernels(fn)
+        busy = sum(ms for ms, _, _ in rows)
+        out[lane] = {'wall_ms': wall, 'busy_ms': busy,
+                     'idle': 1. - busy / wall,
+                     'top': [(key[:70], ms, n) for ms, key, n in rows[:5]]}
+        log(f'profile, tagging one batch of {BATCH} clips by {len(members)} '
+            f'members {lane}: {wall:.1f} ms host clock, device busy '
+            f'{busy:.1f} ms (idle {out[lane]["idle"]:.0%}); largest '
+            f'kernels: ' + '; '.join(f'{k} {ms:.2f} ms x{n}'
+                                      for k, ms, n in out[lane]['top']))
+    log(f'stacking {len(members)} members (same_architecture, the stacked '
+        f'state): {out["stack_s"]:.3f} s')
+    return out
+
+
+def phase_stacked_ensemble(records):
+    """Phase 10: the member-axis conv kernels at the shallow tower's
+    shapes with 10 members and the deep tower's with 3 (10a), the GRU at
+    D = 2N under both designs, then the served lanes (10b). Returns the
+    measurements and, under ``launches``, the launch counts of the
+    stacked lanes."""
+    build.reset_launches()
+    check_member_kernels(records, 'shallow', 30, ENSEMBLE_MEMBERS,
+                         CONV_LAYERS, [name for name, *_ in CONV_LAYERS[1:]])
+    check_member_kernels(records, 'deep', 31, DEEP_MEMBERS, DEEP_CONV_LAYERS,
+                         [name for name, *_ in DEEP_CONV_LAYERS[1:]])
+    check_member_gru(records)
+    log('member-axis conv layers (JSON): ' + json.dumps(MEMBER_ROWS))
+    log('gru at D = 2N (JSON): ' + json.dumps(MEMBER_GRU_ROWS))
+    launches, served = phase_ensemble()
+    return {'launches': launches, 'served': served,
+            'gru': MEMBER_GRU_ROWS}
+
+
+def phase_ensemble():
+    """Phase 10b: 10 full-width shallow FBCRNNs (seeds 0-9) serve phase
+    3's 3 x 32 clips through ``models.base``'s tagging, boundaries
+    detection and SED 51/1 (stacked in chunks of ``SED_CHUNK`` clips),
+    stacked and in turn; then 3 deep 527-class FBCRNNs tag them, plain
+    and ``fuse_bn``. Returns the launch counts of the stacked shallow
+    runs, of the stacked deep runs, and the measurements."""
+    from pb_sed_tpu_torch.models import base
+    config = _config('shallow', 10)
+    members = _members(config, ENSEMBLE_MEMBERS)
+    batches = _synthetic_batches(members[0].module.feature_extractor.stft)
+    out, launches = {}, {}
+    out['shallow'], launches['ensemble_shallow'] = _lanes(
+        members, _methods(base)[:3], batches, 10, 'ensemble shallow',
+        {'conv2d_same': len(CONV_LAYERS), 'maxpool_freq2': len(POOLS),
+         'gru_scan': 2}, chunk=SED_CHUNK)
+    out['shallow_profile'] = _profile_lanes(members, batches[0])
+    del members
+    torch.cuda.empty_cache()
+    for fuse_bn in (False, True):
+        config = _config('deep', 527, fuse_bn=fuse_bn)
+        members = _members(config, DEEP_MEMBERS, seed0=20)
+        key = 'deep_fuse_bn' if fuse_bn else 'deep'
+        expected = ({'conv2d_same': 1, 'bnrelu_conv2d_same': 8} if fuse_bn
+                    else {'conv2d_same': len(DEEP_CONV_LAYERS),
+                          'maxpool_freq2': len(DEEP_POOLS),
+                          'avgpool_freq2': len(DEEP_CROSSINGS)})
+        out[key], launches[f'ensemble_{key}'] = _lanes(
+            members, _methods(base)[:1], batches, 527, f'ensemble {key}',
+            expected)
+        del members
+        torch.cuda.empty_cache()
+    return launches, out
 
 
 def _descendants():
@@ -2848,10 +3265,13 @@ def stop_processes():
 
 
 def main():
+    start = time.perf_counter()
     try:
         card, kernels = run()
     finally:
         stop_processes()
+    log(f'chip_smoke.py ran {time.perf_counter() - start:.1f} s '
+        f'(the kernels\' build included)')
     print(card)                           # nvidia-smi name, power.limit
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -2904,6 +3324,9 @@ def run():
         launches.update(strong_chain.pop('launches'))
     log('strong phase (JSON): ' + json.dumps(strong))
     log('strong chain (JSON): ' + json.dumps(strong_chain))
+    ensemble = phase_stacked_ensemble(records)
+    launches.update(ensemble.pop('launches'))
+    log('stacked ensemble (JSON): ' + json.dumps(ensemble))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:
@@ -2924,7 +3347,9 @@ def run():
             'library_ms': rec['library_ms'],
             **{key: rec[key] for key in (
                 'shallow_ms', 'shallow_plain_ms', 'shallow_library_ms',
-                'deep_ms', 'deep_plain_ms', 'deep_library_ms')}})
+                'deep_ms', 'deep_plain_ms', 'deep_library_ms')},
+            **{key: v for key, v in rec.items()
+               if key.startswith('member_')}})
     return card, kernels
 
 

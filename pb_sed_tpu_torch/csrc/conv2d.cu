@@ -30,55 +30,65 @@
 // once on each staged halo tile (conv2d_wgmma.cuh, AFFINE).
 #include "conv2d_wgmma.cuh"
 
+// A stacked ensemble's members run in the same launch: every operand has a
+// leading member axis of M, and member m's output is what a launch of
+// member m alone gives, bit for bit (each tile's K order does not depend
+// on M or B). Replaces the member grid axis that jax.vmap gives the TPU
+// kernels above (pb_sed_tpu/models/base/ensemble.py).
+
 namespace {
 
-// y = conv(x, w) + b: the wgmma kernel where conv2d_wgmma_ok, else the
-// narrow kernel; with scale and shift (both (Cin,) f32) the input goes
-// through bnrelu on the way (the BN+ReLU-fused conv)
+// y = conv(x, w) + b for M members: the wgmma kernel where
+// conv2d_wgmma_ok, else the narrow kernel; with scale and shift (both
+// (M, Cin) f32) the input goes through bnrelu on the way (the BN+ReLU-fused
+// conv)
 cudaError_t conv2d_gemm(const void* x, const void* w, const void* b, void* y,
-                        int B, int T, int F, int Cin, int N, int kt, int kf,
-                        cudaStream_t stream, const float* scale = nullptr,
+                        int M, int B, int T, int F, int Cin, int N, int kt,
+                        int kf, cudaStream_t stream,
+                        const float* scale = nullptr,
                         const float* shift = nullptr) {
   if (!conv2d_wgmma_ok(F, Cin, N, kt, kf))
     return conv2d_igemm(x, w, b, y, B, T, F, Cin, N, kt, kf, stream, scale,
-                        shift);
+                        shift, M);
   const float* bias = static_cast<const float*>(b);
   if (scale != nullptr)
     return conv2d_wgmma<true>(x, w, bias, scale, shift, y, B, T, F, Cin, N,
-                              kt, kf, stream);
+                              kt, kf, stream, M);
   return conv2d_wgmma<false>(x, w, bias, nullptr, nullptr, y, B, T, F, Cin,
-                             N, kt, kf, stream);
+                             N, kt, kf, stream, M);
 }
 
 }  // namespace
 
-// x (B, T, F, Cin) bf16, w (kt, kf, Cin, Cout) bf16, b (Cout,) f32,
-// y (B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
+// x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
+// f32, y (M, B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
 // Requires odd kt and kf and Cout % 16 == 0. Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same(const void* x, const void* w, const void* b,
-                                 void* y, int B, int T, int F, int Cin,
-                                 int Cout, int kt, int kf, void* stream) {
-  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1)
+                                 void* y, int M, int B, int T, int F,
+                                 int Cin, int Cout, int kt, int kf,
+                                 void* stream) {
+  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1 || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * T * F == 0) return 0;
-  return static_cast<int>(conv2d_gemm(x, w, b, y, B, T, F, Cin, Cout, kt,
+  return static_cast<int>(conv2d_gemm(x, w, b, y, M, B, T, F, Cin, Cout, kt,
                                       kf, static_cast<cudaStream_t>(stream)));
 }
 
-// x (B, T, F, Cin) bf16, w (kt, kf, Cin, Cout) bf16, b (Cout,) f32,
-// scale and shift (Cin,) f32, y (B, T, F, Cout) bf16; all contiguous and
-// 16-byte aligned. Requires odd kt and kf and Cout % 16 == 0. Returns a
-// cudaError_t.
+// x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
+// f32, scale and shift (M, Cin) f32, y (M, B, T, F, Cout) bf16; all
+// contiguous and 16-byte aligned. Requires odd kt and kf and Cout % 16 ==
+// 0. Returns a cudaError_t.
 extern "C" int pbsed_bnrelu_conv2d_same(const void* x, const void* w,
                                         const void* b, const void* scale,
-                                        const void* shift, void* y, int B,
-                                        int T, int F, int Cin, int Cout,
-                                        int kt, int kf, void* stream) {
-  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1)
+                                        const void* shift, void* y, int M,
+                                        int B, int T, int F, int Cin,
+                                        int Cout, int kt, int kf,
+                                        void* stream) {
+  if (kt % 2 == 0 || kf % 2 == 0 || Cout % 16 != 0 || Cin < 1 || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * T * F == 0) return 0;
   return static_cast<int>(conv2d_gemm(
-      x, w, b, y, B, T, F, Cin, Cout, kt, kf,
+      x, w, b, y, M, B, T, F, Cin, Cout, kt, kf,
       static_cast<cudaStream_t>(stream), static_cast<const float*>(scale),
       static_cast<const float*>(shift)));
 }

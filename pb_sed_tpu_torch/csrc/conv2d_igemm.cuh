@@ -17,7 +17,10 @@
 // output channels past N (dx of the entry layer has N = 1) inside the
 // weight tile; the padded products add exact zeros and are never
 // stored. Loads are 16 bytes wide where the channel counts are
-// multiples of 8. No pipelining: at the entry layer its K is 9.
+// multiples of 8. No pipelining: at the entry layer its K is 9. Stacked
+// members (x (M, B, T, F, Cin), w (M, kt, kf, Cin, N), bias (M, N), scale
+// and shift (M, Cin), y (M, B, T, F, N)) are the grid's z axis: block z
+// offsets every operand to member z's and runs the kernel of one member.
 //
 // With AFFINE (the BN+ReLU-fused conv, conv2d.cu's
 // pbsed_bnrelu_conv2d_same and the weight gradient of conv2d_bwd.cu) the
@@ -90,7 +93,7 @@ conv2d_igemm_kernel(const __nv_bfloat16* __restrict__ x,  // (B, T, F, Cin)
                     const float* __restrict__ shift,      // (Cin,) if AFFINE
                     __nv_bfloat16* __restrict__ y,        // (B, T, F, N)
                     int T, int F, int Cin, int N, int kt, int kf,
-                    long long M) {
+                    long long M) {  // M: pixels of one member
   using namespace nvcuda;
   __shared__ __align__(128) __nv_bfloat16 a_tile[kIgemmBM * kIgemmBK];
   __shared__ __align__(128) __nv_bfloat16 b_tile[kIgemmBK * BN];
@@ -100,6 +103,16 @@ conv2d_igemm_kernel(const __nv_bfloat16* __restrict__ x,  // (B, T, F, Cin)
   const int warp = tid / 32;
   const long long m0 = static_cast<long long>(blockIdx.x) * kIgemmBM;
   const int n0 = blockIdx.y * BN;
+  // this block's member: M pixels of it, kt * kf * Cin * N weights
+  const long long mb = blockIdx.z;
+  x += mb * M * Cin;
+  w += mb * kt * kf * Cin * N;
+  y += mb * M * N;
+  if (bias != nullptr) bias += mb * N;
+  if constexpr (AFFINE) {
+    scale += mb * Cin;
+    shift += mb * Cin;
+  }
 
   // input staging: each thread owns one output pixel and 8 of the 16
   // channels of the current K slice
@@ -191,10 +204,11 @@ template <int BN, bool AFFINE>
 cudaError_t conv2d_igemm_launch(const void* x, const void* w, const void* b,
                                 const float* scale, const float* shift,
                                 void* y, int B, int T, int F, int Cin, int N,
-                                int kt, int kf, cudaStream_t stream) {
+                                int kt, int kf, cudaStream_t stream,
+                                int members) {
   const long long M = static_cast<long long>(B) * T * F;
   const dim3 grid(static_cast<unsigned>((M + kIgemmBM - 1) / kIgemmBM),
-                  (N + BN - 1) / BN);
+                  (N + BN - 1) / BN, members);
   conv2d_igemm_kernel<BN, AFFINE><<<grid, kIgemmThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
@@ -206,30 +220,32 @@ template <bool AFFINE>
 cudaError_t conv2d_igemm_n(const void* x, const void* w, const void* b,
                            const float* scale, const float* shift, void* y,
                            int B, int T, int F, int Cin, int N, int kt,
-                           int kf, cudaStream_t stream) {
+                           int kf, cudaStream_t stream, int members) {
   if (N % 64 == 0)
     return conv2d_igemm_launch<64, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                           Cin, N, kt, kf, stream);
+                                           Cin, N, kt, kf, stream, members);
   if (N % 32 == 0)
     return conv2d_igemm_launch<32, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                           Cin, N, kt, kf, stream);
+                                           Cin, N, kt, kf, stream, members);
   return conv2d_igemm_launch<16, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, stream);
+                                         Cin, N, kt, kf, stream, members);
 }
 
 // y = conv(x, w) [+ b] for any N >= 1: the widest tile that divides N,
 // 16 (masked) below that. With scale and shift (both (Cin,) f32) the
-// input is staged through bnrelu (the BN+ReLU-fused conv).
+// input is staged through bnrelu (the BN+ReLU-fused conv). ``members``
+// stacked members in one launch (every operand with a leading member axis).
 inline cudaError_t conv2d_igemm(const void* x, const void* w, const void* b,
                                 void* y, int B, int T, int F, int Cin, int N,
                                 int kt, int kf, cudaStream_t stream,
                                 const float* scale = nullptr,
-                                const float* shift = nullptr) {
+                                const float* shift = nullptr,
+                                int members = 1) {
   if (scale != nullptr)
     return conv2d_igemm_n<true>(x, w, b, scale, shift, y, B, T, F, Cin, N,
-                                kt, kf, stream);
+                                kt, kf, stream, members);
   return conv2d_igemm_n<false>(x, w, b, nullptr, nullptr, y, B, T, F, Cin, N,
-                               kt, kf, stream);
+                               kt, kf, stream, members);
 }
 
 }  // namespace

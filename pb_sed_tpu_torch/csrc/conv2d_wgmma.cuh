@@ -10,7 +10,13 @@
 //
 //    A tile is 128 output pixels (rows x F = 128 whole frequency rows of
 //    one clip, F a power of two) x BN <= 128 output channels; persistent
-//    blocks walk the tiles with the grid's stride. Per K slice of KC in
+//    blocks walk the tiles with the grid's stride. With M members (a
+//    stacked ensemble: x (M, B, T, F, Cin), w (M, kt, kf, Cin, N), bias
+//    (M, N), scale and shift (M, Cin), y (M, B, T, F, N)) the clips of all
+//    members are one (M B)-clip batch of tiles, and a tile takes its
+//    member from its clip: a tile never straddles two clips, so never two
+//    members. The weight map is (M kk, Cin, N), a member's taps at row
+//    member * kk; the bias is staged again when a block's member changes. Per K slice of KC in
 //    {16, 32, 64} input channels the producer stages ONE halo tile
 //    (rows + kt - 1) x (F + kf - 1) x KC with a 4-D TMA box at (c0, -hf,
 //    t0 - ht, b) into a ring of 2-4 stages: TMA zero-fills the coordinates
@@ -384,7 +390,7 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
                     const float* __restrict__ shift,  // (Cin,) if AFFINE
                     __nv_bfloat16* __restrict__ y,    // (B, T, F, N)
                     int B, int T, int F, int Cin, int N, int kt, int kf,
-                    int halo_stride, int hstages) {
+                    int halo_stride, int hstages, int members) {
   constexpr int SWA = KC * 2;               // bytes of a staged pixel row
   constexpr int BW = BN < 64 ? BN : 64;     // weight box width
   constexpr int SWB = BW * 2;               // bytes of a staged weight row
@@ -415,7 +421,8 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
   const int rows = kWgTileM >> fshift;
   const int tiles_t = (T + rows - 1) / rows;
   const int n_tiles = (N + BN - 1) / BN;
-  const int tiles = B * tiles_t * n_tiles;  // walked by the grid in turn
+  // walked by the grid in turn: B clips of each of the members
+  const int tiles = members * B * tiles_t * n_tiles;
   const int kk = kt * kf;
   const int ht = (kt - 1) / 2;
   const int hf = (kf - 1) / 2;
@@ -457,6 +464,7 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
       int it = 0;   // weight stages filled
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int n0 = (tile % n_tiles) * BN;
+        const int w_row = (tile / n_tiles / tiles_t / B) * kk;  // member
         for (int ks = 0; ks < k_slices; ++ks) {
           for (int tap0 = 0; tap0 < kk; tap0 += TPS, ++it) {
             const int bs = it % kWgBStages;
@@ -468,7 +476,7 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
               for (int j = 0; j < BN / BW; ++j)
                 tma_load_3d(wbuf + bs * B_STRIDE + u * B_BYTES + j * KC * SWB,
                             &w_map, &b_full[bs], n0 + j * BW, ks * KC,
-                            tap0 + u);
+                            w_row + tap0 + u);
           }
         }
       }
@@ -484,11 +492,8 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
     const int m_f = m & (F - 1);
     const int kh = lane >> 4;
     uint8_t* ebuf = epi + (wg * 4 + warp) * 16 * BW * 2;
-    // the bias, once per block (zeros past N and without a bias)
-    for (int i = tid; i < (N + BN - 1) / BN * BN; i += 256)
-      sbias[i] = bias != nullptr && i < N ? bias[i] : 0.f;
-    consumer_sync(256);
     uint32_t a[2][KSTEPS][4];
+    int staged = -1;     // the member whose bias sbias holds
     int it = 0;          // weight stages consumed
     int hc = 0;          // halo tiles consumed
     int taps_done = 0;   // taps started: a[taps_done & 1] is the next set
@@ -528,6 +533,17 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
       const int n0 = (tile - mt * n_tiles) * BN;
       const int b = mt / tiles_t;
       const int t0 = (mt - b * tiles_t) * rows;
+      const int member = b / B;
+      if (member != staged) {
+        // the member's bias (zeros past N and without a bias), once per
+        // member a block meets, after every consumer's last epilogue
+        consumer_sync(256);
+        for (int i = tid; i < (N + BN - 1) / BN * BN; i += 256)
+          sbias[i] =
+              bias != nullptr && i < N ? bias[member * N + i] : 0.f;
+        consumer_sync(256);
+        staged = member;
+      }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       for (int ks = 0; ks < k_slices; ++ks, ++hc) {
@@ -536,7 +552,8 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
         mbar_wait(&halo_full[hs], (hc / hstages) & 1);
         if constexpr (AFFINE) {
           bnrelu_halo<SWA>(stage, HR * HF, HF, t0 - ht, -hf, T, F, ks * KC,
-                           Cin, scale, shift, tid, 256);
+                           Cin, scale + member * Cin, shift + member * Cin,
+                           tid, 256);
           consumer_sync(256);
         }
         const uint32_t hbase = smem_u32(stage);
@@ -897,16 +914,17 @@ template <int KC, int BN, bool AFFINE>
 cudaError_t conv2d_wgmma_launch(const void* x, const void* w, const float* b,
                                 const float* scale, const float* shift,
                                 void* y, int B, int T, int F, int Cin, int N,
-                                int kt, int kf, cudaStream_t stream) {
+                                int kt, int kf, cudaStream_t stream,
+                                int members) {
   const int rows = kWgTileM / F;
   CUtensorMap x_map, w_map;
-  cudaError_t err = act_map(&x_map, x, B, T, F, Cin, KC, F + kf - 1,
-                            rows + kt - 1);
+  cudaError_t err = act_map(&x_map, x, members * B, T, F, Cin, KC,
+                            F + kf - 1, rows + kt - 1);
   if (err != cudaSuccess) return err;
   constexpr int BW = BN < 64 ? BN : 64;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(Cin),
-                              static_cast<cuuint64_t>(kt * kf)};
+                              static_cast<cuuint64_t>(members * kt * kf)};
   const cuuint64_t strides[2] = {2ull * N, 2ull * N * Cin};
   const cuuint32_t box[3] = {BW, KC, 1};
   err = make_map(&w_map, w, 3, dims, strides, box, BW * 2);
@@ -930,13 +948,14 @@ cudaError_t conv2d_wgmma_launch(const void* x, const void* w, const float* b,
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 288,
                                                         smem);
   if (err != cudaSuccess) return err;
-  const long long tiles = static_cast<long long>(B) *
+  const long long tiles = static_cast<long long>(members) * B *
                           ((T + rows - 1) / rows) * ((N + BN - 1) / BN);
   const long long blocks = std::min<long long>(
       tiles, static_cast<long long>(std::max(per_sm, 1)) * sms);
   kernel<<<static_cast<unsigned>(blocks), 288, smem, stream>>>(
       x_map, w_map, b, scale, shift, static_cast<__nv_bfloat16*>(y), B, T, F,
-      Cin, N, kt, kf, align1024(halo_bytes(F, kt, kf, 2 * KC)), hstages);
+      Cin, N, kt, kf, align1024(halo_bytes(F, kt, kf, 2 * KC)), hstages,
+      members);
   return cudaGetLastError();
 }
 
@@ -944,38 +963,45 @@ template <int KC, bool AFFINE>
 cudaError_t conv2d_wgmma_bn(const void* x, const void* w, const float* b,
                             const float* scale, const float* shift, void* y,
                             int B, int T, int F, int Cin, int N, int kt,
-                            int kf, cudaStream_t s) {
+                            int kf, cudaStream_t s, int members) {
   switch (wg_bn(N)) {
     case 16:
       return conv2d_wgmma_launch<KC, 16, AFFINE>(x, w, b, scale, shift, y, B,
-                                                 T, F, Cin, N, kt, kf, s);
+                                                 T, F, Cin, N, kt, kf, s,
+                                                 members);
     case 32:
       return conv2d_wgmma_launch<KC, 32, AFFINE>(x, w, b, scale, shift, y, B,
-                                                 T, F, Cin, N, kt, kf, s);
+                                                 T, F, Cin, N, kt, kf, s,
+                                                 members);
     case 64:
       return conv2d_wgmma_launch<KC, 64, AFFINE>(x, w, b, scale, shift, y, B,
-                                                 T, F, Cin, N, kt, kf, s);
+                                                 T, F, Cin, N, kt, kf, s,
+                                                 members);
     default:
       return conv2d_wgmma_launch<KC, 128, AFFINE>(x, w, b, scale, shift, y,
-                                                  B, T, F, Cin, N, kt, kf, s);
+                                                  B, T, F, Cin, N, kt, kf, s,
+                                                  members);
   }
 }
 
+// the forward-type GEMM on the wgmma kernel; ``members`` stacked members
+// (x (members, B, T, F, Cin), w (members, kt, kf, Cin, N), b (members, N),
+// scale and shift (members, Cin), y (members, B, T, F, N)) in one launch
 template <bool AFFINE>
 cudaError_t conv2d_wgmma(const void* x, const void* w, const float* b,
                          const float* scale, const float* shift, void* y,
                          int B, int T, int F, int Cin, int N, int kt, int kf,
-                         cudaStream_t s) {
+                         cudaStream_t s, int members = 1) {
   switch (wg_kc(Cin)) {
     case 16:
       return conv2d_wgmma_bn<16, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s);
+                                         Cin, N, kt, kf, s, members);
     case 32:
       return conv2d_wgmma_bn<32, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s);
+                                         Cin, N, kt, kf, s, members);
     default:
       return conv2d_wgmma_bn<64, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s);
+                                         Cin, N, kt, kf, s, members);
   }
 }
 

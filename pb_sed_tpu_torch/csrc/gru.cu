@@ -20,8 +20,9 @@
 // Two designs, chosen by shape in pbsed_gru_scan (pbsed_gru_design says
 // which, and with how much shared memory):
 //
-// 1. Few rows, many steps (training and tagging: B = 32, T = 500), and at
-//    H = 512 every shape (the rule is gru_cluster_takes in
+// 1. Few rows, many steps (training and tagging: B = 32, T = 500, also a
+//    stacked ensemble's D = 2N), and at H = 512 every shape (the rule is
+//    gru_cluster_takes in
 //    gru_cluster.cuh): a thread-block cluster per (direction, tile of 16
 //    rows while all clusters are on the card at once, else of 32:
 //    gru_cluster_row_tiles), w_hh spread over the cluster's shared
@@ -389,6 +390,23 @@ cudaError_t launch_cluster(const void* xw, const void* w_hh, const void* b_hh,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The forward under one design: the cluster design (cluster != 0) or the
+// row-tiled kernel.
+cudaError_t gru_scan_design(const void* xw, const void* w_hh,
+                            const void* b_hh, const void* h0, void* y, int D,
+                            int B, int T, int H, bool cluster,
+                            cudaStream_t s) {
+  if (!cluster)
+    return H <= 256 ? launch<2>(xw, w_hh, b_hh, h0, y, D, B, T, H, s)
+                    : launch<1>(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
+  int mt = 0;
+  cudaError_t err = cluster_row_tiles(D, B, H, &mt);
+  if (err == cudaSuccess)
+    err = mt == 2 ? launch_cluster<2>(xw, w_hh, b_hh, h0, y, D, B, T, H, s)
+                  : launch_cluster<1>(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
+  return err;
+}
+
 }  // namespace
 
 // xw (D, B, T, 3H) bf16, w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32,
@@ -404,19 +422,26 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
   if (H % 32 != 0 || H < 32 || H > 512 || D < 1 || D > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (gru_cluster_takes(D, B, T, H)) {
-    int mt = 0;
-    err = cluster_row_tiles(D, B, H, &mt);
-    if (err == cudaSuccess)
-      err = mt == 2 ? launch_cluster<2>(xw, w_hh, b_hh, h0, y, D, B, T, H, s)
-                    : launch_cluster<1>(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
-  } else {
-    err = H <= 256 ? launch<2>(xw, w_hh, b_hh, h0, y, D, B, T, H, s)
-                   : launch<1>(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(gru_scan_design(
+      xw, w_hh, b_hh, h0, y, D, B, T, H,
+      gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// pbsed_gru_scan under the design named whatever gru_cluster_takes says
+// (cluster != 0: the cluster design, H = 256 or 512; 0: row-tiled), to
+// time both sides of the rule at one shape.
+extern "C" int pbsed_gru_scan_as(const void* xw, const void* w_hh,
+                                 const void* b_hh, const void* h0, void* y,
+                                 int D, int B, int T, int H, int cluster,
+                                 void* stream) {
+  if (H % 32 != 0 || H < 32 || H > 512 || D < 1 || D > 65535 ||
+      (cluster != 0 && H != 256 && H != 512))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || T == 0) return 0;
+  return static_cast<int>(gru_scan_design(xw, w_hh, b_hh, h0, y, D, B, T, H,
+                                          cluster != 0,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
@@ -426,7 +451,7 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
 // *coresident: clusters the card holds at once (0 row-tiled).
 extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
                                 int* rows, int* smem, int* coresident) {
-  if (!gru_cluster_takes(D, B, T, H)) {
+  if (!gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd)) {
     *cluster = 1;
     *rows = H <= 256 ? 32 : 16;
     *smem = static_cast<int>(H <= 256 ? smem_bytes<2>(H) : smem_bytes<1>(H));

@@ -42,8 +42,11 @@ constexpr int kClMmaWarps = 2 * kClColTiles;  // column tile x half of K
 constexpr int kClPad = 8;         // bf16 values of padding per H-long row
 constexpr int kClLdg = 100;       // f32 row stride of the gate buffers
 // At H = 256 the design takes a shape whose row tiles of 16 (over all
-// directions) number at most this many; see gru_cluster_takes.
+// directions) number at most this many: the split and fused backwards',
+// and the forward's, which stacked ensembles re-timed at D = 2N; see
+// gru_cluster_takes.
 constexpr int kClMaxTiles16 = 32;
+constexpr int kClMaxTiles16Fwd = 128;
 
 __device__ __forceinline__ float cl_sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -165,12 +168,20 @@ __device__ __forceinline__ void cl_gate_product(const __nv_bfloat16* a,
 // the row-tiled forward re-reads 1.5 MiB of w_hh a step (48.6 against
 // 62.8 ms, the backward 111.1 against 136.9), and loses at H = 256 (14.4
 // against 13.1 ms; NVIDIA H100 80GB HBM3, 700 W): there it takes few row
-// tiles only.
-inline bool gru_cluster_takes(int D, int B, int T, int H) {
+// tiles only, up to ``max_tiles16``. The forward's limit, 128, comes from
+// a stacked ensemble's D = 2N (same card and limit, chip_smoke.py phase
+// 10): where clusters run in waves, about 2 ms a wave at T = 500, they
+// still beat the row-tiled kernel's ~16 ms up to 80 tiles, the most
+// measured ((20, 32, 500): 4.28 against 16.06 ms; (20, 64, 500): 6.25
+// against 16.08), and lose from 2 000 on ((4, 8 000, 51): 14.60 against
+// 13.10; (20, 4 000, 51): 35.75 against 30.23). The backwards keep 32:
+// not re-timed there.
+inline bool gru_cluster_takes(int D, int B, int T, int H,
+                              int max_tiles16 = kClMaxTiles16) {
   if (T < 1 || B < 1) return false;
   if (H == 512) return true;
   return H == 256 &&
-         static_cast<long long>(D) * ((B + 15) / 16) <= kClMaxTiles16;
+         static_cast<long long>(D) * ((B + 15) / 16) <= max_tiles16;
 }
 
 // Rows a cluster: 16 while every cluster of the launch is on the card at

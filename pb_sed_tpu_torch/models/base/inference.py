@@ -14,9 +14,11 @@ read back lazily where one is given (``scores_to_dataframes``).
 
 Model calls are launched one segment ahead (``model.dispatch`` returns
 device tensors before the device is done), so the host post-processing
-of one segment overlaps the device work on the next. The members of an
-ensemble run in turn (the JAX engine stacks identical members into one
-program; stacked ensembles are not ported).
+of one segment overlaps the device work on the next. With ``auto_stack``
+(the default) the members of an ensemble that share one architecture and
+one set of ``model_kwargs`` are served stacked
+(``models/base/ensemble.py``: one launch per layer for all members, as
+the JAX engine's one program); others run in turn.
 """
 from pathlib import Path
 
@@ -32,9 +34,10 @@ from pb_sed_tpu_torch.utils.segment import merge_segments, segment_batch
 def tagging(models, dataset, max_segment_length=None, segment_overlap=None,
             merge_score_segments=False, score_segment_overlap=None,
             model_kwargs=None, medfilt_length=1, method='tagging',
-            timestamps=None, event_classes=None, score_storage_dir=None):
+            timestamps=None, event_classes=None, score_storage_dir=None,
+            device=None, auto_stack=True, mesh='auto'):
     return inference(
-        models, method, dataset,
+        models, method, dataset, auto_stack=auto_stack, mesh=mesh,
         max_segment_length=max_segment_length,
         segment_overlap=segment_overlap,
         merge_score_segments=merge_score_segments,
@@ -51,9 +54,10 @@ def boundaries_detection(models, dataset, max_segment_length=None,
                          medfilt_length=1, stepfilt_length=0,
                          apply_mask=False, masks=None,
                          method='boundaries_detection', timestamps=None,
-                         event_classes=None, score_storage_dir=None):
+                         event_classes=None, score_storage_dir=None,
+                         device=None, auto_stack=True, mesh='auto'):
     return inference(
-        models, method, dataset,
+        models, method, dataset, auto_stack=auto_stack, mesh=mesh,
         max_segment_length=max_segment_length,
         segment_overlap=segment_overlap,
         merge_score_segments=merge_score_segments,
@@ -70,9 +74,10 @@ def sound_event_detection(models, dataset, max_segment_length=None,
                           medfilt_length=1,
                           method='sound_event_detection',
                           apply_mask=False, masks=None, timestamps=None,
-                          event_classes=None, score_storage_dir=None):
+                          event_classes=None, score_storage_dir=None,
+                          device=None, auto_stack=True, mesh='auto'):
     return inference(
-        models, method, dataset,
+        models, method, dataset, auto_stack=auto_stack, mesh=mesh,
         max_segment_length=max_segment_length,
         segment_overlap=segment_overlap,
         merge_score_segments=merge_score_segments,
@@ -87,9 +92,18 @@ def inference(model, method, dataset, max_segment_length=None,
               score_segment_overlap=None, model_kwargs=None,
               medfilt_length=1, stepfilt_length=None, apply_mask=False,
               masks=None, post_processing_fn=None, timestamps=None,
-              event_classes=None, score_storage_dir=None):
+              event_classes=None, score_storage_dir=None, device=None,
+              auto_stack=True, mesh='auto'):
     """Run ``method`` of one model (or the mean of a list of models) over
-    the batches of ``dataset`` and post-process the scores per clip."""
+    the batches of ``dataset`` and post-process the scores per clip.
+
+    ``auto_stack`` serves several models of one architecture and one set
+    of ``model_kwargs`` as one ``StackedEnsemble`` (a failure there
+    raises; ``auto_stack=False`` runs the members in turn).
+    ``mesh='auto'`` is no mesh: the port serves on one card until it has
+    ``parallel/mesh.py`` (``ROADMAP.md`` queue 1 item 7), and a mesh
+    object raises. ``device`` is accepted as in the JAX package and
+    unused: the models' device decides."""
     models = model if isinstance(model, (list, tuple)) else [model]
     if model_kwargs is None:
         model_kwargs = {}
@@ -98,6 +112,12 @@ def inference(model, method, dataset, max_segment_length=None,
     if len(model_kwargs) != len(models):
         raise ValueError(f'{len(model_kwargs)} model_kwargs for '
                          f'{len(models)} models')
+    if auto_stack and len(models) > 1:
+        from pb_sed_tpu_torch.models.base.ensemble import maybe_stack
+        if isinstance(mesh, str) and mesh == 'auto':
+            mesh = None
+        models, model_kwargs = maybe_stack(list(models), list(model_kwargs),
+                                           mesh=mesh)
     medfilt_length = np.asarray(medfilt_length, dtype=int)
     apply_mask = np.asarray(apply_mask, dtype=bool)
     for m in models:

@@ -38,9 +38,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
-    'pbsed_conv2d_same': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    'pbsed_conv2d_same': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
     'pbsed_maxpool_freq2': (_P, _P, ctypes.c_longlong, _I, _P),
     'pbsed_gru_scan': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'pbsed_gru_scan_as': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),
@@ -49,7 +51,7 @@ _SIGNATURES = {
     'pbsed_avgpool_freq2': (_P, _I, _P, ctypes.c_longlong, _I, _I, _P),
     'pbsed_avgpool_freq2_bwd': (_P, _P, _I, ctypes.c_longlong, _I, _I, _P),
     'pbsed_bnrelu_conv2d_same': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _P),
+                                 _I, _I, _I, _P),
     'pbsed_bnrelu_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _P),
     'pbsed_gru_scan_bwd_fused': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,6 +7,15 @@ the autograd Functions that tie each forward to its backward
 (``Conv2dSame``, ``BnReluConv2dSame``, ``MaxPoolFreq2``,
 ``AvgPoolFreq2``).
 
+A stacked ensemble (``models/base/ensemble.py``) calls the Functions
+under ``torch.func.vmap`` over its members; each Function's ``vmap`` rule
+takes the members in ONE launch (the batching that ``jax.vmap`` gives the
+TPU kernels): the forward convs on their member axis
+(:func:`conv2d_same_members`, :func:`bnrelu_conv2d_same_members`: x
+``(M, B, T, F, Cin)``, w ``(M, kt, kf, Cin, Cout)``, b ``(M, Cout)``,
+scale and shift ``(M, Cin)``), the pools on ``M * B`` clips. The stacked
+lane serves only; its backward is not ported.
+
 All work on the channels-last ``(B, T, F, C)`` layout of the tower and
 keep the JAX package's parameter layout (conv kernel HWIO
 ``(kt, kf, Cin, Cout)``). On a CPU tensor a wrapper runs the plain
@@ -17,6 +26,7 @@ CPU the tests reach the plain backward's own formula (tie rule, rounding
 points), not autograd of the plain forward.
 """
 import ctypes
+import inspect
 import math
 
 import torch
@@ -71,28 +81,74 @@ def conv2d_same(x, w, b):
     _check_conv(x, w, b)
     if x.device.type == 'cpu':
         return conv2d_same_plain(x, w, b)
-    return _launch_conv('conv2d_same', x, w, b)
+    return _launch_conv('conv2d_same', x[None], w[None],
+                        None if b is None else b[None])[0]
 
 
 def _launch_conv(counter, x, w, b, affine=()):
-    """Launch ``pbsed_<counter>`` on CUDA tensors: the SAME conv, with
-    ``affine = (scale, shift)`` f32 pointers before the output for the
-    BN+ReLU-fused one."""
+    """Launch ``pbsed_<counter>`` on CUDA tensors with a leading member
+    axis (x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
+    None): the SAME conv of all M members in one launch, with ``affine =
+    (scale, shift)``, each (M, Cin), for the BN+ReLU-fused one."""
     build.require_cuda(x, w, *affine)
-    bsz, t, f, cin = x.shape
-    kt, kf, _, cout = w.shape
+    members, bsz, t, f, cin = x.shape
+    kt, kf, _, cout = w.shape[1:]
     x = x.contiguous()
     w16 = w.to(torch.bfloat16).contiguous()
-    b32 = (torch.zeros(cout, device=x.device) if b is None
+    b32 = (torch.zeros((members, cout), device=x.device) if b is None
            else b.float().contiguous())
-    y = torch.empty((bsz, t, f, cout), dtype=torch.bfloat16, device=x.device)
+    affine = tuple(a.float().contiguous() for a in affine)
+    y = torch.empty((members, bsz, t, f, cout), dtype=torch.bfloat16,
+                    device=x.device)
     if any(a.data_ptr() % 16 for a in (x, w16, *affine)):
         raise ValueError(f'{counter} needs 16-byte aligned buffers')
     build.launch(counter, f'pbsed_{counter}', x.device,
                  x.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  *(a.data_ptr() for a in affine), y.data_ptr(),
-                 bsz, t, f, cin, cout, kt, kf)
+                 members, bsz, t, f, cin, cout, kt, kf)
     return y
+
+
+def _check_members(x, w, b, affine=()):
+    """The member-axis operands: x (M, B, T, F, Cin), w (M, kt, kf, Cin,
+    Cout), b (M, Cout) or None, each of ``affine`` (M, Cin); each member
+    as :func:`_check_conv` (and :func:`_check_affine`) wants it."""
+    if x.dim() != 5 or w.dim() != 5:
+        raise ValueError(f'expected x (M, B, T, F, Cin) and w (M, kt, kf, '
+                         f'Cin, Cout), got {tuple(x.shape)} and '
+                         f'{tuple(w.shape)}')
+    members = x.shape[0]
+    for name, a in (('w', w), ('b', b)) + tuple(
+            zip(('scale', 'shift'), affine)):
+        if a is not None and a.shape[0] != members:
+            raise ValueError(f'{name} has {a.shape[0]} members, x '
+                             f'{members}')
+    _check_conv(x[0], w[0], None if b is None else b[0])
+    if affine:
+        _check_affine(x[0], affine[0][0], affine[1][0])
+
+
+def conv2d_same_members_plain(x, w, b):
+    """Plain version of :func:`conv2d_same_members`: each member's
+    :func:`conv2d_same_plain`."""
+    return torch.stack([conv2d_same_plain(x[m], w[m],
+                                          None if b is None else b[m])
+                        for m in range(x.shape[0])])
+
+
+def conv2d_same_members(x, w, b):
+    """:func:`conv2d_same` of M stacked members in one launch: member m's
+    output is ``conv2d_same(x[m], w[m], b[m])``, bit for bit on the card.
+
+    Args:
+        x: (M, B, T, F, Cin) bfloat16 activations.
+        w: (M, kt, kf, Cin, Cout) weights (rounded to bf16).
+        b: (M, Cout) bias (f32) or None.
+    """
+    _check_members(x, w, b)
+    if x.device.type == 'cpu':
+        return conv2d_same_members_plain(x, w, b)
+    return _launch_conv('conv2d_same', x, w, b)
 
 
 def _check_conv_bwd(x, w, gy):
@@ -196,16 +252,55 @@ def _launch_conv_bwd(counter, x, w, gy, affine=()):
     return dx, dw
 
 
+def cache_signature(function):
+    """Class decorator for a ``torch.autograd.Function`` with
+    ``setup_context`` (the form ``torch.func`` needs): its ``apply`` binds
+    the arguments to ``forward``'s signature on every call, and
+    ``inspect.signature`` of a function that carries ``__signature__``
+    returns that at once instead of building it again (half the form's
+    host cost a call)."""
+    function.forward.__signature__ = inspect.signature(function.forward)
+    return function
+
+
+def members_first(info, in_dims, args):
+    """The arguments of a Function's ``vmap`` rule with the member axis
+    first: a batched tensor's vmapped dimension moved to the front, an
+    unbatched one (``in_dim`` None, shared by every member) expanded to
+    ``info.batch_size`` members; None stays None."""
+    out = []
+    for arg, dim in zip(args, in_dims):
+        if arg is None:
+            out.append(None)
+        elif dim is None:
+            out.append(arg.expand(info.batch_size, *arg.shape))
+        else:
+            out.append(arg.movedim(dim, 0))
+    return out
+
+
+@cache_signature
 class Conv2dSame(torch.autograd.Function):
     """:func:`conv2d_same` with its backward: dx and dw from
     :func:`conv2d_same_bwd`, db the f32 sum of the bf16 cotangent
-    (``pb_sed_tpu/ops/pallas/conv.py:959-962``)."""
+    (``pb_sed_tpu/ops/pallas/conv.py:959-962``). Under ``torch.func.vmap``
+    (a stacked ensemble) all members in one launch,
+    :func:`conv2d_same_members`."""
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(x, w, b):
+        return conv2d_same(x, w, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
         ctx.save_for_backward(x, w)
         ctx.has_bias = b is not None
-        return conv2d_same(x, w, b)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        return conv2d_same_members(*members_first(info, in_dims,
+                                                  (x, w, b))), 0
 
     @staticmethod
     def backward(ctx, gy):
@@ -262,9 +357,30 @@ def bnrelu_conv2d_same(x, scale, shift, w, b):
     _check_affine(x, scale, shift)
     if x.device.type == 'cpu':
         return bnrelu_conv2d_same_plain(x, scale, shift, w, b)
-    return _launch_conv('bnrelu_conv2d_same', x, w, b,
-                        (scale.float().contiguous(),
-                         shift.float().contiguous()))
+    return _launch_conv('bnrelu_conv2d_same', x[None], w[None],
+                        None if b is None else b[None],
+                        (scale[None], shift[None]))[0]
+
+
+def bnrelu_conv2d_same_members_plain(x, scale, shift, w, b):
+    """Plain version of :func:`bnrelu_conv2d_same_members`: each member's
+    :func:`bnrelu_conv2d_same_plain`."""
+    return torch.stack([
+        bnrelu_conv2d_same_plain(x[m], scale[m], shift[m], w[m],
+                                 None if b is None else b[m])
+        for m in range(x.shape[0])])
+
+
+def bnrelu_conv2d_same_members(x, scale, shift, w, b):
+    """:func:`bnrelu_conv2d_same` of M stacked members in one launch:
+    x (M, B, T, F, Cin), scale and shift (M, Cin), w (M, kt, kf, Cin,
+    Cout), b (M, Cout) or None; member m's output is
+    ``bnrelu_conv2d_same(x[m], scale[m], shift[m], w[m], b[m])``, bit for
+    bit on the card."""
+    _check_members(x, w, b, (scale, shift))
+    if x.device.type == 'cpu':
+        return bnrelu_conv2d_same_members_plain(x, scale, shift, w, b)
+    return _launch_conv('bnrelu_conv2d_same', x, w, b, (scale, shift))
 
 
 def bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy):
@@ -306,18 +422,29 @@ def bnrelu_chain(x, scale, shift, da):
     return ((dz * s).to(x.dtype), (dz * xf).sum(axes), dz.sum(axes))
 
 
+@cache_signature
 class BnReluConv2dSame(torch.autograd.Function):
     """:func:`bnrelu_conv2d_same` with its backward
     (``pb_sed_tpu/ops/pallas/conv.py:bnrelu_conv2d_packed``'s custom VJP):
     da and dw from :func:`bnrelu_conv2d_same_bwd`, the chain to x, scale
     and shift from :func:`bnrelu_chain`, db the f32 sum of the bf16
-    cotangent."""
+    cotangent. Under ``torch.func.vmap`` all members in one launch,
+    :func:`bnrelu_conv2d_same_members`."""
 
     @staticmethod
-    def forward(ctx, x, scale, shift, w, b):
+    def forward(x, scale, shift, w, b):
+        return bnrelu_conv2d_same(x, scale, shift, w, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, shift, w, b = inputs
         ctx.save_for_backward(x, scale, shift, w)
         ctx.has_bias = b is not None
-        return bnrelu_conv2d_same(x, scale, shift, w, b)
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, shift, w, b):
+        return bnrelu_conv2d_same_members(*members_first(
+            info, in_dims, (x, scale, shift, w, b))), 0
 
     @staticmethod
     def backward(ctx, gy):
@@ -396,15 +523,35 @@ def maxpool_freq2_bwd(x, gy):
     return dx
 
 
+def _on_clips(fn, x, dim, *args):
+    """``fn`` of a vmapped ``(B, T, F, C)`` argument (batched along
+    ``dim``, or not at all) with the members folded into the clips: one
+    launch over ``M * B`` clips."""
+    if dim is None:
+        return fn(x, *args), None
+    x = x.movedim(dim, 0)
+    y = fn(x.reshape(-1, *x.shape[2:]), *args)
+    return y.reshape(*x.shape[:2], *y.shape[1:]), 0
+
+
+@cache_signature
 class MaxPoolFreq2(torch.autograd.Function):
     """:func:`maxpool_freq2` with its backward
     (:func:`maxpool_freq2_bwd`: ties to the first row, not the even split
-    that autograd of ``torch.maximum`` would give)."""
+    that autograd of ``torch.maximum`` would give). Under
+    ``torch.func.vmap`` one launch over the members' clips."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return maxpool_freq2(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        return _on_clips(maxpool_freq2, x, in_dims[0])
 
     @staticmethod
     def backward(ctx, gy):
@@ -484,15 +631,25 @@ def avgpool_freq2_bwd(gy, c, dtype):
     return dx
 
 
+@cache_signature
 class AvgPoolFreq2(torch.autograd.Function):
     """:func:`avgpool_freq2` (with the channel pad to ``cout``) and its
     backward :func:`avgpool_freq2_bwd`: a residual matched across a
-    (2, 1) pool (``pb_sed_tpu/ops/cnn.py:_match_residual_packed``)."""
+    (2, 1) pool (``pb_sed_tpu/ops/cnn.py:_match_residual_packed``). Under
+    ``torch.func.vmap`` one launch over the members' clips."""
 
     @staticmethod
-    def forward(ctx, x, cout):
-        ctx.c, ctx.dtype = x.shape[3], x.dtype
+    def forward(x, cout):
         return avgpool_freq2(x, cout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x = inputs[0]
+        ctx.c, ctx.dtype = x.shape[3], x.dtype
+
+    @staticmethod
+    def vmap(info, in_dims, x, cout):
+        return _on_clips(avgpool_freq2, x, in_dims[0], cout)
 
     @staticmethod
     def backward(ctx, gy):

@@ -21,12 +21,18 @@ contraction over the (B*T) axis afterwards. ``gru_scan_bwd(...,
 split=False)`` is the fused variant (``_gru_scan_pallas_bwd(split=False)``),
 which accumulates dw_hh and db_hh inside the sweep; as in the JAX
 package, no training path selects it.
+
+Under ``torch.func.vmap`` (a stacked ensemble, ``models/base/
+ensemble.py``) ``GruScan`` folds the N members into the direction axis:
+one ``gru_scan`` at D = N * D_member, since the kernel takes per-D
+weights (the FBCRNN's paired heads and a bidirectional layer at D = 2N).
 """
 import ctypes
 
 import torch
 
 from pb_sed_tpu_torch.ops.kernels import build
+from pb_sed_tpu_torch.ops.kernels.conv import cache_signature, members_first
 
 
 def _check(xw, w_hh, b_hh, h0):
@@ -89,7 +95,23 @@ def gru_scan(xw, w_hh, b_hh, h0):
     _check(xw, w_hh, b_hh, h0)
     if xw.device.type == 'cpu':
         return gru_scan_plain(xw, w_hh, b_hh, h0)
-    build.require_cuda(xw)
+    return _launch_gru('pbsed_gru_scan', xw, w_hh, b_hh, h0)
+
+
+def gru_scan_as(design, xw, w_hh, b_hh, h0):
+    """:func:`gru_scan` on the card under ``design`` ('cluster' or
+    'row_tiled') whatever the shape rule (``gru_cluster_takes``) picks: to
+    time both sides of the rule at one shape. Counts as a ``gru_scan``
+    launch."""
+    _check(xw, w_hh, b_hh, h0)
+    if design not in ('cluster', 'row_tiled'):
+        raise ValueError(f'design {design!r}: cluster or row_tiled')
+    return _launch_gru('pbsed_gru_scan_as', xw, w_hh, b_hh, h0,
+                       int(design == 'cluster'))
+
+
+def _launch_gru(fn_name, xw, w_hh, b_hh, h0, *design):
+    build.require_cuda(xw, w_hh, b_hh, h0)
     d, b, t, g = xw.shape
     hdim = g // 3
     if hdim % 32 or hdim > 512:
@@ -102,9 +124,9 @@ def gru_scan(xw, w_hh, b_hh, h0):
     y = torch.empty((d, b, t, hdim), dtype=torch.float32, device=xw.device)
     if xw16.data_ptr() % 16:
         raise ValueError('gru_scan needs a 16-byte aligned xw buffer')
-    build.launch('gru_scan', 'pbsed_gru_scan', xw.device,
+    build.launch('gru_scan', fn_name, xw.device,
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
-                 h32.data_ptr(), y.data_ptr(), d, b, t, hdim)
+                 h32.data_ptr(), y.data_ptr(), d, b, t, hdim, *design)
     return y
 
 
@@ -292,16 +314,27 @@ def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):
     return dxw, dw_hh, db_hh, dh0
 
 
+@cache_signature
 class GruScan(torch.autograd.Function):
     """:func:`gru_scan` with its backward (:func:`gru_scan_bwd`). Saves
     what the forward already has: xw, the weights, h0 and the f32
-    output y (the gates are recomputed in the backward)."""
+    output y (the gates are recomputed in the backward). Under
+    ``torch.func.vmap`` the members fold into D: one launch for all."""
 
     @staticmethod
-    def forward(ctx, xw, w_hh, b_hh, h0):
-        y = gru_scan(xw, w_hh, b_hh, h0)
-        ctx.save_for_backward(xw, w_hh, b_hh, h0, y)
-        return y
+    def forward(xw, w_hh, b_hh, h0):
+        return gru_scan(xw, w_hh, b_hh, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def vmap(info, in_dims, xw, w_hh, b_hh, h0):
+        args = members_first(info, in_dims, (xw, w_hh, b_hh, h0))
+        n, d = args[0].shape[:2]
+        y = gru_scan(*(a.reshape(n * d, *a.shape[2:]) for a in args))
+        return y.reshape(n, d, *y.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, g):

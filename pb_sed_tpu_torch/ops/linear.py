@@ -8,6 +8,8 @@ projections (``ops/rnn.py:GRULayer.project``) and the 1x1 convs of the
 """
 import torch
 
+from pb_sed_tpu_torch.ops.kernels.conv import cache_signature, members_first
+
 
 def split_bias(b):
     """An f32 vector as three bf16 terms ``hi, mid, lo`` whose f32 sum is
@@ -19,6 +21,27 @@ def split_bias(b):
     return hi, mid, lo
 
 
+def _augmented(x, w, b):
+    """The operands of :class:`Bf16Linear`'s one matmul, for x (..., N, F),
+    w (..., F, M) and b (..., M) with any (broadcastable) leading axes:
+    x with three columns of ones (K padded to a multiple of 8 with zeros),
+    w with the three bf16 rows of :func:`split_bias`, both bf16."""
+    n, f = x.shape[-2:]
+    k = -(-(f + 3) // 8) * 8
+    xa = torch.empty((*x.shape[:-2], n, k), dtype=torch.bfloat16,
+                     device=x.device)
+    xa[..., :f] = x
+    ones = torch.zeros(k - f, dtype=torch.bfloat16, device=x.device)
+    ones[:3] = 1.
+    xa[..., f:] = ones
+    wa = torch.zeros((*w.shape[:-2], k, w.shape[-1]), dtype=torch.bfloat16,
+                     device=w.device)
+    wa[..., :f, :] = w
+    wa[..., f:f + 3, :] = torch.stack(split_bias(b), dim=-2)
+    return xa, wa
+
+
+@cache_signature
 class Bf16Linear(torch.autograd.Function):
     """``Bf16Linear.apply(x, w, b)``: x (N, K), w (K, M), b (M,)
     -> (N, M) bf16, rounded once.
@@ -28,7 +51,8 @@ class Bf16Linear(torch.autograd.Function):
     8 with zeros) and w the three bf16 rows :func:`split_bias` gives, so
     the result is written once, in bf16, and no f32 ``(N, M)`` buffer
     exists. The augmented input is the bf16 copy of x that the matmul
-    needs anyway.
+    needs anyway. Under ``torch.func.vmap`` (a stacked ensemble) it is
+    one batched bf16 matmul over the members.
 
     Backward: ``dx = bf16(g @ w^T)`` and ``dw = bf16(x^T @ g)`` (bf16
     matmuls with f32 accumulation), ``db`` the f32 sum of the cotangent
@@ -38,29 +62,32 @@ class Bf16Linear(torch.autograd.Function):
     tests run the 1x1 einsum on f32 operands, where ``dw`` stays f32.)"""
 
     @staticmethod
-    def forward(ctx, x, w, b):
-        n, f = x.shape
-        k = -(-(f + 3) // 8) * 8
-        xa = torch.empty((n, k), dtype=torch.bfloat16, device=x.device)
-        xa[:, :f] = x
-        ones = torch.zeros(k - f, dtype=torch.bfloat16, device=x.device)
-        ones[:3] = 1.
-        xa[:, f:] = ones
-        wa = torch.zeros((k, w.shape[1]), dtype=torch.bfloat16,
-                         device=w.device)
-        wa[:f] = w
-        wa[f:f + 3] = torch.stack(split_bias(b))
-        ctx.save_for_backward(xa, w)
-        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+    def forward(x, w, b):
+        xa, wa = _augmented(x, w, b)
         return xa @ wa
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
+        ctx.save_for_backward(x, w)
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        # a shared x (in_dim None) broadcasts against the members' weights
+        if in_dims[0] is not None:
+            x = x.movedim(in_dims[0], 0)
+        w, b = members_first(info, in_dims[1:], (w, b))
+        xa, wa = _augmented(x, w, b)
+        return xa @ wa, 0
+
+    @staticmethod
     def backward(ctx, g):
-        xa, w = ctx.saved_tensors
+        x, w = ctx.saved_tensors
         x_dtype, w_dtype, b_dtype = ctx.dtypes
-        f = w.shape[0]
         g16 = g.to(torch.bfloat16)
         dx = g16 @ w.to(torch.bfloat16).t()
-        dw = xa[:, :f].t() @ g16
+        # the bf16 x the matmul read (the augmented input's first columns)
+        dw = x.to(torch.bfloat16).t() @ g16
         return (dx.to(x_dtype), dw.to(w_dtype),
                 g.float().sum(0).to(b_dtype))

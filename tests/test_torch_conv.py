@@ -11,7 +11,11 @@ import torch
 from pb_sed_tpu.ops import rnn as jrnn
 from pb_sed_tpu.ops.pallas import conv as pconv
 from pb_sed_tpu_torch.ops.kernels import build
-from pb_sed_tpu_torch.ops.kernels.conv import conv2d_same, maxpool_freq2
+from pb_sed_tpu_torch.ops.kernels.conv import (
+    AvgPoolFreq2, BnReluConv2dSame, Conv2dSame, MaxPoolFreq2,
+    avgpool_freq2, bnrelu_conv2d_same, bnrelu_conv2d_same_members,
+    bnrelu_conv2d_same_members_plain, conv2d_same, conv2d_same_members,
+    conv2d_same_members_plain, maxpool_freq2)
 
 torch.set_num_threads(2)
 
@@ -90,3 +94,69 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(RuntimeError):  # not CPU, not CUDA: no path
         conv2d_same(x.to('meta'), torch.zeros(3, 3, 16, 16, device='meta'),
                     None)
+
+
+@pytest.mark.parametrize('cin,k', [(1, 3), (11, 3), (16, 3), (32, 3),
+                                   (16, 1), (11, 1)])
+def test_member_axis_convs_equal_per_member_calls(cin, k):
+    """The member-axis conv and BN+ReLU-fused conv (the stacked ensemble's
+    one launch for M members), their plain versions and the Functions'
+    vmap rules under ``torch.func.vmap`` give each member exactly what its
+    own call gives: the entry layer (Cin = 1), the tag-conditioned one
+    (Cin = 11), the tower's widths, 3x3 and 1x1 kernels."""
+    m, b, t, f, cout = 3, 2, 7, 8, 16
+    rng = np.random.RandomState(cin + k)
+    x = torch.from_numpy(rng.randn(m, b, t, f, cin).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(m, k, k, cin, cout)
+                          / np.sqrt(k * k * cin)).astype(np.float32))
+    bias = torch.from_numpy(.1 * rng.randn(m, cout).astype(np.float32))
+    scale = torch.from_numpy((.5 + rng.rand(m, cin)).astype(np.float32))
+    shift = torch.from_numpy((rng.rand(m, cin) - .3).astype(np.float32))
+    build.reset_launches()
+    ref = torch.stack([conv2d_same(x[i], w[i], bias[i]) for i in range(m)])
+    for got in (conv2d_same_members(x, w, bias),
+                conv2d_same_members_plain(x, w, bias),
+                torch.func.vmap(Conv2dSame.apply)(x, w, bias)):
+        assert got.shape == (m, b, t, f, cout)
+        assert torch.equal(got, ref)
+    assert torch.equal(conv2d_same_members(x, w, None),
+                       torch.stack([conv2d_same(x[i], w[i], None)
+                                    for i in range(m)]))
+    ref = torch.stack([bnrelu_conv2d_same(x[i], scale[i], shift[i], w[i],
+                                          bias[i]) for i in range(m)])
+    for got in (bnrelu_conv2d_same_members(x, scale, shift, w, bias),
+                bnrelu_conv2d_same_members_plain(x, scale, shift, w, bias),
+                torch.func.vmap(BnReluConv2dSame.apply)(x, scale, shift,
+                                                        w, bias)):
+        assert torch.equal(got, ref)
+    # a shared (unbatched) input against the members' weights
+    shared = torch.func.vmap(Conv2dSame.apply, in_dims=(None, 0, 0))(
+        x[0], w, bias)
+    assert torch.equal(shared, torch.stack(
+        [conv2d_same(x[0], w[i], bias[i]) for i in range(m)]))
+    assert build.LAUNCHES == {name: 0 for name in build.LAUNCHES}
+
+
+def test_pools_under_vmap_fold_the_members_into_the_clips():
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(3, 2, 5, 8, 16).astype(
+        np.float32)).to(torch.bfloat16)
+    got = torch.func.vmap(MaxPoolFreq2.apply)(x)
+    assert torch.equal(got, torch.stack([maxpool_freq2(v) for v in x]))
+    got = torch.func.vmap(AvgPoolFreq2.apply, in_dims=(0, None))(x, 32)
+    assert torch.equal(got, torch.stack([avgpool_freq2(v, 32) for v in x]))
+
+
+def test_member_axis_wrappers_reject_mismatched_members():
+    x = torch.zeros(2, 1, 4, 8, 16, dtype=torch.bfloat16)
+    w = torch.zeros(2, 3, 3, 16, 16)
+    with pytest.raises(ValueError):  # 3 members of weights for 2 of x
+        conv2d_same_members(x, torch.zeros(3, 3, 3, 16, 16), None)
+    with pytest.raises(ValueError):  # a bias of 1 member
+        conv2d_same_members(x, w, torch.zeros(1, 16))
+    with pytest.raises(ValueError):  # one member's x, not (M, B, T, F, C)
+        conv2d_same_members(x[0], w, None)
+    with pytest.raises(ValueError):  # scale of the wrong width
+        bnrelu_conv2d_same_members(x, torch.ones(2, 8), torch.ones(2, 16),
+                                   w, None)

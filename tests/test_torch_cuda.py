@@ -6,8 +6,10 @@ pools, the BN+ReLU-fused conv with a positive shift at the borders, the
 fused GRU backward at batches off its tile, the GRU's cluster design at
 both widths with ragged row tiles and a random initial state beside the
 row-tiled one at small hidden sizes, the wgmma conv kernels'
-ragged pixel tiles, frequency rows and channel widths), the determinism
-of the weight gradients, and the wrappers' raises. They need a CUDA card and
+ragged pixel tiles, frequency rows and channel widths, the member axis
+of the forward convs and the GRU at D = 2N that a stacked ensemble
+launches), the determinism of the weight gradients, and the wrappers'
+raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
 On the card (no JAX there, so without this directory's conftest):
@@ -21,8 +23,10 @@ from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
     avgpool_freq2_plain, bnrelu_conv2d_same, bnrelu_conv2d_same_bwd,
-    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_plain, conv2d_same,
-    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_plain, conv_designs,
+    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_members,
+    bnrelu_conv2d_same_members_plain, bnrelu_conv2d_same_plain, conv2d_same,
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
+    conv2d_same_members_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
     maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (GruScan, gru_designs, gru_scan,
@@ -421,3 +425,75 @@ def test_new_kernels_raise_on_what_they_do_not_take(gen):
                      torch.zeros(1, 48, 144, device='cuda'),
                      torch.zeros(1, 144, device='cuda'),
                      torch.zeros(1, 2, 48, device='cuda'), y, y, split=False)
+
+
+@pytest.mark.parametrize('m,b,t,f,cin,cout,k', [
+    (3, 2, 9, 16, 16, 32, 3),    # wgmma, ragged time tile
+    (2, 1, 5, 128, 32, 16, 3),   # wgmma, one frequency row a tile
+    (4, 2, 7, 8, 64, 256, 3),    # wgmma, two N tiles: the bias restaged
+    (3, 2, 6, 16, 1, 16, 3),     # the narrow kernel: Cin = 1 entry layer
+    (2, 1, 5, 8, 11, 48, 3),     # narrow: Cin = 11 (tag-conditioned)
+    (3, 1, 4, 8, 16, 16, 1),     # 1x1
+])
+def test_member_axis_convs_bit_equal_to_single_launches(gen, m, b, t, f,
+                                                        cin, cout, k):
+    """One launch of the member-axis conv (plain and BN+ReLU-fused, a
+    positive shift on every channel) equals M launches of one member in
+    every bit, and its plain version within the conv kernels' one ulp."""
+    x = torch.randn(m, b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(m, k, k, cin, cout, generator=gen, device='cuda') * (
+        k * k * cin) ** -.5
+    bias = .1 * torch.randn(m, cout, generator=gen, device='cuda')
+    scale = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    for name, fn, single, plain, pre in (
+            ('conv2d_same', conv2d_same_members, conv2d_same,
+             conv2d_same_members_plain, ()),
+            ('bnrelu_conv2d_same', bnrelu_conv2d_same_members,
+             bnrelu_conv2d_same, bnrelu_conv2d_same_members_plain,
+             (scale, shift))):
+        if pre and cin % 8:
+            continue                  # the fused conv's scale loads
+        n = build.LAUNCHES[name]
+        y = fn(x, *pre, w, bias)
+        assert build.LAUNCHES[name] == n + 1
+        ref = torch.stack([single(x[i], *(a[i] for a in pre), w[i],
+                                  bias[i]) for i in range(m)])
+        assert torch.equal(y, ref), name
+        ref = plain(x, *pre, w, bias)
+        assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize('n,b,t,h', [(3, 5, 9, 64), (10, 32, 12, 256)])
+def test_gru_members_in_the_direction_axis(gen, n, b, t, h):
+    """``GruScan`` under ``torch.func.vmap``: N members' D = 2 recurrences
+    in one D = 2N launch, each member within the GRU tolerance of its own
+    plain D = 2 recurrence (at (20, 32, 12, 256) past the cluster
+    design's 32 row tiles)."""
+    xw = torch.randn(n, 2, b, t, 3 * h, generator=gen, device='cuda')
+    w_hh = torch.randn(n, 2, h, 3 * h, generator=gen, device='cuda') * (
+        h ** -.5)
+    b_hh = .1 * torch.randn(n, 2, 3 * h, generator=gen, device='cuda')
+    h0 = torch.zeros(2, b, h, device='cuda')
+    count = build.LAUNCHES['gru_scan']
+    y = torch.func.vmap(GruScan.apply, in_dims=(0, 0, 0, None))(
+        xw, w_hh, b_hh, h0)
+    assert build.LAUNCHES['gru_scan'] == count + 1
+    for i in range(n):
+        ref = gru_scan_plain(xw[i], w_hh[i], b_hh[i], h0)
+        assert _max_err(y[i], ref) <= 5.3e-3
+
+
+def test_gru_forward_design_at_stacked_shapes(gen):
+    """A stacked ensemble's GRU forward at D = 2N keeps the cluster design
+    up to 128 row tiles of 16 (10 members' tagging: 40), where clusters
+    running in waves beat the row-tiled kernel; its sliding-window shape
+    keeps the row-tiled one, and the backwards keep their limit of 32."""
+    for d, b, t in ((20, 32, 500), (40, 32, 500), (20, 64, 500)):
+        designs = gru_designs(d, b, t, 256)
+        assert designs['fwd']['design'] == 'cluster'
+        assert designs['fwd']['rows'] == 32
+        assert designs['bwd']['design'] == 'row_tiled'
+    assert gru_designs(20, 4000, 51, 256)['fwd']['design'] == 'row_tiled'
+    assert gru_designs(2, 8000, 11, 256)['fwd']['design'] == 'row_tiled'

@@ -13,7 +13,8 @@ from pb_sed_tpu.ops import rnn as jrnn
 from pb_sed_tpu.ops.pallas.gru import gru_scan as jax_gru_scan
 from pb_sed_tpu.ops.pallas.gru import gru_scan_reference
 from pb_sed_tpu_torch.ops.kernels import build
-from pb_sed_tpu_torch.ops.kernels.gru import GruScan, gru_scan
+from pb_sed_tpu_torch.ops.kernels.gru import (GruScan, gru_scan,
+                                              gru_scan_plain)
 
 torch.set_num_threads(2)
 
@@ -89,3 +90,30 @@ def test_gru_scan_rejects_inconsistent_shapes():
         gru_scan(xw, w_hh[:, :16], b_hh, h0)
     with pytest.raises(ValueError):
         gru_scan(xw[0], w_hh, b_hh, h0)
+
+
+@pytest.mark.parametrize('n,shared_h0', [(3, True), (2, False)])
+def test_members_fold_into_the_direction_axis(n, shared_h0):
+    """N members' D = 2 recurrences as ONE D = 2N ``gru_scan_plain`` equal
+    the N D = 2 calls, and so does ``GruScan`` under ``torch.func.vmap``
+    (the stacked ensemble's one launch), with the zero initial state
+    shared by the members or one state per member."""
+    xw, w_hh, b_hh, h0 = map(torch.from_numpy, _inputs(2 * n, 3, 11, 32))
+    ref = torch.cat([gru_scan_plain(xw[2 * i:2 * i + 2],
+                                    w_hh[2 * i:2 * i + 2],
+                                    b_hh[2 * i:2 * i + 2],
+                                    h0[2 * i:2 * i + 2]) for i in range(n)])
+    assert torch.equal(gru_scan_plain(xw, w_hh, b_hh, h0), ref)
+    member = (lambda a: a.reshape(n, 2, *a.shape[1:]))
+    if shared_h0:
+        h0 = torch.zeros(2, 3, 32)
+        ref = torch.cat([gru_scan_plain(xw[2 * i:2 * i + 2],
+                                        w_hh[2 * i:2 * i + 2],
+                                        b_hh[2 * i:2 * i + 2], h0)
+                         for i in range(n)])
+        got = torch.func.vmap(GruScan.apply, in_dims=(0, 0, 0, None))(
+            member(xw), member(w_hh), member(b_hh), h0)
+    else:
+        got = torch.func.vmap(GruScan.apply)(
+            member(xw), member(w_hh), member(b_hh), member(h0))
+    assert torch.equal(got.reshape(ref.shape), ref)
