@@ -177,23 +177,26 @@ runs, in order:
    and lie within the conv's tolerance of its plain version; per layer
    the ms of the one launch, of M single launches, of the plain version,
    of cuDNN's grouped conv (``groups=M``) and the bound. The GRU forward
-   at D = 2N, (20, 32, 500, 256), (20, 16, 500, 256), one SED chunk's
-   windows (20, 4 000, 51, 256), (20, 64, 500, 256) and two members' SED
-   windows over a tuning batch (4, 8 000, 51, 256), under both designs
-   (``gru_scan_as``),
-   each against its plain version, with the design the shape rule
-   (``gru_cluster_takes``) takes. 10b: 10 shallow FBCRNNs (random weights
-   from seeds 0-9) serve phase 3's 3 x 32 clips through ``models.base``'s
-   tagging, boundaries detection and SED 51/1 (a ``StackedEnsemble`` of
-   ``chunk_size`` 8 there), stacked (the engine's default) and with
-   ``auto_stack=False`` (in turn): the two agree within 1e-4 + 3e-2 *
-   max|ref| on every clip (the deviation logged), clips/s, peak memory
-   and launches a batch of both; the stacked lane launches each kernel
-   once per layer and forward whatever the members (the in-turn lane's
-   launches over 10). Then 3 deep 527-class FBCRNNs tag the clips, plain
-   and ``fuse_bn``, checked the same way. Phases 8 and 9b serve their
-   weak ensemble stacked by default (each engine call logs it, and a call
-   that served an ensemble in turn fails the run).
+   at D = 2N (``ENSEMBLE_GRU_SHAPES``: 10 members' tagging, a tuning
+   batch and one SED chunk of windows, and shapes on either side of the
+   shape rule's limit) under both designs (``scripts/perf/
+   gru_designs.py``), each against its plain version, with the design
+   the rule (``gru_cluster_takes``) takes. 10b: 10 shallow FBCRNNs
+   (random weights from seeds 0-9) serve phase 3's 3 x 32 clips through
+   ``models.base``'s tagging, boundaries detection and SED 51/1, stacked
+   (the engine's default, which runs sliding-window SED in chunks of
+   ceil(32 / 10) = 4 clips) and with ``auto_stack=False`` (in turn): the
+   two agree within 1e-4 + 3e-2 * max|ref| on every clip (the deviation
+   logged), clips/s, peak memory and launches a batch of both; the
+   stacked lane launches each kernel once per layer and forward whatever
+   the members (the in-turn lane's launches over 10, times the chunks).
+   Then 3 deep 527-class FBCRNNs tag the clips, plain and ``fuse_bn``,
+   checked the same way. Phases 8 and 9b serve their weak ensemble
+   stacked by default (each engine call logs it, and a call that served
+   an ensemble in turn fails the run). 10c: every stacked GRU forward
+   shape (D > 2) that phases 8, 9b and 10b gave the kernel (recorded as
+   they ran) is held against the plain version, under the design the
+   rule takes there.
 
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
@@ -232,7 +235,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
     maxpool_freq2_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_designs, gru_scan,
-                                              gru_scan_as, gru_scan_bwd,
+                                              gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
 from pb_sed_tpu_torch.train.hooks import Hook
@@ -277,22 +280,23 @@ STRONG_CONV_LAYERS = [('L0', 128, 11, 16)]
 STRONG_GRU_SHAPES = [(2, BATCH // 2, FRAMES, 256)]
 # phase 10, the stacked ensemble: 10 shallow FBCRNNs (their convs on the
 # member axis at M = 10, their paired heads one GRU at D = 20) and 3 deep
-# ones (M = 3, D = 6 at H = 512); sliding-window SED in chunks of 8 clips
-# (8 x 500 windows a chunk), which keeps the D = 20 recurrence's buffers
-# near 20 GiB
+# ones (M = 3, D = 6 at H = 512); sliding-window SED in the engine's
+# default chunks of ceil(clips / members) = 4 clips (4 x 500 windows a
+# chunk), which hold as many member-clips as one member's 32 in turn
 ENSEMBLE_MEMBERS = 10
 DEEP_MEMBERS = 3
-SED_CHUNK = 8
+SED_CHUNK = -(-BATCH // ENSEMBLE_MEMBERS)
 # the GRU forward at D = 2N, timed under both designs: tagging (32 clips),
 # a tuning batch (16 clips) and one SED chunk of windows at 51 / 1; and
-# two shapes on either side of the rule's limit of 128 row tiles of 16:
-# 64 clips (80 tiles) and the tuning chain's two members at 51 / 1 over
-# its 16 clips (2 000 tiles)
+# shapes on either side of the rule's limit of 192 row tiles of 16
+# (csrc/gru_cluster.cuh): 180 and 240 tiles at T = 500, 192 and 224 at
+# T = 51
 ENSEMBLE_GRU_SHAPES = [(2 * ENSEMBLE_MEMBERS, BATCH, FRAMES, 256),
                        (2 * ENSEMBLE_MEMBERS, BATCH // 2, FRAMES, 256),
                        (2 * ENSEMBLE_MEMBERS, SED_CHUNK * FRAMES, 51, 256),
-                       (2 * ENSEMBLE_MEMBERS, 2 * BATCH, FRAMES, 256),
-                       (4, BATCH // 2 * FRAMES, 51, 256)]
+                       (2 * ENSEMBLE_MEMBERS, 144, FRAMES, 256),
+                       (2 * ENSEMBLE_MEMBERS, 192, FRAMES, 256),
+                       (2, 1536, 51, 256), (2, 1792, 51, 256)]
 # The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
 # design, kernel alone: the parent tree in `scripts/gru_ab.py
 # chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
@@ -2986,26 +2990,41 @@ def check_member_kernels(records, label, seed, m, convs, fused):
         torch.cuda.empty_cache()
 
 
+def _gru_inputs(d, b, t, h, gen):
+    """Random GRU inputs at (D, B, T, H) on the card."""
+    dev = torch.device('cuda')
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
+        torch.bfloat16)
+    w_hh = torch.randn(d, h, 3 * h, generator=gen, device=dev) * h ** -.5
+    b_hh = torch.randn(d, 3 * h, generator=gen, device=dev) * .1
+    return xw, w_hh, b_hh, torch.zeros(d, b, h, device=dev)
+
+
 def check_member_gru(records):
     """The GRU forward at D = 2N (``ENSEMBLE_GRU_SHAPES``) under both
-    designs (``gru_scan_as``), each against the plain version (5.3e-3),
-    with the ms of each, the design the rule takes
-    (``gru_cluster_takes``) and the bound; the errors join
-    ``max_abs_err``."""
-    dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(11)
+    designs (``scripts/perf/gru_designs.py``'s ``scan_as``, which the
+    port's library does not export), each against the plain version
+    (5.3e-3), with the ms of each and of the plain version, the design
+    the rule takes (``gru_cluster_takes``) and the bound; the errors join
+    ``max_abs_err``. No single library call runs D independent GRUs."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / 'scripts/perf/gru_designs.py'
+    spec = importlib.util.spec_from_file_location('gru_designs', path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    scan_as = probe.scan_as
+    gen = torch.Generator(device='cuda').manual_seed(11)
     for d, b, t, h in ENSEMBLE_GRU_SHAPES:
-        xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
-            torch.bfloat16)
-        w_hh = torch.randn(d, h, 3 * h, generator=gen, device=dev) * h ** -.5
-        b_hh = torch.randn(d, 3 * h, generator=gen, device=dev) * .1
-        h0 = torch.zeros(d, b, h, device=dev)
+        xw, w_hh, b_hh, h0 = _gru_inputs(d, b, t, h, gen)
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
-        row = {'shape': (d, b, t, h),
+        row = {'shape': (d, b, t, h), 'tiles16': d * -(-b // 16),
                'takes': gru_designs(d, b, t, h)['fwd']['design'],
-               'bound_ms': gru_work(d, b, t, h)[0]}
+               'bound_ms': gru_work(d, b, t, h)[0],
+               'plain_ms': cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh,
+                                                          h0),
+                                   reps=1, warmup=0)}
         for design in ('cluster', 'row_tiled'):
-            y = gru_scan_as(design, xw, w_hh, b_hh, h0)
+            y = scan_as(design, xw, w_hh, b_hh, h0)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
             del y
@@ -3015,23 +3034,90 @@ def check_member_gru(records):
             records['gru_scan']['max_abs_err'] = max(
                 records['gru_scan']['max_abs_err'], err)
             row[f'{design}_ms'] = cuda_ms(
-                lambda: gru_scan_as(design, xw, w_hh, b_hh, h0), reps=3)
+                lambda: scan_as(design, xw, w_hh, b_hh, h0), reps=3)
             row[f'{design}_max_abs_err'] = err
         rec = records['gru_scan']
         _add(rec, 'member_ms', row[f'{row["takes"]}_ms'])
         _add(rec, 'member_cluster_ms', row['cluster_ms'])
         _add(rec, 'member_row_tiled_ms', row['row_tiled_ms'])
         _add(rec, 'member_bound_ms', row['bound_ms'])
+        _add(rec, 'member_plain_ms', row['plain_ms'])
         faster = min(('cluster', 'row_tiled'), key=lambda k: row[f'{k}_ms'])
-        log(f'gru_scan at D = 2N {(d, b, t, h)}: cluster '
-            f'{row["cluster_ms"]:.3f} ms, row-tiled {row["row_tiled_ms"]:.3f}'
-            f' ms (max|d| vs plain {row["cluster_max_abs_err"]:.2e}, '
+        log(f'gru_scan at D = 2N {(d, b, t, h)} ({row["tiles16"]} row tiles '
+            f'of 16): cluster {row["cluster_ms"]:.3f} ms, row-tiled '
+            f'{row["row_tiled_ms"]:.3f} ms (max|d| vs plain '
+            f'{row["cluster_max_abs_err"]:.2e}, '
             f'{row["row_tiled_max_abs_err"]:.2e}); the rule takes '
-            f'{row["takes"]}, the faster is {faster}; bound '
-            f'{row["bound_ms"]:.3f} ms')
+            f'{row["takes"]}, the faster is {faster}; plain '
+            f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.3f} ms')
         MEMBER_GRU_ROWS.append(row)
         del xw, ref
         torch.cuda.empty_cache()
+
+
+# (D, B, T, H) of every stacked GRU forward (D > 2) that the paths gave
+# the kernel while recording_gru_shapes was on
+STACKED_GRU_SEEN = set()
+
+
+@contextlib.contextmanager
+def recording_gru_shapes():
+    """Record in ``STACKED_GRU_SEEN`` the shape of every ``gru_scan`` call
+    with D > 2 (a stacked ensemble's members folded into D) while on."""
+    from pb_sed_tpu_torch.ops.kernels import gru as kgru
+    original = kgru.gru_scan
+
+    def recorded(xw, w_hh, b_hh, h0):
+        d, b, t, g = xw.shape
+        if d > 2:
+            STACKED_GRU_SEEN.add((d, b, t, g // 3))
+        return original(xw, w_hh, b_hh, h0)
+
+    kgru.gru_scan = recorded
+    try:
+        yield
+    finally:
+        kgru.gru_scan = original
+
+
+def check_stacked_gru_shapes(records):
+    """Phase 10c: every stacked GRU forward shape the main path gave the
+    kernel (``STACKED_GRU_SEEN``: phases 8, 9b and 10b) that phase 10a did
+    not hold against the plain version already: ``gru_scan`` under the
+    design the rule takes there, against the plain version (5.3e-3) on
+    random inputs of that shape. It fails unless the recording saw the
+    shapes phase 10b must give: 10 members' tagging and 3 deep ones' at
+    H = 512. Returns the rows logged."""
+    must = {(2 * ENSEMBLE_MEMBERS, BATCH, FRAMES, 256),
+            (2 * DEEP_MEMBERS, BATCH, FRAMES, 512)}
+    if not must <= STACKED_GRU_SEEN:
+        raise AssertionError(f'stacked GRU shapes recorded: '
+                             f'{sorted(STACKED_GRU_SEEN)}, missing '
+                             f'{sorted(must - STACKED_GRU_SEEN)}')
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    rows = []
+    for d, b, t, h in sorted(STACKED_GRU_SEEN - set(ENSEMBLE_GRU_SHAPES)):
+        xw, w_hh, b_hh, h0 = _gru_inputs(d, b, t, h, gen)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        err = float((y - ref).abs().max())
+        design = gru_designs(d, b, t, h)['fwd']
+        rows.append({'shape': (d, b, t, h), 'design': design['design'],
+                     'rows': design['rows'], 'max_abs_err': err})
+        if not err <= 5.3e-3:
+            raise AssertionError(f'gru_scan at {(d, b, t, h)} '
+                                 f'({design["design"]}) differs from plain '
+                                 f'by {err}')
+        records['gru_scan']['max_abs_err'] = max(
+            records['gru_scan']['max_abs_err'], err)
+        del xw, y, ref
+    torch.cuda.empty_cache()
+    log(f'stacked GRU shapes of phases 8, 9b and 10b against the plain '
+        f'version, beyond phase 10a\'s: {len(rows)} shapes, max|d| '
+        f'{max((r["max_abs_err"] for r in rows), default=0.):.2e} (tol '
+        f'5.3e-3): ' + '; '.join(f'{r["shape"]} {r["design"]} '
+                                 f'{r["rows"]} rows' for r in rows))
+    return rows
 
 
 def _members(config, n, seed0=0):
@@ -3041,9 +3127,9 @@ def _members(config, n, seed0=0):
             for i in range(n)]
 
 
-def _lanes(members, methods, batches, k, label, expected, chunk=None):
-    """Serve ``methods`` stacked (the engine's default, or a
-    ``StackedEnsemble`` of ``chunk`` clips a chunk for SED) and with the
+def _lanes(members, methods, batches, k, label, expected):
+    """Serve ``methods`` stacked (the engine's default, which runs
+    sliding-window SED in chunks of ceil(clips / members)) and with the
     members in turn (``auto_stack=False``); the two within 1e-4 +
     3e-2 * max|ref| on every clip (the deviation logged); clips/s, peak
     memory and launches of both. The stacked lane launches each kernel
@@ -3053,24 +3139,20 @@ def _lanes(members, methods, batches, k, label, expected, chunk=None):
     in-turn lane's divided by the members (times the chunks a batch).
     Returns (the measurements, the stacked lanes' launches summed over
     the methods)."""
-    from pb_sed_tpu_torch.models.base.ensemble import StackedEnsemble
     n = len(members)
     out = {}
     total = {name: 0 for name in KERNELS}
     for name, fn, kwargs in methods:
         windows = 'window_length' in kwargs.get('model_kwargs', {})
-        stacked = ([StackedEnsemble(members, chunk_size=chunk)]
-                   if windows and chunk else members)
         lanes = {}
-        for lane, model, extra in (
-                ('stacked', stacked, {}),
-                ('in_turn', members, {'auto_stack': False})):
+        for lane, extra in (('stacked', {}),
+                            ('in_turn', {'auto_stack': False})):
             stats = {}
-            results, launches = _serve(model, [(name, fn, kwargs | extra)],
+            results, launches = _serve(members, [(name, fn, kwargs | extra)],
                                        batches, k, f'{label} {lane}',
                                        stats=stats)
             lanes[lane] = (results[name], launches, stats)
-        chunks = BATCH // chunk if windows and chunk else 1
+        chunks = -(-BATCH // -(-BATCH // n)) if windows else 1
         forwards = len(batches) * chunks
         stacked_launches = lanes['stacked'][1]
         for kernel, per_forward in expected.items():
@@ -3170,7 +3252,8 @@ def phase_stacked_ensemble(records):
     check_member_gru(records)
     log('member-axis conv layers (JSON): ' + json.dumps(MEMBER_ROWS))
     log('gru at D = 2N (JSON): ' + json.dumps(MEMBER_GRU_ROWS))
-    launches, served = phase_ensemble()
+    with recording_gru_shapes():
+        launches, served = phase_ensemble()
     return {'launches': launches, 'served': served,
             'gru': MEMBER_GRU_ROWS}
 
@@ -3178,8 +3261,9 @@ def phase_stacked_ensemble(records):
 def phase_ensemble():
     """Phase 10b: 10 full-width shallow FBCRNNs (seeds 0-9) serve phase
     3's 3 x 32 clips through ``models.base``'s tagging, boundaries
-    detection and SED 51/1 (stacked in chunks of ``SED_CHUNK`` clips),
-    stacked and in turn; then 3 deep 527-class FBCRNNs tag them, plain
+    detection and SED 51/1 (stacked in the engine's chunks of
+    ``SED_CHUNK`` clips), stacked and in turn; then 3 deep 527-class
+    FBCRNNs tag them, plain
     and ``fuse_bn``. Returns the launch counts of the stacked shallow
     runs, of the stacked deep runs, and the measurements."""
     from pb_sed_tpu_torch.models import base
@@ -3190,7 +3274,7 @@ def phase_ensemble():
     out['shallow'], launches['ensemble_shallow'] = _lanes(
         members, _methods(base)[:3], batches, 10, 'ensemble shallow',
         {'conv2d_same': len(CONV_LAYERS), 'maxpool_freq2': len(POOLS),
-         'gru_scan': 2}, chunk=SED_CHUNK)
+         'gru_scan': 2})
     out['shallow_profile'] = _profile_lanes(members, batches[0])
     del members
     torch.cuda.empty_cache()
@@ -3311,7 +3395,7 @@ def run():
                     for key in ('steps_per_s', 'clips_per_s', 'peak_gib')))
     (launches['shallow_fuse_bn_serving'],
      launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, recording_gru_shapes():
         launches['cli_training'], _, runs = phase_cli_training(
             in_memory, Path(tmp))
         launches['tuning_chain'], chain, weak_hp_dir = phase_tuning_chain(
@@ -3325,6 +3409,7 @@ def run():
     log('strong phase (JSON): ' + json.dumps(strong))
     log('strong chain (JSON): ' + json.dumps(strong_chain))
     ensemble = phase_stacked_ensemble(records)
+    ensemble['gru_against_plain'] = check_stacked_gru_shapes(records)
     launches.update(ensemble.pop('launches'))
     log('stacked ensemble (JSON): ' + json.dumps(ensemble))
     launches['kernel_phase'] = kernel_phase

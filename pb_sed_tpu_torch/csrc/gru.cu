@@ -428,22 +428,6 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
       static_cast<cudaStream_t>(stream)));
 }
 
-// pbsed_gru_scan under the design named whatever gru_cluster_takes says
-// (cluster != 0: the cluster design, H = 256 or 512; 0: row-tiled), to
-// time both sides of the rule at one shape.
-extern "C" int pbsed_gru_scan_as(const void* xw, const void* w_hh,
-                                 const void* b_hh, const void* h0, void* y,
-                                 int D, int B, int T, int H, int cluster,
-                                 void* stream) {
-  if (H % 32 != 0 || H < 32 || H > 512 || D < 1 || D > 65535 ||
-      (cluster != 0 && H != 256 && H != 512))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || T == 0) return 0;
-  return static_cast<int>(gru_scan_design(xw, w_hh, b_hh, h0, y, D, B, T, H,
-                                          cluster != 0,
-                                          static_cast<cudaStream_t>(stream)));
-}
-
 // Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
 // cluster design, 0 for the row-tiled kernel, minus a cudaError_t when the
 // query fails. *cluster: blocks a cluster (1 row-tiled); *rows: batch rows

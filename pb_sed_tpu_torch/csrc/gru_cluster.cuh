@@ -43,10 +43,9 @@ constexpr int kClPad = 8;         // bf16 values of padding per H-long row
 constexpr int kClLdg = 100;       // f32 row stride of the gate buffers
 // At H = 256 the design takes a shape whose row tiles of 16 (over all
 // directions) number at most this many: the split and fused backwards',
-// and the forward's, which stacked ensembles re-timed at D = 2N; see
-// gru_cluster_takes.
+// and the forward's, re-timed up to D = 20 (see gru_cluster_takes).
 constexpr int kClMaxTiles16 = 32;
-constexpr int kClMaxTiles16Fwd = 128;
+constexpr int kClMaxTiles16Fwd = 192;
 
 __device__ __forceinline__ float cl_sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -168,14 +167,23 @@ __device__ __forceinline__ void cl_gate_product(const __nv_bfloat16* a,
 // the row-tiled forward re-reads 1.5 MiB of w_hh a step (48.6 against
 // 62.8 ms, the backward 111.1 against 136.9), and loses at H = 256 (14.4
 // against 13.1 ms; NVIDIA H100 80GB HBM3, 700 W): there it takes few row
-// tiles only, up to ``max_tiles16``. The forward's limit, 128, comes from
-// a stacked ensemble's D = 2N (same card and limit, chip_smoke.py phase
-// 10): where clusters run in waves, about 2 ms a wave at T = 500, they
-// still beat the row-tiled kernel's ~16 ms up to 80 tiles, the most
-// measured ((20, 32, 500): 4.28 against 16.06 ms; (20, 64, 500): 6.25
-// against 16.08), and lose from 2 000 on ((4, 8 000, 51): 14.60 against
-// 13.10; (20, 4 000, 51): 35.75 against 30.23). The backwards keep 32:
-// not re-timed there.
+// tiles only, up to ``max_tiles16``.
+//
+// The forward's limit, 192 tiles of 16 rows (over all directions), is
+// where the two designs cross (same card and limit,
+// scripts/perf/gru_designs.py). Beyond the clusters the card holds at
+// once, clusters run in waves of about 30 us plus 4.5 us a step, while
+// the row-tiled kernel holds up to 132 blocks of 32 rows in one wave at
+// about 32 us a step, so the crossing moves little with T. Cluster
+// against row-tiled ms: at T = 500, 160 tiles ((20, 128)) 11.44 vs 15.58,
+// 192 ((12, 256), (2, 1536)) 13.54 vs 15.89, 224 ((2, 1792)) 15.59 vs
+// 15.93, 240 ((20, 192)) 15.46 vs 15.70, 256 ((2, 2048)) 17.00 vs 15.63;
+// at T = 51, 160 ((2, 1280)) 1.37 vs 1.67, 192 ((2, 1536), (4, 768))
+// 1.62 / 1.57 vs 1.70, 224 ((2, 1792), (4, 896)) 1.98 / 1.83 vs 1.84 /
+// 1.73, 256 ((2, 2048)) 2.01 vs 1.69, and 1 000-2 500 tiles 1.1x the
+// row-tiled time; at T = 11, 128 ((4, 512)) 0.36 vs 0.42 and 192
+// ((2, 1536)) 0.46 vs 0.41, the one measured shape under the limit that
+// the cluster design loses. The backwards keep 32: not re-timed there.
 inline bool gru_cluster_takes(int D, int B, int T, int H,
                               int max_tiles16 = kClMaxTiles16) {
   if (T < 1 || B < 1) return false;

@@ -104,8 +104,13 @@ class StackedEnsemble:
 
     ``chunk_size`` evaluates a batch in chunks of that many examples (the
     last padded by repeating its last row, the outputs trimmed), every
-    chunk dispatched before any is converted: it bounds the device memory
-    of the stacked sliding-window SED, which grows with the members."""
+    chunk dispatched before any is converted. Left None, sliding-window
+    SED still runs in chunks, of ceil(examples / members): its buffers
+    (every window of every clip, for every member) grow with members x
+    clips, and so the stacked lane holds no more of them at once than
+    serving the members in turn does, one member at a time. Tagging and
+    boundaries detection run the whole batch at once unless
+    ``chunk_size`` is given."""
 
     def __init__(self, models, mesh=None, ensemble_axis='ensemble',
                  chunk_size=None):
@@ -149,14 +154,18 @@ class StackedEnsemble:
         return len(self.models)
 
     # -- evaluation ------------------------------------------------------
-    def _apply(self, batch, method, **kwargs):
+    def _apply(self, batch, method, windows=False, **kwargs):
         """The member mean of ``module.<method>(batch, **kwargs)``, in
-        chunks of ``chunk_size`` examples where the batch is larger."""
-        cs = self.chunk_size
+        chunks of ``chunk_size`` examples where the batch is larger (with
+        ``windows``, the sliding-window SED, of ceil(examples / members)
+        where ``chunk_size`` is None)."""
         arrays = {k for k, v in batch.items()
                   if isinstance(v, (np.ndarray, torch.Tensor))
                   and v.ndim >= 1}
         lens = {len(batch[k]) for k in arrays}
+        cs = self.chunk_size
+        if windows and not cs and lens:
+            cs = -(-max(lens) // len(self))
         if not cs or not lens or max(lens) <= cs:
             return self._apply_chunk(batch, method, **kwargs)
         if len(lens) != 1:
@@ -200,7 +209,7 @@ class StackedEnsemble:
         from pb_sed_tpu_torch.models.weak_label.crnn import multi_window_sed
         return multi_window_sed(
             lambda win_len: self._apply(
-                batch, 'sed_windows', window_length=win_len,
+                batch, 'sed_windows', windows=True, window_length=win_len,
                 window_shift=int(window_shift)),
             window_length, materialize=materialize)
 

@@ -42,7 +42,6 @@ _SIGNATURES = {
                           _P),
     'pbsed_maxpool_freq2': (_P, _P, ctypes.c_longlong, _I, _P),
     'pbsed_gru_scan': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    'pbsed_gru_scan_as': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),

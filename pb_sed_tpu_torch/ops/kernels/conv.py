@@ -26,13 +26,14 @@ CPU the tests reach the plain backward's own formula (tie rule, rounding
 points), not autograd of the plain forward.
 """
 import ctypes
-import inspect
 import math
 
 import torch
 import torch.nn.functional as F
 
 from pb_sed_tpu_torch.ops.kernels import build
+from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
+                                                    members_first)
 
 
 def _check_conv(x, w, b):
@@ -250,33 +251,6 @@ def _launch_conv_bwd(counter, x, w, gy, affine=()):
                  dw.data_ptr(), workspace.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, chunks)
     return dx, dw
-
-
-def cache_signature(function):
-    """Class decorator for a ``torch.autograd.Function`` with
-    ``setup_context`` (the form ``torch.func`` needs): its ``apply`` binds
-    the arguments to ``forward``'s signature on every call, and
-    ``inspect.signature`` of a function that carries ``__signature__``
-    returns that at once instead of building it again (half the form's
-    host cost a call)."""
-    function.forward.__signature__ = inspect.signature(function.forward)
-    return function
-
-
-def members_first(info, in_dims, args):
-    """The arguments of a Function's ``vmap`` rule with the member axis
-    first: a batched tensor's vmapped dimension moved to the front, an
-    unbatched one (``in_dim`` None, shared by every member) expanded to
-    ``info.batch_size`` members; None stays None."""
-    out = []
-    for arg, dim in zip(args, in_dims):
-        if arg is None:
-            out.append(None)
-        elif dim is None:
-            out.append(arg.expand(info.batch_size, *arg.shape))
-        else:
-            out.append(arg.movedim(dim, 0))
-    return out
 
 
 @cache_signature

@@ -32,7 +32,8 @@ import ctypes
 import torch
 
 from pb_sed_tpu_torch.ops.kernels import build
-from pb_sed_tpu_torch.ops.kernels.conv import cache_signature, members_first
+from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
+                                                    members_first)
 
 
 def _check(xw, w_hh, b_hh, h0):
@@ -95,23 +96,7 @@ def gru_scan(xw, w_hh, b_hh, h0):
     _check(xw, w_hh, b_hh, h0)
     if xw.device.type == 'cpu':
         return gru_scan_plain(xw, w_hh, b_hh, h0)
-    return _launch_gru('pbsed_gru_scan', xw, w_hh, b_hh, h0)
-
-
-def gru_scan_as(design, xw, w_hh, b_hh, h0):
-    """:func:`gru_scan` on the card under ``design`` ('cluster' or
-    'row_tiled') whatever the shape rule (``gru_cluster_takes``) picks: to
-    time both sides of the rule at one shape. Counts as a ``gru_scan``
-    launch."""
-    _check(xw, w_hh, b_hh, h0)
-    if design not in ('cluster', 'row_tiled'):
-        raise ValueError(f'design {design!r}: cluster or row_tiled')
-    return _launch_gru('pbsed_gru_scan_as', xw, w_hh, b_hh, h0,
-                       int(design == 'cluster'))
-
-
-def _launch_gru(fn_name, xw, w_hh, b_hh, h0, *design):
-    build.require_cuda(xw, w_hh, b_hh, h0)
+    build.require_cuda(xw)
     d, b, t, g = xw.shape
     hdim = g // 3
     if hdim % 32 or hdim > 512:
@@ -124,9 +109,9 @@ def _launch_gru(fn_name, xw, w_hh, b_hh, h0, *design):
     y = torch.empty((d, b, t, hdim), dtype=torch.float32, device=xw.device)
     if xw16.data_ptr() % 16:
         raise ValueError('gru_scan needs a 16-byte aligned xw buffer')
-    build.launch('gru_scan', fn_name, xw.device,
+    build.launch('gru_scan', 'pbsed_gru_scan', xw.device,
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
-                 h32.data_ptr(), y.data_ptr(), d, b, t, hdim, *design)
+                 h32.data_ptr(), y.data_ptr(), d, b, t, hdim)
     return y
 
 

@@ -8,7 +8,8 @@ projections (``ops/rnn.py:GRULayer.project``) and the 1x1 convs of the
 """
 import torch
 
-from pb_sed_tpu_torch.ops.kernels.conv import cache_signature, members_first
+from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
+                                                    members_first)
 
 
 def split_bias(b):

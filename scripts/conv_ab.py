@@ -18,9 +18,10 @@ name and power limit come first.
 import argparse
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
+
+import ab
 
 PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd')
 
@@ -64,17 +65,6 @@ def time_tree():
     print('TIMES ' + json.dumps(out), flush=True)
 
 
-def run_tree(tree):
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           '--time'], cwd=tree, capture_output=True,
-                          text=True, timeout=1500)
-    if proc.returncode != 0:
-        raise RuntimeError(f'{tree}: rc {proc.returncode}\n'
-                           f'{proc.stderr[-3000:]}')
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('TIMES ')]
-    return json.loads(line[-1][len('TIMES '):])
-
-
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('trees', nargs='*')
@@ -87,16 +77,11 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError('conv_ab.py needs a CUDA card')
     tree_a, tree_b = args.trees
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = ab.card()
     print(f'card: {card}; A = {tree_a}, B = {tree_b}', flush=True)
-    runs = {'A': [], 'B': []}
-    for _ in range(args.rounds):
-        for label, tree in (('A', tree_a), ('B', tree_b), ('B', tree_b),
-                            ('A', tree_a)):
-            runs[label].append(run_tree(tree))
-            print(f'timed {label}', flush=True)
+    script = Path(__file__).resolve()
+    runs = ab.alternate(tree_a, tree_b, args.rounds, lambda tree: (
+        ab.run_child(script, tree, ['TIMES'])['TIMES']))
     best = {label: {key: {p: min(r[key][p] for r in rs) for p in rs[0][key]}
                     for key in rs[0]} for label, rs in runs.items()}
     sums = {label: {p: 0. for p in PASSES} for label in best}

@@ -27,9 +27,10 @@ marked ``SLOWER``. The card's name and power limit come first.
 import argparse
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
+
+import ab
 
 SHAPES = [(2, 32, 500, 256), (2, 16000, 51, 256), (2, 32, 500, 512),
           (2, 16000, 51, 512)]
@@ -133,21 +134,6 @@ def time_tree():
     print('DESIGNS ' + json.dumps(designs), flush=True)
 
 
-def run_tree(tree):
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           '--time'], cwd=tree, capture_output=True,
-                          text=True, timeout=1500)
-    if proc.returncode != 0:
-        raise RuntimeError(f'{tree}: rc {proc.returncode}\n'
-                           f'{proc.stderr[-3000:]}')
-    found = {}
-    for tag in ('TIMES', 'DESIGNS'):
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith(tag + ' ')]
-        found[tag] = json.loads(line[-1][len(tag) + 1:])
-    return found['TIMES'], found['DESIGNS']
-
-
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('trees', nargs='*')
@@ -160,18 +146,13 @@ def main():
     if not torch.cuda.is_available():
         raise RuntimeError('gru_ab.py needs a CUDA card')
     tree_a, tree_b = args.trees
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = ab.card()
     print(f'card: {card}; A = {tree_a}, B = {tree_b}', flush=True)
-    runs = {'A': [], 'B': []}
-    designs = {}
-    for _ in range(args.rounds):
-        for label, tree in (('A', tree_a), ('B', tree_b), ('B', tree_b),
-                            ('A', tree_a)):
-            times, designs[label] = run_tree(tree)
-            runs[label].append(times)
-            print(f'timed {label}', flush=True)
+    script = Path(__file__).resolve()
+    found = ab.alternate(tree_a, tree_b, args.rounds, lambda tree: (
+        ab.run_child(script, tree, ['TIMES', 'DESIGNS'])))
+    runs = {side: [r['TIMES'] for r in rs] for side, rs in found.items()}
+    designs = {side: rs[-1]['DESIGNS'] for side, rs in found.items()}
     best = {label: {key: {p: min(r[key][p] for r in rs) for p in passes}
                     for key, passes in rs[0].items()}
             for label, rs in runs.items()}

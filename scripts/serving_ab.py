@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+import ab
+
 LINE = re.compile(r'^(\S+) (\S+): \d+ clips in [\d.]+ s = ([\d.]+) clips/s')
 CHILD = ('import chip_smoke as c; c.phase_card(); c.phase_slice(); '
          'c.phase_deep_serving()')
@@ -47,16 +49,10 @@ def main():
     parser.add_argument('tree_b', type=Path)
     parser.add_argument('--rounds', type=int, default=2)
     args = parser.parse_args()
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip()
-    print(f'card: {card}', flush=True)
-    runs = {'A': [], 'B': []}
-    for _ in range(args.rounds):
-        for side in 'ABBA':
-            tree = args.tree_a if side == 'A' else args.tree_b
-            runs[side].append(serve(tree))
-            print(f'{side} ({tree}): {runs[side][-1]}', flush=True)
+    print(f'card: {ab.card()}', flush=True)
+    runs = ab.alternate(args.tree_a, args.tree_b, args.rounds, serve)
+    for side, rs in runs.items():
+        print(f'{side}: {rs}', flush=True)
     for key in runs['A'][0]:
         a = [r[key] for r in runs['A']]
         b = [r[key] for r in runs['B']]

@@ -487,13 +487,16 @@ def test_gru_members_in_the_direction_axis(gen, n, b, t, h):
 
 def test_gru_forward_design_at_stacked_shapes(gen):
     """A stacked ensemble's GRU forward at D = 2N keeps the cluster design
-    up to 128 row tiles of 16 (10 members' tagging: 40), where clusters
-    running in waves beat the row-tiled kernel; its sliding-window shape
-    keeps the row-tiled one, and the backwards keep their limit of 32."""
-    for d, b, t in ((20, 32, 500), (40, 32, 500), (20, 64, 500)):
+    up to 192 row tiles of 16 (10 members' tagging: 40), where clusters
+    running in waves beat the row-tiled kernel, and takes the row-tiled
+    one beyond (its sliding-window shapes); the backwards keep their
+    limit of 32."""
+    for d, b, t in ((20, 32, 500), (40, 32, 500), (20, 64, 500),
+                    (12, 256, 500), (2, 1536, 51)):
         designs = gru_designs(d, b, t, 256)
         assert designs['fwd']['design'] == 'cluster'
         assert designs['fwd']['rows'] == 32
         assert designs['bwd']['design'] == 'row_tiled'
-    assert gru_designs(20, 4000, 51, 256)['fwd']['design'] == 'row_tiled'
-    assert gru_designs(2, 8000, 11, 256)['fwd']['design'] == 'row_tiled'
+    for d, b, t in ((20, 176, 500), (2, 1792, 51), (20, 2000, 51),
+                    (4, 4000, 11)):
+        assert gru_designs(d, b, t, 256)['fwd']['design'] == 'row_tiled'

@@ -231,10 +231,11 @@ def test_engine_stacks_by_default_and_matches_jax(weak, monkeypatch):
 
 def test_chunked_matches_unchunked(weak):
     """``chunk_size=2`` over 3 clips: a full chunk and a padded partial
-    one, the example ids cut alongside, outputs trimmed."""
+    one, the example ids cut alongside, outputs trimmed; unchunked is a
+    ``chunk_size`` of the whole batch."""
     _, tmodels = weak
     batch = _batch()
-    whole = StackedEnsemble(tmodels)
+    whole = StackedEnsemble(tmodels, chunk_size=len(batch['example_id']))
     chunked = StackedEnsemble(tmodels, chunk_size=2)
     for method, kwargs in METHODS[:3]:
         y_w, sl_w = getattr(whole, method)(batch, **kwargs)
@@ -242,6 +243,31 @@ def test_chunked_matches_unchunked(weak):
         np.testing.assert_allclose(y_c, y_w, atol=STACKED_TOL, rtol=0,
                                    err_msg=method)
         np.testing.assert_array_equal(sl_c, sl_w)
+
+
+def test_sliding_window_sed_chunked_by_default(weak, monkeypatch):
+    """Left without ``chunk_size``, sliding-window SED runs in chunks of
+    ceil(clips / members) (4 clips, 3 members: 2 chunks of 2) and equals
+    the unchunked run; tagging runs the whole batch at once."""
+    _, tmodels = weak
+    batch = _batch(4, (50, 50, 29, 50))
+    chunks = []
+    apply_chunk = StackedEnsemble._apply_chunk
+
+    def spy(self, chunk, method, **kwargs):
+        chunks.append((method, len(chunk['example_id'])))
+        return apply_chunk(self, chunk, method, **kwargs)
+
+    monkeypatch.setattr(StackedEnsemble, '_apply_chunk', spy)
+    default = StackedEnsemble(tmodels)
+    y, sl = default.sound_event_detection(batch, window_length=11)
+    default.tagging(batch)
+    assert chunks == [('sed_windows', 2), ('sed_windows', 2),
+                      ('tagging', 4)]
+    y_w, sl_w = StackedEnsemble(tmodels, chunk_size=4).sound_event_detection(
+        batch, window_length=11)
+    np.testing.assert_allclose(y, y_w, atol=STACKED_TOL, rtol=0)
+    np.testing.assert_array_equal(sl, sl_w)
 
 
 def test_dispatch_matches_public_api(weak):
