@@ -198,11 +198,39 @@ runs, in order:
    they ran) is held against the plain version, under the design the
    rule takes there.
 
+11. the Transformer head, dropout, the profiler hook and the multi-step
+   lane. 11a: the Transformer-head FBCRNN at the reference's width
+   (``fbcrnn_config('shallow')`` with both heads the head's own defaults:
+   hidden 256, d_ff 1024, 6 layers, 8 heads, dropout 0.2; weights from
+   ``bridge.init_flat`` with a seed) serves phase 3's 3 x 32 clips by
+   tagging, boundaries and SED 51/1, checked like phase 3 (the conv
+   forward and max-pool counters must rise; within 1e-4 + 3e-2 * max|ref|
+   of the CPU); clips/s and peak memory. 11b: the same model takes 8
+   ``Trainer`` steps with its heads' dropout 0.2, the towers' 0.1 (no
+   layer fuses), augmentation on, and ``profile_at=3,
+   profile_num_steps=2`` (steps 3-5 traced, the JAX trainer's rule): the
+   loss must be finite and lower over the second pass over the 4 batches
+   than the first, the conv pair's and the max-pool pair's counters must
+   rise, and the trace under ``<storage_dir>/profile`` must name the
+   port's conv forward, conv backward and max-pool kernels. Printed: each
+   profiled step's host and device ms from the trace, the step's device
+   ms by family (the port's kernels, f32 matmuls, bf16 matmuls, glue),
+   steps/s over steps 7-8 and peak memory. 11c: phase 4's shallow GRU
+   FBCRNN with dropout 0.1 in both towers and between its GRU layers, from
+   the same weights and seeds, takes 8 steps as ``steps_per_call=4`` and
+   as 8 single steps (twice): the lane's state must lie within 3x the
+   single steps' rerun difference of theirs (0 on the card: it must be
+   equal in every bit), its checkpoints at 4 and 8 where the JAX
+   trainer's lane puts them (the single steps' at 3, 6, 8), the GRU pair's,
+   the conv pair's and the max-pool's counters must rise, and the keep
+   rate of every mask the lane drew must lie within 4 sigma of 0.9.
+
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
 serving and training, the strong CLI training and its chain, the stacked
-ensembles) runs with the launch counters set to 0 just before it and
-read just after.
+ensembles, the Transformer's serving and training, the multi-step lane)
+runs with the launch counters set to 0 just before it and read just
+after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -3294,6 +3322,316 @@ def phase_ensemble():
     return launches, out
 
 
+# -- phase 11: the Transformer head, dropout, the profiler, the multi-step
+# lane ----------------------------------------------------------------------
+# the checkpoints of an 8-step run with steps_per_call = 4 and a checkpoint
+# every 3 iterations, where the JAX trainer's lane puts them: its interval
+# trigger is polled after each call (iterations 4 and 8) and fires on the
+# crossings of 3 and 6; the end of training writes 8 again
+LANE_CHECKPOINTS = [4, 8]
+TRANSFORMER_FAMILIES = {
+    'hand-written kernels': ('conv2d_', 'maxpool_freq2', 'avgpool_freq2',
+                             'gru_'),
+    'f32 matmuls (attention, feed-forward, in_proj)': ('gemm', 'gemv'),
+}
+
+
+def _transformer_config(augment=True):
+    """``fbcrnn_config('shallow')`` with both heads the Transformer head at
+    its own defaults (``TransformerEncoder.finalize_dogmatic_config``:
+    hidden 256, d_ff 1024, 6 layers, 8 heads, dropout 0.2; the backward
+    head its reversed copy), 10 classes."""
+    from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
+    from pb_sed_tpu_torch.ops.rnn import TransformerEncoder
+    config = fbcrnn_config('shallow', num_events=10, augment=augment)
+    config['rnn_fwd'] = {'factory': TransformerEncoder}
+    return config
+
+
+def _transformer_model(config, seed, device):
+    """The CRNN of ``config`` with ``bridge.init_flat``'s weights (the
+    JAX initializers, seeded), on ``device``."""
+    from pb_sed_tpu_torch.models import weak_label
+    model = weak_label.CRNN.from_config(weak_label.CRNN.get_config(config),
+                                        device='cpu')
+    model.init_parameters(seed)
+    return model.to(device)
+
+
+def phase_transformer_serving():
+    """11a: the Transformer-head FBCRNN at the reference's width serves
+    phase 3's 3 x 32 clips by tagging, boundaries and SED 51/1, checked
+    like phase 3 and against the same model on the CPU. Returns the
+    launch counts of the served run and its clips/s and peak memory."""
+    from pb_sed_tpu_torch.models import base
+    config = _transformer_config()
+    model = _transformer_model(config, 11, 'cuda')
+    head = model.module.rnn_fwd
+    log(f'Transformer FBCRNN: {model.num_parameters()} parameters; heads '
+        f'hidden {head.hidden_size}, d_ff {head.d_ff}, {head.num_layers} '
+        f'layers, {head.num_heads} heads, dropout {head.dropout}')
+    batches = _synthetic_batches(model.module.feature_extractor.stft)
+    methods = _methods(base)[:3]
+    stats = {}
+    results, launches = _serve(model, methods, batches, 10, 'transformer',
+                               kernels=('conv2d_same', 'maxpool_freq2'),
+                               stats=stats)
+    _agree_with_cpu(_transformer_model(config, 11, 'cpu'), methods, results,
+                    batches[1])
+    del model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def _device_ms_by_family(trace_path, windows):
+    """Device ms of the trace's kernels, copies and memsets inside the
+    step ``windows`` by family: the port's kernels, the f32 matmuls
+    (cuBLAS and its gemv; the Transformer's products), the bf16 matmuls
+    (the 1x1 convs, the 1-D tower), the rest (norms, elementwise glue,
+    softmax, copies)."""
+    from pb_sed_tpu_torch.utils.profiling import device_events, trace_events
+    events = trace_events(trace_path)
+    by_family = {name: 0. for name in TRANSFORMER_FAMILIES}
+    by_family['bf16 matmuls (1x1 convs, 1-D tower)'] = 0.
+    by_family['glue (norms, elementwise, softmax, copies)'] = 0.
+    names = set()
+    for start, end in windows.values():
+        for event in device_events(events, start, end):
+            name = event['name']
+            names.add(name)
+            low = name.lower()
+            if any(k in name for k in TRANSFORMER_FAMILIES[
+                    'hand-written kernels']):
+                family = 'hand-written kernels'
+            elif any(k in low for k in ('gemm', 'gemv')):
+                family = ('bf16 matmuls (1x1 convs, 1-D tower)'
+                          if 'bf16' in low or 'bfloat16' in low
+                          else 'f32 matmuls (attention, feed-forward, '
+                               'in_proj)')
+            else:
+                family = 'glue (norms, elementwise, softmax, copies)'
+            by_family[family] += event['dur'] / 1e3 / len(windows)
+    return by_family, names
+
+
+def phase_transformer_training(tmp):
+    """11b: the same model trains 8 steps through ``Trainer`` with its
+    heads' dropout 0.2 and the CNN towers' 0.1, augmentation on,
+    ``profile_at=3, profile_num_steps=2`` (steps 3-5 traced, the JAX
+    trainer's rule). Returns the launch counts and the measurements."""
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    from pb_sed_tpu_torch.utils.profiling import step_times_ms
+    config = _transformer_config()
+    for tower in ('cnn_2d', 'cnn_1d'):
+        config['cnn'][tower]['dropout'] = .1
+    model = _transformer_model(config, 11, 'cuda')
+    if model.module.cnn.cnn_2d.fused:
+        raise AssertionError('a tower with dropout fused a layer')
+    stft = model.module.feature_extractor.stft
+    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=10)
+    step_log = _StepLog()
+    storage = Path(tmp) / 'transformer'
+    trainer = Trainer(model, optimizer=Adam(lr=5e-4), storage_dir=storage,
+                      summary_trigger=(4, 'iteration'),
+                      stop_trigger=(TRAIN_STEPS, 'iteration'),
+                      profile_at=3, profile_num_steps=2)
+    trainer.register_hook(step_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    collect_garbage()
+    trainer.train(batches * (TRAIN_STEPS // len(batches)))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    log(f'launches in the Transformer training run: {launches}')
+    for kernel in ('conv2d_same', 'conv2d_same_bwd', 'maxpool_freq2',
+                   'maxpool_freq2_bwd'):
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'Transformer training run')
+    losses = step_log.losses
+    log('Transformer loss per step: ' + ', '.join(f'{x:.5f}'
+                                                  for x in losses))
+    half = len(losses) // 2
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not np.mean(losses[half:]) < np.mean(losses[:half]):
+        raise AssertionError(f'the Transformer loss did not fall over the '
+                             f'second pass over the batches: {losses}')
+    traces = sorted((storage / 'profile').glob('trace_*.json'))
+    if len(traces) != 1:
+        raise AssertionError(f'profile traces: {traces}')
+    times = step_times_ms(traces[0])
+    from pb_sed_tpu_torch.utils.profiling import step_windows, trace_events
+    windows = step_windows(trace_events(traces[0]))
+    if sorted(times) != [3, 4, 5]:
+        raise AssertionError(f'profiled steps {sorted(times)}, not 3-5')
+    by_family, names = _device_ms_by_family(traces[0], windows)
+    for what, keys in (('conv forward', ('conv2d_wgmma_kernel',
+                                         'conv2d_igemm_kernel')),
+                       ('conv backward', ('conv2d_dw_',)),
+                       ('max-pool', ('maxpool_freq2',))):
+        if not any(k in name for name in names for k in keys):
+            raise AssertionError(f'the trace names no {what} kernel of the '
+                                 f'port: {sorted(names)[:40]}')
+    steps = np.diff(step_log.times)
+    log('Transformer step times (host clock, synchronized; steps 3-5 '
+        'profiled): ' + ', '.join(f'{1e3 * x:.1f}' for x in steps) + ' ms')
+    for step, (host, device) in times.items():
+        log(f'Transformer profiled step {step}: host {host:.2f} ms '
+            f'(profiler on), device {device:.2f} ms (trace; idle share '
+            f'{100 * (1 - device / host):.0f}%)')
+    busy = sum(by_family.values())
+    log('Transformer step device ms by family (mean of the profiled '
+        'steps): ' + ', '.join(f'{name} {ms:.2f}'
+                               for name, ms in by_family.items())
+        + f'; busy {busy:.2f}')
+    # steps 7-8: step 3 holds the profiler's start, step 6 the trace's
+    # export and reading
+    steady = steps[6:]
+    metrics = {
+        'steps_per_s': float(1 / steady.mean()),
+        'clips_per_s': float(BATCH / steady.mean()),
+        'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+        'profiled_steps_ms': {str(k): v for k, v in times.items()},
+        'device_ms_by_family': by_family,
+        'losses': losses,
+    }
+    log(f'Transformer training: {metrics["steps_per_s"]:.3f} steps/s = '
+        f'{metrics["clips_per_s"]:.1f} clips/s over steps 7-{TRAIN_STEPS} '
+        f'(batch {BATCH} x 10 s clips, augmentation and dropout on, host '
+        f'clock); peak device memory {metrics["peak_gib"]:.2f} GiB')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches, metrics
+
+
+@contextlib.contextmanager
+def recording_masks():
+    """The trainer's dropout streams record their masks (yields the list
+    of streams)."""
+    from pb_sed_tpu_torch.ops.dropout import dropout_rng
+    from pb_sed_tpu_torch.train import trainer as trainer_module
+    streams = []
+
+    @contextlib.contextmanager
+    def recorded(generator):
+        with dropout_rng(generator, record=True) as stream:
+            streams.append(stream)
+            yield stream
+
+    trainer_module.dropout_rng = recorded
+    try:
+        yield streams
+    finally:
+        trainer_module.dropout_rng = dropout_rng
+
+
+def phase_multi_step_lane(tmp):
+    """11c: phase 4's shallow GRU FBCRNN with dropout 0.1 in both towers
+    and between its 2 GRU layers, from the same weights and seeds, takes 8
+    steps as ``steps_per_call=4`` (2 calls) and as 8 single steps, twice
+    (the card's own rerun difference; the lane runs between the two, all
+    three warm). Returns the launch counts of the lane's run and the
+    measurements."""
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    config = _config('shallow', 10)
+    for tower in ('cnn_2d', 'cnn_1d'):
+        config['cnn'][tower]['dropout'] = .1
+    config['rnn_fwd']['rnn']['dropout'] = .1
+    flat = _random_flat(config)
+    stft = _model(config, flat).module.feature_extractor.stft
+    batches = _train_batches(stft, 4, BATCH, 10, seed=5, k=10)
+    runs = {}
+    for name, k in (('single', 1), ('lane', 4), ('single_again', 1)):
+        storage = Path(tmp) / f'lane_{name}'
+        trainer = Trainer(_model(config, flat, 'cuda'),
+                          optimizer=Adam(lr=5e-4), storage_dir=storage,
+                          steps_per_call=k, keep_checkpoints=10,
+                          checkpoint_trigger=(3, 'iteration'),
+                          stop_trigger=(TRAIN_STEPS, 'iteration'))
+        torch.cuda.synchronize()
+        if name == 'lane':
+            build.reset_launches()
+        t0 = time.perf_counter()
+        with recording_masks() as streams:
+            trainer.train(batches * (TRAIN_STEPS // len(batches)))
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if name == 'lane':
+            launches = dict(build.LAUNCHES)
+            kept = sum(int(m.sum()) for s in streams for m in s.masks)
+            drawn = sum(m.numel() for s in streams for m in s.masks)
+        ckpts = sorted(int(p.stem.split('_')[1]) for p in
+                       (storage / 'checkpoints').glob('ckpt_[0-9]*.pkl'))
+        runs[name] = {'params': {n: p.detach().clone() for n, p in
+                                 trainer.model.module.state_dict().items()},
+                      'checkpoints': ckpts, 'iteration': trainer.iteration,
+                      'seconds': seconds, 'masks': sum(
+                          len(s.masks) for s in streams)}
+        del trainer, streams
+        torch.cuda.empty_cache()
+    log(f'launches in the multi-step lane run: {launches}')
+    for kernel in ('gru_scan', 'gru_scan_bwd', 'conv2d_same',
+                   'conv2d_same_bwd', 'maxpool_freq2'):
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'multi-step lane run')
+
+    def gap(a, b):
+        return max(float((runs[a]['params'][n].float()
+                          - runs[b]['params'][n].float()).abs().max())
+                   for n in runs[a]['params'])
+
+    lane_gap, rerun_gap = gap('lane', 'single'), gap('single', 'single_again')
+    log(f'multi-step lane vs single steps: max|d| over the state '
+        f'{lane_gap:.3e}; single steps rerun on the card {rerun_gap:.3e}')
+    if not lane_gap <= 3 * rerun_gap:
+        raise AssertionError(f'the lane and the single steps differ by '
+                             f'{lane_gap} > 3 x {rerun_gap}')
+    log(f'checkpoints: lane {runs["lane"]["checkpoints"]}, single steps '
+        f'{runs["single"]["checkpoints"]}')
+    if runs['lane']['checkpoints'] != LANE_CHECKPOINTS or runs['single'][
+            'checkpoints'] != [3, 6, 8]:
+        raise AssertionError('the checkpoint triggers fired elsewhere than '
+                             'the JAX trainer\'s lanes fire them')
+    rate = kept / drawn
+    sigma = np.sqrt(.9 * .1 / drawn)
+    log(f'dropout masks of the lane run: {runs["lane"]["masks"]} masks, '
+        f'{drawn} draws, keep rate {rate:.6f} (1 - p = 0.9, 4 sigma '
+        f'{4 * sigma:.2e})')
+    if runs['lane']['masks'] != runs['single']['masks'] or not abs(
+            rate - .9) <= 4 * sigma:
+        raise AssertionError(f'dropout masks: keep rate {rate}, '
+                             f'{runs["lane"]["masks"]} vs '
+                             f'{runs["single"]["masks"]} masks')
+    metrics = {'lane_gap': lane_gap, 'rerun_gap': rerun_gap,
+               'keep_rate': rate, 'draws': drawn,
+               'lane_seconds': runs['lane']['seconds'],
+               'single_seconds': runs['single']['seconds'],
+               'checkpoints': runs['lane']['checkpoints']}
+    log(f'multi-step lane: 8 steps in {metrics["lane_seconds"]:.3f} s, '
+        f'single steps {metrics["single_seconds"]:.3f} s (host clock, '
+        f'checkpoints included)')
+    return launches, metrics
+
+
+def phase_transformer(tmp):
+    """Phase 11: 11a-c; returns the launch counts of each path and the
+    measurements."""
+    out, launches = {}, {}
+    start = time.perf_counter()
+    launches['transformer_serving'], out['serving'] = \
+        phase_transformer_serving()
+    launches['transformer_training'], out['training'] = \
+        phase_transformer_training(tmp)
+    launches['multi_step_lane'], out['lane'] = phase_multi_step_lane(tmp)
+    out['seconds'] = time.perf_counter() - start
+    log(f'phase 11 took {out["seconds"]:.1f} s')
+    return launches, out
+
+
 def _descendants():
     """{pid: command line} of every live process below this one, from
     ``/proc``."""
@@ -3412,6 +3750,10 @@ def run():
     ensemble['gru_against_plain'] = check_stacked_gru_shapes(records)
     launches.update(ensemble.pop('launches'))
     log('stacked ensemble (JSON): ' + json.dumps(ensemble))
+    with tempfile.TemporaryDirectory() as tmp:
+        transformer_launches, transformer = phase_transformer(tmp)
+    launches.update(transformer_launches)
+    log('transformer phase (JSON): ' + json.dumps(transformer))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

@@ -89,26 +89,34 @@ def init_flat(template, seed):
     matrices and conv kernels are LeCun normal (a normal truncated at two
     standard deviations with variance 1 / fan_in, fan_in the product of
     all but the last axis: 2F for a bidirectional layer's stacked
-    ``w_ih (2, F, 3H)``, as flax counts it), the recurrent ``w_hh``
-    (H, 3H) has orthonormal rows, each direction's of a stacked
-    (2, H, 3H), scales are one, biases and shifts zero, and the running
-    statistics are those of a fresh module (mean 0, var 1,
-    not yet initialized)."""
+    ``w_ih (2, F, 3H)``, as flax counts it, and heads x head_dim for an
+    attention's ``out`` kernel (heads, head_dim, F)). An attention's
+    ``query`` / ``key`` / ``value`` kernel (F, heads, head_dim) is flax's
+    ``DenseGeneral`` draw: fan_in F, the contracted axis. The recurrent
+    ``w_hh`` (H, 3H) has orthonormal rows, each direction's of a stacked
+    (2, H, 3H), scales are one, biases and shifts zero whatever their
+    shape (a stacked ``b_ih (2, 1, 3H)``, an attention's ``bias (heads,
+    head_dim)``), and the running statistics are those of a fresh module
+    (mean 0, var 1, not yet initialized)."""
     rng = np.random.RandomState(seed)
     out = {}
     for key in sorted(template):
         shape = np.shape(template[key])
-        name = key.rsplit('.', 1)[-1]
+        parent, name = key.rsplit('.', 2)[-2:]
         if name in ('var', 'scale'):
             value = np.ones(shape)
+        elif name in ('bias', 'b_ih', 'b_hh', 'shift', 'mean',
+                      'initialized') or len(shape) < 2:
+            value = np.zeros(shape)
         elif name == 'w_hh':
             # one orthonormal (H, 3H) per direction of a stacked
             # (2, H, 3H), as the JAX package's _stacked_orthogonal
             value = np.stack([_orthogonal(rng, *shape[-2:])
                               for _ in range(int(np.prod(shape[:-2])))])
             value = value.reshape(shape)
-        elif len(shape) >= 2:
-            fan_in = int(np.prod(shape[:-1]))
+        else:
+            fan_in = int(np.prod(shape[:1] if parent in (
+                'query', 'key', 'value') else shape[:-1]))
             value = rng.randn(*shape)
             outside = np.abs(value) > 2.
             while outside.any():  # redraw the tails
@@ -116,8 +124,6 @@ def init_flat(template, seed):
                 outside = np.abs(value) > 2.
             # .8796...: the standard deviation of the truncated normal
             value = value / (.87962566103423978 * np.sqrt(fan_in))
-        else:
-            value = np.zeros(shape)
         out[key] = value.astype(np.float32)
     return out
 

@@ -1,7 +1,8 @@
 """FBCRNN (forward-backward CRNN) for weak-label sound event detection.
 
 Counterpart of ``pb_sed_tpu/models/weak_label/crnn.py``: log-mel front
-end, hybrid CNN, a forward and a time-reversed backward GRU head, bounded
+end, hybrid CNN, a forward and a time-reversed backward GRU head (or
+Transformer head, ``ops/rnn.py:TransformerEncoder``), bounded
 sigmoid scores, the training loss (:meth:`CRNN.loss`, the JAX
 ``CRNN.loss_fn``) and the inference methods ``tagging`` (mean of the
 forward head's last and the backward head's first frame),

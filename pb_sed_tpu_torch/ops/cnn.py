@@ -34,6 +34,7 @@ import math
 import torch
 from torch import nn
 
+from pb_sed_tpu_torch.ops.dropout import dropout
 from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2,
                                                BnReluConv2dSame, Conv2dSame,
                                                MaxPoolFreq2)
@@ -126,14 +127,6 @@ def _act(name):
     if name in ('sigmoid', 'tanh'):
         return getattr(torch, name)
     raise NotImplementedError(f'activation {name!r} is not ported yet')
-
-
-def check_dropout(module, dropout):
-    """Raise when dropout would act: it is not ported yet."""
-    if module.training and dropout > 0:
-        raise NotImplementedError(
-            f'{type(module).__name__}: dropout > 0 in training is not '
-            f'ported yet')
 
 
 def _check_common(norm, compute_dtype):
@@ -254,9 +247,12 @@ class _Tower(nn.Module, Configurable):
         self.built_channels = in_channels
 
     def _norm_act(self, i, h, seq_len):
+        """Norm, activation and dropout (in training) of layer ``i``, in
+        f32 (``pb_sed_tpu/ops/cnn.py:636-641, 651-656, 707-724``)."""
         if self.norm == 'batch':
             h = getattr(self, f'norm_{i}')(h, seq_len)
-        return self.act(h.float())
+        return dropout(self.act(h.float()), self.dropout, self.training,
+                       type(self).__name__)
 
 
 class CNN2d(_Tower):
@@ -267,7 +263,11 @@ class CNN2d(_Tower):
     plain versions. ``fuse_bn`` folds each eligible layer's batch norm
     and ReLU into its conv's input load (:meth:`fused_layers`).
     ``residual_connections[i] = j`` adds layer i's output to layer j's.
-    ``dropout`` > 0 raises in training (not ported yet)."""
+    ``dropout`` acts after each activation in training, as in the JAX
+    package, and then no layer fuses. With ``dropout`` > 0 the JAX tower
+    takes its unpacked path in eval too (``pb_sed_tpu/ops/cnn.py:
+    366-370``); the port keeps the packed path's rounding points there
+    (``ROADMAP.md`` §3)."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -297,8 +297,10 @@ class CNN2d(_Tower):
         self.pre_activation = pre_activation
         self.dropout = dropout
         self.output_layer = output_layer
+        # with dropout the JAX tower refuses its packed plan, so nothing
+        # fuses (and the mask sits between the ReLU and the conv)
         self.fuse_bn = (fuse_bn and pre_activation and norm == 'batch'
-                        and activation_fn == 'relu')
+                        and activation_fn == 'relu' and dropout == 0)
         self.fused = frozenset()
         self.built_channels = None
         if in_channels is not None:
@@ -313,9 +315,9 @@ class CNN2d(_Tower):
         """The layers whose batch norm and ReLU fold into the conv with
         ``fuse_bn``, by the JAX package's rule
         (``pb_sed_tpu/ops/cnn.py:_packed_plan``): a pre-activation ReLU
-        batch-norm tower, an odd kernel larger than 1x1, input channels a
-        multiple of 16 (not the channel-padded entry layer, Cin < 16),
-        and not the output layer. The JAX plan also drops a layer whose
+        batch-norm tower without dropout, an odd kernel larger than 1x1,
+        input channels a multiple of 16 (not the channel-padded entry
+        layer, Cin < 16), and not the output layer. The JAX plan also drops a layer whose
         staging slab exceeds its TPU memory model; the card has no such
         limit, so every eligible layer fuses here."""
         if not self.fuse_bn:
@@ -334,7 +336,6 @@ class CNN2d(_Tower):
 
     def forward(self, x, seq_len):
         """(B, T, F, C) -> ((B, T, F', C') bf16, seq_len)."""
-        check_dropout(self, self.dropout)
         n = len(self.out_channels)
         pending = {}
         h = x
@@ -398,7 +399,6 @@ class CNN1d(_Tower):
 
     def forward(self, x, seq_len):
         """(B, T, C) -> ((B, T, C') f32, seq_len)."""
-        check_dropout(self, self.dropout)
         n = len(self.out_channels)
         pending = {}
         h = x

@@ -12,14 +12,29 @@ w_hh (2, H, 3H), b_ih (2, 1, 3H), b_hh (2, 1, 3H)}``, in torch gate order
 outside the recurrence, with the f32 input bias inside its one rounding
 (``ops/linear.py:Bf16Linear``); the recurrence is the autograd Function
 ``ops/kernels/gru.py:GruScan`` (forward and backward kernels). A
-bidirectional layer runs both directions as one D=2 recurrence. The
-Transformer head and inter-layer dropout in training are not ported yet
-and raise.
+bidirectional layer runs both directions as one D=2 recurrence. Between
+stacked layers, dropout acts in training (``ops/dropout.py``).
+
+The Transformer head (:class:`TransformerEncoder`, the JAX package's
+``ops/rnn.py:403-491``): an input projection, causal pre-LayerNorm blocks
+of multi-head self-attention and a ReLU feed-forward net, and the 1x1
+output net, all in f32 as flax's ``Dense`` and
+``MultiHeadDotProductAttention`` compute them (the JAX package computes
+attention outside any kernel; plain matmuls here, TF32 off, torch's
+default). Parameter names and layouts are flax's: ``in_proj.{kernel
+(F, Hd), bias}``, ``block_{i}.LayerNorm_{0,1}.{scale, bias}``,
+``block_{i}.MultiHeadDotProductAttention_0.{query,key,value}.{kernel
+(Hd, heads, Hd/heads), bias (heads, Hd/heads)}`` and ``.out.{kernel
+(heads, Hd/heads, Hd), bias}``, ``block_{i}.Dense_{0,1}.{kernel, bias}``.
 """
+import math
+
 import torch
 from torch import nn
 
-from pb_sed_tpu_torch.ops.cnn import CNN1d, check_dropout
+from pb_sed_tpu_torch.ops.cnn import CNN1d
+from pb_sed_tpu_torch.ops.dropout import (apply_keep, attention_dropout,
+                                          dropout, keep_mask)
 from pb_sed_tpu_torch.ops.kernels.gru import GruScan
 from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import reverse_sequence
@@ -115,8 +130,8 @@ class StackedGRU(nn.Module, Configurable):
 
     ``use_pallas`` comes from the JAX package's configs and has no effect:
     on CUDA the port always runs the GRU kernels, on the CPU their plain
-    versions. ``dropout`` > 0 between layers raises in training (not
-    ported yet)."""
+    versions. ``dropout`` acts on the output of every layer but the last
+    in training (``pb_sed_tpu/ops/rnn.py:267-268``)."""
 
     def __init__(self, hidden_size, num_layers=1, bias=True, dropout=0.,
                  bidirectional=False, use_pallas=False, input_size=None):
@@ -158,17 +173,20 @@ class StackedGRU(nn.Module, Configurable):
         return [getattr(self, f'layer_{i}_{suffix}')
                 for i in range(self.num_layers)]
 
-    def check_dropout(self):
-        """Dropout acts between layers in training (not ported yet)."""
-        check_dropout(self, self.dropout if self.num_layers > 1 else 0.)
+    def between_layers(self, h, i):
+        """Layer ``i``'s output as the next layer reads it: dropped out in
+        training unless it is the last layer."""
+        if i == self.num_layers - 1:
+            return h
+        return dropout(h, self.dropout, self.training, 'StackedGRU')
 
     def forward(self, x, seq_len=None):
         """``seq_len`` (None: every sequence full) places the backward
         direction's reversal in a bidirectional GRU."""
-        self.check_dropout()
         h = x
-        for layer in self.gru_layers:
+        for i, layer in enumerate(self.gru_layers):
             h = layer(h, seq_len) if self.bidirectional else layer(h)
+            h = self.between_layers(h, i)
         return h
 
 
@@ -236,25 +254,44 @@ class GRU(nn.Module, Configurable):
 
 def paired_heads(head_f, head_b):
     """Whether the FBCRNN's forward and backward heads can run as one D=2
-    recurrence per layer (:func:`paired_gru_apply`)."""
+    recurrence per layer (:func:`paired_gru_apply`). Unlike the JAX
+    package, heads with dropout between their layers pair too: the paired
+    lane draws each head's masks in the unpaired lane's order. It needs
+    output nets that draw none, as every recipe's do."""
     if not isinstance(head_f, GRU) or not isinstance(head_b, GRU):
         return False
     if head_f.reverse or not head_b.reverse:
         return False
     cf, cb = head_f.rnn, head_b.rnn
-    for core in (cf, cb):
-        if isinstance(core, StackedGRU):
-            core.check_dropout()
     return (isinstance(cf, StackedGRU) and isinstance(cb, StackedGRU)
             and not (cf.bidirectional or cb.bidirectional)
             and cf.num_layers == cb.num_layers
-            and cf.hidden_size == cb.hidden_size)
+            and cf.hidden_size == cb.hidden_size
+            and not (head_f.training and (head_f.output_net.dropout
+                                          or head_b.output_net.dropout)))
+
+
+def _between_layers(core, x):
+    """``core``'s (a StackedGRU's) inter-layer dropout as one function per
+    layer of that layer's output, with its masks drawn now, in the order
+    the unpaired lane draws them."""
+    out = []
+    for i in range(core.num_layers):
+        if i == core.num_layers - 1 or not core.training or not core.dropout:
+            out.append(lambda h: h)
+            continue
+        keep = keep_mask((*x.shape[:-1], core.hidden_size), core.dropout,
+                         x.device, 'StackedGRU')
+        out.append(lambda h, keep=keep: apply_keep(h, keep, core.dropout))
+    return out
 
 
 def paired_gru_apply(head_f, head_b, x, seq_len):
     """Both heads with each layer's two recurrences in ONE D=2
     ``gru_scan``; same values as ``head_f(x, seq_len)`` and
-    ``head_b(x, seq_len)``. Returns ``(y_fwd, y_bwd, seq_len_out)``."""
+    ``head_b(x, seq_len)``, dropout included (the forward head's masks
+    are drawn before the backward head's, as the heads in turn draw
+    them). Returns ``(y_fwd, y_bwd, seq_len_out)``."""
     rev_len = seq_len
     if seq_len is None:
         seq_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
@@ -262,13 +299,206 @@ def paired_gru_apply(head_f, head_b, x, seq_len):
     b = x.shape[0]
     h_f = x
     h_b = reverse_sequence(x, rev_len, axis=1)
-    for lf, lb in zip(head_f.rnn.gru_layers, head_b.rnn.gru_layers):
+    drop_f = _between_layers(head_f.rnn, x)
+    drop_b = _between_layers(head_b.rnn, x)
+    for i, (lf, lb) in enumerate(zip(head_f.rnn.gru_layers,
+                                     head_b.rnn.gru_layers)):
         xw = torch.stack([lf.project(h_f), lb.project(h_b)])
         w_hh = torch.stack([lf.w_hh, lb.w_hh])
         b_hh = torch.stack([lf.b_hh, lb.b_hh])
         h0 = torch.zeros(2, b, lf.hidden_size, device=x.device)
         h_f, h_b = GruScan.apply(xw, w_hh, b_hh, h0)
+        h_f, h_b = drop_f[i](h_f), drop_b[i](h_b)
     y_f, seq_out = head_f.output_net(h_f, seq_len)
     y_b, _ = head_b.output_net(reverse_sequence(h_b, rev_len, axis=1),
                                seq_len)
     return y_f, y_b, seq_out
+
+
+class _Dense(nn.Module):
+    """flax ``nn.Dense`` in f32: ``x @ kernel + bias``, kernel (F, M)."""
+
+    def __init__(self, in_features, out_features):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x):
+        return x @ self.kernel + self.bias
+
+
+class _LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()`` over the last axis: epsilon 1e-6 and the
+    fast variance ``max(E[x^2] - E[x]^2, 0)``, applied as ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, features, eps=1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp(min=0.)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class _HeadsProjection(nn.Module):
+    """A query, key or value projection of flax's attention (its
+    ``DenseGeneral`` to (heads, head_dim)): kernel (F, heads, head_dim),
+    bias (heads, head_dim)."""
+
+    def __init__(self, features, heads, head_dim):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(features, heads, head_dim))
+        self.bias = nn.Parameter(torch.zeros(heads, head_dim))
+
+    def forward(self, x):
+        return torch.einsum('btf,fhd->bthd', x, self.kernel) + self.bias
+
+
+class _OutProjection(nn.Module):
+    """The attention's output ``DenseGeneral`` over (heads, head_dim):
+    kernel (heads, head_dim, F), bias (F,)."""
+
+    def __init__(self, heads, head_dim, features):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(heads, head_dim, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, y):
+        return torch.einsum('bthd,hdf->btf', y, self.kernel) + self.bias
+
+
+class _SelfAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention(num_heads, qkv_features=
+    features)`` on ``(x, x)``: the query divided by sqrt(head_dim) before
+    the product, masked logits set to the f32 minimum, softmax in f32,
+    the attention dropout on the weights (one (Tq, Tk) mask shared by the
+    batch and the heads), then the output projection."""
+
+    def __init__(self, features, heads):
+        super().__init__()
+        if features % heads:
+            raise ValueError(f'{features} features do not split into '
+                             f'{heads} heads')
+        head_dim = features // heads
+        self.query = _HeadsProjection(features, heads, head_dim)
+        self.key = _HeadsProjection(features, heads, head_dim)
+        self.value = _HeadsProjection(features, heads, head_dim)
+        self.out = _OutProjection(heads, head_dim, features)
+
+    def forward(self, x, mask, rate):
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        q = q / math.sqrt(q.shape[-1])
+        logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+        weights = attention_dropout(torch.softmax(logits, dim=-1), rate,
+                                    self.training)
+        return self.out(torch.einsum('bhqk,bkhd->bqhd', weights, v))
+
+
+class _TransformerBlock(nn.Module):
+    """One pre-LayerNorm block (``pb_sed_tpu/ops/rnn.py:472-491``):
+    ``x + attention(LN(x))``, then ``x + Dense(dropout(relu(Dense(
+    LN(x)))))``."""
+
+    def __init__(self, hidden_size, d_ff, num_heads, dropout_rate):
+        super().__init__()
+        self.dropout = dropout_rate
+        self.LayerNorm_0 = _LayerNorm(hidden_size)
+        self.MultiHeadDotProductAttention_0 = _SelfAttention(hidden_size,
+                                                             num_heads)
+        self.LayerNorm_1 = _LayerNorm(hidden_size)
+        self.Dense_0 = _Dense(hidden_size, d_ff)
+        self.Dense_1 = _Dense(d_ff, hidden_size)
+
+    def forward(self, x, mask):
+        x = x + self.MultiHeadDotProductAttention_0(
+            self.LayerNorm_0(x), mask, self.dropout)
+        h = torch.relu(self.Dense_0(self.LayerNorm_1(x)))
+        h = dropout(h, self.dropout, self.training, 'TransformerEncoder')
+        return x + self.Dense_1(h)
+
+
+class TransformerEncoder(nn.Module, Configurable):
+    """The causal Transformer alternative to the GRU head (the JAX
+    package's ``TransformerEncoder``, the reference's
+    ``experiments/weak_label_crnn/training.py:275-281``): ``in_proj`` to
+    ``hidden_size``, ``num_layers`` blocks (:class:`_TransformerBlock`)
+    under a causal mask whose keys lie below ``seq_len``, then the output
+    net. ``reverse=True`` (the FBCRNN's backward head) reverses the valid
+    frames before the blocks and after them. ``rnn`` is a plain dict
+    (``hidden_size``, ``d_ff``, ``num_layers``, ``dropout``,
+    ``num_heads``; the config glue adds ``input_size``)."""
+
+    def __init__(self, rnn=None, output_net=None, reverse=False):
+        super().__init__()
+        self.train(False)  # the JAX default: training=False
+        cfg = dict(rnn or {})
+        cfg.pop('factory', None)
+        input_size = cfg.pop('input_size', None)
+        self.hidden_size = cfg.get('hidden_size', 256)
+        self.d_ff = cfg.get('d_ff', 1024)
+        self.num_layers = cfg.get('num_layers', 6)
+        self.dropout = cfg.get('dropout', .2)
+        self.num_heads = cfg.get('num_heads', 8)
+        self.output_net = output_net
+        self.reverse = reverse
+        for i in range(self.num_layers):
+            self.add_module(f'block_{i}', _TransformerBlock(
+                self.hidden_size, self.d_ff, self.num_heads, self.dropout))
+        output_net.build(self.hidden_size)
+        self.input_size = None
+        if input_size is not None:
+            self.build(input_size)
+
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        config['rnn'] = {
+            'hidden_size': 256, 'd_ff': 1024, 'num_layers': 6,
+            'dropout': .2, 'num_heads': 8,
+        }
+        config['output_net'] = {
+            'factory': CNN1d,
+            'out_channels': [256, 10],
+            'kernel_size': 1,
+            'norm': 'batch',
+            'activation_fn': 'relu',
+            'dropout': 0.,
+            'output_layer': True,
+        }
+
+    def build(self, in_channels):
+        """Create ``in_proj`` for ``in_channels`` input features."""
+        if self.input_size is not None:
+            if self.input_size != in_channels:
+                raise ValueError(
+                    f'TransformerEncoder built for {self.input_size} input '
+                    f'features, asked for {in_channels}')
+            return
+        self.in_proj = _Dense(in_channels, self.hidden_size)
+        self.input_size = in_channels
+
+    def forward(self, x, seq_len):
+        """(B, T, C) -> ((B, T, K) scores, seq_len); ``seq_len=None``
+        (sliding windows) means every sequence is full."""
+        rev_len = seq_len
+        if seq_len is None:
+            seq_len = torch.full((x.shape[0],), x.shape[1],
+                                 dtype=torch.int32, device=x.device)
+        h = x.float()
+        if self.reverse:
+            h = reverse_sequence(h, rev_len, axis=1)
+        h = self.in_proj(h)
+        pos = torch.arange(h.shape[1], device=h.device)
+        causal = pos[None, :] <= pos[:, None]               # (Tq, Tk)
+        valid = pos[None, :] < seq_len[:, None]             # (B, Tk)
+        mask = causal[None, None] & valid[:, None, None, :]
+        for i in range(self.num_layers):
+            h = getattr(self, f'block_{i}')(h, mask)
+        if self.reverse:
+            h = reverse_sequence(h, rev_len, axis=1)
+        return self.output_net(h, seq_len)

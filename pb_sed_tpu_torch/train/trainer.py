@@ -11,7 +11,8 @@ What it does, with the JAX surface: ``__init__`` triggers
 step:
 
     lr = optimizer.lr * lr_factor_backoff * interp(iteration, xs, ys)
-    loss, aux = model.loss(batch, generator)       # module in train mode
+    with dropout_rng(dropout_generator):
+        loss, aux = model.loss(batch, generator)   # module in train mode
     loss.backward()                                # the backward kernels
     updates = Adam(grads)  (grad_norm of the raw gradients)
     frozen updates -> 0;  p <- p - lr * u;  frozen BN stats restored
@@ -21,13 +22,18 @@ interpolated at the iteration before the step as the JAX step does
 (``trainer.py:184-193``). The step runs on the model's device: the card,
 unless the model was built or moved with ``device='cpu'``
 (``models/base/model.py:default_device``). The augmentation draws from a
-``torch.Generator`` on that device, seeded with ``seed``.
+``torch.Generator`` on that device, seeded with ``seed``, and dropout
+from another, seeded from ``seed`` apart from it (:func:`dropout_seed`;
+the JAX step's ``augment`` and ``dropout`` streams): a model without
+dropout draws the augmentation it drew before dropout was ported.
 Checkpoints are ``{'model': flat, 'iteration', 'epoch',
-'lr_factor_backoff', 'optimizer', 'rng'}`` pickles with the model in the
-JAX package's flat layout (``bridge.py``), so both packages restore the
-model; the optimizer state is the port's own layout
-(``{'count': int, 'mu': {flat key: array}, 'nu': {...}}``) and the rng
-the generator's state. ``summary.jsonl`` gets one line per summary
+'lr_factor_backoff', 'optimizer', 'rng', 'dropout_rng'}`` pickles with
+the model in the JAX package's flat layout (``bridge.py``), so both
+packages restore the model; the optimizer state is the port's own layout
+(``{'count': int, 'mu': {flat key: array}, 'nu': {...}}``) and the rngs
+the generators' states (a checkpoint without ``dropout_rng``, an older
+one or the JAX trainer's, leaves the dropout generator at its seed's
+state). ``summary.jsonl`` gets one line per summary
 trigger (prefix ``training``) and per validation (prefix ``validation``):
 ``{'iteration', 'prefix', 'time', **scalars}``, the scalars being the
 means of the steps' scalars and the metrics the model computes from the
@@ -36,11 +42,33 @@ steps' buffered clip scores (``SoundEventModel.modify_summary``:
 checkpoint trigger and at the end of ``train``, with the module in eval
 mode under ``torch.no_grad()``.
 
-Not ported yet (raise): the multi-step lane (``steps_per_call > 1``)
-and the profiler (``profile_at``). ``use_mesh`` and
-``loss_scale`` are accepted for config compatibility: the port trains on
-the model's one device, and the JAX trainer never reads ``loss_scale``.
+The multi-step lane (``steps_per_call = K > 1``, the JAX trainer's
+``trainer.py:319-324, 401-475``): ``train`` buffers batches of one shape
+(a batch of another shape drains the buffer first) and runs K of them as
+one :meth:`train_steps` call, K steps of the one step body in a loop,
+each reading the learning rate at its own iteration; hooks see one
+``pre_step`` and one ``post_step`` (with the last batch and the (K,)
+losses) a call, the call's scalars enter the summary K-stacked (one
+entry, as JAX's), and the triggers are polled after the call: the
+interval triggers fire on crossings, and the stop check sits in the
+batch loop, so a run may end up to K - 1 steps past its stop trigger, as
+JAX's does. The call runs eagerly.
+
+The profiler (``profile_at``, ``profile_num_steps``; the JAX trainer's
+``trainer.py:338-367``): with a ``storage_dir``, a ``torch.profiler``
+trace (``utils/profiling.py:torch_profile``) starts before the step
+whose iteration crosses ``profile_at`` and stops once ``iteration >=
+profile_at + profile_num_steps``, or when ``train`` ends; it goes to
+``<storage_dir>/profile`` as a Chrome trace. Each profiled step runs in
+a ``record_function`` window named ``train_step_<iteration>`` that ends
+with a device synchronize, and the host and device milliseconds of each
+window are printed from the trace.
+
+``use_mesh`` and ``loss_scale`` are accepted for config compatibility:
+the port trains on the model's one device, and the JAX trainer never
+reads ``loss_scale``.
 """
+import contextlib
 import json
 import pickle
 import shutil
@@ -51,12 +79,20 @@ import numpy as np
 import torch
 
 from pb_sed_tpu_torch.bridge import param_keys
+from pb_sed_tpu_torch.ops.dropout import dropout_rng
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.train.hooks import (EndTrigger, Hook, IntervalTrigger,
                                           LRAnnealingHook)
 from pb_sed_tpu_torch.train.optimizer import Adam
 from pb_sed_tpu_torch.utils.checkpoint import adam_moments, load_payload
 from pb_sed_tpu_torch.utils.config import Configurable
+from pb_sed_tpu_torch.utils.profiling import step_times_ms, torch_profile
+
+
+def dropout_seed(seed):
+    """The dropout generator's seed, drawn from ``seed`` apart from the
+    augmentation generator's (``seed`` itself)."""
+    return int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
 
 
 class Trainer(Configurable):
@@ -67,11 +103,6 @@ class Trainer(Configurable):
                  keep_checkpoints=1, seed=0, use_mesh=True,
                  loss_scale=None, steps_per_call=1,
                  profile_at=None, profile_num_steps=3):
-        if steps_per_call != 1:
-            raise NotImplementedError(
-                'steps_per_call > 1 (the multi-step lane) is not ported yet')
-        if profile_at is not None:
-            raise NotImplementedError('the profiler hook is not ported yet')
         self.model = model
         self.optimizer = optimizer if optimizer is not None else Adam()
         self.storage_dir = Path(storage_dir) if storage_dir else None
@@ -88,6 +119,13 @@ class Trainer(Configurable):
         self.validation_hook = None
         self.opt_state = None
         self.generator = None
+        self.dropout_generator = None
+        self.steps_per_call = steps_per_call
+        self.profile_at = profile_at
+        self.profile_num_steps = profile_num_steps
+        self._profile = None        # the open trace of the profiled steps
+        self._profile_done = False
+        self._batch_buffer = []
         self._frozen = set()
         self._frozen_stats = set()
         self._summary = _empty_summary()
@@ -194,6 +232,8 @@ class Trainer(Configurable):
         if self.generator is None:
             self.generator = torch.Generator(device=device)
             self.generator.manual_seed(self.seed)
+            self.dropout_generator = torch.Generator(device=device)
+            self.dropout_generator.manual_seed(dropout_seed(self.seed))
         return params
 
     def train(self, train_set, resume=False, device=None,
@@ -215,7 +255,11 @@ class Trainer(Configurable):
                 for batch in train_set:
                     if self.stop_trigger(self.iteration, self.epoch):
                         break
-                    self.train_step(batch)
+                    if self.steps_per_call > 1:
+                        self._enqueue_batch(batch)
+                    else:
+                        self.train_step(batch)
+                self._drain_batch_buffer()
                 self.epoch += 1
             # final validation and checkpoint (resuming a run that had
             # finished takes no step and validates nothing)
@@ -225,56 +269,149 @@ class Trainer(Configurable):
                 self.validate()
             self.save_checkpoint()
         finally:
+            self._maybe_stop_profile(force=True)
             if tracker is not None:
                 tracker.stop()
 
-    def train_step(self, batch):
-        """One optimizer step on ``batch`` (numpy arrays or tensors);
-        returns the loss (a 0-dim device tensor)."""
+    # -- profiler -------------------------------------------------------------
+    def _maybe_start_profile(self):
+        # a crossing (>=): the multi-step lane advances the iteration in
+        # strides and can step over an exact profile_at
+        if (self.profile_at is not None and self._profile is None
+                and not self._profile_done
+                and self.iteration + 1 >= self.profile_at
+                and self.storage_dir is not None):
+            cuda = self.model.placed_device().type == 'cuda'
+            self._profile = torch_profile(self.storage_dir / 'profile',
+                                          cuda=cuda).__enter__()
+
+    def _maybe_stop_profile(self, force=False):
+        if self._profile is None or not (
+                force or self.iteration
+                >= self.profile_at + self.profile_num_steps):
+            return
+        trace, self._profile = self._profile, None
+        self._profile_done = True
+        trace.__exit__(None, None, None)
+        print(f'Profiler trace written to {trace.path}')
+        for step, (host, device) in step_times_ms(trace.path).items():
+            print(f'Profiled step {step}: {host:.2f} ms on the host, '
+                  f'{device:.2f} ms of device work (trace)')
+
+    @contextlib.contextmanager
+    def _step_window(self):
+        """While profiling: the step as a ``record_function`` window
+        ``train_step_<iteration>`` that ends once the device is done."""
+        if self._profile is None:
+            yield
+            return
+        with torch.profiler.record_function(
+                f'train_step_{self.iteration + 1}'):
+            yield
+            if self._profile.cuda:
+                torch.cuda.synchronize()
+
+    # -- steps ----------------------------------------------------------------
+    def _step(self, params, batch):
+        """One optimizer step on ``batch``, the body of both lanes;
+        returns ``(loss, scalars, buffers)`` as device tensors."""
         module = self.model.module
-        params = self._ensure_ready()
-        for hook in self.hooks:
-            hook.pre_step(self)
         lr = self.step_lr()
         frozen_stats = {name: t.detach().clone()
                         for name, t in module.state_dict().items()
                         if name in self._frozen_stats}
         module.train()
-        for p in params:
-            p.grad = None
-        loss, aux = self.model.loss(self.model.to_device(batch),
-                                    self.generator)
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        updates, grad_norm = self.optimizer.update(grads, self.opt_state,
-                                                   params)
-        with torch.no_grad():
-            for i, (name, _) in enumerate(module.named_parameters()):
-                if name in self._frozen:
-                    updates[i].zero_()
-            torch._foreach_add_(params, updates, alpha=-lr)
-            state = module.state_dict()
-            for name, saved in frozen_stats.items():
-                state[name].copy_(saved)
-        for p in params:
-            p.grad = None
+        with self._step_window():
+            for p in params:
+                p.grad = None
+            with dropout_rng(self.dropout_generator):
+                loss, aux = self.model.loss(self.model.to_device(batch),
+                                            self.generator)
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
+            updates, grad_norm = self.optimizer.update(
+                grads, self.opt_state, params)
+            with torch.no_grad():
+                for i, (name, _) in enumerate(module.named_parameters()):
+                    if name in self._frozen:
+                        updates[i].zero_()
+                torch._foreach_add_(params, updates, alpha=-lr)
+                state = module.state_dict()
+                for name, saved in frozen_stats.items():
+                    state[name].copy_(saved)
+            for p in params:
+                p.grad = None
         self.iteration += 1
         # device tensors: they are read on the host only at a flush
         scalars = dict(aux['scalars'], loss=loss.detach(),
                        grad_norm=grad_norm, lr=lr)
+        return loss.detach(), scalars, aux['buffers']
+
+    def _after_call(self, scalars, buffers):
+        """Summary entry and triggers after a call of either lane."""
         for key, value in scalars.items():
             self._summary['scalars'].setdefault(key, []).append(value)
-        self._summary['raw'].append(aux['buffers'])
+        self._summary['raw'].append(buffers)
         if self.summary_trigger(self.iteration, self.epoch):
             self._flush_summary(prefix='training')
         if self.checkpoint_trigger(self.iteration, self.epoch):
             self.save_checkpoint()
             if self.validation_hook is not None:
                 self.validate()
+
+    def train_step(self, batch):
+        """One optimizer step on ``batch`` (numpy arrays or tensors);
+        returns the loss (a 0-dim device tensor)."""
+        params = self._ensure_ready()
+        self._maybe_start_profile()
+        for hook in self.hooks:
+            hook.pre_step(self)
+        loss, scalars, buffers = self._step(params, batch)
+        self._after_call(scalars, buffers)
         for hook in self.hooks:
             hook.post_step(self, batch, loss, None)
-        return loss.detach()
+        self._maybe_stop_profile()
+        return loss
+
+    # -- the multi-step lane (steps_per_call > 1) ----------------------------
+    def _enqueue_batch(self, batch):
+        if self._batch_buffer and not _same_shapes(self._batch_buffer[0],
+                                                   batch):
+            self._drain_batch_buffer()
+        self._batch_buffer.append(batch)
+        if len(self._batch_buffer) >= self.steps_per_call:
+            self._drain_batch_buffer()
+
+    def _drain_batch_buffer(self):
+        batches, self._batch_buffer = self._batch_buffer, []
+        if len(batches) == 1:
+            self.train_step(batches[0])
+        elif batches:
+            self.train_steps(batches)
+
+    def train_steps(self, batches):
+        """``len(batches)`` optimizer steps as one call (batches of one
+        shape); returns the (K,) losses. The same values as as many
+        :meth:`train_step` calls; the summary gets the call's scalars
+        K-stacked, and the triggers are polled after the call."""
+        params = self._ensure_ready()
+        self._maybe_start_profile()
+        for hook in self.hooks:
+            hook.pre_step(self)
+        steps = [self._step(params, batch) for batch in batches]
+        device = steps[0][0].device
+        losses = torch.stack([loss for loss, _, _ in steps])
+        scalars = {key: torch.stack([
+            torch.as_tensor(s[key], dtype=torch.float32, device=device)
+            for _, s, _ in steps]) for key in steps[0][1]}
+        buffers = {key: torch.cat([b[key] for _, _, b in steps])
+                   for key in steps[0][2]}
+        self._after_call(scalars, buffers)
+        for hook in self.hooks:
+            hook.post_step(self, batches[-1], losses, None)
+        self._maybe_stop_profile()
+        return losses
 
     # -- validation -----------------------------------------------------------
     def _validation_loss(self, batch):
@@ -334,16 +471,18 @@ class Trainer(Configurable):
         """A forward and backward pass on the first training batch and a
         validation pass on the first validation batch, with nothing kept:
         no update, no trigger, no checkpoint, no summary; the running
-        statistics the training-mode forward moved and the generator's
-        state are restored. Raises if a loss is not finite."""
+        statistics the training-mode forward moved and the generators'
+        states are restored. Raises if a loss is not finite."""
         print('Starting test run')
         module = self.model.module
         params = self._ensure_ready()
-        rng_state = self.generator.get_state()
+        rng_states = [(g, g.get_state())
+                      for g in (self.generator, self.dropout_generator)]
         buffers = [(b, b.detach().clone()) for b in module.buffers()]
         module.train()
-        loss, _ = self.model.loss(
-            self.model.to_device(next(iter(train_set))), self.generator)
+        with dropout_rng(self.dropout_generator):
+            loss, _ = self.model.loss(
+                self.model.to_device(next(iter(train_set))), self.generator)
         loss.backward()
         loss = loss.detach()
         for p in params:
@@ -351,7 +490,8 @@ class Trainer(Configurable):
         with torch.no_grad():
             for buffer, saved in buffers:
                 buffer.copy_(saved)
-        self.generator.set_state(rng_state)
+        for generator, state in rng_states:
+            generator.set_state(state)
         if not np.isfinite(float(loss)):
             raise FloatingPointError(f'test run: training loss {float(loss)}')
         if validate_set is not None:
@@ -381,7 +521,8 @@ class Trainer(Configurable):
         if not self._summary['scalars']:
             return
         summary, self._summary = self._summary, _empty_summary()
-        summary['scalars'] = {key: [float(v) for v in values]
+        # a multi-step call's entry is (K,)-stacked: its mean, as JAX's
+        summary['scalars'] = {key: [_host_mean(v) for v in values]
                               for key, values in summary['scalars'].items()}
         now = time.time()
         if self._last_flush is not None:
@@ -429,6 +570,8 @@ class Trainer(Configurable):
             'optimizer': self._optimizer_payload(),
             'rng': (None if self.generator is None
                     else self.generator.get_state().numpy()),
+            'dropout_rng': (None if self.dropout_generator is None
+                            else self.dropout_generator.get_state().numpy()),
         }
         if name is None:
             path = self.checkpoint_dir / f'ckpt_{self.iteration}.pkl'
@@ -451,7 +594,10 @@ class Trainer(Configurable):
         that holds none raises a ``ValueError`` naming the cause. The JAX
         trainer's rng is a uint32 key, not a ``torch.Generator`` state:
         the generator then keeps the state its seed gave it, and the log
-        says so. Returns whether a checkpoint was found."""
+        says so. A checkpoint without ``dropout_rng`` (the JAX trainer's,
+        or one written before dropout was ported) leaves the dropout
+        generator at its seed's state. Returns whether a checkpoint was
+        found."""
         path = self.checkpoint_dir / 'ckpt_latest.pkl'
         if not path.exists():
             print('No checkpoint to resume from')
@@ -482,6 +628,9 @@ class Trainer(Configurable):
                 print(f'The rng of {path} is a JAX key ({rng.dtype}, shape '
                       f'{rng.shape}), not a torch.Generator state: the '
                       f'generator keeps the state of seed {self.seed}')
+        if payload.get('dropout_rng') is not None:
+            self.dropout_generator.set_state(torch.from_numpy(
+                np.asarray(payload['dropout_rng']).copy()))
         for trigger in (self.checkpoint_trigger, self.summary_trigger):
             if trigger.unit == 'iteration':
                 trigger.last = self.iteration
@@ -491,3 +640,21 @@ class Trainer(Configurable):
 
 def _empty_summary():
     return {'scalars': {}, 'buffers': {}, 'raw': []}
+
+
+def _host_mean(value):
+    """A summary entry (a number, a 0-dim or (K,) tensor) as a float."""
+    if isinstance(value, torch.Tensor):
+        return float(value.float().mean())
+    return float(np.mean(value))
+
+
+def _same_shapes(batch_a, batch_b):
+    """Whether ``batch_b`` has every array of ``batch_a`` in its shape
+    (the JAX trainer's ``_same_shapes``)."""
+    for key, value in batch_a.items():
+        if isinstance(value, (np.ndarray, torch.Tensor)):
+            other = batch_b.get(key)
+            if other is None or np.shape(other) != np.shape(value):
+                return False
+    return True

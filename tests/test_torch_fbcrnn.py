@@ -180,8 +180,10 @@ def test_unported_recipes_raise():
     """The deep recipe (residual skips, 3x3/1x1 towers, H = 512) builds at
     full width, and so do its bidirectional GRU heads, with the JAX
     module's flat keys and shapes (built abstractly with
-    ``jax.eval_shape``); what is still unported raises instead of building
-    a different network: dropout in training."""
+    ``jax.eval_shape``). Dropout in training, which this test once showed
+    to raise (the name is kept from then), now runs: the deep model's
+    training forward with ``cnn_1d.dropout = .1`` gives other scores than
+    its eval forward and than a training forward on other masks."""
     from pb_sed_tpu.models.net_configs import fbcrnn_config as jax_config
     deep = tweak.CRNN.from_config(tweak.CRNN.get_config(
         fbcrnn_config('deep', num_events=527)), device='cpu')
@@ -207,12 +209,26 @@ def test_unported_recipes_raise():
     assert shapes['params.rnn_bwd.rnn.layer_1_bi.w_ih'] == (2, 1024, 1536)
     assert shapes['params.rnn_fwd.output_net.conv_0.kernel'] == (1, 1024,
                                                                   512)
+    from pb_sed_tpu_torch.ops.dropout import dropout_rng
+    deep.init_parameters(0)
     module.cnn.cnn_1d.dropout = .1
-    module.train()
-    batch = {'audio_data': np.zeros((1, 16000), np.float32),
-             'seq_len': np.array([51], np.int32)}
-    with pytest.raises(NotImplementedError):
-        module(deep.to_device(batch))
+    batch = deep.to_device({
+        'audio_data': np.random.RandomState(0).randn(1, 16000).astype(
+            np.float32),
+        'seq_len': np.array([51], np.int32)})
+    with torch.no_grad():
+        y_eval = module(batch)[0]
+        module.train()
+        state = {k: v.clone() for k, v in module.state_dict().items()}
+        y_train = []
+        for seed in (0, 1):
+            module.load_state_dict(state)
+            with dropout_rng(torch.Generator().manual_seed(seed)):
+                y_train.append(module(batch)[0])
+    assert y_eval.shape == y_train[0].shape and y_eval.shape[:2] == (1, 527)
+    assert torch.isfinite(y_train[0]).all()
+    assert (y_train[0] - y_eval).abs().max() > 1e-4
+    assert (y_train[0] - y_train[1]).abs().max() > 1e-4
 
 
 def test_cnn_lift_channels_match_jax():

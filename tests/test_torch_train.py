@@ -326,20 +326,31 @@ def test_jax_hook_on_port_trainer_raises(flat):
 
 @pytest.mark.parametrize('option', ['steps_per_call', 'profile_at',
                                     'dropout'])
-def test_unported_training_options_raise(flat, option):
-    """One case per option of the JAX trainer that the port does not have
-    yet: each raises where it is asked for. (Validation hooks and
-    ``test_run`` are ported: ``tests/test_torch_validation.py``.)"""
+def test_unported_training_options_raise(flat, option, tmp_path):
+    """One case per option of the JAX trainer that the port once refused
+    (the name is kept from then): each now runs where it is asked for.
+    Two steps of the multi-step lane in one call, a profiled step that
+    leaves its trace under ``storage_dir/profile``, and a training step
+    with dropout between the GRU layers. (Their tests against the JAX
+    package: ``tests/test_torch_trainer_options.py`` and
+    ``tests/test_torch_dropout.py``.)"""
     model = _port_model(flat)
-    with pytest.raises(NotImplementedError):
-        if option == 'steps_per_call':
-            Trainer(model, steps_per_call=2)
-        elif option == 'profile_at':
-            Trainer(model, profile_at=3)
-        else:
-            model.module.cnn.cnn_2d.dropout = .1
-            model.module.train()
-            model.loss(model.to_device(_train_batch(1)))
+    if option == 'steps_per_call':
+        trainer = Trainer(model, steps_per_call=2,
+                          stop_trigger=(2, 'iteration'))
+        trainer.train([_train_batch(1), _train_batch(2)])
+        assert trainer.iteration == 2
+        assert trainer._summary['scalars'] == {}  # flushed at the end
+    elif option == 'profile_at':
+        trainer = Trainer(model, storage_dir=tmp_path, profile_at=1,
+                          profile_num_steps=1, stop_trigger=(1, 'iteration'))
+        trainer.train([_train_batch(1)])
+        assert len(list((tmp_path / 'profile').glob('trace_*.json'))) == 1
+    else:
+        model.module.rnn_fwd.rnn.dropout = .1
+        model.module.rnn_bwd.rnn.dropout = .1
+        loss = Trainer(model).train_step(_train_batch(1))
+        assert np.isfinite(float(loss))
 
 
 def test_track_emissions_writes_the_jax_columns(flat, tmp_path):
