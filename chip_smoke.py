@@ -7,7 +7,8 @@ runs, in order:
 
 1. the card: name and power limit (``nvidia-smi``), torch and CUDA
    versions, kernel build time, each kernel's registers, shared memory
-   and spills (``-Xptxas -v``) and ptxas's performance advisories.
+   and spills (``-Xptxas -v``) and ptxas's performance advisories; the
+   C++ wav reader's build (``g++``, host code).
    Without a CUDA card it raises: there is no CPU path.
 2, 2b. kernel vs plain: every kernel, forward (2) and backward (2b),
    against its plain PyTorch version on the card at the shapes the
@@ -225,12 +226,38 @@ runs, in order:
    the conv pair's and the max-pool's counters must rise, and the keep
    rate of every mask the lane drew must lie within 4 sigma of 0.9.
 
+12. the data-preparation path, from a raw tree to training. 12a: phase
+   7's sets and tone bursts written from a seed at 44.1 kHz in DESED's
+   layout (``audio/<purpose>/<name>/*.wav``, ``metadata/<purpose>/
+   <name>.tsv``): 16-bit mono, every eighth clip stereo, every eighth
+   24-bit, one ``WAVE_FORMAT_EXTENSIBLE`` file (which the C++ reader
+   rejects); the bytes written are printed. 12b: ``python -m
+   pb_sed_tpu_torch.database.resample_db -i raw -o db16k -n 8``: every
+   output 16 kHz mono int16 of ``resample_poly``'s length, the metadata
+   copied byte for byte; a second run skips every file. 12c: ``python -m
+   pb_sed_tpu_torch.database.desed.create_json`` on both trees: every set
+   and clip with the events, onsets and offsets written, each
+   ``audio_length`` within one sample. 12d: the weak training CLI at the
+   shallow recipe's full width (batch 32, two prefetch workers,
+   augmentation, the default ``AudioReader``, so ``use_native``; no
+   validation) takes 8 iterations on db16k's json and 4 on the raw tree's,
+   where the loader resamples 44.1 kHz in C++ (every read recorded; only
+   the extensible file may go to ``read_wav``): every shallow kernel's
+   counter must rise in each run and the loss be finite at every step.
+   12e, on the card's host: ``load_wav_batch`` equal to ``load_wav`` in
+   every bit, the C++ path within 1.2e-7 of ``read_wav``'s on the 16 kHz
+   files; printed: the 44.1 kHz gap to ``resample_poly`` (the JAX
+   reader's semantics, no gate), ms a 44.1 kHz clip of both paths and the
+   loader's ms a batch with ``use_native`` True and False (A B B A). 12e
+   runs before the raw training run, whose prefetch threads outlive it.
+   The seconds of 12a-12e and the steps/s of 12d beside phase 7's.
+
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
 serving and training, the strong CLI training and its chain, the stacked
-ensembles, the Transformer's serving and training, the multi-step lane)
-runs with the launch counters set to 0 just before it and read just
-after.
+ensembles, the Transformer's serving and training, the multi-step lane,
+the data-preparation path's two training runs) runs with the launch
+counters set to 0 just before it and read just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -252,6 +279,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pb_sed_tpu_torch.data import native
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     avgpool_freq2, avgpool_freq2_bwd, avgpool_freq2_bwd_plain,
@@ -461,6 +489,10 @@ def phase_card():
     build.lib()
     log(f'kernel build+load: {time.perf_counter() - t0:.1f} s -> {path}')
     log_ptxas(path.with_suffix('.log').read_text())
+    t0 = time.perf_counter()
+    native.available()
+    log(f'C++ wav reader build+load (g++, host code): '
+        f'{time.perf_counter() - t0:.1f} s -> {native.library_path()}')
     return card
 
 
@@ -1828,21 +1860,15 @@ DATABASE_CLIPS = {'train_weak': 10, 'train_strong': 22,
 CLI_ITERATIONS, CLI_CHECKPOINT = 16, 8
 
 
-def write_database(root, seed):
-    """A DESED-shaped database under ``root`` from ``seed``: 16 kHz mono
-    int16 wav files of ten seconds (every eighth clip 9.6 to 9.9 s, one
-    clip per dataset 6 s) holding one to three tone bursts, one frequency
-    per event class, over a noise floor, and ``desed.json`` with the
-    datasets of ``DATABASE_CLIPS`` (``train_weak`` with clip-level labels
-    only, ``train_unlabel_in_domain`` with none, the others with onsets
-    and offsets). Returns the json's path and the bytes of audio
-    written."""
-    from pb_sed_tpu_torch.utils.misc import dump_json
+def database_clips(seed, sample_rate=16000):
+    """The clips of ``DATABASE_CLIPS`` from ``seed``, in order: yields
+    ``(dataset, i, audio, events, onsets, offsets, seconds)``, ``audio``
+    float64 at ``sample_rate``: ten seconds (every eighth clip 9.6 to 9.9
+    s, one clip per dataset 6 s) holding one to three tone bursts, one
+    frequency per event class, over a noise floor."""
     rng = np.random.RandomState(seed)
-    sample_rate = 16000
-    datasets, nbytes, clip = {}, 0, 0
+    clip = 0
     for name, count in DATABASE_CLIPS.items():
-        examples = {}
         for i in range(count):
             seconds = 10.
             if i % 8 == 3:
@@ -1863,29 +1889,47 @@ def write_database(root, seed):
                 onsets.append(start / sample_rate)
                 offsets.append((start + length) / sample_rate)
             clip += 1
-            path = Path(root) / 'audio' / name / f'{name}_{i}.wav'
-            path.parent.mkdir(parents=True, exist_ok=True)
-            pcm = np.clip(audio * 32767, -32768, 32767).astype('<i2')
-            with wave.open(str(path), 'wb') as fid:
-                fid.setnchannels(1)
-                fid.setsampwidth(2)
-                fid.setframerate(sample_rate)
-                fid.writeframes(pcm.tobytes())
-            nbytes += pcm.nbytes
-            example = {'audio_path': str(path), 'audio_length': seconds}
-            if name == 'train_unlabel_in_domain':
-                pass                           # unlabeled: no events
-            elif name == 'train_weak':
-                example['events'] = sorted(set(events))
-            else:
-                order = np.argsort(onsets)
-                example['events'] = [events[o] for o in order]
-                example['events_start_times'] = [
-                    round(onsets[o], 3) for o in order]
-                example['events_stop_times'] = [
-                    round(offsets[o], 3) for o in order]
-            examples[f'{name}_{i}'] = example
-        datasets[name] = examples
+            yield name, i, audio, events, onsets, offsets, seconds
+
+
+def _labels(name, events, onsets, offsets):
+    """A clip's labels as the database json holds them: none for
+    ``train_unlabel_in_domain``, clip-level for ``train_weak``, onsets and
+    offsets (ms) in time order for the others."""
+    if name == 'train_unlabel_in_domain':
+        return {}
+    if name == 'train_weak':
+        return {'events': sorted(set(events))}
+    order = np.argsort(onsets)
+    return {'events': [events[o] for o in order],
+            'events_start_times': [round(onsets[o], 3) for o in order],
+            'events_stop_times': [round(offsets[o], 3) for o in order]}
+
+
+def write_database(root, seed):
+    """A DESED-shaped database under ``root`` from ``seed``: the clips of
+    ``database_clips`` as 16 kHz mono int16 wav files and ``desed.json``
+    with the datasets of ``DATABASE_CLIPS`` (``train_weak`` with clip-level
+    labels only, ``train_unlabel_in_domain`` with none, the others with
+    onsets and offsets). Returns the json's path and the bytes of audio
+    written."""
+    from pb_sed_tpu_torch.utils.misc import dump_json
+    sample_rate = 16000
+    datasets, nbytes = {}, 0
+    for name, i, audio, events, onsets, offsets, seconds in database_clips(
+            seed, sample_rate):
+        path = Path(root) / 'audio' / name / f'{name}_{i}.wav'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        pcm = np.clip(audio * 32767, -32768, 32767).astype('<i2')
+        with wave.open(str(path), 'wb') as fid:
+            fid.setnchannels(1)
+            fid.setsampwidth(2)
+            fid.setframerate(sample_rate)
+            fid.writeframes(pcm.tobytes())
+        nbytes += pcm.nbytes
+        datasets.setdefault(name, {})[f'{name}_{i}'] = {
+            'audio_path': str(path), 'audio_length': seconds,
+            **_labels(name, events, onsets, offsets)}
     json_path = Path(root) / 'desed.json'
     dump_json({'datasets': datasets}, json_path)
     return json_path, nbytes
@@ -3632,6 +3676,399 @@ def phase_transformer(tmp):
     return launches, out
 
 
+# -- phase 12: the data-preparation path, from a raw 44.1 kHz tree ----------
+RAW_RATE = 44100
+# dataset -> (purpose, directory) of the tree create_json walks
+DESED_LAYOUT = {
+    'train_weak': ('train', 'weak'), 'train_strong': ('train', 'strong'),
+    'train_synthetic20': ('train', 'synthetic20'),
+    'train_synthetic21': ('train', 'synthetic21'),
+    'validation': ('validation', 'validation'),
+    'eval_public': ('eval', 'public'),
+    'train_unlabel_in_domain': ('train', 'unlabel_in_domain')}
+EXTENSIBLE_CLIP = 'train_strong_4'      # WAVE_FORMAT_EXTENSIBLE: no C++ decode
+PREP_ITERATIONS, PREP_RAW_ITERATIONS = 8, 4
+PCM_GUID = bytes.fromhex('0100000000001000800000aa00389b71')
+
+
+def write_wav_file(path, audio, rate, bits=16, extensible=False):
+    """PCM ``audio`` (S, C) in [-1, 1] as a RIFF/WAVE file written field
+    by field (16- or 24-bit; ``extensible``: format tag
+    ``WAVE_FORMAT_EXTENSIBLE`` with the PCM sub-format). Returns the
+    bytes written."""
+    import struct
+    full = 2 ** (bits - 1) - 1
+    pcm = np.clip(np.round(audio * full), -full - 1, full).astype('<i4')
+    data = pcm.reshape(-1, 1).view(np.uint8)[:, :bits // 8].tobytes()
+    channels = audio.shape[1]
+    block = channels * bits // 8
+    fmt = struct.pack('<HHIIHH', 0xFFFE if extensible else 1, channels,
+                      rate, rate * block, block, bits)
+    if extensible:
+        fmt += struct.pack('<HHI', 22, bits, (1 << channels) - 1) + PCM_GUID
+    body = (b'WAVE' + b'fmt ' + struct.pack('<I', len(fmt)) + fmt
+            + b'data' + struct.pack('<I', len(data)) + data)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b'RIFF' + struct.pack('<I', len(body)) + body)
+    return 8 + len(body)
+
+
+def write_raw_tree(root, seed):
+    """12a: the clips of ``database_clips(seed, 44100)`` (phase 7's sets
+    and tone bursts) in DESED's layout under ``root``:
+    ``audio/<purpose>/<name>/<clip>.wav`` and the metadata TSVs
+    ``metadata/<purpose>/<name>.tsv`` (strong: ``filename onset offset
+    event_label``; weak: ``filename event_labels``; none for the unlabeled
+    set). 16-bit mono, but every eighth clip stereo (a second channel of
+    its own noise), every eighth 24-bit, and ``EXTENSIBLE_CLIP`` with the
+    format tag the C++ decoder rejects. Returns ``{dataset: {clip:
+    (samples, labels)}}`` and the bytes written."""
+    extra = np.random.RandomState(seed + 1)
+    expected, nbytes, rows = {}, 0, {}
+    for c, (name, i, audio, events, onsets, offsets, _) in enumerate(
+            database_clips(seed, RAW_RATE)):
+        purpose, directory = DESED_LAYOUT[name]
+        clip = f'{name}_{i}'
+        audio = audio[:, None]
+        if c % 8 == 1:
+            audio = np.concatenate(
+                [audio, audio + .02 * extra.randn(*audio.shape)], 1)
+        nbytes += write_wav_file(
+            root / 'audio' / purpose / directory / f'{clip}.wav', audio,
+            RAW_RATE, bits=24 if c % 8 == 6 else 16,
+            extensible=clip == EXTENSIBLE_CLIP)
+        labels = _labels(name, events, onsets, offsets)
+        expected.setdefault(name, {})[clip] = (len(audio), labels)
+        if name == 'train_weak':
+            rows.setdefault(name, []).append(
+                f'{clip}.wav\t{",".join(labels["events"])}\n')
+        elif labels:
+            rows.setdefault(name, []).extend(
+                f'{clip}.wav\t{on!r}\t{off!r}\t{ev}\n' for ev, on, off in zip(
+                    labels['events'], labels['events_start_times'],
+                    labels['events_stop_times']))
+    for name, lines in rows.items():
+        purpose, directory = DESED_LAYOUT[name]
+        header = ('filename\tevent_labels\n' if name == 'train_weak' else
+                  'filename\tonset\toffset\tevent_label\n')
+        path = root / 'metadata' / purpose / f'{directory}.tsv'
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(header + ''.join(lines))
+        nbytes += path.stat().st_size
+    return expected, nbytes
+
+
+def _port_cli(module, *args):
+    """``python -m <module> <args>`` from the repository's root; returns
+    its output and seconds, raises with its output if it fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, '-m', module, *map(str, args)],
+                         cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f'{module} {args} failed ({out.returncode}):\n'
+                             f'{out.stdout[-3000:]}\n{out.stderr[-3000:]}')
+    return out.stdout, seconds
+
+
+def check_resampled(raw, db16k, expected):
+    """12b: one 16 kHz mono int16 wav per raw wav, ``resample_poly``'s
+    length, and the metadata copied byte for byte."""
+    from math import ceil
+    count = 0
+    for name, clips in expected.items():
+        purpose, directory = DESED_LAYOUT[name]
+        for clip, (samples, _) in clips.items():
+            path = db16k / 'audio' / purpose / directory / f'{clip}.wav'
+            with wave.open(str(path), 'rb') as fid:
+                form = (fid.getframerate(), fid.getnchannels(),
+                        fid.getsampwidth(), fid.getcomptype())
+                frames = fid.getnframes()
+            if form != (16000, 1, 2, 'NONE') \
+                    or frames != ceil(samples * 160 / 441):
+                raise AssertionError(f'{path}: {form}, {frames} frames')
+            count += 1
+    if count != len(list(db16k.rglob('*.wav'))):
+        raise AssertionError('resample_db wrote other wav files')
+    tsvs = sorted(p.relative_to(raw) for p in raw.rglob('*.tsv'))
+    if tsvs != sorted(p.relative_to(db16k) for p in db16k.rglob('*.tsv')) \
+            or any((raw / t).read_bytes() != (db16k / t).read_bytes()
+                   for t in tsvs):
+        raise AssertionError('the metadata was not copied as it was')
+    return count
+
+
+def check_database_json(json_path, root, expected, rate):
+    """12c: every set and clip written, with its events, onsets and
+    offsets; each ``audio_length`` within one sample (at ``rate``) of the
+    length written."""
+    from pb_sed_tpu_torch.utils.misc import load_json
+    datasets = load_json(json_path)['datasets']
+    if sorted(datasets) != sorted(expected):
+        raise AssertionError(f'{json_path}: sets {sorted(datasets)}')
+    worst = 0.
+    for name, clips in expected.items():
+        if sorted(datasets[name]) != sorted(clips):
+            raise AssertionError(f'{json_path}: clips of {name}')
+        purpose, directory = DESED_LAYOUT[name]
+        for clip, (samples, labels) in clips.items():
+            example = datasets[name][clip]
+            path = root / 'audio' / purpose / directory / f'{clip}.wav'
+            error = abs(example['audio_length'] - samples / RAW_RATE)
+            worst = max(worst, error)
+            got = {key: example[key] for key in example
+                   if key not in ('audio_path', 'audio_length')}
+            if got != labels or example['audio_path'] != str(path) \
+                    or not error <= 1. / rate:
+                raise AssertionError(f'{json_path}: {name}/{clip}: '
+                                     f'{example} vs {labels}, {samples}')
+    return worst
+
+
+@contextlib.contextmanager
+def recording_native_reads():
+    """``data.native.load_wav`` wrapped to record, per call, the file and
+    the samples it returned (None: rejected)."""
+    from pb_sed_tpu_torch.data import native
+    calls, load_wav = [], native.load_wav
+
+    def recording(path, *args, **kwargs):
+        out = load_wav(path, *args, **kwargs)
+        calls.append((str(path), None if out is None else out.shape[-1]))
+        return out
+
+    native.load_wav = recording
+    try:
+        yield calls
+    finally:
+        native.load_wav = load_wav
+
+
+def _prep_training(json_path, run_dir, iterations):
+    """12d: the weak training CLI on ``json_path`` for ``iterations`` at the
+    shallow recipe's full width with its loader (batch 32, two prefetch
+    workers, augmentation, the default ``AudioReader``), no validation.
+    Returns its launches, losses, steps/s over iterations 3 to the last,
+    wall seconds and the C++ reader's calls."""
+    from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
+    from pb_sed_tpu_torch.utils.misc import load_json
+    updates = _cli_updates(
+        json_path, run_dir, lr_rampup_steps=4, num_iterations=iterations,
+        checkpoint_interval=iterations,
+        data_provider={'json_path': str(json_path), 'validate_set': None})
+    torch.cuda.synchronize()
+    build.reset_launches()
+    collect_garbage()
+    with timed_trainer() as record, recording_native_reads() as reads:
+        t0 = time.perf_counter()
+        ex.run(config_updates=updates)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    config = load_json(run_dir / '1' / 'config.json')
+    check_recipe(config)
+    reader = config['data_provider']['audio_reader']
+    steps = record['steps']
+    losses = [loss for *_, loss in steps]
+    log(f'{json_path.parent.name}: launches {launches}; loss per step '
+        + ', '.join(f'{x:.5f}' for x in losses))
+    for kernel in SHALLOW:
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'training run on {json_path}')
+    if [it for it, *_ in steps] != list(range(1, iterations + 1)) \
+            or not np.isfinite(losses).all() \
+            or record['validate'] or record['test_run'] \
+            or reader['use_native'] is not True \
+            or reader['source_sample_rate'] is not None:
+        raise AssertionError(f'the training run on {json_path}: {steps}, '
+                             f'{record}, {reader}')
+    span = steps[-1][2] - steps[1][2]
+    return {'launches': launches, 'losses': losses,
+            'steps_per_s': (iterations - 2) / span, 'wall_s': wall,
+            'reads': reads}
+
+
+def _loader_ms(json_path, storage_dir, use_native):
+    """Host ms a batch of the recipe's train loader over one epoch (the
+    first batch left out), reading with ``use_native``; ``storage_dir`` is
+    a training run's, whose labels the encoder restores."""
+    from pb_sed_tpu_torch.data.provider import DataProvider
+    from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
+    reader = {'json_path': str(json_path),
+              'audio_reader': {'use_native': use_native}}
+    config = ex.build_config(_cli_updates(
+        json_path, storage_dir, data_provider=reader))['data_provider']
+    provider = DataProvider.from_config(config)
+    provider.train_transform.label_encoder.initialize_labels()
+    if provider.audio_reader.use_native is not use_native:
+        raise AssertionError('the loader took another reader')
+    it = iter(provider.get_train_set())
+    next(it)
+    collect_garbage()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)              # to the epoch's end: threads end
+    return 1e3 * (time.perf_counter() - t0) / n, n
+
+
+def check_reader(raw, db16k, json16k, storage_dir, expected):
+    """12e on the card's host: ``load_wav_batch`` equals ``load_wav`` file by
+    file in every bit; on the 16 kHz files the C++ path lies within 1.2e-7
+    of ``read_wav``'s (``use_native=False``); the gap to ``resample_poly``
+    at 44.1 kHz and the ms a clip of both paths are printed, as are the
+    loader's ms a batch with ``use_native`` True and False, in pairs
+    (A B B A)."""
+    from pb_sed_tpu_torch.data import native
+    from pb_sed_tpu_torch.data.audio import AudioReader
+    every = [f'audio/{"/".join(DESED_LAYOUT[name])}/{clip}.wav'
+             for name, clips in expected.items() for clip in clips]
+    # the first eight hold a stereo and a 24-bit clip
+    raw_files = [raw / f for f in every[:8]] + [
+        raw / f'audio/train/strong/{EXTENSIBLE_CLIP}.wav']
+    out = {}
+    for label, paths in (('raw', raw_files),
+                         ('db16k', [db16k / f for f in every[:8]])):
+        batch = native.load_wav_batch(paths)
+        for path, got in zip(paths, batch):
+            single = native.load_wav(path)
+            if (got is None) != (single is None) or (
+                    got is not None and not np.array_equal(got, single)):
+                raise AssertionError(f'load_wav_batch differs at {path}')
+        out[f'batch_rejected_{label}'] = [
+            p.name for p, b in zip(paths, batch) if b is None]
+    if out['batch_rejected_raw'] != [f'{EXTENSIBLE_CLIP}.wav'] \
+            or out['batch_rejected_db16k']:
+        raise AssertionError(f'files the decoder rejected: {out}')
+    worst = 0.
+    for f in every:
+        example = {'audio_path': str(db16k / f)}
+        got = AudioReader()(dict(example))['audio_data']
+        ref = AudioReader(use_native=False)(dict(example))['audio_data']
+        worst = max(worst, float(np.abs(got - ref).max()))
+    out['max_abs_16k_native_vs_read_wav'] = worst
+    if not worst <= 1.2e-7:
+        raise AssertionError(f'16 kHz: C++ vs read_wav {worst:.3e}')
+    reads, ms = {}, {True: [], False: []}
+    for use_native in (True, False, False, True):
+        collect_garbage()
+        t0 = time.perf_counter()
+        reads[use_native] = [AudioReader(use_native=use_native)(
+            {'audio_path': str(p)})['audio_data'] for p in raw_files]
+        ms[use_native].append(
+            1e3 * (time.perf_counter() - t0) / len(raw_files))
+    pairs = list(zip(reads[True], reads[False]))
+    # over the shorter: the sinc gives floor(S * 160 / 441) samples,
+    # resample_poly the ceiling
+    gap = max(float(np.abs(a[:, :b.shape[1]] - b[:, :a.shape[1]]).max())
+              for a, b in pairs)
+    lengths = sorted({b.shape[1] - a.shape[1] for a, b in pairs})
+    out['max_abs_44k_native_vs_resample_poly'] = gap
+    out['samples_44k_resample_poly_minus_native'] = lengths
+    out['ms_a_44k_clip'] = {'native': ms[True], 'resample_poly': ms[False]}
+    loader = {True: [], False: []}
+    for use_native in (True, False, False, True):
+        batch_ms, batches = _loader_ms(json16k, storage_dir, use_native)
+        loader[use_native].append(batch_ms)
+    out['loader_ms_a_batch'] = {'native': loader[True],
+                                'read_wav': loader[False],
+                                'batches': batches}
+    log(f'12e reader: load_wav_batch == load_wav in every bit on '
+        f'{len(raw_files)} raw and 8 db16k files (rejected: '
+        f'{out["batch_rejected_raw"]}); 16 kHz C++ vs read_wav max|d| '
+        f'{worst:.3e} (tol 1.2e-7) over {len(every)} files; 44.1 kHz C++ '
+        f'vs resample_poly max|d| {gap:.4f} (the JAX reader\'s '
+        f'semantics, no gate; resample_poly longer by {lengths} '
+        f'samples); ms a 44.1 kHz clip (host clock, A B B A): '
+        f'C++ {ms[True]}, read_wav + resample_poly {ms[False]}; loader ms '
+        f'a batch at 16 kHz (A B B A, {batches} batches each): C++ '
+        f'{loader[True]}, read_wav {loader[False]}')
+    return out
+
+
+def phase_data_prep(tmp, card, cli_metrics):
+    """Phase 12: a raw DESED-layout tree at 44.1 kHz -> ``resample_db`` ->
+    ``create_json`` -> the weak training CLI on the card, reading through
+    the C++ reader. ``cli_metrics`` is phase 7's, printed beside this
+    phase's steps/s. Returns the launch counts of the two training runs
+    and the measurements."""
+    out, seconds = {}, {}
+    start = t0 = time.perf_counter()
+    raw, db16k = tmp / 'raw', tmp / 'db16k'
+    expected, nbytes = write_raw_tree(raw, seed=12)
+    seconds['12a'] = time.perf_counter() - t0
+    clips = sum(len(c) for c in expected.values())
+    log(f'12a: raw tree of {clips} clips at {RAW_RATE} Hz (stereo, 24-bit '
+        f'and one WAVE_FORMAT_EXTENSIBLE among them), {nbytes} bytes '
+        f'({nbytes / 2 ** 20:.1f} MiB) in {seconds["12a"]:.1f} s')
+
+    t0 = time.perf_counter()
+    text, first_s = _port_cli('pb_sed_tpu_torch.database.resample_db',
+                              '-i', raw, '-o', db16k, '-n', 8)
+    count = check_resampled(raw, db16k, expected)
+    stamps = {p: p.stat().st_mtime_ns for p in db16k.rglob('*')}
+    again, again_s = _port_cli('pb_sed_tpu_torch.database.resample_db',
+                               '-i', raw, '-o', db16k, '-n', 8)
+    if '0 files to process' not in again or stamps != {
+            p: p.stat().st_mtime_ns for p in db16k.rglob('*')}:
+        raise AssertionError(f'the second resample_db run: {again}')
+    seconds['12b'] = time.perf_counter() - t0
+    log(f'12b: resample_db wrote {count} 16 kHz mono int16 files and the '
+        f'metadata in {first_s:.1f} s ({text.splitlines()[0]}); a second '
+        f'run skipped every file in {again_s:.1f} s')
+
+    t0 = time.perf_counter()
+    jsons, lengths = {}, {}
+    for label, root, rate in (('db16k', db16k, 16000),
+                              ('raw', raw, RAW_RATE)):
+        _, cli_s = _port_cli('pb_sed_tpu_torch.database.desed.create_json',
+                             '-db', root, '-j', tmp / f'jsons_{label}')
+        jsons[label] = tmp / f'jsons_{label}' / 'desed.json'
+        lengths[label] = check_database_json(jsons[label], root, expected,
+                                             rate)
+        log(f'12c: create_json on {label}: {cli_s:.1f} s, every set and '
+            f'clip with its labels, audio_length off by at most '
+            f'{lengths[label]:.2e} s (one sample: {1 / rate:.2e})')
+    seconds['12c'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    runs = {'db16k': _prep_training(jsons['db16k'], tmp / 'exp' / 'db16k',
+                                    PREP_ITERATIONS)}
+    seconds['12d'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out['reader'] = check_reader(raw, db16k, jsons['db16k'],
+                                 tmp / 'exp' / 'db16k', expected)
+    seconds['12e'] = time.perf_counter() - t0
+    # after 12e: this run's prefetch threads outlive it, decoding ahead
+    t0 = time.perf_counter()
+    runs['raw'] = _prep_training(jsons['raw'], tmp / 'exp' / 'raw',
+                                 PREP_RAW_ITERATIONS)
+    seconds['12d'] += time.perf_counter() - t0
+    reads = runs['raw']['reads']
+    decoded = [n for path, n in reads if n is not None]
+    rejected = {Path(path).stem for path, n in reads if n is None}
+    if not decoded or not rejected <= {EXTENSIBLE_CLIP} or not all(
+            path.startswith(str(raw)) for path, _ in reads):
+        raise AssertionError(f'the raw run\'s reads: {reads[:8]}')
+    for label, run in runs.items():
+        reads = run.pop('reads')
+        run['native_reads'] = len(reads)
+    log(f'12d: the C++ reader resampled {len(decoded)} reads of 44.1 kHz '
+        f'files in the raw run (rejected, read by read_wav: '
+        f'{sorted(rejected)})')
+    out.update(runs=runs, seconds=seconds, card=card,
+               total_s=time.perf_counter() - start)
+    log(f'12d: training from db16k {runs["db16k"]["steps_per_s"]:.3f} '
+        f'steps/s over iterations 3-{PREP_ITERATIONS}, from raw 44.1 kHz '
+        f'{runs["raw"]["steps_per_s"]:.3f} over 3-{PREP_RAW_ITERATIONS}, '
+        f'beside phase 7\'s {cli_metrics["steps_per_s"]:.3f} '
+        f'(validation out); seconds ' + ', '.join(
+            f'{k} {v:.1f}' for k, v in seconds.items())
+        + f'; phase 12 took {out["total_s"]:.1f} s ({card})')
+    return {f'data_prep_training{"" if label == "db16k" else "_raw"}':
+            run['launches'] for label, run in runs.items()}, out
+
+
 def _descendants():
     """{pid: command line} of every live process below this one, from
     ``/proc``."""
@@ -3734,7 +4171,7 @@ def run():
     (launches['shallow_fuse_bn_serving'],
      launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
     with tempfile.TemporaryDirectory() as tmp, recording_gru_shapes():
-        launches['cli_training'], _, runs = phase_cli_training(
+        launches['cli_training'], cli_metrics, runs = phase_cli_training(
             in_memory, Path(tmp))
         launches['tuning_chain'], chain, weak_hp_dir = phase_tuning_chain(
             Path(tmp), runs)
@@ -3754,6 +4191,10 @@ def run():
         transformer_launches, transformer = phase_transformer(tmp)
     launches.update(transformer_launches)
     log('transformer phase (JSON): ' + json.dumps(transformer))
+    with tempfile.TemporaryDirectory() as tmp:
+        prep_launches, prep = phase_data_prep(Path(tmp), card, cli_metrics)
+    launches.update(prep_launches)
+    log('data-preparation phase (JSON): ' + json.dumps(prep))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

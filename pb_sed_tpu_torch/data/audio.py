@@ -8,9 +8,13 @@ normalization_domain='instance', normalization_type='max',
 alignment_keys=['events']`` — converts ``events_{start,stop}_times`` to
 ``events_{start,stop}_samples``).
 
-Backend: stdlib ``wave`` + numpy for PCM WAV (this image has no
-soundfile/librosa); float32/float64 WAV via scipy.io.wavfile; polyphase
-resampling via scipy.signal.resample_poly.
+Backend: by default (``use_native``, channels averaged, no
+``source_sample_rate``, peak or no normalization) the C++ reader of
+``data/native.py`` decodes, averages, resamples (a Hann-windowed sinc)
+and normalizes, as the JAX package's reader does; a file it rejects, and
+every other configuration, goes through stdlib ``wave`` + numpy for PCM
+WAV (no soundfile/librosa), scipy.io.wavfile for float WAV and
+scipy.signal.resample_poly.
 """
 import dataclasses
 import wave
@@ -88,30 +92,36 @@ class AudioReader(Configurable):
     normalization_domain: str = 'instance'
     normalization_type: str = 'max'
     alignment_keys: tuple = ('events',)
-    # accepted for config parity: the C++ reader (the original's
-    # data/native.py) is not part of this package, files are always
-    # decoded by read_wav
-    use_native: bool = True
+    use_native: bool = True  # C++ decode+resample (data/native.py)
     storage_dir: str = None  # accepted for config parity, unused
 
     def __call__(self, example):
         """Loads ``example['audio_path']`` -> ``example['audio_data']``
         (1, S) float32 and converts alignment times to samples."""
-        audio, sr = read_wav(example['audio_path'])
-        if self.source_sample_rate is not None:
-            assert sr == self.source_sample_rate, (
-                sr, self.source_sample_rate)
-        if self.average_channels and audio.shape[0] > 1:
-            audio = audio.mean(0, keepdims=True)
-        audio = resample(audio, sr, self.target_sample_rate)
-        if self.normalization_type == 'max':
-            peak = np.abs(audio).max()
-            if peak > 0:
-                audio = audio / peak
-        elif self.normalization_type in (None, 'none'):
-            pass
-        else:
-            raise ValueError(self.normalization_type)
+        audio = None
+        if (self.use_native and self.average_channels
+                and self.source_sample_rate is None
+                and self.normalization_type in ('max', None, 'none')):
+            from pb_sed_tpu_torch.data import native
+            audio = native.load_wav(
+                example['audio_path'], self.target_sample_rate,
+                peak_normalize=self.normalization_type == 'max')
+        if audio is None:
+            audio, sr = read_wav(example['audio_path'])
+            if self.source_sample_rate is not None:
+                assert sr == self.source_sample_rate, (
+                    sr, self.source_sample_rate)
+            if self.average_channels and audio.shape[0] > 1:
+                audio = audio.mean(0, keepdims=True)
+            audio = resample(audio, sr, self.target_sample_rate)
+            if self.normalization_type == 'max':
+                peak = np.abs(audio).max()
+                if peak > 0:
+                    audio = audio / peak
+            elif self.normalization_type in (None, 'none'):
+                pass
+            else:
+                raise ValueError(self.normalization_type)
         example['audio_data'] = audio.astype(np.float32)
         example['seq_len'] = audio.shape[-1]
         for key in self.alignment_keys or ():

@@ -8,9 +8,10 @@ the same keys, shapes, dtypes, ``example_id``s in the same order, and
 fixture of ``tests/test_audioset.py`` (ancestor expansion, class
 rebalancing).
 
-The JAX package's ``AudioReader`` is given ``use_native=False``: its
-optional C++ wav reader is not part of the port, which always decodes with
-``read_wav`` (the field is accepted and unused there).
+Both packages read audio with their default ``AudioReader``: the C++
+reader of each (``data/native.py``) decodes, resamples and normalizes, so
+the batches hold the same bits; one case reads a database whose files are
+44.1 kHz, some of them stereo, where the reader resamples.
 """
 import copy
 
@@ -21,9 +22,11 @@ from pb_sed_tpu.database.audioset.provider import \
     AudioSetProvider as JaxAudioSetProvider
 from pb_sed_tpu.database.desed.provider import \
     DESEDProvider as JaxDESEDProvider
+from pb_sed_tpu_torch.data.audio import read_wav
 from pb_sed_tpu_torch.database.audioset.provider import AudioSetProvider
 from pb_sed_tpu_torch.database.desed.provider import DESEDProvider
 from tests.test_audioset import build_audioset_db
+from tests.test_torch_native import load_jax_reader, write_wav
 from tests.util_synth import build_database
 
 STFT = {'shift': 160, 'window_length': 480, 'size': 512}
@@ -39,7 +42,6 @@ def _desed_config(json_path, storage_dir, **updates):
         'min_audio_length': 0.2,
         'discard_labelless_train_examples': False,
         'epoch_shuffle_seed': 11,
-        'audio_reader': {'use_native': False},
         'storage_dir': str(storage_dir),
         'train_fetcher': {
             'batch_size': 4, 'prefetch_workers': 0, 'pad_to_multiple': 16,
@@ -92,6 +94,13 @@ def _assert_same_batches(got, ref, expect_keys=()):
                 assert tb[key] == value, key
 
 
+@pytest.fixture(scope='module', autouse=True)
+def jax_reader():
+    """Both packages read through their C++ readers: the JAX one loaded
+    (it would fall back to numpy on a failed load)."""
+    load_jax_reader()
+
+
 @pytest.fixture(scope='module')
 def database(tmp_path_factory):
     root = tmp_path_factory.mktemp('synth')
@@ -107,6 +116,25 @@ def database(tmp_path_factory):
             {f'long_{key}': ex for key, ex in examples.items()})
     json_path = root / 'db.json'
     dump_json(merged, json_path)
+    return json_path
+
+
+@pytest.fixture(scope='module')
+def database_44k(tmp_path_factory):
+    """The database of ``build_database`` with every file rewritten at
+    44.1 kHz (``resample_poly``), every third one stereo."""
+    from scipy.signal import resample_poly
+    root = tmp_path_factory.mktemp('synth_44k')
+    _, json_path = build_database(root, num_train=10, num_weak=8,
+                                  num_validate=6, clip_seconds=.7, seed=3)
+    rng = np.random.RandomState(0)
+    for i, path in enumerate(sorted(root.rglob('*.wav'))):
+        audio = read_wav(path)[0][0]
+        audio = resample_poly(audio, 441, 160)[:, None]
+        if i % 3 == 0:
+            audio = np.concatenate(
+                [audio, audio + .01 * rng.randn(*audio.shape)], 1)
+        write_wav(path, np.clip(audio, -.99, .99), 44100)
     return json_path
 
 
@@ -165,6 +193,32 @@ def test_desed_provider_batches_equal_jax(database, tmp_path, case):
     _assert_same_batches(got, ref, ['audio_data', 'boundary_targets'])
     assert not any('warp_anchor_out' in b for b in got)
     assert sum(len(b['example_id']) for b in got) == 12
+
+
+def test_desed_provider_batches_equal_jax_at_44k(database_44k, tmp_path,
+                                                 monkeypatch):
+    """44.1 kHz files, some stereo, with mixing and the time warp on: the
+    C++ readers resample every clip to 16 kHz, and the batches are the
+    JAX package's."""
+    from pb_sed_tpu_torch.data import native
+    config = _desed_config(database_44k, tmp_path, mix_interval=1.5)
+    label_sets = ['train_weak', 'train_strong']
+    jax_provider = _provider(JaxDESEDProvider, config, label_sets)
+    provider = _provider(DESEDProvider, config, label_sets)
+    calls = []
+    load_wav = native.load_wav
+    monkeypatch.setattr(native, 'load_wav', lambda *args, **kwargs: (
+        calls.append(args[0]) or load_wav(*args, **kwargs)))
+    ref = _batches(jax_provider.get_train_set(), seed=5)
+    got = _batches(provider.get_train_set(), seed=5)
+    _assert_same_batches(got, ref, ['audio_data', 'warp_anchor_out',
+                                    'boundary_targets'])
+    assert len(calls) >= sum(len(b['example_id']) for b in got)
+    # at 16 kHz: a mix of two 0.7 s clips spans at most 1.4 s
+    assert max(b['audio_data'].shape[1] for b in got) <= 1.4 * 16000
+    assert any('+' in i for b in got for i in b['example_id'])
+    _assert_same_batches(_batches(provider.get_validate_set(), seed=6),
+                         _batches(jax_provider.get_validate_set(), seed=6))
 
 
 def test_desed_provider_default_quotas_hold(database, tmp_path):
