@@ -252,12 +252,39 @@ runs, in order:
    runs before the raw training run, whose prefetch threads outlive it.
    The seconds of 12a-12e and the steps/s of 12d beside phase 7's.
 
+13. the mesh on ``torch.distributed`` (``parallel/mesh.py``; ranks
+   spawned by ``parallel/launch.py:run_ranks``, which joins them with a
+   deadline and fails with a failing rank's traceback). 13a: a world of
+   2 ranks on the one card (gloo, both on cuda:0) trains the full-width
+   shallow FBCRNN 4 steps on 4 global batches of 32 ten-second clips (16
+   a rank, augmentation on, weights from seed 0) through
+   ``Trainer(use_mesh=True)``, against one process taking the same steps
+   on the same clips: the loss at each step, every parameter's update and
+   every running statistic after step 4, by the looser of the CPU test's
+   tolerance and three times the one process's own rounding noise (its
+   steps with every global sum and gradient moved by one ulp); both ranks
+   end in the same state in every bit and each rank's shallow kernels
+   launch. Printed: steps/s of one process and of each rank (a shared
+   card, not a scaling number). 13b: a 1-rank world formed by
+   ``initialize_distributed`` under torchrun's variables with its default
+   backend (NCCL) takes 2 steps. 13c: the 10 shallow members of phase 10
+   over the 2-rank world (an ensemble axis of 2, five a rank) tag 2
+   batches of 32 and run SED 51/1 on one; every rank's whole scores within
+   phase 10's tolerance of one process's stacked output. 13d: the trace
+   reader (``utils/trace.py``) on two profiled shallow steps: the device
+   ms per step within 1% of ``step_times_ms``'s, the top 10 ops and the 5
+   longest idle gaps with the host op behind each. 13e: the device filters
+   on CUDA tensors against the numpy filters at the tuning chain's score
+   shapes, and whether tensorboardX is there (if so, the event file's
+   scalars must equal ``summary.jsonl``'s).
+
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
 serving and training, the strong CLI training and its chain, the stacked
 ensembles, the Transformer's serving and training, the multi-step lane,
-the data-preparation path's two training runs) runs with the launch
-counters set to 0 just before it and read just after.
+the data-preparation path's two training runs, each rank's mesh training
+and ensemble, the NCCL world's training) runs with the launch counters
+set to 0 just before it and read just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -4069,6 +4096,453 @@ def phase_data_prep(tmp, card, cli_metrics):
             run['launches'] for label, run in runs.items()}, out
 
 
+# -- phase 13: the mesh on torch.distributed ----------------------------------
+MESH_WORLD = 2
+MESH_STEPS = 4
+MESH_TIMEOUT_S = 300.
+# the tuning chain's score shapes (a tuning batch of 16 clips, 10 classes,
+# 500 frames) and filter lengths from its grids
+FILTER_SHAPE = (16, 10, FRAMES)
+FILTER_CASES = [('medfilt', 21), ('medfilt', 41), ('meanfilt', 20),
+                ('meanfilt', 21), ('maxfilt', 21), ('stepfilt', 20),
+                ('boundariesfilt', 20), ('boundariesfilt', 0)]
+
+
+def _mesh_data():
+    """Phase 13's inputs, made from seeds in every process that needs
+    them: the shallow recipe's config and weights (seed 0), 4 training
+    batches of 32 ten-second clips and phase 3's 3 x 32 clips."""
+    config = _config('shallow', 10)
+    flat = _random_flat(config)
+    stft = _model(config, flat).module.feature_extractor.stft
+    return (config, flat, _train_batches(stft, MESH_STEPS, BATCH, 10, seed=5),
+            _synthetic_batches(stft))
+
+
+def _mesh_rows(batch, rank, world):
+    """Rank ``rank``'s contiguous share of ``batch``: its rows of the
+    global batch, as the fetcher's batch-level shards give them."""
+    n = len(batch['seq_len']) // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+class _RoundingProbe:
+    """One process's own rounding noise, as a stand-in for the trainer's
+    ``DataShard``: the one process's rows and draws, each element of
+    every global sum moved by one f32 ulp (2^-23 relative) up or down at
+    random, the size of the rounding by which a mesh's split sums differ
+    from one process's (:func:`_ulp_moved` moves the gradients so too,
+    as the mesh's gradient all-reduce rounds them). The steps it gives
+    differ from one process's by what the training-mode norms' bf16
+    roundings make of such roundings."""
+
+    def __init__(self, rows):
+        self.offset, self.rows, self.total = 0, rows, rows
+
+    def sum(self, *xs):
+        out = tuple(_ulp_moved(x) for x in xs)
+        return out[0] if len(xs) == 1 else out
+
+    def gather(self, x):
+        return x
+
+    def local(self, x):
+        return x
+
+
+_PROBE_GENERATOR = {}
+
+
+def _ulp_moved(x):
+    """``x`` with each element moved by one f32 ulp, up or down, the
+    signs drawn from a generator of the probe's own (seed 0)."""
+    gen = _PROBE_GENERATOR.setdefault(x.device, torch.Generator(
+        device=x.device).manual_seed(0))
+    signs = torch.randint(0, 2, x.shape, generator=gen, device=x.device)
+    return x * (1 + 2 ** -23 * (2. * signs - 1.))
+
+
+def _mesh_training(config, flat, batches, rank=None, world=1, probe=False):
+    """``len(batches)`` steps of the full-width shallow FBCRNN on the card
+    (augmentation on, the shallow recipe's Adam with a ramp), in one
+    process (with ``probe``, its sums moved by :class:`_RoundingProbe`),
+    or with ``rank`` on its rows of each batch through the trainer's mesh
+    (``use_mesh``, the default). Returns the losses, the synchronized
+    host seconds of each step, the launches of the run and the final flat
+    state."""
+    from pb_sed_tpu_torch import bridge
+    from pb_sed_tpu_torch.train.hooks import LRAnnealingHook
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    model = _model(config, flat, device='cuda')
+    trainer = Trainer(model, optimizer=Adam(**RECIPES['shallow']['adam']),
+                      stop_trigger=(MESH_STEPS, 'iteration'))
+    trainer.register_hook(LRAnnealingHook(
+        breakpoints=[(0, .1), (MESH_STEPS, 1.)]))
+    if (trainer.mesh is None) != (rank is None):
+        raise AssertionError(f'rank {rank}: the trainer\'s mesh is '
+                             f'{trainer.mesh}')
+    if probe:
+        trainer._shard = lambda batch: (batch, _RoundingProbe(
+            len(batch['seq_len'])))
+        trainer._reduce_gradients = lambda grads: [_ulp_moved(g)
+                                                   for g in grads]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    losses, seconds = [], []
+    for batch in batches:
+        if rank is not None:
+            batch = _mesh_rows(batch, rank, world)
+        start = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    launches = dict(build.LAUNCHES)
+    for kernel in SHALLOW:
+        if launches[kernel] <= 0:
+            raise AssertionError(f'rank {rank}: {kernel} never launched in '
+                                 f'the mesh training run')
+    return {'losses': losses, 'seconds': seconds, 'launches': launches,
+            'state': bridge.export_flat(model.module)}
+
+
+def mesh_rank(rank, world):
+    """One rank of phase 13's gloo world on the one card: 13a's training
+    steps on its rows, then 13c's 10-member stacked ensemble over the
+    ranks (its share of the members, the whole scores back)."""
+    from pb_sed_tpu_torch.models.base.ensemble import StackedEnsemble
+    from pb_sed_tpu_torch.parallel.mesh import default_ensemble_mesh
+    torch.set_num_threads(max(1, os.cpu_count() // world))   # host cores
+    build.lib()
+    config, flat, batches, clips = _mesh_data()
+    out = {'training': _mesh_training(config, flat, batches, rank, world)}
+    torch.cuda.empty_cache()
+    mesh = default_ensemble_mesh(ENSEMBLE_MEMBERS)
+    runner = StackedEnsemble(_members(config, ENSEMBLE_MEMBERS), mesh=mesh)
+    build.reset_launches()
+    start = time.perf_counter()
+    tags = [runner.tagging(b)[0] for b in clips[:2]]
+    sed = runner.sound_event_detection(clips[2], window_length=51,
+                                       window_shift=1)[0]
+    torch.cuda.synchronize()
+    out['ensemble'] = {
+        'axes': list(mesh.axis_names), 'grid': mesh.grid.tolist(),
+        'members_here': len(runner.local_members),
+        'tags': tags, 'sed': sed, 'seconds': time.perf_counter() - start,
+        'launches': dict(build.LAUNCHES)}
+    out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def nccl_rank(rank, world):
+    """13b: one rank of a world formed by ``initialize_distributed`` under
+    torchrun's variables with its default backend on the card (NCCL):
+    ``Trainer(use_mesh=True)`` takes 2 steps, so every collective of the
+    step goes through NCCL."""
+    import torch.distributed as dist
+    build.lib()
+    config, flat, batches, _ = _mesh_data()
+    out = _mesh_training(config, flat, batches[:2], rank, world)
+    out['backend'] = dist.get_backend()
+    return out
+
+
+def _check_mesh_steps(got, ref, probe, module, label):
+    """The mesh's steps (``got``) against one process's (``ref``) by the
+    looser of two rules, per quantity: the CPU test's tolerance
+    (``tests/test_torch_mesh.py``: losses within 1e-3 * |ref|, each
+    parameter's update over the steps at 1 - cos <= 0.02, running
+    statistics within 1e-4 + 1e-2 * max|ref|) and ``_card_vs_cpu``'s
+    noise rule, three times the one process's own noise (``probe``: its
+    steps with every global sum moved by one ulp, ``_RoundingProbe``).
+    At full width the tower's bf16 roundings through the training-mode
+    norms turn the mesh's split sums into update cosines down to 0.83
+    after 4 steps (my first card run), where the tiny CPU models keep
+    them above 0.98. As in ``_card_vs_cpu``, the norm-fed biases (an
+    identically zero gradient) and tensors of fewer than 16 entries (the
+    entry norm's two scalars) are printed, not held. Returns the worst
+    deviation over its bound of each, and which rule bound it."""
+    p0 = ref['p0']
+    bn_fed = {f'params.{name}' for name in bn_fed_biases(module)}
+    worst, rows, failed = {}, [], []
+
+    def hold(kind, key, dev, stated, noise):
+        bound = max(stated, 3 * noise)
+        rule = 'stated' if stated >= 3 * noise else '3x noise'
+        rows.append((kind, str(key), dev, noise, bound, rule))
+        if kind not in worst or dev / bound > worst[kind][0]:
+            worst[kind] = (dev / bound, key, dev, bound, rule)
+        if not dev <= bound:
+            failed.append(rows[-1])
+
+    for step, (a, r, n) in enumerate(zip(got['losses'], ref['losses'],
+                                         probe['losses'])):
+        hold('loss', step + 1, abs(a - r), 1e-3 * abs(r), abs(n - r))
+    for key, value in ref['state'].items():
+        if key.startswith('params.'):
+            upd = torch.from_numpy(value - p0[key])
+
+            def gap(state):
+                return 1 - _cosine(torch.from_numpy(state[key] - p0[key]),
+                                   upd)
+
+            dev, noise = gap(got['state']), gap(probe['state'])
+            if key in bn_fed or value.size < 16:
+                log(f'  {key}: update 1 - cos {dev:.4f}, one process\'s '
+                    f'noise {noise:.4f} (printed only)')
+                continue
+            hold('update', key, dev, .02, noise)
+        elif not key.endswith('initialized'):
+            hold('statistic', key, float(np.abs(got['state'][key] - value)
+                                         .max()),
+                 1e-4 + 1e-2 * float(np.abs(value).max()),
+                 float(np.abs(probe['state'][key] - value).max()))
+    log(f'{label}, every held quantity (kind, key, deviation, one '
+        f'process\'s noise, bound, rule; JSON): ' + json.dumps(rows))
+    log(f'{label} vs one process: losses {got["losses"]} vs {ref["losses"]}'
+        f' (the probe {probe["losses"]}); worst of each, deviation / bound'
+        f' (key, deviation, bound, rule): ' + '; '.join(
+            f'{kind} {w[0]:.3f} ({w[1]}, {w[2]:.3e}, {w[3]:.3e}, {w[4]})'
+            for kind, w in worst.items()))
+    if failed:
+        raise AssertionError(f'{label}: {len(failed)} quantities outside '
+                             f'their bound: {failed}')
+    return {kind: {'over_bound': w[0], 'key': str(w[1]), 'deviation': w[2],
+                   'bound': w[3], 'rule': w[4]}
+            for kind, w in worst.items()}
+
+
+def _event_scalars(storage_dir):
+    """{(tag, step): value} of the scalar events in ``storage_dir``'s event
+    files, read with tensorboardX's protobuf classes (TFRecord framing:
+    length, its CRC, the Event, its CRC)."""
+    import struct
+    from tensorboardX.proto import event_pb2
+    out = {}
+    for path in Path(storage_dir).glob('events.out.tfevents.*'):
+        data = path.read_bytes()
+        pos = 0
+        while pos < len(data):
+            (n,) = struct.unpack('<Q', data[pos:pos + 8])
+            event = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            for value in event.summary.value:
+                if value.HasField('simple_value'):
+                    out[(value.tag, event.step)] = value.simple_value
+    return out
+
+
+def _trace_and_summaries(config, flat, batches):
+    """13d, and 13e's tensorboard check: 3 one-process steps, the last two
+    profiled, with a summary every step."""
+    import importlib.util
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    from pb_sed_tpu_torch.utils import trace
+    from pb_sed_tpu_torch.utils.profiling import step_times_ms
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(_model(config, flat, device='cuda'),
+                          optimizer=Adam(**RECIPES['shallow']['adam']),
+                          storage_dir=tmp, summary_trigger=(1, 'iteration'),
+                          checkpoint_trigger=(100, 'iteration'),
+                          stop_trigger=(3, 'iteration'), profile_at=2,
+                          profile_num_steps=2)
+        trainer.train(batches[:3])
+        (path,) = Path(tmp, 'profile').glob('trace_*.json')
+        events = trace.trace_events(path)
+        summed = step_times_ms(path)
+        union = trace.device_step_times_ms(events)
+        for step, device in union.items():
+            host, total = summed[step]
+            log(f'13d: profiled step {step}: host {host:.2f} ms, device '
+                f'{device:.2f} ms (union of intervals) vs {total:.2f} ms '
+                f'(summed durations)')
+            if not abs(device - total) <= .01 * total or device <= 0:
+                raise AssertionError(f'step {step}: device_step_times_ms '
+                                     f'{device} vs step_times_ms {total}')
+        out['steps'] = {s: {'host_ms': summed[s][0], 'device_ms': d}
+                        for s, d in union.items()}
+        out['top_ops'] = trace.op_breakdown_ms(events, top=10)
+        out['stalls'] = trace.stall_gaps_ms(events, top=5)
+        out['duty_cycle'] = trace.duty_cycle_summary(events)
+        log('13d: top 10 ops of the profiled steps (device ms, count): '
+            + '; '.join(f'{k} {ms:.3f} x{n}'
+                        for k, (ms, n) in out['top_ops'].items()))
+        stalls = out['stalls']
+        log(f'13d: idle gaps of the longest step: span {stalls["span_ms"]} '
+            f'ms, busy {stalls["busy_ms"]} ms, {stalls["n_gaps"]} gaps of '
+            f'>= 0.1 ms, {stalls["gap_ms"]} ms; the 5 longest (ms, at ms, '
+            f'host op): ' + '; '.join(f'{g} at {at} behind {op}'
+                                      for g, at, op in stalls['gaps']))
+        log(f'13d: duty cycle {out["duty_cycle"]}')
+        tensorboard = importlib.util.find_spec('tensorboardX') is not None
+        out['tensorboardX'] = tensorboard
+        log(f'13e: tensorboardX importable: {tensorboard}'
+            + ('' if tensorboard else ' (summary.jsonl alone)'))
+        if tensorboard:
+            events = _event_scalars(tmp)
+            with open(f'{tmp}/summary.jsonl') as fid:
+                lines = [json.loads(line) for line in fid]
+            checked = 0
+            for line in lines:
+                for key, value in line.items():
+                    if key in ('iteration', 'prefix', 'time'):
+                        continue
+                    got = events[(f'{line["prefix"]}/{key}',
+                                  line['iteration'])]
+                    if not np.isclose(got, value, rtol=1e-6, atol=1e-12):
+                        raise AssertionError(f'event {key} {got} vs '
+                                             f'summary.jsonl {value}')
+                    checked += 1
+            log(f'13e: {checked} event-file scalars equal summary.jsonl\'s')
+            out['event_scalars_checked'] = checked
+    return out
+
+
+def _check_filters():
+    """13e: the tensor filters on CUDA tensors against the numpy filters
+    at the tuning chain's score shapes (f32 against f64: within 1e-6 *
+    max|ref|); ms of both (CUDA events; the host clock for numpy)."""
+    from pb_sed_tpu_torch.ops import filters
+    scores = np.random.RandomState(9).rand(*FILTER_SHAPE).astype(np.float32)
+    x = torch.from_numpy(scores).cuda()
+    rows = []
+    for name, n in FILTER_CASES:
+        tensor_fn = getattr(filters, f'{name}_torch')
+        got = tensor_fn(x, n).cpu().numpy()
+        start = time.perf_counter()
+        ref = getattr(filters, name)(scores.astype(np.float64), n)
+        numpy_ms = 1e3 * (time.perf_counter() - start)
+        err = float(np.abs(got - ref).max())
+        tol = 1e-6 * float(np.abs(ref).max())
+        row = {'filter': name, 'n': n, 'max_abs_err': err,
+               'ms': cuda_ms(lambda: tensor_fn(x, n)), 'numpy_ms': numpy_ms}
+        rows.append(row)
+        if not err <= tol or got.shape != ref.shape:
+            raise AssertionError(f'{name}({n}) on the card: {err} > {tol}')
+    log(f'13e: device filters at {FILTER_SHAPE} vs numpy (JSON): '
+        + json.dumps(rows))
+    return rows
+
+
+def phase_mesh(card):
+    """Phase 13: the mesh. 13a: a world of MESH_WORLD ranks on the one card
+    (gloo, both on cuda:0) trains the full-width shallow FBCRNN for
+    MESH_STEPS steps on 4 global batches of 32 ten-second clips (16 a
+    rank; augmentation on; weights from seed 0), held against one process
+    taking the same steps on the same clips by the looser of the CPU
+    test's tolerance and three times the one process's own rounding
+    noise (``_check_mesh_steps``; both ranks must end in the same state
+    in every bit), each rank's shallow kernels launching. 13b: a
+    1-rank world formed by ``initialize_distributed`` with its default
+    backend (NCCL) trains 2 steps. 13c: the 10 shallow members of phase
+    10 over the 2-rank world (an ensemble axis of 2, five members a rank)
+    tag 2 batches of 32 and run SED 51/1 on one, against one process's
+    stacked ensemble within phase 10's tolerance (1e-4 + 3e-2 *
+    max|ref|). 13d: the trace reader on profiled shallow steps. 13e: the
+    device filters, and the tensorboard rule. Returns the launch counts
+    and the measurements."""
+    from pb_sed_tpu_torch.models.base.ensemble import StackedEnsemble
+    from pb_sed_tpu_torch.parallel.launch import run_ranks
+    phase_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    config, flat, batches, clips = _mesh_data()
+    ref = _mesh_training(config, flat, batches)
+    ref['p0'] = flat
+    probe = _mesh_training(config, flat, batches, probe=True)
+    start = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_WORLD, backend='gloo',
+                      timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - start
+    out = {'card': card, 'world_s': world_s}
+    launches = {}
+    module = _model(config, flat).module
+    for rank, result in enumerate(ranks):
+        launches[f'mesh_training_rank{rank}'] = result['training']['launches']
+        launches[f'mesh_ensemble_rank{rank}'] = result['ensemble']['launches']
+        for kernel in FORWARD:
+            if result['ensemble']['launches'][kernel] <= 0:
+                raise AssertionError(f'rank {rank}: {kernel} never launched '
+                                     f'in the ensemble over the ranks')
+        for key, value in ranks[0]['training']['state'].items():
+            if not np.array_equal(result['training']['state'][key], value):
+                raise AssertionError(f'rank {rank} ends with another {key} '
+                                     f'than rank 0')
+    out['training'] = _check_mesh_steps(ranks[0]['training'], ref, probe,
+                                        module,
+                                        f'13a: {MESH_WORLD} ranks (gloo)')
+
+    def steady(seconds):
+        return 1. / float(np.mean(seconds[1:]))   # step 1: warm-up
+
+    out['steps_per_s'] = {'one_process': steady(ref['seconds']),
+                          **{f'rank{r}': steady(x['training']['seconds'])
+                             for r, x in enumerate(ranks)}}
+    log(f'13a: steps/s over steps 2-{MESH_STEPS} (host clock, '
+        f'synchronized): one process {out["steps_per_s"]["one_process"]:.3f}'
+        f' at batch {BATCH}; {MESH_WORLD} gloo ranks sharing ONE card, '
+        f'{BATCH // MESH_WORLD} clips a rank: ' + ', '.join(
+            f'rank {r} {out["steps_per_s"][f"rank{r}"]:.3f}'
+            for r in range(MESH_WORLD))
+        + ' (a shared card, not a scaling number); peak device memory a '
+        'rank ' + ', '.join(f'{x["peak_gib"]:.2f}' for x in ranks)
+        + f' GiB; the world took {world_s:.1f} s with its processes\' start')
+
+    start = time.perf_counter()
+    (nccl,) = run_ranks(nccl_rank, 1, backend=None,
+                        timeout_s=MESH_TIMEOUT_S)
+    launches['mesh_nccl_training'] = nccl['launches']
+    dev = float(np.max(np.abs(np.asarray(nccl['losses'])
+                              - ref['losses'][:2])
+                       / np.abs(ref['losses'][:2])))
+    log(f'13b: a 1-rank world on {nccl["backend"]} (initialize_distributed '
+        f'under torchrun\'s variables): losses {nccl["losses"]} vs one '
+        f'process {ref["losses"][:2]} (max rel dev {dev:.2e}, bound 1e-3), '
+        f'{time.perf_counter() - start:.1f} s with its process\'s start')
+    if nccl['backend'] != 'nccl' or not dev <= 1e-3:
+        raise AssertionError(f'13b: {nccl["backend"]}, {nccl["losses"]}')
+    out['nccl'] = {'backend': nccl['backend'], 'losses': nccl['losses'],
+                   'loss_rel_dev': dev}
+
+    members = _members(config, ENSEMBLE_MEMBERS)
+    local = StackedEnsemble(members)
+    expected = {'tagging': [local.tagging(b)[0] for b in clips[:2]],
+                'sed': local.sound_event_detection(
+                    clips[2], window_length=51, window_shift=1)[0]}
+    del local, members
+    torch.cuda.empty_cache()
+    worst = 0.
+    for rank, result in enumerate(ranks):
+        ens = result['ensemble']
+        if ens['axes'] != ['ensemble', 'data'] or ens['members_here'] != \
+                ENSEMBLE_MEMBERS // MESH_WORLD:
+            raise AssertionError(f'rank {rank}: {ens["axes"]}, '
+                                 f'{ens["members_here"]} members')
+        for got, want in zip(ens['tags'] + [ens['sed']],
+                             expected['tagging'] + [expected['sed']]):
+            err = float(np.abs(got - want).max())
+            tol = 1e-4 + 3e-2 * float(np.abs(want).max())
+            worst = max(worst, err / tol)
+            if got.shape != want.shape or not err <= tol:
+                raise AssertionError(f'13c rank {rank}: {got.shape} vs '
+                                     f'{want.shape}, {err} > {tol}')
+    out['ensemble'] = {'worst_dev_over_tol': worst,
+                       'seconds': [x['ensemble']['seconds'] for x in ranks]}
+    log(f'13c: {ENSEMBLE_MEMBERS} members over {MESH_WORLD} ranks '
+        f'(grid {ranks[0]["ensemble"]["grid"]}, '
+        f'{ranks[0]["ensemble"]["members_here"]} a rank): tagging of 2 x '
+        f'{BATCH} clips and SED 51/1 of {BATCH} on every rank within '
+        f'{worst:.3f} of the tolerance of one process\'s stacked output; '
+        f'seconds a rank ' + ', '.join(
+            f'{s:.2f}' for s in out['ensemble']['seconds']))
+    out.update(_trace_and_summaries(config, flat, batches))
+    out['filters'] = _check_filters()
+    out['phase_s'] = time.perf_counter() - phase_start
+    log(f'phase 13 took {out["phase_s"]:.1f} s ({card})')
+    return launches, out
+
+
 def _descendants():
     """{pid: command line} of every live process below this one, from
     ``/proc``."""
@@ -4195,6 +4669,9 @@ def run():
         prep_launches, prep = phase_data_prep(Path(tmp), card, cli_metrics)
     launches.update(prep_launches)
     log('data-preparation phase (JSON): ' + json.dumps(prep))
+    mesh_launches, mesh = phase_mesh(card)
+    launches.update(mesh_launches)
+    log('mesh phase (JSON): ' + json.dumps(mesh))
     launches['kernel_phase'] = kernel_phase
     kernels = []
     for name in KERNELS:

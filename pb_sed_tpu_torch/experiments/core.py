@@ -14,11 +14,20 @@ programmatic overrides and use ``cfg.setdefault``-style assignment, so
 derived values (e.g. iteration counts scaled by an overridden batch size)
 are computed from the overridden values like sacred's dependency
 re-execution achieves.
+
+Under ``torchrun`` (several ranks, one card each) the command line forms
+the process group first (``parallel.mesh.initialize_distributed``, NCCL
+on the card, gloo with ``device=cpu``); every ``run`` then takes rank 0's
+config, whose timestamped storage directory every rank uses, and rank 0
+alone writes ``config.json`` while the others wait for it.
 """
 import ast
 import sys
 from pathlib import Path
 
+from pb_sed_tpu_torch.parallel.mesh import (barrier, broadcast_object,
+                                            initialize_distributed,
+                                            is_main_process)
 from pb_sed_tpu_torch.utils.config import config_to_json
 from pb_sed_tpu_torch.utils.misc import dump_json
 from pb_sed_tpu_torch.utils.nested import deflatten
@@ -132,7 +141,10 @@ class Experiment:
 
     def run_commandline(self, argv=None):
         argv = sys.argv[1:] if argv is None else argv
-        return self.run(config_updates=parse_cli_overrides(argv))
+        updates = parse_cli_overrides(argv)
+        # under torchrun: the process group, before the config is agreed
+        initialize_distributed(device=updates.get('device'))
+        return self.run(config_updates=updates)
 
     def build_config(self, config_updates=None):
         cfg = _to_config_dict(config_updates or {})
@@ -143,6 +155,8 @@ class Experiment:
     def run(self, config_updates=None):
         self.observers = []
         cfg = self.build_config(config_updates)  # may append observers
+        # every rank runs rank 0's config (its timestamps, its paths)
+        cfg, self.observers = broadcast_object((cfg, self.observers))
         # the `device` config (None: the card; 'cpu' or another torch
         # device string) is read by the experiment's main function
         assert self.main_fn is not None, 'no main function registered'
@@ -160,6 +174,8 @@ class Experiment:
                 raise KeyError(
                     f'config key {name!r} required by main() is missing')
         # save configs for any observers registered during config fns
-        for observer in self.observers:
-            observer.save_config(cfg)
+        if is_main_process():
+            for observer in self.observers:
+                observer.save_config(cfg)
+        barrier()
         return self.main_fn(**kwargs)

@@ -34,6 +34,7 @@ from pb_sed_tpu_torch.experiments.core import (
 from pb_sed_tpu_torch.experiments.weak_label_crnn.inference import (
     ground_truth_for, tagging)
 from pb_sed_tpu_torch.models import base, strong_label, weak_label
+from pb_sed_tpu_torch.parallel.mesh import barrier, is_main_process
 from pb_sed_tpu_torch.paths import storage_root
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.utils.misc import dump_json, load_json, timestamp
@@ -207,9 +208,11 @@ def main(_config, storage_dir, strong_label_crnn_hyper_params_dir,
     print_config(_config)
     print(storage_dir)
     storage_dir = Path(storage_dir)
-    storage_dir.mkdir(parents=True, exist_ok=True)
-    emissions_tracker = EmissionsTracker(output_dir=storage_dir)
-    emissions_tracker.start()
+    writes = is_main_process()   # every rank computes, rank 0 writes
+    if writes:
+        storage_dir.mkdir(parents=True, exist_ok=True)
+        emissions_tracker = EmissionsTracker(output_dir=storage_dir)
+        emissions_tracker.start()
 
     collar_based_params = {
         'onset_collar': .2, 'offset_collar': .2, 'offset_collar_rate': .2}
@@ -241,6 +244,9 @@ def main(_config, storage_dir, strong_label_crnn_hyper_params_dir,
             strong_label_crnn_dirs, strong_label_crnn_checkpoints)
     ]
     data_provider = DataProvider.from_config(data_provider)
+    # every rank reads the whole sets: the engine splits each batch over
+    # the ranks itself (``mesh='auto'``) and gives every rank all scores
+    data_provider.test_fetcher.num_shards = 1
     data_provider.test_transform.label_encoder.initialize_labels()
     inverse = data_provider.test_transform.label_encoder.\
         inverse_label_mapping
@@ -295,12 +301,12 @@ def main(_config, storage_dir, strong_label_crnn_hyper_params_dir,
             pseudo_widening=pseudo_widening,
             score_storage_dir=[
                 score_storage_dir / name for name in sed_names]
-            if save_scores else None,
+            if save_scores and writes else None,
             detection_storage_dir=[
                 detection_storage_dir / name for name in sed_names]
-            if save_detections else None)
+            if save_detections and writes else None)
         for j, sed_results_j in enumerate(sed_results):
-            if sed_results_j:
+            if sed_results_j and writes:
                 dump_json(sed_results_j,
                           storage_dir
                           / f'sed_{sed_names[j]}_results_{ds_name}.json')
@@ -309,6 +315,7 @@ def main(_config, storage_dir, strong_label_crnn_hyper_params_dir,
                 base.pseudo_label(
                     database['datasets'][ds_name], event_classes,
                     False, False, True, None, None, events[0])
+        if strong_pseudo_labeling[i] and events[0] is not None and writes:
             with (storage_dir
                   / f'{ds_name}_pseudo_labeled.tsv').open('w') as fid:
                 fid.write('filename\tonset\toffset\tevent_label\n')
@@ -319,14 +326,17 @@ def main(_config, storage_dir, strong_label_crnn_hyper_params_dir,
                         fid.write(f'{key}.wav\t{t_on}\t{t_off}\t'
                                   f'{event_label}\n')
 
-    if any(strong_pseudo_labeling):
-        dump_json(database,
-                  storage_dir / Path(data_provider.json_path).name)
-    inference_dir = Path(strong_label_crnn_hyper_params_dir) / 'inference'
-    os.makedirs(str(inference_dir), exist_ok=True)
-    link = inference_dir / storage_dir.name
-    if not link.exists():
-        link.symlink_to(storage_dir)
-    emissions_tracker.stop()
+    if writes:
+        if any(strong_pseudo_labeling):
+            dump_json(database,
+                      storage_dir / Path(data_provider.json_path).name)
+        inference_dir = (Path(strong_label_crnn_hyper_params_dir)
+                         / 'inference')
+        os.makedirs(str(inference_dir), exist_ok=True)
+        link = inference_dir / storage_dir.name
+        if not link.exists():
+            link.symlink_to(storage_dir)
+        emissions_tracker.stop()
+    barrier()
     print(storage_dir)
     return str(storage_dir)

@@ -35,6 +35,7 @@ from pb_sed_tpu_torch.experiments.weak_label_crnn.tuning import (
     ground_truth_from_json)
 from pb_sed_tpu_torch.models import base, strong_label, weak_label
 from pb_sed_tpu_torch.models.strong_label import crnn as strong_label_crnn
+from pb_sed_tpu_torch.parallel.mesh import barrier, is_main_process
 from pb_sed_tpu_torch.paths import storage_root
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.utils.misc import dump_json, load_json, timestamp
@@ -102,9 +103,11 @@ def main(_config, storage_dir, debug, weak_label_crnn_hyper_params_dir,
     print_config(_config)
     print(storage_dir)
     storage_dir = Path(storage_dir)
-    storage_dir.mkdir(parents=True, exist_ok=True)
-    emissions_tracker = EmissionsTracker(output_dir=storage_dir)
-    emissions_tracker.start()
+    writes = is_main_process()   # every rank computes, rank 0 writes
+    if writes:
+        storage_dir.mkdir(parents=True, exist_ok=True)
+        emissions_tracker = EmissionsTracker(output_dir=storage_dir)
+        emissions_tracker.start()
 
     if not isinstance(weak_label_crnn_checkpoints, list):
         weak_label_crnn_checkpoints = \
@@ -117,6 +120,9 @@ def main(_config, storage_dir, debug, weak_label_crnn_hyper_params_dir,
             weak_label_crnn_dirs, weak_label_crnn_checkpoints)
     ]
     data_provider = DataProvider.from_config(data_provider)
+    # every rank reads the whole sets: the engine splits each batch over
+    # the ranks itself (``mesh='auto'``) and gives every rank all scores
+    data_provider.test_fetcher.num_shards = 1
     data_provider.test_transform.label_encoder.initialize_labels()
     inverse = data_provider.test_transform.label_encoder.\
         inverse_label_mapping
@@ -186,7 +192,9 @@ def main(_config, storage_dir, debug, weak_label_crnn_hyper_params_dir,
         event_classes, tags, metrics,
         tag_masking={'f': True, 'auc1': '?', 'auc2': '?'},
         medfilt_lengths=medfilt_lengths)
-    dump_json(leaderboard['f'][1], storage_dir / 'sed_hyper_params_f.json')
+    if writes:
+        dump_json(leaderboard['f'][1],
+                  storage_dir / 'sed_hyper_params_f.json')
     for auc_name, out_name in (('auc1', 'psds1'), ('auc2', 'psds2')):
         f, p, r, thresholds, _ = collar_based.best_fscore(
             leaderboard[auc_name][2], events_ground_truth,
@@ -194,15 +202,18 @@ def main(_config, storage_dir, debug, weak_label_crnn_hyper_params_dir,
         for event_class in thresholds:
             leaderboard[auc_name][1][event_class]['threshold'] = \
                 thresholds[event_class]
-        dump_json(leaderboard[auc_name][1],
-                  storage_dir / f'sed_hyper_params_{out_name}.json')
-    for crnn_dir in strong_label_crnn_dirs:
-        tuning_dir = Path(crnn_dir) / 'hyper_params'
-        os.makedirs(str(tuning_dir), exist_ok=True)
-        link = tuning_dir / storage_dir.name
-        if not link.exists():
-            link.symlink_to(storage_dir)
-    emissions_tracker.stop()
+        if writes:
+            dump_json(leaderboard[auc_name][1],
+                      storage_dir / f'sed_hyper_params_{out_name}.json')
+    if writes:
+        for crnn_dir in strong_label_crnn_dirs:
+            tuning_dir = Path(crnn_dir) / 'hyper_params'
+            os.makedirs(str(tuning_dir), exist_ok=True)
+            link = tuning_dir / storage_dir.name
+            if not link.exists():
+                link.symlink_to(storage_dir)
+        emissions_tracker.stop()
+    barrier()   # the inference below reads rank 0's files
     print(storage_dir)
 
     if eval_set_name:

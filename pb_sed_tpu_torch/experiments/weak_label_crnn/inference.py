@@ -39,6 +39,7 @@ from pb_sed_tpu_torch.experiments.core import (
     Experiment, FileStorageObserver, print_config)
 from pb_sed_tpu_torch.models import base
 from pb_sed_tpu_torch.models.weak_label import CRNN
+from pb_sed_tpu_torch.parallel.mesh import barrier, is_main_process
 from pb_sed_tpu_torch.paths import storage_root
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.utils.misc import dump_json, load_json, timestamp
@@ -365,9 +366,11 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
     print_config(_config)
     print(storage_dir)
     storage_dir = Path(storage_dir)
-    storage_dir.mkdir(parents=True, exist_ok=True)
-    emissions_tracker = EmissionsTracker(output_dir=storage_dir)
-    emissions_tracker.start()
+    writes = is_main_process()   # every rank computes, rank 0 writes
+    if writes:
+        storage_dir.mkdir(parents=True, exist_ok=True)
+        emissions_tracker = EmissionsTracker(output_dir=storage_dir)
+        emissions_tracker.start()
 
     boundary_collar_based_params = {
         'onset_collar': .5, 'offset_collar': .5, 'offset_collar_rate': .0}
@@ -390,6 +393,9 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
     ]
     print('Params', sum(crnn.num_parameters() for crnn in crnns))
     data_provider = DataProvider.from_config(data_provider)
+    # every rank reads the whole sets: the engine splits each batch over
+    # the ranks itself (``mesh='auto'``) and gives every rank all scores
+    data_provider.test_fetcher.num_shards = 1
     data_provider.test_transform.label_encoder.initialize_labels()
     inverse = data_provider.test_transform.label_encoder.\
         inverse_label_mapping
@@ -436,7 +442,7 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
             [psds_scenario_1, psds_scenario_2],
             max_segment_length=max_segment_length,
             segment_overlap=segment_overlap)
-        if tagging_results:
+        if tagging_results and writes:
             dump_json(tagging_results,
                       storage_dir / f'tagging_results_{ds_name}.json')
 
@@ -450,7 +456,7 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
                 max_segment_length=max_segment_length,
                 segment_overlap=segment_overlap,
                 pseudo_widening=pseudo_widening)
-            if boundaries_results:
+            if boundaries_results and writes:
                 dump_json(
                     boundaries_results,
                     storage_dir
@@ -471,12 +477,12 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
                 pseudo_widening=pseudo_widening,
                 score_storage_dir=[
                     score_storage_dir / name for name in sed_names]
-                if save_scores else None,
+                if save_scores and writes else None,
                 detection_storage_dir=[
                     detection_storage_dir / name for name in sed_names]
-                if save_detections else None)
+                if save_detections and writes else None)
             for j, sed_results_j in enumerate(sed_results):
-                if sed_results_j:
+                if sed_results_j and writes:
                     dump_json(
                         sed_results_j,
                         storage_dir
@@ -489,15 +495,17 @@ def main(_config, storage_dir, hyper_params_dir, sed_hyper_params_name,
                 weak_pseudo_labeling[i], boundary_pseudo_labeling[i],
                 strong_pseudo_labeling[i], tags, boundaries, events[0])
 
-    if any(weak_pseudo_labeling) or any(boundary_pseudo_labeling) \
-            or any(strong_pseudo_labeling):
-        dump_json(database,
-                  storage_dir / Path(data_provider.json_path).name)
-    inference_dir = Path(hyper_params_dir) / 'inference'
-    os.makedirs(str(inference_dir), exist_ok=True)
-    link = inference_dir / storage_dir.name
-    if not link.exists():
-        link.symlink_to(storage_dir)
-    emissions_tracker.stop()
+    if writes:
+        if any(weak_pseudo_labeling) or any(boundary_pseudo_labeling) \
+                or any(strong_pseudo_labeling):
+            dump_json(database,
+                      storage_dir / Path(data_provider.json_path).name)
+        inference_dir = Path(hyper_params_dir) / 'inference'
+        os.makedirs(str(inference_dir), exist_ok=True)
+        link = inference_dir / storage_dir.name
+        if not link.exists():
+            link.symlink_to(storage_dir)
+        emissions_tracker.stop()
+    barrier()
     print(storage_dir)
     return str(storage_dir)

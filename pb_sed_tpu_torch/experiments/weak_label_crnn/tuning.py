@@ -35,6 +35,7 @@ from pb_sed_tpu_torch.experiments.core import (
     Experiment, FileStorageObserver, print_config)
 from pb_sed_tpu_torch.models import base, weak_label
 from pb_sed_tpu_torch.models.weak_label import crnn as weak_label_crnn
+from pb_sed_tpu_torch.parallel.mesh import barrier, is_main_process
 from pb_sed_tpu_torch.paths import storage_root
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.utils.misc import dump_json, load_json, timestamp
@@ -126,9 +127,11 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
     print_config(_config)
     print(storage_dir)
     storage_dir = Path(storage_dir)
-    storage_dir.mkdir(parents=True, exist_ok=True)
-    emissions_tracker = EmissionsTracker(output_dir=storage_dir)
-    emissions_tracker.start()
+    writes = is_main_process()   # every rank computes, rank 0 writes
+    if writes:
+        storage_dir.mkdir(parents=True, exist_ok=True)
+        emissions_tracker = EmissionsTracker(output_dir=storage_dir)
+        emissions_tracker.start()
 
     boundaries_collar_based_params = {
         'onset_collar': .5, 'offset_collar': .5,
@@ -156,6 +159,9 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
         for crnn_dir, ckpt in zip(crnn_dirs, crnn_checkpoints)
     ]
     data_provider = DataProvider.from_config(data_provider)
+    # every rank reads the whole sets: the engine splits each batch over
+    # the ranks itself (``mesh='auto'``) and gives every rank all scores
+    data_provider.test_fetcher.num_shards = 1
     data_provider.test_transform.label_encoder.initialize_labels()
     inverse = data_provider.test_transform.label_encoder.\
         inverse_label_mapping
@@ -182,7 +188,7 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
                             num_jobs=8)}
     leaderboard = weak_label_crnn.tune_tagging(
         crnns, dataset, timestamps, event_classes, metrics,
-        storage_dir=storage_dir)
+        storage_dir=storage_dir if writes else None)
     _, hyper_params, tagging_scores = leaderboard['f']
     tagging_thresholds = np.array([
         hyper_params[event_class]['threshold']
@@ -208,7 +214,7 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
     weak_label_crnn.tune_boundary_detection(
         crnns, dataset, timestamps, event_classes, tags, metrics,
         tag_masking=True, stepfilt_lengths=boundaries_filter_lengths,
-        storage_dir=storage_dir)
+        storage_dir=storage_dir if writes else None)
 
     # stage 3: SED scenario 1
     if tune_detection_scenario_1:
@@ -228,16 +234,18 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
             window_lengths=detection_window_lengths_scenario_1,
             window_shift=detection_window_shift_scenario_1,
             medfilt_lengths=detection_medfilt_lengths_scenario_1)
-        dump_json(leaderboard['f'][1],
-                  storage_dir / 'sed_hyper_params_f.json')
+        if writes:
+            dump_json(leaderboard['f'][1],
+                      storage_dir / 'sed_hyper_params_f.json')
         f, p, r, thresholds, _ = collar_based.best_fscore(
             leaderboard['auc'][2], events_ground_truth,
             **collar_based_params, num_jobs=8)
         for event_class in thresholds:
             leaderboard['auc'][1][event_class]['threshold'] = \
                 thresholds[event_class]
-        dump_json(leaderboard['auc'][1],
-                  storage_dir / 'sed_hyper_params_psds1.json')
+        if writes:
+            dump_json(leaderboard['auc'][1],
+                      storage_dir / 'sed_hyper_params_psds1.json')
     # stage 4: SED scenario 2
     if tune_detection_scenario_2:
         metrics = {
@@ -258,16 +266,19 @@ def main(_config, storage_dir, debug, crnn_dirs, crnn_checkpoints,
         for event_class in thresholds:
             leaderboard['auc'][1][event_class]['threshold'] = \
                 thresholds[event_class]
-        dump_json(leaderboard['auc'][1],
-                  storage_dir / 'sed_hyper_params_psds2.json')
+        if writes:
+            dump_json(leaderboard['auc'][1],
+                      storage_dir / 'sed_hyper_params_psds2.json')
 
-    for crnn_dir in crnn_dirs:
-        tuning_dir = Path(crnn_dir) / 'hyper_params'
-        os.makedirs(str(tuning_dir), exist_ok=True)
-        link = tuning_dir / storage_dir.name
-        if not link.exists():
-            link.symlink_to(storage_dir)
-    emissions_tracker.stop()
+    if writes:
+        for crnn_dir in crnn_dirs:
+            tuning_dir = Path(crnn_dir) / 'hyper_params'
+            os.makedirs(str(tuning_dir), exist_ok=True)
+            link = tuning_dir / storage_dir.name
+            if not link.exists():
+                link.symlink_to(storage_dir)
+        emissions_tracker.stop()
+    barrier()   # the inference below reads rank 0's files
     print(storage_dir)
 
     if eval_set_name:

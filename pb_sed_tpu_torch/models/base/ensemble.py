@@ -16,18 +16,30 @@ buffer) is computed once for all of them.
 
 Scores are the member mean, in f32 on the device. The stacked lane
 serves (eval mode, no gradients); a failure inside it raises, there is no
-fallback to running the members in turn. One card only: ``mesh`` must
-be None until the port has ``parallel/mesh.py`` (``ROADMAP.md`` queue 1
-item 7).
+fallback to running the members in turn.
+
+Over the ranks of a ``parallel.mesh.Mesh`` (one device a rank; the JAX
+``shard_map`` and data-only lanes, ``pb_sed_tpu/models/base/
+ensemble.py:222-270``): with an ``ensemble`` axis of E, the rank at
+ensemble index e stacks members ``[e·N/E, (e+1)·N/E)`` (one launch a
+layer for its share) and the member mean is the all-reduced sum of the
+E shares' means over E (JAX's ``pmean``); along the ``data`` axis of D
+ranks the batch is padded to a multiple of D (copies of the last row)
+and split, each rank evaluates its rows, and the rows are gathered back
+and trimmed. Without an ensemble axis (coprime counts) every rank stacks
+every member and the batch alone splits. Every rank returns the whole
+scores.
 """
 import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, stack_module_state, vmap
 
 from pb_sed_tpu_torch.models.base.model import to_numpy
+from pb_sed_tpu_torch.parallel.mesh import Mesh, gather_rows
 
 
 def _hyper(value):
@@ -100,7 +112,8 @@ def _rows(value, lo, hi, pad):
 
 class StackedEnsemble:
     """Drop-in for a list of SoundEventModels of one architecture on one
-    device: the same inference API, scores the member mean.
+    device (or over a mesh's ranks): the same inference API, scores the
+    member mean.
 
     ``chunk_size`` evaluates a batch in chunks of that many examples (the
     last padded by repeating its last row, the outputs trimmed), every
@@ -114,16 +127,15 @@ class StackedEnsemble:
 
     def __init__(self, models, mesh=None, ensemble_axis='ensemble',
                  chunk_size=None):
-        """``mesh`` and ``ensemble_axis`` are the JAX signature's: one card
-        (``mesh=None``) has no ensemble axis to shard."""
+        """``mesh`` (a ``parallel.mesh.Mesh``, or None for this process's
+        device) shards the members over its ``ensemble_axis`` and the
+        batch over its ``data`` axis; every rank passes all members."""
         models = list(models)
         if not models:
             raise ValueError('StackedEnsemble needs at least one model')
-        if mesh is not None:
-            raise NotImplementedError(
-                'a stacked ensemble over a device mesh needs parallel/'
-                'mesh.py, which the port does not have yet (ROADMAP.md '
-                'queue 1 item 7); pass mesh=None')
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh: a pb_sed_tpu_torch.parallel.mesh.Mesh '
+                            f'or None, got {type(mesh).__qualname__}')
         if not same_architecture(models):
             raise ValueError('StackedEnsemble: the members\' architectures '
                              'differ')
@@ -137,9 +149,25 @@ class StackedEnsemble:
         self.device = devices.pop()
         self.chunk_size = chunk_size
         self._call = _Method(self.module)
+        members = models
+        if mesh is not None and ensemble_axis in mesh.axis_names:
+            shards = mesh.shape[ensemble_axis]
+            if len(models) % shards:
+                raise ValueError(f'{len(models)} members do not split over '
+                                 f'an ensemble axis of {shards}')
+            share = len(models) // shards
+            e = mesh.coords[ensemble_axis]
+            members = models[e * share:(e + 1) * share]
+            self._ensemble = (mesh.groups[ensemble_axis], shards)
+        else:
+            self._ensemble = None
+        self._data = (None if mesh is None or 'data' not in mesh.axis_names
+                      else (mesh.groups['data'], mesh.shape['data'],
+                            mesh.coords['data']))
+        self.local_members = members         # the members stacked here
         for m in models:                     # the stacked lane serves
             m.module.eval()
-        params, buffers = stack_module_state([m.module for m in models])
+        params, buffers = stack_module_state([m.module for m in members])
         # a non-persistent buffer (the mel filterbank) is the config's,
         # the same in every member: one copy, unbatched
         persistent = set(self.module.state_dict())
@@ -198,11 +226,48 @@ class StackedEnsemble:
             return functional_call(call, state,
                                    (device_batch, method, kwargs))
 
+        n = None
+        if self._data is not None:
+            batch, n = self._data_rows(batch)
         with torch.inference_mode():
             device_batch = self.models[0].to_device(batch)
             y, seq_len = vmap(one, in_dims=(self.in_dims, None))(
                 self.state, device_batch)
-            return y.mean(0), seq_len[0]
+            y, seq_len = y.mean(0), seq_len[0]
+            if self._ensemble is not None:
+                group, shards = self._ensemble
+                dist.all_reduce(y, group=group)
+                y = y / shards
+            if n is not None:
+                group, size, index = self._data
+                counts = [y.shape[0]] * size
+                y = gather_rows(y, group, counts, index)[:n]
+                if seq_len.dim() >= 1:
+                    seq_len = gather_rows(seq_len, group, counts,
+                                          index)[:n]
+            return y, seq_len
+
+    def _data_rows(self, batch):
+        """This rank's rows of ``batch`` padded to a multiple of the data
+        axis (copies of the last row), and the batch's length."""
+        _, size, index = self._data
+        lens = {len(v) for v in batch.values()
+                if isinstance(v, (np.ndarray, torch.Tensor)) and v.ndim >= 1}
+        if len(lens) != 1:
+            raise ValueError(f'batch entries of unequal lengths {lens}')
+        n = lens.pop()
+        per = -(-n // size)
+        rows = np.minimum(np.arange(index * per, (index + 1) * per), n - 1)
+
+        def take(value):
+            if isinstance(value, list) and len(value) == n:
+                return [value[i] for i in rows]
+            if isinstance(value, (np.ndarray, torch.Tensor)) \
+                    and value.ndim >= 1:
+                return value[rows]
+            return value
+
+        return {k: take(v) for k, v in batch.items()}, n
 
     # -- inference API ---------------------------------------------------
     def _sed(self, batch, window_length, window_shift, materialize):

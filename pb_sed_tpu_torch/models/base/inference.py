@@ -28,6 +28,7 @@ from pb_sed_tpu_torch.evaluation.scores import (
     create_score_dataframe, lazy_sed_scores_loader, write_sed_scores)
 from pb_sed_tpu_torch.models.base.model import to_numpy
 from pb_sed_tpu_torch.ops.filters import boundariesfilt, medfilt
+from pb_sed_tpu_torch.parallel.mesh import default_ensemble_mesh
 from pb_sed_tpu_torch.utils.segment import merge_segments, segment_batch
 
 
@@ -100,10 +101,15 @@ def inference(model, method, dataset, max_segment_length=None,
     ``auto_stack`` serves several models of one architecture and one set
     of ``model_kwargs`` as one ``StackedEnsemble`` (a failure there
     raises; ``auto_stack=False`` runs the members in turn).
-    ``mesh='auto'`` is no mesh: the port serves on one card until it has
-    ``parallel/mesh.py`` (``ROADMAP.md`` queue 1 item 7), and a mesh
-    object raises. ``device`` is accepted as in the JAX package and
-    unused: the models' device decides."""
+    ``mesh='auto'`` (the JAX default) is
+    ``parallel.mesh.default_ensemble_mesh(len(models))``: ``None`` in a
+    process without a process group or at world 1 (this process's
+    device), else the members over an ``ensemble`` axis and the batch
+    over ``data`` of the ranks, every rank running this call on the same
+    dataset and getting the whole scores; ``mesh=None`` forces this
+    process's device, and a ``parallel.mesh.Mesh`` is taken as given.
+    ``device`` is accepted as in the JAX package and unused: the models'
+    device decides."""
     models = model if isinstance(model, (list, tuple)) else [model]
     if model_kwargs is None:
         model_kwargs = {}
@@ -115,7 +121,7 @@ def inference(model, method, dataset, max_segment_length=None,
     if auto_stack and len(models) > 1:
         from pb_sed_tpu_torch.models.base.ensemble import maybe_stack
         if isinstance(mesh, str) and mesh == 'auto':
-            mesh = None
+            mesh = default_ensemble_mesh(len(models))
         models, model_kwargs = maybe_stack(list(models), list(model_kwargs),
                                            mesh=mesh)
     medfilt_length = np.asarray(medfilt_length, dtype=int)

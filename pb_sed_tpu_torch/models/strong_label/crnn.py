@@ -23,12 +23,13 @@ from torch import nn
 
 from pb_sed_tpu_torch.models.base.model import SoundEventModel, to_numpy
 from pb_sed_tpu_torch.models.weak_label.crnn import (  # noqa: F401
-    FBCRNNModule, tune_tagging)
+    FBCRNNModule, _feature_image, tune_tagging)
 from pb_sed_tpu_torch.ops.cnn import CNN
 from pb_sed_tpu_torch.ops.features import NormalizedLogMelExtractor
 from pb_sed_tpu_torch.ops.masking import (compute_mask, masked_max,
                                           masked_mean)
 from pb_sed_tpu_torch.ops.rnn import GRU
+from pb_sed_tpu_torch.parallel.mesh import global_mean, global_sum
 
 
 class BiCRNNModule(nn.Module):
@@ -107,23 +108,29 @@ class CRNN(SoundEventModel):
         which clamps the log at -100), summed and divided by the number
         of certain entries (at least 1).
 
+        Under a ``parallel.mesh.data_parallel`` shard the sums and the
+        scalars' means are the global batch's.
+
         Returns ``(loss, aux)`` with ``aux = {'scalars': ..., 'buffers':
-        ...}``: the buffers are the frame scores and targets max-pooled
-        over ``eval_segment_length`` blocks, ``(B, n_seg, K)``, and the
-        mask of the valid segments of the fully labeled clips."""
-        y, seq_len_y, _, _ = self.module(batch, generator)
+        ..., 'images': ...}``: the buffers are the frame scores and targets
+        max-pooled over ``eval_segment_length`` blocks, ``(B, n_seg, K)``,
+        and the mask of the valid segments of the fully labeled clips; the
+        images the first three examples' features and strong targets, as
+        JAX returns them."""
+        y, seq_len_y, x, _ = self.module(batch, generator)
         targets = batch['strong_targets'].float()          # (B, K, T)
         st_mask = ((targets > .99) | (targets < .01)).float()
         st_mask = st_mask * compute_mask(y, seq_len_y, sequence_axis=-1)
         y_c = y.clamp(1e-7, 1. - 1e-7)
         bce = -(targets * torch.log(y_c)
                 + (1. - targets) * torch.log(1. - y_c)) * st_mask
-        loss = bce.sum() / st_mask.sum().clamp(min=1.)
+        total, certain = global_sum(bce.sum(), st_mask.sum())
+        loss = total / certain.clamp(min=1.)
         fully_labeled = (masked_mean(st_mask, seq_len_y, axis=-1)
                          > .999).all(-1)                      # (B,)
         scalars = {
-            'seq_len': batch['seq_len'].float().mean(),
-            'strong_label_rate': st_mask.mean(),
+            'seq_len': global_mean(batch['seq_len'].float()),
+            'strong_label_rate': global_mean(st_mask),
         }
         seg = int(self.eval_segment_length)
         b, k, t = y.shape
@@ -140,7 +147,10 @@ class CRNN(SoundEventModel):
             'targets_strong': t_seg.transpose(1, 2),
             'segment_mask': seg_valid & fully_labeled[:, None],
         }
-        return loss, {'scalars': scalars, 'buffers': buffers}
+        images = {'features': _feature_image(x),
+                  'strong_targets': targets[:3]}
+        return loss, {'scalars': scalars, 'buffers': buffers,
+                      'images': images}
 
     # -- host-facing review ---------------------------------------------------
     def review_from_aux(self, loss, aux):

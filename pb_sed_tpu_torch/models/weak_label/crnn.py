@@ -25,6 +25,7 @@ from pb_sed_tpu_torch.ops.features import NormalizedLogMelExtractor
 from pb_sed_tpu_torch.ops.masking import (compute_mask, masked_mean,
                                           take_last)
 from pb_sed_tpu_torch.ops.rnn import GRU, paired_gru_apply, paired_heads
+from pb_sed_tpu_torch.parallel.mesh import global_mean, global_sum
 
 
 class FBCRNNModule(nn.Module):
@@ -167,6 +168,12 @@ def multi_window_sed(run_window, window_length, materialize=True):
     return y_out, to_numpy(seq_len_y)
 
 
+def _feature_image(x):
+    """The summary image of the features: the first three examples
+    (with delta channels, their base channel), as JAX returns it."""
+    return (x[:3] if x.dim() == 3 else x[:3, ..., 0]).detach()
+
+
 class CRNN(SoundEventModel):
     """FBCRNN wrapper: training loss, inference API and config glue."""
 
@@ -207,10 +214,16 @@ class CRNN(SoundEventModel):
         - label smoothing clips targets, BCE clips scores at 1e-7;
         - masked mean over frames, class-weighted mean over (B, K).
 
+        Under a ``parallel.mesh.data_parallel`` shard the loss is the
+        global batch's: the class-weighted sum and the weights' sum are
+        summed over the ranks before the ratio, and so are the scalars'
+        means.
+
         Returns ``(loss, aux)`` with ``aux = {'scalars': ..., 'buffers':
-        ...}``, the JAX function's scalars and buffers.
+        ..., 'images': ...}``, the JAX function's scalars, buffers and
+        summary image (the first three examples' features).
         """
-        y_fwd, y_bwd, seq_len_y, _, _ = self.module(batch, generator)
+        y_fwd, y_bwd, seq_len_y, x, _ = self.module(batch, generator)
         weak_targets = batch['weak_targets'].float()
         wt_mask = ((weak_targets < .01) | (weak_targets > .99)).float()
         weak_targets = weak_targets * wt_mask
@@ -232,7 +245,7 @@ class CRNN(SoundEventModel):
             bt_mask = (bt_mask * fully_labeled
                        * (weak_targets > .99)[..., None].float()
                        * frame_mask)
-            boundary_label_rate = bt_mask.mean()
+            boundary_label_rate = global_mean(bt_mask)
             strong_loss = self._strong_fwd_bwd_loss(
                 y_fwd, y_bwd, boundary_targets)
             w = bt_mask * self.strong_fwd_bwd_loss_weight
@@ -243,13 +256,14 @@ class CRNN(SoundEventModel):
             weights = weights * torch.as_tensor(
                 self.class_weights, dtype=torch.float32,
                 device=weights.device)
-        loss = (loss * weights).sum() / weights.sum().clamp(min=1.)
+        total, weight = global_sum((loss * weights).sum(), weights.sum())
+        loss = total / weight.clamp(min=1.)
         y_weak = take_last(y_fwd, seq_len_y, axis=-1)
         if y_bwd is not None:
             y_weak = y_weak / 2 + y_bwd[..., 0] / 2
         scalars = {
-            'seq_len': batch['seq_len'].float().mean(),
-            'weak_label_rate': wt_mask.mean(),
+            'seq_len': global_mean(batch['seq_len'].float()),
+            'weak_label_rate': global_mean(wt_mask),
             'boundary_label_rate': boundary_label_rate,
         }
         buffers = {
@@ -257,7 +271,8 @@ class CRNN(SoundEventModel):
             'targets_weak': weak_targets,
             'labeled_mask': (wt_mask == 1.).all(-1),
         }
-        return loss, {'scalars': scalars, 'buffers': buffers}
+        return loss, {'scalars': scalars, 'buffers': buffers,
+                      'images': {'features': _feature_image(x)}}
 
     def _clip_targets(self, targets):
         if self.label_smoothing > 0.:

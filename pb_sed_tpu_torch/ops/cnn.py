@@ -40,6 +40,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2,
                                                MaxPoolFreq2)
 from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import sequence_mask
+from pb_sed_tpu_torch.parallel.mesh import global_sum
 from pb_sed_tpu_torch.utils.config import Configurable
 from pb_sed_tpu_torch.utils.misc import to_list
 
@@ -85,7 +86,11 @@ class MaskedBatchNorm(nn.Module):
     ``fold=True`` the same statistics (and updates) give the affine
     ``(scale, shift) = (rsqrt(var + eps) * gamma, beta - mean * scale)``
     instead of the normalized buffer (``pb_sed_tpu/ops/cnn.py:184-187``);
-    gradients reach gamma, beta and, in training, x through it."""
+    gradients reach gamma, beta and, in training, x through it. Under a
+    ``parallel.mesh.data_parallel`` shard the sums and the count are the
+    global batch's (one all-reduce a layer), so every rank normalizes
+    with, and keeps, the statistics one device would take on the whole
+    batch."""
 
     def __init__(self, channels, eps=1e-3, momentum=0.95):
         super().__init__()
@@ -107,8 +112,9 @@ class MaskedBatchNorm(nn.Module):
         else:
             mask = sequence_mask(seq_len, x.shape[1])
             mask = mask.reshape(mask.shape + (1,) * (x.dim() - 2))
-            count = (mask.sum() * math.prod(x.shape[2:-1])).clamp(min=1.)
             total, total_sq = MaskedMoments.apply(xf, mask)
+            total, total_sq, valid = global_sum(total, total_sq, mask.sum())
+            count = (valid * math.prod(x.shape[2:-1])).clamp(min=1.)
             mean = total / count
             var = (total_sq / count - mean.square()).clamp(min=0.)
             update_running_stats(self, mean, var, self.momentum)

@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from pb_sed_tpu_torch.parallel.mesh import active_shard
+
 _OPEN = threading.local()  # .stream: the calling thread's open stream
 
 
@@ -64,10 +66,18 @@ def _stream(module_name):
     return stream
 
 
-def keep_mask(shape, rate, device, module_name='dropout'):
+def keep_mask(shape, rate, device, module_name='dropout', batched=True):
     """A bool mask of ``shape`` that keeps with probability ``1 - rate``,
-    drawn from the open stream."""
-    return _stream(module_name).keep_mask(shape, 1. - rate, device)
+    drawn from the open stream. Under a ``parallel.mesh.data_parallel``
+    shard a ``batched`` mask (batch-first) is drawn for the global batch
+    and this rank keeps its rows; a mask without a batch axis is drawn
+    whole, the same on every rank."""
+    stream = _stream(module_name)
+    shard = active_shard()
+    if shard is None or not batched:
+        return stream.keep_mask(shape, 1. - rate, device)
+    return shard.local(stream.keep_mask((shard.total, *shape[1:]),
+                                        1. - rate, device))
 
 
 def apply_keep(x, keep, rate):
@@ -94,5 +104,5 @@ def attention_dropout(weights, rate, training):
     if rate == 0. or not training:
         return weights
     keep = keep_mask((1, 1) + tuple(weights.shape[-2:]), rate,
-                     weights.device, 'attention')
+                     weights.device, 'attention', batched=False)
     return weights * (keep.to(weights.dtype) / (1. - rate))

@@ -26,6 +26,8 @@ from pb_sed_tpu_torch.ops import mel as mel_ops
 from pb_sed_tpu_torch.ops.cnn import update_running_stats
 from pb_sed_tpu_torch.ops.masking import sequence_mask, take_last
 from pb_sed_tpu_torch.ops.stft import STFT
+from pb_sed_tpu_torch.parallel.mesh import (global_rows, global_sum,
+                                            local_rows)
 from pb_sed_tpu_torch.utils.config import Configurable
 
 # int16 waveform transport scale (the Collate(audio_dtype='int16')
@@ -136,7 +138,10 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
         ``generator`` on ``seq_len``'s device: warp factor and boundary
         ratio per example, ``(w, start)`` per time and frequency mask,
         noise scale and noise. Only the augmentations the config turns on
-        are drawn."""
+        are drawn. Under a ``parallel.mesh.data_parallel`` shard they are
+        drawn for the global batch (its ``seq_len`` gathered) and each
+        rank keeps its rows, so N ranks draw what one device draws."""
+        seq_len = global_rows(seq_len)
         b = seq_len.shape[0]
         m = self.number_of_filters
         dev = seq_len.device
@@ -176,7 +181,9 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
             draws['noise_scale'] = uniform(b, 1, 1) * self.max_noise_scale
             draws['noise'] = torch.randn((b, num_frames, m),
                                          generator=generator, device=dev)
-        return draws
+        return {key: ([tuple(local_rows(v) for v in pair) for pair in value]
+                      if isinstance(value, list) else local_rows(value))
+                for key, value in draws.items()}
 
     def forward(self, x, seq_len, generator=None, draws=None,
                 warp_params=None):
@@ -219,10 +226,15 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
         logmel = torch.log(melspec + 1e-4)
         mask = sequence_mask(seq_len, t)[:, :, None]
         if self.training:
-            # two-pass masked statistics over batch and valid frames
-            count = mask.sum().clamp(min=1.)
-            mean = (logmel * mask).sum((0, 1)) / count
-            var = ((logmel - mean).square() * mask).sum((0, 1)) / count
+            # two-pass masked statistics over batch and valid frames (the
+            # global batch's under a data-parallel shard: two reductions,
+            # the mean's, then the squared deviations')
+            total, valid = global_sum((logmel * mask).sum((0, 1)),
+                                      mask.sum())
+            count = valid.clamp(min=1.)
+            mean = total / count
+            var = global_sum(((logmel - mean).square() * mask).sum(
+                (0, 1))) / count
             update_running_stats(self, mean, var, self.norm_momentum)
         else:
             mean, var = self.mean, self.var

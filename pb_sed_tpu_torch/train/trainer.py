@@ -1,5 +1,6 @@
 """Trainer: the training loop of the JAX package's ``Trainer``
-(``pb_sed_tpu/train/trainer.py``) on one device, eagerly.
+(``pb_sed_tpu/train/trainer.py``), eagerly, on one device or data-parallel
+over the ranks of a ``torch.distributed`` process group.
 
 What it does, with the JAX surface: ``__init__`` triggers
 (``(N, 'iteration')`` summary / checkpoint / stop), ``register_hook``
@@ -38,9 +39,14 @@ trigger (prefix ``training``) and per validation (prefix ``validation``):
 ``{'iteration', 'prefix', 'time', **scalars}``, the scalars being the
 means of the steps' scalars and the metrics the model computes from the
 steps' buffered clip scores (``SoundEventModel.modify_summary``:
-``macro_fscore_weak``, ``lwlrap_weak``, ...). Validation runs after each
-checkpoint trigger and at the end of ``train``, with the module in eval
-mode under ``torch.no_grad()``.
+``macro_fscore_weak``, ``lwlrap_weak``, ...). Where tensorboardX can be
+imported (the JAX package's ``tensorboard`` extra), the same scalars go to
+a ``SummaryWriter`` event file in ``storage_dir`` as ``<prefix>/<key>`` at
+the iteration, with the model's 2-D summary images (the features' grid),
+as the JAX trainer writes them (``trainer.py:602-627``); without it,
+``summary.jsonl`` alone. Validation runs after each checkpoint trigger
+and at the end of ``train``, with the module in eval mode under
+``torch.no_grad()``.
 
 The multi-step lane (``steps_per_call = K > 1``, the JAX trainer's
 ``trainer.py:319-324, 401-475``): ``train`` buffers batches of one shape
@@ -64,9 +70,23 @@ a ``record_function`` window named ``train_step_<iteration>`` that ends
 with a device synchronize, and the host and device milliseconds of each
 window are printed from the trace.
 
-``use_mesh`` and ``loss_scale`` are accepted for config compatibility:
-the port trains on the model's one device, and the JAX trainer never
-reads ``loss_scale``.
+The mesh (``use_mesh``, the JAX default; ``parallel/mesh.py``): with a
+``torch.distributed`` process group, ``get_mesh()`` spans its ranks on a
+``data`` axis, one device a rank, and a step of N ranks is the step one
+device takes on their batches concatenated in rank order, as GSPMD makes
+the JAX step: the batch is padded as the JAX trainer pads it
+(``mesh.shard_batch``), the model runs under ``mesh.data_parallel`` (the
+batch-norm moments, the feature normalization, the loss's sums and the
+scalars are the global batch's; the augmentation and dropout draws are
+drawn for the global batch from the same generator state on every rank
+and each rank keeps its rows), the gradients are averaged over the ranks
+before Adam (whose global-norm clipping then sees the global gradient),
+and the summary buffers are gathered. The parameters are broadcast from
+the first rank once, when the optimizer state is made. Only rank 0 writes
+``summary.jsonl``, event files and checkpoints, and the ranks wait for it
+after each checkpoint; every rank resumes from the same file. Without a
+process group there is no mesh: the one-process path. ``loss_scale`` is
+accepted for config compatibility; the JAX trainer never reads it.
 """
 import contextlib
 import json
@@ -77,9 +97,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pb_sed_tpu_torch.bridge import param_keys
 from pb_sed_tpu_torch.ops.dropout import dropout_rng
+from pb_sed_tpu_torch.parallel.mesh import (data_parallel, get_mesh,
+                                            is_main_process, shard_batch)
 from pb_sed_tpu_torch.train.emissions import EmissionsTracker
 from pb_sed_tpu_torch.train.hooks import (EndTrigger, Hook, IntervalTrigger,
                                           LRAnnealingHook)
@@ -87,6 +110,7 @@ from pb_sed_tpu_torch.train.optimizer import Adam
 from pb_sed_tpu_torch.utils.checkpoint import adam_moments, load_payload
 from pb_sed_tpu_torch.utils.config import Configurable
 from pb_sed_tpu_torch.utils.profiling import step_times_ms, torch_profile
+from pb_sed_tpu_torch.utils.trace import device_step_times_ms, op_breakdown_ms
 
 
 def dropout_seed(seed):
@@ -130,6 +154,9 @@ class Trainer(Configurable):
         self._frozen_stats = set()
         self._summary = _empty_summary()
         self._last_flush = None
+        self.mesh = get_mesh() if use_mesh else None
+        self._writes = is_main_process()   # summaries and checkpoints
+        self._writer = None                # tensorboardX, once looked for
 
     @classmethod
     def finalize_dogmatic_config(cls, config):
@@ -228,6 +255,7 @@ class Trainer(Configurable):
             print(f'Initialized the parameters from seed {self.seed}')
         params = [p for _, p in self.model.module.named_parameters()]
         if self.opt_state is None:
+            self._broadcast_state()
             self.opt_state = self.optimizer.init(params)
         if self.generator is None:
             self.generator = torch.Generator(device=device)
@@ -235,6 +263,42 @@ class Trainer(Configurable):
             self.dropout_generator = torch.Generator(device=device)
             self.dropout_generator.manual_seed(dropout_seed(self.seed))
         return params
+
+    # -- the mesh -------------------------------------------------------------
+    def _broadcast_state(self):
+        """On a mesh: every rank takes the first rank's parameters and
+        running statistics."""
+        if self.mesh is None:
+            return
+        src = int(self.mesh.grid.flat[0])
+        with torch.no_grad():
+            for t in self.model.module.state_dict().values():
+                dist.broadcast(t, src=src, group=self.mesh.groups['data'])
+
+    def _shard(self, batch):
+        """``(this rank's rows of batch, its DataShard)`` on a mesh,
+        ``(batch, None)`` without one."""
+        if self.mesh is None:
+            return batch, None
+        return shard_batch(batch, self.mesh)
+
+    def _reduce_gradients(self, grads):
+        """The gradients averaged over the mesh's data axis (one
+        all-reduce): each rank's is N times its share of the global
+        loss's (``AllReduceSum`` sums the cotangents of the global sums),
+        so the mean is the global gradient."""
+        if self.mesh is None:
+            return grads
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.groups['data'])
+        flat = flat / self.mesh.shape['data']
+        return [part.reshape(g.shape) for part, g in zip(
+            flat.split([g.numel() for g in grads]), grads)]
+
+    def _wait_for_writer(self):
+        """On a mesh: every rank waits until rank 0's files are written."""
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.groups['data'])
 
     def train(self, train_set, resume=False, device=None,
               track_emissions=False):
@@ -272,6 +336,8 @@ class Trainer(Configurable):
             self._maybe_stop_profile(force=True)
             if tracker is not None:
                 tracker.stop()
+            if self._writer:
+                self._writer.flush()
 
     # -- profiler -------------------------------------------------------------
     def _maybe_start_profile(self):
@@ -294,9 +360,13 @@ class Trainer(Configurable):
         self._profile_done = True
         trace.__exit__(None, None, None)
         print(f'Profiler trace written to {trace.path}')
-        for step, (host, device) in step_times_ms(trace.path).items():
-            print(f'Profiled step {step}: {host:.2f} ms on the host, '
-                  f'{device:.2f} ms of device work (trace)')
+        host = step_times_ms(trace.path)
+        for step, device in device_step_times_ms(trace.path).items():
+            print(f'Profiled step {step}: {host[step][0]:.2f} ms on the '
+                  f'host, {device:.2f} ms of device work (trace)')
+        for name, (ms, count) in op_breakdown_ms(trace.path,
+                                                 top=5).items():
+            print(f'  {ms:.3f} ms in {count} x {name}')
 
     @contextlib.contextmanager
     def _step_window(self):
@@ -314,22 +384,27 @@ class Trainer(Configurable):
     # -- steps ----------------------------------------------------------------
     def _step(self, params, batch):
         """One optimizer step on ``batch``, the body of both lanes;
-        returns ``(loss, scalars, buffers)`` as device tensors."""
+        returns ``(loss, scalars, buffers, images)`` as device tensors
+        (on a mesh the global batch's loss, scalars and buffer rows; the
+        images of this rank's first rows)."""
         module = self.model.module
         lr = self.step_lr()
         frozen_stats = {name: t.detach().clone()
                         for name, t in module.state_dict().items()
                         if name in self._frozen_stats}
         module.train()
-        with self._step_window():
+        batch, shard = self._shard(batch)
+        with self._step_window(), data_parallel(shard):
             for p in params:
                 p.grad = None
             with dropout_rng(self.dropout_generator):
                 loss, aux = self.model.loss(self.model.to_device(batch),
                                             self.generator)
             loss.backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in params]
+            grads = self._reduce_gradients([
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in params])
+            buffers = _global_buffers(aux['buffers'], shard)
             updates, grad_norm = self.optimizer.update(
                 grads, self.opt_state, params)
             with torch.no_grad():
@@ -346,13 +421,14 @@ class Trainer(Configurable):
         # device tensors: they are read on the host only at a flush
         scalars = dict(aux['scalars'], loss=loss.detach(),
                        grad_norm=grad_norm, lr=lr)
-        return loss.detach(), scalars, aux['buffers']
+        return loss.detach(), scalars, buffers, aux.get('images', {})
 
-    def _after_call(self, scalars, buffers):
+    def _after_call(self, scalars, buffers, images):
         """Summary entry and triggers after a call of either lane."""
         for key, value in scalars.items():
             self._summary['scalars'].setdefault(key, []).append(value)
         self._summary['raw'].append(buffers)
+        self._summary['images'] = images
         if self.summary_trigger(self.iteration, self.epoch):
             self._flush_summary(prefix='training')
         if self.checkpoint_trigger(self.iteration, self.epoch):
@@ -367,8 +443,8 @@ class Trainer(Configurable):
         self._maybe_start_profile()
         for hook in self.hooks:
             hook.pre_step(self)
-        loss, scalars, buffers = self._step(params, batch)
-        self._after_call(scalars, buffers)
+        loss, scalars, buffers, images = self._step(params, batch)
+        self._after_call(scalars, buffers, images)
         for hook in self.hooks:
             hook.post_step(self, batch, loss, None)
         self._maybe_stop_profile()
@@ -401,13 +477,15 @@ class Trainer(Configurable):
             hook.pre_step(self)
         steps = [self._step(params, batch) for batch in batches]
         device = steps[0][0].device
-        losses = torch.stack([loss for loss, _, _ in steps])
+        losses = torch.stack([step[0] for step in steps])
         scalars = {key: torch.stack([
-            torch.as_tensor(s[key], dtype=torch.float32, device=device)
-            for _, s, _ in steps]) for key in steps[0][1]}
-        buffers = {key: torch.cat([b[key] for _, _, b in steps])
+            torch.as_tensor(step[1][key], dtype=torch.float32,
+                            device=device)
+            for step in steps]) for key in steps[0][1]}
+        buffers = {key: torch.cat([step[2][key] for step in steps])
                    for key in steps[0][2]}
-        self._after_call(scalars, buffers)
+        # the last step's images, as the JAX lane keeps them
+        self._after_call(scalars, buffers, steps[-1][3])
         for hook in self.hooks:
             hook.post_step(self, batches[-1], losses, None)
         self._maybe_stop_profile()
@@ -415,10 +493,14 @@ class Trainer(Configurable):
 
     # -- validation -----------------------------------------------------------
     def _validation_loss(self, batch):
-        """``model.loss`` on ``batch`` in eval mode without gradients."""
+        """``model.loss`` on ``batch`` in eval mode without gradients (on
+        a mesh the global batch's, with its buffers' rows gathered)."""
         self.model.module.eval()
-        with torch.no_grad():
-            return self.model.loss(self.model.to_device(batch), None)
+        batch, shard = self._shard(batch)
+        with torch.no_grad(), data_parallel(shard):
+            loss, aux = self.model.loss(self.model.to_device(batch), None)
+            return loss, dict(aux, buffers=_global_buffers(aux['buffers'],
+                                                           shard))
 
     def validate(self):
         """One pass over the validation set: the summary line, then the
@@ -431,8 +513,9 @@ class Trainer(Configurable):
             for key, value in aux['scalars'].items():
                 summary['scalars'].setdefault(key, []).append(float(value))
             summary['raw'].append(aux['buffers'])
+            summary['images'] = aux.get('images', {})
         summary = self._reviewed(summary)
-        self._write_summary(summary['scalars'], prefix='validation')
+        self._write_summary(summary, prefix='validation')
         metric_name = hook['metric']
         value = summary['scalars'].get(metric_name)
         if value is None:
@@ -480,10 +563,11 @@ class Trainer(Configurable):
                       for g in (self.generator, self.dropout_generator)]
         buffers = [(b, b.detach().clone()) for b in module.buffers()]
         module.train()
-        with dropout_rng(self.dropout_generator):
-            loss, _ = self.model.loss(
-                self.model.to_device(next(iter(train_set))), self.generator)
-        loss.backward()
+        batch, shard = self._shard(next(iter(train_set)))
+        with dropout_rng(self.dropout_generator), data_parallel(shard):
+            loss, _ = self.model.loss(self.model.to_device(batch),
+                                      self.generator)
+            loss.backward()
         loss = loss.detach()
         for p in params:
             p.grad = None
@@ -512,6 +596,8 @@ class Trainer(Configurable):
                 0., {'scalars': {}, 'buffers': buffers})
             for key, value in review['buffers'].items():
                 summary['buffers'].setdefault(key, []).append(value)
+        summary['images'] = {key: image.float().cpu().numpy()
+                             for key, image in summary['images'].items()}
         return self.model.modify_summary(summary)
 
     def _flush_summary(self, prefix):
@@ -531,12 +617,37 @@ class Trainer(Configurable):
                 (self.iteration - it_last) / max(now - t_last, 1e-9)]
         self._last_flush = (self.iteration, now)
         summary = self._reviewed(summary)
-        self._write_summary(summary['scalars'], prefix=prefix)
+        self._write_summary(summary, prefix=prefix)
 
-    def _write_summary(self, scalars, prefix):
-        if self.storage_dir is None:
+    def _summary_writer(self):
+        """tensorboardX's ``SummaryWriter`` on ``storage_dir``, or False
+        where tensorboardX cannot be imported (an optional dependency, as
+        in the JAX package)."""
+        if self._writer is None:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                self._writer = False
+            else:
+                self._writer = SummaryWriter(logdir=str(self.storage_dir))
+        return self._writer
+
+    def _write_summary(self, summary, prefix):
+        """The summary's scalars as a ``summary.jsonl`` line and, with
+        tensorboardX, its scalars and 2-D images as events (rank 0
+        only)."""
+        if self.storage_dir is None or not self._writes:
             return
         self.storage_dir.mkdir(parents=True, exist_ok=True)
+        scalars = summary['scalars']
+        writer = self._summary_writer()
+        if writer:
+            for key, value in scalars.items():
+                writer.add_scalar(f'{prefix}/{key}', value, self.iteration)
+            for key, image in summary.get('images', {}).items():
+                if image is not None and np.ndim(image) == 2:
+                    writer.add_image(f'{prefix}/{key}', image[None],
+                                     self.iteration)
         with (self.storage_dir / 'summary.jsonl').open('a') as fid:
             fid.write(json.dumps({'iteration': self.iteration,
                                   'prefix': prefix, 'time': time.time(),
@@ -559,8 +670,15 @@ class Trainer(Configurable):
                    for key in ('mu', 'nu')}}
 
     def save_checkpoint(self, name=None):
+        """Write the checkpoint (rank 0; on a mesh every rank waits for
+        it)."""
         if self.storage_dir is None:
             return
+        if self._writes:
+            self._write_checkpoint(name)
+        self._wait_for_writer()
+
+    def _write_checkpoint(self, name):
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         payload = {
             'model': self.model.state_dict(),
@@ -639,7 +757,15 @@ class Trainer(Configurable):
 
 
 def _empty_summary():
-    return {'scalars': {}, 'buffers': {}, 'raw': []}
+    return {'scalars': {}, 'buffers': {}, 'raw': [], 'images': {}}
+
+
+def _global_buffers(buffers, shard):
+    """A step's summary buffers with the global batch's rows (``buffers``
+    themselves without a shard)."""
+    if shard is None:
+        return buffers
+    return {key: shard.gather(value) for key, value in buffers.items()}
 
 
 def _host_mean(value):

@@ -9,8 +9,10 @@ written as a Chrome trace into ``logdir``, readable in Perfetto or
 milliseconds and the device milliseconds of the kernels, copies and
 memsets that started inside it (the trainer's profiled steps; it
 synchronizes the card at the end of each profiled step, so a step's
-device work lies inside its window). The JAX package's
-``utils/xplane.py``, which parses TPU XPlane files, has no counterpart.
+device work lies inside its window). The counterpart of the JAX
+package's ``utils/xplane.py`` (its TPU XPlane reader) is
+``utils/trace.py``, built on :func:`trace_events`, :func:`step_windows`
+and :func:`device_events`.
 """
 import contextlib
 import json

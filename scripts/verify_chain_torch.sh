@@ -5,7 +5,10 @@
 # then a weak inference run that pseudo-labels train_unlabel_in_domain and
 # a strong_label_crnn training on those pseudo-labels -> strong tuning ->
 # inference.
-# Usage: scripts/verify_chain_torch.sh [workdir]
+# Usage: [NPROC=N] scripts/verify_chain_torch.sh [workdir]
+# With NPROC=N every stage runs under torchrun on N ranks (gloo on the
+# CPU): data-parallel training over the ranks' fetcher shards, the
+# ensemble engine over the ranks, rank 0 writing every file.
 set -e
 V=${1:-$(mktemp -d /tmp/verify_pbsed_torch.XXXX)}
 cd "$(dirname "$0")/.."
@@ -17,6 +20,11 @@ print(build_database("$V/db")[1])
 EOF2
 fi
 export STORAGE_ROOT=$V/storage DATABASE_JSONS_DIR=$V/db
+if [ -n "$NPROC" ]; then
+  RUN=(torchrun --standalone --nproc-per-node "$NPROC")
+else
+  RUN=(python)
+fi
 DATA=(
   data_provider.cached_datasets=None data_provider.min_audio_length=0.2
   data_provider.mix_interval=None
@@ -49,7 +57,7 @@ STEPS=(
 )
 
 echo "### weak: training -> tuning -> inference"
-python -m pb_sed_tpu_torch.experiments.weak_label_crnn.training with \
+"${RUN[@]}" -m pb_sed_tpu_torch.experiments.weak_label_crnn.training with \
   "${STEPS[@]}" "${DATA[@]}" num_iterations=6 \
   data_provider.json_path=$V/db/db.json \
   data_provider.train_set.train_weak=1 data_provider.train_set.train_strong=1 \
@@ -60,13 +68,13 @@ python -m pb_sed_tpu_torch.experiments.weak_label_crnn.training with \
 HP=$(ls -d "$STORAGE_ROOT"/weak_label_crnn/desed/hyper_params/*/ | tail -n 1)
 
 echo "### weak: pseudo-labels of train_unlabel_in_domain"
-python -m pb_sed_tpu_torch.experiments.weak_label_crnn.inference with \
+"${RUN[@]}" -m pb_sed_tpu_torch.experiments.weak_label_crnn.inference with \
   device=cpu hyper_params_dir=$HP storage_dir=$V/pseudo \
   'dataset_name=["train_unlabel_in_domain"]' \
   'weak_pseudo_labeling=[True]' 'strong_pseudo_labeling=[True]'
 
 echo "### strong: training on the pseudo-labels -> tuning -> inference"
-python -m pb_sed_tpu_torch.experiments.strong_label_crnn.training with \
+"${RUN[@]}" -m pb_sed_tpu_torch.experiments.strong_label_crnn.training with \
   "${STEPS[@]}" "${DATA[@]}" num_iterations=4 \
   weak_label_crnn_hyper_params_dir=$HP \
   data_provider.json_path=$V/pseudo/db.json \

@@ -327,10 +327,13 @@ def test_genuine_error_propagates(weak, monkeypatch):
 
 
 def test_a_mesh_raises(weak):
+    """A mesh that is not the port's ``parallel.mesh.Mesh`` (a JAX mesh,
+    say) raises, in the ensemble and through the engine. The port's mesh
+    lanes run over ranks in ``tests/test_torch_mesh.py``."""
     _, tmodels = weak
-    with pytest.raises(NotImplementedError, match='parallel/mesh.py'):
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
         StackedEnsemble(tmodels, mesh=object())
-    with pytest.raises(NotImplementedError, match='parallel/mesh.py'):
+    with pytest.raises(TypeError, match='parallel.mesh.Mesh'):
         tbase.tagging(tmodels, [_batch()], mesh=object())
 
 

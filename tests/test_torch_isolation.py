@@ -91,8 +91,18 @@ for name in ('data.provider', 'data.cache', 'database.desed.provider',
              'experiments.strong_label_crnn.training',
              'experiments.strong_label_crnn.tuning',
              'experiments.strong_label_crnn.inference',
-             'utils.nested', 'utils.random', 'paths'):
+             'utils.nested', 'utils.random', 'paths', 'parallel.mesh',
+             'parallel.launch', 'utils.trace', 'ops.filters'):
     assert 'pb_sed_tpu_torch.' + name in names, name
+from pb_sed_tpu_torch.ops import filters
+from pb_sed_tpu_torch.parallel import mesh
+from pb_sed_tpu_torch.utils import trace
+scores = torch.rand(2, 10, 50)
+assert filters.medfilt_torch(scores, 3).shape == scores.shape
+assert np.allclose(filters.boundariesfilt_torch(scores, 4).numpy(),
+                   filters.boundariesfilt(scores.numpy(), 4), atol=1e-6)
+assert mesh.get_mesh() is None and mesh.default_ensemble_mesh(4) is None
+assert trace.collapse_name('void k<1>(int)') == 'k'
 from pb_sed_tpu_torch.experiments.weak_label_crnn.training import ex
 cfg = ex.build_config({'timestamp': 't', 'debug': True})
 assert cfg['trainer']['model']['factory'] is CRNN

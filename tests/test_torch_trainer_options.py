@@ -313,3 +313,69 @@ def test_cli_overrides_reach_the_trainer():
     assert module.cnn.cnn_2d.dropout == .1 and not module.cnn.cnn_2d.fused
     assert trainer.steps_per_call == 4 and trainer.profile_at == 3
     assert jax.devices()[0].platform == 'cpu'
+
+
+def _events(storage_dir):
+    """(scalars {tag: [(step, value)]}, images {tag: [(step, width,
+    height)]}) of the event files in ``storage_dir``, read back with
+    tensorboard's event reader."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+    acc = EventAccumulator(str(storage_dir), size_guidance={
+        'scalars': 0, 'images': 0})
+    acc.Reload()
+    tags = acc.Tags()
+    return ({tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+             for tag in tags['scalars']},
+            {tag: [(e.step, e.width, e.height) for e in acc.Images(tag)]
+             for tag in tags['images']})
+
+
+def test_tensorboard_events_match_the_jax_trainer(flat, tmp_path):
+    """Two summaries (one a step) of the port's trainer and of the JAX
+    trainer (``use_mesh=False``, its XLA path) on the same two steps: the
+    event files hold the same scalar tags at the same steps, with values
+    within ``1e-4 + 3e-2 * |ref|`` (the loss rule of ``tests/
+    test_torch_train.py``; ``steps_per_second`` is each host's clock),
+    and the same 2-D image (the features' grid) at the same steps and
+    size; the port's event scalars are its ``summary.jsonl`` lines."""
+    import json
+    from pb_sed_tpu.ops import rnn as jrnn
+    batches = [_train_batch(seed) for seed in (1, 2)]
+    kwargs = dict(summary_trigger=(1, 'iteration'),
+                  checkpoint_trigger=(100, 'iteration'),
+                  stop_trigger=(2, 'iteration'))
+    jax_dir, port_dir = tmp_path / 'jax', tmp_path / 'port'
+    jrnn.set_pallas_mode('off')
+    try:
+        JaxTrainer(_jax_model(flat), storage_dir=jax_dir, use_mesh=False,
+                   **kwargs).train(batches)
+    finally:
+        jrnn.set_pallas_mode('auto')
+    Trainer(_port_model(flat), storage_dir=port_dir, **kwargs).train(
+        batches)
+    scalars, images = _events(port_dir)
+    ref_scalars, ref_images = _events(jax_dir)
+    assert sorted(scalars) == sorted(ref_scalars)
+    assert {'training/loss', 'training/grad_norm', 'training/lr'} <= set(
+        scalars)
+    for tag, ref in ref_scalars.items():
+        got = scalars[tag]
+        assert [s for s, _ in got] == [s for s, _ in ref] == (
+            [2] if tag.endswith('steps_per_second') else [1, 2]), tag
+        if not tag.endswith('steps_per_second'):
+            for (_, value), (_, ref_value) in zip(got, ref):
+                assert abs(value - ref_value) <= 1e-4 + 3e-2 * abs(
+                    ref_value), (tag, got, ref)
+    assert images == ref_images
+    assert list(images) == ['training/features']
+    lines = [json.loads(line) for line in
+             (port_dir / 'summary.jsonl').read_text().splitlines()]
+    assert [line['iteration'] for line in lines] == [1, 2]
+    for line in lines:
+        for key, value in line.items():
+            if key in ('iteration', 'prefix', 'time'):
+                continue
+            (event,) = [v for s, v in scalars[f'{line["prefix"]}/{key}']
+                        if s == line['iteration']]
+            assert event == pytest.approx(value, rel=1e-6, abs=1e-12), key
