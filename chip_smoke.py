@@ -277,14 +277,37 @@ runs, in order:
    on CUDA tensors against the numpy filters at the tuning chain's score
    shapes, and whether tensorboardX is there (if so, the event file's
    scalars must equal ``summary.jsonl``'s).
+14. the tower configurations beyond the recipes. Right after phase 2c
+   (under its own launch count) the kernels of phases 2/2b at phase 14's
+   shapes: the max pool of any window, bit-exact, (2, 2) and (1, 2) at
+   14a's (32, 500, 128, 16) and (32, 250, 64, 32), the 1-D tower's f32
+   time pool at (32, 125, 1, 256) and 14b's (2, 1) pool on F = 5; the
+   average pool of 14b's crossing over that pool, (32, 500, 5, 256) ->
+   (32, 500, 2, 512), bit-exact (and the row-pair one at its 24 -> 64
+   crossing, printed only); the conv and its backward at shapes the
+   kernels take padded, Cout 24 at 14b's L0 and L2 and 2 x 2 and 4 x 3
+   kernels at (32, 500, 64, 64); each with its bound and a library
+   call's time. After phase 13: 14a, the shallow FBCRNN of the AudioSet
+   recipe (527 classes, no strong loss) with time pools ([1, [2, 2], 1,
+   [2, 2], 1, [2, 1], 1, [2, 1], 1] in 2-D, [1, 2, 1, 1, 1] in 1-D) and
+   ``fuse_bn``, serves 3 batches of 32 ten-second clips by tagging,
+   boundaries and SED 51/1 (500 frames pool to 62, a full clip's seq_len
+   to 63) and trains 8 steps; 14b, the deep recipe at 40 mel bins (its
+   fourth pool meets F = 5, a residual crosses it) with 24 channels in
+   its first four 2-D layers, unfused and ``fuse_bn``, tags 3 batches
+   and trains 8 steps each; 14c, the shallow recipe without norms and
+   with elu, tags 3 batches. Served runs agree with the CPU, trained ones
+   pass the card-vs-CPU step (the CPU's noise with its convs summed in
+   f64 too); clips/s, steps/s and peak memory beside phases 3-5's.
 
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
 serving and training, the strong CLI training and its chain, the stacked
 ensembles, the Transformer's serving and training, the multi-step lane,
 the data-preparation path's two training runs, each rank's mesh training
-and ensemble, the NCCL world's training) runs with the launch counters
-set to 0 just before it and read just after.
+and ensemble, the NCCL world's training, phase 14's served and trained
+runs) runs with the launch counters set to 0 just before it and read
+just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -316,7 +339,9 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
     conv2d_same_members_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
-    maxpool_freq2_plain)
+    maxpool_freq2_plain, avgpool2d, avgpool2d_bwd, avgpool2d_bwd_plain,
+    avgpool2d_plain, maxpool2d, maxpool2d_bwd, maxpool2d_bwd_plain,
+    maxpool2d_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
@@ -430,6 +455,30 @@ KERNELS = {
     'gru_scan_bwd_fused': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd_fused.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:237'},
+    # phase 14's paths: the max and average pools of any window, and the
+    # conv kernels at the shapes they take padded (Cout off a multiple of
+    # 16, even extents; those launches count under the pair's names too)
+    'maxpool2d': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/maxpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1759'},
+    'maxpool2d_bwd': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/maxpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1773'},
+    'avgpool2d': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/avgpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1862'},
+    'avgpool2d_bwd': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/avgpool.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1875'},
+    'conv2d_same_padded': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:413, '
+                    'pb_sed_tpu/ops/pallas/conv.py:508'},
+    'conv2d_same_bwd_padded': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_bwd.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/conv.py:642, '
+                    'pb_sed_tpu/ops/pallas/conv.py:552, '
+                    'pb_sed_tpu/ops/pallas/conv.py:599'},
 }
 # the path each kernel's ``launches`` is read from: the deep training run
 # drives the unfused kernels, the deep fuse_bn training run the fused
@@ -438,7 +487,13 @@ KERNELS = {
 MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  bnrelu_conv2d_same='deep_fuse_bn_training',
                  bnrelu_conv2d_same_bwd='deep_fuse_bn_training',
-                 gru_scan_bwd_fused='kernel_phase')
+                 gru_scan_bwd_fused='kernel_phase',
+                 maxpool2d='towers_14a_training',
+                 maxpool2d_bwd='towers_14a_training',
+                 avgpool2d='towers_14b_training',
+                 avgpool2d_bwd='towers_14b_training',
+                 conv2d_same_padded='towers_14b_training',
+                 conv2d_same_bwd_padded='towers_14b_training')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan')
 SHALLOW = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_bwd',
            'maxpool_freq2_bwd', 'gru_scan_bwd')
@@ -541,7 +596,8 @@ def log_ptxas(text):
                            'conv2d_dw_reduce_kernel', 'gru_scan_kernel',
                            'gru_scan_cluster_kernel', 'gru_bwd_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
-                           'maxpool_freq2', 'avgpool_freq2'):
+                           'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
+                           'avgpool2d'):
                 if kernel in mangled:
                     args = mangled.split(kernel, 1)[1]
                     # template arguments end in EE, a plain name in E
@@ -581,7 +637,8 @@ def new_record():
     null), never 0."""
     return {'max_abs_err': 0., 'bound_ms': 0., 'bound_bytes_ms': 0.,
             'bound_operations_ms': 0., 'library_ms': None,
-            **{f'{label}_{kind}': None for label in ('shallow', 'deep')
+            **{f'{label}_{kind}': None
+               for label in ('shallow', 'deep', 'towers')
                for kind in ('ms', 'plain_ms', 'library_ms')}}
 
 
@@ -1327,24 +1384,28 @@ def _model(config, flat, device='cpu', strong=False):
     return model.to(device)
 
 
-def _config(net, k, fuse_bn=False, augment=True, strong=1.):
-    """``fbcrnn_config(net)`` at full width with ``k`` classes, the 2-D
-    tower's ``fuse_bn`` set as asked (the weights do not depend on it)."""
+def _config(net, k, fuse_bn=False, augment=True, strong=1., **more):
+    """``fbcrnn_config(net)`` at full width with ``k`` classes (and
+    ``more`` of its arguments), the 2-D tower's ``fuse_bn`` set as asked
+    (the weights do not depend on it)."""
     from pb_sed_tpu_torch.models.net_configs import fbcrnn_config
     config = fbcrnn_config(net, num_events=k, augment=augment,
-                           strong_fwd_bwd_loss_weight=strong)
+                           strong_fwd_bwd_loss_weight=strong, **more)
     config['cnn']['cnn_2d']['fuse_bn'] = fuse_bn
     return config
 
 
 def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5,
-           stats=None):
+           stats=None, frames=None):
     """Run ``methods`` (name, function, kwargs) on ``batches`` with the
     launch counters set to 0 first; check that ``kernels`` launched and
     the shapes, finiteness and score range ([low, 1 - low]: the FBCRNN's
     bounded sigmoid, or [0, 1] for the BiCRNN's plain one); return
     (scores by method, launches). ``stats``, a dict, receives the clips/s
-    of each method and the peak memory (GiB)."""
+    of each method and the peak memory (GiB). ``frames(name, seq_len)``
+    gives each clip's expected frames (default :func:`_expected_frames`:
+    a tower without time pools)."""
+    frames = frames or _expected_frames
     for name, fn, kwargs in methods:      # warm-up: cuFFT/cuBLAS plans
         fn(model, batches[:1], **kwargs)
     torch.cuda.synchronize()
@@ -1377,7 +1438,7 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5,
         for batch in batches:
             for clip, sl in zip(batch['example_id'], batch['seq_len']):
                 y = scores[clip]
-                want = (_expected_frames(name, int(sl)), k)
+                want = (frames(name, int(sl)), k)
                 if y.shape != want:
                     raise AssertionError(f'{name} {clip}: shape {y.shape} '
                                          f'!= {want}')
@@ -1409,9 +1470,10 @@ def _agree_with_cpu(cpu_model, methods, results, batch):
                                      f'by {err} > {tol}')
 
 
-def phase_slice():
+def phase_slice(stats=None):
     """The full-width shallow FBCRNN served on the card through the
-    inference engine; returns the kernels' launch counts of that run."""
+    inference engine; returns the kernels' launch counts of that run
+    (``stats``, a dict, receives its clips/s and peak memory)."""
     from pb_sed_tpu_torch.models import base
     config = _config('shallow', 10)
     flat = _random_flat(config)
@@ -1420,7 +1482,8 @@ def phase_slice():
         f'{len(flat)} flat tensors')
     batches = _synthetic_batches(model.module.feature_extractor.stft)
     methods = _methods(base)
-    results, launches = _serve(model, methods, batches, 10, 'shallow')
+    results, launches = _serve(model, methods, batches, 10, 'shallow',
+                               stats=stats)
     _agree_with_cpu(_model(config, flat), methods, results, batches[1])
     return launches
 
@@ -1612,7 +1675,46 @@ def bn_fed_biases(module):
     return fed
 
 
-def _card_vs_cpu(make_model, stft, k, strong=False):
+@contextlib.contextmanager
+def _convs_summed_in_f64():
+    """The CPU's plain convs (forward, dx and dw; the fused conv's and the
+    member axis' through them) summed in f64 and rounded once: the same
+    function with its sums in another order, as the card's kernels sum in
+    theirs."""
+    from pb_sed_tpu_torch.ops.kernels import conv as kc
+    plain = (kc.conv2d_same_plain, kc.conv2d_same_bwd_plain)
+
+    def forward(x, w, b):
+        y = kc._conv_same(x.double().permute(0, 3, 1, 2),
+                          w.to(torch.bfloat16).double().permute(3, 2, 0, 1))
+        if b is not None:
+            y = y + b.double()[None, :, None, None]
+        return y.permute(0, 2, 3, 1).float().to(torch.bfloat16).contiguous()
+
+    def backward(x, w, gy):
+        kt, kf, cin, cout = w.shape
+        gf = gy.to(torch.bfloat16).double().permute(0, 3, 1, 2)
+        w_flip = w.to(torch.bfloat16).double().flip(0, 1)
+        dx = kc._conv_same(gf, w_flip.permute(2, 3, 0, 1), flip=True)
+        xf = x.double().permute(0, 3, 1, 2)
+        if kt % 2 and kf % 2:
+            dw = torch.nn.grad.conv2d_weight(
+                xf, (cout, cin, kt, kf), gf,
+                padding=((kt - 1) // 2, (kf - 1) // 2))
+        else:
+            dw = torch.nn.grad.conv2d_weight(
+                F.pad(xf, kc._same_pads(kt, kf)), (cout, cin, kt, kf), gf)
+        return (dx.permute(0, 2, 3, 1).float().to(torch.bfloat16)
+                .contiguous(), dw.permute(2, 3, 1, 0).float().contiguous())
+
+    kc.conv2d_same_plain, kc.conv2d_same_bwd_plain = forward, backward
+    try:
+        yield
+    finally:
+        kc.conv2d_same_plain, kc.conv2d_same_bwd_plain = plain
+
+
+def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False):
     """One B=4, T=100 step, augmentation off, on the card and on the CPU
     (plain versions). The loss within 1e-4 + 3e-2 * |ref|. The CPU's own
     noise is the largest gap between its step and three CPU steps on the
@@ -1625,25 +1727,35 @@ def _card_vs_cpu(make_model, stft, k, strong=False):
     are printed only: a single sum that cancels to near zero has no
     stable noise estimate. All gradients together agree with the CPU's
     at a cosine no more than 0.02 below the lowest cosine between the
-    CPU's own batch orders."""
+    CPU's own batch orders. With ``conv_order`` the CPU's noise also
+    holds its step in the first order with the convs summed in f64
+    (:func:`_convs_summed_in_f64`; phase 14: a bf16 max pool over 2 x 2
+    windows of conv outputs ties often, and the card's convs, which sum
+    in another order, break ties that the CPU's batch orders, which only
+    move the norms' statistics, keep)."""
     batch = _train_batches(stft, 1, 4, 2, seed=3, k=k, strong=strong)[0]
     orders = ([0, 1, 2, 3], [3, 2, 1, 0], [1, 2, 3, 0], [2, 3, 0, 1])
     runs = [('cuda', orders[0])] + [('cpu', order) for order in orders]
+    if conv_order:
+        runs.append(('cpu_f64_convs', orders[0]))
     grads, losses = [], []
     for device, order in runs:
-        model = make_model(augment=False).to(device)
+        model = make_model(augment=False).to(device.split('_')[0])
         model.module.train()
         clips = {key: value[order].copy() for key, value in batch.items()}
-        loss, _ = model.loss(model.to_device(clips))
-        loss.backward()
+        with (_convs_summed_in_f64() if device == 'cpu_f64_convs'
+              else contextlib.nullcontext()):
+            loss, _ = model.loss(model.to_device(clips))
+            loss.backward()
         losses.append(float(loss.detach()))
         grads.append({n: p.grad.detach().float().cpu()
                       for n, p in model.module.named_parameters()})
     bn_fed = bn_fed_biases(model.module)
     card, cpu, others = grads[0], grads[1], grads[2:]
     log(f'card vs CPU, B=4 T=100 step: loss {losses[0]:.6f} vs '
-        f'{losses[1]:.6f} (CPU in other batch orders: '
-        + ', '.join(f'{x:.6f}' for x in losses[2:]) + ')')
+        f'{losses[1]:.6f} (CPU in other batch orders'
+        + (', the last with its convs summed in f64' if conv_order else '')
+        + ': ' + ', '.join(f'{x:.6f}' for x in losses[2:]) + ')')
     if not abs(losses[0] - losses[1]) <= 1e-4 + 3e-2 * abs(losses[1]):
         raise AssertionError(f'card and CPU losses differ: {losses}')
     worst = 0.
@@ -4543,6 +4655,379 @@ def phase_mesh(card):
     return launches, out
 
 
+# -- phase 14: the tower configurations beyond the recipes -------------------
+# (T, F, C, (pf, pt), dtype) of the generalised max pool, in the configs'
+# (freq, time) notation: 14a's (2, 2) pools at L1 and L3 and a (1, 2) time
+# pool at the same shapes; 14a's 1-D time pool on its f32 values (the 2-D
+# tower has cut T by 4); 14b's (2, 1) pool on F = 5 at L15
+TOWER_POOLS = [(FRAMES, 128, 16, (2, 2), torch.bfloat16),
+               (FRAMES // 2, 64, 32, (2, 2), torch.bfloat16),
+               (FRAMES, 128, 16, (1, 2), torch.bfloat16),
+               (FRAMES // 2, 64, 32, (1, 2), torch.bfloat16),
+               (FRAMES // 4, 1, 256, (1, 2), torch.float32),
+               (FRAMES, 5, 256, (2, 1), torch.bfloat16)]
+# (T, F, C, (st, sf), Cout) of 14b's residual crossings: L14 -> L16 across
+# the pool on F = 5 (one (1, 2) window and the pad to 512) on the
+# generalised average pool; L2 -> L4 (24 -> 64 channels across a (2, 1)
+# pool on F = 40) on the row-pair kernel
+TOWER_CROSSINGS = [(FRAMES, 5, 256, (1, 2), 512)]
+TOWER_PAIR_CROSSINGS = [(FRAMES, 40, 24, 64)]
+# (name, T, F, Cin, Cout, kt, kf) of the conv at shapes it takes padded:
+# 14b's 3x3 layers at 24 channels, and a 2 x 2 and a 4 x 3 kernel
+TOWER_CONVS = [('14b L0', FRAMES, 40, 1, 24, 3, 3),
+               ('14b L2', FRAMES, 40, 24, 24, 3, 3),
+               ('2x2', FRAMES, 64, 64, 64, 2, 2),
+               ('4x3', FRAMES, 64, 64, 64, 4, 3)]
+# 14a: the shallow tagging FBCRNN with time pools (time / 4 in the 2-D
+# tower, / 2 in the 1-D one): the fused layers, and the frames a clip's
+# seq_len keeps through them (ceil per pool)
+TOWER_14A_POOLS = {'cnn_2d': [1, [2, 2], 1, [2, 2], 1, [2, 1], 1, [2, 1], 1],
+                   'cnn_1d': [1, 2, 1, 1, 1]}
+TOWER_14A_FUSED = [2, 4, 5, 6, 7, 8]
+TOWER_14B_FUSED = [6, 8, 10, 12, 14, 16]
+POOLED = ('maxpool2d', 'maxpool2d_bwd')
+CROSSED = ('avgpool2d', 'avgpool2d_bwd')
+PADDED = ('conv2d_same_padded', 'conv2d_same_bwd_padded')
+
+
+def _pool_work(n_in, n_out, window, elt, backward=False):
+    """Bytes and compares of a max pool over ``n_in`` elements of
+    ``elt`` bytes into ``n_out`` (backward: x and gy read, dx written)."""
+    nbytes = elt * (2 * n_in + n_out if backward else n_in + n_out)
+    return bound(nbytes, 0., n_out * (window - 1))
+
+
+def check_tower_kernels(records):
+    """Phases 2 and 2b at phase 14's shapes (B = 32 ten-second clips): the
+    generalised max pool forward and backward (bit-exact, tie-heavy input:
+    every frame from T - 100 on is 0), the generalised average pool of
+    14b's crossing (bit-exact), the row-pair average at 14b's 24 -> 64
+    crossing (bit-exact; a shape of the old kernel, printed only), and the
+    conv and its backward at shapes the kernels take padded (Cout 24, 2 x
+    2 and 4 x 3 kernels; one bf16 ulp forward and dx, 1e-3 * max|ref|
+    dw), each with its kernel, plain, library and bound times, into
+    ``records`` under the label 'towers'. Library calls: max_pool2d and
+    avg_pool2d (channels-last) and their backward, cuDNN's bf16 conv with
+    ``padding='same'`` and its backward on the input padded by XLA's
+    SAME pads. Pools timed by CUDA-graph replay."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for t, f, c, (pf, pt), dtype in TOWER_POOLS:
+        x = randn(BATCH, t, f, c).to(dtype)
+        x[:, t - 100:] = 0.
+        shape = (BATCH, t, f, c, f'({pf}, {pt})', str(dtype)[6:])
+        y = maxpool2d(x, pt, pf)
+        ref = maxpool2d_plain(x, pt, pf)
+        gy = randn(*y.shape).to(dtype)
+        xn, gyn = _nchw(x), _nchw(gy)
+        elt, n_in, n_out = x.element_size(), x.numel(), y.numel()
+        torch.cuda.synchronize()
+        _check('maxpool2d', shape, y, ref, 0.,
+               graph_ms(lambda: maxpool2d(x, pt, pf)),
+               graph_ms(lambda: maxpool2d_plain(x, pt, pf)),
+               records['maxpool2d'], 'towers',
+               graph_ms(lambda: F.max_pool2d(xn, (pt, pf))),
+               _pool_work(n_in, n_out, pt * pf, elt))
+        got = maxpool2d_bwd(x, gy, pt, pf)
+        ref = maxpool2d_bwd_plain(x, gy, pt, pf)
+        torch.cuda.synchronize()
+        _, idx = F.max_pool2d(xn, (pt, pf), return_indices=True)
+        _check('maxpool2d_bwd', shape, got, ref, 0.,
+               graph_ms(lambda: maxpool2d_bwd(x, gy, pt, pf)),
+               graph_ms(lambda: maxpool2d_bwd_plain(x, gy, pt, pf)),
+               records['maxpool2d_bwd'], 'towers',
+               graph_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   gyn, xn, [pt, pf], [pt, pf], [0, 0], [1, 1], False, idx)),
+               _pool_work(n_in, n_out, pt * pf, elt, backward=True))
+        del x, y, gy, got, ref, idx, xn, gyn
+    for t, f, c, (st, sf), cout in TOWER_CROSSINGS:
+        x = randn(BATCH, t, f, c).to(torch.bfloat16)
+        shape = (BATCH, t, f, c, f'({st}, {sf})', cout)
+        y = avgpool2d(x, st, sf, cout)
+        ref = avgpool2d_plain(x, st, sf, cout)
+        gy = randn(*y.shape)
+        xn = _nchw(x)
+        gyn = _nchw(gy[..., :c].to(x.dtype).contiguous())
+        n_in, n_out = x.numel(), y.numel() // cout * c
+        torch.cuda.synchronize()
+        _check('avgpool2d', shape, y, ref, 0.,
+               graph_ms(lambda: avgpool2d(x, st, sf, cout)),
+               graph_ms(lambda: avgpool2d_plain(x, st, sf, cout)),
+               records['avgpool2d'], 'towers',
+               graph_ms(lambda: F.avg_pool2d(xn, (st, sf))),
+               bound(2 * n_in + 4 * y.numel(), 0., n_in))
+        got = avgpool2d_bwd(gy, st, sf, x.shape, x.dtype)
+        ref = avgpool2d_bwd_plain(gy, st, sf, x.shape, x.dtype)
+        torch.cuda.synchronize()
+        _check('avgpool2d_bwd', shape, got, ref, 0.,
+               graph_ms(lambda: avgpool2d_bwd(gy, st, sf, x.shape, x.dtype)),
+               graph_ms(lambda: avgpool2d_bwd_plain(gy, st, sf, x.shape,
+                                                    x.dtype)),
+               records['avgpool2d_bwd'], 'towers',
+               graph_ms(lambda: torch.ops.aten.avg_pool2d_backward(
+                   gyn, xn, [st, sf], [st, sf], [0, 0], False, True, None)),
+               bound(4 * n_out + 2 * n_in, 0., n_in))
+        del x, y, gy, got, ref, xn, gyn
+    scratch = {name: new_record() for name in ('avgpool_freq2',
+                                                'avgpool_freq2_bwd')}
+    for t, f, c, cout in TOWER_PAIR_CROSSINGS:
+        x = randn(BATCH, t, f, c).to(torch.bfloat16)
+        gy = randn(BATCH, t, f // 2, cout)
+        shape = (BATCH, t, f, c, cout)
+        n = x.numel()
+        got, ref = avgpool_freq2(x, cout), avgpool_freq2_plain(x, cout)
+        torch.cuda.synchronize()
+        _check('avgpool_freq2', shape, got, ref, 0.,
+               graph_ms(lambda: avgpool_freq2(x, cout)),
+               graph_ms(lambda: avgpool_freq2_plain(x, cout)),
+               scratch['avgpool_freq2'], 'towers', None,
+               bound(2 * n + 4 * got.numel(), 0., n))
+        got = avgpool_freq2_bwd(gy, c, x.dtype)
+        ref = avgpool_freq2_bwd_plain(gy, c, x.dtype)
+        torch.cuda.synchronize()
+        _check('avgpool_freq2_bwd', shape, got, ref, 0.,
+               graph_ms(lambda: avgpool_freq2_bwd(gy, c, x.dtype)),
+               graph_ms(lambda: avgpool_freq2_bwd_plain(gy, c, x.dtype)),
+               scratch['avgpool_freq2_bwd'], 'towers', None,
+               bound(2 * n + 2 * n, 0., n))
+        del x, gy, got, ref
+    for layer, t, f, cin, cout, kt, kf in TOWER_CONVS:
+        x = randn(BATCH, t, f, cin).to(torch.bfloat16)
+        w = randn(kt, kf, cin, cout, scale=(kt * kf * cin) ** -.5)
+        b = randn(cout, scale=.1)
+        gy = randn(BATCH, t, f, cout, scale=1e-3).to(torch.bfloat16)
+        p, taps = BATCH * t * f, kt * kf
+        shape = (layer, BATCH, t, f, cin, cout, f'{kt}x{kf}')
+        pads = ((kf - 1) // 2, kf // 2, (kt - 1) // 2, kt // 2)
+        xn, wn, bn = _nchw(x), _oihw(w), b.to(torch.bfloat16)
+        xpn = _nchw(F.pad(x, (0, 0) + pads))
+        kt_k, kf_k = kt + 1 - kt % 2, kf + 1 - kf % 2
+        log(f'conv {shape}: runs as {kt_k}x{kf_k} -> {cout + -cout % 16} '
+            f'channels, designs {conv_designs(f, cin, cout + -cout % 16, kt_k, kf_k)}')
+        got, ref = conv2d_same(x, w, b), conv2d_same_plain(x, w, b)
+        torch.cuda.synchronize()
+        _check('conv2d_same (padded)', shape, got, ref,
+               2. ** -7 * float(ref.float().abs().max()),
+               cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
+               cuda_ms(lambda: conv2d_same_plain(x, w, b), reps=5),
+               records['conv2d_same_padded'], 'towers',
+               cuda_ms(lambda: F.conv2d(xn, wn, bn, padding='same'),
+                       reps=5), conv_work(p, cin, cout, taps))
+        del got, ref
+        dx, dw = conv2d_same_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+        torch.cuda.synchronize()
+        gyn = _nchw(gy)
+        _check('conv2d_same_bwd dx (padded)', shape, dx, ref_dx,
+               2. ** -7 * float(ref_dx.float().abs().max()),
+               cuda_ms(lambda: conv2d_same_bwd(x, w, gy), reps=5),
+               cuda_ms(lambda: conv2d_same_bwd_plain(x, w, gy), reps=5),
+               records['conv2d_same_bwd_padded'], 'towers',
+               cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                   gyn, xpn, wn, None, [1, 1], [0, 0], [1, 1], False, [0, 0],
+                   1, [True, True, False]), reps=5),
+               conv_work(p, cin, cout, taps, backward=True))
+        _check('conv2d_same_bwd dw (padded)', shape, dw, ref_dw,
+               1e-3 * float(ref_dw.abs().max()), 0., 0.,
+               records['conv2d_same_bwd_padded'], 'towers')
+        del x, gy, dx, dw, ref_dx, ref_dw, xn, xpn
+        torch.cuda.empty_cache()
+
+
+def _tower_config(name, fuse_bn=False, augment=True):
+    """Phase 14's configurations at full width: '14a' the shallow tagging
+    FBCRNN of the AudioSet recipe (527 classes, no strong loss) with time
+    pools; '14b' the deep recipe at 40 mel bins (its pools meet F = 5 at
+    the fourth) with 24 channels in its first four 2-D layers; '14c' the
+    shallow recipe without norms in either tower and with elu."""
+    if name == '14a':
+        config = _config('shallow', 527, fuse_bn, augment, strong=0.)
+        for tower, pools in TOWER_14A_POOLS.items():
+            config['cnn'][tower]['pool_size'] = pools
+    elif name == '14b':
+        config = _config('deep', 527, fuse_bn, augment, strong=0.,
+                         number_of_filters=40)
+        config['cnn']['cnn_2d']['out_channels'][:4] = [24] * 4
+    else:
+        config = _config('shallow', 10, augment=augment)
+        for tower in ('cnn_2d', 'cnn_1d'):
+            config['cnn'][tower].update(norm=None, activation_fn='elu')
+    return config
+
+
+def _train_towers(make_model, k, kernels, label):
+    """8 ``Trainer`` steps of a phase-14 model at 32 ten-second clips with
+    augmentation on (the AudioSet recipe's Adam: lr 1e-4, clipping 0.1):
+    every kernel of ``kernels`` must launch and every loss be finite;
+    then the card-vs-CPU step (:func:`_card_vs_cpu`, the CPU's noise with
+    its convs' summation order too). Returns the launch
+    counts and steps/s, clips/s and peak memory."""
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    model = make_model(augment=True).to('cuda')
+    stft = model.module.feature_extractor.stft
+    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=k)
+    step_log = _StepLog()
+    trainer = Trainer(model, optimizer=Adam(**_DEEP_RECIPE['adam']),
+                      stop_trigger=(TRAIN_STEPS, 'iteration'))
+    trainer.register_hook(step_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    collect_garbage()
+    trainer.train(batches * (TRAIN_STEPS // len(batches)))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    log(f'launches in the {label} training run: {launches}')
+    for kernel in kernels:
+        if launches[kernel] <= 0:
+            raise AssertionError(f'kernel {kernel} never launched in the '
+                                 f'{label} training run')
+    log(f'{label} loss per step: ' + ', '.join(
+        f'{x:.5f}' for x in step_log.losses))
+    if len(step_log.losses) != TRAIN_STEPS or not np.isfinite(
+            step_log.losses).all():
+        raise AssertionError(f'{label} training losses: {step_log.losses}')
+    steady = np.diff(step_log.times)[2:]
+    metrics = {'steps_per_s': 1 / steady.mean(),
+               'clips_per_s': BATCH / steady.mean(),
+               'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f'{label} training: {metrics["steps_per_s"]:.3f} steps/s = '
+        f'{metrics["clips_per_s"]:.1f} clips/s over steps 3-{TRAIN_STEPS} '
+        f'(batch {BATCH} x 10 s clips, augmentation on, host clock), peak '
+        f'{metrics["peak_gib"]:.2f} GiB')
+    del trainer, model
+    torch.cuda.empty_cache()
+    _card_vs_cpu(make_model, stft, k, conv_order=True)
+    return launches, metrics
+
+
+def _check_fused(model, want, label):
+    fused = sorted(model.module.cnn.cnn_2d.fused)
+    log(f'{label}: fused layers {fused}')
+    if fused != want:
+        raise AssertionError(f'{label}: fused layers {fused} != {want}')
+
+
+def phase_towers(earlier):
+    """Phase 14. 14a: the time-pooled tagging FBCRNN (``fuse_bn``) serves
+    3 x 32 clips by tagging, boundaries and SED 51/1 (T = 500 frames
+    pooled to 62 while a full clip's seq_len becomes ceil(500 / 8) = 63)
+    and trains 8 steps. 14b: the odd deep tower, unfused and with
+    ``fuse_bn`` (which must agree with the unfused tags), tags 3 x 32
+    clips and trains 8 steps each. 14c: the norm-free elu tower tags 3 x
+    32 clips. Each served run is held against the CPU, each trained one
+    by the card-vs-CPU step, each path's launch counters read; clips/s,
+    steps/s and peak memory are printed beside ``earlier`` (phases 3-5).
+    Returns (launches by path, the measurements)."""
+    from pb_sed_tpu_torch.models import base
+    launches, out = {}, {}
+    # 14a
+    config = _tower_config('14a', fuse_bn=True)
+    flat = _random_flat(config)
+    model = _model(config, flat, 'cuda')
+    _check_fused(model, TOWER_14A_FUSED, '14a')
+    stft = model.module.feature_extractor.stft
+    batches = _synthetic_batches(stft)
+    t_out = stft.num_frames(10 * 16000) // 4 // 2
+
+    def pooled(name, seq_len):
+        return 1 if name == 'tagging' else min(-(-seq_len // 8), t_out)
+
+    over = [sl for batch in batches for sl in batch['seq_len']
+            if -(-int(sl) // 8) > t_out]
+    log(f'14a: T {stft.num_frames(10 * 16000)} -> {t_out} pooled frames; '
+        f'{len(over)} clips keep a seq_len above it (ceil(seq_len / 8) = '
+        f'{t_out + 1})')
+    if not over:
+        raise AssertionError('14a: no clip whose pooled seq_len exceeds T')
+    methods = _methods(base)[:3]
+    stats = out.setdefault('14a_serving', {})
+    results, launches['towers_14a_serving'] = _serve(
+        model, methods, batches, 527, '14a',
+        FORWARD + ('bnrelu_conv2d_same', 'maxpool2d'), stats=stats,
+        frames=pooled)
+    _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+    del model
+    torch.cuda.empty_cache()
+    launches['towers_14a_training'], out['14a_training'] = _train_towers(
+        lambda augment: _model(_tower_config('14a', True, augment), flat),
+        527, SHALLOW + FUSED + POOLED, '14a')
+    # 14b, unfused and fuse_bn, on the same weights
+    flat = _random_flat(_tower_config('14b'))
+    tags = None
+    for fuse_bn in (False, True):
+        label = '14b_fuse_bn' if fuse_bn else '14b'
+        config = _tower_config('14b', fuse_bn)
+        model = _model(config, flat, 'cuda')
+        _check_fused(model, TOWER_14B_FUSED if fuse_bn else [], label)
+        batches = _synthetic_batches(model.module.feature_extractor.stft)
+        methods = _methods(base)[:1]
+        stats = out.setdefault(f'{label}_serving', {})
+        results, launches[f'towers_{label}_serving'] = _serve(
+            model, methods, batches, 527, label,
+            FORWARD + ('maxpool2d', 'avgpool_freq2', 'avgpool2d',
+                       'conv2d_same_padded')
+            + (FUSED[:1] if fuse_bn else ()), stats=stats)
+        if tags is None:
+            tags = results['tagging']
+        else:
+            err = max(float(np.abs(results['tagging'][c] - tags[c]).max())
+                      for c in tags)
+            tol = 1e-4 + 3e-2 * max(float(np.abs(v).max())
+                                    for v in tags.values())
+            log(f'14b fuse_bn vs unfused tags: max|d| {err:.3e} tol '
+                f'{tol:.3e}')
+            if not err <= tol:
+                raise AssertionError(f'14b fuse_bn and unfused tags differ '
+                                     f'by {err} > {tol}')
+        _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+        del model
+        torch.cuda.empty_cache()
+        launches[f'towers_{label}_training'], out[f'{label}_training'] = \
+            _train_towers(
+                lambda augment, fb=fuse_bn: _model(
+                    _tower_config('14b', fb, augment), flat),
+                527, DEEP + POOLED + CROSSED + PADDED
+                + (FUSED if fuse_bn else ()), label)
+    # 14c
+    config = _tower_config('14c')
+    flat = _random_flat(config)
+    if any('.norm_' in key for key in flat if key.startswith(
+            ('params.cnn.', 'batch_stats.cnn.'))):
+        raise AssertionError('14c: a norm-free tower holds norm variables')
+    model = _model(config, flat, 'cuda')
+    batches = _synthetic_batches(model.module.feature_extractor.stft)
+    methods = _methods(base)[:1]
+    stats = out.setdefault('14c_serving', {})
+    results, launches['towers_14c_serving'] = _serve(
+        model, methods, batches, 10, '14c', stats=stats)
+    _agree_with_cpu(_model(config, flat), methods, results, batches[1])
+    del model
+    torch.cuda.empty_cache()
+    log('phase 14 beside phases 3-5 (host clock, B = 32): tagging clips/s '
+        + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
+                    for key in out if key.endswith('_serving'))
+        + f' vs shallow (phase 3) {earlier["serving"]["tagging_clips_per_s"]:.1f}'
+        + '; training steps/s ' + ', '.join(
+            f'{key} {out[key]["steps_per_s"]:.3f}' for key in out
+            if key.endswith('_training'))
+        + f' vs shallow (phase 4) {earlier["shallow"]["steps_per_s"]:.3f}, '
+        f'deep (phase 5) {earlier["deep"]["steps_per_s"]:.3f}; peak GiB '
+        + ', '.join(f'{key} {value["peak_gib"]:.2f}'
+                    for key, value in out.items())
+        + f' vs shallow serving {earlier["serving"]["peak_gib"]:.2f}, '
+        f'training {earlier["shallow"]["peak_gib"]:.2f}, deep training '
+        f'{earlier["deep"]["peak_gib"]:.2f}')
+    return launches, out
+
+
 def _descendants():
     """{pid: command line} of every live process below this one, from
     ``/proc``."""
@@ -4633,7 +5118,11 @@ def run():
             f'cuDNN {sums[1]:.3f} ms, bound {sums[2]:.3f} ms')
     log_redesigned(records)
     check_1x1()
-    launches = {'shallow_serving': phase_slice()}
+    build.reset_launches()
+    check_tower_kernels(records)
+    tower_kernel_phase = dict(build.LAUNCHES)
+    serving = {}
+    launches = {'shallow_serving': phase_slice(serving)}
     launches['shallow_training'], in_memory = phase_training('shallow')
     launches['deep_serving'], unfused_tags = phase_deep_serving()
     launches['deep_training'], unfused = phase_training('deep')
@@ -4672,7 +5161,12 @@ def run():
     mesh_launches, mesh = phase_mesh(card)
     launches.update(mesh_launches)
     log('mesh phase (JSON): ' + json.dumps(mesh))
+    tower_launches, towers = phase_towers(
+        {'serving': serving, 'shallow': in_memory, 'deep': unfused})
+    launches.update(tower_launches)
+    log('towers phase (JSON): ' + json.dumps(towers))
     launches['kernel_phase'] = kernel_phase
+    launches['tower_kernel_phase'] = tower_kernel_phase
     kernels = []
     for name in KERNELS:
         rec = records[name]
@@ -4685,14 +5179,17 @@ def run():
             'launches_by_path': {path: counts[name]
                                  for path, counts in launches.items()},
             'max_abs_err': rec['max_abs_err'],
-            'ms': _total(rec['shallow_ms'], rec['deep_ms']),
+            'ms': _total(rec['shallow_ms'], rec['deep_ms'],
+                         rec['towers_ms']),
             'plain_ms': _total(rec['shallow_plain_ms'],
-                               rec['deep_plain_ms']),
+                               rec['deep_plain_ms'],
+                               rec['towers_plain_ms']),
             'bound_ms': rec['bound_ms'], 'bound_by': side,
             'library_ms': rec['library_ms'],
             **{key: rec[key] for key in (
                 'shallow_ms', 'shallow_plain_ms', 'shallow_library_ms',
-                'deep_ms', 'deep_plain_ms', 'deep_library_ms')},
+                'deep_ms', 'deep_plain_ms', 'deep_library_ms', 'towers_ms',
+                'towers_plain_ms', 'towers_library_ms')},
             **{key: v for key, v in rec.items()
                if key.startswith('member_')}})
     return card, kernels

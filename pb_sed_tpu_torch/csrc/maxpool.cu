@@ -30,6 +30,28 @@
 // The backward walks the same view: per output vector it reads both
 // input rows and the cotangent and writes both rows of dx, bit-exact
 // against maxpool_freq2_bwd_plain.
+//
+// pbsed_maxpool2d / pbsed_maxpool2d_bwd are the max pool of any (pt, pf)
+// window with stride the window, VALID (floor in both axes), bf16 or f32:
+// what CNN2d runs at every pool that is not (2, 1) on an even F (a time
+// pool, a scalar pool, (4, 1), an odd F) and CNN1d at its time pools (its
+// f32 values, with F = 1). Replaces: no Pallas kernel of its own; the
+// JAX package runs these pools unpacked as nn.max_pool (XLA's
+// reduce_window max and, backward, its select_and_scatter with a >=
+// select), outside its packed window (pb_sed_tpu/ops/cnn.py:_pool2d,
+// CNN1d.__call__), and the TPU kernel it generalises is the one above
+// (conv.py:_pool_fwd_kernel, _pool_bwd_kernel). The forward folds the
+// window in (t, f) order with the compare above (PyTorch's maximum on the
+// card), so it is bit-exact against the plain fold of torch.maximum; the
+// backward walks the window in the same order and keeps the first element
+// unless a later one is not <= it (XLA's >= select: ties to the first in
+// (t, f) order), gives it the cotangent and every other element of the
+// window, and the rows and columns past the last whole window, a zero.
+// Bound: bytes, as above. Design: one thread per output element and 16
+// bytes of channels (8 bf16 or 4 f32; a scalar path when C is not a
+// multiple), which walks its window with 16-byte loads; the backward
+// writes the whole window, and the rows and columns no window covers are
+// zeroed by one memset first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -200,4 +222,203 @@ extern "C" int pbsed_maxpool_freq2_bwd(const void* x, const void* gy,
         static_cast<__nv_bfloat16*>(dx), rows_out, C);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__device__ __forceinline__ float f32_of(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float f32_of(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.f;
+}
+
+// PyTorch's maximum on the card, as max_bf16 above: NaN wins, otherwise
+// the first operand unless it is smaller
+template <typename T>
+__device__ __forceinline__ T max_of(T a, T b) {
+  const float fa = f32_of(a);
+  const float fb = f32_of(b);
+  if (fa != fa) return a;
+  if (fb != fb) return b;
+  return fa < fb ? b : a;
+}
+
+// VEC channels of one pixel, moved as one load or store
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// The first element of output element e's window (e counts (b, to, fo)
+// pixels and the C / VEC channel groups of each) and that element's row
+__device__ __forceinline__ long long window_origin(long long e, int cv,
+                                                  int VEC, int T, int F,
+                                                  int To, int Fo, int pt,
+                                                  int pf, int C,
+                                                  long long* r) {
+  const int c = static_cast<int>(e % cv) * VEC;
+  *r = e / cv;
+  const int fo = static_cast<int>(*r % Fo);
+  const long long q = *r / Fo;
+  const int to = static_cast<int>(q % To);
+  const long long b = q / To;
+  return ((b * T + static_cast<long long>(to) * pt) * F +
+          static_cast<long long>(fo) * pf) * C + c;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+maxpool2d_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                 int Tin, int F, int C, int To, int Fo, int pt, int pf) {
+  using P = Pack<T, VEC>;
+  const int cv = C / VEC;
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * kThreads) {
+    long long r;
+    const long long o =
+        window_origin(e, cv, VEC, Tin, F, To, Fo, pt, pf, C, &r);
+    P m = *reinterpret_cast<const P*>(x + o);
+    for (int dt = 0; dt < pt; ++dt) {
+      for (int df = dt == 0 ? 1 : 0; df < pf; ++df) {
+        const P v = *reinterpret_cast<const P*>(
+            x + o + (static_cast<long long>(dt) * F + df) * C);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) m.v[i] = max_of(m.v[i], v.v[i]);
+      }
+    }
+    *reinterpret_cast<P*>(y + r * C + (e % cv) * VEC) = m;
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+maxpool2d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                     T* __restrict__ dx, long long n, int Tin, int F, int C,
+                     int To, int Fo, int pt, int pf) {
+  using P = Pack<T, VEC>;
+  const int cv = C / VEC;
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       e < n; e += static_cast<long long>(gridDim.x) * kThreads) {
+    long long r;
+    const long long o =
+        window_origin(e, cv, VEC, Tin, F, To, Fo, pt, pf, C, &r);
+    float best[VEC];
+    int sel[VEC];
+    int k = 0;
+    for (int dt = 0; dt < pt; ++dt) {
+      for (int df = 0; df < pf; ++df, ++k) {
+        const P v = *reinterpret_cast<const P*>(
+            x + o + (static_cast<long long>(dt) * F + df) * C);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float f = f32_of(v.v[i]);
+          // XLA's >= select: the kept element stays unless it is not >=
+          if (k == 0 || !(best[i] >= f)) {
+            best[i] = f;
+            sel[i] = k;
+          }
+        }
+      }
+    }
+    const P g = *reinterpret_cast<const P*>(gy + r * C + (e % cv) * VEC);
+    k = 0;
+    for (int dt = 0; dt < pt; ++dt) {
+      for (int df = 0; df < pf; ++df, ++k) {
+        P out;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          out.v[i] = sel[i] == k ? g.v[i] : zero_of<T>();
+        *reinterpret_cast<P*>(
+            dx + o + (static_cast<long long>(dt) * F + df) * C) = out;
+      }
+    }
+  }
+}
+
+unsigned pool_blocks(long long work) {
+  const long long blocks = (work + kThreads - 1) / kThreads;
+  return static_cast<unsigned>(blocks > 65535LL * 32 ? 65535LL * 32
+                                                     : blocks);
+}
+
+template <typename T>
+cudaError_t maxpool2d_launch(const void* x, const void* gy, void* out,
+                             int B, int Tin, int F, int C, int pt, int pf,
+                             cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int To = Tin / pt;
+  const int Fo = F / pf;
+  const long long pixels = static_cast<long long>(B) * To * Fo;
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (gy != nullptr && (Tin % pt != 0 || F % pf != 0)) {
+    // the rows and columns past the last whole window get no gradient
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(B) * Tin * F * C * sizeof(T), s);
+    if (err != cudaSuccess) return err;
+  }
+  if (pixels == 0) return cudaGetLastError();
+  if (C % kVec == 0) {
+    const long long n = pixels * (C / kVec);
+    if (gy == nullptr)
+      maxpool2d_kernel<T, kVec><<<pool_blocks(n), kThreads, 0, s>>>(
+          xt, ot, n, Tin, F, C, To, Fo, pt, pf);
+    else
+      maxpool2d_bwd_kernel<T, kVec><<<pool_blocks(n), kThreads, 0, s>>>(
+          xt, static_cast<const T*>(gy), ot, n, Tin, F, C, To, Fo, pt, pf);
+  } else {
+    const long long n = pixels * C;
+    if (gy == nullptr)
+      maxpool2d_kernel<T, 1><<<pool_blocks(n), kThreads, 0, s>>>(
+          xt, ot, n, Tin, F, C, To, Fo, pt, pf);
+    else
+      maxpool2d_bwd_kernel<T, 1><<<pool_blocks(n), kThreads, 0, s>>>(
+          xt, static_cast<const T*>(gy), ot, n, Tin, F, C, To, Fo, pt, pf);
+  }
+  return cudaGetLastError();
+}
+
+int maxpool2d_entry(const void* x, const void* gy, void* out, int x_f32,
+                    int B, int T, int F, int C, int pt, int pf,
+                    void* stream) {
+  if (B < 0 || T < 0 || F < 0 || C < 1 || pt < 1 || pf < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      x_f32 ? maxpool2d_launch<float>(x, gy, out, B, T, F, C, pt, pf, s)
+            : maxpool2d_launch<__nv_bfloat16>(x, gy, out, B, T, F, C, pt, pf,
+                                              s));
+}
+
+}  // namespace
+
+// x (B, T, F, C) bf16 (x_f32 = 0) or f32 (x_f32 = 1), y (B, T / pt,
+// F / pf, C) of the same type (floor in both axes); contiguous and
+// 16-byte aligned. Returns a cudaError_t.
+extern "C" int pbsed_maxpool2d(const void* x, int x_f32, void* y, int B,
+                               int T, int F, int C, int pt, int pf,
+                               void* stream) {
+  return maxpool2d_entry(x, nullptr, y, x_f32, B, T, F, C, pt, pf, stream);
+}
+
+// x (B, T, F, C) bf16 or f32 as x_f32 says, gy (B, T / pt, F / pf, C) and
+// dx (B, T, F, C) of the same type; contiguous and 16-byte aligned.
+// Returns a cudaError_t.
+extern "C" int pbsed_maxpool2d_bwd(const void* x, const void* gy, void* dx,
+                                   int x_f32, int B, int T, int F, int C,
+                                   int pt, int pf, void* stream) {
+  if (gy == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return maxpool2d_entry(x, gy, dx, x_f32, B, T, F, C, pt, pf, stream);
 }

@@ -24,20 +24,36 @@ before the pool. In the 1-D tower the adds stay in f32. The
 ``nn.Module.training`` flag selects batch statistics over the valid
 frames (``seq_len``) and the running-stat update.
 
+Every tower the JAX package takes is taken, but ``compute_dtype``
+other than ``'bfloat16'``: any kernel extent (even ones with XLA's SAME
+pads) and any channel count (``Conv2dSame`` pads what its kernel does
+not take, ``ops/kernels/conv.py:_kernel_weights``); any max pool,
+``(freq, time)`` or a scalar, VALID (floor in both axes): (2, 1) on an
+even F on the stream kernel (``MaxPoolFreq2``), every other window on
+``MaxPool2d``, the 1-D tower's time pools on its f32 values; a time
+pool makes ``seq_len`` ``ceil(seq_len / pt)`` while T becomes floor(T /
+pt), as in JAX. A residual that crosses only (2, 1) pools on even F
+averages row pairs as above; one that crosses any other pool is matched
+as the JAX package's unpacked path matches it, by ONE average pool of
+window ``(T_res // T, F_res // F)`` (``AvgPool2d``) with the channel pad.
+``norm='batch'`` builds ``norm_{i}``; any other value builds no norm and
+no variables, as in JAX. ``activation_fn`` is any name of
+``flax.linen`` that keeps the shape (:func:`_act`).
+
 Layers get their input channel counts from ``in_channels`` or, when a
 config leaves it unset, from their parent (``CNN`` / the CRNN glue), which
-calls ``build``. Pools other than 1 and (2, 1) in the 2-D tower and time
-pools in the 1-D tower are not ported yet and raise.
+calls ``build``.
 """
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pb_sed_tpu_torch.ops.dropout import dropout
-from pb_sed_tpu_torch.ops.kernels.conv import (AvgPoolFreq2,
+from pb_sed_tpu_torch.ops.kernels.conv import (AvgPool2d, AvgPoolFreq2,
                                                BnReluConv2dSame, Conv2dSame,
-                                               MaxPoolFreq2)
+                                               MaxPool2d, MaxPoolFreq2)
 from pb_sed_tpu_torch.ops.linear import Bf16Linear
 from pb_sed_tpu_torch.ops.masking import sequence_mask
 from pb_sed_tpu_torch.parallel.mesh import global_sum
@@ -125,39 +141,94 @@ class MaskedBatchNorm(nn.Module):
             + self.shift
 
 
+def _hard_sigmoid(x):
+    return F.relu6(x + 3.) / 6.
+
+
+def _standardize(x):
+    """flax's ``standardize`` over the channel axis: ``(x - mean) *
+    rsqrt(max(E[x^2] - mean^2, 0) + 1e-5)``."""
+    mean = x.mean(-1, keepdim=True)
+    var = (x.square().mean(-1, keepdim=True) - mean.square()).clamp(min=0.)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+# flax.linen's shape-keeping activations (flax 0.12), by the JAX package's
+# names; ``softmax``, ``log_softmax`` and ``standardize`` act over the
+# channel (last) axis, as flax's defaults do
+_ACTIVATIONS = {
+    'relu': torch.relu,
+    'sigmoid': torch.sigmoid,
+    'tanh': torch.tanh,
+    'gelu': lambda x: F.gelu(x, approximate='tanh'),  # flax's default
+    'elu': F.elu,
+    'celu': F.celu,
+    'selu': F.selu,
+    'silu': F.silu,
+    'swish': F.silu,
+    'softplus': lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    'leaky_relu': lambda x: F.leaky_relu(x, .01),
+    'relu6': F.relu6,
+    'hard_tanh': F.hardtanh,
+    'hard_sigmoid': _hard_sigmoid,
+    'hard_silu': lambda x: x * _hard_sigmoid(x),
+    'hard_swish': lambda x: x * _hard_sigmoid(x),
+    'log_sigmoid': F.logsigmoid,
+    'soft_sign': F.softsign,
+    'softmax': lambda x: torch.softmax(x, -1),
+    'log_softmax': lambda x: torch.log_softmax(x, -1),
+    'standardize': _standardize,
+    'normalize': _standardize,
+}
+
+
 def _act(name):
+    """The activation the JAX package takes by ``getattr(flax.linen,
+    name)``, with flax's formulas (``gelu`` its tanh approximation,
+    ``leaky_relu`` slope 0.01, ``softplus`` ``logaddexp(x, 0)``). Names
+    that change the shape (``glu``, ``one_hot``, ``logsumexp``) and names
+    flax does not have raise, naming the name."""
     if name in (None, 'identity', 'linear'):
         return lambda x: x
-    if name == 'relu':
-        return torch.relu
-    if name in ('sigmoid', 'tanh'):
-        return getattr(torch, name)
-    raise NotImplementedError(f'activation {name!r} is not ported yet')
+    if name not in _ACTIVATIONS:
+        raise ValueError(
+            f'activation {name!r}: the towers take the shape-keeping '
+            f'activations of flax.linen ({", ".join(sorted(_ACTIVATIONS))})')
+    return _ACTIVATIONS[name]
 
 
-def _check_common(norm, compute_dtype):
-    if norm not in ('batch', None):
-        raise NotImplementedError(f'norm {norm!r} is not ported yet')
+def _check_common(compute_dtype):
     if compute_dtype != 'bfloat16':
         raise NotImplementedError(
             f'compute_dtype {compute_dtype!r}: the port computes convs in '
             f'bfloat16 only')
 
 
-def _match_residual(res, shape):
-    """A saved residual matched to a use site of ``shape`` as f32: row
-    pairs averaged once per crossed (2, 1) freq pool (4-D), grown
+def _match_residual(res, shape, pairs=True):
+    """A saved residual matched to a use site of ``shape`` as f32, grown
     channels zero-padded (``pb_sed_tpu/ops/cnn.py:_match_residual``,
-    ``_match_residual_packed``). The last average pass writes the padded
-    channels itself."""
+    ``_match_residual_packed``). With ``pairs`` (every pool it crossed was
+    (2, 1) on an even F: the JAX package's packed case) row pairs are
+    averaged once per crossed pool; otherwise ONE average pool of window
+    ``(T_res // T, F_res // F)`` (time only for a (B, T, C) residual), as
+    the JAX package's unpacked path takes it. The last average pass writes
+    the padded channels itself."""
     cout = shape[-1]
     if cout < res.shape[-1]:
         raise ValueError(f'residual of {res.shape[-1]} channels cannot '
                          f'join {cout}')
-    if res.dim() == 4:
+    if res.dim() == 4 and pairs:
         while res.shape[2] > shape[2]:
             last = res.shape[2] == 2 * shape[2]
             res = AvgPoolFreq2.apply(res, cout if last else res.shape[3])
+    elif tuple(res.shape[1:-1]) != tuple(shape[1:-1]):
+        st = res.shape[1] // shape[1] or 1
+        sf = (res.shape[2] // shape[2] or 1) if res.dim() == 4 else 1
+        if st > 1 or sf > 1:
+            if res.dim() == 4:
+                res = AvgPool2d.apply(res, st, sf, cout)
+            else:
+                res = AvgPool2d.apply(res[:, :, None], st, 1, cout)[:, :, 0]
     res = res.float()
     if res.shape[-1] < cout:
         res = nn.functional.pad(res, (0, cout - res.shape[-1]))
@@ -166,13 +237,24 @@ def _match_residual(res, shape):
 
 def _add_pending(pending, i, h):
     """``h`` plus the residuals pending at layer ``i``, summed in f32 in
-    the order they were saved."""
+    the order they were saved. Each pending entry is ``[residual, pairs]``
+    (:func:`_match_residual`)."""
     if i not in pending:
         return h
     acc = h.float()
-    for res in pending.pop(i):
-        acc = acc + _match_residual(res, acc.shape)
+    for res, pairs in pending.pop(i):
+        acc = acc + _match_residual(res, acc.shape, pairs)
     return acc
+
+
+def _cross_pool(pending, stream):
+    """A 2-D pool that is not the (2, 1) stream pool (``stream`` False)
+    turns every pending residual, which all cross it, to the one-window
+    match."""
+    if not stream:
+        for entries in pending.values():
+            for entry in entries:
+                entry[1] = False
 
 
 def _pool_fp_tp(pool):
@@ -183,8 +265,8 @@ def _pool_fp_tp(pool):
 
 
 class Conv2d(nn.Module):
-    """SAME conv with an odd kernel on (B, T, F, Cin) bf16 -> bf16: the
-    conv kernel, or for a 1x1 kernel one bf16 matmul with the same
+    """SAME conv (XLA's pads) on (B, T, F, Cin) bf16 -> bf16: the conv
+    kernel, or for a 1x1 kernel one bf16 matmul with the same
     rounding (``ops/linear.py:Bf16Linear``; forward and backward 3x
     faster than the conv kernel at the deep recipe's L17 on an NVIDIA
     H100 80GB HBM3 at 700 W, ``PERF.md``)."""
@@ -266,8 +348,13 @@ class CNN2d(_Tower):
 
     ``use_pallas`` comes from the JAX package's configs and has no
     effect: on CUDA the port always runs its kernels, on the CPU their
-    plain versions. ``fuse_bn`` folds each eligible layer's batch norm
-    and ReLU into its conv's input load (:meth:`fused_layers`).
+    plain versions. ``kernel_size`` is any extent per layer, an int or
+    (kt, kf); ``pool_size`` any max pool per layer in the reference's
+    (freq, time) notation or a scalar (both axes), VALID, with ``seq_len``
+    ``ceil(seq_len / pt)`` after a time pool; ``norm`` 'batch' or anything
+    else for no norm; ``activation_fn`` any shape-keeping flax name.
+    ``fuse_bn`` folds each eligible layer's batch norm and ReLU into its
+    conv's input load (:meth:`fused_layers`).
     ``residual_connections[i] = j`` adds layer i's output to layer j's.
     ``dropout`` acts after each activation in training, as in the JAX
     package, and then no layer fuses. With ``dropout`` > 0 the JAX tower
@@ -284,19 +371,16 @@ class CNN2d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(norm, compute_dtype)
+        _check_common(compute_dtype)
         self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
-        self.kernels = [(k, k) if not isinstance(k, (tuple, list))
-                        else tuple(k) for k in to_list(kernel_size, n)]
+        self.kernels = [(int(k), int(k)) if not isinstance(k, (tuple, list))
+                        else tuple(int(e) for e in k)
+                        for k in to_list(kernel_size, n)]
         pools = (list(pool_size) if isinstance(pool_size, (list, tuple))
                  and len(pool_size) == n else pool_size)
         self.pools = [_pool_fp_tp(p) for p in to_list(pools, n)]
-        for pf, pt in self.pools:
-            if pt != 1 or pf not in (1, 2):
-                raise NotImplementedError(
-                    f'CNN2d pools other than 1 and (2, 1) are not ported '
-                    f'yet: {pool_size}')
+        self.input_height = input_height
         self.norm = norm
         self.norm_kwargs = dict(norm_kwargs or {})
         self.act = _act(activation_fn)
@@ -312,28 +396,44 @@ class CNN2d(_Tower):
         if in_channels is not None:
             self.build(in_channels)
 
-    def build(self, in_channels):
+    def build(self, in_channels, height=None):
+        """Create the layers for ``in_channels`` input channels; ``height``
+        (default ``input_height``), the freq bins, decides the fused
+        layers' even-F term (:meth:`fused_layers`)."""
         self._build_layers(in_channels, lambda cin, cout, i: Conv2d(
             cin, cout, self.kernels[i]))
-        self.fused = self.fused_layers(in_channels)
+        if height is not None:
+            self.input_height = height
+        self.fused = self.fused_layers(in_channels, self.input_height)
 
-    def fused_layers(self, in_channels):
+    def fused_layers(self, in_channels, height=None):
         """The layers whose batch norm and ReLU fold into the conv with
-        ``fuse_bn``, by the JAX package's rule
-        (``pb_sed_tpu/ops/cnn.py:_packed_plan``): a pre-activation ReLU
-        batch-norm tower without dropout, an odd kernel larger than 1x1,
-        input channels a multiple of 16 (not the channel-padded entry
-        layer, Cin < 16), and not the output layer. The JAX plan also drops a layer whose
-        staging slab exceeds its TPU memory model; the card has no such
-        limit, so every eligible layer fuses here."""
+        ``fuse_bn``, by the JAX package's per-layer terms
+        (``pb_sed_tpu/ops/cnn.py:_packed_plan``, ``common_ok`` and the
+        fused ``want``): a pre-activation ReLU batch-norm tower without
+        dropout; an odd kernel larger than 1x1; input channels (not the
+        channel-padded entry layer, Cin < 16) and output channels
+        multiples of 16; no time pool, and a freq pool of 1 or 2 on an
+        even F (F counted as the plan counts it, ``ceil(F / pf)`` after
+        each pool; not checked while ``height`` is unknown); not the
+        output layer. The JAX plan keeps only its longest run of such
+        layers and drops a layer whose staging slab exceeds its TPU memory
+        model: a TPU layout matter, so every eligible layer fuses here."""
         if not self.fuse_bn:
             return frozenset()
         n = len(self.out_channels)
         cins = [in_channels] + self.out_channels[:-1]
-        return frozenset(
-            i for i, ((kt, kf), cin) in enumerate(zip(self.kernels, cins))
-            if kt % 2 and kf % 2 and kt * kf > 1 and cin % 16 == 0
-            and not (self.output_layer and i == n - 1))
+        fused = set()
+        f = height
+        for i, ((kt, kf), cin, cout, (pf, pt)) in enumerate(zip(
+                self.kernels, cins, self.out_channels, self.pools)):
+            even = f is None or pf == 1 or f % 2 == 0
+            if (kt % 2 and kf % 2 and kt * kf > 1 and cin % 16 == 0
+                    and cout % 16 == 0 and pt == 1 and pf in (1, 2) and even
+                    and not (self.output_layer and i == n - 1)):
+                fused.add(i)
+            f = None if f is None else -(-f // pf)
+        return frozenset(fused)
 
     def out_height(self, height):
         for pf, _ in self.pools:
@@ -341,14 +441,15 @@ class CNN2d(_Tower):
         return height
 
     def forward(self, x, seq_len):
-        """(B, T, F, C) -> ((B, T, F', C') bf16, seq_len)."""
+        """(B, T, F, C) -> ((B, T', F', C') bf16, seq_len')."""
         n = len(self.out_channels)
+        fused = self.fused_layers(self.built_channels, x.shape[2])
         pending = {}
         h = x
         for i in range(n):
             is_output = self.output_layer and i == n - 1
             conv = getattr(self, f'conv_{i}')
-            if i in self.fused:
+            if i in fused:
                 h = h.to(torch.bfloat16)
                 scale, shift = getattr(self, f'norm_{i}')(h, seq_len,
                                                            fold=True)
@@ -362,15 +463,24 @@ class CNN2d(_Tower):
                 h = self._norm_act(i, h, seq_len).to(torch.bfloat16)
             h = _add_pending(pending, i, h).to(torch.bfloat16)
             if self.residuals[i] is not None:
-                pending.setdefault(int(self.residuals[i]), []).append(h)
-            if self.pools[i][0] == 2:
-                h = MaxPoolFreq2.apply(h)
+                pending.setdefault(int(self.residuals[i]), []).append(
+                    [h, True])
+            pf, pt = self.pools[i]
+            if (pf, pt) != (1, 1):
+                stream = (pf, pt) == (2, 1) and h.shape[2] % 2 == 0
+                _cross_pool(pending, stream)
+                h = (MaxPoolFreq2.apply(h) if stream
+                     else MaxPool2d.apply(h, pt, pf))
+                if pt > 1:
+                    seq_len = -(-seq_len // pt)
         return h, seq_len
 
 
 class CNN1d(_Tower):
     """Stack of 1-D convolutions over time on (B, T, C), with residual
-    skips (``residual_connections[i] = j``) added in f32."""
+    skips (``residual_connections[i] = j``) added in f32 and max pools
+    over time (``pool_size``) on the f32 values, VALID, ``seq_len``
+    ``ceil(seq_len / p)`` (``MaxPool2d``)."""
 
     def __init__(self, out_channels, kernel_size=3, pool_size=1,
                  residual_connections=None, norm='batch', norm_kwargs=None,
@@ -380,15 +490,13 @@ class CNN1d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(norm, compute_dtype)
+        _check_common(compute_dtype)
         self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
         self.kernels = to_list(
             list(kernel_size) if isinstance(kernel_size, (list, tuple))
             else kernel_size, n)
-        if any(int(p) != 1 for p in to_list(pool_size, n)):
-            raise NotImplementedError(
-                f'CNN1d time pools are not ported yet: {pool_size}')
+        self.pools = [int(p) for p in to_list(pool_size, n)]
         self.norm = norm
         self.norm_kwargs = dict(norm_kwargs or {})
         self.act = _act(activation_fn)
@@ -417,7 +525,11 @@ class CNN1d(_Tower):
                 h = self._norm_act(i, h, seq_len)
             h = _add_pending(pending, i, h)
             if self.residuals[i] is not None:
-                pending.setdefault(int(self.residuals[i]), []).append(h)
+                pending.setdefault(int(self.residuals[i]), []).append(
+                    [h, True])
+            if self.pools[i] > 1:
+                h = MaxPool2d.apply(h[:, :, None], self.pools[i], 1)[:, :, 0]
+                seq_len = -(-seq_len // self.pools[i])
         return h, seq_len
 
 
@@ -455,7 +567,7 @@ class CNN(nn.Module, Configurable):
             raise ValueError('CNN needs input_height to size its 1-D tower')
         c2d = (in_channels + int(self.positional_encoding)
                + self.conditional_dims)
-        self.cnn_2d.build(c2d)
+        self.cnn_2d.build(c2d, self.input_height)
         self.cnn_1d.build(self.cnn_2d.out_height(self.input_height)
                           * self.cnn_2d.out_channels[-1])
 

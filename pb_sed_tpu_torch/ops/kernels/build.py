@@ -27,12 +27,17 @@ NVCC_FLAGS = (
     '-Xcompiler', '-fPIC', '-Xptxas', '-v',
 )
 
-# launches per kernel wrapper since the last reset_launches()
+# launches per kernel wrapper since the last reset_launches(); the
+# ``*_padded`` entries count the conv pair's launches at shapes its
+# kernels take only padded (Cout off a multiple of 16, an even extent),
+# which count under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
             'avgpool_freq2': 0, 'avgpool_freq2_bwd': 0,
             'bnrelu_conv2d_same': 0, 'bnrelu_conv2d_same_bwd': 0,
-            'gru_scan_bwd_fused': 0}
+            'gru_scan_bwd_fused': 0, 'maxpool2d': 0, 'maxpool2d_bwd': 0,
+            'avgpool2d': 0, 'avgpool2d_bwd': 0, 'conv2d_same_padded': 0,
+            'conv2d_same_bwd_padded': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +60,10 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _P),
     'pbsed_gru_scan_bwd_fused': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _I, _I, _I, _I, _P),
+    'pbsed_maxpool2d': (_P, _I, _P) + (_I,) * 6 + (_P,),
+    'pbsed_maxpool2d_bwd': (_P, _P, _P) + (_I,) * 7 + (_P,),
+    'pbsed_avgpool2d': (_P, _I, _P) + (_I,) * 7 + (_P,),
+    'pbsed_avgpool2d_bwd': (_P, _P, _I) + (_I,) * 7 + (_P,),
 }
 
 # shape queries (no stream, no launch): which conv kernel a shape runs,

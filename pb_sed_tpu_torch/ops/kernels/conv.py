@@ -1,11 +1,21 @@
-"""2-D conv tower kernels: the odd-kernel SAME conv (3x3 and 1x1), the
-same conv with batch norm and ReLU folded into its input load (the
-``fuse_bn`` tower), the (2, 1) freq max-pool and the (2, 1) freq average
-pool that matches a residual across a pool, forward and backward, each as
-a hand-written CUDA kernel with its plain PyTorch version beside it, and
-the autograd Functions that tie each forward to its backward
-(``Conv2dSame``, ``BnReluConv2dSame``, ``MaxPoolFreq2``,
-``AvgPoolFreq2``).
+"""2-D conv tower kernels: the stride-1 SAME conv (any kernel extent, any
+Cout), the same conv with batch norm and ReLU folded into its input load
+(the ``fuse_bn`` tower), the (2, 1) freq max-pool, the max pool of any
+window, the (2, 1) freq average pool that matches a residual across a pool
+and the average pool of any window, forward and backward, each as a
+hand-written CUDA kernel with its plain PyTorch version beside it, and the
+autograd Functions that tie each forward to its backward (``Conv2dSame``,
+``BnReluConv2dSame``, ``MaxPoolFreq2``, ``MaxPool2d``, ``AvgPoolFreq2``,
+``AvgPool2d``).
+
+The conv kernels take odd extents and Cout a multiple of 16 (the wgmma
+ring's TMA loads need 16-byte rows). The wrappers give them every other
+shape exactly (:func:`_kernel_weights`): an even extent k with XLA's SAME
+pads ``((k - 1) // 2, k // 2)`` is the odd extent k + 1 with a zero tap
+first and the symmetric pad k // 2, and Cout is padded with zero weight
+columns and zero bias up to a multiple of 16; the extra output channels
+are sliced off, the cotangent is padded with zeros (so they add nothing to
+dx), and the dw of the padded tap and columns is dropped.
 
 A stacked ensemble (``models/base/ensemble.py``) calls the Functions
 under ``torch.func.vmap`` over its members; each Function's ``vmap`` rule
@@ -43,12 +53,10 @@ def _check_conv(x, w, b):
         raise ValueError(f'expected x (B, T, F, Cin) and w (kt, kf, Cin, '
                          f'Cout), got {tuple(x.shape)} and {tuple(w.shape)}')
     kt, kf, cin, cout = w.shape
-    if kt % 2 == 0 or kf % 2 == 0:
-        raise ValueError(f'odd kernel extents only, got {kt}x{kf}')
+    if min(kt, kf, cout) < 1:
+        raise ValueError(f'empty kernel {tuple(w.shape)}')
     if x.shape[-1] != cin:
         raise ValueError(f'input has {x.shape[-1]} channels, kernel {cin}')
-    if cout % 16:
-        raise ValueError(f'Cout must be a multiple of 16, got {cout}')
     if b is not None and tuple(b.shape) != (cout,):
         raise ValueError(f'bias shape {tuple(b.shape)} != ({cout},)')
     if not w.is_floating_point() or (b is not None
@@ -58,41 +66,80 @@ def _check_conv(x, w, b):
         raise ValueError('x, w and b must be on one device')
 
 
+def _same_pads(kt, kf, flip=False):
+    """``F.pad`` widths (freq, then time) of XLA's SAME pads for a stride-1
+    kt x kf kernel, ``((k - 1) // 2, k // 2)`` on each axis; ``flip``
+    swaps the two sides (the input gradient's transposed conv)."""
+    out = []
+    for k in (kf, kt):
+        lo, hi = (k - 1) // 2, k // 2
+        out += [hi, lo] if flip else [lo, hi]
+    return tuple(out)
+
+
+def _conv_same(x, w, flip=False):
+    """``F.conv2d`` of NCHW ``x`` and OIHW ``w`` with XLA's SAME pads: the
+    symmetric ``padding`` for odd extents, an explicit pad for even ones."""
+    kt, kf = w.shape[2:]
+    if kt % 2 and kf % 2:
+        return F.conv2d(x, w, padding=((kt - 1) // 2, (kf - 1) // 2))
+    return F.conv2d(F.pad(x, _same_pads(kt, kf, flip)), w)
+
+
 def conv2d_same_plain(x, w, b):
     """Plain version: bf16-rounded operands in f32, f32 bias, one final
     rounding to bf16 (the order of the TPU kernel's epilogue)."""
-    kt, kf, _, cout = w.shape
     xf = x.float().permute(0, 3, 1, 2)                       # (B, Cin, T, F)
     wf = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)    # OIHW
-    y = F.conv2d(xf, wf, padding=((kt - 1) // 2, (kf - 1) // 2))
+    y = _conv_same(xf, wf)
     if b is not None:
         y = y + b.float()[None, :, None, None]
     return y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
 
 
 def conv2d_same(x, w, b):
-    """Stride-1 SAME conv, odd kernel: ``(B, T, F, Cin)`` bf16 ->
+    """Stride-1 SAME conv (XLA's pads): ``(B, T, F, Cin)`` bf16 ->
     ``(B, T, F, Cout)`` bf16 with f32 accumulation and f32 bias.
 
     Args:
         x: (B, T, F, Cin) bfloat16 activations (any Cin >= 1).
-        w: (kt, kf, Cin, Cout) weights (rounded to bf16), Cout % 16 == 0.
+        w: (kt, kf, Cin, Cout) weights (rounded to bf16), any extents and
+            Cout.
         b: (Cout,) bias (f32) or None.
     """
     _check_conv(x, w, b)
     if x.device.type == 'cpu':
         return conv2d_same_plain(x, w, b)
     return _launch_conv('conv2d_same', x[None], w[None],
-                        None if b is None else b[None])[0]
+                        None if b is None else b[None], padded=True)[0]
 
 
-def _launch_conv(counter, x, w, b, affine=()):
+def _kernel_weights(w, b=None):
+    """``w (..., kt, kf, Cin, Cout)`` and ``b (..., Cout)`` as the conv
+    kernels take them: an even extent with one zero tap put first (XLA's
+    SAME pads ``((k - 1) // 2, k // 2)`` are then the kernel's symmetric
+    ``k // 2``), Cout padded with zero columns and zero bias to a multiple
+    of 16. Odd extents at a multiple of 16 come back as they are."""
+    kt, kf, _, cout = w.shape[-4:]
+    grow = -cout % 16
+    if kt % 2 and kf % 2 and not grow:
+        return w, b
+    w = F.pad(w, (0, grow, 0, 0, 1 - kf % 2, 0, 1 - kt % 2, 0))
+    return w, None if b is None else F.pad(b, (0, grow))
+
+
+def _launch_conv(counter, x, w, b, affine=(), padded=False):
     """Launch ``pbsed_<counter>`` on CUDA tensors with a leading member
     axis (x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
     None): the SAME conv of all M members in one launch, with ``affine =
-    (scale, shift)``, each (M, Cin), for the BN+ReLU-fused one."""
+    (scale, shift)``, each (M, Cin), for the BN+ReLU-fused one. Other
+    extents and widths go through :func:`_kernel_weights`; with
+    ``padded`` such a launch counts under ``<counter>_padded`` too."""
     build.require_cuda(x, w, *affine)
     members, bsz, t, f, cin = x.shape
+    width = w.shape[-1]
+    asked = (*w.shape[1:3], width)
+    w, b = _kernel_weights(w, b)
     kt, kf, _, cout = w.shape[1:]
     x = x.contiguous()
     w16 = w.to(torch.bfloat16).contiguous()
@@ -107,7 +154,9 @@ def _launch_conv(counter, x, w, b, affine=()):
                  x.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  *(a.data_ptr() for a in affine), y.data_ptr(),
                  members, bsz, t, f, cin, cout, kt, kf)
-    return y
+    if padded and (kt, kf, cout) != asked:
+        build.LAUNCHES[f'{counter}_padded'] += 1
+    return y if cout == width else y[..., :width].contiguous()
 
 
 def _check_members(x, w, b, affine=()):
@@ -149,7 +198,7 @@ def conv2d_same_members(x, w, b):
     _check_members(x, w, b)
     if x.device.type == 'cpu':
         return conv2d_same_members_plain(x, w, b)
-    return _launch_conv('conv2d_same', x, w, b)
+    return _launch_conv('conv2d_same', x, w, b, padded=True)
 
 
 def _check_conv_bwd(x, w, gy):
@@ -167,12 +216,17 @@ def conv2d_same_bwd_plain(x, w, gy):
     once to bf16 (no bias); dw the f32 correlation of the bf16 input with
     the bf16-rounded cotangent."""
     kt, kf, cin, cout = w.shape
-    pad = ((kt - 1) // 2, (kf - 1) // 2)
     gf = gy.to(torch.bfloat16).float().permute(0, 3, 1, 2)  # (B, Cout, T, F)
     w_flip = w.to(torch.bfloat16).float().flip(0, 1)        # (kt, kf, Ci, Co)
-    dx = F.conv2d(gf, w_flip.permute(2, 3, 0, 1), padding=pad)
-    dw = torch.nn.grad.conv2d_weight(
-        x.float().permute(0, 3, 1, 2), (cout, cin, kt, kf), gf, padding=pad)
+    dx = _conv_same(gf, w_flip.permute(2, 3, 0, 1), flip=True)
+    xf = x.float().permute(0, 3, 1, 2)
+    if kt % 2 and kf % 2:
+        dw = torch.nn.grad.conv2d_weight(
+            xf, (cout, cin, kt, kf), gf,
+            padding=((kt - 1) // 2, (kf - 1) // 2))
+    else:
+        dw = torch.nn.grad.conv2d_weight(
+            F.pad(xf, _same_pads(kt, kf)), (cout, cin, kt, kf), gf)
     return (dx.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
             dw.permute(2, 3, 1, 0).contiguous())
 
@@ -223,18 +277,24 @@ def conv2d_same_bwd(x, w, gy):
     _check_conv_bwd(x, w, gy)
     if x.device.type == 'cpu':
         return conv2d_same_bwd_plain(x, w, gy)
-    return _launch_conv_bwd('conv2d_same_bwd', x, w, gy)
+    return _launch_conv_bwd('conv2d_same_bwd', x, w, gy, padded=True)
 
 
-def _launch_conv_bwd(counter, x, w, gy, affine=()):
+def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False):
     """Launch ``pbsed_<counter>`` on CUDA tensors: dx (or da) and dw of
     the SAME conv, with ``affine = (scale, shift)`` f32 pointers after
-    the flipped weights for the BN+ReLU-fused one."""
+    the flipped weights for the BN+ReLU-fused one; other extents and
+    widths as :func:`_launch_conv` takes them (and counts them)."""
     build.require_cuda(x, w, gy, *affine)
     bsz, t, f, cin = x.shape
+    kt0, kf0, _, width = w.shape
+    w, _ = _kernel_weights(w)
     kt, kf, _, cout = w.shape
     x = x.contiguous()
-    gy = gy.to(torch.bfloat16).contiguous()
+    gy = gy.to(torch.bfloat16)
+    if cout != width:
+        gy = F.pad(gy, (0, cout - width))
+    gy = gy.contiguous()
     w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
     dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
@@ -250,6 +310,10 @@ def _launch_conv_bwd(counter, x, w, gy, affine=()):
                  *(a.data_ptr() for a in affine), dx.data_ptr(),
                  dw.data_ptr(), workspace.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, chunks)
+    if (kt, kf, cout) != (kt0, kf0, width):
+        dw = dw[kt - kt0:, kf - kf0:, :, :width].contiguous()
+        if padded:
+            build.LAUNCHES[f'{counter}_padded'] += 1
     return dx, dw
 
 
@@ -324,7 +388,8 @@ def bnrelu_conv2d_same(x, scale, shift, w, b):
     Args:
         x: (B, T, F, Cin) bfloat16 pre-norm activations.
         scale, shift: (Cin,) folded batch norm (f32).
-        w: (kt, kf, Cin, Cout) weights (rounded to bf16), Cout % 16 == 0.
+        w: (kt, kf, Cin, Cout) weights (rounded to bf16), any extents and
+            Cout.
         b: (Cout,) bias (f32) or None.
     """
     _check_conv(x, w, b)
@@ -533,6 +598,131 @@ class MaxPoolFreq2(torch.autograd.Function):
         return maxpool_freq2_bwd(x, gy)
 
 
+def _windows(x, pt, pf):
+    """The elements of every (pt, pf) window of ``x`` (B, T, F, C), VALID
+    (floor in both axes): ``pt * pf`` strided (B, T // pt, F // pf, C)
+    views in (t, f) order."""
+    to, fo = x.shape[1] // pt, x.shape[2] // pf
+    return [x[:, dt:to * pt:pt, df:fo * pf:pf]
+            for dt in range(pt) for df in range(pf)]
+
+
+def _check_window(name, x, pt, pf):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'{name} takes bfloat16 or float32, got {x.dtype}')
+    if x.dim() != 4:
+        raise ValueError(f'{name}: expected (B, T, F, C), got '
+                         f'{tuple(x.shape)}')
+    if pt < 1 or pf < 1:
+        raise ValueError(f'{name}: window ({pt}, {pf})')
+
+
+def maxpool2d_plain(x, pt, pf):
+    """Plain version: ``torch.maximum`` folded over each window in (t, f)
+    order."""
+    views = _windows(x, pt, pf)
+    y = views[0]
+    for v in views[1:]:
+        y = torch.maximum(y, v)
+    return y.contiguous()
+
+
+def maxpool2d(x, pt, pf):
+    """Max pool of (pt, pf) windows over (time, freq) with stride the
+    window, VALID: ``(B, T, F, C)`` -> ``(B, T // pt, F // pf, C)``, bf16
+    or f32 in and out, bit-exact against the plain version (the JAX
+    package's ``nn.max_pool``)."""
+    pt, pf = int(pt), int(pf)
+    _check_window('maxpool2d', x, pt, pf)
+    if x.device.type == 'cpu':
+        return maxpool2d_plain(x, pt, pf)
+    build.require_cuda(x)
+    bsz, t, f, c = x.shape
+    x = x.contiguous()
+    y = torch.empty((bsz, t // pt, f // pf, c), dtype=x.dtype,
+                    device=x.device)
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError('maxpool2d needs 16-byte aligned buffers')
+    build.launch('maxpool2d', 'pbsed_maxpool2d', x.device, x.data_ptr(),
+                 int(x.dtype == torch.float32), y.data_ptr(), bsz, t, f, c,
+                 pt, pf)
+    return y
+
+
+def maxpool2d_bwd_plain(x, gy, pt, pf):
+    """Plain backward: each window's cotangent (in x's type) goes to the
+    element that XLA's ``>=`` select keeps, walking the window in (t, f)
+    order (ties to the first; the kept element gives way to any later one
+    it is not ``>=``, so a NaN gives way to the next); the other elements
+    and the rows and columns past the last whole window get zero."""
+    views = [v.float() for v in _windows(x, pt, pf)]
+    best = views[0]
+    sel = torch.zeros(best.shape, dtype=torch.int64, device=x.device)
+    for k, v in enumerate(views[1:], 1):
+        take = ~(best >= v)
+        best = torch.where(take, v, best)
+        sel = torch.where(take, k, sel)
+    g = gy.to(x.dtype)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    dx = torch.zeros_like(x)
+    to, fo = g.shape[1], g.shape[2]
+    for k in range(pt * pf):
+        dt, df = divmod(k, pf)
+        dx[:, dt:to * pt:pt, df:fo * pf:pf] = torch.where(sel == k, g, zero)
+    return dx
+
+
+def maxpool2d_bwd(x, gy, pt, pf):
+    """Backward of :func:`maxpool2d`: ``(B, T, F, C)`` input and
+    ``(B, T // pt, F // pf, C)`` cotangent -> ``(B, T, F, C)`` in x's type,
+    bit-exact against the plain version."""
+    pt, pf = int(pt), int(pf)
+    _check_window('maxpool2d_bwd', x, pt, pf)
+    want = (x.shape[0], x.shape[1] // pt, x.shape[2] // pf, x.shape[3])
+    if tuple(gy.shape) != want:
+        raise ValueError(f'cotangent shape {tuple(gy.shape)} != {want}')
+    if x.device.type == 'cpu':
+        return maxpool2d_bwd_plain(x, gy, pt, pf)
+    build.require_cuda(x, gy)
+    bsz, t, f, c = x.shape
+    x = x.contiguous()
+    gy = gy.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    if any(a.data_ptr() % 16 for a in (x, gy, dx)):
+        raise ValueError('maxpool2d_bwd needs 16-byte aligned buffers')
+    build.launch('maxpool2d_bwd', 'pbsed_maxpool2d_bwd', x.device,
+                 x.data_ptr(), gy.data_ptr(), dx.data_ptr(),
+                 int(x.dtype == torch.float32), bsz, t, f, c, pt, pf)
+    return dx
+
+
+@cache_signature
+class MaxPool2d(torch.autograd.Function):
+    """:func:`maxpool2d` with its backward (:func:`maxpool2d_bwd`: XLA's
+    tie rule, not the even split that autograd of ``amax`` would give):
+    the pools other than (2, 1) on an even F (``pb_sed_tpu/ops/cnn.py:
+    _pool2d``, and ``CNN1d``'s time pools with F = 1). Under
+    ``torch.func.vmap`` one launch over the members' clips."""
+
+    @staticmethod
+    def forward(x, pt, pf):
+        return maxpool2d(x, pt, pf)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.window = inputs[1:]
+
+    @staticmethod
+    def vmap(info, in_dims, x, pt, pf):
+        return _on_clips(maxpool2d, x, in_dims[0], pt, pf)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x,) = ctx.saved_tensors
+        return maxpool2d_bwd(x, gy, *ctx.window), None, None
+
+
 def _check_avg(x, cout):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f'avgpool_freq2 takes bfloat16 or float32, got '
@@ -628,3 +818,118 @@ class AvgPoolFreq2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         return avgpool_freq2_bwd(gy, ctx.c, ctx.dtype), None
+
+
+def _reciprocal(n):
+    """``1 / n`` rounded to f32, as a 0-d f32 tensor (a product with it is
+    the same on the CPU and the card)."""
+    return torch.tensor(1., dtype=torch.float32) / n
+
+
+def avgpool2d_plain(x, st, sf, cout=None):
+    """Plain version: each (st, sf) window's elements added in f32 one
+    after the other in (t, f) order from 0, times the f32 reciprocal of
+    ``st * sf`` (the JAX package divides: one f32 rounding apart), zero
+    channels appended up to ``cout``."""
+    c = x.shape[3]
+    views = _windows(x, st, sf)
+    acc = torch.zeros(views[0].shape, dtype=torch.float32, device=x.device)
+    for v in views:
+        acc = acc + v.float()
+    y = acc * _reciprocal(st * sf)
+    return F.pad(y, (0, (cout or c) - c)).contiguous()
+
+
+def avgpool2d(x, st, sf, cout=None):
+    """Average pool of (st, sf) windows over (time, freq) with stride the
+    window, VALID, of a residual: ``(B, T, F, C)`` bf16 or f32 -> ``(B,
+    T // st, F // sf, cout)`` f32 (``cout`` defaults to C; channels from C
+    on are zeros), bit-exact against the plain version: the JAX package's
+    ``_match_residual`` on its unpacked path (one ``nn.avg_pool``, then the
+    channel pad)."""
+    st, sf = int(st), int(sf)
+    cout = x.shape[3] if cout is None else int(cout)
+    _check_window('avgpool2d', x, st, sf)
+    if cout < x.shape[3]:
+        raise ValueError(f'cannot pad {x.shape[3]} channels to {cout}')
+    if x.device.type == 'cpu':
+        return avgpool2d_plain(x, st, sf, cout)
+    build.require_cuda(x)
+    bsz, t, f, c = x.shape
+    x = x.contiguous()
+    y = torch.empty((bsz, t // st, f // sf, cout), dtype=torch.float32,
+                    device=x.device)
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError('avgpool2d needs 16-byte aligned buffers')
+    build.launch('avgpool2d', 'pbsed_avgpool2d', x.device, x.data_ptr(),
+                 int(x.dtype == torch.float32), y.data_ptr(), bsz, t, f, c,
+                 cout, st, sf)
+    return y
+
+
+def avgpool2d_bwd_plain(gy, st, sf, shape, dtype):
+    """Plain backward: the f32 cotangent of the first C channels times the
+    f32 reciprocal of ``st * sf``, cast to ``dtype``, to every element of
+    its window; zero past the last whole window. ``shape`` is the input's
+    (B, T, F, C)."""
+    bsz, t, f, c = shape
+    to, fo = gy.shape[1], gy.shape[2]
+    g = (gy[..., :c].float() * _reciprocal(st * sf)).to(dtype)
+    dx = torch.zeros((bsz, t, f, c), dtype=dtype, device=gy.device)
+    dx[:, :to * st, :fo * sf] = g.repeat_interleave(st, 1).repeat_interleave(
+        sf, 2)
+    return dx
+
+
+def avgpool2d_bwd(gy, st, sf, shape, dtype):
+    """Backward of :func:`avgpool2d` for an input of ``shape`` (B, T, F, C)
+    and type ``dtype``: ``(B, T // st, F // sf, cout)`` f32 cotangent ->
+    ``shape`` in ``dtype``, bit-exact against the plain version."""
+    st, sf = int(st), int(sf)
+    bsz, t, f, c = (int(n) for n in shape)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'avgpool2d_bwd gives bfloat16 or float32, got '
+                        f'{dtype}')
+    if (gy.dim() != 4 or tuple(gy.shape[:3]) != (bsz, t // st, f // sf)
+            or gy.shape[3] < c):
+        raise ValueError(f'cotangent {tuple(gy.shape)} for an input of '
+                         f'{tuple(shape)} and window ({st}, {sf})')
+    if gy.device.type == 'cpu':
+        return avgpool2d_bwd_plain(gy, st, sf, (bsz, t, f, c), dtype)
+    build.require_cuda(gy)
+    cout = gy.shape[3]
+    gy = gy.float().contiguous()
+    dx = torch.empty((bsz, t, f, c), dtype=dtype, device=gy.device)
+    if gy.data_ptr() % 16 or dx.data_ptr() % 16:
+        raise ValueError('avgpool2d_bwd needs 16-byte aligned buffers')
+    build.launch('avgpool2d_bwd', 'pbsed_avgpool2d_bwd', gy.device,
+                 gy.data_ptr(), dx.data_ptr(), int(dtype == torch.float32),
+                 bsz, t, f, c, cout, st, sf)
+    return dx
+
+
+@cache_signature
+class AvgPool2d(torch.autograd.Function):
+    """:func:`avgpool2d` (with the channel pad to ``cout``) and its
+    backward :func:`avgpool2d_bwd`: a residual matched across a time pool,
+    a pool other than (2, 1) or an odd F (``pb_sed_tpu/ops/cnn.py:
+    _match_residual``). Under ``torch.func.vmap`` one launch over the
+    members' clips."""
+
+    @staticmethod
+    def forward(x, st, sf, cout):
+        return avgpool2d(x, st, sf, cout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.st, ctx.sf, _ = inputs
+        ctx.shape, ctx.dtype = tuple(x.shape), x.dtype
+
+    @staticmethod
+    def vmap(info, in_dims, x, st, sf, cout):
+        return _on_clips(avgpool2d, x, in_dims[0], st, sf, cout)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (avgpool2d_bwd(gy, ctx.st, ctx.sf, ctx.shape, ctx.dtype),
+                None, None, None)

@@ -85,10 +85,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         conv2d_same(x.float(), torch.zeros(3, 3, 16, 16), None)
-    with pytest.raises(ValueError):  # even kernel extent
-        conv2d_same(x, torch.zeros(2, 3, 16, 16), None)
-    with pytest.raises(ValueError):  # Cout not a multiple of 16
-        conv2d_same(x, torch.zeros(3, 3, 16, 8), None)
+    with pytest.raises(ValueError):  # kernel of 8 input channels, x 16
+        conv2d_same(x, torch.zeros(3, 3, 8, 16), None)
+    with pytest.raises(ValueError):  # no output channel
+        conv2d_same(x, torch.zeros(3, 3, 16, 0), None)
     with pytest.raises(ValueError):  # odd F cannot pool by 2
         maxpool_freq2(torch.zeros(1, 4, 7, 16, dtype=torch.bfloat16))
     with pytest.raises(RuntimeError):  # not CPU, not CUDA: no path

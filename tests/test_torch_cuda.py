@@ -8,8 +8,9 @@ both widths with ragged row tiles and a random initial state beside the
 row-tiled one at small hidden sizes, the wgmma conv kernels'
 ragged pixel tiles, frequency rows and channel widths, the member axis
 of the forward convs and the GRU at D = 2N that a stacked ensemble
-launches), the determinism of the weight gradients, and the wrappers'
-raises. They need a CUDA card and
+launches; the max and average pools of any window, odd extents, bf16
+and f32; the conv at Cout off a multiple of 16 and even kernel extents),
+the determinism of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
 On the card (no JAX there, so without this directory's conftest):
@@ -28,7 +29,9 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
     conv2d_same_members_plain, conv2d_same_plain, conv_designs,
     maxpool_freq2, maxpool_freq2_bwd, maxpool_freq2_bwd_plain,
-    maxpool_freq2_plain)
+    maxpool_freq2_plain, avgpool2d, avgpool2d_bwd, avgpool2d_bwd_plain,
+    avgpool2d_plain, maxpool2d, maxpool2d_bwd, maxpool2d_bwd_plain,
+    maxpool2d_plain)
 from pb_sed_tpu_torch.ops.kernels.gru import (GruScan, gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
@@ -173,8 +176,8 @@ def test_avgpool_kernel_bit_exact(gen, shape, cout, dtype):
 
 def test_kernels_raise_on_unsupported_shapes(gen):
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
-    with pytest.raises(ValueError):
-        conv2d_same(x, torch.zeros(3, 3, 16, 8, device='cuda'), None)
+    with pytest.raises(ValueError):  # a kernel of 8 input channels
+        conv2d_same(x, torch.zeros(3, 3, 8, 16, device='cuda'), None)
     xw = torch.zeros(1, 2, 3, 3 * 48, device='cuda')
     with pytest.raises(ValueError):  # H = 48 is not a multiple of 32
         gru_scan(xw, torch.zeros(1, 48, 144, device='cuda'),
@@ -500,3 +503,103 @@ def test_gru_forward_design_at_stacked_shapes(gen):
     for d, b, t in ((20, 176, 500), (2, 1792, 51), (20, 2000, 51),
                     (4, 4000, 11)):
         assert gru_designs(d, b, t, 256)['fwd']['design'] == 'row_tiled'
+
+
+# (B, T, F, C), (pt, pf): odd T and F (rows and columns past the last
+# window), C on the 16-byte vector path (16; 12 in f32) and off it (12 in
+# bf16, 5), the 1-D tower's F = 1 time pool
+POOL_WINDOWS = [((2, 13, 11, 16), (2, 2)), ((2, 13, 11, 12), (1, 2)),
+                ((1, 9, 7, 5), (3, 1)), ((2, 25, 5, 24), (2, 3)),
+                ((2, 17, 18, 16), (4, 4)), ((3, 25, 1, 32), (2, 1))]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape,window', POOL_WINDOWS)
+def test_maxpool2d_kernels_bit_exact(gen, shape, window, dtype):
+    x = (torch.randn(*shape, generator=gen, device='cuda') * 2).round() / 2
+    x[:, -1] = 1.5                       # constant frames: whole windows tie
+    x[0, 0, 0, :3] = float('nan')        # NaN first in a window
+    x[-1, 1, -1, :2] = float('nan')      # and past the last window
+    x = x.to(dtype)
+    pt, pf = window
+    n = dict(build.LAUNCHES)
+    got = maxpool2d(x, pt, pf)
+    ref = maxpool2d_plain(x, pt, pf)
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+    gy = torch.randn(*got.shape, generator=gen, device='cuda').to(dtype)
+    dx = maxpool2d_bwd(x, gy, pt, pf)
+    assert torch.equal(dx, maxpool2d_bwd_plain(x, gy, pt, pf))
+    assert build.LAUNCHES['maxpool2d'] == n['maxpool2d'] + 1
+    assert build.LAUNCHES['maxpool2d_bwd'] == n['maxpool2d_bwd'] + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape,window,cout', [
+    ((2, 25, 5, 24), (2, 2), 64),        # a time pool and an odd F
+    ((2, 13, 20, 16), (1, 5), 32),       # F = 20 -> 2 rows, (1, 5)
+    ((3, 25, 1, 16), (4, 1), 32),        # the 1-D tower's time residual
+    ((1, 7, 9, 5), (3, 3), 7),           # the scalar path
+])
+def test_avgpool2d_kernels_bit_exact(gen, shape, window, cout, dtype):
+    x = torch.randn(*shape, generator=gen, device='cuda').to(dtype)
+    st, sf = window
+    n = dict(build.LAUNCHES)
+    got = avgpool2d(x, st, sf, cout)
+    assert torch.equal(got, avgpool2d_plain(x, st, sf, cout))
+    gy = torch.randn(*got.shape, generator=gen, device='cuda')
+    dx = avgpool2d_bwd(gy, st, sf, x.shape, dtype)
+    assert torch.equal(dx, avgpool2d_bwd_plain(gy, st, sf, x.shape, dtype))
+    assert build.LAUNCHES['avgpool2d'] == n['avgpool2d'] + 1
+    assert build.LAUNCHES['avgpool2d_bwd'] == n['avgpool2d_bwd'] + 1
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', [
+    (2, 9, 7, 16, 10, 2, 2),     # Cout 10, a 2 x 2 kernel
+    (2, 11, 8, 16, 24, 4, 3),    # Cout 24, 4 x 3
+    (1, 7, 6, 24, 40, 2, 1),     # Cin 24, Cout 40, 2 x 1
+    (2, 9, 16, 1, 24, 3, 3),     # the entry layer at Cout 24
+    (2, 20, 16, 64, 64, 4, 4),   # the wgmma kernels' widths, 4 x 4
+])
+def test_padded_conv_shapes_match_plain(gen, b, t, f, cin, cout, kt, kf):
+    """The conv kernels at shapes they take only padded (Cout to a
+    multiple of 16 with zero columns, an even extent with a zero tap
+    first): forward, dx, dw and the BN+ReLU-fused pair against their plain
+    versions (XLA's SAME pads), one launch each."""
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 * torch.randn(cin, generator=gen, device='cuda')
+    n = dict(build.LAUNCHES)
+    got = conv2d_same(x, w, bias)
+    ref = conv2d_same_plain(x, w, bias)
+    assert got.shape == (b, t, f, cout)
+    # one f32 sum rounded once to bf16 on both sides (one ulp)
+    assert _max_err(got, ref) <= 2. ** -7 * float(ref.float().abs().max())
+    dx, dw = conv2d_same_bwd(x, w, gy)
+    ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert _max_err(dx, ref_dx) <= 2. ** -7 * float(ref_dx.float().abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+    got = bnrelu_conv2d_same(x, scale, shift, w, bias)
+    ref = bnrelu_conv2d_same_plain(x, scale, shift, w, bias)
+    assert _max_err(got, ref) <= 2. ** -7 * float(ref.float().abs().max())
+    da, dw = bnrelu_conv2d_same_bwd(x, scale, shift, w, gy)
+    ref_da, ref_dw = bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy)
+    assert _max_err(da, ref_da) <= 2. ** -7 * float(ref_da.float().abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+    for name in ('conv2d_same', 'conv2d_same_bwd', 'bnrelu_conv2d_same',
+                 'bnrelu_conv2d_same_bwd', 'conv2d_same_padded',
+                 'conv2d_same_bwd_padded'):
+        assert build.LAUNCHES[name] == n[name] + 1, name
+    # the member axis at the padded shape: each member's own launch, bits
+    xm = torch.stack([x, x.flip(1)])
+    wm = torch.stack([w, -w])
+    bm = torch.stack([bias, bias])
+    assert torch.equal(conv2d_same_members(xm, wm, bm), torch.stack(
+        [conv2d_same(xm[i], wm[i], bm[i]) for i in range(2)]))
