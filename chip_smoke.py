@@ -299,15 +299,39 @@ runs, in order:
    with elu, tags 3 batches. Served runs agree with the CPU, trained ones
    pass the card-vs-CPU step (the CPU's noise with its convs summed in
    f64 too); clips/s, steps/s and peak memory beside phases 3-5's.
+15. the GRU's hidden widths and ``compute_dtype='float32'``. Right after
+   phase 14's kernels (under its own launch count) 15d: the GRU pair on
+   the wide design (``csrc/gru_wide.cuh``) at (2, 32, 500, H) and (2,
+   16 000, 51, H) for H = 768 and 1024, and at H = 200 (run as 256 on the
+   cluster design at the training shape), forward and backward against
+   the plain version at the real H (the backward at SED's shapes on its
+   first 2 048 rows, which are independent, and timed whole but at 1024,
+   where the wrapper's f32 weight-gradient contraction would need ~83 GB),
+   with the design each pass runs, cuDNN's GRU and the bound; H = 200's
+   forward on the row-tiled kernel at 224 against the cluster at 256
+   (``scripts/perf/gru_designs.py``'s ``scan_as``); the f32 conv and its
+   backward (``csrc/conv2d_f32.cu``) at the shallow tower's nine 3x3
+   shapes against the plain version (cuDNN off), with cuDNN's f32 conv
+   (TF32 off) as the library call and its dw's distance from the plain
+   version printed. After phase 14: 15a, the shallow FBCRNN with
+   ``compute_dtype='float32'`` in both towers and both heads' output nets,
+   serves 3 batches of 32 ten-second clips by tagging and SED 51/1 and
+   trains 8 steps; 15b, the shallow FBCRNN with both heads at hidden size
+   768 (the paired D = 2 recurrence on the wide pair), the same; 15c, the
+   tag-conditioned BiCRNN at hidden size 200, tags 3 batches and trains 8
+   steps. Served runs agree with the CPU, trained ones pass the
+   card-vs-CPU step (the CPU's noise with its bf16 convs and its GRU
+   summed in f64 too); clips/s, steps/s and peak memory beside phases
+   3-4's.
 
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
 serving and training, the strong CLI training and its chain, the stacked
 ensembles, the Transformer's serving and training, the multi-step lane,
 the data-preparation path's two training runs, each rank's mesh training
-and ensemble, the NCCL world's training, phase 14's served and trained
-runs) runs with the launch counters set to 0 just before it and read
-just after.
+and ensemble, the NCCL world's training, phase 14's and phase 15's served
+and trained runs) runs with the launch counters set to 0 just before it
+and read just after.
 Any failure raises (non-zero exit). Before it prints its last lines, or
 fails, the run stops every process it started: the evaluation pools'
 forkserver and resource tracker, and any other process still below it
@@ -479,6 +503,29 @@ KERNELS = {
         'replaces': 'pb_sed_tpu/ops/pallas/conv.py:642, '
                     'pb_sed_tpu/ops/pallas/conv.py:552, '
                     'pb_sed_tpu/ops/pallas/conv.py:599'},
+    # phase 15's paths: the f32 conv pair of a compute_dtype='float32'
+    # tower (no Pallas site: the JAX package's f32 lax.conv_general_dilated
+    # and its autodiff), the GRU pair's wide design above H = 512 (no
+    # Pallas site: the JAX package's lax.scan) and the pair at an H it
+    # takes padded (those launches count under the pair's names too)
+    'conv2d_same_f32': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_f32.cu',
+        'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
+    'conv2d_same_f32_bwd': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_f32.cu',
+        'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
+    'gru_scan_wide': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_wide.cuh',
+        'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
+    'gru_scan_bwd_wide': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_wide.cuh',
+        'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
+    'gru_scan_padded': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:50'},
+    'gru_scan_bwd_padded': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd.cu',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:357'},
 }
 # the path each kernel's ``launches`` is read from: the deep training run
 # drives the unfused kernels, the deep fuse_bn training run the fused
@@ -493,7 +540,13 @@ MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  avgpool2d='towers_14b_training',
                  avgpool2d_bwd='towers_14b_training',
                  conv2d_same_padded='towers_14b_training',
-                 conv2d_same_bwd_padded='towers_14b_training')
+                 conv2d_same_bwd_padded='towers_14b_training',
+                 conv2d_same_f32='widths_15a_training',
+                 conv2d_same_f32_bwd='widths_15a_training',
+                 gru_scan_wide='widths_15b_training',
+                 gru_scan_bwd_wide='widths_15b_training',
+                 gru_scan_padded='widths_15c_training',
+                 gru_scan_bwd_padded='widths_15c_training')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan')
 SHALLOW = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_bwd',
            'maxpool_freq2_bwd', 'gru_scan_bwd')
@@ -597,7 +650,10 @@ def log_ptxas(text):
                            'gru_scan_cluster_kernel', 'gru_bwd_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
-                           'avgpool2d'):
+                           'avgpool2d', 'gru_wide_fwd_kernel',
+                           'gru_wide_bwd_kernel', 'conv2d_f32_kernel',
+                           'conv2d_f32_dw_kernel',
+                           'conv2d_f32_dw_reduce_kernel'):
                 if kernel in mangled:
                     args = mangled.split(kernel, 1)[1]
                     # template arguments end in EE, a plain name in E
@@ -638,7 +694,7 @@ def new_record():
     return {'max_abs_err': 0., 'bound_ms': 0., 'bound_bytes_ms': 0.,
             'bound_operations_ms': 0., 'library_ms': None,
             **{f'{label}_{kind}': None
-               for label in ('shallow', 'deep', 'towers')
+               for label in ('shallow', 'deep', 'towers', 'widths')
                for kind in ('ms', 'plain_ms', 'library_ms')}}
 
 
@@ -1260,7 +1316,8 @@ def _log_gru_step(key, shape, k_ms, fn):
     recorded."""
     t, h = shape[2], shape[3]
     kernel = sum(ms for ms, name, _ in profile_kernels(fn)
-                 if 'gru_scan' in name or 'gru_bwd' in name)
+                 if any(part in name for part in ('gru_scan', 'gru_bwd',
+                                                  'gru_wide')))
     earlier = EARLIER_GRU_MS.get((key, h)) if shape[1] == BATCH else None
     was = ('' if earlier is None else
            f'; the row-tiled kernel took {earlier:.3f} ms '
@@ -1714,7 +1771,78 @@ def _convs_summed_in_f64():
         kc.conv2d_same_plain, kc.conv2d_same_bwd_plain = plain
 
 
-def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False):
+@contextlib.contextmanager
+def _gru_summed_in_f64():
+    """The CPU's plain GRU (forward and backward; a stacked lane's through
+    them) with its products summed in f64 and rounded once to f32, its
+    bf16 rounding points kept: the same function with its sums in another
+    order, as the card's kernels sum in theirs."""
+    from pb_sed_tpu_torch.ops.kernels import gru as kg
+    plain = (kg.gru_scan_plain, kg.gru_scan_bwd_plain)
+
+    def bmm(a, b):
+        return torch.bmm(a.double(), b.double()).float()
+
+    def forward(xw, w_hh, b_hh, h0):
+        xw = xw.to(torch.bfloat16).float()
+        w = w_hh.to(torch.bfloat16).float()
+        bias = b_hh.float()[:, None, :]
+        h, hdim = h0.float(), h0.shape[-1]
+        ys = []
+        for t in range(xw.shape[2]):
+            hw = bmm(h.to(torch.bfloat16).float(), w) + bias
+            x_t = xw[:, :, t]
+            r = torch.sigmoid(x_t[..., :hdim] + hw[..., :hdim])
+            z = torch.sigmoid(x_t[..., hdim:2 * hdim]
+                              + hw[..., hdim:2 * hdim])
+            n = torch.tanh(x_t[..., 2 * hdim:] + r * hw[..., 2 * hdim:])
+            h = (1. - z) * n + z * h
+            ys.append(h)
+        return torch.stack(ys, dim=2)
+
+    def backward(xw, w_hh, b_hh, h0, y, g, split=True):
+        xw = xw.to(torch.bfloat16).float()
+        w = w_hh.to(torch.bfloat16).float()
+        bias = b_hh.float()[:, None, :]
+        h_prev = kg._h_prev(h0, y)
+        hp, g = h_prev.float(), g.float()
+        d, b, t, three_h = xw.shape
+        hdim = three_h // 3
+        dh = torch.zeros((d, b, hdim))
+        dxw = torch.empty((d, b, t, three_h), dtype=torch.bfloat16)
+        r_all = torch.empty((d, b, t, hdim), dtype=torch.bfloat16)
+        for s in reversed(range(t)):
+            hw = bmm(hp[:, :, s], w) + bias
+            x_t = xw[:, :, s]
+            hn = hw[..., 2 * hdim:]
+            r = torch.sigmoid(x_t[..., :hdim] + hw[..., :hdim])
+            z = torch.sigmoid(x_t[..., hdim:2 * hdim]
+                              + hw[..., hdim:2 * hdim])
+            n = torch.tanh(x_t[..., 2 * hdim:] + r * hn)
+            dht = g[:, :, s] + dh
+            dz = dht * (hp[:, :, s] - n) * z * (1. - z)
+            dpn = dht * (1. - z) * (1. - n * n)
+            dpr = dpn * hn * r * (1. - r)
+            dxw[:, :, s] = torch.cat([dpr, dz, dpn], dim=-1).to(
+                torch.bfloat16)
+            r_all[:, :, s] = r.to(torch.bfloat16)
+            dgates = torch.cat([dpr, dz, dpn * r], dim=-1).to(
+                torch.bfloat16)
+            dh = dht * z + bmm(dgates.float(), w.transpose(1, 2))
+        dgates = torch.cat([dxw[..., :2 * hdim],
+                            dxw[..., 2 * hdim:] * r_all], dim=-1).double()
+        dw_hh = torch.einsum('dbth,dbtg->dhg', hp.double(), dgates).float()
+        return dxw, dw_hh, dgates.sum((1, 2)).float(), dh
+
+    kg.gru_scan_plain, kg.gru_scan_bwd_plain = forward, backward
+    try:
+        yield
+    finally:
+        kg.gru_scan_plain, kg.gru_scan_bwd_plain = plain
+
+
+def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False,
+                 gru_order=False):
     """One B=4, T=100 step, augmentation off, on the card and on the CPU
     (plain versions). The loss within 1e-4 + 3e-2 * |ref|. The CPU's own
     noise is the largest gap between its step and three CPU steps on the
@@ -1732,19 +1860,25 @@ def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False):
     (:func:`_convs_summed_in_f64`; phase 14: a bf16 max pool over 2 x 2
     windows of conv outputs ties often, and the card's convs, which sum
     in another order, break ties that the CPU's batch orders, which only
-    move the norms' statistics, keep)."""
+    move the norms' statistics, keep); with ``gru_order`` that step's
+    plain GRU sums in f64 too (:func:`_gru_summed_in_f64`; phase 15: the
+    wide kernels' other summation order flips bf16 roundings of h and
+    dgates over 100 steps, which no batch order of the CPU's moves)."""
     batch = _train_batches(stft, 1, 4, 2, seed=3, k=k, strong=strong)[0]
     orders = ([0, 1, 2, 3], [3, 2, 1, 0], [1, 2, 3, 0], [2, 3, 0, 1])
     runs = [('cuda', orders[0])] + [('cpu', order) for order in orders]
-    if conv_order:
+    if conv_order or gru_order:
         runs.append(('cpu_f64_convs', orders[0]))
     grads, losses = [], []
     for device, order in runs:
         model = make_model(augment=False).to(device.split('_')[0])
         model.module.train()
         clips = {key: value[order].copy() for key, value in batch.items()}
-        with (_convs_summed_in_f64() if device == 'cpu_f64_convs'
-              else contextlib.nullcontext()):
+        with contextlib.ExitStack() as sums:
+            if device == 'cpu_f64_convs' and conv_order:
+                sums.enter_context(_convs_summed_in_f64())
+            if device == 'cpu_f64_convs' and gru_order:
+                sums.enter_context(_gru_summed_in_f64())
             loss, _ = model.loss(model.to_device(clips))
             loss.backward()
         losses.append(float(loss.detach()))
@@ -1754,7 +1888,10 @@ def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False):
     card, cpu, others = grads[0], grads[1], grads[2:]
     log(f'card vs CPU, B=4 T=100 step: loss {losses[0]:.6f} vs '
         f'{losses[1]:.6f} (CPU in other batch orders'
-        + (', the last with its convs summed in f64' if conv_order else '')
+        + (', the last with its '
+           + ' and '.join(name for name, on in (('convs', conv_order),
+                                                ('GRU', gru_order)) if on)
+           + ' summed in f64' if conv_order or gru_order else '')
         + ': ' + ', '.join(f'{x:.6f}' for x in losses[2:]) + ')')
     if not abs(losses[0] - losses[1]) <= 1e-4 + 3e-2 * abs(losses[1]):
         raise AssertionError(f'card and CPU losses differ: {losses}')
@@ -4861,18 +4998,20 @@ def _tower_config(name, fuse_bn=False, augment=True):
     return config
 
 
-def _train_towers(make_model, k, kernels, label):
-    """8 ``Trainer`` steps of a phase-14 model at 32 ten-second clips with
-    augmentation on (the AudioSet recipe's Adam: lr 1e-4, clipping 0.1):
-    every kernel of ``kernels`` must launch and every loss be finite;
-    then the card-vs-CPU step (:func:`_card_vs_cpu`, the CPU's noise with
-    its convs' summation order too). Returns the launch
+def _train_towers(make_model, k, kernels, label, strong=False,
+                  conv_order=True, gru_order=False):
+    """8 ``Trainer`` steps of a phase-14 (or 15) model at 32 ten-second
+    clips with augmentation on (the AudioSet recipe's Adam: lr 1e-4,
+    clipping 0.1), the BiCRNN's strong batches with ``strong``: every
+    kernel of ``kernels`` must launch and every loss be finite; then the
+    card-vs-CPU step (:func:`_card_vs_cpu`; with ``conv_order`` the CPU's
+    noise with its bf16 convs' summation order too). Returns the launch
     counts and steps/s, clips/s and peak memory."""
     from pb_sed_tpu_torch.train.optimizer import Adam
     from pb_sed_tpu_torch.train.trainer import Trainer
     model = make_model(augment=True).to('cuda')
     stft = model.module.feature_extractor.stft
-    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=k)
+    batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=k, strong=strong)
     step_log = _StepLog()
     trainer = Trainer(model, optimizer=Adam(**_DEEP_RECIPE['adam']),
                       stop_trigger=(TRAIN_STEPS, 'iteration'))
@@ -4904,7 +5043,7 @@ def _train_towers(make_model, k, kernels, label):
         f'{metrics["peak_gib"]:.2f} GiB')
     del trainer, model
     torch.cuda.empty_cache()
-    _card_vs_cpu(make_model, stft, k, conv_order=True)
+    _card_vs_cpu(make_model, stft, k, strong, conv_order, gru_order)
     return launches, metrics
 
 
@@ -5028,6 +5167,320 @@ def phase_towers(earlier):
     return launches, out
 
 
+# -- phase 15: GRU widths off the kernels' own and compute_dtype='float32' --
+# (D, B, T, H) of the GRU at widths above 512 (the wide kernel pair):
+# training and tagging, and sliding-window SED at window 51, shift 1; and
+# at H = 200 (run as 224 in the cluster kernels): the BiCRNN's training
+# shape. At SED's shapes the backward is checked on the first
+# WIDTH_CHECK_ROWS rows (the rows' recurrences are independent: the plain
+# backward of all 16 000 would hold ~70 GB) and timed on all of them.
+WIDTH_GRU_SHAPES = [(2, BATCH, FRAMES, 768), (2, BATCH, FRAMES, 1024),
+                    (2, BATCH * FRAMES, 51, 768),
+                    (2, BATCH * FRAMES, 51, 1024), (2, BATCH, FRAMES, 200)]
+WIDTH_CHECK_ROWS = 2048
+WIDE = ('gru_scan_wide', 'gru_scan_bwd_wide')
+PADDED_GRU = ('gru_scan_padded', 'gru_scan_bwd_padded')
+# at SED's shape the backward is not timed at H = 1024: the wrapper's f32
+# weight-gradient contraction over 1.6 M rows would take the card's memory
+# to ~83 GB beside the shape's operands
+WIDTH_BWD_UNTIMED = {(2, BATCH * FRAMES, 51, 1024)}
+F32 = ('conv2d_same_f32', 'conv2d_same_f32_bwd')
+# 15a's f32 towers; 15b's and 15c's hidden sizes
+F32_PATHS = ('cnn_2d', 'cnn_1d')
+WIDE_HIDDEN = 768
+PADDED_HIDDEN = 200
+
+
+def _f32_work(p, cin, cout, taps=9, backward=False):
+    """Bytes and f32 FFMA operations of the f32 SAME conv (forward, or
+    dx + dw) over ``p`` pixels: f32 activations, weights and bias."""
+    if backward:
+        nbytes = 4 * (2 * p * cin + taps * cin * cout + p * cout
+                      + taps * cin * cout)
+        flops = 4. * p * taps * cin * cout
+    else:
+        nbytes = 4 * (p * cin + taps * cin * cout + cout + p * cout)
+        flops = 2. * p * taps * cin * cout
+    return bound(nbytes, 0., flops)
+
+
+def check_width_kernels(records):
+    """Phase 15d, phases 2 and 2b for this phase's kernels (B = 32 ten-second
+    clips): the GRU pair at ``WIDTH_GRU_SHAPES`` (the wide design at 768 and
+    1024, the padded width 200) against its plain version at the real H
+    (the GRU ceiling, 5.3e-3 and 5.3e-3 of each gradient's largest entry),
+    with the design each pass runs, cuDNN's bf16 GRU as the library call
+    (forward at every shape, backward at B = 32) and the bound; and the f32
+    conv and its backward at the shallow tower's nine 3x3 shapes against
+    its plain version (PyTorch's own im2col and f32 GEMM, TF32 and cuDNN
+    off: 2e-5 of the largest entry forward and dx, 1e-4 for dw), each
+    timed beside cuDNN's f32 conv with TF32 off (the library call; its dw
+    also held against the plain version, printed) and its bound (f32 FFMA
+    at 67 TFLOP/s), into ``records`` under the label 'widths'."""
+    from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
+                                                   conv2d_same_f32_bwd,
+                                                   conv2d_same_f32_bwd_plain,
+                                                   conv2d_same_f32_plain)
+    from pb_sed_tpu_torch.ops.kernels.functions import full_f32
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(15)
+    library = []
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for d, b, t, h in WIDTH_GRU_SHAPES:
+        shape = (d, b, t, h)
+        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+        b_hh = randn(d, 3 * h, scale=.1)
+        h0 = torch.zeros(d, b, h, device=dev)
+        for key, v in gru_designs(d, b, t, h).items():
+            if v is None:
+                log(f'gru design {shape} {key}: none (the fused backward '
+                    f'stops at 512)')
+                continue
+            log(f'gru design {shape} {key}: {v["design"]} at H = '
+                f'{v["hidden"]}, {v["rows"]} rows a block, '
+                f'{v["smem"] / 1024:.0f} KiB shared memory')
+            want = 'wide' if h > 512 else 'cluster'
+            if key != 'bwd_fused' and v['design'] != want and b == BATCH:
+                raise AssertionError(f'GRU {key} at {shape} runs the '
+                                     f'{v["design"]} kernel, not {want}')
+        fwd = records['gru_scan_wide' if h > 512 else 'gru_scan_padded']
+        bwd = records['gru_scan_bwd_wide' if h > 512
+                      else 'gru_scan_bwd_padded']
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5)
+        g = randn(d, b, t, h, scale=1e-2)
+        lib = cudnn_gru(xw, w_hh, b_hh, h0, ref, g if b == BATCH else None)
+        lib.update(shape=shape, fwd_kernel_ms=k_ms)
+        _check('gru_scan', shape, y, ref, 5.3e-3, k_ms,
+               cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
+                       warmup=1), fwd, 'widths', lib['fwd'],
+               gru_work(d, b, t, h))
+        _log_gru_step('fwd', shape, k_ms, lambda: gru_scan(xw, w_hh, b_hh,
+                                                           h0))
+        log(f'cudnn gru {shape} forward: {lib["fwd"]:.3f} ms; gru_scan / '
+            f'cuDNN {k_ms / lib["fwd"]:.3f}')
+        del ref
+        torch.cuda.empty_cache()
+        args = (xw, w_hh, b_hh, h0, y, g)
+        if shape in WIDTH_BWD_UNTIMED:
+            k_ms = 0.
+            log(f'gru_scan_bwd {shape}: not timed (memory)')
+        else:
+            k_ms = cuda_ms(lambda: gru_scan_bwd(*args), reps=3)
+            _log_gru_step('bwd', shape, k_ms, lambda: gru_scan_bwd(*args))
+        rows = min(b, WIDTH_CHECK_ROWS)
+        part = (xw[:, :rows], w_hh, b_hh, h0[:, :rows], y[:, :rows],
+                g[:, :rows])
+        grads = gru_scan_bwd(*part)
+        refs = gru_scan_bwd_plain(*part)
+        torch.cuda.synchronize()
+        # the sums hold the shapes timed whole, kernel and plain: B = 32
+        whole = rows == b
+        p_ms = cuda_ms(lambda: gru_scan_bwd_plain(*part), reps=2,
+                       warmup=1) if whole else 0.
+        checked = (d, rows, t, h)
+        for i, name in enumerate(('dxw', 'dw_hh', 'db_hh', 'dh0')):
+            first = i == 0 and whole
+            _check(f'gru_scan_bwd {name}', checked, grads[i], refs[i],
+                   5.3e-3 * float(refs[i].float().abs().max()),
+                   k_ms if first else 0., p_ms if first else 0., bwd,
+                   'widths', lib.get('bwd') if first else None,
+                   gru_work(d, b, t, h, True) if first else None)
+        again = gru_scan_bwd(*part)
+        if not all(torch.equal(a, r) for a, r in zip(grads, again)):
+            raise AssertionError(f'gru_scan_bwd at {checked}: a second run '
+                                 f'differs')
+        if 'bwd' in lib:
+            lib['bwd_kernel_ms'] = k_ms
+        library.append({key: v for key, v in lib.items()
+                        if key != 'kernels'})
+        del xw, y, g, args, part, grads, refs, again
+        torch.cuda.empty_cache()
+    for layer, f, cin, cout in CONV_LAYERS:
+        x = randn(BATCH, FRAMES, f, cin)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
+        bias = randn(cout, scale=.1)
+        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3)
+        p = BATCH * FRAMES * f
+        shape = (layer, BATCH, FRAMES, f, cin, cout)
+        xn = _nchw(x)
+        wn = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        gyn = _nchw(gy)
+
+        def in_f32(call):
+            with full_f32():
+                return call()
+
+        got, ref = conv2d_same_f32(x, w, bias), conv2d_same_f32_plain(
+            x, w, bias)
+        torch.cuda.synchronize()
+        _check('conv2d_same_f32', shape, got, ref,
+               2e-5 * float(ref.abs().max()),
+               cuda_ms(lambda: conv2d_same_f32(x, w, bias), reps=5),
+               cuda_ms(lambda: conv2d_same_f32_plain(x, w, bias), reps=5),
+               records['conv2d_same_f32'], 'widths',
+               cuda_ms(lambda: in_f32(lambda: F.conv2d(xn, wn, bias,
+                                                       padding=1)), reps=5),
+               _f32_work(p, cin, cout))
+        del got, ref
+        dx, dw = conv2d_same_f32_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
+        torch.cuda.synchronize()
+        _check('conv2d_same_f32_bwd dx', shape, dx, ref_dx,
+               2e-5 * float(ref_dx.abs().max()),
+               cuda_ms(lambda: conv2d_same_f32_bwd(x, w, gy), reps=5),
+               cuda_ms(lambda: conv2d_same_f32_bwd_plain(x, w, gy), reps=5),
+               records['conv2d_same_f32_bwd'], 'widths',
+               cuda_ms(lambda: in_f32(
+                   lambda: torch.ops.aten.convolution_backward(
+                       gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False,
+                       [0, 0], 1, [True, True, False])), reps=5),
+               _f32_work(p, cin, cout, backward=True))
+        _check('conv2d_same_f32_bwd dw', shape, dw, ref_dw,
+               1e-4 * float(ref_dw.abs().max()), 0., 0.,
+               records['conv2d_same_f32_bwd'], 'widths')
+        lib_dw = in_f32(lambda: torch.ops.aten.convolution_backward(
+            gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False]))[1].permute(2, 3, 1, 0)
+        log(f'  cuDNN f32 dw (TF32 off) at {layer} against the plain '
+            f'version (cuDNN off): max|d| '
+            f'{float((lib_dw - ref_dw).abs().max()):.3e}, the kernel '
+            f'{float((dw - ref_dw).abs().max()):.3e}')
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape}: a '
+                                 f'second run differs')
+        del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
+        torch.cuda.empty_cache()
+    log('gru library (phase 15): ' + json.dumps(library))
+    _padded_width_choice(randn)
+
+
+def _padded_width_choice(randn):
+    """Why H = 200 runs as 256 at the training shape: the forward at
+    (2, 32, 500) of the row-tiled kernel at 224 (the next multiple of 32)
+    against the cluster design at 256 (``scripts/perf/gru_designs.py``'s
+    ``scan_as``, which runs the design it is told), both on H = 200's
+    operands padded exactly, each within the GRU ceiling of the plain
+    version at 200."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / 'scripts/perf/gru_designs.py'
+    spec = importlib.util.spec_from_file_location('gru_designs', path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    from pb_sed_tpu_torch.ops.kernels.gru import pad_hidden, unpad_hidden
+    d, b, t, h = 2, BATCH, FRAMES, PADDED_HIDDEN
+    xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+    w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+    b_hh = randn(d, 3 * h, scale=.1)
+    h0 = torch.zeros(d, b, h, device=xw.device)
+    ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+    times = {}
+    for design, hp in (('row_tiled', 224), ('cluster', 256)):
+        args = pad_hidden(xw, w_hh.to(torch.bfloat16), b_hh, h0, hp=hp)
+        y = unpad_hidden(h, y=probe.scan_as(design, *args))[0]
+        err = float((y - ref).abs().max())
+        if not err <= 5.3e-3:
+            raise AssertionError(f'H = 200 as {hp} ({design}) differs from '
+                                 f'the plain version by {err}')
+        times[f'{design}_{hp}_ms'] = cuda_ms(
+            lambda: probe.scan_as(design, *args), reps=5)
+    log(f'H = 200 at (2, 32, 500): ' + json.dumps(times) + '; the wrapper '
+        f'runs {gru_designs(d, b, t, h)["fwd"]["hidden"]}')
+
+
+def _width_config(name, augment=True):
+    """Phase 15's configurations at full width: '15a' the shallow FBCRNN
+    with ``compute_dtype='float32'`` in both towers and both heads' output
+    nets; '15b' the shallow FBCRNN with both heads at ``hidden_size`` 768
+    (the paired D = 2 recurrence on the wide kernel pair); '15c' the
+    tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 224)."""
+    if name == '15c':
+        config = _strong_config(augment=augment)
+        config['rnn']['rnn']['hidden_size'] = PADDED_HIDDEN
+        return config
+    config = _config('shallow', 10, augment=augment)
+    if name == '15a':
+        for tower in F32_PATHS:
+            config['cnn'][tower]['compute_dtype'] = 'float32'
+        config['rnn_fwd']['output_net']['compute_dtype'] = 'float32'
+    else:
+        config['rnn_fwd']['rnn']['hidden_size'] = WIDE_HIDDEN
+    return config
+
+
+def phase_widths(earlier):
+    """Phase 15. 15a: the f32 shallow FBCRNN serves 3 x 32 clips by
+    tagging and SED 51/1 (against the CPU) and trains 8 steps; 15b: the
+    shallow FBCRNN with both heads at H = 768 does the same on the wide
+    GRU pair; 15c: the tag-conditioned BiCRNN at H = 200 tags 3 x 32
+    clips and trains 8 steps. Each training run passes the card-vs-CPU
+    step; each path's launch counters are read. Returns (launches by
+    path, the measurements), printed beside ``earlier`` (phases 3-4)."""
+    from pb_sed_tpu_torch.models import base
+    launches, out = {}, {}
+    cases = [('15a', F32 + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
+                            'gru_scan_bwd'), 10, False),
+             ('15b', SHALLOW + WIDE, 10, False),
+             ('15c', SHALLOW + PADDED_GRU, 10, True)]
+    for name, kernels, k, strong in cases:
+        config = _width_config(name)
+        flat = _random_flat(config, strong=strong)
+        model = _model(config, flat, 'cuda', strong=strong)
+        module = model.module
+        if name == '15a':
+            dtypes = {module.cnn.cnn_2d.conv_1.dtype,
+                      module.cnn.cnn_1d.conv_1.dtype,
+                      module.rnn_fwd.output_net.conv_0.dtype,
+                      module.rnn_bwd.output_net.conv_0.dtype}
+            if dtypes != {torch.float32}:
+                raise AssertionError(f'15a: layers in {dtypes}')
+        head = module.rnn.rnn if strong else module.rnn_fwd.rnn
+        log(f'{name}: {model.num_parameters()} parameters, GRU hidden size '
+            f'{head.hidden_size}, designs at (2, 32, 500): '
+            + json.dumps({key: None if v is None else v['design']
+                          for key, v in gru_designs(
+                              2, BATCH, FRAMES, head.hidden_size).items()}))
+        batches = _synthetic_batches(module.feature_extractor.stft)
+        if strong:
+            batches = _tagged(batches, seed=9)
+            methods = [('tagging', base.tagging, {})]
+        else:
+            methods = [_methods(base)[i] for i in (0, 2)]
+        forward = tuple(kernel for kernel in kernels if 'bwd' not in kernel)
+        stats = out.setdefault(f'{name}_serving', {})
+        results, launches[f'widths_{name}_serving'] = _serve(
+            model, methods, batches, k, name, forward, low=0. if strong
+            else 1e-5, stats=stats)
+        _agree_with_cpu(_model(config, flat, strong=strong), methods,
+                        results, batches[1])
+        del model, module, head
+        torch.cuda.empty_cache()
+        launches[f'widths_{name}_training'], out[f'{name}_training'] = \
+            _train_towers(
+                lambda augment, n=name, s=strong: _model(
+                    _width_config(n, augment), flat, strong=s),
+                k, kernels, name, strong=strong, gru_order=True)
+    log('phase 15 beside phases 3-4 (host clock, B = 32): tagging clips/s '
+        + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
+                    for key in out if key.endswith('_serving'))
+        + f' vs shallow (phase 3) '
+        f'{earlier["serving"]["tagging_clips_per_s"]:.1f}; training steps/s '
+        + ', '.join(f'{key} {out[key]["steps_per_s"]:.3f}' for key in out
+                    if key.endswith('_training'))
+        + f' vs shallow (phase 4) {earlier["shallow"]["steps_per_s"]:.3f}; '
+        'peak GiB ' + ', '.join(f'{key} {value["peak_gib"]:.2f}'
+                                for key, value in out.items())
+        + f' vs shallow serving {earlier["serving"]["peak_gib"]:.2f}, '
+        f'training {earlier["shallow"]["peak_gib"]:.2f}')
+    return launches, out
+
+
 def _descendants():
     """{pid: command line} of every live process below this one, from
     ``/proc``."""
@@ -5121,6 +5574,9 @@ def run():
     build.reset_launches()
     check_tower_kernels(records)
     tower_kernel_phase = dict(build.LAUNCHES)
+    build.reset_launches()
+    check_width_kernels(records)
+    width_kernel_phase = dict(build.LAUNCHES)
     serving = {}
     launches = {'shallow_serving': phase_slice(serving)}
     launches['shallow_training'], in_memory = phase_training('shallow')
@@ -5165,8 +5621,13 @@ def run():
         {'serving': serving, 'shallow': in_memory, 'deep': unfused})
     launches.update(tower_launches)
     log('towers phase (JSON): ' + json.dumps(towers))
+    width_launches, widths = phase_widths(
+        {'serving': serving, 'shallow': in_memory})
+    launches.update(width_launches)
+    log('widths phase (JSON): ' + json.dumps(widths))
     launches['kernel_phase'] = kernel_phase
     launches['tower_kernel_phase'] = tower_kernel_phase
+    launches['width_kernel_phase'] = width_kernel_phase
     kernels = []
     for name in KERNELS:
         rec = records[name]
@@ -5180,16 +5641,18 @@ def run():
                                  for path, counts in launches.items()},
             'max_abs_err': rec['max_abs_err'],
             'ms': _total(rec['shallow_ms'], rec['deep_ms'],
-                         rec['towers_ms']),
+                         rec['towers_ms'], rec['widths_ms']),
             'plain_ms': _total(rec['shallow_plain_ms'],
                                rec['deep_plain_ms'],
-                               rec['towers_plain_ms']),
+                               rec['towers_plain_ms'],
+                               rec['widths_plain_ms']),
             'bound_ms': rec['bound_ms'], 'bound_by': side,
             'library_ms': rec['library_ms'],
             **{key: rec[key] for key in (
                 'shallow_ms', 'shallow_plain_ms', 'shallow_library_ms',
                 'deep_ms', 'deep_plain_ms', 'deep_library_ms', 'towers_ms',
-                'towers_plain_ms', 'towers_library_ms')},
+                'towers_plain_ms', 'towers_library_ms', 'widths_ms',
+                'widths_plain_ms', 'widths_library_ms')},
             **{key: v for key, v in rec.items()
                if key.startswith('member_')}})
     return card, kernels

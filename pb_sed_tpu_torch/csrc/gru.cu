@@ -51,6 +51,9 @@
 //    (L2-resident after the first step), one K slice ahead of the products
 //    that use them; the step's xw rows arrive by cp.async meanwhile. Two
 //    barriers per step. blockDim = H, so H must be a multiple of 32.
+// 3. H above 512 (to 2048): the wide design of gru_wide.cuh, one block of
+//    16 warps per (direction, tile of 16 rows) whatever H, each warp
+//    looping over chunks of 16 units.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -58,6 +61,7 @@
 #include <stdint.h>
 
 #include "gru_cluster.cuh"
+#include "gru_wide.cuh"
 
 using namespace nvcuda;
 
@@ -411,30 +415,37 @@ cudaError_t gru_scan_design(const void* xw, const void* w_hh,
 
 // xw (D, B, T, 3H) bf16, w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32,
 // h0 (D, B, H) f32, y (D, B, T, H) f32; contiguous, xw 16-byte aligned.
-// Requires H % 32 == 0 and H <= 512. The cluster design where
-// gru_cluster_takes says so; else the row-tiled kernel (blockDim = H), in
-// tiles of 32 rows up to H = 256, of 16 rows above (shared memory).
+// Requires H % 32 == 0 and H <= 2048 (the wrapper pads any other H with
+// zero units). Above H = 512 the wide design; else the cluster design
+// where gru_cluster_takes says so, else the row-tiled kernel (blockDim =
+// H), in tiles of 32 rows up to H = 256, of 16 rows above (shared memory).
 // Returns a cudaError_t (cudaErrorLaunchOutOfResources where the card
 // holds no cluster of the design at all).
 extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
                               const void* b_hh, const void* h0, void* y, int D,
                               int B, int T, int H, void* stream) {
-  if (H % 32 != 0 || H < 32 || H > 512 || D < 1 || D > 65535)
+  if (H % 32 != 0 || H < 32 || H > kWideMaxH || D < 1 || D > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0) return 0;
+  if (gru_wide_takes(H))
+    return static_cast<int>(gru_wide_fwd(xw, w_hh, b_hh, h0, y, D, B, T, H,
+                                         static_cast<cudaStream_t>(stream)));
   return static_cast<int>(gru_scan_design(
       xw, w_hh, b_hh, h0, y, D, B, T, H,
       gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd),
       static_cast<cudaStream_t>(stream)));
 }
 
-// Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
-// cluster design, 0 for the row-tiled kernel, minus a cudaError_t when the
-// query fails. *cluster: blocks a cluster (1 row-tiled); *rows: batch rows
-// a cluster or block; *smem: dynamic shared memory a block, bytes;
-// *coresident: clusters the card holds at once (0 row-tiled).
+// Which design pbsed_gru_scan runs at (D, B, T, H): returns 2 for the wide
+// design, 1 for the cluster design, 0 for the row-tiled kernel, minus a
+// cudaError_t when the query fails. *cluster: blocks a cluster (1
+// row-tiled and wide); *rows: batch rows a cluster or block; *smem:
+// dynamic shared memory a block, bytes; *coresident: clusters the card
+// holds at once (0 row-tiled and wide).
 extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
                                 int* rows, int* smem, int* coresident) {
+  if (gru_wide_takes(H))
+    return gru_wide_design(H, false, cluster, rows, smem, coresident);
   if (!gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd)) {
     *cluster = 1;
     *rows = H <= 256 ? 32 : 16;

@@ -77,7 +77,8 @@ cudaError_t reduce_parts(const float* part, float* out, int D, int blocks,
 // D * ceil(B / rows): dw_part (parts, H, 3H) f32, db_part (parts, 3H) f32,
 // scratch (parts, 16 * rows, 4H) bf16; none needs zeroing. Contiguous,
 // h_prev 16-byte aligned, dw_part and scratch 32-byte aligned. Requires
-// H % 32 == 0 and H <= 512. Returns a cudaError_t.
+// H % 32 == 0 and H <= 512 (the wrapper pads any other H up to 512 with
+// zero units). Returns a cudaError_t.
 extern "C" int pbsed_gru_scan_bwd_fused(
     const void* xw, const void* h_prev, const void* w_hh, const void* b_hh,
     const void* g, void* dxw, void* dw_hh, void* db_hh, void* dh0,
@@ -116,5 +117,7 @@ extern "C" int pbsed_gru_scan_bwd_fused(
 extern "C" int pbsed_gru_bwd_fused_design(int D, int B, int T, int H,
                                           int* cluster, int* rows, int* smem,
                                           int* coresident) {
+  if (H % 32 != 0 || H < 32 || H > 512)  // the fused sweep stops at 512
+    return -static_cast<int>(cudaErrorInvalidValue);
   return bwd_design<true>(D, B, T, H, cluster, rows, smem, coresident);
 }

@@ -24,9 +24,8 @@ before the pool. In the 1-D tower the adds stay in f32. The
 ``nn.Module.training`` flag selects batch statistics over the valid
 frames (``seq_len``) and the running-stat update.
 
-Every tower the JAX package takes is taken, but ``compute_dtype``
-other than ``'bfloat16'``: any kernel extent (even ones with XLA's SAME
-pads) and any channel count (``Conv2dSame`` pads what its kernel does
+Every tower the JAX package takes is taken: any kernel extent (even
+ones with XLA's SAME pads) and any channel count (``Conv2dSame`` pads what its kernel does
 not take, ``ops/kernels/conv.py:_kernel_weights``); any max pool,
 ``(freq, time)`` or a scalar, VALID (floor in both axes): (2, 1) on an
 even F on the stream kernel (``MaxPoolFreq2``), every other window on
@@ -39,6 +38,17 @@ window ``(T_res // T, F_res // F)`` (``AvgPool2d``) with the channel pad.
 ``norm='batch'`` builds ``norm_{i}``; any other value builds no norm and
 no variables, as in JAX. ``activation_fn`` is any name of
 ``flax.linen`` that keeps the shape (:func:`_act`).
+
+``compute_dtype='float32'`` (or None, as in JAX) follows the JAX
+package's unpacked XLA path in f32 (``pb_sed_tpu/ops/cnn.py:113-119,
+517-530, 713-715``): every conv with f32 operands, f32 sums and an f32
+bias (the f32 conv kernel ``Conv2dSameF32``; the 1x1 convs and the 1-D
+tower as f32 matmuls with TF32 off, ``F32Linear``), norms, activations,
+residual adds and pools on f32 values with no bf16 rounding between
+layers, every max pool on ``MaxPool2d``, a residual matched by one
+average window (``AvgPool2d``), and no layer fused. The JAX package's
+packed Pallas layers would run in bf16 on a TPU whatever the setting: a
+TPU lowering the port does not copy (``ROADMAP.md`` §3).
 
 Layers get their input channel counts from ``in_channels`` or, when a
 config leaves it unset, from their parent (``CNN`` / the CRNN glue), which
@@ -53,8 +63,9 @@ from torch import nn
 from pb_sed_tpu_torch.ops.dropout import dropout
 from pb_sed_tpu_torch.ops.kernels.conv import (AvgPool2d, AvgPoolFreq2,
                                                BnReluConv2dSame, Conv2dSame,
-                                               MaxPool2d, MaxPoolFreq2)
-from pb_sed_tpu_torch.ops.linear import Bf16Linear
+                                               Conv2dSameF32, MaxPool2d,
+                                               MaxPoolFreq2)
+from pb_sed_tpu_torch.ops.linear import Bf16Linear, F32Linear
 from pb_sed_tpu_torch.ops.masking import sequence_mask
 from pb_sed_tpu_torch.parallel.mesh import global_sum
 from pb_sed_tpu_torch.utils.config import Configurable
@@ -197,11 +208,18 @@ def _act(name):
     return _ACTIVATIONS[name]
 
 
-def _check_common(compute_dtype):
-    if compute_dtype != 'bfloat16':
-        raise NotImplementedError(
-            f'compute_dtype {compute_dtype!r}: the port computes convs in '
-            f'bfloat16 only')
+def _compute_dtype(compute_dtype):
+    """The torch dtype of a tower's ``compute_dtype``: 'bfloat16', or
+    'float32' (and None, which the JAX package reads as float32,
+    ``pb_sed_tpu/ops/cnn.py:_dtype``); any other value raises, naming
+    it."""
+    if compute_dtype == 'bfloat16':
+        return torch.bfloat16
+    if compute_dtype in (None, 'float32'):
+        return torch.float32
+    raise NotImplementedError(
+        f'compute_dtype {compute_dtype!r}: the port computes convs in '
+        f'bfloat16 or float32')
 
 
 def _match_residual(res, shape, pairs=True):
@@ -265,49 +283,62 @@ def _pool_fp_tp(pool):
 
 
 class Conv2d(nn.Module):
-    """SAME conv (XLA's pads) on (B, T, F, Cin) bf16 -> bf16: the conv
-    kernel, or for a 1x1 kernel one bf16 matmul with the same
+    """SAME conv (XLA's pads) on (B, T, F, Cin) in ``dtype``. bf16 -> bf16:
+    the conv kernel, or for a 1x1 kernel one bf16 matmul with the same
     rounding (``ops/linear.py:Bf16Linear``; forward and backward 3x
     faster than the conv kernel at the deep recipe's L17 on an NVIDIA
-    H100 80GB HBM3 at 700 W, ``PERF.md``)."""
+    H100 80GB HBM3 at 700 W, ``PERF.md``). f32 -> f32 (``compute_dtype=
+    'float32'``): the f32 conv kernel (``Conv2dSameF32``), or for a 1x1
+    kernel one f32 matmul with TF32 off (``F32Linear``)."""
 
-    def __init__(self, in_channels, out_channels, kernel_size):
+    def __init__(self, in_channels, out_channels, kernel_size,
+                 dtype=torch.bfloat16):
         super().__init__()
         kt, kf = kernel_size
+        self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.zeros(kt, kf, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
+        f32 = self.dtype == torch.float32
         if self.kernel.shape[:2] == (1, 1):
-            y = Bf16Linear.apply(x.reshape(-1, x.shape[-1]),
-                                 self.kernel[0, 0], self.bias)
+            y = (F32Linear if f32 else Bf16Linear).apply(
+                x.reshape(-1, x.shape[-1]), self.kernel[0, 0], self.bias)
             return y.reshape(*x.shape[:-1], y.shape[-1])
-        return Conv2dSame.apply(x, self.kernel, self.bias)
+        return (Conv2dSameF32 if f32 else Conv2dSame).apply(
+            x, self.kernel, self.bias)
 
 
 class Conv1d(nn.Module):
-    """SAME conv over time on (B, T, Cin): bf16 operands with f32
-    accumulation rounded to bf16, bias added in bf16 (the arithmetic of
-    the JAX package's ``nn.Conv(dtype=bfloat16)``), returned as f32. Runs
-    as one matmul over the k time-shifted copies of the input."""
+    """SAME conv over time on (B, T, Cin), returned as f32. In bf16: bf16
+    operands with f32 accumulation rounded to bf16, bias added in bf16
+    (the arithmetic of the JAX package's ``nn.Conv(dtype=bfloat16)``). In
+    f32 (``compute_dtype='float32'``, ``nn.Conv(dtype=float32)``): f32
+    operands, TF32 off, f32 bias (``F32Linear``). Runs as one matmul over
+    the k time-shifted copies of the input."""
 
-    def __init__(self, in_channels, out_channels, kernel_size):
+    def __init__(self, in_channels, out_channels, kernel_size,
+                 dtype=torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.zeros(kernel_size, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x):
         k, cin, cout = self.kernel.shape
-        x = x.to(torch.bfloat16)
+        x = x.to(self.dtype)
         if k > 1:
             t = x.shape[1]
             front = (k - 1) // 2
             xp = nn.functional.pad(x, (0, 0, front, k - 1 - front))
             x = torch.cat([xp[:, i:i + t] for i in range(k)], dim=-1)
-        y = torch.matmul(x, self.kernel.reshape(k * cin, cout).to(
-            torch.bfloat16))
+        w = self.kernel.reshape(k * cin, cout)
+        if self.dtype == torch.float32:
+            y = F32Linear.apply(x.reshape(-1, k * cin), w, self.bias)
+            return y.reshape(*x.shape[:-1], cout)
+        y = torch.matmul(x, w.to(torch.bfloat16))
         return (y + self.bias.to(torch.bfloat16)).float()
 
 
@@ -371,7 +402,7 @@ class CNN2d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(compute_dtype)
+        self.dtype = _compute_dtype(compute_dtype)
         self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
         self.kernels = [(int(k), int(k)) if not isinstance(k, (tuple, list))
@@ -388,9 +419,11 @@ class CNN2d(_Tower):
         self.dropout = dropout
         self.output_layer = output_layer
         # with dropout the JAX tower refuses its packed plan, so nothing
-        # fuses (and the mask sits between the ReLU and the conv)
+        # fuses (and the mask sits between the ReLU and the conv); an f32
+        # tower runs the JAX package's unpacked path, which fuses nothing
         self.fuse_bn = (fuse_bn and pre_activation and norm == 'batch'
-                        and activation_fn == 'relu' and dropout == 0)
+                        and activation_fn == 'relu' and dropout == 0
+                        and self.dtype == torch.bfloat16)
         self.fused = frozenset()
         self.built_channels = None
         if in_channels is not None:
@@ -401,7 +434,7 @@ class CNN2d(_Tower):
         (default ``input_height``), the freq bins, decides the fused
         layers' even-F term (:meth:`fused_layers`)."""
         self._build_layers(in_channels, lambda cin, cout, i: Conv2d(
-            cin, cout, self.kernels[i]))
+            cin, cout, self.kernels[i], self.dtype))
         if height is not None:
             self.input_height = height
         self.fused = self.fused_layers(in_channels, self.input_height)
@@ -441,9 +474,11 @@ class CNN2d(_Tower):
         return height
 
     def forward(self, x, seq_len):
-        """(B, T, F, C) -> ((B, T', F', C') bf16, seq_len')."""
+        """(B, T, F, C) -> ((B, T', F', C') in the compute dtype,
+        seq_len')."""
         n = len(self.out_channels)
         fused = self.fused_layers(self.built_channels, x.shape[2])
+        bf16 = self.dtype == torch.bfloat16
         pending = {}
         h = x
         for i in range(n):
@@ -458,16 +493,19 @@ class CNN2d(_Tower):
             else:
                 if self.pre_activation and not is_output:
                     h = self._norm_act(i, h, seq_len)
-                h = conv(h.to(torch.bfloat16))
+                h = conv(h.to(self.dtype))
             if not self.pre_activation and not is_output:
-                h = self._norm_act(i, h, seq_len).to(torch.bfloat16)
-            h = _add_pending(pending, i, h).to(torch.bfloat16)
+                h = self._norm_act(i, h, seq_len).to(self.dtype)
+            h = _add_pending(pending, i, h).to(self.dtype)
             if self.residuals[i] is not None:
+                # an f32 tower matches residuals as the JAX package's
+                # unpacked path: one average window
                 pending.setdefault(int(self.residuals[i]), []).append(
-                    [h, True])
+                    [h, bf16])
             pf, pt = self.pools[i]
             if (pf, pt) != (1, 1):
-                stream = (pf, pt) == (2, 1) and h.shape[2] % 2 == 0
+                stream = (bf16 and (pf, pt) == (2, 1)
+                          and h.shape[2] % 2 == 0)
                 _cross_pool(pending, stream)
                 h = (MaxPoolFreq2.apply(h) if stream
                      else MaxPool2d.apply(h, pt, pf))
@@ -490,7 +528,7 @@ class CNN1d(_Tower):
         super().__init__()
         self.train(False)  # the JAX default: training=False
         n = len(out_channels)
-        _check_common(compute_dtype)
+        self.dtype = _compute_dtype(compute_dtype)
         self.residuals = to_list(residual_connections or None, n)
         self.out_channels = list(out_channels)
         self.kernels = to_list(
@@ -509,7 +547,7 @@ class CNN1d(_Tower):
 
     def build(self, in_channels):
         self._build_layers(in_channels, lambda cin, cout, i: Conv1d(
-            cin, cout, int(self.kernels[i])))
+            cin, cout, int(self.kernels[i]), self.dtype))
 
     def forward(self, x, seq_len):
         """(B, T, C) -> ((B, T, C') f32, seq_len)."""

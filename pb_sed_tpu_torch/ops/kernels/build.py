@@ -29,15 +29,20 @@ NVCC_FLAGS = (
 
 # launches per kernel wrapper since the last reset_launches(); the
 # ``*_padded`` entries count the conv pair's launches at shapes its
-# kernels take only padded (Cout off a multiple of 16, an even extent),
-# which count under the pair's own names too
+# kernels take only padded (Cout off a multiple of 16, an even extent) and
+# the GRU pair's at an H off a multiple of 32, the ``gru_*_wide`` ones the
+# GRU pair's launches of the wide design (H > 512); all of these count
+# under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
             'avgpool_freq2': 0, 'avgpool_freq2_bwd': 0,
             'bnrelu_conv2d_same': 0, 'bnrelu_conv2d_same_bwd': 0,
             'gru_scan_bwd_fused': 0, 'maxpool2d': 0, 'maxpool2d_bwd': 0,
             'avgpool2d': 0, 'avgpool2d_bwd': 0, 'conv2d_same_padded': 0,
-            'conv2d_same_bwd_padded': 0}
+            'conv2d_same_bwd_padded': 0, 'conv2d_same_f32': 0,
+            'conv2d_same_f32_bwd': 0, 'gru_scan_wide': 0,
+            'gru_scan_bwd_wide': 0, 'gru_scan_padded': 0,
+            'gru_scan_bwd_padded': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,8 +55,8 @@ _SIGNATURES = {
     'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),
-    'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P),
+    'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P),
     'pbsed_avgpool_freq2': (_P, _I, _P, ctypes.c_longlong, _I, _I, _P),
     'pbsed_avgpool_freq2_bwd': (_P, _P, _I, ctypes.c_longlong, _I, _I, _P),
     'pbsed_bnrelu_conv2d_same': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -64,11 +69,14 @@ _SIGNATURES = {
     'pbsed_maxpool2d_bwd': (_P, _P, _P) + (_I,) * 7 + (_P,),
     'pbsed_avgpool2d': (_P, _I, _P) + (_I,) * 7 + (_P,),
     'pbsed_avgpool2d_bwd': (_P, _P, _I) + (_I,) * 7 + (_P,),
+    'pbsed_conv2d_same_f32': (_P,) * 4 + (_I,) * 8 + (_P,),
+    'pbsed_conv2d_same_f32_bwd': (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 # shape queries (no stream, no launch): which conv kernel a shape runs,
 # with its ring depth and shared memory written to the two int pointers,
-# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu);
+# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu, the
+# f32 conv's csrc/conv2d_f32.cu);
 # which GRU kernel a shape runs, forward, split and fused backward, with
 # its cluster size, rows, shared memory and co-resident clusters written
 # to the four int pointers (csrc/gru.cu, gru_bwd.cu, gru_bwd_fused.cu)
@@ -77,10 +85,13 @@ _QUERIES = {
     'pbsed_conv2d_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
+    'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 4,
     'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 4,
     'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 4,
 }
+# the GRU backward's workspace in bytes at (D, B, H) (csrc/gru_bwd.cu)
+_SIZES = {'pbsed_gru_bwd_workspace': (_I,) * 3}
 
 _lib = None
 
@@ -171,6 +182,10 @@ def lib():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _SIZES.items():
+            fn = getattr(loaded, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         loaded.pbsed_error_string.argtypes = (ctypes.c_int,)
         loaded.pbsed_error_string.restype = ctypes.c_char_p
         _lib = loaded

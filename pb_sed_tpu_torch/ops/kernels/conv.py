@@ -6,7 +6,9 @@ and the average pool of any window, forward and backward, each as a
 hand-written CUDA kernel with its plain PyTorch version beside it, and the
 autograd Functions that tie each forward to its backward (``Conv2dSame``,
 ``BnReluConv2dSame``, ``MaxPoolFreq2``, ``MaxPool2d``, ``AvgPoolFreq2``,
-``AvgPool2d``).
+``AvgPool2d``); and the same conv in float32 for a
+``compute_dtype='float32'`` tower (``Conv2dSameF32``: f32 FFMA, any
+extent and width, ``csrc/conv2d_f32.cu``).
 
 The conv kernels take odd extents and Cout a multiple of 16 (the wgmma
 ring's TMA loads need 16-byte rows). The wrappers give them every other
@@ -43,12 +45,13 @@ import torch.nn.functional as F
 
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
-                                                    members_first)
+                                                    full_f32, members_first)
 
 
-def _check_conv(x, w, b):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f'conv2d_same takes a bfloat16 input, got {x.dtype}')
+def _check_conv(x, w, b, dtype=torch.bfloat16, name='conv2d_same'):
+    if x.dtype != dtype:
+        raise TypeError(f'{name} takes a {str(dtype)[6:]} input, got '
+                        f'{x.dtype}')
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f'expected x (B, T, F, Cin) and w (kt, kf, Cin, '
                          f'Cout), got {tuple(x.shape)} and {tuple(w.shape)}')
@@ -344,6 +347,172 @@ class Conv2dSame(torch.autograd.Function):
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         dx, dw = conv2d_same_bwd(x, w, gy)
+        db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
+        return dx, dw.to(w.dtype), db
+
+
+# -- the f32 conv (compute_dtype='float32') ----------------------------------
+
+def conv2d_same_f32_plain(x, w, b):
+    """Plain version of :func:`conv2d_same_f32`: ``F.conv2d`` of the f32
+    operands with XLA's SAME pads, TF32 and cuDNN off (:func:`full_f32`:
+    f32 products and sums), plus the f32 bias: the JAX package's
+    ``lax.conv_general_dilated`` on f32 operands, then ``+ bias``
+    (``pb_sed_tpu/ops/cnn.py:113-119``)."""
+    with full_f32(cudnn=False):
+        y = _conv_same(x.float().permute(0, 3, 1, 2),
+                       w.float().permute(3, 2, 0, 1))
+    if b is not None:
+        y = y + b.float()[None, :, None, None]
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _launch_conv_f32(x, w, b):
+    """``pbsed_conv2d_same_f32`` on CUDA tensors with a leading member
+    axis: x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
+    None; one launch for all M."""
+    build.require_cuda(x, w)
+    members, bsz, t, f, cin = x.shape
+    kt, kf, _, cout = w.shape[1:]
+    x = x.contiguous()
+    w = w.float().contiguous()
+    b = None if b is None else b.float().contiguous()
+    y = torch.empty((members, bsz, t, f, cout), dtype=torch.float32,
+                    device=x.device)
+    build.launch('conv2d_same_f32', 'pbsed_conv2d_same_f32', x.device,
+                 x.data_ptr(), w.data_ptr(),
+                 None if b is None else b.data_ptr(), y.data_ptr(),
+                 members, bsz, t, f, cin, cout, kt, kf)
+    return y
+
+
+def conv2d_same_f32(x, w, b):
+    """Stride-1 SAME conv (XLA's pads) in float32: ``(B, T, F, Cin)`` f32
+    -> ``(B, T, F, Cout)`` f32, f32 products and sums and an f32 bias, any
+    kernel extent and channel counts (``csrc/conv2d_f32.cu``; the FFMA
+    implicit GEMM, no TF32).
+
+    Args:
+        x: (B, T, F, Cin) float32 activations.
+        w: (kt, kf, Cin, Cout) weights (f32).
+        b: (Cout,) bias (f32) or None.
+    """
+    _check_conv(x, w, b, torch.float32, 'conv2d_same_f32')
+    if x.device.type == 'cpu':
+        return conv2d_same_f32_plain(x, w, b)
+    return _launch_conv_f32(x[None], w[None],
+                            None if b is None else b[None])[0]
+
+
+def conv2d_same_f32_members_plain(x, w, b):
+    """Plain version of :func:`conv2d_same_f32_members`: each member's
+    :func:`conv2d_same_f32_plain`."""
+    return torch.stack([conv2d_same_f32_plain(x[m], w[m],
+                                              None if b is None else b[m])
+                        for m in range(x.shape[0])])
+
+
+def conv2d_same_f32_members(x, w, b):
+    """:func:`conv2d_same_f32` of M stacked members in one launch (the
+    grid's z axis): x (M, B, T, F, Cin) f32, w (M, kt, kf, Cin, Cout), b
+    (M, Cout) or None; member m's output is ``conv2d_same_f32(x[m], w[m],
+    b[m])``, bit for bit on the card."""
+    if x.dim() != 5 or w.dim() != 5:
+        raise ValueError(f'expected x (M, B, T, F, Cin) and w (M, kt, kf, '
+                         f'Cin, Cout), got {tuple(x.shape)} and '
+                         f'{tuple(w.shape)}')
+    for name, a in (('w', w), ('b', b)):
+        if a is not None and a.shape[0] != x.shape[0]:
+            raise ValueError(f'{name} has {a.shape[0]} members, x '
+                             f'{x.shape[0]}')
+    _check_conv(x[0], w[0], None if b is None else b[0], torch.float32,
+                'conv2d_same_f32')
+    if x.device.type == 'cpu':
+        return conv2d_same_f32_members_plain(x, w, b)
+    return _launch_conv_f32(x, w, b)
+
+
+def conv2d_same_f32_bwd_plain(x, w, gy):
+    """Plain backward of :func:`conv2d_same_f32`, TF32 and cuDNN off: dx
+    the SAME conv of the cotangent with the flipped, channel-transposed
+    weights (the pads mirrored), dw the correlation of x with the
+    cotangent; both f32."""
+    kt, kf, cin, cout = w.shape
+    gf = gy.float().permute(0, 3, 1, 2)
+    xf = x.float().permute(0, 3, 1, 2)
+    with full_f32(cudnn=False):
+        dx = _conv_same(gf, w.float().flip(0, 1).permute(2, 3, 0, 1),
+                        flip=True)
+        if kt % 2 and kf % 2:
+            dw = torch.nn.grad.conv2d_weight(
+                xf, (cout, cin, kt, kf), gf,
+                padding=((kt - 1) // 2, (kf - 1) // 2))
+        else:
+            dw = torch.nn.grad.conv2d_weight(
+                F.pad(xf, _same_pads(kt, kf)), (cout, cin, kt, kf), gf)
+    return (dx.permute(0, 2, 3, 1).contiguous(),
+            dw.permute(2, 3, 1, 0).contiguous())
+
+
+def conv2d_same_f32_bwd(x, w, gy):
+    """Backward of :func:`conv2d_same_f32` w.r.t. x and w: dx (B, T, F,
+    Cin) and dw (kt, kf, Cin, Cout), both float32. dx runs the forward
+    kernel on the cotangent; dw's pixel-chunk partials are added in chunk
+    order, so reruns agree in every bit. The bias gradient is the sum of
+    gy, left to the caller."""
+    _check_conv(x, w, None, torch.float32, 'conv2d_same_f32_bwd')
+    want = tuple(x.shape[:3]) + (w.shape[-1],)
+    if tuple(gy.shape) != want:
+        raise ValueError(f'cotangent shape {tuple(gy.shape)} != {want}')
+    if x.device.type == 'cpu':
+        return conv2d_same_f32_bwd_plain(x, w, gy)
+    build.require_cuda(x, w, gy)
+    bsz, t, f, cin = x.shape
+    kt, kf, _, cout = w.shape
+    x = x.contiguous()
+    gy = gy.float().contiguous()
+    w_flip = w.float().flip(0, 1).transpose(2, 3).contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    chunks = build.lib().pbsed_conv2d_f32_dw_chunks(bsz, t, f, cin, cout,
+                                                    kt, kf, sms)
+    workspace = torch.empty((chunks, kt * kf * cin, cout),
+                            dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
+                     device=x.device)
+    build.launch('conv2d_same_f32_bwd', 'pbsed_conv2d_same_f32_bwd',
+                 x.device, x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
+                 dx.data_ptr(), dw.data_ptr(), workspace.data_ptr(),
+                 bsz, t, f, cin, cout, kt, kf, sms)
+    return dx, dw
+
+
+@cache_signature
+class Conv2dSameF32(torch.autograd.Function):
+    """:func:`conv2d_same_f32` with its backward: dx and dw from
+    :func:`conv2d_same_f32_bwd`, db the sum of the cotangent. Under
+    ``torch.func.vmap`` (a stacked ensemble) all members in one launch,
+    :func:`conv2d_same_f32_members`."""
+
+    @staticmethod
+    def forward(x, w, b):
+        return conv2d_same_f32(x, w, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        return conv2d_same_f32_members(*members_first(info, in_dims,
+                                                      (x, w, b))), 0
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx, dw = conv2d_same_f32_bwd(x, w, gy)
         db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
         return dx, dw.to(w.dtype), db
 

@@ -1,9 +1,38 @@
 """Helpers shared by the kernels' autograd Functions
 (``ops/kernels/conv.py``, ``ops/kernels/gru.py``, ``ops/linear.py``):
-the ``forward`` + ``setup_context`` form that ``torch.func`` needs, and
-the arguments of a ``vmap`` rule with the member axis first.
+the ``forward`` + ``setup_context`` form that ``torch.func`` needs, the
+arguments of a ``vmap`` rule with the member axis first, and full-f32
+library calls (TF32 off).
 """
+import contextlib
 import inspect
+
+import torch
+
+
+@contextlib.contextmanager
+def full_f32(cudnn=True):
+    """cuDNN's convs and cuBLAS's matmuls in full f32 inside (TF32 off,
+    which would round each f32 operand to 10 mantissa bits), the previous
+    settings restored after: the f32 tower's plain versions and matmuls
+    (``compute_dtype='float32'``). ``cudnn=False`` also turns cuDNN off,
+    so that a conv on the card runs PyTorch's own im2col and f32 cuBLAS
+    GEMM: f32 products and sums, where cuDNN may take a Winograd or FFT
+    algorithm (its f32 weight gradient at the shallow tower's L5 lay
+    1.2e-4 of the largest entry from the f32 kernel's, whose other
+    layers it met to 3e-6, on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.enabled = enabled and cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.enabled = enabled
 
 
 def cache_signature(function):

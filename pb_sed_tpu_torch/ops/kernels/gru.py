@@ -3,11 +3,22 @@
 their plain PyTorch versions and the autograd Function ``GruScan`` that
 ties them together.
 
-The forward and both backwards each have two designs, chosen by shape
-inside the C entry points (``csrc/gru_cluster.cuh:gru_cluster_takes``):
-with few rows and many steps (training, tagging) a thread-block cluster
-per row tile that keeps w_hh in its shared memory; else one block per row
-tile. :func:`gru_designs` reports the choice.
+The forward and both backwards each have two designs up to H = 512,
+chosen by shape inside the C entry points
+(``csrc/gru_cluster.cuh:gru_cluster_takes``): with few rows and many
+steps (training, tagging) a thread-block cluster per row tile that keeps
+w_hh in its shared memory; else one block per row tile. Above H = 512 the
+forward and the split backward run a third, wide design
+(``csrc/gru_wide.cuh``, up to ``GRU_MAX_HIDDEN``); the fused backward
+stops at ``GRU_FUSED_MAX_HIDDEN``. :func:`gru_designs` reports the choice.
+
+The kernels take H a multiple of 32. The wrappers take any H >= 1 up to
+those limits and pad the others exactly (:func:`pad_hidden`): zero units
+appended to each gate block keep h = 0 at every step (r = z = 1/2, n = 0)
+and reach the real units only through zero rows of w_hh; the padding is
+sliced off the outputs and gradients (:func:`unpad_hidden`). The width
+padded to is the next multiple of 32, or 256 / 512 where the cluster
+design takes that width at the shape (:func:`kernel_hidden`).
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
@@ -30,10 +41,85 @@ weights (the FBCRNN's paired heads and a bidirectional layer at D = 2N).
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
                                                     members_first)
+
+# the largest H the forward and the split backward take (the wide design,
+# csrc/gru_wide.cuh:kWideMaxH), and the fused backward's
+GRU_MAX_HIDDEN = 2048
+GRU_FUSED_MAX_HIDDEN = 512
+# the C entry points run the wide design above this H (kWideMinH)
+_WIDE_ABOVE = 512
+
+
+def padded_hidden(h):
+    """The next multiple of 32 from hidden size ``h``."""
+    return -(-h // 32) * 32
+
+
+def kernel_hidden(d, b, t, h, name='fwd'):
+    """The H the kernels run hidden size ``h`` at, for pass ``name``
+    ('fwd', 'bwd' or 'bwd_fused') at xw (D, B, T, 3H): 256 for
+    128 < h < 256 and 512 for 256 < h < 512 where the cluster design takes
+    that width at the shape (it takes H = 256 and 512 only, and at few
+    rows runs a step in a tenth of the row-tiled kernel's time, ``PERF.md``
+    §6), else the next multiple of 32."""
+    for width in (256, 512):
+        if (width // 2 < h < width
+                and _design(name, d, b, t, width)['design'] == 'cluster'):
+            return width
+    return padded_hidden(h)
+
+
+def _pad_gates(x, h, hp):
+    """``(..., 3h)`` -> ``(..., 3hp)``: zeros appended to each of the r, z
+    and n blocks, so the gate order is kept."""
+    if hp == h:
+        return x
+    x = x.reshape(*x.shape[:-1], 3, h)
+    return F.pad(x, (0, hp - h)).reshape(*x.shape[:-2], 3 * hp)
+
+
+def _unpad_gates(x, h):
+    """``(..., 3hp)`` -> ``(..., 3h)``: the first h of each gate block."""
+    hp = x.shape[-1] // 3
+    if hp == h:
+        return x
+    return x.reshape(*x.shape[:-1], 3, hp)[..., :h].reshape(
+        *x.shape[:-1], 3 * h)
+
+
+def pad_hidden(xw, w_hh, b_hh, h0, *states, hp):
+    """The GRU's operands at hidden size ``hp`` >= H: ``xw`` (D, B, T, 3H),
+    ``w_hh`` (D, H, 3H) and ``b_hh`` (D, 3H) with zeros appended to each
+    gate block (and ``w_hh`` with zero rows), ``h0`` and each of
+    ``states`` ((..., H): the backward's y and g) with zero units. A
+    padded unit starts at h = 0 and stays there: its r and z are
+    sigmoid(0) = 1/2 and its n tanh(0) = 0, so its new h is 1/2 * 0 +
+    1/2 * 0; it feeds the real units through zero rows of w_hh only."""
+    h = h0.shape[-1]
+    w = _pad_gates(w_hh, h, hp)
+    return (_pad_gates(xw, h, hp), F.pad(w, (0, 0, 0, hp - h)),
+            _pad_gates(b_hh, h, hp),
+            *(F.pad(s, (0, hp - h)) for s in (h0, *states)))
+
+
+def unpad_hidden(h, y=None, dxw=None, dw_hh=None, db_hh=None, dh0=None):
+    """The real units' part of padded outputs (each optional; None stays
+    None): y and dh0 ``(..., hp)`` -> ``(..., H)``, dxw and db_hh ``(...,
+    3hp)`` -> ``(..., 3H)``, dw_hh (D, hp, 3hp) -> (D, H, 3H)."""
+    def units(x):
+        return None if x is None else x[..., :h].contiguous()
+
+    def gates(x):
+        return None if x is None else _unpad_gates(x, h).contiguous()
+
+    return (units(y), gates(dxw),
+            None if dw_hh is None else gates(dw_hh[:, :h]), gates(db_hh),
+            units(dh0))
 
 
 def _check(xw, w_hh, b_hh, h0):
@@ -97,22 +183,39 @@ def gru_scan(xw, w_hh, b_hh, h0):
     if xw.device.type == 'cpu':
         return gru_scan_plain(xw, w_hh, b_hh, h0)
     build.require_cuda(xw)
-    d, b, t, g = xw.shape
-    hdim = g // 3
-    if hdim % 32 or hdim > 512:
-        raise ValueError(f'the GRU kernel takes H % 32 == 0, H <= 512; '
-                         f'got H={hdim}')
-    xw16 = xw.to(torch.bfloat16).contiguous()
-    w16 = w_hh.to(torch.bfloat16).contiguous()
-    b32 = b_hh.float().contiguous()
-    h32 = h0.float().contiguous()
-    y = torch.empty((d, b, t, hdim), dtype=torch.float32, device=xw.device)
+    hdim = _hidden(h0, GRU_MAX_HIDDEN, 'GRU kernel')
+    hp = kernel_hidden(*xw.shape[:3], hdim)
+    xw16, w16, b32, h32 = pad_hidden(
+        xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(),
+        h0.float(), hp=hp)
+    xw16, w16, b32, h32 = (a.contiguous() for a in (xw16, w16, b32, h32))
+    d, b, t, _ = xw16.shape
+    y = torch.empty((d, b, t, hp), dtype=torch.float32, device=xw.device)
     if xw16.data_ptr() % 16:
         raise ValueError('gru_scan needs a 16-byte aligned xw buffer')
     build.launch('gru_scan', 'pbsed_gru_scan', xw.device,
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
-                 h32.data_ptr(), y.data_ptr(), d, b, t, hdim)
-    return y
+                 h32.data_ptr(), y.data_ptr(), d, b, t, hp)
+    _count_shape('gru_scan', hdim, hp)
+    return unpad_hidden(hdim, y=y)[0]
+
+
+def _count_shape(counter, hdim, hp):
+    """Count a launch at a padded H, or of the wide design, under
+    ``<counter>_padded`` / ``<counter>_wide`` too."""
+    if hp != hdim:
+        build.LAUNCHES[f'{counter}_padded'] += 1
+    if hp > _WIDE_ABOVE:
+        build.LAUNCHES[f'{counter}_wide'] += 1
+
+
+def _hidden(h0, limit, what):
+    """H of the operands, checked against the kernel's ``limit``."""
+    hdim = h0.shape[-1]
+    if not 1 <= hdim <= limit:
+        raise ValueError(f'the {what} takes 1 <= H <= {limit}; got '
+                         f'H={hdim}')
+    return hdim
 
 
 _DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
@@ -130,19 +233,29 @@ def _design(name, d, b, t, h):
                            f'failed: CUDA error {-rc} ({msg})')
     return dict(zip(('cluster', 'rows', 'smem', 'coresident'),
                     (v.value for v in out)),
-                design='cluster' if rc else 'row_tiled')
+                design=('row_tiled', 'cluster', 'wide')[rc])
 
 
 def gru_designs(d, b, t, h):
     """Which kernels the GRU runs on the card at xw (D, B, T, 3H), as the
-    C entry points decide: for ``'fwd'``, ``'bwd'`` (the split backward)
-    and ``'bwd_fused'`` a dict of ``design`` ('cluster': w_hh resident in
-    a thread-block cluster's shared memory, or 'row_tiled'), ``cluster``
-    (blocks a cluster, 1 row-tiled), ``rows`` (batch rows a cluster or
-    block), ``smem`` (dynamic shared memory a block, bytes) and
-    ``coresident`` (clusters the card holds at once, 0 row-tiled).
-    Raises where the card can hold no cluster of the design."""
-    return {name: _design(name, d, b, t, h) for name in _DESIGN_QUERIES}
+    C entry points decide at the H each pass runs (:func:`kernel_hidden`):
+    for ``'fwd'``, ``'bwd'`` (the split backward) and ``'bwd_fused'`` a dict
+    of ``design`` ('cluster': w_hh resident in a thread-block cluster's
+    shared memory; 'row_tiled'; or above H = 512 'wide',
+    ``csrc/gru_wide.cuh``), ``hidden`` (the H it runs), ``cluster``
+    (blocks a cluster, 1 row-tiled and wide), ``rows`` (batch rows a
+    cluster or block), ``smem`` (dynamic shared memory a block, bytes)
+    and ``coresident`` (clusters the card holds at once, 0 row-tiled and
+    wide); ``'bwd_fused'`` is None above ``GRU_FUSED_MAX_HIDDEN``. Raises
+    where the card can hold no cluster of the design."""
+    out = {}
+    for name in _DESIGN_QUERIES:
+        if name == 'bwd_fused' and padded_hidden(h) > GRU_FUSED_MAX_HIDDEN:
+            out[name] = None
+            continue
+        hp = kernel_hidden(d, b, t, h, name)
+        out[name] = dict(_design(name, d, b, t, hp), hidden=hp)
+    return out
 
 
 def _check_bwd(xw, w_hh, b_hh, h0, y, g):
@@ -247,30 +360,35 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
     if xw.device.type == 'cpu':
         return gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split)
     build.require_cuda(xw, w_hh, b_hh, h0, y, g)
-    d, b, t, g3 = xw.shape
-    hdim = g3 // 3
-    if hdim % 32 or hdim > 512:
-        raise ValueError(f'the GRU backward kernel takes H % 32 == 0, '
-                         f'H <= 512; got H={hdim}')
-    xw16 = xw.to(torch.bfloat16).contiguous()
+    hdim = _hidden(h0, GRU_MAX_HIDDEN if split else GRU_FUSED_MAX_HIDDEN,
+                   'GRU backward kernel' if split
+                   else 'fused GRU backward kernel')
+    hp = kernel_hidden(*xw.shape[:3], hdim, 'bwd' if split else 'bwd_fused')
+    xw16, w16, b32, h0, y, g32 = pad_hidden(
+        xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(), h0,
+        y, g.float(), hp=hp)
+    xw16, w16, b32, g32 = (a.contiguous() for a in (xw16, w16, b32, g32))
+    d, b, t, _ = xw16.shape
     # the fused cluster sweep reads up to 15 steps past the last row
     h_prev = _h_prev(h0, y, pad=0 if split else 16)
-    w16 = w_hh.to(torch.bfloat16).contiguous()
-    b32 = b_hh.float().contiguous()
-    g32 = g.float().contiguous()
     dxw = torch.empty_like(xw16)
-    dh0 = torch.empty((d, b, hdim), dtype=torch.float32, device=xw.device)
+    dh0 = torch.empty((d, b, hp), dtype=torch.float32, device=xw.device)
     if h_prev.data_ptr() % 16:
         raise ValueError('gru_scan_bwd needs a 16-byte aligned h_prev')
     if not split:
-        return _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0)
+        out = _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0)
+        return unpad_hidden(hdim, None, *out)[1:]
     r = torch.empty_like(h_prev)
+    nbytes = build.lib().pbsed_gru_bwd_workspace(d, b, hp)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=xw.device)
     build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
                  xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
                  b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
-                 r.data_ptr(), dh0.data_ptr(), d, b, t, hdim)
+                 r.data_ptr(), dh0.data_ptr(),
+                 workspace.data_ptr() if nbytes else None, d, b, t, hp)
+    _count_shape('gru_scan_bwd', hdim, hp)
     dw_hh, db_hh = _weight_grads(h_prev, dxw, r)
-    return dxw, dw_hh, db_hh, dh0
+    return unpad_hidden(hdim, None, dxw, dw_hh, db_hh, dh0)[1:]
 
 
 def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):

@@ -1,4 +1,5 @@
-"""A bf16 matmul whose f32 bias lies inside its one rounding:
+"""A bf16 matmul whose f32 bias lies inside its one rounding (and its
+full-f32 counterpart, :class:`F32Linear`):
 ``y = bf16(x @ w + b)`` with bf16 operands and f32 accumulation, the
 arithmetic of the JAX package's ``jnp.dot(x_bf16, w_bf16,
 preferred_element_type=f32) + b`` rounded to bf16. The GRU input
@@ -9,7 +10,7 @@ projections (``ops/rnn.py:GRULayer.project``) and the 1x1 convs of the
 import torch
 
 from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
-                                                    members_first)
+                                                    full_f32, members_first)
 
 
 def split_bias(b):
@@ -92,3 +93,38 @@ class Bf16Linear(torch.autograd.Function):
         dw = x.to(torch.bfloat16).t() @ g16
         return (dx.to(x_dtype), dw.to(w_dtype),
                 g.float().sum(0).to(b_dtype))
+
+
+@cache_signature
+class F32Linear(torch.autograd.Function):
+    """``F32Linear.apply(x, w, b)``: x (N, K), w (K, M), b (M,) -> (N, M)
+    f32, ``x @ w + b`` with f32 operands and TF32 off in the forward and
+    the backward (:func:`full_f32`): the 1x1 convs of a
+    ``compute_dtype='float32'`` 2-D tower and the f32 1-D tower, which the
+    JAX package computes with f32 ``lax.conv_general_dilated`` /
+    ``nn.Conv(dtype=float32)`` outside any kernel (cuBLAS here). Backward:
+    ``dx = g @ w^T``, ``dw = x^T @ g``, ``db`` the sum of g over the rows.
+    Under ``torch.func.vmap`` the generated rule batches the matmuls."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, b):
+        with full_f32():
+            y = x.float() @ w.float()
+        return y + b.float()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, b = inputs
+        ctx.save_for_backward(x, w)
+        ctx.dtypes = (x.dtype, w.dtype, b.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x_dtype, w_dtype, b_dtype = ctx.dtypes
+        g = g.float()
+        with full_f32():
+            dx = g @ w.float().t()
+            dw = x.float().t() @ g
+        return dx.to(x_dtype), dw.to(w_dtype), g.sum(0).to(b_dtype)

@@ -337,7 +337,12 @@ class Trainer(Configurable):
             if tracker is not None:
                 tracker.stop()
             if self._writer:
-                self._writer.flush()
+                # closed, not flushed: tensorboardX's writer thread may
+                # still hold queued events, which a flush leaves unwritten
+                # (and a process that ends then loses); a later summary
+                # opens a new event file
+                self._writer.close()
+                self._writer = None
 
     # -- profiler -------------------------------------------------------------
     def _maybe_start_profile(self):

@@ -9,8 +9,10 @@ row-tiled one at small hidden sizes, the wgmma conv kernels'
 ragged pixel tiles, frequency rows and channel widths, the member axis
 of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
-and f32; the conv at Cout off a multiple of 16 and even kernel extents),
-the determinism of the weight gradients, and the wrappers' raises. They need a CUDA card and
+and f32; the conv at Cout off a multiple of 16 and even kernel extents;
+the GRU at hidden sizes off a multiple of 32 and on the wide design above
+512; the f32 conv and its backward, with a member axis), the determinism
+of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
 On the card (no JAX there, so without this directory's conftest):
@@ -32,7 +34,12 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     maxpool_freq2_plain, avgpool2d, avgpool2d_bwd, avgpool2d_bwd_plain,
     avgpool2d_plain, maxpool2d, maxpool2d_bwd, maxpool2d_bwd_plain,
     maxpool2d_plain)
-from pb_sed_tpu_torch.ops.kernels.gru import (GruScan, gru_designs, gru_scan,
+from pb_sed_tpu_torch.ops.kernels.conv import (
+    conv2d_same_f32, conv2d_same_f32_bwd, conv2d_same_f32_bwd_plain,
+    conv2d_same_f32_members, conv2d_same_f32_plain)
+from pb_sed_tpu_torch.ops.kernels.gru import (GRU_FUSED_MAX_HIDDEN,
+                                              GRU_MAX_HIDDEN, GruScan,
+                                              gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -178,11 +185,12 @@ def test_kernels_raise_on_unsupported_shapes(gen):
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
     with pytest.raises(ValueError):  # a kernel of 8 input channels
         conv2d_same(x, torch.zeros(3, 3, 8, 16, device='cuda'), None)
-    xw = torch.zeros(1, 2, 3, 3 * 48, device='cuda')
-    with pytest.raises(ValueError):  # H = 48 is not a multiple of 32
-        gru_scan(xw, torch.zeros(1, 48, 144, device='cuda'),
-                 torch.zeros(1, 144, device='cuda'),
-                 torch.zeros(1, 2, 48, device='cuda'))
+    h = GRU_MAX_HIDDEN + 1
+    xw = torch.zeros(1, 2, 3, 3 * h, device='cuda')
+    with pytest.raises(ValueError, match=str(GRU_MAX_HIDDEN)):
+        gru_scan(xw, torch.zeros(1, h, 3 * h, device='cuda'),  # H > 2048
+                 torch.zeros(1, 3 * h, device='cuda'),
+                 torch.zeros(1, 2, h, device='cuda'))
 
 
 def _max_err(got, ref):
@@ -422,12 +430,13 @@ def test_new_kernels_raise_on_what_they_do_not_take(gen):
         bnrelu_conv2d_same(x, s, s.cpu(), w, None)
     with pytest.raises(ValueError):         # cotangent of the wrong shape
         bnrelu_conv2d_same_bwd(x, s, s, w, x[..., :8])
-    y = torch.zeros(1, 2, 3, 48, device='cuda')
-    with pytest.raises(ValueError):         # H = 48: not a multiple of 32
-        gru_scan_bwd(torch.zeros(1, 2, 3, 144, device='cuda'),
-                     torch.zeros(1, 48, 144, device='cuda'),
-                     torch.zeros(1, 144, device='cuda'),
-                     torch.zeros(1, 2, 48, device='cuda'), y, y, split=False)
+    h = GRU_FUSED_MAX_HIDDEN + 1
+    y = torch.zeros(1, 2, 3, h, device='cuda')
+    with pytest.raises(ValueError, match=str(GRU_FUSED_MAX_HIDDEN)):
+        gru_scan_bwd(torch.zeros(1, 2, 3, 3 * h, device='cuda'),  # fused
+                     torch.zeros(1, h, 3 * h, device='cuda'),     # > 512
+                     torch.zeros(1, 3 * h, device='cuda'),
+                     torch.zeros(1, 2, h, device='cuda'), y, y, split=False)
 
 
 @pytest.mark.parametrize('m,b,t,f,cin,cout,k', [
@@ -603,3 +612,130 @@ def test_padded_conv_shapes_match_plain(gen, b, t, f, cin, cout, kt, kf):
     bm = torch.stack([bias, bias])
     assert torch.equal(conv2d_same_members(xm, wm, bm), torch.stack(
         [conv2d_same(xm[i], wm[i], bm[i]) for i in range(2)]))
+
+
+def _gru_case(gen, d, b, t, h, g_scale=1.):
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
+    b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+    h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    g = g_scale * torch.randn(d, b, t, h, generator=gen, device='cuda')
+    return xw, w_hh, b_hh, h0, g
+
+
+# (D, B, T, H): the wide design at 768, 1024 and 2048 (its limit), with a
+# ragged row tile (B = 17, 3) and T = 1; H off a multiple of 32 below 512
+# (padded into the row-tiled kernel, or to 256 for the cluster design at
+# few rows: 400 row tiles keep 200 at 224, row-tiled) and above (600 ->
+# 608, the wide design)
+@pytest.mark.parametrize('d,b,t,h', [
+    (2, 17, 9, 768), (2, 3, 1, 768), (1, 5, 6, 1024), (2, 3, 4, 2048),
+    (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200), (2, 3000, 3, 200),
+    (2, 3, 5, 600)])
+def test_gru_any_width_matches_plain(gen, d, b, t, h):
+    """Forward and the split backward against the plain version at the
+    real H (the GRU ceiling: 5.3e-3, and 5.3e-3 of each gradient's
+    largest entry), with the design the H each pass runs takes (200 runs
+    as 256 on the cluster design at few rows, as 224 row-tiled at 16 000),
+    the
+    launches counted under the pair's names and the wide and padded ones,
+    and bit-identical reruns."""
+    xw, w_hh, b_hh, h0, g = _gru_case(gen, d, b, t, h)
+    designs = gru_designs(d, b, t, h)
+    for key in ('fwd', 'bwd'):
+        hp = designs[key]['hidden']
+        # the next multiple of 32, or the width the cluster design takes
+        if hp != -(-h // 32) * 32:
+            assert hp in (256, 512) and designs[key]['design'] == 'cluster'
+        assert (designs[key]['design'] == 'wide') == (hp > 512)
+    if h > 512:
+        assert designs['bwd_fused'] is None
+    n = dict(build.LAUNCHES)
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    for name, key in (('gru_scan', 'fwd'), ('gru_scan_bwd', 'bwd')):
+        hp = designs[key]['hidden']
+        assert build.LAUNCHES[name] == n[name] + 1
+        assert build.LAUNCHES[f'{name}_wide'] == n[f'{name}_wide'] + (
+            hp > 512)
+        assert build.LAUNCHES[f'{name}_padded'] == n[f'{name}_padded'] + (
+            hp != h)
+    assert y.shape == (d, b, t, h)
+    assert _max_err(y, gru_scan_plain(xw, w_hh, b_hh, h0)) <= 5.3e-3
+    ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+    assert torch.equal(y, gru_scan(xw, w_hh, b_hh, h0))
+    again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize('h', [48, 200])
+def test_gru_fused_backward_at_a_padded_width(gen, h):
+    """The fused backward (no path selects it) at an H it takes padded."""
+    xw, w_hh, b_hh, h0, g = _gru_case(gen, 2, 5, 7, h)
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
+    ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=False)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+
+
+def test_wide_gru_members_in_the_direction_axis(gen):
+    """Two members at H = 768 under ``torch.func.vmap``: one D = 4 launch
+    equal to each member's D = 2 launch in every bit."""
+    xw, w_hh, b_hh, h0, _ = _gru_case(gen, 4, 3, 6, 768)
+    member = (lambda a: a.reshape(2, 2, *a.shape[1:]))
+    got = torch.func.vmap(GruScan.apply)(*map(member, (xw, w_hh, b_hh, h0)))
+    for i in range(2):
+        s = slice(2 * i, 2 * i + 2)
+        assert torch.equal(got[i], gru_scan(xw[s], w_hh[s], b_hh[s], h0[s]))
+
+
+# (B, T, F, Cin, Cout, kt, kf): the entry layer, a narrow tile (Cout 16,
+# BN 16), Cout off 16 with an even kernel, a 4 x 3 kernel on a ragged
+# pixel tile, the late shallow layers' widths, and a 1x1
+F32_CONV_SHAPES = [(2, 9, 16, 1, 16, 3, 3), (1, 7, 8, 16, 16, 3, 3),
+                   (2, 9, 8, 24, 7, 2, 2), (1, 5, 6, 33, 40, 4, 3),
+                   (2, 50, 16, 128, 256, 3, 3), (1, 7, 8, 64, 96, 1, 1)]
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', F32_CONV_SHAPES)
+def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
+    """The f32 conv's forward, dx and dw against the plain version
+    (cuDNN in full f32, TF32 off): f32 sums in another order, 2e-5 of the
+    largest entry forward and dx, 1e-4 for dw (sums over every pixel);
+    dw's chunks added in a fixed order: bit-identical reruns."""
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda')
+    n = dict(build.LAUNCHES)
+    got = conv2d_same_f32(x, w, bias)
+    assert got.dtype == torch.float32 and got.shape == (b, t, f, cout)
+    ref = conv2d_same_f32_plain(x, w, bias)
+    assert _max_err(got, ref) <= 2e-5 * float(ref.abs().max())
+    dx, dw = conv2d_same_f32_bwd(x, w, gy)
+    ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert _max_err(dx, ref_dx) <= 2e-5 * float(ref_dx.abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
+    for name in ('conv2d_same_f32', 'conv2d_same_f32_bwd'):
+        assert build.LAUNCHES[name] == n[name] + 1, name
+    again = conv2d_same_f32_bwd(x, w, gy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    # the member axis: one launch equal to each member's in every bit
+    xm, wm, bm = torch.stack([x, -x]), torch.stack([w, w.flip(0)]), \
+        torch.stack([bias, -bias])
+    assert torch.equal(conv2d_same_f32_members(xm, wm, bm), torch.stack(
+        [conv2d_same_f32(xm[i], wm[i], bm[i]) for i in range(2)]))
+
+
+def test_f32_conv_raises_on_a_bf16_input(gen):
+    x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
+    with pytest.raises(TypeError, match='float32'):
+        conv2d_same_f32(x, torch.zeros(3, 3, 16, 16, device='cuda'), None)

@@ -704,10 +704,22 @@ def test_shape_changing_activations_raise_naming_the_name(name):
         tcnn.CNN1d(out_channels=[16], activation_fn=name)
 
 
-def test_float32_compute_still_raises():
+def test_float32_compute_builds_f32_layers_and_other_dtypes_raise():
+    """``compute_dtype='float32'`` (and None, which the JAX package reads
+    as float32) builds f32 convs and no fused layer
+    (``tests/test_torch_f32.py`` holds them against JAX); any other value
+    raises, naming it."""
+    for dtype in ('float32', None):
+        tower = tcnn.CNN2d(out_channels=[16, 16], fuse_bn=True,
+                           pre_activation=True, compute_dtype=dtype,
+                           in_channels=16)
+        assert tower.conv_0.dtype == torch.float32 and not tower.fused
+        tower = tcnn.CNN1d(out_channels=[16], compute_dtype=dtype,
+                           in_channels=8)
+        assert tower.conv_0.dtype == torch.float32
     for cls in (tcnn.CNN2d, tcnn.CNN1d):
-        with pytest.raises(NotImplementedError, match='float32'):
-            cls(out_channels=[16], compute_dtype='float32')
+        with pytest.raises(NotImplementedError, match='float16'):
+            cls(out_channels=[16], compute_dtype='float16')
 
 
 def test_bridge_takes_the_new_towers_keys_and_shapes():

@@ -348,8 +348,14 @@ def test_tensorboard_events_match_the_jax_trainer(flat, tmp_path):
     jax_dir, port_dir = tmp_path / 'jax', tmp_path / 'port'
     jrnn.set_pallas_mode('off')
     try:
-        JaxTrainer(_jax_model(flat), storage_dir=jax_dir, use_mesh=False,
-                   **kwargs).train(batches)
+        trainer = JaxTrainer(_jax_model(flat), storage_dir=jax_dir,
+                             use_mesh=False, **kwargs)
+        trainer.train(batches)
+        # the JAX trainer flushes its tensorboardX writer, which leaves the
+        # events its writer thread still queues unwritten: closed here
+        # before the files are read (the port's trainer closes its own)
+        if trainer._writer:
+            trainer._writer.close()
     finally:
         jrnn.set_pallas_mode('auto')
     Trainer(_port_model(flat), storage_dir=port_dir, **kwargs).train(
