@@ -301,15 +301,19 @@ runs, in order:
    f64 too); clips/s, steps/s and peak memory beside phases 3-5's.
 15. the GRU's hidden widths and ``compute_dtype='float32'``. Right after
    phase 14's kernels (under its own launch count) 15d: the GRU pair on
-   the wide design (``csrc/gru_wide.cuh``) at (2, 32, 500, H) and (2,
-   16 000, 51, H) for H = 768 and 1024, and at H = 200 (run as 256 on the
+   the cluster design of 16 blocks of H / 16 units
+   (``csrc/gru_cluster_wide.cuh``) at (2, 32, 500, H) for H = 768, 1024
+   and 2048 and (2, 16 000, 51, H) for 768 and 1024, with its units a
+   block, rows a cluster, w_hh's resident and streamed KiB and
+   co-resident clusters, and at H = 200 (run as 256 on the
    cluster design at the training shape), forward and backward against
    the plain version at the real H (the backward at SED's shapes on its
    first 2 048 rows, which are independent, and timed whole but at 1024,
    where the wrapper's f32 weight-gradient contraction would need ~83 GB),
    with the design each pass runs, cuDNN's GRU and the bound; H = 200's
    forward on the row-tiled kernel at 224 against the cluster at 256
-   (``scripts/perf/gru_designs.py``'s ``scan_as``); the f32 conv and its
+   (``scripts/perf/gru_designs.py``'s ``scan_as``); H = 600 (run as 768)
+   beside 768; the f32 conv and its
    backward (``csrc/conv2d_f32.cu``) at the shallow tower's nine 3x3
    shapes against the plain version (cuDNN off), with cuDNN's f32 conv
    (TF32 off) as the library call and its dw's distance from the plain
@@ -317,7 +321,7 @@ runs, in order:
    ``compute_dtype='float32'`` in both towers and both heads' output nets,
    serves 3 batches of 32 ten-second clips by tagging and SED 51/1 and
    trains 8 steps; 15b, the shallow FBCRNN with both heads at hidden size
-   768 (the paired D = 2 recurrence on the wide pair), the same; 15c, the
+   768 (the paired D = 2 recurrence above 512), the same; 15c, the
    tag-conditioned BiCRNN at hidden size 200, tags 3 batches and trains 8
    steps. Served runs agree with the CPU, trained ones pass the
    card-vs-CPU step (the CPU's noise with its bf16 convs and its GRU
@@ -505,7 +509,7 @@ KERNELS = {
                     'pb_sed_tpu/ops/pallas/conv.py:599'},
     # phase 15's paths: the f32 conv pair of a compute_dtype='float32'
     # tower (no Pallas site: the JAX package's f32 lax.conv_general_dilated
-    # and its autodiff), the GRU pair's wide design above H = 512 (no
+    # and its autodiff), the GRU pair's cluster design above H = 512 (no
     # Pallas site: the JAX package's lax.scan) and the pair at an H it
     # takes padded (those launches count under the pair's names too)
     'conv2d_same_f32': {
@@ -515,10 +519,12 @@ KERNELS = {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_f32.cu',
         'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
     'gru_scan_wide': {
-        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_wide.cuh',
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/gru_cluster_wide.cuh',
         'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
     'gru_scan_bwd_wide': {
-        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_wide.cuh',
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/gru_cluster_wide.cuh',
         'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
     'gru_scan_padded': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru.cu',
@@ -650,8 +656,8 @@ def log_ptxas(text):
                            'gru_scan_cluster_kernel', 'gru_bwd_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
-                           'avgpool2d', 'gru_wide_fwd_kernel',
-                           'gru_wide_bwd_kernel', 'conv2d_f32_kernel',
+                           'avgpool2d', 'gru_scan_wide_cluster_kernel',
+                           'gru_bwd_wide_cluster_kernel', 'conv2d_f32_kernel',
                            'conv2d_f32_dw_kernel',
                            'conv2d_f32_dw_reduce_kernel'):
                 if kernel in mangled:
@@ -1316,8 +1322,7 @@ def _log_gru_step(key, shape, k_ms, fn):
     recorded."""
     t, h = shape[2], shape[3]
     kernel = sum(ms for ms, name, _ in profile_kernels(fn)
-                 if any(part in name for part in ('gru_scan', 'gru_bwd',
-                                                  'gru_wide')))
+                 if any(part in name for part in ('gru_scan', 'gru_bwd')))
     earlier = EARLIER_GRU_MS.get((key, h)) if shape[1] == BATCH else None
     was = ('' if earlier is None else
            f'; the row-tiled kernel took {earlier:.3f} ms '
@@ -1862,8 +1867,9 @@ def _card_vs_cpu(make_model, stft, k, strong=False, conv_order=False,
     in another order, break ties that the CPU's batch orders, which only
     move the norms' statistics, keep); with ``gru_order`` that step's
     plain GRU sums in f64 too (:func:`_gru_summed_in_f64`; phase 15: the
-    wide kernels' other summation order flips bf16 roundings of h and
-    dgates over 100 steps, which no batch order of the CPU's moves)."""
+    kernels' other summation order above H = 512 flips bf16 roundings of
+    h and dgates over 100 steps, which no batch order of the CPU's
+    moves)."""
     batch = _train_batches(stft, 1, 4, 2, seed=3, k=k, strong=strong)[0]
     orders = ([0, 1, 2, 3], [3, 2, 1, 0], [1, 2, 3, 0], [2, 3, 0, 1])
     runs = [('cuda', orders[0])] + [('cpu', order) for order in orders]
@@ -5168,14 +5174,15 @@ def phase_towers(earlier):
 
 
 # -- phase 15: GRU widths off the kernels' own and compute_dtype='float32' --
-# (D, B, T, H) of the GRU at widths above 512 (the wide kernel pair):
-# training and tagging, and sliding-window SED at window 51, shift 1; and
-# at H = 200 (run as 224 in the cluster kernels): the BiCRNN's training
-# shape. At SED's shapes the backward is checked on the first
-# WIDTH_CHECK_ROWS rows (the rows' recurrences are independent: the plain
-# backward of all 16 000 would hold ~70 GB) and timed on all of them.
+# (D, B, T, H) of the GRU at widths above 512 (the cluster design of 16
+# blocks): training and tagging, also at its widest H, 2048, and
+# sliding-window SED at window 51, shift 1; and at H = 200 (run as 256 in
+# the cluster kernels): the BiCRNN's training shape. At SED's shapes the
+# backward is checked on the first WIDTH_CHECK_ROWS rows (the rows'
+# recurrences are independent: the plain backward of all 16 000 would
+# hold ~70 GB) and timed on all of them.
 WIDTH_GRU_SHAPES = [(2, BATCH, FRAMES, 768), (2, BATCH, FRAMES, 1024),
-                    (2, BATCH * FRAMES, 51, 768),
+                    (2, BATCH, FRAMES, 2048), (2, BATCH * FRAMES, 51, 768),
                     (2, BATCH * FRAMES, 51, 1024), (2, BATCH, FRAMES, 200)]
 WIDTH_CHECK_ROWS = 2048
 WIDE = ('gru_scan_wide', 'gru_scan_bwd_wide')
@@ -5189,6 +5196,8 @@ F32 = ('conv2d_same_f32', 'conv2d_same_f32_bwd')
 F32_PATHS = ('cnn_2d', 'cnn_1d')
 WIDE_HIDDEN = 768
 PADDED_HIDDEN = 200
+# an H above 512 the cluster design takes padded (to 768)
+PADDED_WIDE_HIDDEN = 600
 
 
 def _f32_work(p, cin, cout, taps=9, backward=False):
@@ -5206,8 +5215,9 @@ def _f32_work(p, cin, cout, taps=9, backward=False):
 
 def check_width_kernels(records):
     """Phase 15d, phases 2 and 2b for this phase's kernels (B = 32 ten-second
-    clips): the GRU pair at ``WIDTH_GRU_SHAPES`` (the wide design at 768 and
-    1024, the padded width 200) against its plain version at the real H
+    clips): the GRU pair at ``WIDTH_GRU_SHAPES`` (the cluster design of 16
+    blocks at 768, 1024 and 2048, the padded width 200) against its plain
+    version at the real H
     (the GRU ceiling, 5.3e-3 and 5.3e-3 of each gradient's largest entry),
     with the design each pass runs, cuDNN's bf16 GRU as the library call
     (forward at every shape, backward at B = 32) and the bound; and the f32
@@ -5241,12 +5251,20 @@ def check_width_kernels(records):
                     f'stops at 512)')
                 continue
             log(f'gru design {shape} {key}: {v["design"]} at H = '
-                f'{v["hidden"]}, {v["rows"]} rows a block, '
-                f'{v["smem"] / 1024:.0f} KiB shared memory')
-            want = 'wide' if h > 512 else 'cluster'
-            if key != 'bwd_fused' and v['design'] != want and b == BATCH:
-                raise AssertionError(f'GRU {key} at {shape} runs the '
-                                     f'{v["design"]} kernel, not {want}')
+                f'{v["hidden"]}, {v["cluster"]} blocks of {v["units"]} '
+                f'units, {v["rows"]} rows a cluster, '
+                f'{v["smem"] / 1024:.0f} KiB shared memory, w_hh '
+                f'{v["resident"] / 1024:.0f} KiB resident and '
+                f'{v["streamed"] / 1024:.0f} KiB streamed a block and step, '
+                f'{v["coresident"]} co-resident clusters')
+            # at B = 32 the cluster designs, above 512 of 16 blocks of
+            # H / 16 units and 16 rows
+            want = (('cluster', 16, h // 16, 16) if h > 512
+                    else ('cluster', v['cluster'], 32, v['rows']))
+            got = (v['design'], v['cluster'], v['units'], v['rows'])
+            if key != 'bwd_fused' and b == BATCH and got != want:
+                raise AssertionError(f'GRU {key} at {shape} runs {got}, '
+                                     f'not {want}')
         fwd = records['gru_scan_wide' if h > 512 else 'gru_scan_padded']
         bwd = records['gru_scan_bwd_wide' if h > 512
                       else 'gru_scan_bwd_padded']
@@ -5359,6 +5377,7 @@ def check_width_kernels(records):
         torch.cuda.empty_cache()
     log('gru library (phase 15): ' + json.dumps(library))
     _padded_width_choice(randn)
+    _padded_wide_width(randn)
 
 
 def _padded_width_choice(randn):
@@ -5394,12 +5413,40 @@ def _padded_width_choice(randn):
         f'runs {gru_designs(d, b, t, h)["fwd"]["hidden"]}')
 
 
+def _padded_wide_width(randn):
+    """What padding costs above 512, where the cluster design takes H a
+    multiple of 256: the forward and backward wrappers at (2, 32, 500) at
+    H = 600 (run as 768) beside H = 768 itself, each forward within the
+    GRU ceiling of the plain version at its own H."""
+    times = {}
+    for h in (PADDED_WIDE_HIDDEN, WIDE_HIDDEN):
+        d, b, t = 2, BATCH, FRAMES
+        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+        b_hh = randn(d, 3 * h, scale=.1)
+        h0 = torch.zeros(d, b, h, device=xw.device)
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        err = float((y - gru_scan_plain(xw, w_hh, b_hh, h0)).abs().max())
+        if not err <= 5.3e-3:
+            raise AssertionError(f'gru_scan at H = {h} differs from the '
+                                 f'plain version by {err}')
+        g = randn(d, b, t, h, scale=1e-2)
+        times[h] = {
+            'runs_as': gru_designs(d, b, t, h)['fwd']['hidden'],
+            'fwd_ms': cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
+            'bwd_ms': cuda_ms(lambda: gru_scan_bwd(xw, w_hh, b_hh, h0, y, g),
+                              reps=3)}
+        del xw, y, g
+    log(f'H = {PADDED_WIDE_HIDDEN} beside H = {WIDE_HIDDEN} at (2, 32, 500), '
+        'wrappers: ' + json.dumps(times))
+
+
 def _width_config(name, augment=True):
     """Phase 15's configurations at full width: '15a' the shallow FBCRNN
     with ``compute_dtype='float32'`` in both towers and both heads' output
     nets; '15b' the shallow FBCRNN with both heads at ``hidden_size`` 768
-    (the paired D = 2 recurrence on the wide kernel pair); '15c' the
-    tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 224)."""
+    (the paired D = 2 recurrence above 512); '15c' the
+    tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 256)."""
     if name == '15c':
         config = _strong_config(augment=augment)
         config['rnn']['rnn']['hidden_size'] = PADDED_HIDDEN
@@ -5417,8 +5464,8 @@ def _width_config(name, augment=True):
 def phase_widths(earlier):
     """Phase 15. 15a: the f32 shallow FBCRNN serves 3 x 32 clips by
     tagging and SED 51/1 (against the CPU) and trains 8 steps; 15b: the
-    shallow FBCRNN with both heads at H = 768 does the same on the wide
-    GRU pair; 15c: the tag-conditioned BiCRNN at H = 200 tags 3 x 32
+    shallow FBCRNN with both heads at H = 768 does the same on the GRU
+    pair's cluster design above 512; 15c: the tag-conditioned BiCRNN at H = 200 tags 3 x 32
     clips and trains 8 steps. Each training run passes the card-vs-CPU
     step; each path's launch counters are read. Returns (launches by
     path, the measurements), printed beside ``earlier`` (phases 3-4)."""

@@ -51,9 +51,11 @@
 //    (L2-resident after the first step), one K slice ahead of the products
 //    that use them; the step's xw rows arrive by cp.async meanwhile. Two
 //    barriers per step. blockDim = H, so H must be a multiple of 32.
-// 3. H above 512 (to 2048): the wide design of gru_wide.cuh, one block of
-//    16 warps per (direction, tile of 16 rows) whatever H, each warp
-//    looping over chunks of 16 units.
+// 3. H above 512 (a multiple of 256, to 2048): the cluster design with
+//    H / 16 units a block (gru_cluster_wide.cuh): a cluster of 16 blocks
+//    per (direction, tile of 16 or 32 rows), the slice of w_hh that does
+//    not fit a block's shared memory streamed from L2 every step through
+//    a cp.async ring.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -61,7 +63,7 @@
 #include <stdint.h>
 
 #include "gru_cluster.cuh"
-#include "gru_wide.cuh"
+#include "gru_cluster_wide.cuh"
 
 using namespace nvcuda;
 
@@ -414,17 +416,21 @@ cudaError_t gru_scan_design(const void* xw, const void* w_hh,
 }  // namespace
 
 // xw (D, B, T, 3H) bf16, w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32,
-// h0 (D, B, H) f32, y (D, B, T, H) f32; contiguous, xw 16-byte aligned.
-// Requires H % 32 == 0 and H <= 2048 (the wrapper pads any other H with
-// zero units). Above H = 512 the wide design; else the cluster design
-// where gru_cluster_takes says so, else the row-tiled kernel (blockDim =
-// H), in tiles of 32 rows up to H = 256, of 16 rows above (shared memory).
-// Returns a cudaError_t (cudaErrorLaunchOutOfResources where the card
-// holds no cluster of the design at all).
+// h0 (D, B, H) f32, y (D, B, T, H) f32; contiguous, xw 16-byte aligned;
+// above H = 512 w_hh packed, (D, 16, H, 3H / 16 + 8)
+// (ops/kernels/gru.py:pack_wide), and 16-byte aligned. Requires H % 32 ==
+// 0 up to 512 and H % 256 == 0 above, to 2048 (the wrapper pads any other
+// H with zero units). Above H = 512 the cluster design of
+// gru_cluster_wide.cuh; else the cluster design where gru_cluster_takes
+// says so, else the row-tiled kernel (blockDim = H), in tiles of 32 rows
+// up to H = 256, of 16 rows above (shared memory). Returns a cudaError_t
+// (cudaErrorLaunchOutOfResources where the card holds no cluster of the
+// design at all).
 extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
                               const void* b_hh, const void* h0, void* y, int D,
                               int B, int T, int H, void* stream) {
-  if (H % 32 != 0 || H < 32 || H > kWideMaxH || D < 1 || D > 65535)
+  if (H % 32 != 0 || H < 32 || H > kWideMaxH ||
+      (H > kWideMinH && !gru_wide_takes(H)) || D < 1 || D > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0) return 0;
   if (gru_wide_takes(H))
@@ -436,21 +442,27 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Which design pbsed_gru_scan runs at (D, B, T, H): returns 2 for the wide
-// design, 1 for the cluster design, 0 for the row-tiled kernel, minus a
-// cudaError_t when the query fails. *cluster: blocks a cluster (1
-// row-tiled and wide); *rows: batch rows a cluster or block; *smem:
-// dynamic shared memory a block, bytes; *coresident: clusters the card
-// holds at once (0 row-tiled and wide).
+// Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
+// cluster designs (above H = 512 that of gru_cluster_wide.cuh), 0 for the
+// row-tiled kernel, minus a cudaError_t when the query fails.
+// *cluster: blocks a cluster (1 row-tiled); *rows: batch rows a cluster or
+// block; *smem: dynamic shared memory a block, bytes; *coresident:
+// clusters the card holds at once (0 row-tiled); *units: hidden units a
+// block owns (0 row-tiled); *resident, *streamed: bytes of a block's
+// slice of w_hh kept in its shared memory and read from L2 at every step
+// (row-tiled: all of w_hh streamed).
 extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
-                                int* rows, int* smem, int* coresident) {
+                                int* rows, int* smem, int* coresident,
+                                int* units, int* resident, int* streamed) {
   if (gru_wide_takes(H))
-    return gru_wide_design(H, false, cluster, rows, smem, coresident);
+    return gru_wide_design<false>(D, B, H, cluster, rows, smem, coresident,
+                                  units, resident, streamed);
   if (!gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd)) {
     *cluster = 1;
     *rows = H <= 256 ? 32 : 16;
     *smem = static_cast<int>(H <= 256 ? smem_bytes<2>(H) : smem_bytes<1>(H));
     *coresident = 0;
+    gru_row_tiled_slice(H, units, resident, streamed);
     return 0;
   }
   int mt = 0;
@@ -458,7 +470,7 @@ extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
   if (err == cudaSuccess)
     err = mt == 2 ? cluster_design<2>(H, smem, coresident)
                   : cluster_design<1>(H, smem, coresident);
-  *cluster = H / kClUnits;
+  gru_cluster_slice(H, cluster, units, resident, streamed);
   *rows = 16 * mt;
   return err == cudaSuccess ? 1 : -static_cast<int>(err);
 }

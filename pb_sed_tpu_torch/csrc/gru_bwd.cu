@@ -41,38 +41,41 @@
 //    (one block per (direction, tile of 32 batch rows, 16 when H > 256),
 //    w_hh fragments from global memory twice a step, four barriers a
 //    step).
-// 3. H above 512 (to 2048): the wide sweep of gru_wide.cuh, with a
-//    workspace for each block's bf16 dgates of a step.
+// 3. H above 512 (a multiple of 256, to 2048): the cluster design with
+//    H / 16 units a block (gru_cluster_wide.cuh): the slice of w_hh that
+//    does not fit a block's shared memory streams from L2 through a
+//    cp.async ring once a step for both products, dh's partials go into
+//    single-buffered receive slots under two split cluster barriers.
 // The fused variant (gru_bwd_fused.cu) runs the first two designs, so up
 // to H = 512.
 #include "gru_bwd_cluster.cuh"
-#include "gru_wide.cuh"
+#include "gru_cluster_wide.cuh"
 
 // xw (D, B, T, 3H) bf16, h_prev (D, B, T, H) bf16 (= concat(h0, y[:-1])
 // along T), w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32, g (D, B, T, H) f32;
-// outputs dxw (D, B, T, 3H) bf16, r (D, B, T, H) bf16, dh0 (D, B, H) f32;
-// above H = 512 a workspace of pbsed_gru_bwd_workspace(D, B, H) bytes
-// (unused, may be null, below). Contiguous, h_prev 16-byte aligned, the
-// workspace 32-byte aligned. Requires H % 32 == 0 and H <= 2048 (the
-// wrapper pads any other H with zero units). Above H = 512 the wide sweep;
-// else the cluster design where gru_cluster_takes says so, else the
-// row-tiled sweep (blockDim = H; tiles of 32 rows up to H = 256, of 16
-// above). Returns a cudaError_t (cudaErrorLaunchOutOfResources where the
-// card holds no cluster of the design at all).
+// outputs dxw (D, B, T, 3H) bf16, r (D, B, T, H) bf16, dh0 (D, B, H) f32.
+// Contiguous, h_prev 16-byte aligned; above H = 512 w_hh packed, (D, 16,
+// H, 3H / 16 + 8) (ops/kernels/gru.py:pack_wide), and 16-byte aligned.
+// Requires H % 32 == 0 up to 512 and H % 256 == 0 above, to 2048 (the
+// wrapper pads any other H with zero units). Above H = 512 the cluster
+// design of gru_cluster_wide.cuh; else the cluster design where
+// gru_cluster_takes says so, else the row-tiled sweep (blockDim = H; tiles
+// of 32 rows up to H = 256, of 16 above). Returns a cudaError_t
+// (cudaErrorLaunchOutOfResources where the card holds no cluster of the
+// design at all).
 extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
                                   const void* w_hh, const void* b_hh,
                                   const void* g, void* dxw, void* r,
-                                  void* dh0, void* workspace, int D, int B,
-                                  int T, int H, void* stream) {
-  if (H % 32 != 0 || H < 32 || H > kWideMaxH || D < 1 || D > 65535)
+                                  void* dh0, int D, int B, int T, int H,
+                                  void* stream) {
+  if (H % 32 != 0 || H < 32 || H > kWideMaxH ||
+      (H > kWideMinH && !gru_wide_takes(H)) || D < 1 || D > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gru_wide_takes(H)) {
-    if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(gru_wide_bwd(xw, h_prev, w_hh, b_hh, g, dxw, r,
-                                         dh0, workspace, D, B, T, H, s));
-  }
+  if (gru_wide_takes(H))
+    return static_cast<int>(
+        gru_wide_bwd(xw, h_prev, w_hh, b_hh, g, dxw, r, dh0, D, B, T, H, s));
   if (!gru_cluster_takes(D, B, T, H))
     return static_cast<int>(gru_bwd_sweep<false>(xw, h_prev, w_hh, b_hh, g,
                                                  dxw, r, dh0, nullptr, nullptr,
@@ -86,16 +89,11 @@ extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
 // Which design pbsed_gru_scan_bwd runs at (D, B, T, H); the arguments and
 // the result as pbsed_gru_design (gru.cu).
 extern "C" int pbsed_gru_bwd_design(int D, int B, int T, int H, int* cluster,
-                                    int* rows, int* smem, int* coresident) {
+                                    int* rows, int* smem, int* coresident,
+                                    int* units, int* resident, int* streamed) {
   if (gru_wide_takes(H))
-    return gru_wide_design(H, true, cluster, rows, smem, coresident);
-  return bwd_design<false>(D, B, T, H, cluster, rows, smem, coresident);
-}
-
-// Bytes of the workspace pbsed_gru_scan_bwd needs at (D, B, H): the wide
-// sweep's bf16 dgates of a step, 16 rows x 3H a block; 0 up to H = 512.
-extern "C" long long pbsed_gru_bwd_workspace(int D, int B, int H) {
-  return gru_wide_takes(H)
-             ? static_cast<long long>(gru_wide_bwd_workspace(D, B, H))
-             : 0;
+    return gru_wide_design<true>(D, B, H, cluster, rows, smem, coresident,
+                                 units, resident, streamed);
+  return bwd_design<false>(D, B, T, H, cluster, rows, smem, coresident, units,
+                           resident, streamed);
 }

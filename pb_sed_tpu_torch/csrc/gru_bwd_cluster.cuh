@@ -476,16 +476,19 @@ cudaError_t launch_bwd_cluster(const void* xw, const void* h_prev,
 
 // The design the backward (split or FUSED) runs at (D, B, T, H), as
 // pbsed_gru_design (gru.cu) reports it: 1 and the cluster's size, rows,
-// shared memory a block and co-resident clusters; 0 and the row-tiled
-// sweep's (rows_tiled rows a block); -cudaError_t on a failed query.
+// shared memory a block, co-resident clusters and the slice of w_hh; 0
+// and the row-tiled sweep's (rows_tiled rows a block); -cudaError_t on a
+// failed query.
 template <bool FUSED>
 int bwd_design(int D, int B, int T, int H, int* cluster, int* rows,
-               int* smem, int* coresident) {
+               int* smem, int* coresident, int* units, int* resident,
+               int* streamed) {
   if (!gru_cluster_takes(D, B, T, H)) {
     *cluster = 1;
     *rows = H <= 256 ? 32 : 16;
     *smem = static_cast<int>(H <= 256 ? smem_bytes<2>(H) : smem_bytes<1>(H));
     *coresident = 0;
+    gru_row_tiled_slice(H, units, resident, streamed);
     return 0;
   }
   int mt = 0;
@@ -493,7 +496,7 @@ int bwd_design(int D, int B, int T, int H, int* cluster, int* rows,
   if (err == cudaSuccess)
     err = mt == 2 ? bwd_cluster_design<2, FUSED>(H, smem, coresident)
                   : bwd_cluster_design<1, FUSED>(H, smem, coresident);
-  *cluster = H / kClUnits;
+  gru_cluster_slice(H, cluster, units, resident, streamed);
   *rows = 16 * mt;
   return err == cudaSuccess ? 1 : -static_cast<int>(err);
 }

@@ -116,8 +116,10 @@ extern "C" int pbsed_gru_scan_bwd_fused(
 // workspace.
 extern "C" int pbsed_gru_bwd_fused_design(int D, int B, int T, int H,
                                           int* cluster, int* rows, int* smem,
-                                          int* coresident) {
+                                          int* coresident, int* units,
+                                          int* resident, int* streamed) {
   if (H % 32 != 0 || H < 32 || H > 512)  // the fused sweep stops at 512
     return -static_cast<int>(cudaErrorInvalidValue);
-  return bwd_design<true>(D, B, T, H, cluster, rows, smem, coresident);
+  return bwd_design<true>(D, B, T, H, cluster, rows, smem, coresident, units,
+                          resident, streamed);
 }

@@ -192,6 +192,24 @@ inline bool gru_cluster_takes(int D, int B, int T, int H,
          static_cast<long long>(D) * ((B + 15) / 16) <= max_tiles16;
 }
 
+// What the design queries (pbsed_gru_design) report of w_hh: the cluster
+// design keeps each block's slice (H x 96 bf16) in shared memory; the
+// row-tiled kernels own no units and read all of w_hh from L2 every step.
+inline void gru_cluster_slice(int H, int* cluster, int* units, int* resident,
+                              int* streamed) {
+  *cluster = H / kClUnits;
+  *units = kClUnits;
+  *resident = 2 * H * kClCols;
+  *streamed = 0;
+}
+
+inline void gru_row_tiled_slice(int H, int* units, int* resident,
+                                int* streamed) {
+  *units = 0;
+  *resident = 0;
+  *streamed = 2 * H * 3 * H;
+}
+
 // Rows a cluster: 16 while every cluster of the launch is on the card at
 // once (`coresident16` of them fit), since a step of 16 rows is shorter
 // (2.04 against 3.00 ms forward at (2, 32, 500, 512), 1.38 against 1.96 at

@@ -30,8 +30,8 @@ NVCC_FLAGS = (
 # launches per kernel wrapper since the last reset_launches(); the
 # ``*_padded`` entries count the conv pair's launches at shapes its
 # kernels take only padded (Cout off a multiple of 16, an even extent) and
-# the GRU pair's at an H off a multiple of 32, the ``gru_*_wide`` ones the
-# GRU pair's launches of the wide design (H > 512); all of these count
+# the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
+# GRU pair's launches above H = 512; all of these count
 # under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
@@ -55,8 +55,8 @@ _SIGNATURES = {
     'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),
-    'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _P),
+    'pbsed_gru_scan_bwd': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
     'pbsed_avgpool_freq2': (_P, _I, _P, ctypes.c_longlong, _I, _I, _P),
     'pbsed_avgpool_freq2_bwd': (_P, _P, _I, ctypes.c_longlong, _I, _I, _P),
     'pbsed_bnrelu_conv2d_same': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -78,20 +78,19 @@ _SIGNATURES = {
 # and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu, the
 # f32 conv's csrc/conv2d_f32.cu);
 # which GRU kernel a shape runs, forward, split and fused backward, with
-# its cluster size, rows, shared memory and co-resident clusters written
-# to the four int pointers (csrc/gru.cu, gru_bwd.cu, gru_bwd_fused.cu)
+# its cluster size, rows, shared memory, co-resident clusters, units a
+# block and bytes of w_hh resident and streamed a block written to the
+# seven int pointers (csrc/gru.cu, gru_bwd.cu, gru_bwd_fused.cu)
 _IP = ctypes.POINTER(ctypes.c_int)
 _QUERIES = {
     'pbsed_conv2d_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
     'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
-    'pbsed_gru_design': (_I,) * 4 + (_IP,) * 4,
-    'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 4,
-    'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 4,
+    'pbsed_gru_design': (_I,) * 4 + (_IP,) * 7,
+    'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 7,
+    'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 7,
 }
-# the GRU backward's workspace in bytes at (D, B, H) (csrc/gru_bwd.cu)
-_SIZES = {'pbsed_gru_bwd_workspace': (_I,) * 3}
 
 _lib = None
 
@@ -182,10 +181,6 @@ def lib():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name, argtypes in _SIZES.items():
-            fn = getattr(loaded, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_longlong
         loaded.pbsed_error_string.argtypes = (ctypes.c_int,)
         loaded.pbsed_error_string.restype = ctypes.c_char_p
         _lib = loaded

@@ -6,19 +6,22 @@ ties them together.
 The forward and both backwards each have two designs up to H = 512,
 chosen by shape inside the C entry points
 (``csrc/gru_cluster.cuh:gru_cluster_takes``): with few rows and many
-steps (training, tagging) a thread-block cluster per row tile that keeps
-w_hh in its shared memory; else one block per row tile. Above H = 512 the
-forward and the split backward run a third, wide design
-(``csrc/gru_wide.cuh``, up to ``GRU_MAX_HIDDEN``); the fused backward
-stops at ``GRU_FUSED_MAX_HIDDEN``. :func:`gru_designs` reports the choice.
+steps (training, tagging) a thread-block cluster of H / 32 blocks per row
+tile that keeps w_hh in its shared memory; else one block per row tile.
+Above H = 512 the forward and the split backward run the cluster design
+with 16 blocks of H / 16 units (``csrc/gru_cluster_wide.cuh``, up to
+``GRU_MAX_HIDDEN``), which streams the part of w_hh that does not fit the
+blocks' shared memory from L2 at every step; the fused backward stops at
+``GRU_FUSED_MAX_HIDDEN``. :func:`gru_designs` reports the choice.
 
-The kernels take H a multiple of 32. The wrappers take any H >= 1 up to
-those limits and pad the others exactly (:func:`pad_hidden`): zero units
-appended to each gate block keep h = 0 at every step (r = z = 1/2, n = 0)
-and reach the real units only through zero rows of w_hh; the padding is
-sliced off the outputs and gradients (:func:`unpad_hidden`). The width
-padded to is the next multiple of 32, or 256 / 512 where the cluster
-design takes that width at the shape (:func:`kernel_hidden`).
+The kernels take H a multiple of 32 up to 512 and of 256 above. The
+wrappers take any H >= 1 up to those limits and pad the others exactly
+(:func:`pad_hidden`): zero units appended to each gate block keep h = 0
+at every step (r = z = 1/2, n = 0) and reach the real units only through
+zero rows of w_hh; the padding is sliced off the outputs and gradients
+(:func:`unpad_hidden`). The width padded to is the next one the kernels
+take (:func:`padded_hidden`), or 256 / 512 where the cluster design takes
+that width at the shape (:func:`kernel_hidden`).
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
@@ -47,17 +50,23 @@ from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
                                                     members_first)
 
-# the largest H the forward and the split backward take (the wide design,
-# csrc/gru_wide.cuh:kWideMaxH), and the fused backward's
+# the largest H the forward and the split backward take (the cluster
+# design of 16 blocks, csrc/gru_cluster_wide.cuh:kWideMaxH), and the fused
+# backward's
 GRU_MAX_HIDDEN = 2048
 GRU_FUSED_MAX_HIDDEN = 512
-# the C entry points run the wide design above this H (kWideMinH)
+# the C entry points run the design of 16 blocks of H / 16 units above
+# this H (kWideMinH), at a multiple of _WIDE_STEP (wmma's 16-column tiles
+# of each block's units: kWideStep)
 _WIDE_ABOVE = 512
+_WIDE_STEP = 256
 
 
 def padded_hidden(h):
-    """The next multiple of 32 from hidden size ``h``."""
-    return -(-h // 32) * 32
+    """The next H from hidden size ``h`` that the kernels take: a multiple
+    of 32 up to 512, of 256 above (600 -> 768)."""
+    step = _WIDE_STEP if h > _WIDE_ABOVE else 32
+    return -(-h // step) * step
 
 
 def kernel_hidden(d, b, t, h, name='fwd'):
@@ -66,7 +75,8 @@ def kernel_hidden(d, b, t, h, name='fwd'):
     128 < h < 256 and 512 for 256 < h < 512 where the cluster design takes
     that width at the shape (it takes H = 256 and 512 only, and at few
     rows runs a step in a tenth of the row-tiled kernel's time, ``PERF.md``
-    §6), else the next multiple of 32."""
+    §6), else :func:`padded_hidden` (above 512 the next multiple of
+    256)."""
     for width in (256, 512):
         if (width // 2 < h < width
                 and _design(name, d, b, t, width)['design'] == 'cluster'):
@@ -120,6 +130,20 @@ def unpad_hidden(h, y=None, dxw=None, dw_hh=None, db_hh=None, dh0=None):
     return (units(y), gates(dxw),
             None if dw_hh is None else gates(dw_hh[:, :h]), gates(db_hh),
             units(dh0))
+
+
+def pack_wide(w16):
+    """``w_hh`` (D, H, 3H) bf16 as the cluster design above H = 512 reads
+    it (``csrc/gru_cluster_wide.cuh``): (D, 16, H, 3H / 16 + 8), block c's
+    slice ``w_hh[:, cols(U_c)]`` (the r, z and n columns of its U = H / 16
+    units side by side) row-major with 8 values of padding a row, so that
+    the slice is one contiguous range and a stage of its ring one bulk
+    copy."""
+    d, h, _ = w16.shape
+    u = h // 16
+    w = w16.reshape(d, h, 3, 16, u).permute(0, 3, 1, 2, 4).reshape(
+        d, 16, h, 3 * u)
+    return F.pad(w, (0, 8)).contiguous()
 
 
 def _check(xw, w_hh, b_hh, h0):
@@ -189,10 +213,13 @@ def gru_scan(xw, w_hh, b_hh, h0):
         xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(),
         h0.float(), hp=hp)
     xw16, w16, b32, h32 = (a.contiguous() for a in (xw16, w16, b32, h32))
+    if hp > _WIDE_ABOVE:
+        w16 = pack_wide(w16)
     d, b, t, _ = xw16.shape
     y = torch.empty((d, b, t, hp), dtype=torch.float32, device=xw.device)
-    if xw16.data_ptr() % 16:
-        raise ValueError('gru_scan needs a 16-byte aligned xw buffer')
+    if xw16.data_ptr() % 16 or w16.data_ptr() % 16:
+        raise ValueError('gru_scan needs 16-byte aligned xw and w_hh '
+                         'buffers')
     build.launch('gru_scan', 'pbsed_gru_scan', xw.device,
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  h32.data_ptr(), y.data_ptr(), d, b, t, hp)
@@ -201,8 +228,9 @@ def gru_scan(xw, w_hh, b_hh, h0):
 
 
 def _count_shape(counter, hdim, hp):
-    """Count a launch at a padded H, or of the wide design, under
-    ``<counter>_padded`` / ``<counter>_wide`` too."""
+    """Count a launch at a padded H, or above H = 512 (the design of 16
+    blocks of H / 16 units), under ``<counter>_padded`` /
+    ``<counter>_wide`` too."""
     if hp != hdim:
         build.LAUNCHES[f'{counter}_padded'] += 1
     if hp > _WIDE_ABOVE:
@@ -224,30 +252,34 @@ _DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
 
 def _design(name, d, b, t, h):
     lib = build.lib()
-    out = [ctypes.c_int() for _ in range(4)]
+    out = [ctypes.c_int() for _ in range(7)]
     rc = getattr(lib, _DESIGN_QUERIES[name])(d, b, t, h,
                                              *map(ctypes.byref, out))
     if rc < 0:
         msg = lib.pbsed_error_string(-rc).decode()
         raise RuntimeError(f'GRU {name} design query at {(d, b, t, h)} '
                            f'failed: CUDA error {-rc} ({msg})')
-    return dict(zip(('cluster', 'rows', 'smem', 'coresident'),
-                    (v.value for v in out)),
-                design=('row_tiled', 'cluster', 'wide')[rc])
+    return dict(zip(('cluster', 'rows', 'smem', 'coresident', 'units',
+                     'resident', 'streamed'), (v.value for v in out)),
+                design=('row_tiled', 'cluster')[rc])
 
 
 def gru_designs(d, b, t, h):
     """Which kernels the GRU runs on the card at xw (D, B, T, 3H), as the
     C entry points decide at the H each pass runs (:func:`kernel_hidden`):
     for ``'fwd'``, ``'bwd'`` (the split backward) and ``'bwd_fused'`` a dict
-    of ``design`` ('cluster': w_hh resident in a thread-block cluster's
-    shared memory; 'row_tiled'; or above H = 512 'wide',
-    ``csrc/gru_wide.cuh``), ``hidden`` (the H it runs), ``cluster``
-    (blocks a cluster, 1 row-tiled and wide), ``rows`` (batch rows a
-    cluster or block), ``smem`` (dynamic shared memory a block, bytes)
-    and ``coresident`` (clusters the card holds at once, 0 row-tiled and
-    wide); ``'bwd_fused'`` is None above ``GRU_FUSED_MAX_HIDDEN``. Raises
-    where the card can hold no cluster of the design."""
+    of ``design`` ('cluster': w_hh spread over a thread-block cluster's
+    shared memory, ``csrc/gru_cluster.cuh`` and above H = 512
+    ``csrc/gru_cluster_wide.cuh``; or 'row_tiled'), ``hidden`` (the H it
+    runs), ``cluster`` (blocks a cluster, 1 row-tiled), ``rows`` (batch
+    rows a cluster or block), ``smem`` (dynamic shared memory a block,
+    bytes), ``coresident`` (clusters the card holds at once, 0
+    row-tiled), ``units`` (hidden units a block owns: 32, H / 16 above
+    512, 0 row-tiled), ``resident`` and ``streamed`` (bytes of a block's
+    slice of w_hh kept in its shared memory and read from L2 at every
+    step; row-tiled: all of w_hh streamed); ``'bwd_fused'`` is None above
+    ``GRU_FUSED_MAX_HIDDEN``. Raises where the card can hold no cluster
+    of the design."""
     out = {}
     for name in _DESIGN_QUERIES:
         if name == 'bwd_fused' and padded_hidden(h) > GRU_FUSED_MAX_HIDDEN:
@@ -368,24 +400,24 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
         xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(), h0,
         y, g.float(), hp=hp)
     xw16, w16, b32, g32 = (a.contiguous() for a in (xw16, w16, b32, g32))
+    if hp > _WIDE_ABOVE:
+        w16 = pack_wide(w16)
     d, b, t, _ = xw16.shape
     # the fused cluster sweep reads up to 15 steps past the last row
     h_prev = _h_prev(h0, y, pad=0 if split else 16)
     dxw = torch.empty_like(xw16)
     dh0 = torch.empty((d, b, hp), dtype=torch.float32, device=xw.device)
-    if h_prev.data_ptr() % 16:
-        raise ValueError('gru_scan_bwd needs a 16-byte aligned h_prev')
+    if h_prev.data_ptr() % 16 or w16.data_ptr() % 16:
+        raise ValueError('gru_scan_bwd needs 16-byte aligned h_prev and '
+                         'w_hh buffers')
     if not split:
         out = _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0)
         return unpad_hidden(hdim, None, *out)[1:]
     r = torch.empty_like(h_prev)
-    nbytes = build.lib().pbsed_gru_bwd_workspace(d, b, hp)
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=xw.device)
     build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
                  xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
                  b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
-                 r.data_ptr(), dh0.data_ptr(),
-                 workspace.data_ptr() if nbytes else None, d, b, t, hp)
+                 r.data_ptr(), dh0.data_ptr(), d, b, t, hp)
     _count_shape('gru_scan_bwd', hdim, hp)
     dw_hh, db_hh = _weight_grads(h_prev, dxw, r)
     return unpad_hidden(hdim, None, dxw, dw_hh, db_hh, dh0)[1:]

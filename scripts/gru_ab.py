@@ -11,10 +11,12 @@ builds its kernels there. A process times the forward kernel
 (``pbsed_gru_scan``) and the split backward kernel (``pbsed_gru_scan_bwd``,
 the sweep alone, without the wrapper's weight-gradient contraction) on
 prepared buffers at the training and tagging shape (2, 32, 500, H) and the
-sliding-window shape (2, 16 000, 51, H), H = 256 and 512; at the training
-shapes also the fused backward's wrapper (``gru_scan_bwd(...,
-split=False)``: its workspace, the sweep and the reduction of the
-partials); and the max-pool forward's wrapper (``maxpool_freq2``) at the 8
+sliding-window shape (2, 16 000, 51, H), H = 256, 512, 768 and 1024 (a
+tree whose backward above 512 takes a workspace gets one); at the
+training shapes up to H = 512 also the fused backward's wrapper
+(``gru_scan_bwd(..., split=False)``: its workspace, the sweep and the
+reduction of the partials); and the max-pool forward's wrapper
+(``maxpool_freq2``) at the 8
 pools of the shallow and deep towers (B = 32, T = 500), replayed from a
 CUDA graph of 10 calls (its kernel takes less than the wrapper's host
 time). Each time is the median of 5 CUDA-event times after 2 warm-up
@@ -33,7 +35,8 @@ from pathlib import Path
 import ab
 
 SHAPES = [(2, 32, 500, 256), (2, 16000, 51, 256), (2, 32, 500, 512),
-          (2, 16000, 51, 512)]
+          (2, 16000, 51, 512), (2, 32, 500, 768), (2, 16000, 51, 768),
+          (2, 32, 500, 1024), (2, 16000, 51, 1024)]
 # (F, C) entering the max-pools of the shallow and the deep tower
 POOLS = [(128, 16), (64, 32), (32, 64), (16, 128), (128, 32), (64, 64),
          (32, 128), (16, 256)]
@@ -91,10 +94,14 @@ def time_tree():
         b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device=dev)
         h0 = torch.zeros(d, b, h, device=dev)
         y = torch.empty(d, b, t, h, device=dev)
+        # the kernels' layout of w_hh: packed above H = 512 where the tree
+        # packs it (the cluster design there)
+        w_k = (K.pack_wide(w_hh) if h > 512 and hasattr(K, 'pack_wide')
+               else w_hh)
 
         def fwd():
             build.launch('gru_scan', 'pbsed_gru_scan', dev, xw.data_ptr(),
-                         w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+                         w_k.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
                          y.data_ptr(), d, b, t, h)
 
         key = str((d, b, t, h))
@@ -102,28 +109,41 @@ def time_tree():
         h_prev = torch.cat([h0[:, :, None], y[:, :, :-1]], dim=2).to(
             torch.bfloat16).contiguous()
         g = 1e-2 * torch.randn(d, b, t, h, generator=gen, device=dev)
-        if b == 32:
+        if b == 32 and h <= 512:
             times[key]['bwd_fused'] = cuda_ms(lambda: K.gru_scan_bwd(
                 xw, w_hh, b_hh, h0, y, g, split=False))
         del y
         dxw = torch.empty_like(xw)
         r = torch.empty_like(h_prev)
         dh0 = torch.empty(d, b, h, device=dev)
+        # a tree whose backward takes a workspace (one block's dgates a
+        # step above H = 512, the design before the cluster one there)
+        sizes = getattr(build, '_SIZES', {})
+        workspace = ()
+        if 'pbsed_gru_bwd_workspace' in sizes:
+            nbytes = build.lib().pbsed_gru_bwd_workspace(d, b, h)
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
+            workspace = (buf.data_ptr() if nbytes else None,)
 
         def bwd():
             build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', dev,
-                         xw.data_ptr(), h_prev.data_ptr(), w_hh.data_ptr(),
+                         xw.data_ptr(), h_prev.data_ptr(), w_k.data_ptr(),
                          b_hh.data_ptr(), g.data_ptr(), dxw.data_ptr(),
-                         r.data_ptr(), dh0.data_ptr(), d, b, t, h)
+                         r.data_ptr(), dh0.data_ptr(), *workspace, d, b, t,
+                         h)
 
         times[key]['bwd'] = cuda_ms(bwd)
         if hasattr(K, 'gru_designs'):
             designs[key] = {
-                p: (f'{v["design"]} (cluster {v["cluster"]}, {v["rows"]} '
-                    f'rows, {v["smem"] / 1024:.0f} KiB, {v["coresident"]} '
-                    f'co-resident)')
-                for p, v in K.gru_designs(d, b, t, h).items()}
-        del xw, h_prev, g, dxw, r
+                p: (f'{v["design"]} (cluster {v["cluster"]}, '
+                    f'{v.get("units", "?")} units, {v["rows"]} rows, '
+                    f'{v["smem"] / 1024:.0f} KiB, {v["coresident"]} '
+                    f'co-resident, w_hh {v.get("resident", 0) / 1024:.0f} '
+                    f'KiB resident, {v.get("streamed", 0) / 1024:.0f} KiB '
+                    f'streamed)')
+                for p, v in K.gru_designs(d, b, t, h).items()
+                if v is not None}
+        del xw, h_prev, g, dxw, r, workspace, w_k
         torch.cuda.empty_cache()
     for f, c in POOLS:
         x = torch.randn(32, 500, f, c, generator=gen, device=dev).to(

@@ -10,8 +10,8 @@ ragged pixel tiles, frequency rows and channel widths, the member axis
 of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
 and f32; the conv at Cout off a multiple of 16 and even kernel extents;
-the GRU at hidden sizes off a multiple of 32 and on the wide design above
-512; the f32 conv and its backward, with a member axis), the determinism
+the GRU at hidden sizes off a multiple of 32 and on the cluster design of
+16 blocks above 512; the f32 conv and its backward, with a member axis), the determinism
 of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
@@ -624,31 +624,40 @@ def _gru_case(gen, d, b, t, h, g_scale=1.):
     return xw, w_hh, b_hh, h0, g
 
 
-# (D, B, T, H): the wide design at 768, 1024 and 2048 (its limit), with a
-# ragged row tile (B = 17, 3) and T = 1; H off a multiple of 32 below 512
-# (padded into the row-tiled kernel, or to 256 for the cluster design at
-# few rows: 400 row tiles keep 200 at 224, row-tiled) and above (600 ->
-# 608, the wide design)
+# (D, B, T, H): the cluster design of 16 blocks above 512 at 768, 1024
+# and 2048 (its limit), with a ragged row tile (B = 17, 3) and T = 1, and
+# at 768 with 3 000 rows (the forward's clusters of 32 rows); H off a
+# multiple of 32 below 512 (padded into the row-tiled kernel, or to 256
+# for the cluster design at few rows: 400 row tiles keep 200 at 224,
+# row-tiled) and above (600 -> 768)
 @pytest.mark.parametrize('d,b,t,h', [
     (2, 17, 9, 768), (2, 3, 1, 768), (1, 5, 6, 1024), (2, 3, 4, 2048),
-    (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200), (2, 3000, 3, 200),
-    (2, 3, 5, 600)])
+    (2, 3000, 3, 768), (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200),
+    (2, 3000, 3, 200), (2, 3, 5, 600)])
 def test_gru_any_width_matches_plain(gen, d, b, t, h):
     """Forward and the split backward against the plain version at the
     real H (the GRU ceiling: 5.3e-3, and 5.3e-3 of each gradient's
     largest entry), with the design the H each pass runs takes (200 runs
-    as 256 on the cluster design at few rows, as 224 row-tiled at 16 000),
-    the
-    launches counted under the pair's names and the wide and padded ones,
-    and bit-identical reruns."""
+    as 256 on the cluster design at few rows, as 224 row-tiled at 16 000;
+    above 512 clusters of 16 blocks of H / 16 units, the forward's of 32
+    rows where 16-row clusters would wait their turn), the launches
+    counted under the pair's names and the wide and padded ones, and
+    bit-identical reruns."""
     xw, w_hh, b_hh, h0, g = _gru_case(gen, d, b, t, h)
     designs = gru_designs(d, b, t, h)
     for key in ('fwd', 'bwd'):
-        hp = designs[key]['hidden']
-        # the next multiple of 32, or the width the cluster design takes
-        if hp != -(-h // 32) * 32:
-            assert hp in (256, 512) and designs[key]['design'] == 'cluster'
-        assert (designs[key]['design'] == 'wide') == (hp > 512)
+        v = designs[key]
+        hp = v['hidden']
+        if hp > 512:
+            # the next multiple of 256, on 16 blocks of hp / 16 units
+            assert hp == -(-h // 256) * 256
+            assert (v['design'], v['cluster'], v['units']) == (
+                'cluster', 16, hp // 16)
+            assert v['resident'] + v['streamed'] == 2 * hp * 3 * hp // 16
+            assert v['rows'] == (32 if key == 'fwd' and b == 3000 else 16)
+        elif hp != -(-h // 32) * 32:
+            # the width the cluster design takes
+            assert hp in (256, 512) and v['design'] == 'cluster'
     if h > 512:
         assert designs['bwd_fused'] is None
     n = dict(build.LAUNCHES)
@@ -686,7 +695,8 @@ def test_gru_fused_backward_at_a_padded_width(gen, h):
 
 def test_wide_gru_members_in_the_direction_axis(gen):
     """Two members at H = 768 under ``torch.func.vmap``: one D = 4 launch
-    equal to each member's D = 2 launch in every bit."""
+    of the cluster design above 512 equal to each member's D = 2 launch in
+    every bit."""
     xw, w_hh, b_hh, h0, _ = _gru_case(gen, 4, 3, 6, 768)
     member = (lambda a: a.reshape(2, 2, *a.shape[1:]))
     got = torch.func.vmap(GruScan.apply)(*map(member, (xw, w_hh, b_hh, h0)))
