@@ -513,10 +513,12 @@ KERNELS = {
     # Pallas site: the JAX package's lax.scan) and the pair at an H it
     # takes padded (those launches count under the pair's names too)
     'conv2d_same_f32': {
-        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_f32.cu',
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/conv2d_f32_wgmma.cuh',
         'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
     'conv2d_same_f32_bwd': {
-        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_f32.cu',
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/conv2d_f32_wgmma.cuh',
         'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
     'gru_scan_wide': {
         'route': 'cuda',
@@ -560,10 +562,11 @@ DEEP = SHALLOW + ('avgpool_freq2', 'avgpool_freq2_bwd')
 FUSED = ('bnrelu_conv2d_same', 'bnrelu_conv2d_same_bwd')
 TRAIN_STEPS = 8
 # the card's peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s,
-# bf16 tensor-core and f32 FLOP/s
+# bf16 tensor-core, f32 and TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 def log(*args):
@@ -659,7 +662,10 @@ def log_ptxas(text):
                            'avgpool2d', 'gru_scan_wide_cluster_kernel',
                            'gru_bwd_wide_cluster_kernel', 'conv2d_f32_kernel',
                            'conv2d_f32_dw_kernel',
-                           'conv2d_f32_dw_reduce_kernel'):
+                           'conv2d_f32_dw_reduce_kernel',
+                           'conv2d_f32_wgmma_kernel',
+                           'conv2d_f32_dw_wgmma_kernel',
+                           'conv2d_f32_split_kernel'):
                 if kernel in mangled:
                     args = mangled.split(kernel, 1)[1]
                     # template arguments end in EE, a plain name in E
@@ -683,13 +689,15 @@ def log_ptxas(text):
             log(f'  ptxas advisory: {line.split(":", 1)[1].strip()[:160]}')
 
 
-def bound(nbytes, tensor_flops=0., vector_ops=0.):
+def bound(nbytes, tensor_flops=0., vector_ops=0., tf32_flops=0.):
     """The least time (ms) the card could take for work that moves
     ``nbytes`` (each input read once, each output written once) and does
-    ``tensor_flops`` bf16 tensor-core and ``vector_ops`` f32 operations,
-    and which of the two binds: (ms, 'bytes' or 'operations')."""
+    ``tensor_flops`` bf16 tensor-core, ``vector_ops`` f32 and
+    ``tf32_flops`` TF32 tensor-core operations, and which of the two
+    binds: (ms, 'bytes' or 'operations')."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = tensor_flops / BF16_FLOPS + vector_ops / F32_FLOPS
+    t_ops = (tensor_flops / BF16_FLOPS + vector_ops / F32_FLOPS
+             + tf32_flops / TF32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -5200,9 +5208,11 @@ PADDED_HIDDEN = 200
 PADDED_WIDE_HIDDEN = 600
 
 
-def _f32_work(p, cin, cout, taps=9, backward=False):
-    """Bytes and f32 FFMA operations of the f32 SAME conv (forward, or
-    dx + dw) over ``p`` pixels: f32 activations, weights and bias."""
+def _f32_work(p, cin, cout, taps=9, backward=False, ffma=False):
+    """The least time of the f32 SAME conv (forward, or dx + dw) over
+    ``p`` pixels, f32 activations, weights and bias: its bytes, or its
+    f32 products on the 3xTF32 route (3 TF32 products each at 495
+    TFLOP/s, faster than FFMA's 67); ``ffma=True``: on the FFMA route."""
     if backward:
         nbytes = 4 * (2 * p * cin + taps * cin * cout + p * cout
                       + taps * cin * cout)
@@ -5210,7 +5220,9 @@ def _f32_work(p, cin, cout, taps=9, backward=False):
     else:
         nbytes = 4 * (p * cin + taps * cin * cout + cout + p * cout)
         flops = 2. * p * taps * cin * cout
-    return bound(nbytes, 0., flops)
+    if ffma:
+        return bound(nbytes, 0., flops)
+    return bound(nbytes, tf32_flops=3. * flops)
 
 
 def check_width_kernels(records):
@@ -5225,12 +5237,17 @@ def check_width_kernels(records):
     its plain version (PyTorch's own im2col and f32 GEMM, TF32 and cuDNN
     off: 2e-5 of the largest entry forward and dx, 1e-4 for dw), each
     timed beside cuDNN's f32 conv with TF32 off (the library call; its dw
-    also held against the plain version, printed) and its bound (f32 FFMA
-    at 67 TFLOP/s), into ``records`` under the label 'widths'."""
+    also held against the plain version, printed) and its bound (3xTF32:
+    3 TF32 products at 495 TFLOP/s per f32 product, or bytes; the FFMA
+    route's at 67 TFLOP/s printed beside), with the design each pass runs
+    (3xTF32 at L1-L8, FFMA at L0, asserted), each largest error as a
+    fraction of its gate, and the backward without dx, into ``records``
+    under the label 'widths'."""
     from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
                                                    conv2d_same_f32_bwd,
                                                    conv2d_same_f32_bwd_plain,
-                                                   conv2d_same_f32_plain)
+                                                   conv2d_same_f32_plain,
+                                                   conv_f32_designs)
     from pb_sed_tpu_torch.ops.kernels.functions import full_f32
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -5321,6 +5338,16 @@ def check_width_kernels(records):
         del xw, y, g, args, part, grads, refs, again
         torch.cuda.empty_cache()
     for layer, f, cin, cout in CONV_LAYERS:
+        designs = conv_f32_designs(f, cin, cout)
+        for key, v in designs.items():
+            log(f'f32 conv design {layer} ({f}, {cin} -> {cout}) {key}: '
+                f'{v["design"]}, {v["stages"]} stages, '
+                f'{v["smem"] / 1024:.0f} KiB shared memory')
+            # 3xTF32 at L1-L8, FFMA at the entry layer (Cin = 1)
+            want = 'ffma' if cin < 16 else '3xtf32'
+            if v['design'] != want:
+                raise AssertionError(f'f32 conv {key} at {layer} runs '
+                                     f'{v["design"]}, not {want}')
         x = randn(BATCH, FRAMES, f, cin)
         w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
         bias = randn(cout, scale=.1)
@@ -5335,23 +5362,35 @@ def check_width_kernels(records):
             with full_f32():
                 return call()
 
+        fractions = {}
+
+        def gated(key, got, ref, gate):
+            tol = gate * float(ref.abs().max())
+            fractions[key] = float((got - ref).abs().max()) / tol
+            return tol
+
         got, ref = conv2d_same_f32(x, w, bias), conv2d_same_f32_plain(
             x, w, bias)
         torch.cuda.synchronize()
+        work = _f32_work(p, cin, cout)
         _check('conv2d_same_f32', shape, got, ref,
-               2e-5 * float(ref.abs().max()),
+               gated('fwd', got, ref, 2e-5),
                cuda_ms(lambda: conv2d_same_f32(x, w, bias), reps=5),
                cuda_ms(lambda: conv2d_same_f32_plain(x, w, bias), reps=5),
                records['conv2d_same_f32'], 'widths',
                cuda_ms(lambda: in_f32(lambda: F.conv2d(xn, wn, bias,
                                                        padding=1)), reps=5),
-               _f32_work(p, cin, cout))
+               work)
+        ffma = _f32_work(p, cin, cout, ffma=True)
+        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}), FFMA '
+            f'route {ffma[0]:.3f} ms ({ffma[1]})')
         del got, ref
         dx, dw = conv2d_same_f32_bwd(x, w, gy)
         ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
         torch.cuda.synchronize()
+        work = _f32_work(p, cin, cout, backward=True)
         _check('conv2d_same_f32_bwd dx', shape, dx, ref_dx,
-               2e-5 * float(ref_dx.abs().max()),
+               gated('dx', dx, ref_dx, 2e-5),
                cuda_ms(lambda: conv2d_same_f32_bwd(x, w, gy), reps=5),
                cuda_ms(lambda: conv2d_same_f32_bwd_plain(x, w, gy), reps=5),
                records['conv2d_same_f32_bwd'], 'widths',
@@ -5359,10 +5398,18 @@ def check_width_kernels(records):
                    lambda: torch.ops.aten.convolution_backward(
                        gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False,
                        [0, 0], 1, [True, True, False])), reps=5),
-               _f32_work(p, cin, cout, backward=True))
+               work)
+        ffma = _f32_work(p, cin, cout, backward=True, ffma=True)
+        no_dx = cuda_ms(lambda: conv2d_same_f32_bwd(x, w, gy, need_dx=False),
+                        reps=5)
+        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}), FFMA '
+            f'route {ffma[0]:.3f} ms ({ffma[1]}); without dx (as a training '
+            f'step runs the entry layer) {no_dx:.3f} ms')
         _check('conv2d_same_f32_bwd dw', shape, dw, ref_dw,
-               1e-4 * float(ref_dw.abs().max()), 0., 0.,
+               gated('dw', dw, ref_dw, 1e-4), 0., 0.,
                records['conv2d_same_f32_bwd'], 'widths')
+        log(f'  largest errors as a fraction of their gates at {layer}: '
+            + json.dumps({k: round(v, 4) for k, v in fractions.items()}))
         lib_dw = in_f32(lambda: torch.ops.aten.convolution_backward(
             gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [False, True, False]))[1].permute(2, 3, 1, 0)
@@ -5373,6 +5420,10 @@ def check_width_kernels(records):
         if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy)[1]):
             raise AssertionError(f'conv2d_same_f32_bwd dw at {shape}: a '
                                  f'second run differs')
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy,
+                                                   need_dx=False)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape} '
+                                 f'differs without dx')
         del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
         torch.cuda.empty_cache()
     log('gru library (phase 15): ' + json.dumps(library))
@@ -5470,6 +5521,7 @@ def phase_widths(earlier):
     step; each path's launch counters are read. Returns (launches by
     path, the measurements), printed beside ``earlier`` (phases 3-4)."""
     from pb_sed_tpu_torch.models import base
+    from pb_sed_tpu_torch.ops.kernels.conv import conv_f32_designs
     launches, out = {}, {}
     cases = [('15a', F32 + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
                             'gru_scan_bwd'), 10, False),
@@ -5487,6 +5539,19 @@ def phase_widths(earlier):
                       module.rnn_bwd.output_net.conv_0.dtype}
             if dtypes != {torch.float32}:
                 raise AssertionError(f'15a: layers in {dtypes}')
+            # the launches counted below run these designs: 3xTF32 at
+            # L1-L8, FFMA at the entry layer (whose backward runs no dx:
+            # the log-mel features need no gradient)
+            chosen = {layer: {key: v['design'] for key, v in
+                              conv_f32_designs(f, cin, cout).items()}
+                      for layer, f, cin, cout in CONV_LAYERS}
+            log(f'15a: f32 conv designs at the tower\'s 3x3 layers: '
+                + json.dumps(chosen))
+            for layer, f, cin, cout in CONV_LAYERS:
+                want = 'ffma' if cin < 16 else '3xtf32'
+                if set(chosen[layer].values()) != {want}:
+                    raise AssertionError(f'15a: {layer} runs '
+                                         f'{chosen[layer]}, not {want}')
         head = module.rnn.rnn if strong else module.rnn_fwd.rnn
         log(f'{name}: {model.num_parameters()} parameters, GRU hidden size '
             f'{head.hidden_size}, designs at (2, 32, 500): '

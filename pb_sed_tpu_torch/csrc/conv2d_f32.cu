@@ -5,9 +5,9 @@
 //   y[b, t, f, n] = sum_{dt, df, c} x[b, t + dt - lo_t, f + df - lo_f, c]
 //                   * w[dt, df, c, n] + bias[n],  lo = (k - 1) / 2
 //
-// f32 operands, f32 products and sums (FFMA), no rounding to a narrower
-// type anywhere: not TF32, which would round each operand to 10 mantissa
-// bits and miss an f32 reference by ~1e-3.
+// f32 operands and f32 sums, no rounding to a narrower type: not plain
+// TF32, which would round each operand to 10 mantissa bits and miss an
+// f32 reference by ~1e-3.
 //
 // Replaces: no Pallas site. It is the f32 counterpart of the conv layers
 // that conv2d.cu / conv2d_bwd.cu serve in bf16
@@ -15,24 +15,39 @@
 // CNN2d(compute_dtype='float32'), where the JAX package convolves with
 // lax.conv_general_dilated on f32 operands (pb_sed_tpu/ops/cnn.py:113-119).
 //
-// The design: an implicit GEMM (the im2col patch never exists in device
-// memory). M = B * T * F output pixels, N = Cout, K = kt * kf * Cin,
-// flattened as k = (dt * kf + df) * Cin + c, the weights' own layout. A
-// block of 256 threads owns 128 pixels x BN (16, 32 or 64) channels and
-// walks K in slices of 16: it stages the slice's input values (the SAME
-// halo and K's tail as zeros) k-major and the weights' 16 rows in shared
-// memory, and each thread accumulates 8 pixels x BN / 16 channels in
-// registers. The input gradient is the same kernel on the cotangent with
-// the flipped, transposed weights and the pads mirrored (lo' = k - 1 -
-// lo). The weight gradient is a GEMM of K rows x N columns over the
-// pixels, cut into pixel chunks: each chunk's block writes its partial
-// sums, and a second kernel adds the chunks in chunk order, so reruns are
-// bit-identical (no float atomics). Stacked members (x (M, B, T, F, Cin),
-// w (M, kt, kf, Cin, Cout), bias (M, Cout)) are the forward grid's z axis.
+// Two designs, chosen by shape before the launch
+// (pbsed_conv2d_f32_design reports which):
 //
-// What bounds it on the H100: the FFMA rate (67 TFLOP/s f32 against 989
-// bf16 on the tensor cores): the shallow tower's 3x3 layers are 284
-// GFLOP a forward at B = 32, T = 500.
+// - 3xTF32 on the tensor cores (conv2d_f32_wgmma.cuh): wgmma .tf32 fed by
+//   TMA halo rings, each operand split into a TF32 hi and lo part and a
+//   product taken as hi*lo + lo*hi + hi*hi, runs of products kept short
+//   and added to f32 register sums. It takes the forward, dx and dw of
+//   every layer with Cin and Cout >= 16 (multiples of 4) and F a power of
+//   two dividing 128: the shallow tower's L1-L8.
+// - FFMA (below) for the rest, chiefly the entry layer (Cin = 1): an
+//   implicit GEMM (the im2col patch never exists in device memory). M =
+//   B * T * F output pixels, N = Cout, K = kt * kf * Cin, flattened as k
+//   = (dt * kf + df) * Cin + c, the weights' own layout. A block of 256
+//   threads owns 128 pixels x BN (16, 32 or 64) channels and walks K in
+//   slices of 16: it stages the slice's input values (the SAME halo and
+//   K's tail as zeros) k-major and the weights' 16 rows in shared memory,
+//   and each thread accumulates 8 pixels x BN / 16 channels in registers.
+//
+// The input gradient is the forward's GEMM on the cotangent with the
+// flipped, transposed weights and the pads mirrored (lo' = k - 1 - lo);
+// it is skipped when the caller passes no dx. The weight gradient is a
+// GEMM of K rows x N columns over the pixels, cut into pixel chunks: each
+// chunk's block writes its partial sums, and a second kernel adds the
+// chunks in chunk order, so reruns are bit-identical (no float atomics).
+// Stacked members (x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), bias
+// (M, Cout)) run in one launch of the forward.
+//
+// What bounds it on the H100: the shallow tower's 3x3 layers are 284
+// GFLOP a forward at B = 32, T = 500: 1.72 ms at the TF32 tensor rate x 3
+// (495 TFLOP/s) against 4.23 at the FFMA rate (67 TFLOP/s); the entry
+// layer and L1's dw by bytes.
+#include "conv2d_f32_wgmma.cuh"
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -302,48 +317,91 @@ long long f32_dw_chunk_len(int B, int T, int F, int Cin, int Cout, int kt,
   return (len + kF32BK - 1) / kF32BK * kF32BK;
 }
 
+// pixel chunks of the dw pass at this shape for either design
+int f32_dw_chunks(int B, int T, int F, int Cin, int Cout, int kt, int kf,
+                  int sms) {
+  const long long Mpix = static_cast<long long>(B) * T * F;
+  if (Mpix == 0) return 1;
+  if (conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf))
+    return conv2d_f32_dw_wgmma_chunks(B, T, F, Cin, Cout, kt, kf, sms);
+  const long long len = f32_dw_chunk_len(B, T, F, Cin, Cout, kt, kf, sms);
+  return static_cast<int>((Mpix + len - 1) / len);
+}
+
 }  // namespace
 
 // x (M, B, T, F, Cin) f32, w (M, kt, kf, Cin, Cout) f32, b (M, Cout) f32 or
 // null, y (M, B, T, F, Cout) f32; contiguous. Any kt, kf >= 1 (XLA's SAME
-// pads: (k - 1) / 2 before, k / 2 after), Cin, Cout >= 1. Returns a
-// cudaError_t.
+// pads: (k - 1) / 2 before, k / 2 after), Cin, Cout >= 1. ``split`` holds
+// 2 M kt kf Cin Cout f32 (the weights' hi and lo) where
+// pbsed_conv2d_f32_design(0, ...) reports the 3xTF32 design, else may be
+// null. Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_f32(const void* x, const void* w,
-                                     const void* b, void* y, int M, int B,
-                                     int T, int F, int Cin, int Cout, int kt,
-                                     int kf, void* stream) {
+                                     const void* b, void* y, void* split,
+                                     int M, int B, int T, int F, int Cin,
+                                     int Cout, int kt, int kf, void* stream) {
   if (kt < 1 || kf < 1 || Cin < 1 || Cout < 1 || M < 1 || M > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * T * F == 0) return 0;
-  return static_cast<int>(conv2d_f32(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), M, B, T, F, Cin,
-      Cout, kt, kf, (kt - 1) / 2, (kf - 1) / 2,
-      static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xs = static_cast<const float*>(x);
+  const float* ws = static_cast<const float*>(w);
+  const float* bs = static_cast<const float*>(b);
+  float* ys = static_cast<float*>(y);
+  if (conv2d_f32_wgmma_ok(F, Cin, Cout, kt, kf)) {
+    if (split == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(conv2d_f32_wgmma(xs, ws, split, bs, ys, M, B, T,
+                                             F, Cin, Cout, kt, kf,
+                                             (kt - 1) / 2, (kf - 1) / 2, s));
+  }
+  return static_cast<int>(conv2d_f32(xs, ws, bs, ys, M, B, T, F, Cin, Cout,
+                                     kt, kf, (kt - 1) / 2, (kf - 1) / 2, s));
+}
+
+// Which design a pass of the f32 conv of a (F, Cin -> Cout, kt x kf)
+// layer runs: pass 0 the forward, 1 dx, 2 dw. Returns 1 for 3xTF32 on the
+// tensor cores (with its ring depth and dynamic shared memory in bytes
+// written to the pointers), 0 for FFMA (0 and 0).
+extern "C" int pbsed_conv2d_f32_design(int pass, int F, int Cin, int Cout,
+                                       int kt, int kf, int* stages,
+                                       int* smem) {
+  *stages = 0;
+  *smem = 0;
+  if (pass == 2) {
+    if (!conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf)) return 0;
+    *stages = conv2d_f32_dw_wgmma_stages(F, Cin, Cout, kt, kf);
+    *smem = conv2d_f32_dw_wgmma_smem(F, Cin, Cout, kt, kf, *stages);
+    return 1;
+  }
+  const int c_in = pass == 0 ? Cin : Cout;
+  const int n = pass == 0 ? Cout : Cin;
+  if (!conv2d_f32_wgmma_ok(F, c_in, n, kt, kf)) return 0;
+  *stages = conv2d_f32_wgmma_stages(F, c_in, n, kt, kf);
+  *smem = conv2d_f32_wgmma_smem(F, c_in, n, kt, kf, *stages);
+  return 1;
 }
 
 // The dw pass's chunks at this shape on a card of `sms` SMs: the first
 // dimension of pbsed_conv2d_same_f32_bwd's workspace.
 extern "C" int pbsed_conv2d_f32_dw_chunks(int B, int T, int F, int Cin,
                                           int Cout, int kt, int kf, int sms) {
-  const long long Mpix = static_cast<long long>(B) * T * F;
-  if (Mpix == 0) return 1;
-  const long long len = f32_dw_chunk_len(B, T, F, Cin, Cout, kt, kf, sms);
-  return static_cast<int>((Mpix + len - 1) / len);
+  return f32_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
 }
 
 // Backward of pbsed_conv2d_same_f32 for one member: x (B, T, F, Cin) f32,
 // gy (B, T, F, Cout) f32, w_flip (kt, kf, Cout, Cin) f32 (the weights
-// flipped in both extents, channels transposed); dx (B, T, F, Cin) f32,
-// dw (kt, kf, Cin, Cout) f32, workspace (chunks, kt * kf * Cin, Cout) f32
-// with chunks = pbsed_conv2d_f32_dw_chunks(..., sms) for this card's sms.
-// Contiguous. Returns a cudaError_t.
+// flipped in both extents, channels transposed); dx (B, T, F, Cin) f32 or
+// null (then no dx pass, and w_flip may be null), dw (kt, kf, Cin, Cout)
+// f32, workspace (chunks, kt * kf * Cin, Cout) f32 with chunks =
+// pbsed_conv2d_f32_dw_chunks(..., sms) for this card's sms, split 2 kt kf
+// Cin Cout f32 where pbsed_conv2d_f32_design(1, ...) reports 3xTF32 for
+// dx, else may be null. Contiguous. Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_f32_bwd(const void* x, const void* gy,
                                          const void* w_flip, void* dx,
-                                         void* dw, void* workspace, int B,
-                                         int T, int F, int Cin, int Cout,
-                                         int kt, int kf, int sms,
-                                         void* stream) {
+                                         void* dw, void* workspace,
+                                         void* split, int B, int T, int F,
+                                         int Cin, int Cout, int kt, int kf,
+                                         int sms, void* stream) {
   if (kt < 1 || kf < 1 || Cin < 1 || Cout < 1 || sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -353,30 +411,44 @@ extern "C" int pbsed_conv2d_same_f32_bwd(const void* x, const void* gy,
     return static_cast<int>(cudaMemsetAsync(dw, 0, sizeof(float) * n, s));
   const int lo_t = (kt - 1) / 2;
   const int lo_f = (kf - 1) / 2;
-  // dx: the forward kernel on gy with the flipped weights, pads mirrored
-  cudaError_t err = conv2d_f32(
-      static_cast<const float*>(gy), static_cast<const float*>(w_flip),
-      nullptr, static_cast<float*>(dx), 1, B, T, F, Cout, Cin, kt, kf,
-      kt - 1 - lo_t, kf - 1 - lo_f, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long len = f32_dw_chunk_len(B, T, F, Cin, Cout, kt, kf, sms);
-  const int chunks = static_cast<int>((Mpix + len - 1) / len);
-  const int K = kt * kf * Cin;
-  const int bn = f32_tile_n(Cout);
-  const dim3 grid((K + kF32BM - 1) / kF32BM, (Cout + bn - 1) / bn, chunks);
   const float* xs = static_cast<const float*>(x);
   const float* gs = static_cast<const float*>(gy);
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr) {
+    // the forward's GEMM on gy with the flipped weights, pads mirrored
+    const float* wf = static_cast<const float*>(w_flip);
+    float* dxs = static_cast<float*>(dx);
+    if (conv2d_f32_wgmma_ok(F, Cout, Cin, kt, kf)) {
+      if (split == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      err = conv2d_f32_wgmma(gs, wf, split, nullptr, dxs, 1, B, T, F, Cout,
+                             Cin, kt, kf, kt - 1 - lo_t, kf - 1 - lo_f, s);
+    } else {
+      err = conv2d_f32(gs, wf, nullptr, dxs, 1, B, T, F, Cout, Cin, kt, kf,
+                       kt - 1 - lo_t, kf - 1 - lo_f, s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int chunks = f32_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
   float* part = static_cast<float*>(workspace);
-  if (bn == 16)
-    conv2d_f32_dw_kernel<16><<<grid, kF32Threads, 0, s>>>(
-        xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
-  else if (bn == 32)
-    conv2d_f32_dw_kernel<32><<<grid, kF32Threads, 0, s>>>(
-        xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
-  else
-    conv2d_f32_dw_kernel<64><<<grid, kF32Threads, 0, s>>>(
-        xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
-  err = cudaGetLastError();
+  if (conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf)) {
+    err = conv2d_f32_dw_wgmma(xs, gs, part, B, T, F, Cin, Cout, kt, kf,
+                              lo_t, lo_f, chunks, s);
+  } else {
+    const long long len = f32_dw_chunk_len(B, T, F, Cin, Cout, kt, kf, sms);
+    const int K = kt * kf * Cin;
+    const int bn = f32_tile_n(Cout);
+    const dim3 grid((K + kF32BM - 1) / kF32BM, (Cout + bn - 1) / bn, chunks);
+    if (bn == 16)
+      conv2d_f32_dw_kernel<16><<<grid, kF32Threads, 0, s>>>(
+          xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
+    else if (bn == 32)
+      conv2d_f32_dw_kernel<32><<<grid, kF32Threads, 0, s>>>(
+          xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
+    else
+      conv2d_f32_dw_kernel<64><<<grid, kF32Threads, 0, s>>>(
+          xs, gs, part, T, F, Cin, Cout, kt, kf, lo_t, lo_f, Mpix, len);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   long long blocks = (n + 255) / 256;
   if (blocks > 4096) blocks = 4096;

@@ -808,12 +808,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of ``rank`` dims (innermost first, byte strides of
-// dims 1..rank-1), box ``box``, out-of-range elements read as 0.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box,
-                            int swizzle_bytes) {
+// A tensor map of ``rank`` dims (innermost first, byte strides of dims
+// 1..rank-1) of bf16 (or ``type``) elements, box ``box``, out-of-range
+// elements read as 0.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
@@ -822,24 +823,28 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
       : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                             : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult rc =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      fn(map, type, rank, const_cast<void*>(base),
          dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the 4-D (B, T, F, C) activation map with a (cb, w, h, 1) box
+// the 4-D (B, T, F, C) activation map with a (cb, w, h, 1) box, of bf16
+// elements (``elem`` = 2 bytes) or f32 (4), swizzled by a box row
 inline cudaError_t act_map(CUtensorMap* map, const void* base, int B, int T,
-                           int F, int C, int cb, int w, int h) {
+                           int F, int C, int cb, int w, int h, int elem = 2) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
                               static_cast<cuuint64_t>(F),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * C, 2ull * C * F, 2ull * C * F * T};
+  const cuuint64_t row = static_cast<cuuint64_t>(elem) * C;
+  const cuuint64_t strides[3] = {row, row * F, row * F * T};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cb),
                              static_cast<cuuint32_t>(w),
                              static_cast<cuuint32_t>(h), 1};
-  return make_map(map, base, 4, dims, strides, box, cb * 2);
+  return make_map(map, base, 4, dims, strides, box, cb * elem,
+                  elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 inline int wg_kc(int Cin) { return Cin <= 16 ? 16 : Cin <= 32 ? 32 : 64; }

@@ -69,14 +69,14 @@ _SIGNATURES = {
     'pbsed_maxpool2d_bwd': (_P, _P, _P) + (_I,) * 7 + (_P,),
     'pbsed_avgpool2d': (_P, _I, _P) + (_I,) * 7 + (_P,),
     'pbsed_avgpool2d_bwd': (_P, _P, _I) + (_I,) * 7 + (_P,),
-    'pbsed_conv2d_same_f32': (_P,) * 4 + (_I,) * 8 + (_P,),
-    'pbsed_conv2d_same_f32_bwd': (_P,) * 6 + (_I,) * 8 + (_P,),
+    'pbsed_conv2d_same_f32': (_P,) * 5 + (_I,) * 8 + (_P,),
+    'pbsed_conv2d_same_f32_bwd': (_P,) * 7 + (_I,) * 8 + (_P,),
 }
 
 # shape queries (no stream, no launch): which conv kernel a shape runs,
 # with its ring depth and shared memory written to the two int pointers,
-# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu, the
-# f32 conv's csrc/conv2d_f32.cu);
+# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu; the
+# f32 conv's csrc/conv2d_f32.cu, whose design query takes the pass first);
 # which GRU kernel a shape runs, forward, split and fused backward, with
 # its cluster size, rows, shared memory, co-resident clusters, units a
 # block and bytes of w_hh resident and streamed a block written to the
@@ -87,6 +87,7 @@ _QUERIES = {
     'pbsed_conv2d_dw_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
     'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
+    'pbsed_conv2d_f32_design': (_I,) * 6 + (_IP, _IP),
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 7,
     'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 7,
     'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 7,

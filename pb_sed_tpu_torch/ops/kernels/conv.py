@@ -7,8 +7,10 @@ hand-written CUDA kernel with its plain PyTorch version beside it, and the
 autograd Functions that tie each forward to its backward (``Conv2dSame``,
 ``BnReluConv2dSame``, ``MaxPoolFreq2``, ``MaxPool2d``, ``AvgPoolFreq2``,
 ``AvgPool2d``); and the same conv in float32 for a
-``compute_dtype='float32'`` tower (``Conv2dSameF32``: f32 FFMA, any
-extent and width, ``csrc/conv2d_f32.cu``).
+``compute_dtype='float32'`` tower (``Conv2dSameF32``: any extent and
+width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores where the
+shape fits, ``csrc/conv2d_f32_wgmma.cuh``, else f32 FFMA;
+:func:`conv_f32_designs` says which).
 
 The conv kernels take odd extents and Cout a multiple of 16 (the wgmma
 ring's TMA loads need 16-byte rows). The wrappers give them every other
@@ -38,6 +40,7 @@ CPU the tests reach the plain backward's own formula (tie rule, rounding
 points), not autograd of the plain forward.
 """
 import ctypes
+import functools
 import math
 
 import torch
@@ -367,6 +370,44 @@ def conv2d_same_f32_plain(x, w, b):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+_F32_PASSES = {'fwd': 0, 'dx': 1, 'dw': 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_design(name, f, cin, cout, kt, kf):
+    """(3xTF32?, stages, smem) of one pass of the f32 conv, as the C entry
+    points decide (``pbsed_conv2d_f32_design``)."""
+    stages, smem = ctypes.c_int(), ctypes.c_int()
+    tc = build.lib().pbsed_conv2d_f32_design(
+        _F32_PASSES[name], f, cin, cout, kt, kf, ctypes.byref(stages),
+        ctypes.byref(smem))
+    return bool(tc), stages.value, smem.value
+
+
+def conv_f32_designs(f, cin, cout, kt=3, kf=3):
+    """Which kernels the f32 conv of a (F, Cin -> Cout, kt x kf) layer runs
+    on the card, as the C entry points decide: for each pass ``'fwd'``,
+    ``'dx'`` and ``'dw'`` a dict of ``design`` ('3xtf32', wgmma on the
+    tensor cores, ``csrc/conv2d_f32_wgmma.cuh``, or 'ffma'), ``stages``
+    (the depth of the 3xTF32 kernel's activation ring, 0 for FFMA) and
+    ``smem`` (its dynamic shared memory in bytes)."""
+    designs = {}
+    for name in _F32_PASSES:
+        tc, stages, smem = _f32_design(name, f, cin, cout, kt, kf)
+        designs[name] = {'design': '3xtf32' if tc else 'ffma',
+                         'stages': stages, 'smem': smem}
+    return designs
+
+
+def _f32_split(name, f, cin, cout, kt, kf, members, device):
+    """The buffer the 3xTF32 kernel splits the weights into (hi and lo,
+    2 M kt kf Cin Cout f32) when that pass runs it, else None."""
+    if not _f32_design(name, f, cin, cout, kt, kf)[0]:
+        return None
+    return torch.empty(2 * members * kt * kf * cin * cout,
+                       dtype=torch.float32, device=device)
+
+
 def _launch_conv_f32(x, w, b):
     """``pbsed_conv2d_same_f32`` on CUDA tensors with a leading member
     axis: x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
@@ -379,18 +420,21 @@ def _launch_conv_f32(x, w, b):
     b = None if b is None else b.float().contiguous()
     y = torch.empty((members, bsz, t, f, cout), dtype=torch.float32,
                     device=x.device)
+    split = _f32_split('fwd', f, cin, cout, kt, kf, members, x.device)
     build.launch('conv2d_same_f32', 'pbsed_conv2d_same_f32', x.device,
                  x.data_ptr(), w.data_ptr(),
                  None if b is None else b.data_ptr(), y.data_ptr(),
+                 None if split is None else split.data_ptr(),
                  members, bsz, t, f, cin, cout, kt, kf)
     return y
 
 
 def conv2d_same_f32(x, w, b):
     """Stride-1 SAME conv (XLA's pads) in float32: ``(B, T, F, Cin)`` f32
-    -> ``(B, T, F, Cout)`` f32, f32 products and sums and an f32 bias, any
-    kernel extent and channel counts (``csrc/conv2d_f32.cu``; the FFMA
-    implicit GEMM, no TF32).
+    -> ``(B, T, F, Cout)`` f32, f32 sums and an f32 bias, any kernel
+    extent and channel counts (``csrc/conv2d_f32.cu``: 3xTF32 on the
+    tensor cores or the FFMA implicit GEMM, :func:`conv_f32_designs`; no
+    plain TF32).
 
     Args:
         x: (B, T, F, Cin) float32 activations.
@@ -454,42 +498,50 @@ def conv2d_same_f32_bwd_plain(x, w, gy):
             dw.permute(2, 3, 1, 0).contiguous())
 
 
-def conv2d_same_f32_bwd(x, w, gy):
+def conv2d_same_f32_bwd(x, w, gy, need_dx=True):
     """Backward of :func:`conv2d_same_f32` w.r.t. x and w: dx (B, T, F,
-    Cin) and dw (kt, kf, Cin, Cout), both float32. dx runs the forward
-    kernel on the cotangent; dw's pixel-chunk partials are added in chunk
-    order, so reruns agree in every bit. The bias gradient is the sum of
-    gy, left to the caller."""
+    Cin) and dw (kt, kf, Cin, Cout), both float32; dx is None (no dx pass)
+    with ``need_dx=False``. dx runs the forward's GEMM on the cotangent;
+    dw's pixel-chunk partials are added in chunk order, so reruns agree in
+    every bit. The bias gradient is the sum of gy, left to the caller."""
     _check_conv(x, w, None, torch.float32, 'conv2d_same_f32_bwd')
     want = tuple(x.shape[:3]) + (w.shape[-1],)
     if tuple(gy.shape) != want:
         raise ValueError(f'cotangent shape {tuple(gy.shape)} != {want}')
     if x.device.type == 'cpu':
-        return conv2d_same_f32_bwd_plain(x, w, gy)
+        dx, dw = conv2d_same_f32_bwd_plain(x, w, gy)
+        return (dx if need_dx else None), dw
     build.require_cuda(x, w, gy)
     bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape
     x = x.contiguous()
     gy = gy.float().contiguous()
-    w_flip = w.float().flip(0, 1).transpose(2, 3).contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = build.lib().pbsed_conv2d_f32_dw_chunks(bsz, t, f, cin, cout,
                                                     kt, kf, sms)
     workspace = torch.empty((chunks, kt * kf * cin, cout),
                             dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
                      device=x.device)
+    dx = w_flip = split = None
+    if need_dx:
+        dx = torch.empty_like(x)
+        w_flip = w.float().flip(0, 1).transpose(2, 3).contiguous()
+        split = _f32_split('dx', f, cin, cout, kt, kf, 1, x.device)
     build.launch('conv2d_same_f32_bwd', 'pbsed_conv2d_same_f32_bwd',
-                 x.device, x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
-                 dx.data_ptr(), dw.data_ptr(), workspace.data_ptr(),
+                 x.device, x.data_ptr(), gy.data_ptr(),
+                 None if w_flip is None else w_flip.data_ptr(),
+                 None if dx is None else dx.data_ptr(), dw.data_ptr(),
+                 workspace.data_ptr(),
+                 None if split is None else split.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, sms)
     return dx, dw
 
 
 @cache_signature
 class Conv2dSameF32(torch.autograd.Function):
-    """:func:`conv2d_same_f32` with its backward: dx and dw from
+    """:func:`conv2d_same_f32` with its backward: dx (only where autograd
+    needs it: a tower's log-mel input needs none) and dw from
     :func:`conv2d_same_f32_bwd`, db the sum of the cotangent. Under
     ``torch.func.vmap`` (a stacked ensemble) all members in one launch,
     :func:`conv2d_same_f32_members`."""
@@ -512,7 +564,8 @@ class Conv2dSameF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        dx, dw = conv2d_same_f32_bwd(x, w, gy)
+        dx, dw = conv2d_same_f32_bwd(x, w, gy,
+                                     need_dx=ctx.needs_input_grad[0])
         db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
         return dx, dw.to(w.dtype), db
 

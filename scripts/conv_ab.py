@@ -9,8 +9,11 @@ in a process of its own that imports that tree's ``pb_sed_tpu_torch`` and
 builds its kernels there. A process times, at every 3x3 layer of both
 towers (``chip_smoke.CONV_LAYERS``, ``chip_smoke.DEEP_CONV_LAYERS``, B = 32,
 T = 500), the forward ``conv2d_same``, its backward ``conv2d_same_bwd``
-and, but at the entry layers, the BN+ReLU-fused pair: the median of 5
-CUDA-event times after 2 warm-up calls. The report gives per layer and
+and, but at the entry layers, the BN+ReLU-fused pair; at the shallow
+tower's layers also the f32 conv of a ``compute_dtype='float32'`` tower,
+``conv2d_same_f32`` (``f32_fwd``) and its backward ``conv2d_same_f32_bwd``
+with dx (``f32_bwd``): the median of 5 CUDA-event times after 2 warm-up
+calls. The report gives per layer and
 pass the best time of each tree over its rounds, B / A, and the sums; a
 pass where B is more than 5% slower than A is marked ``SLOWER``. The card's
 name and power limit come first.
@@ -23,7 +26,7 @@ from pathlib import Path
 
 import ab
 
-PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd')
+PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd', 'f32_fwd', 'f32_bwd')
 
 
 def time_tree():
@@ -59,6 +62,13 @@ def time_tree():
                 times['fused_bwd'] = cs.cuda_ms(
                     lambda: K.bnrelu_conv2d_same_bwd(x, scale, shift, w, gy),
                     reps=5)
+            if tower == 'shallow':
+                xf, gyf = x.float(), gy.float()
+                times['f32_fwd'] = cs.cuda_ms(
+                    lambda: K.conv2d_same_f32(xf, w, b), reps=5)
+                times['f32_bwd'] = cs.cuda_ms(
+                    lambda: K.conv2d_same_f32_bwd(xf, w, gyf), reps=5)
+                del xf, gyf
             out[f'{tower} {layer} ({f}, {cin} -> {cout})'] = times
             del x, gy
             torch.cuda.empty_cache()

@@ -11,7 +11,8 @@ of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
 and f32; the conv at Cout off a multiple of 16 and even kernel extents;
 the GRU at hidden sizes off a multiple of 32 and on the cluster design of
-16 blocks above 512; the f32 conv and its backward, with a member axis), the determinism
+16 blocks above 512; the f32 conv and its backward on both designs,
+with a member axis, dw over 256 000 pixels), the determinism
 of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
@@ -36,7 +37,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     maxpool2d_plain)
 from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_f32, conv2d_same_f32_bwd, conv2d_same_f32_bwd_plain,
-    conv2d_same_f32_members, conv2d_same_f32_plain)
+    conv2d_same_f32_members, conv2d_same_f32_plain, conv_f32_designs)
 from pb_sed_tpu_torch.ops.kernels.gru import (GRU_FUSED_MAX_HIDDEN,
                                               GRU_MAX_HIDDEN, GruScan,
                                               gru_designs, gru_scan,
@@ -707,18 +708,39 @@ def test_wide_gru_members_in_the_direction_axis(gen):
 
 # (B, T, F, Cin, Cout, kt, kf): the entry layer, a narrow tile (Cout 16,
 # BN 16), Cout off 16 with an even kernel, a 4 x 3 kernel on a ragged
-# pixel tile, the late shallow layers' widths, and a 1x1
+# pixel tile, the late shallow layers' widths, and a 1x1; then shapes of
+# the 3xTF32 design: two column tiles of 64 (and, with the member axis
+# below, two members on it), and L8's Cout 256 at F = 8 on a ragged tile
 F32_CONV_SHAPES = [(2, 9, 16, 1, 16, 3, 3), (1, 7, 8, 16, 16, 3, 3),
                    (2, 9, 8, 24, 7, 2, 2), (1, 5, 6, 33, 40, 4, 3),
-                   (2, 50, 16, 128, 256, 3, 3), (1, 7, 8, 64, 96, 1, 1)]
+                   (2, 50, 16, 128, 256, 3, 3), (1, 7, 8, 64, 96, 1, 1),
+                   (2, 12, 16, 64, 128, 3, 3), (1, 40, 8, 128, 256, 3, 3)]
+
+
+def _f32_design_wanted(f, cin, cout):
+    """The design of each pass as the rule has it: 3xTF32 where the
+    GEMM's input and output channels are >= 16 and multiples of 4 and F
+    is a power of two dividing 128, FFMA elsewhere (the entry layer)."""
+    def takes(c_in, n):
+        return (c_in >= 16 and n >= 16 and c_in % 4 == 0 and n % 4 == 0
+                and 128 % f == 0)
+    return {'fwd': takes(cin, cout), 'dx': takes(cout, cin),
+            'dw': takes(cin, cout)}
 
 
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', F32_CONV_SHAPES)
 def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
     """The f32 conv's forward, dx and dw against the plain version
-    (cuDNN in full f32, TF32 off): f32 sums in another order, 2e-5 of the
-    largest entry forward and dx, 1e-4 for dw (sums over every pixel);
-    dw's chunks added in a fixed order: bit-identical reruns."""
+    (cuDNN in full f32, TF32 off): f32 sums in another order (or 3xTF32
+    on the tensor cores), 2e-5 of the largest entry forward and dx, 1e-4
+    for dw (sums over every pixel); dw's chunks added in a fixed order:
+    bit-identical reruns, also without dx; each pass on the design the
+    rule gives its shape; the member axis one launch equal to each
+    member's in every bit."""
+    designs = conv_f32_designs(f, cin, cout, kt, kf)
+    for name, tc in _f32_design_wanted(f, cin, cout).items():
+        assert designs[name]['design'] == ('3xtf32' if tc else 'ffma'), (
+            name, designs[name])
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
     w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
         kt * kf * cin) ** -.5
@@ -738,11 +760,29 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
         assert build.LAUNCHES[name] == n[name] + 1, name
     again = conv2d_same_f32_bwd(x, w, gy)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    no_dx, dw_alone = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
+    assert no_dx is None and torch.equal(dw, dw_alone)
     # the member axis: one launch equal to each member's in every bit
     xm, wm, bm = torch.stack([x, -x]), torch.stack([w, w.flip(0)]), \
         torch.stack([bias, -bias])
     assert torch.equal(conv2d_same_f32_members(xm, wm, bm), torch.stack(
         [conv2d_same_f32(xm[i], wm[i], bm[i]) for i in range(2)]))
+
+
+def test_f32_conv_dw_over_a_long_run(gen):
+    """dw summed over 256 000 pixels (8 ten-second clips at L2's F = 64,
+    16 -> 32 channels) on the 3xTF32 design: within 1e-4 of the largest
+    entry of the plain version's, bit-identical on a rerun."""
+    b, t, f, cin, cout = 8, 500, 64, 16, 32
+    assert conv_f32_designs(f, cin, cout)['dw']['design'] == '3xtf32'
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
+    w = torch.randn(3, 3, cin, cout, generator=gen, device='cuda') * (
+        9 * cin) ** -.5
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda')
+    _, dw = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
+    ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)[1]
+    assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
+    assert torch.equal(dw, conv2d_same_f32_bwd(x, w, gy, need_dx=False)[1])
 
 
 def test_f32_conv_raises_on_a_bf16_input(gen):

@@ -1,6 +1,8 @@
 """``compute_dtype='float32'`` against the JAX package: the f32 conv
 (``Conv2dSameF32``: the plain version of the f32 conv kernel on the CPU)
-against ``lax.conv_general_dilated`` on f32 operands, the 2-D and 1-D
+against ``lax.conv_general_dilated`` on f32 operands, its backward
+without dx where the input needs no gradient, a numpy emulation of the
+card's 3xTF32 split (``csrc/conv2d_f32_wgmma.cuh``), the 2-D and 1-D
 towers in f32 against the JAX towers' unpacked XLA path in f32, and the
 slice as a whole: a tiny FBCRNN with f32 towers and f32 output nets and a
 tiny tag-conditioned BiCRNN (hidden size 200), each loaded from a JAX run
@@ -48,6 +50,7 @@ from pb_sed_tpu_torch.models import strong_label as tstrong
 from pb_sed_tpu_torch.models import weak_label as tweak
 from pb_sed_tpu_torch.ops import cnn as tcnn
 from pb_sed_tpu_torch.ops.kernels import build
+from pb_sed_tpu_torch.ops.kernels import conv as kconv
 from pb_sed_tpu_torch.ops.kernels.conv import (Conv2dSameF32,
                                                conv2d_same_f32_bwd)
 from tests import test_torch_fbcrnn as fbcrnn_tests
@@ -137,6 +140,105 @@ def test_f32_conv_members_under_vmap_equal_each_member():
     got = torch.func.vmap(Conv2dSameF32.apply, in_dims=(0, 0, None))(
         x, w, b[0])
     assert torch.equal(got[1], Conv2dSameF32.apply(x[1], w[1], b[0]))
+
+
+def test_f32_conv_backward_skips_dx_without_changing_dw(monkeypatch):
+    """Where autograd needs no dx (a tower's log-mel input), the backward
+    asks for none (``need_dx=False``: the kernel skips its dx pass), and
+    dw and db equal those of a backward that computed dx in every bit."""
+    rng = np.random.RandomState(18)
+    x = torch.from_numpy(rng.randn(2, 7, 8, 4).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 3, 4, 16) / 6).astype(np.float32))
+    b = torch.from_numpy((.1 * rng.randn(16)).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(2, 7, 8, 16).astype(np.float32))
+    asked = []
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs['need_dx'])
+        return conv2d_same_f32_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(kconv, 'conv2d_same_f32_bwd', spy)
+    grads = {}
+    for need in (True, False):
+        xt = x.clone().requires_grad_(need)
+        wt, bt = w.clone().requires_grad_(), b.clone().requires_grad_()
+        y = Conv2dSameF32.apply(xt, wt, bt)
+        inputs = [wt, bt] + ([xt] if need else [])
+        grads[need] = torch.autograd.grad(y, inputs, gy)
+    assert asked == [True, False]
+    for got, ref in zip(grads[False], grads[True][:2]):
+        assert torch.equal(got, ref)
+    dx, dw = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
+    assert dx is None and torch.equal(dw, grads[True][0])
+
+
+def _tf32(a):
+    """``cvt.rna.tf32.f32``: f32 rounded to 10 mantissa bits, ties away
+    from zero (half an ulp added to the magnitude, the low 13 bits
+    cleared)."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(a):
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)   # a - hi is exact in f32
+
+
+def _emulated_3xtf32(a, b, run):
+    """``a (M, K) @ b (K, N)`` as the card's 3xTF32 kernels take it: each
+    operand split into tf32 hi and lo, per k8 step the block sums of
+    hi*lo, lo*hi and hi*hi (lo*lo dropped; products exact, each block sum
+    rounded once to f32) added in that order to an f32 run sum, which
+    starts afresh every ``run`` k8 steps and is then added to an f32
+    register sum. The block sums round to nearest: this models the split
+    and the f32 sums, not the tensor cores' own accumulation."""
+    pad = -a.shape[1] % 8
+    a = np.pad(a, ((0, 0), (0, pad)))
+    b = np.pad(b, ((0, pad), (0, 0)))
+    (ahi, alo), (bhi, blo) = _split(a), _split(b)
+    steps = a.shape[1] // 8
+
+    def blocks(p, q):
+        return np.einsum('msk,skn->smn',
+                         p.astype(np.float64).reshape(len(p), steps, 8),
+                         q.astype(np.float64).reshape(steps, 8, -1)).astype(
+                             np.float32)
+
+    terms = (blocks(ahi, blo), blocks(alo, bhi), blocks(ahi, bhi))
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    part = np.zeros_like(total)
+    for s in range(steps):
+        if s % run == 0:
+            part[:] = 0
+        for term in terms:
+            part = part + term[s]
+        if s % run == run - 1 or s == steps - 1:
+            total = total + part
+    return total
+
+
+@pytest.mark.parametrize('name,k,run,gate', [
+    # the forward and dx at L8's K = 9 taps x 256 channels, a run a K
+    # slice of 9 taps x 32 channels
+    ('fwd', 2304, 36, 2e-5),
+    # dw over 20 000 pixels, a run a 128-pixel tile of one tap
+    ('dw', 20000, 16, 1e-4),
+])
+def test_3xtf32_split_error_is_a_tenth_of_the_gate(name, k, run, gate):
+    """The 3xTF32 split with f32 sums against the f64 sum of the f32
+    operands: within a tenth of the card's gate (``gate * max|ref|``),
+    where plain TF32 (hi*hi alone) misses the whole gate."""
+    rng = np.random.RandomState(k)
+    a = rng.randn(32, k).astype(np.float32)
+    b = (rng.randn(k, 16) / np.sqrt(k)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(ref).max())
+    got = _emulated_3xtf32(a, b, run)
+    assert np.abs(got - ref).max() <= .1 * gate * scale, name
+    plain = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
+    assert np.abs(plain - ref).max() > gate * scale, name
 
 
 # -- the towers ---------------------------------------------------------------
