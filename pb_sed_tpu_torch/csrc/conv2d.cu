@@ -14,9 +14,11 @@
 // What the design does about it: an implicit GEMM that never writes the
 // im2col patch to device memory, shared with the input gradient of the
 // backward (conv2d_bwd.cu): wgmma fed by a TMA ring, one halo tile per K
-// slice for all taps (conv2d_wgmma.cuh); the entry layer (Cin < 16) and
-// shapes off that kernel's tiling keep the narrow kernel of
-// conv2d_igemm.cuh.
+// slice for all taps (conv2d_wgmma.cuh); the entry layer (Cin < 16) runs
+// conv2d_entry.cuh (taps and channels packed into one K on mma.sync, a
+// cp.async ring of halo tiles); the shapes left (Cin >= 16 off the wgmma
+// tile: F not a power of two dividing 128, channel counts off a multiple
+// of 8) keep the narrow kernel of conv2d_igemm.cuh.
 //
 // pbsed_bnrelu_conv2d_same is the BN+ReLU-fused conv of CNN2d(fuse_bn):
 // y = bf16(conv(a, w) + b) with a = bf16(relu(f32(x) * scale + shift)) on
@@ -28,37 +30,13 @@
 // above; what it saves is the normalized buffer that the unfused tower
 // writes and reads back between its norm and its conv: the affine runs
 // once on each staged halo tile (conv2d_wgmma.cuh, AFFINE).
-#include "conv2d_wgmma.cuh"
+#include "conv2d_entry.cuh"
 
 // A stacked ensemble's members run in the same launch: every operand has a
 // leading member axis of M, and member m's output is what a launch of
 // member m alone gives, bit for bit (each tile's K order does not depend
 // on M or B). Replaces the member grid axis that jax.vmap gives the TPU
 // kernels above (pb_sed_tpu/models/base/ensemble.py).
-
-namespace {
-
-// y = conv(x, w) + b for M members: the wgmma kernel where
-// conv2d_wgmma_ok, else the narrow kernel; with scale and shift (both
-// (M, Cin) f32) the input goes through bnrelu on the way (the BN+ReLU-fused
-// conv)
-cudaError_t conv2d_gemm(const void* x, const void* w, const void* b, void* y,
-                        int M, int B, int T, int F, int Cin, int N, int kt,
-                        int kf, cudaStream_t stream,
-                        const float* scale = nullptr,
-                        const float* shift = nullptr) {
-  if (!conv2d_wgmma_ok(F, Cin, N, kt, kf))
-    return conv2d_igemm(x, w, b, y, B, T, F, Cin, N, kt, kf, stream, scale,
-                        shift, M);
-  const float* bias = static_cast<const float*>(b);
-  if (scale != nullptr)
-    return conv2d_wgmma<true>(x, w, bias, scale, shift, y, B, T, F, Cin, N,
-                              kt, kf, stream, M);
-  return conv2d_wgmma<false>(x, w, bias, nullptr, nullptr, y, B, T, F, Cin,
-                             N, kt, kf, stream, M);
-}
-
-}  // namespace
 
 // x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
 // f32, y (M, B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
@@ -94,11 +72,18 @@ extern "C" int pbsed_bnrelu_conv2d_same(const void* x, const void* w,
 }
 
 // Which kernel the forward-type GEMM of a (F, Cin -> N, kt x kf) conv runs:
-// 1 the wgmma kernel of conv2d_wgmma.cuh, with the depth of its halo ring
-// in *stages (its weight ring has kWgBStages) and its dynamic shared
-// memory in *smem; 0 the narrow one (*stages = *smem = 0).
+// 2 the entry kernel of conv2d_entry.cuh (Cin < 16), with its ring depth in
+// *stages and its dynamic shared memory in *smem; 1 the wgmma kernel of
+// conv2d_wgmma.cuh, with the depth of its halo ring in *stages (its weight
+// ring has kWgBStages) and its dynamic shared memory in *smem; 0 the
+// narrow one (*stages = *smem = 0).
 extern "C" int pbsed_conv2d_design(int F, int Cin, int N, int kt, int kf,
                                    int* stages, int* smem) {
+  if (conv2d_entry_ok(F, Cin, N, kt, kf)) {
+    *stages = kEntryFwdStages;
+    *smem = entry_fwd_smem(entry_pick(F, Cin, N, kt, kf, false), N);
+    return 2;
+  }
   const bool wgmma = conv2d_wgmma_ok(F, Cin, N, kt, kf);
   *stages = wgmma ? conv2d_wgmma_stages(F, Cin, N, kt, kf) : 0;
   *smem = wgmma ? conv2d_wgmma_smem(F, Cin, N, kt, kf, *stages) : 0;

@@ -14,17 +14,22 @@
 //   1. dx = SAME conv of gy with the spatially flipped, channel-
 //      transposed weights (conv.py:835-836): f32 accumulation, one
 //      rounding to bf16, no bias. It runs the forward's implicit GEMM
-//      (conv2d_wgmma.cuh) with N = Cin output channels; the
-//      entry layer's Cin = 1 takes the narrow kernel (conv2d_igemm.cuh).
+//      (conv2d_gemm: the wgmma kernel) with N = Cin output channels; a
+//      layer with Cin < 16 (N below 16) takes the narrow kernel
+//      (conv2d_igemm.cuh). With a null dx this launch is skipped: a
+//      tower's entry layer, whose input (the log-mel features) needs no
+//      gradient, runs launches 2 and 3 only.
 //   2. dw partials: dw[dt, df, ci, co] = sum_p x[p + (dt - ht, df - hf), ci]
 //      * gy[p, co] is a reduction over up to B*T*F = 2,048,000 pixels
 //      (layers 1-2 at 32 ten-second clips). The TPU kernel accumulated
 //      it across its sequential grid; CUDA blocks run in no order, so
-//      each block reduces one chunk of pixels for all taps of one
-//      (16 input channels) x (CO_T output channels) tile into its own
-//      slot of an f32 workspace (chunks, kt*kf, Cin_pad, Cout).
+//      each block reduces one chunk of pixels into its own slot of an f32
+//      workspace (chunks, kt*kf, Cin_pad, Cout), Cin_pad = Cin for the
+//      entry kernel (conv2d_dw_cin_pad; pbsed_conv2d_dw_workspace gives
+//      the size).
 //   3. a deterministic reduce over the chunks in a fixed order: two runs
-//      give bit-identical dw (no float atomics).
+//      give bit-identical dw (no float atomics); the entry kernel's own
+//      reduce (conv2d_entry.cuh) takes a warp an element.
 //
 // What bounds it on the H100: dw moves x and gy once from device memory
 // (x is re-read kt*kf times, shifted, from L1/L2) and does
@@ -37,10 +42,12 @@
 // rows, and the gy tile once, through a TMA ring of 3-6 stages; three
 // consumer warpgroups run wgmma for the 9 taps (one dt row each) from
 // shifted views of that one x tile. The chunks fill one wave of blocks
-// (conv2d_dw_chunks). The narrow kernel below (64 pixels x 16 input
-// channels, wmma, no pipelining) stays for what that one does not take:
-// Cin < 16 (the entry layer), channel counts off a multiple of 8, F not a
-// power of two dividing 128.
+// (conv2d_dw_chunks). Cin < 16 (the entry layer) runs
+// conv2d_dw_entry_kernel (conv2d_entry.cuh): taps and channels packed into
+// one GEMM dimension, x and gy read once through a cp.async ring. The
+// narrow kernel below (64 pixels x 16 input channels, wmma, no pipelining)
+// stays for what neither takes: Cin >= 16 off a multiple of 8 or with F
+// not a power of two dividing 128.
 //
 // pbsed_bnrelu_conv2d_same_bwd is the backward of the BN+ReLU-fused conv
 // (conv2d.cu, pbsed_bnrelu_conv2d_same): it returns da, the gradient with
@@ -53,7 +60,7 @@
 // _bwd_fused_bn). The chain through the affine (dz = da * 1[x*s + t > 0],
 // dx, dscale, dshift) runs outside, in PyTorch, as the JAX package runs
 // it outside its kernels (conv.py:1731-1743).
-#include "conv2d_wgmma.cuh"
+#include "conv2d_entry.cuh"
 
 namespace {
 
@@ -217,7 +224,8 @@ cudaError_t launch_dw_n(const void* x, const void* gy, const float* scale,
 }
 
 // The three launches of both entry points; scale/shift null for the
-// plain conv, (Cin,) f32 for the BN+ReLU-fused one (dw side only).
+// plain conv, (Cin,) f32 for the BN+ReLU-fused one (dw side only); dx null
+// (and w_flip unused) skips launch 1.
 int conv_bwd(const void* x, const void* gy, const void* w_flip,
              const float* scale, const float* shift, void* dx, void* dw,
              void* workspace, int B, int T, int F, int Cin, int Cout, int kt,
@@ -229,14 +237,19 @@ int conv_bwd(const void* x, const void* gy, const void* w_flip,
   const long long per = (P + chunks - 1) / chunks;
   const long long chunk_px = (per + kDwPx - 1) / kDwPx * kDwPx;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      conv2d_wgmma_ok(F, Cout, Cin, kt, kf)
-          ? conv2d_wgmma<false>(gy, w_flip, nullptr, nullptr, nullptr, dx, B,
-                                T, F, Cout, Cin, kt, kf, s)
-          : conv2d_igemm(gy, w_flip, nullptr, dx, B, T, F, Cout, Cin, kt, kf,
-                         s);
+  cudaError_t err = cudaSuccess;
+  if (dx != nullptr)
+    err = conv2d_gemm(gy, w_flip, nullptr, dx, 1, B, T, F, Cout, Cin, kt, kf,
+                      s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int Cin_pad = (Cin + 15) / 16 * 16;
+  if (conv2d_dw_entry_ok(F, Cin, Cout, kt, kf))
+    return static_cast<int>(
+        scale != nullptr
+            ? conv2d_dw_entry<true>(x, gy, scale, shift, workspace, dw, B, T,
+                                    F, Cin, Cout, kt, kf, chunks, s)
+            : conv2d_dw_entry<false>(x, gy, nullptr, nullptr, workspace, dw,
+                                     B, T, F, Cin, Cout, kt, kf, chunks, s));
+  const int Cin_pad = conv2d_dw_cin_pad(F, Cin, Cout, kt, kf);
   if (conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf))
     err = scale != nullptr
               ? conv2d_dw_wgmma<true>(x, gy, scale, shift, workspace, Cin_pad,
@@ -266,9 +279,9 @@ int conv_bwd(const void* x, const void* gy, const void* w_flip,
 
 // x (B, T, F, Cin) bf16, gy (B, T, F, Cout) bf16, w_flip (kt, kf, Cout,
 // Cin) bf16 = w[::-1, ::-1].swap(Cin, Cout); outputs dx (B, T, F, Cin)
-// bf16 and dw (kt, kf, Cin, Cout) f32; workspace (chunks, kt*kf, Cin_pad,
-// Cout) f32 with Cin_pad = Cin rounded up to 16. All contiguous, 16-byte
-// aligned. Requires odd kt, kf and Cout % 16 == 0; chunks is
+// bf16 (null: no dx pass, w_flip unused) and dw (kt, kf, Cin, Cout) f32;
+// workspace of pbsed_conv2d_dw_workspace f32 elements. All contiguous,
+// 16-byte aligned. Requires odd kt, kf and Cout % 16 == 0; chunks is
 // pbsed_conv2d_dw_chunks of the shape (any count >= 1 is right: a chunk
 // past the end adds zeros). Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_bwd(const void* x, const void* gy,
@@ -299,11 +312,26 @@ extern "C" int pbsed_conv2d_dw_chunks(int B, int T, int F, int Cin, int Cout,
   return conv2d_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
 }
 
-// Which kernel the dw pass runs: 1 the wgmma kernel, with the depth of
-// its (x halo, gy) ring in *stages and its dynamic shared memory in
-// *smem; 0 the narrow one (*stages = *smem = 0).
+// The f32 elements of the dw workspace with ``chunks`` chunks: chunks x
+// kt * kf x conv2d_dw_cin_pad x Cout, the layout the chosen dw kernel
+// writes and the reduce reads.
+extern "C" long long pbsed_conv2d_dw_workspace(int F, int Cin, int Cout,
+                                               int kt, int kf, int chunks) {
+  return static_cast<long long>(chunks) * kt * kf *
+         conv2d_dw_cin_pad(F, Cin, Cout, kt, kf) * Cout;
+}
+
+// Which kernel the dw pass runs: 2 the entry kernel (Cin < 16) and 1 the
+// wgmma kernel, each with the depth of its (x halo, gy) ring in *stages
+// and its dynamic shared memory in *smem; 0 the narrow one (*stages =
+// *smem = 0).
 extern "C" int pbsed_conv2d_dw_design(int F, int Cin, int Cout, int kt,
                                       int kf, int* stages, int* smem) {
+  if (conv2d_dw_entry_ok(F, Cin, Cout, kt, kf)) {
+    *stages = kEntryDwStages;
+    *smem = entry_dw_smem(entry_pick(F, Cin, Cout, kt, kf, true), Cout);
+    return 2;
+  }
   const bool wgmma = conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf);
   *stages = wgmma ? conv2d_dw_wgmma_stages(F, Cout, kt, kf) : 0;
   *smem = wgmma ? conv2d_dw_wgmma_smem(F, Cout, kt, kf, *stages) : 0;

@@ -65,11 +65,13 @@
 // per pixel tile from L2; the activations come from device memory about
 // once.
 //
-// The shapes this design does not take (Cin or N below 16 or off a
+// The shapes this design does not take: Cin below 16 runs the entry
+// kernels of conv2d_entry.cuh (forward and dw); the rest (Cin >= 16 off a
 // multiple of 8, F not a power of two dividing 128, halos past TMA's
-// 256-element box) keep the narrow kernels of conv2d_igemm.cuh and
-// conv2d_bwd.cu; conv2d_wgmma_ok / conv2d_dw_wgmma_ok decide, and
-// pbsed_conv2d_design reports the choice.
+// 256-element box, and the dx of a layer with Cin < 16, N below 16) keep
+// the narrow kernels of conv2d_igemm.cuh and conv2d_bwd.cu.
+// conv2d_entry_ok, conv2d_wgmma_ok and their dw twins decide, and
+// pbsed_conv2d_design / pbsed_conv2d_dw_design report the choice.
 #pragma once
 
 #include <cuda.h>
@@ -1008,36 +1010,6 @@ cudaError_t conv2d_wgmma(const void* x, const void* w, const float* b,
       return conv2d_wgmma_bn<64, AFFINE>(x, w, b, scale, shift, y, B, T, F,
                                          Cin, N, kt, kf, s, members);
   }
-}
-
-// the pixel chunks of the dw pass for either design: the wgmma kernel
-// runs one block per SM (its ring fills most of shared memory), so the
-// chunks fill one wave of ``sms`` blocks; the narrow kernel about four
-// blocks per SM over chunks of >= 64 pixels
-inline int conv2d_dw_chunks(int B, int T, int F, int Cin, int Cout, int kt,
-                            int kf, int sms) {
-  const int kk = kt * kf;
-  const long long P = static_cast<long long>(B) * T * F;
-  if (P == 0) return 1;
-  if (conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf)) {
-    const int per_chunk = ((Cin + 63) / 64) *
-                          ((Cout + dw_bn(Cout) - 1) / dw_bn(Cout)) *
-                          ((kk + 8) / 9);
-    const long long tiles =
-        static_cast<long long>(B) * ((T + kWgTileM / F - 1) / (kWgTileM / F));
-    long long chunks = sms / per_chunk;
-    if (chunks > tiles) chunks = tiles;
-    return chunks < 1 ? 1 : static_cast<int>(chunks);
-  }
-  const int co_t = Cout % 64 == 0 ? 64 : Cout % 32 == 0 ? 32 : 16;
-  const long long blocks =
-      static_cast<long long>((Cin + 15) / 16) * (Cout / co_t) * ((kk + 8) / 9);
-  long long chunks = (4LL * sms + blocks - 1) / blocks;
-  if (chunks > (P + 63) / 64) chunks = (P + 63) / 64;
-  if (chunks < 1) chunks = 1;
-  const long long per = (P + chunks - 1) / chunks;
-  const long long chunk_px = (per + 63) / 64 * 64;
-  return static_cast<int>((P + chunk_px - 1) / chunk_px);
 }
 
 template <int BN, bool AFFINE>

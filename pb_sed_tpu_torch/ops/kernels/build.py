@@ -31,8 +31,9 @@ NVCC_FLAGS = (
 # ``*_padded`` entries count the conv pair's launches at shapes its
 # kernels take only padded (Cout off a multiple of 16, an even extent) and
 # the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
-# GRU pair's launches above H = 512; all of these count
-# under the pair's own names too
+# GRU pair's launches above H = 512, the ``conv2d_same*_entry`` ones the
+# conv pair's launches that run the entry kernels (Cin < 16, forward and
+# dw); all of these count under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
             'avgpool_freq2': 0, 'avgpool_freq2_bwd': 0,
@@ -42,7 +43,8 @@ LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd_padded': 0, 'conv2d_same_f32': 0,
             'conv2d_same_f32_bwd': 0, 'gru_scan_wide': 0,
             'gru_scan_bwd_wide': 0, 'gru_scan_padded': 0,
-            'gru_scan_bwd_padded': 0}
+            'gru_scan_bwd_padded': 0, 'conv2d_same_entry': 0,
+            'conv2d_same_bwd_entry': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,7 +77,8 @@ _SIGNATURES = {
 
 # shape queries (no stream, no launch): which conv kernel a shape runs,
 # with its ring depth and shared memory written to the two int pointers,
-# and the dw pass's pixel chunks (csrc/conv2d.cu, csrc/conv2d_bwd.cu; the
+# the dw pass's pixel chunks and its workspace's f32 elements (a long
+# long; csrc/conv2d.cu, csrc/conv2d_bwd.cu; the
 # f32 conv's csrc/conv2d_f32.cu, whose design query takes the pass first);
 # which GRU kernel a shape runs, forward, split and fused backward, with
 # its cluster size, rows, shared memory, co-resident clusters, units a
@@ -86,6 +89,7 @@ _QUERIES = {
     'pbsed_conv2d_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_design': (_I,) * 5 + (_IP, _IP),
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
+    'pbsed_conv2d_dw_workspace': (_I,) * 6,
     'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
     'pbsed_conv2d_f32_design': (_I,) * 6 + (_IP, _IP),
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 7,
@@ -182,6 +186,7 @@ def lib():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        loaded.pbsed_conv2d_dw_workspace.restype = ctypes.c_longlong
         loaded.pbsed_error_string.argtypes = (ctypes.c_int,)
         loaded.pbsed_error_string.restype = ctypes.c_char_p
         _lib = loaded

@@ -41,7 +41,6 @@ points), not autograd of the plain forward.
 """
 import ctypes
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -162,6 +161,10 @@ def _launch_conv(counter, x, w, b, affine=(), padded=False):
                  members, bsz, t, f, cin, cout, kt, kf)
     if padded and (kt, kf, cout) != asked:
         build.LAUNCHES[f'{counter}_padded'] += 1
+    if (f'{counter}_entry' in build.LAUNCHES
+            and _design('pbsed_conv2d_design', f, cin, cout, kt,
+                        kf)[0] == 'entry'):
+        build.LAUNCHES[f'{counter}_entry'] += 1
     return y if cout == width else y[..., :width].contiguous()
 
 
@@ -216,15 +219,18 @@ def _check_conv_bwd(x, w, gy):
         raise ValueError('x and gy must be on one device')
 
 
-def conv2d_same_bwd_plain(x, w, gy):
+def conv2d_same_bwd_plain(x, w, gy, need_dx=True):
     """Plain backward: dx is the SAME conv of the cotangent with the
     spatially flipped, channel-transposed bf16 weights in f32, rounded
-    once to bf16 (no bias); dw the f32 correlation of the bf16 input with
-    the bf16-rounded cotangent."""
+    once to bf16 (no bias), or None with ``need_dx=False``; dw the f32
+    correlation of the bf16 input with the bf16-rounded cotangent."""
     kt, kf, cin, cout = w.shape
     gf = gy.to(torch.bfloat16).float().permute(0, 3, 1, 2)  # (B, Cout, T, F)
-    w_flip = w.to(torch.bfloat16).float().flip(0, 1)        # (kt, kf, Ci, Co)
-    dx = _conv_same(gf, w_flip.permute(2, 3, 0, 1), flip=True)
+    dx = None
+    if need_dx:
+        w_flip = w.to(torch.bfloat16).float().flip(0, 1)    # (kt, kf, Ci, Co)
+        dx = _conv_same(gf, w_flip.permute(2, 3, 0, 1), flip=True)
+        dx = dx.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
     xf = x.float().permute(0, 3, 1, 2)
     if kt % 2 and kf % 2:
         dw = torch.nn.grad.conv2d_weight(
@@ -233,42 +239,57 @@ def conv2d_same_bwd_plain(x, w, gy):
     else:
         dw = torch.nn.grad.conv2d_weight(
             F.pad(xf, _same_pads(kt, kf)), (cout, cin, kt, kf), gf)
-    return (dx.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
-            dw.permute(2, 3, 1, 0).contiguous())
+    return dx, dw.permute(2, 3, 1, 0).contiguous()
 
 
-def _dw_chunks(bsz, t, f, cin, cout, kt, kf, device):
-    """Pixel chunks of the dw pass (the workspace's first dimension), as
-    the C side tiles it (``csrc/conv2d_wgmma.cuh:conv2d_dw_chunks``): one
-    wave of blocks on the card's SMs for the wgmma kernel, about four
-    blocks per SM for the narrow one."""
+def _dw_workspace(bsz, t, f, cin, cout, kt, kf, device):
+    """The dw pass's pixel chunks and its f32 workspace, both as the C
+    side sizes them for the kernel the shape runs
+    (``csrc/conv2d_entry.cuh:conv2d_dw_chunks``: about four blocks per SM
+    for the entry and narrow kernels, one wave for the wgmma one;
+    ``pbsed_conv2d_dw_workspace``: the elements of its layout)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return build.lib().pbsed_conv2d_dw_chunks(bsz, t, f, cin, cout, kt, kf,
-                                              sms)
+    lib = build.lib()
+    chunks = lib.pbsed_conv2d_dw_chunks(bsz, t, f, cin, cout, kt, kf, sms)
+    size = lib.pbsed_conv2d_dw_workspace(f, cin, cout, kt, kf, chunks)
+    return chunks, torch.empty(size, dtype=torch.float32, device=device)
+
+
+# the C design queries' answers
+_DESIGNS = {0: 'narrow', 1: 'wgmma', 2: 'entry'}
+
+
+@functools.lru_cache(maxsize=None)
+def _design(query, f, cin, cout, kt, kf):
+    """(design, stages, smem) that the C design query ``query``
+    (``pbsed_conv2d_design`` or ``pbsed_conv2d_dw_design``) gives a
+    shape."""
+    stages, smem = ctypes.c_int(), ctypes.c_int()
+    code = getattr(build.lib(), query)(f, cin, cout, kt, kf,
+                                       ctypes.byref(stages),
+                                       ctypes.byref(smem))
+    return _DESIGNS[code], stages.value, smem.value
 
 
 def conv_designs(f, cin, cout, kt=3, kf=3):
     """Which kernels the conv of a (F, Cin -> Cout, kt x kf) layer runs on
     the card, as the C entry points decide: for each pass ``'fwd'``,
-    ``'dx'`` and ``'dw'`` a dict of ``design`` ('wgmma',
-    ``csrc/conv2d_wgmma.cuh``, or 'narrow'), ``stages`` (the depth of the
-    wgmma kernel's activation ring, 0 for the narrow one) and ``smem``
-    (its dynamic shared memory in bytes)."""
-    lib = build.lib()
-    queries = {'fwd': (lib.pbsed_conv2d_design, cin, cout),
-               'dx': (lib.pbsed_conv2d_design, cout, cin),
-               'dw': (lib.pbsed_conv2d_dw_design, cin, cout)}
+    ``'dx'`` and ``'dw'`` a dict of ``design`` ('entry',
+    ``csrc/conv2d_entry.cuh``: the forward and dw at Cin < 16; 'wgmma',
+    ``csrc/conv2d_wgmma.cuh``; or 'narrow'), ``stages`` (the depth of the
+    kernel's activation ring, 0 for the narrow one) and ``smem`` (its
+    dynamic shared memory in bytes)."""
+    queries = {'fwd': ('pbsed_conv2d_design', cin, cout),
+               'dx': ('pbsed_conv2d_design', cout, cin),
+               'dw': ('pbsed_conv2d_dw_design', cin, cout)}
     designs = {}
     for name, (query, c_in, c_out) in queries.items():
-        stages, smem = ctypes.c_int(), ctypes.c_int()
-        wgmma = query(f, c_in, c_out, kt, kf, ctypes.byref(stages),
-                      ctypes.byref(smem))
-        designs[name] = {'design': 'wgmma' if wgmma else 'narrow',
-                         'stages': stages.value, 'smem': smem.value}
+        design, stages, smem = _design(query, f, c_in, c_out, kt, kf)
+        designs[name] = {'design': design, 'stages': stages, 'smem': smem}
     return designs
 
 
-def conv2d_same_bwd(x, w, gy):
+def conv2d_same_bwd(x, w, gy, need_dx=True):
     """Backward of :func:`conv2d_same` w.r.t. x and w.
 
     Args:
@@ -276,21 +297,27 @@ def conv2d_same_bwd(x, w, gy):
         w: (kt, kf, Cin, Cout) weights (rounded to bf16).
         gy: (B, T, F, Cout) cotangent of the bf16 output (rounded to
             bf16, as the output's type).
+        need_dx: False runs no dx pass (the input needs no gradient: a
+            tower's log-mel input); dw is the same in every bit.
 
-    Returns: dx (B, T, F, Cin) bfloat16 and dw (kt, kf, Cin, Cout)
-    float32. The bias gradient is the f32 sum of gy, left to the caller.
+    Returns: dx (B, T, F, Cin) bfloat16 (None with ``need_dx=False``) and
+    dw (kt, kf, Cin, Cout) float32. The bias gradient is the f32 sum of
+    gy, left to the caller.
     """
     _check_conv_bwd(x, w, gy)
     if x.device.type == 'cpu':
-        return conv2d_same_bwd_plain(x, w, gy)
-    return _launch_conv_bwd('conv2d_same_bwd', x, w, gy, padded=True)
+        return conv2d_same_bwd_plain(x, w, gy, need_dx)
+    return _launch_conv_bwd('conv2d_same_bwd', x, w, gy, padded=True,
+                            need_dx=need_dx)
 
 
-def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False):
-    """Launch ``pbsed_<counter>`` on CUDA tensors: dx (or da) and dw of
-    the SAME conv, with ``affine = (scale, shift)`` f32 pointers after
-    the flipped weights for the BN+ReLU-fused one; other extents and
-    widths as :func:`_launch_conv` takes them (and counts them)."""
+def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
+                     need_dx=True):
+    """Launch ``pbsed_<counter>`` on CUDA tensors: dx (or da; None and
+    no dx pass with ``need_dx=False``) and dw of the SAME conv, with
+    ``affine = (scale, shift)`` f32 pointers after the flipped weights for
+    the BN+ReLU-fused one; other extents and widths as
+    :func:`_launch_conv` takes them (and counts them)."""
     build.require_cuda(x, w, gy, *affine)
     bsz, t, f, cin = x.shape
     kt0, kf0, _, width = w.shape
@@ -301,21 +328,27 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False):
     if cout != width:
         gy = F.pad(gy, (0, cout - width))
     gy = gy.contiguous()
-    w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
-    dx = torch.empty_like(x)
+    dx = w_flip = None
+    if need_dx:
+        w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
+        dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
                      device=x.device)
-    chunks = _dw_chunks(bsz, t, f, cin, cout, kt, kf, x.device)
-    workspace = torch.empty((chunks, kt * kf, 16 * math.ceil(cin / 16), cout),
-                            dtype=torch.float32, device=x.device)
-    if any(a.data_ptr() % 16 for a in (x, gy, w_flip, dx, workspace,
-                                       *affine)):
+    chunks, workspace = _dw_workspace(bsz, t, f, cin, cout, kt, kf, x.device)
+    if any(a is not None and a.data_ptr() % 16
+           for a in (x, gy, w_flip, dx, workspace, *affine)):
         raise ValueError(f'{counter} needs 16-byte aligned buffers')
     build.launch(counter, f'pbsed_{counter}', x.device,
-                 x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
-                 *(a.data_ptr() for a in affine), dx.data_ptr(),
+                 x.data_ptr(), gy.data_ptr(),
+                 None if w_flip is None else w_flip.data_ptr(),
+                 *(a.data_ptr() for a in affine),
+                 None if dx is None else dx.data_ptr(),
                  dw.data_ptr(), workspace.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, chunks)
+    if (f'{counter}_entry' in build.LAUNCHES
+            and _design('pbsed_conv2d_dw_design', f, cin, cout, kt,
+                        kf)[0] == 'entry'):
+        build.LAUNCHES[f'{counter}_entry'] += 1
     if (kt, kf, cout) != (kt0, kf0, width):
         dw = dw[kt - kt0:, kf - kf0:, :, :width].contiguous()
         if padded:
@@ -325,7 +358,8 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False):
 
 @cache_signature
 class Conv2dSame(torch.autograd.Function):
-    """:func:`conv2d_same` with its backward: dx and dw from
+    """:func:`conv2d_same` with its backward: dx (only where autograd
+    needs it: a tower's log-mel input needs none) and dw from
     :func:`conv2d_same_bwd`, db the f32 sum of the bf16 cotangent
     (``pb_sed_tpu/ops/pallas/conv.py:959-962``). Under ``torch.func.vmap``
     (a stacked ensemble) all members in one launch,
@@ -349,7 +383,7 @@ class Conv2dSame(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
-        dx, dw = conv2d_same_bwd(x, w, gy)
+        dx, dw = conv2d_same_bwd(x, w, gy, need_dx=ctx.needs_input_grad[0])
         db = gy.float().sum((0, 1, 2)) if ctx.has_bias else None
         return dx, dw.to(w.dtype), db
 

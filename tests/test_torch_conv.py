@@ -14,8 +14,8 @@ from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     AvgPoolFreq2, BnReluConv2dSame, Conv2dSame, MaxPoolFreq2,
     avgpool_freq2, bnrelu_conv2d_same, bnrelu_conv2d_same_members,
-    bnrelu_conv2d_same_members_plain, conv2d_same, conv2d_same_members,
-    conv2d_same_members_plain, maxpool_freq2)
+    bnrelu_conv2d_same_members_plain, conv2d_same, conv2d_same_bwd,
+    conv2d_same_members, conv2d_same_members_plain, maxpool_freq2)
 
 torch.set_num_threads(2)
 
@@ -160,3 +160,87 @@ def test_member_axis_wrappers_reject_mismatched_members():
     with pytest.raises(ValueError):  # scale of the wrong width
         bnrelu_conv2d_same_members(x, torch.ones(2, 8), torch.ones(2, 16),
                                    w, None)
+
+
+@pytest.mark.parametrize('cin', [1, 11])
+def test_conv_backward_without_dx_keeps_dw_bit_for_bit(cin):
+    """``conv2d_same_bwd(..., need_dx=False)`` (what ``Conv2dSame`` passes
+    where its input needs no gradient: the entry layer's log-mel input)
+    runs no dx pass and returns the dw of the pass with dx in every bit,
+    at the entry layer's widths: Cin = 1 and the tag-conditioned 11."""
+    rng = np.random.RandomState(cin)
+    x = torch.from_numpy(rng.randn(2, 9, 16, cin).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, cin, 16)
+                          / np.sqrt(9 * cin)).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(2, 9, 16, 16).astype(
+        np.float32)).to(torch.bfloat16)
+    dx, dw = conv2d_same_bwd(x, w, gy)
+    no_dx, dw_alone = conv2d_same_bwd(x, w, gy, need_dx=False)
+    assert dx is not None and dx.shape == x.shape and no_dx is None
+    assert torch.equal(dw_alone, dw)
+
+
+@pytest.mark.parametrize('upstream', ['frozen', 'recipe'])
+def test_fbcrnn_step_runs_dx_at_the_entry_layer_only_where_needed(
+        monkeypatch, upstream):
+    """A training step of a shallow FBCRNN on the CPU. Where nothing
+    upstream of the entry conv (Cin = 1) learns (a post-activation tower,
+    no learnable affine on the log-mel features), its backward computes
+    no dx (no transposed conv of the cotangent down to one channel). The
+    recipes' towers are pre-activation (a batch norm with a learnable
+    scale and shift on the entry conv's input) over features with a
+    learnable affine: both need that dx, and it runs. The other convs' dx
+    runs in both. Every gradient equals the one of a step whose convs all
+    compute dx, in every bit; the gradients themselves are held against
+    the JAX package by ``tests/test_torch_train.py``."""
+    from pb_sed_tpu_torch.models import weak_label as tweak
+    from pb_sed_tpu_torch.ops.kernels import conv as kconv
+    from tests.test_torch_fbcrnn import CONFIG, SAMPLES
+    frozen = upstream == 'frozen'
+    config = {**CONFIG, 'feature_extractor': {
+        **CONFIG['feature_extractor'], 'learnable_affine': not frozen},
+        'cnn': {**CONFIG['cnn'], 'cnn_2d': {
+            **CONFIG['cnn']['cnn_2d'], 'pre_activation': not frozen}}}
+    rng = np.random.RandomState(0)
+    k = 10
+    batch = {'audio_data': (.3 * rng.randn(2, SAMPLES)).astype(np.float32),
+             'seq_len': np.array([50, 33], np.int32),
+             'weak_targets': (rng.rand(2, k) > .5).astype(np.float32),
+             'boundary_targets': (rng.rand(2, k, 50) > .6).astype(
+                 np.float32)}
+
+    def step():
+        model = tweak.CRNN.from_config(tweak.CRNN.get_config(config),
+                                       device='cpu')
+        weights = np.random.RandomState(1)
+        for p in model.module.parameters():
+            p.data = torch.from_numpy(
+                .1 * weights.randn(*p.shape).astype(np.float32))
+        model.module.train()
+        loss, _ = model.loss(model.to_device(batch))
+        loss.backward()
+        return {n: p.grad.clone() for n, p in model.module.named_parameters()}
+
+    calls = []
+    plain_conv = kconv._conv_same
+
+    def counting_conv(x, w, flip=False):
+        calls.append((flip, w.shape[0]))  # w is OIHW: its output channels
+        return plain_conv(x, w, flip)
+
+    monkeypatch.setattr(kconv, '_conv_same', counting_conv)
+    grads = step()
+    dx_channels = [out for flip, out in calls if flip]
+    assert len(dx_channels) == (2 if frozen else 3), calls
+    assert (1 in dx_channels) != frozen
+    # the same step with dx computed at every conv
+    plain_bwd = kconv.conv2d_same_bwd
+    monkeypatch.setattr(kconv, 'conv2d_same_bwd',
+                        lambda x, w, gy, need_dx=True: plain_bwd(x, w, gy))
+    calls.clear()
+    with_dx = step()
+    assert 1 in [out for flip, out in calls if flip]
+    assert grads.keys() == with_dx.keys()
+    for name in grads:
+        assert torch.equal(grads[name], with_dx[name]), name

@@ -6,8 +6,10 @@ pools, the BN+ReLU-fused conv with a positive shift at the borders, the
 fused GRU backward at batches off its tile, the GRU's cluster design at
 both widths with ragged row tiles and a random initial state beside the
 row-tiled one at small hidden sizes, the wgmma conv kernels'
-ragged pixel tiles, frequency rows and channel widths, the member axis
-of the forward convs and the GRU at D = 2N that a stacked ensemble
+ragged pixel tiles, frequency rows and channel widths, the entry conv
+pair at Cin < 16 (F 128, 40 and odd, extents 3x3, 5x3, 1x1 and even,
+Cout 16 to 48, with a member axis, dw with and without dx), the member
+axis of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
 and f32; the conv at Cout off a multiple of 16 and even kernel extents;
 the GRU at hidden sizes off a multiple of 32 and on the cluster design of
@@ -376,20 +378,25 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     (2, 5, 128, 16, 32),     # F = 128: one frequency row per tile
     (1, 7, 16, 256, 16),     # Cin 256: four K slices; dx N = 256
     (3, 17, 8, 32, 16),      # T = 17 off the 16-row tile, B * T * F = 408
-    (1, 2, 128, 1, 16),      # Cin = 1: the narrow kernels
+    (1, 2, 128, 1, 16),      # Cin = 1: the entry kernels, dx narrow
 ])
 def test_wgmma_conv_kernels_match_plain(gen, b, t, f, cin, cout):
     """The wgmma conv kernels (csrc/conv2d_wgmma.cuh), forward and
     backward, plain and BN+ReLU-fused with a positive shift on every
     channel (a halo lit with relu(shift) would show at every border), at
     ragged pixel tiles, F of 8, 16 and 128 and channel counts from 1 to
-    512; dw bit-identical in two runs. Cin = 1 runs the narrow kernels."""
-    want = 'wgmma' if cin >= 16 else 'narrow'
+    512; dw bit-identical in two runs. Cin = 1 runs the entry kernels
+    (csrc/conv2d_entry.cuh) forward and dw, and the narrow one for its
+    dx (N = 1)."""
+    want = ({'fwd': 'wgmma', 'dx': 'wgmma', 'dw': 'wgmma'} if cin >= 16
+            else {'fwd': 'entry', 'dx': 'narrow', 'dw': 'entry'})
     designs = conv_designs(f, cin, cout)
-    assert {name: d['design'] for name, d in designs.items()} == {
-        'fwd': want, 'dx': want, 'dw': want}
-    # the wgmma kernels' activation rings hold at least 3 stages here
-    assert all((d['stages'] >= 3) == (want == 'wgmma')
+    assert {name: d['design'] for name, d in designs.items()} == want
+    # the wgmma kernels' activation rings hold at least 3 stages here, the
+    # entry kernels' 2 (forward) and 3 (dw), the narrow ones none
+    least = {'wgmma': 3, 'entry': 2, 'narrow': 0}
+    assert all((d['stages'] >= least[d['design']] > 0)
+               or d['stages'] == least[d['design']] == 0
                for d in designs.values())
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
         torch.bfloat16)
@@ -444,8 +451,8 @@ def test_new_kernels_raise_on_what_they_do_not_take(gen):
     (3, 2, 9, 16, 16, 32, 3),    # wgmma, ragged time tile
     (2, 1, 5, 128, 32, 16, 3),   # wgmma, one frequency row a tile
     (4, 2, 7, 8, 64, 256, 3),    # wgmma, two N tiles: the bias restaged
-    (3, 2, 6, 16, 1, 16, 3),     # the narrow kernel: Cin = 1 entry layer
-    (2, 1, 5, 8, 11, 48, 3),     # narrow: Cin = 11 (tag-conditioned)
+    (3, 2, 6, 16, 1, 16, 3),     # the entry kernel: Cin = 1 entry layer
+    (2, 1, 5, 8, 11, 48, 3),     # entry: Cin = 11 (tag-conditioned)
     (3, 1, 4, 8, 16, 16, 1),     # 1x1
 ])
 def test_member_axis_convs_bit_equal_to_single_launches(gen, m, b, t, f,
@@ -789,3 +796,84 @@ def test_f32_conv_raises_on_a_bf16_input(gen):
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
     with pytest.raises(TypeError, match='float32'):
         conv2d_same_f32(x, torch.zeros(3, 3, 16, 16, device='cuda'), None)
+
+
+# (B, T, F, Cin, Cout, kt, kf, M): the entry conv pair (Cin < 16,
+# csrc/conv2d_entry.cuh) at the recipes' entry widths with T off the tile,
+# F 40 (the 40-mel tower's entry, Cout 24 padded to 32) and an odd F whose
+# frame rows take 2-byte copies, 5x3 / 1x1 / even (padded) kernels, Cout
+# 48 in three 16-channel chunks; M > 1 adds a member-axis launch
+ENTRY_SHAPES = [
+    (2, 9, 128, 1, 16, 3, 3, 1),    # shallow L0's widths
+    (1, 7, 128, 1, 32, 3, 3, 3),    # deep L0's widths, 3 members
+    (2, 5, 128, 11, 16, 3, 3, 2),   # the tag-conditioned L0, 2 members
+    (2, 11, 40, 1, 24, 3, 3, 1),    # 40 mel bins, Cout 24
+    (1, 13, 37, 3, 32, 5, 3, 2),    # odd F, 5x3, rows of 222 bytes
+    (2, 6, 20, 5, 16, 1, 1, 1),     # 1x1
+    (2, 6, 20, 15, 32, 3, 3, 1),    # Cin 15
+    (1, 9, 16, 1, 16, 2, 2, 1),     # an even kernel, padded to 3x3
+    (1, 3, 128, 11, 48, 3, 3, 1),   # Cout 48
+]
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf,m', ENTRY_SHAPES)
+def test_entry_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf, m):
+    """The entry conv pair: forward (plain and BN+ReLU-fused with a
+    positive shift on every channel) and dw against the plain versions
+    within the conv gates (2^-7 * max|ref| for y, 1e-3 * max|ref| for
+    dw); the design query says 'entry' for both passes; dw bit-identical
+    on a rerun and with or without dx; with M > 1 one member-axis launch
+    equals M single launches in every bit."""
+    designs = conv_designs(f, cin, cout + -cout % 16, kt + 1 - kt % 2,
+                           kf + 1 - kf % 2)
+    assert designs['fwd']['design'] == designs['dw']['design'] == 'entry'
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(cin, generator=gen, device='cuda')
+    for fwd, fwd_plain, pre in (
+            (conv2d_same, conv2d_same_plain, ()),
+            (bnrelu_conv2d_same, bnrelu_conv2d_same_plain, (scale, shift))):
+        y = fwd(x, *pre, w, bias)
+        ref = fwd_plain(x, *pre, w, bias)
+        assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+    n = build.LAUNCHES['conv2d_same_bwd']
+    dx, dw = conv2d_same_bwd(x, w, gy)
+    no_dx, dw_alone = conv2d_same_bwd(x, w, gy, need_dx=False)
+    assert build.LAUNCHES['conv2d_same_bwd'] == n + 2 and no_dx is None
+    ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+    assert _max_err(dx, ref_dx) <= 2. ** -7 * float(
+        ref_dx.float().abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+    assert torch.equal(dw, dw_alone)
+    assert torch.equal(dw, conv2d_same_bwd(x, w, gy)[1])
+    _, dw_fused = bnrelu_conv2d_same_bwd(x, scale, shift, w, gy)
+    _, ref_fused = bnrelu_conv2d_same_bwd_plain(x, scale, shift, w, gy)
+    assert _max_err(dw_fused, ref_fused) <= 1e-3 * float(
+        ref_fused.abs().max())
+    assert torch.equal(dw_fused, bnrelu_conv2d_same_bwd(x, scale, shift, w,
+                                                        gy)[1])
+    if m == 1:
+        return
+    xm = torch.randn(m, b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    wm = torch.randn(m, kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bm = .1 * torch.randn(m, cout, generator=gen, device='cuda')
+    sm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    hm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    n = build.LAUNCHES['conv2d_same']
+    y = conv2d_same_members(xm, wm, bm)
+    assert build.LAUNCHES['conv2d_same'] == n + 1
+    # each member alone, from buffers of its own (16-byte aligned)
+    assert torch.equal(y, torch.stack([
+        conv2d_same(xm[i].clone(), wm[i], bm[i].clone()) for i in range(m)]))
+    y = bnrelu_conv2d_same_members(xm, sm, hm, wm, bm)
+    assert torch.equal(y, torch.stack([
+        bnrelu_conv2d_same(xm[i].clone(), sm[i].clone(), hm[i].clone(),
+                           wm[i], bm[i].clone()) for i in range(m)]))
