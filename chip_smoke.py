@@ -26,13 +26,15 @@ runs, in order:
    positive (a lit SAME halo or a wrong gate shows). Per conv layer one
    line says which design ran for each pass (the wgmma kernels of
    ``csrc/conv2d_wgmma.cuh`` or the entry kernels of
-   ``csrc/conv2d_entry.cuh`` with their ring depth and shared memory, or
-   the narrow ones; from Cin = 16 up anything but wgmma with a ring of
-   >= 3 stages fails the run, below 16 anything but the entry kernels for
-   the forward and dw and the narrow one for dx), the achieved TFLOP/s
+   ``csrc/conv2d_entry.cuh`` with their ring depth and shared memory;
+   from Cin = 16 up anything but wgmma with a ring of >= 3 stages (2
+   where two blocks share an SM) fails the run, below 16 anything but the entry kernels for the forward and
+   dw and the wgmma one for dx), the achieved TFLOP/s
    beside cuDNN's time and the bound, and the backward's device time by
    launch (dx GEMM, dw partials, reduce, glue; ``torch.profiler``); at an
-   entry layer (Cin < 16) a line more with the entry forward's and the dw
+   entry layer (Cin < 16) a line more with the entry forward's, the dx
+   GEMM's (N = Cin on the wgmma kernel, against cuDNN's dgrad: the
+   input's gradient alone) and the dw
    pass's device time without dx (``need_dx=False``; its dw equal in
    every bit to the dw with dx), each beside its bound, its share of the
    bound and cuDNN's device time; after the kernel phases,
@@ -294,7 +296,11 @@ runs, in order:
    crossing, printed only); the conv and its backward at shapes the
    kernels take padded, Cout 24 at 14b's L0 and L2 and 2 x 2 and 4 x 3
    kernels at (32, 500, 64, 64); each with its bound and a library
-   call's time. After phase 13: 14a, the shallow FBCRNN of the AudioSet
+   call's time; then 14b's 3x3 layers at F = 40, 20, 10 and 5 (the
+   wgmma pair's tiles of whole rows off a power of two), each pass's
+   design asserted (entry or wgmma), forward and backward against the
+   plain versions, timed beside cuDNN's bf16 calls, each bound and share
+   (L0: its dx alone too). After phase 13: 14a, the shallow FBCRNN of the AudioSet
    recipe (527 classes, no strong loss) with time pools ([1, [2, 2], 1,
    [2, 2], 1, [2, 1], 1, [2, 1], 1] in 2-D, [1, 2, 1, 1, 1] in 1-D) and
    ``fuse_bn``, serves 3 batches of 32 ten-second clips by tagging,
@@ -302,7 +308,8 @@ runs, in order:
    to 63) and trains 8 steps; 14b, the deep recipe at 40 mel bins (its
    fourth pool meets F = 5, a residual crosses it) with 24 channels in
    its first four 2-D layers, unfused and ``fuse_bn``, tags 3 batches
-   and trains 8 steps each; 14c, the shallow recipe without norms and
+   and trains 8 steps each (one unfused step profiled by kernel family);
+   14c, the shallow recipe without norms and
    with elu, tags 3 batches. Served runs agree with the CPU, trained ones
    pass the card-vs-CPU step (the CPU's noise with its convs summed in
    f64 too); clips/s, steps/s and peak memory beside phases 3-5's.
@@ -492,7 +499,8 @@ KERNELS = {
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:237'},
     # phase 14's paths: the max and average pools of any window, and the
     # conv kernels at the shapes they take padded (Cout off a multiple of
-    # 16, even extents; those launches count under the pair's names too)
+    # 16, Cin >= 16 off a multiple of 8, even extents; those launches
+    # count under the pair's names too)
     'maxpool2d': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/maxpool.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/conv.py:1759'},
@@ -544,7 +552,9 @@ KERNELS = {
     # the conv pair's entry kernels (Cin < 16: every tower's first layer):
     # the forward and the dw pass (with its reduce), counted by the pair's
     # wrappers where they run them; their times are device times
-    # (torch.profiler) and the dw pass's those of a backward without dx
+    # (torch.profiler) and the dw pass's those of a backward without dx.
+    # That layer's dx (N = Cin) runs the wgmma kernel, under
+    # conv2d_same_bwd
     'conv2d_same_entry': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/conv2d_entry.cuh',
         'replaces': 'pb_sed_tpu/ops/pallas/conv.py:413'},
@@ -671,7 +681,6 @@ def log_ptxas(text):
         if 'Compiling entry function' in line:
             mangled = line.split("'")[1]
             for kernel in ('conv2d_wgmma_kernel', 'conv2d_dw_wgmma_kernel',
-                           'conv2d_igemm_kernel', 'conv2d_dw_partial_kernel',
                            'conv2d_dw_reduce_kernel', 'gru_scan_kernel',
                            'gru_scan_cluster_kernel', 'gru_bwd_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
@@ -859,21 +868,18 @@ def bwd_split_ms(fn, reps=3):
     for ms, key, _ in rows:
         part = ('reduce' if 'dw_reduce' in key or 'dw_entry_reduce' in key
                 else 'dw' if 'conv2d_dw_' in key else
-                'dx' if 'conv2d_wgmma_kernel' in key
-                or 'conv2d_igemm_kernel' in key else 'glue')
+                'dx' if 'conv2d_wgmma_kernel' in key else 'glue')
         parts[part] += ms / reps
     return parts
 
 
 def log_conv_layer(row, fwd_flops):
-    """One line per conv layer: the design of each pass (wgmma with the
-    depth of its activation ring and its dynamic shared memory, or
-    narrow), and per pass the kernel's ms and TFLOP/s beside cuDNN's ms
+    """One line per conv layer: the design of each pass (wgmma or entry
+    with the depth of its activation ring and its dynamic shared memory),
+    and per pass the kernel's ms and TFLOP/s beside cuDNN's ms
     and the bound; the backward's split by launch."""
     def design(key):
         d = row['design'][key]
-        if d['design'] == 'narrow':
-            return f'{key}=narrow'
         return (f'{key}={d["design"]} (ring {d["stages"]} stages, '
                 f'{d["smem"] / 1024:.0f} KiB)')
 
@@ -922,11 +928,39 @@ def dw_work(p, cin, cout, taps=9):
                  2. * p * taps * cin * cout)
 
 
-# the entry pair's kernels by the profiler's names: the forward, and the
-# dw pass with its reduce
+# the entry layer's kernels by the profiler's names: the forward, the dx
+# GEMM (N = Cin on the wgmma kernel) and the dw pass with its reduce
 ENTRY_KERNELS = {'fwd': ('conv2d_entry_kernel',),
+                 'dx': ('conv2d_wgmma_kernel',),
                  'dw': ('conv2d_dw_entry_kernel',
                         'conv2d_dw_entry_reduce_kernel')}
+
+
+def dx_work(p, cin, cout, taps=9):
+    """Bytes and operations of the dx GEMM alone: gy read once, dx
+    written once, the weights read once."""
+    return bound(2 * p * cout + 2 * p * cin + 2 * taps * cin * cout,
+                 2. * p * taps * cin * cout)
+
+
+def entry_dx(label, shape, x, w, gy):
+    """The dx GEMM of a layer with Cin < 16 (N = Cin on the wgmma
+    kernel): its device time inside the backward (torch.profiler, the
+    dx kernel alone), cuDNN's dgrad (``convolution_backward`` for the
+    input alone, channels-last bf16) and the bound; returns [ms, cuDNN
+    ms, bound ms] and logs them with the share of the bound."""
+    p = x.shape[0] * x.shape[1] * x.shape[2]
+    cin, cout = w.shape[2], w.shape[3]
+    xn, wn, gyn = _nchw(x), _oihw(w), _nchw(gy)
+    ms = device_ms(lambda: conv2d_same_bwd(x, w, gy), ENTRY_KERNELS['dx'])
+    lib = device_ms(lambda: torch.ops.aten.convolution_backward(
+        gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, False, False]))
+    work = dx_work(p, cin, cout)
+    log(f'entry dx {label} {shape[0]} ({cout} -> {cin}): {ms:.4f} ms device '
+        f'(wgmma, N = {cin}), bound {work[0]:.4f} ({work[1]}), share '
+        f'{work[0] / ms:.2f}, cuDNN dgrad {lib:.4f} ms')
+    return [ms, lib, work[0]]
 
 
 def check_entry_layer(row, records, label, shape, x, w, b, gy):
@@ -970,6 +1004,7 @@ def check_entry_layer(row, records, label, shape, x, w, b, gy):
                      reps=2),
            records['conv2d_same_bwd_entry'], label, dw_lib, work)
     row['entry'] = {'fwd': [fwd_ms, fwd_lib, fwd_work[0]],
+                    'dx': entry_dx(label, shape, x, w, gy),
                     'dw': [dw_ms, dw_lib, work[0]]}
     log(f'entry conv {label} {shape[0]} ({cin} -> {cout}): forward '
         f'{fwd_ms:.4f} ms device, bound {fwd_work[0]:.4f} ({fwd_work[1]}), '
@@ -1016,13 +1051,19 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
         row = {'tower': label, 'layer': layer, 'F': f, 'Cin': cin,
                'Cout': cout, 'design': conv_designs(f, cin, cout)}
         # from Cin = 16 up every pass runs the wgmma kernels, each ring
-        # >= 3 stages; the entry layer (Cin < 16) its forward (a ring of
-        # 2) and dw (3) on the entry kernels, its dx (N = Cin) on the
-        # narrow one
+        # >= 3 stages, or 2 where that leaves room for two blocks an SM
+        # (half of 227 KB: the narrow tiles); the entry layer (Cin < 16)
+        # its forward (a ring of 2) and dw (3) on the entry kernels, its
+        # dx (N = Cin) on the wgmma one
         want = ({'fwd': 'wgmma', 'dx': 'wgmma', 'dw': 'wgmma'} if cin >= 16
-                else {'fwd': 'entry', 'dx': 'narrow', 'dw': 'entry'})
-        least = {'wgmma': 3, 'entry': 2, 'narrow': 0}
-        if any(d['design'] != want[key] or d['stages'] < least[want[key]]
+                else {'fwd': 'entry', 'dx': 'wgmma', 'dw': 'entry'})
+        least = {'wgmma': 3, 'entry': 2}
+
+        def ring_ok(d):
+            return d['stages'] >= least[d['design']] or (
+                d['design'] == 'wgmma' and d['stages'] == 2
+                and d['smem'] <= 232448 // 2)
+        if any(d['design'] != want[key] or not ring_ok(d)
                for key, d in row['design'].items()):
             raise AssertionError(f'conv layer {shape}: designs '
                                  f'{row["design"]}, expected {want}')
@@ -1324,7 +1365,7 @@ def check_strong_shapes(records):
     (``STRONG_CONV_LAYERS``, ``STRONG_GRU_SHAPES``), with
     :func:`check_kernels`' checks, designs, times, cuDNN's and the bounds:
     the entry conv at 11 input channels (the entry kernels forward and
-    dw, with the dw without dx, the narrow one for dx) forward, dx and
+    dw, with the dw without dx, the wgmma one for dx) forward, dx and
     dw, and the GRU forward over 16 clips. The errors join the kernels'
     ``max_abs_err``; the times are printed (the conv layer also as JSON)
     and stay out of the kernels line's sums, which keep the shapes of the
@@ -2091,11 +2132,11 @@ def _profile_step(trainer, batch, label):
         'conv dw wgmma': ('conv2d_dw_wgmma_kernel',),
         'conv entry': ('conv2d_entry_kernel', 'conv2d_dw_entry_kernel',
                        'conv2d_dw_entry_reduce_kernel'),
-        'conv narrow': ('conv2d_igemm_kernel', 'conv2d_dw_partial_kernel'),
         'conv dw reduce': ('conv2d_dw_reduce_kernel',),
         'GRU fwd': ('gru_scan_kernel', 'gru_scan_cluster_kernel'),
         'GRU bwd': ('gru_bwd',),
-        'pools': ('maxpool_freq2', 'avgpool_freq2')}
+        'pools': ('maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
+                  'avgpool2d')}
     by_family = {name: sum(ms for ms, key, _ in rows
                            if any(k in key for k in keys))
                  for name, keys in families.items()}
@@ -3411,9 +3452,9 @@ def check_member_kernels(records, label, seed, m, convs, fused):
 
     for layer, f, cin, cout in convs:
         design = conv_designs(f, cin, cout)['fwd']['design']
-        if cin < 16 and design != 'entry':
+        if design != ('entry' if cin < 16 else 'wgmma'):
             raise AssertionError(f'{label} {layer} at M = {m}: the member-'
-                                 f'axis forward runs {design}, not entry')
+                                 f'axis forward runs {design}')
         x = randn(m, BATCH, FRAMES, f, cin).to(torch.bfloat16)
         w = randn(m, 3, 3, cin, cout, scale=(9 * cin) ** -.5)
         b = randn(m, cout, scale=.1)
@@ -4966,6 +5007,16 @@ TOWER_CONVS = [('14b L0', FRAMES, 40, 1, 24, 3, 3),
 TOWER_14A_POOLS = {'cnn_2d': [1, [2, 2], 1, [2, 2], 1, [2, 1], 1, [2, 1], 1],
                    'cnn_1d': [1, 2, 1, 1, 1]}
 TOWER_14A_FUSED = [2, 4, 5, 6, 7, 8]
+# (name, F, Cin, Cout) of 14b's 3x3 layers (the deep tower at 40 mel bins,
+# 24 channels in its first four 2-D layers): F = 40, 20, 10 and 5, off the
+# wgmma pair's old tile of 128 / F whole rows at a power of two F (L16
+# runs at F = 2)
+TOWER_14B_LAYERS = [('14b L0', 40, 1, 24), ('14b L2', 40, 24, 24),
+                    ('14b L4', 20, 24, 64), ('14b L6', 20, 64, 64),
+                    ('14b L8', 10, 64, 128), ('14b L10', 10, 128, 128),
+                    ('14b L12', 5, 128, 256), ('14b L14', 5, 256, 256)]
+# per 14b layer: designs, ms, cuDNN ms and bounds (one JSON line)
+TOWER_LAYER_ROWS = []
 TOWER_14B_FUSED = [6, 8, 10, 12, 14, 16]
 POOLED = ('maxpool2d', 'maxpool2d_bwd')
 CROSSED = ('avgpool2d', 'avgpool2d_bwd')
@@ -5093,10 +5144,11 @@ def check_tower_kernels(records):
         designs = conv_designs(f, cin, cout + -cout % 16, kt_k, kf_k)
         log(f'conv {shape}: runs as {kt_k}x{kf_k} -> {cout + -cout % 16} '
             f'channels, designs {designs}')
-        if cin < 16 and not (designs['fwd']['design']
-                             == designs['dw']['design'] == 'entry'):
-            raise AssertionError(f'conv {shape}: forward and dw on '
-                                 f'{designs}, not the entry kernels')
+        want = {'fwd': 'entry' if cin < 16 else 'wgmma', 'dx': 'wgmma',
+                'dw': 'entry' if cin < 16 else 'wgmma'}
+        if {key: d['design'] for key, d in designs.items()} != want:
+            raise AssertionError(f'conv {shape}: designs {designs}, '
+                                 f'expected {want}')
         got, ref = conv2d_same(x, w, b), conv2d_same_plain(x, w, b)
         torch.cuda.synchronize()
         _check('conv2d_same (padded)', shape, got, ref,
@@ -5125,6 +5177,97 @@ def check_tower_kernels(records):
                records['conv2d_same_bwd_padded'], 'towers')
         del x, gy, dx, dw, ref_dx, ref_dw, xn, xpn
         torch.cuda.empty_cache()
+    check_tower_layers(records)
+
+
+def check_tower_layers(records):
+    """14b's 3x3 layers (``TOWER_14B_LAYERS``, B = 32, T = 500): each
+    pass's design must be the entry (forward and dw at Cin < 16) or the
+    wgmma kernels; the forward and the backward (dx and dw) against their
+    plain versions within the conv gates, dw the same in two runs; each
+    timed (CUDA events) beside cuDNN's bf16 forward and
+    ``convolution_backward`` (both gradients) on the channels-last
+    tensors, with its bound and share; at L0 (Cin = 1) also the dx GEMM
+    alone against cuDNN's dgrad (:func:`entry_dx`). The errors join the
+    conv pair's ``max_abs_err``; the times are printed, per layer and as
+    one JSON line, and stay out of the kernels line's sums."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(41)
+    scratch = {name: new_record() for name in ('conv2d_same',
+                                                'conv2d_same_bwd')}
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for layer, f, cin, cout in TOWER_14B_LAYERS:
+        x = randn(BATCH, FRAMES, f, cin).to(torch.bfloat16)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
+        b = randn(cout, scale=.1)
+        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3).to(torch.bfloat16)
+        p = BATCH * FRAMES * f
+        shape = (layer, BATCH, FRAMES, f, cin, cout)
+        # the channels as the kernels take them (Cout to 16, Cin >= 16 to 8)
+        designs = conv_designs(f, cin + (-cin % 8 if cin >= 16 else 0),
+                               cout + -cout % 16)
+        want = {'fwd': 'entry' if cin < 16 else 'wgmma', 'dx': 'wgmma',
+                'dw': 'entry' if cin < 16 else 'wgmma'}
+        if {key: d['design'] for key, d in designs.items()} != want:
+            raise AssertionError(f'conv {shape}: designs {designs}, '
+                                 f'expected {want}')
+        xn, wn, bn, gyn = _nchw(x), _oihw(w), b.to(torch.bfloat16), _nchw(gy)
+        row = {'layer': layer, 'F': f, 'Cin': cin, 'Cout': cout,
+               'design': designs}
+        got, ref = conv2d_same(x, w, b), conv2d_same_plain(x, w, b)
+        torch.cuda.synchronize()
+        row['fwd'] = [cuda_ms(lambda: conv2d_same(x, w, b), reps=5),
+                      cuda_ms(lambda: F.conv2d(xn, wn, bn, padding=1),
+                              reps=5), conv_work(p, cin, cout)[0]]
+        _check('conv2d_same (14b layer)', shape, got, ref,
+               2. ** -7 * float(ref.float().abs().max()), row['fwd'][0],
+               cuda_ms(lambda: conv2d_same_plain(x, w, b), reps=2),
+               scratch['conv2d_same'], 'towers', row['fwd'][1],
+               conv_work(p, cin, cout))
+        del got, ref
+        dx, dw = conv2d_same_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+        torch.cuda.synchronize()
+        row['bwd'] = [
+            cuda_ms(lambda: conv2d_same_bwd(x, w, gy), reps=5),
+            cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [True, True, False]), reps=5),
+            conv_work(p, cin, cout, backward=True)[0]]
+        _check('conv2d_same_bwd dx (14b layer)', shape, dx, ref_dx,
+               2. ** -7 * float(ref_dx.float().abs().max()), row['bwd'][0],
+               cuda_ms(lambda: conv2d_same_bwd_plain(x, w, gy), reps=2),
+               scratch['conv2d_same_bwd'], 'towers', row['bwd'][1],
+               conv_work(p, cin, cout, backward=True))
+        _check('conv2d_same_bwd dw (14b layer)', shape, dw, ref_dw,
+               1e-3 * float(ref_dw.abs().max()), 0., 0.,
+               scratch['conv2d_same_bwd'], 'towers')
+        if not torch.equal(dw, conv2d_same_bwd(x, w, gy)[1]):
+            raise AssertionError(f'conv2d_same_bwd {shape}: dw differs '
+                                 f'between two runs')
+        del dx, dw, ref_dx, ref_dw
+        if cin < 16:
+            row['dx'] = entry_dx('towers', shape, x, w, gy)
+        log(f'14b layer {layer} ({f}, {cin} -> {cout}): design '
+            + ' '.join(f'{key}={d["design"]} (ring {d["stages"]}, '
+                       f'{d["smem"] / 1024:.0f} KiB)'
+                       for key, d in designs.items())
+            + ''.join(f' | {key} {ms:.3f} ms, cuDNN {lib:.3f}, bound '
+                      f'{bnd:.3f}, share {bnd / ms:.2f}, / cuDNN '
+                      f'{ms / lib:.2f}'
+                      for key, (ms, lib, bnd) in (
+                          (k, row[k]) for k in ('fwd', 'bwd', 'dx')
+                          if k in row)))
+        TOWER_LAYER_ROWS.append(row)
+        del x, gy, xn, gyn
+        torch.cuda.empty_cache()
+    log('14b layers: ' + json.dumps(TOWER_LAYER_ROWS))
+    for name, rec in scratch.items():
+        records[name]['max_abs_err'] = max(records[name]['max_abs_err'],
+                                           rec['max_abs_err'])
 
 
 def _tower_config(name, fuse_bn=False, augment=True):
@@ -5149,14 +5292,15 @@ def _tower_config(name, fuse_bn=False, augment=True):
 
 
 def _train_towers(make_model, k, kernels, label, strong=False,
-                  conv_order=True, gru_order=False):
+                  conv_order=True, gru_order=False, profile=False):
     """8 ``Trainer`` steps of a phase-14 (or 15) model at 32 ten-second
     clips with augmentation on (the AudioSet recipe's Adam: lr 1e-4,
     clipping 0.1), the BiCRNN's strong batches with ``strong``: every
     kernel of ``kernels`` must launch and every loss be finite; then the
     card-vs-CPU step (:func:`_card_vs_cpu`; with ``conv_order`` the CPU's
     noise with its bf16 convs' summation order too). Returns the launch
-    counts and steps/s, clips/s and peak memory."""
+    counts and steps/s, clips/s and peak memory. With ``profile`` one
+    more step is profiled by kernel family (:func:`_profile_step`)."""
     from pb_sed_tpu_torch.train.optimizer import Adam
     from pb_sed_tpu_torch.train.trainer import Trainer
     model = make_model(augment=True).to('cuda')
@@ -5191,6 +5335,8 @@ def _train_towers(make_model, k, kernels, label, strong=False,
         f'{metrics["clips_per_s"]:.1f} clips/s over steps 3-{TRAIN_STEPS} '
         f'(batch {BATCH} x 10 s clips, augmentation on, host clock), peak '
         f'{metrics["peak_gib"]:.2f} GiB')
+    if profile:
+        _profile_step(trainer, batches[0], label)
     del trainer, model
     torch.cuda.empty_cache()
     _card_vs_cpu(make_model, stft, k, strong, conv_order, gru_order)
@@ -5284,7 +5430,7 @@ def phase_towers(earlier):
                 lambda augment, fb=fuse_bn: _model(
                     _tower_config('14b', fb, augment), flat),
                 527, DEEP + POOLED + CROSSED + PADDED
-                + (FUSED if fuse_bn else ()), label)
+                + (FUSED if fuse_bn else ()), label, profile=not fuse_bn)
     # 14c
     config = _tower_config('14c')
     flat = _random_flat(config)

@@ -14,11 +14,12 @@
 // What the design does about it: an implicit GEMM that never writes the
 // im2col patch to device memory, shared with the input gradient of the
 // backward (conv2d_bwd.cu): wgmma fed by a TMA ring, one halo tile per K
-// slice for all taps (conv2d_wgmma.cuh); the entry layer (Cin < 16) runs
-// conv2d_entry.cuh (taps and channels packed into one K on mma.sync, a
-// cp.async ring of halo tiles); the shapes left (Cin >= 16 off the wgmma
-// tile: F not a power of two dividing 128, channel counts off a multiple
-// of 8) keep the narrow kernel of conv2d_igemm.cuh.
+// slice for all taps (conv2d_wgmma.cuh), at every layer with Cin >= 16
+// (tiles of rows x W pixels at any F; channel counts off a multiple of 8
+// padded with zeros by the wrapper) and at every dx, N = Cin < 16
+// included; the entry layer's forward (Cin < 16) runs conv2d_entry.cuh
+// (taps and channels packed into one K on mma.sync, a cp.async ring of
+// halo tiles).
 //
 // pbsed_bnrelu_conv2d_same is the BN+ReLU-fused conv of CNN2d(fuse_bn):
 // y = bf16(conv(a, w) + b) with a = bf16(relu(f32(x) * scale + shift)) on
@@ -40,7 +41,10 @@
 
 // x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
 // f32, y (M, B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
-// Requires odd kt and kf and Cout % 16 == 0. Returns a cudaError_t.
+// Requires odd kt and kf, Cout % 16 == 0 and Cin < 16 or Cin % 8 == 0
+// (the wrapper pads other channel counts); a shape whose halo ring fits
+// no kernel's shared memory (pbsed_conv2d_design 0) launches nothing.
+// Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same(const void* x, const void* w, const void* b,
                                  void* y, int M, int B, int T, int F,
                                  int Cin, int Cout, int kt, int kf,
@@ -54,8 +58,8 @@ extern "C" int pbsed_conv2d_same(const void* x, const void* w, const void* b,
 
 // x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
 // f32, scale and shift (M, Cin) f32, y (M, B, T, F, Cout) bf16; all
-// contiguous and 16-byte aligned. Requires odd kt and kf and Cout % 16 ==
-// 0. Returns a cudaError_t.
+// contiguous and 16-byte aligned. Requires what pbsed_conv2d_same does.
+// Returns a cudaError_t.
 extern "C" int pbsed_bnrelu_conv2d_same(const void* x, const void* w,
                                         const void* b, const void* scale,
                                         const void* shift, void* y, int M,
@@ -75,8 +79,9 @@ extern "C" int pbsed_bnrelu_conv2d_same(const void* x, const void* w,
 // 2 the entry kernel of conv2d_entry.cuh (Cin < 16), with its ring depth in
 // *stages and its dynamic shared memory in *smem; 1 the wgmma kernel of
 // conv2d_wgmma.cuh, with the depth of its halo ring in *stages (its weight
-// ring has kWgBStages) and its dynamic shared memory in *smem; 0 the
-// narrow one (*stages = *smem = 0).
+// ring has kWgBStages) and its dynamic shared memory in *smem; 0 none (a
+// channel count the wrapper pads first, or a halo no tile fits; *stages =
+// *smem = 0).
 extern "C" int pbsed_conv2d_design(int F, int Cin, int N, int kt, int kf,
                                    int* stages, int* smem) {
   if (conv2d_entry_ok(F, Cin, N, kt, kf)) {
@@ -84,8 +89,8 @@ extern "C" int pbsed_conv2d_design(int F, int Cin, int N, int kt, int kf,
     *smem = entry_fwd_smem(entry_pick(F, Cin, N, kt, kf, false), N);
     return 2;
   }
-  const bool wgmma = conv2d_wgmma_ok(F, Cin, N, kt, kf);
-  *stages = wgmma ? conv2d_wgmma_stages(F, Cin, N, kt, kf) : 0;
-  *smem = wgmma ? conv2d_wgmma_smem(F, Cin, N, kt, kf, *stages) : 0;
-  return wgmma ? 1 : 0;
+  const WgPlan plan = conv2d_wgmma_plan(F, Cin, N, kt, kf);
+  *stages = plan.stages;
+  *smem = plan.smem;
+  return plan.width > 0 ? 1 : 0;
 }

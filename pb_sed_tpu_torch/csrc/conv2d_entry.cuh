@@ -1005,10 +1005,16 @@ cudaError_t conv2d_dw_entry(const void* x, const void* gy, const float* scale,
 }
 
 // y = conv(x, w) + b for M members, on the kernel the shape takes: the
-// entry kernel where conv2d_entry_ok (Cin < 16), the wgmma kernel where
-// conv2d_wgmma_ok, else the narrow kernel; with scale and shift (both
-// (M, Cin) f32) the input goes through bnrelu on the way (the BN+ReLU-fused
-// conv). The backward's dx runs it too (conv2d_bwd.cu).
+// entry kernel where conv2d_entry_ok (Cin < 16), else the wgmma kernel
+// where conv2d_wgmma_ok; cudaErrorInvalidValue, before any launch, for a
+// shape neither takes; with scale and shift (both (M, Cin) f32) the input
+// goes through bnrelu on the way (the BN+ReLU-fused conv). The backward's
+// dx runs it too (conv2d_bwd.cu).
+inline bool conv2d_gemm_takes(int F, int Cin, int N, int kt, int kf) {
+  return conv2d_entry_ok(F, Cin, N, kt, kf) ||
+         conv2d_wgmma_ok(F, Cin, N, kt, kf);
+}
+
 inline cudaError_t conv2d_gemm(const void* x, const void* w, const void* b,
                                void* y, int M, int B, int T, int F, int Cin,
                                int N, int kt, int kf, cudaStream_t stream,
@@ -1021,9 +1027,6 @@ inline cudaError_t conv2d_gemm(const void* x, const void* w, const void* b,
                                     N, kt, kf, stream, M)
                : conv2d_entry<false>(x, w, bias, nullptr, nullptr, y, B, T,
                                      F, Cin, N, kt, kf, stream, M);
-  if (!conv2d_wgmma_ok(F, Cin, N, kt, kf))
-    return conv2d_igemm(x, w, b, y, B, T, F, Cin, N, kt, kf, stream, scale,
-                        shift, M);
   if (scale != nullptr)
     return conv2d_wgmma<true>(x, w, bias, scale, shift, y, B, T, F, Cin, N,
                               kt, kf, stream, M);
@@ -1031,41 +1034,32 @@ inline cudaError_t conv2d_gemm(const void* x, const void* w, const void* b,
                              N, kt, kf, stream, M);
 }
 
-// The dw pass's pixel chunks for any design (the workspace's first
-// dimension): the entry kernel about four blocks an SM; the wgmma kernel
-// one wave of ``sms`` blocks (its ring fills most of shared memory); the
-// narrow kernel about four blocks an SM over chunks of >= 64 pixels
+// The dw pass's pixel chunks (the workspace's first dimension): the entry
+// kernel about four blocks an SM; the wgmma kernel one wave of ``sms``
+// blocks over its tiles (its ring fills most of shared memory); 1 for a
+// shape neither takes
 inline int conv2d_dw_chunks(int B, int T, int F, int Cin, int Cout, int kt,
                             int kf, int sms) {
-  const int kk = kt * kf;
   const long long P = static_cast<long long>(B) * T * F;
   if (P == 0) return 1;
   if (conv2d_dw_entry_ok(F, Cin, Cout, kt, kf))
     return entry_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
-  if (conv2d_dw_wgmma_ok(F, Cin, Cout, kt, kf)) {
-    const int per_chunk = ((Cin + 63) / 64) *
-                          ((Cout + dw_bn(Cout) - 1) / dw_bn(Cout)) *
-                          ((kk + 8) / 9);
-    const long long tiles =
-        static_cast<long long>(B) * ((T + kWgTileM / F - 1) / (kWgTileM / F));
-    long long chunks = sms / per_chunk;
-    if (chunks > tiles) chunks = tiles;
-    return chunks < 1 ? 1 : static_cast<int>(chunks);
-  }
-  const int co_t = Cout % 64 == 0 ? 64 : Cout % 32 == 0 ? 32 : 16;
-  const long long blocks =
-      static_cast<long long>((Cin + 15) / 16) * (Cout / co_t) * ((kk + 8) / 9);
-  long long chunks = (4LL * sms + blocks - 1) / blocks;
-  if (chunks > (P + 63) / 64) chunks = (P + 63) / 64;
-  if (chunks < 1) chunks = 1;
-  const long long per = (P + chunks - 1) / chunks;
-  const long long chunk_px = (per + 63) / 64 * 64;
-  return static_cast<int>((P + chunk_px - 1) / chunk_px);
+  const WgPlan plan = conv2d_dw_wgmma_plan(F, Cin, Cout, kt, kf);
+  if (plan.width == 0) return 1;
+  const int rows = plan.rows;
+  const int per_chunk = ((Cin + 63) / 64) *
+                        ((Cout + dw_bn(Cout) - 1) / dw_bn(Cout)) *
+                        ((kt * kf + 8) / 9);
+  const long long tiles = static_cast<long long>(B) * ((T + rows - 1) / rows) *
+                          ((F + plan.width - 1) / plan.width);
+  long long chunks = sms / per_chunk;
+  if (chunks > tiles) chunks = tiles;
+  return chunks < 1 ? 1 : static_cast<int>(chunks);
 }
 
 // the input channels of one tap in the dw workspace (chunks, kt * kf,
 // cin_pad, Cout): Cin for the entry kernel (its rows are packed), Cin
-// rounded up to 16 for the others
+// rounded up to 16 for the wgmma one
 inline int conv2d_dw_cin_pad(int F, int Cin, int Cout, int kt, int kf) {
   return conv2d_dw_entry_ok(F, Cin, Cout, kt, kf) ? Cin : (Cin + 15) / 16 * 16;
 }

@@ -8,9 +8,13 @@
 //      y[p, n] = bf16(sum_{dt, df, c} x[p + (dt - ht, df - hf), c]
 //                     * w[dt, df, c, n] + bias[n])
 //
-//    A tile is 128 output pixels (rows x F = 128 whole frequency rows of
-//    one clip, F a power of two) x BN <= 128 output channels; persistent
-//    blocks walk the tiles with the grid's stride. With M members (a
+//    A tile is `rows` frames of W frequencies of one clip (rows = 128 / W,
+//    floor: rows * W <= 128 output pixels) x BN <= 128 output channels;
+//    W is F up to 128 (whole frequency rows: 120 pixels at F = 40, 125 at
+//    F = 5), 128 above (a tile is then 128 pixels of one frame), and
+//    halved further only where the halo ring would not fit shared memory
+//    (conv2d_wgmma_plan). Persistent blocks walk the tiles with the grid's
+//    stride. With M members (a
 //    stacked ensemble: x (M, B, T, F, Cin), w (M, kt, kf, Cin, N), bias
 //    (M, N), scale and shift (M, Cin), y (M, B, T, F, N)) the clips of all
 //    members are one (M B)-clip batch of tiles, and a tile takes its
@@ -18,20 +22,30 @@
 //    members. The weight map is (M kk, Cin, N), a member's taps at row
 //    member * kk; the bias is staged again when a block's member changes. Per K slice of KC in
 //    {16, 32, 64} input channels the producer stages ONE halo tile
-//    (rows + kt - 1) x (F + kf - 1) x KC with a 4-D TMA box at (c0, -hf,
-//    t0 - ht, b) into a ring of 2-4 stages: TMA zero-fills the coordinates
-//    outside the clip, which is the SAME halo, and the box never crosses
-//    into another clip. All kt * kf taps read that one tile: each consumer
-//    warp loads its wgmma A fragments with ldmatrix from the tap's shifted
-//    pixel rows (A from registers), so an input element is fetched once
-//    per K slice instead of once per tap. The weights stream per (K slice,
-//    up to 9 taps) through a 3-stage ring (B from shared memory, MN-major,
-//    the 128/64/32-byte swizzle TMA wrote). One producer lane fills each
-//    ring, so neither waits for the other. Two consumer warpgroups each
-//    run m64 x BN x k16 wgmmas over half of the pixels; a tap's A loads
-//    overlap the previous tap's products. The epilogue adds the f32 bias
-//    (staged once per block), rounds once to bf16 and writes 16-byte
-//    stores through a per-warp swizzled staging tile.
+//    (rows + kt - 1) x (W + kf - 1) x KC with a 4-D TMA box at (c0, f0 -
+//    hf, t0 - ht, b) into a ring of 2-4 stages: TMA zero-fills the
+//    coordinates outside the clip, which is the SAME halo, and the box
+//    never crosses into another clip. All kt * kf taps read that one tile:
+//    each consumer warp loads its wgmma A fragments with ldmatrix from the
+//    tap's shifted pixel rows (A from registers), so an input element is
+//    fetched once per K slice instead of once per tap; a lane's pixel
+//    (m / W, m % W) is found once, and the lanes past rows * W read the
+//    tile's last pixel and store nothing. The weights stream per (K
+//    slice, up to 9 taps) through a 3-stage ring, one 3-D box of all the
+//    stage's taps a copy (B from shared memory, MN-major, the
+//    128/64/32-byte swizzle TMA wrote). One producer lane
+//    fills each ring, so neither waits for the other. Two consumer
+//    warpgroups each run m64 x BN x k16 wgmmas over half of the pixels; a
+//    tap's A loads overlap the previous tap's products. The epilogue adds
+//    the f32 bias (staged once per block), rounds once to bf16 and writes
+//    16-byte stores through a per-warp swizzled staging tile.
+//    An output narrower than 16 channels (the dx of a layer with Cin < 16:
+//    N = 1 or 11) runs the BN = 16 tile on weights whose rows the wrapper
+//    padded with zero columns to 16, and its epilogue writes only the N
+//    real channels, straight into y at its own width: the tile's pixels
+//    are one contiguous span of y per frame (one span in all where W = F),
+//    staged compactly in shared memory at the span's address modulo 16
+//    and copied out with 16-byte stores (2-byte ones at its two ends).
 //    With AFFINE the consumers apply a = bf16(relu(fma(x, scale, shift)))
 //    in place to the staged halo tile once per K slice, to in-image
 //    elements of channels < Cin only: the zero halo stays 0 whatever the
@@ -44,10 +58,15 @@
 //
 //    per tap a GEMM with M = Cin, N = Cout, K = pixels. A block owns 64
 //    input channels x BN <= 32 output channels x up to 9 taps and walks
-//    the 128-pixel tiles of its chunk of pixels. Per tile the producer
-//    stages the x halo tile (64 channels, as above) and the gy tile once,
-//    through a ring of 3-6 stages; consumer warpgroup g owns the taps
-//    3g .. 3g + 2 (one dt row of a 3x3 kernel). The tiling is set by the
+//    the tiles (the forward's geometry) of its chunk of pixels. Per tile
+//    the producer stages the x halo tile (64 channels, as above) and the
+//    rows x W gy tile once, through a ring of 2-6 stages; consumer
+//    warpgroup g owns the taps 3g .. 3g + 2 (one dt row of a 3x3 kernel).
+//    The k16 steps run over ceil(rows * W / 16) pixel groups, rounded up
+//    to even; the gy rows past rows * W (never written by TMA) are zeroed
+//    once at the start, and those steps' x rows are clamped to the tile's
+//    last pixel, so they add exact zeros and read no halo row past its
+//    end. The tiling is set by the
 //    register file: 13 warps leave 128 registers a thread, and three taps
 //    of m64 x 32 f32 accumulators (48) plus two sets of A fragments (24)
 //    fit, where 64 output channels (96 + 24) made ptxas serialize the
@@ -61,17 +80,17 @@
 //
 // Bounds on the H100: the wide layers are bound by the tensor cores
 // (2 * taps * Cin * Cout flops per pixel and GEMM), the narrow ones by the
-// activations' bytes. The 128 x BN tile re-reads the weights of all taps
-// per pixel tile from L2; the activations come from device memory about
-// once.
+// activations' bytes. The rows x W x BN tile re-reads the weights of all
+// taps per pixel tile from L2; the activations come from device memory
+// about once.
 //
-// The shapes this design does not take: Cin below 16 runs the entry
-// kernels of conv2d_entry.cuh (forward and dw); the rest (Cin >= 16 off a
-// multiple of 8, F not a power of two dividing 128, halos past TMA's
-// 256-element box, and the dx of a layer with Cin < 16, N below 16) keep
-// the narrow kernels of conv2d_igemm.cuh and conv2d_bwd.cu.
-// conv2d_entry_ok, conv2d_wgmma_ok and their dw twins decide, and
-// pbsed_conv2d_design / pbsed_conv2d_dw_design report the choice.
+// What this design takes: every shape with Cin >= 16 at a multiple of 8
+// (the wrappers pad other channel counts with zeros, ops/kernels/conv.py:
+// _kernel_channels), any F, and any odd extent whose halo ring fits 227 KB
+// at some tile width (conv2d_wgmma_plan, conv2d_dw_wgmma_plan); Cin < 16
+// runs the entry kernels of conv2d_entry.cuh (forward and dw), its dx (N
+// = Cin) this one. A shape that no kernel takes is refused before any
+// launch: pbsed_conv2d_design / pbsed_conv2d_dw_design report the choice.
 #pragma once
 
 #include <cuda.h>
@@ -81,8 +100,6 @@
 
 #include <algorithm>
 #include <type_traits>
-
-#include "conv2d_igemm.cuh"
 
 namespace {
 
@@ -324,6 +341,16 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// relu(v * s + t) with ONE f32 rounding of v * s + t (a fused
+// multiply-add, as XLA computes the JAX package's affine and as the plain
+// version does through float64), then one rounding to bf16; a NaN stays
+// NaN as in torch.relu
+__device__ __forceinline__ __nv_bfloat16 bnrelu(__nv_bfloat16 v, float s,
+                                                float t) {
+  const float a = __fmaf_rn(__bfloat162float(v), s, t);
+  return __float2bfloat16(a < 0.f ? 0.f : a);
+}
+
 // bnrelu applied in place to a staged halo tile (SW bytes of channels per
 // pixel row, TMA swizzle SW) whose pixel row h sits at clip coordinates
 // (t_org + h / HF, f_org + h % HF): in-image elements of channels < Cin
@@ -366,6 +393,13 @@ __device__ __forceinline__ void bnrelu_halo(uint8_t* tile, int pixels, int HF,
   }
 }
 
+// p / W = (p * wg_div_magic(W)) >> 16, exactly, for 1 <= W <= 128 and
+// 0 <= p < 256 (a tile's pixel indices): one multiply in place of a
+// division in the k16 steps and the epilogue
+__host__ __device__ constexpr uint32_t wg_div_magic(int W) {
+  return (65536u + W - 1) / W;
+}
+
 __host__ __device__ constexpr int align1024(int n) {
   return (n + 1023) / 1024 * 1024;
 }
@@ -381,18 +415,27 @@ __host__ __device__ constexpr int wg_taps_per_stage(int kc, int bn) {
 
 // ---- 1. the implicit GEMM -----------------------------------------------
 
-// (narrow N tiles: two blocks an SM, the registers capped at 112 a thread,
+// shared memory of the forward's epilogue: per consumer warp a 16 x BW
+// staging tile; at BN = 16 also room for the packed epilogue of N < 16
+// (the tile's pixels x N bf16, plus 16 bytes of alignment slack for each
+// of up to 128 frames' spans)
+__host__ __device__ constexpr int wg_epi_bytes(int bn) {
+  return bn == 16 ? 128 * 16 * 2 + 128 * 32 : 8 * 16 * (bn < 64 ? bn : 64) * 2;
+}
+
+// (narrow N tiles: two blocks an SM, the registers capped at 96 a thread,
 // so one block's epilogue and loads overlap the other's products)
 template <int KC, int BN, bool AFFINE>
 __global__ void __launch_bounds__(288, BN <= 32 ? 2 : 1)
 conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
-                    const __grid_constant__ CUtensorMap w_map,  // (kk,Cin,N)
+                    const __grid_constant__ CUtensorMap w_map,  // (kk,Cin,N8)
                     const float* __restrict__ bias,   // (N,) or null
                     const float* __restrict__ scale,  // (Cin,) if AFFINE
                     const float* __restrict__ shift,  // (Cin,) if AFFINE
                     __nv_bfloat16* __restrict__ y,    // (B, T, F, N)
                     int B, int T, int F, int Cin, int N, int kt, int kf,
-                    int halo_stride, int hstages, int members) {
+                    int W, int rows, int halo_stride, int hstages,
+                    int members) {
   constexpr int SWA = KC * 2;               // bytes of a staged pixel row
   constexpr int BW = BN < 64 ? BN : 64;     // weight box width
   constexpr int SWB = BW * 2;               // bytes of a staged weight row
@@ -407,9 +450,9 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
   uint8_t* halo = smem;
   uint8_t* wbuf = halo + hstages * halo_stride;
   uint8_t* epi = wbuf + kWgBStages * B_STRIDE;
-  // per consumer warp a 16 x BW bf16 staging tile; the bias, N rounded up
-  // to BN, f32; the barriers
-  float* sbias = reinterpret_cast<float*>(epi + 8 * 16 * BW * 2);
+  // the epilogue's staging; the bias, N rounded up to BN, f32; the
+  // barriers
+  float* sbias = reinterpret_cast<float*>(epi + wg_epi_bytes(BN));
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       sbias + (N + BN - 1) / BN * BN);
   uint64_t* halo_full = bars;
@@ -419,18 +462,31 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  const int fshift = __ffs(F) - 1;          // F is a power of two
-  const int rows = kWgTileM >> fshift;
+  const int P = rows * W;                   // a tile: rows x W pixels
   const int tiles_t = (T + rows - 1) / rows;
+  const int f_tiles = (F + W - 1) / W;
+  const int per_clip = tiles_t * f_tiles;
   const int n_tiles = (N + BN - 1) / BN;
   // walked by the grid in turn: B clips of each of the members
-  const int tiles = members * B * tiles_t * n_tiles;
+  const int tiles = members * B * per_clip * n_tiles;
   const int kk = kt * kf;
   const int ht = (kt - 1) / 2;
   const int hf = (kf - 1) / 2;
-  const int HF = F + kf - 1;
+  const int HF = W + kf - 1;
   const int HR = rows + kt - 1;
   const int k_slices = (Cin + KC - 1) / KC;
+  // taps a weight copy brings (one box of tpb taps per BW-wide block:
+  // a stage is [block][tap][KC][BW]; past a member's last tap the box
+  // reads the next member's taps or TMA's zeros, never used)
+  const int tpb = min(TPS, kk);
+  // a pixel tile's clip b and first frame and frequency
+  auto tile_origin = [&](int mt, int& b, int& t0, int& f0) {
+    b = mt / per_clip;
+    const int r = mt - b * per_clip;
+    const int ti = r / f_tiles;
+    t0 = ti * rows;
+    f0 = (r - ti * f_tiles) * W;
+  };
 
   if (tid == 0) {
     for (int i = 0; i < hstages; ++i) {
@@ -451,34 +507,30 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
     if (tid == 256) {
       int hc = 0;   // halo tiles filled
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int mt = tile / n_tiles;
-        const int b = mt / tiles_t;
-        const int t0 = (mt - b * tiles_t) * rows;
+        int b, t0, f0;
+        tile_origin(tile / n_tiles, b, t0, f0);
         for (int ks = 0; ks < k_slices; ++ks, ++hc) {
           const int hs = hc % hstages;
           mbar_wait(&halo_empty[hs], ((hc / hstages) & 1) ^ 1);
           mbar_expect_tx(&halo_full[hs], HR * HF * SWA);
           tma_load_4d(halo + hs * halo_stride, &x_map, &halo_full[hs],
-                      ks * KC, -hf, t0 - ht, b);
+                      ks * KC, f0 - hf, t0 - ht, b);
         }
       }
     } else if (tid == 257) {
       int it = 0;   // weight stages filled
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int n0 = (tile % n_tiles) * BN;
-        const int w_row = (tile / n_tiles / tiles_t / B) * kk;  // member
+        const int w_row = (tile / n_tiles / per_clip / B) * kk;  // member
         for (int ks = 0; ks < k_slices; ++ks) {
           for (int tap0 = 0; tap0 < kk; tap0 += TPS, ++it) {
             const int bs = it % kWgBStages;
-            const int nt = min(TPS, kk - tap0);
             mbar_wait(&b_empty[bs], ((it / kWgBStages) & 1) ^ 1);
-            mbar_expect_tx(&b_full[bs], nt * B_BYTES);
-            for (int u = 0; u < nt; ++u)
+            mbar_expect_tx(&b_full[bs], tpb * B_BYTES);
 #pragma unroll
-              for (int j = 0; j < BN / BW; ++j)
-                tma_load_3d(wbuf + bs * B_STRIDE + u * B_BYTES + j * KC * SWB,
-                            &w_map, &b_full[bs], n0 + j * BW, ks * KC,
-                            w_row + tap0 + u);
+            for (int j = 0; j < BN / BW; ++j)
+              tma_load_3d(wbuf + bs * B_STRIDE + j * tpb * KC * SWB, &w_map,
+                          &b_full[bs], n0 + j * BW, ks * KC, w_row + tap0);
           }
         }
       }
@@ -488,17 +540,19 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
     const int warp = (tid % 128) / 32;
     const int lane = tid % 32;
     float acc[BN / 2];
-    // this lane's ldmatrix row: pixel m of the tile, channel half kh
-    const int m = 64 * wg + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int m_r = m >> fshift;
-    const int m_f = m & (F - 1);
+    // this lane's ldmatrix row: pixel m of the tile (the last one past
+    // rows * W), channel half kh
+    const int m = min(64 * wg + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8,
+                      P - 1);
+    const uint32_t wmagic = wg_div_magic(W);
+    const int m_r = static_cast<int>((m * wmagic) >> 16);  // m / W
+    const int m_f = m - m_r * W;
     const int kh = lane >> 4;
     uint8_t* ebuf = epi + (wg * 4 + warp) * 16 * BW * 2;
     uint32_t a[2][KSTEPS][4];
     int staged = -1;     // the member whose bias sbias holds
     int it = 0;          // weight stages consumed
     int hc = 0;          // halo tiles consumed
-    int taps_done = 0;   // taps started: a[taps_done & 1] is the next set
     int to_release = -1; // a stage whose last tap is the one before
 
     auto release = [&](int stage) {
@@ -522,7 +576,7 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
 #pragma unroll
       for (int s = 0; s < KSTEPS; ++s)
         wgmma_rs<BN>(acc, a[SET][s],
-                     gmma_desc(bbase + s * 16 * SWB, KC * SWB, 8 * SWB,
+                     gmma_desc(bbase + s * 16 * SWB, tpb * KC * SWB, 8 * SWB,
                                swizzle_layout<SWB>()));
       wgmma_commit();
       wgmma_wait<1>();
@@ -533,8 +587,8 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int mt = tile / n_tiles;
       const int n0 = (tile - mt * n_tiles) * BN;
-      const int b = mt / tiles_t;
-      const int t0 = (mt - b * tiles_t) * rows;
+      int b, t0, f0;
+      tile_origin(mt, b, t0, f0);
       const int member = b / B;
       if (member != staged) {
         // the member's bias (zeros past N and without a bias), once per
@@ -553,9 +607,9 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
         uint8_t* stage = halo + hs * halo_stride;
         mbar_wait(&halo_full[hs], (hc / hstages) & 1);
         if constexpr (AFFINE) {
-          bnrelu_halo<SWA>(stage, HR * HF, HF, t0 - ht, -hf, T, F, ks * KC,
-                           Cin, scale + member * Cin, shift + member * Cin,
-                           tid, 256);
+          bnrelu_halo<SWA>(stage, HR * HF, HF, t0 - ht, f0 - hf, T, F,
+                           ks * KC, Cin, scale + member * Cin,
+                           shift + member * Cin, tid, 256);
           consumer_sync(256);
         }
         const uint32_t hbase = smem_u32(stage);
@@ -564,13 +618,15 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
           const int nt = min(TPS, kk - tap0);
           mbar_wait(&b_full[bs], (it / kWgBStages) & 1);
           const uint32_t bbase = smem_u32(wbuf + bs * B_STRIDE);
-          for (int u = 0; u < nt; ++u, ++taps_done) {
-            if (taps_done & 1)
+          // a tap's A set: its index's parity in the K slice, which ends
+          // in wgmma_wait<0>
+          for (int u = 0; u < nt; ++u) {
+            if ((tap0 + u) & 1)
               tap_step(std::integral_constant<int, 1>{}, tap0 + u, hbase,
-                       bbase + u * B_BYTES, bs, u == nt - 1);
+                       bbase + u * KC * SWB, bs, u == nt - 1);
             else
               tap_step(std::integral_constant<int, 0>{}, tap0 + u, hbase,
-                       bbase + u * B_BYTES, bs, u == nt - 1);
+                       bbase + u * KC * SWB, bs, u == nt - 1);
           }
         }
         wgmma_wait<0>();
@@ -582,9 +638,69 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
       }
       fence_regs(acc);
 
-      // ---- epilogue: + bias, one rounding, 16-byte stores
       const int g = lane >> 2;
       const int tq = lane & 3;
+      if constexpr (BN == 16) {
+        if (N < BN) {
+          // ---- packed epilogue (N < 16): + bias, one rounding, the N
+          // real channels of each pixel staged compactly per span of y
+          // (one span where W = F, else one a frame), each span at its
+          // address's offset modulo 16; then the consumers copy the spans
+          // out, 16 bytes a store
+          const bool whole = W == F;
+          const int span_px = whole ? P : W;
+          const int span_bytes = (span_px * N * 2 + 15) / 16 * 16 + 16;
+          auto span_y = [&](int sp) {
+            return y + ((static_cast<long long>(b) * T + t0 + sp) * F + f0) *
+                           N;
+          };
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int mm = 64 * wg + 16 * warp + g + 8 * h;
+            if (mm >= P) continue;
+            const int sp = whole ? 0 : mm / W;
+            const int q = mm - sp * W;
+            uint8_t* dst = epi + sp * span_bytes +
+                           (reinterpret_cast<uintptr_t>(span_y(sp)) & 15);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int n = 8 * j + 2 * tq + e;
+                if (n < N)
+                  *reinterpret_cast<__nv_bfloat16*>(dst + (q * N + n) * 2) =
+                      __float2bfloat16(acc[4 * j + 2 * h + e] + sbias[n]);
+              }
+          }
+          consumer_sync(256);
+          const int spans = whole ? 1 : rows;
+          for (int sp = 0; sp < spans; ++sp) {
+            const int px = whole ? min(rows, T - t0) * F
+                           : t0 + sp < T ? min(W, F - f0) : 0;
+            uint8_t* gdst = reinterpret_cast<uint8_t*>(span_y(sp));
+            const int mis = static_cast<int>(
+                reinterpret_cast<uintptr_t>(gdst) & 15);
+            const int end = mis + px * N * 2;
+            uint8_t* ga = gdst - mis;               // 16-byte aligned
+            const uint8_t* sa = epi + sp * span_bytes;
+            for (int c = tid; c < (end + 15) / 16; c += 256) {
+              const int lo = max(16 * c, mis);
+              const int hi = min(16 * c + 16, end);
+              if (hi - lo == 16)
+                *reinterpret_cast<uint4*>(ga + lo) =
+                    *reinterpret_cast<const uint4*>(sa + lo);
+              else
+                for (int o = lo; o < hi; o += 2)
+                  *reinterpret_cast<uint16_t*>(ga + o) =
+                      *reinterpret_cast<const uint16_t*>(sa + o);
+            }
+          }
+          consumer_sync(256);
+          continue;
+        }
+      }
+
+      // ---- epilogue: + bias, one rounding, 16-byte stores
 #pragma unroll
       for (int cc = 0; cc < BN / BW; ++cc) {
 #pragma unroll
@@ -609,12 +725,14 @@ conv2d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,  // (B,T,F,Cin)
           const uint4 v = *reinterpret_cast<const uint4*>(
               ebuf + r * BW * 2 + ((ch ^ (r & (CPR - 1))) * 16));
           const int mm = 64 * wg + 16 * warp + r;
-          const int t = t0 + (mm >> fshift);
+          const int mr = static_cast<int>((mm * wmagic) >> 16);  // / W
+          const int t = t0 + mr;
+          const int f = f0 + mm - mr * W;
           const int n = n0 + cc * BW + ch * 8;
-          if (t < T && n < N)
+          if (mm < P && t < T && f < F && n < N)
             *reinterpret_cast<uint4*>(
-                y + ((static_cast<long long>(b) * T + t) * F +
-                     (mm & (F - 1))) * N + n) = v;
+                y + ((static_cast<long long>(b) * T + t) * F + f) * N + n) =
+                v;
         }
         __syncwarp();
       }
@@ -632,8 +750,9 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
                        const float* __restrict__ shift,  // (Cin,) if AFFINE
                        float* __restrict__ partial,  // (chunks,kk,Cin_pad,Co)
                        int T, int F, int Cin, int Cin_pad, int Cout, int kt,
-                       int kf, int tiles, int tiles_per_chunk, int ci_tiles,
-                       int co_tiles, int halo_stride, int stages) {
+                       int kf, int W, int rows, int tiles,
+                       int tiles_per_chunk, int ci_tiles, int co_tiles,
+                       int halo_stride, int stages) {
   constexpr int SWB = BN * 2;               // bytes of a staged gy row
   constexpr int G_BYTES = kWgTileM * SWB;
   constexpr int G_STRIDE = align1024(G_BYTES);
@@ -647,13 +766,13 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  const int fshift = __ffs(F) - 1;
-  const int rows = kWgTileM >> fshift;
+  const int P = rows * W;                   // a tile: rows x W pixels
   const int tiles_t = (T + rows - 1) / rows;
+  const int f_tiles = (F + W - 1) / W;
   const int kk = kt * kf;
   const int ht = (kt - 1) / 2;
   const int hf = (kf - 1) / 2;
-  const int HF = F + kf - 1;
+  const int HF = W + kf - 1;
   const int HR = rows + kt - 1;
   const int ci0 = (blockIdx.x % ci_tiles) * 64;
   const int co0 = ((blockIdx.x / ci_tiles) % co_tiles) * BN;
@@ -662,6 +781,14 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
   const int chunk = blockIdx.y;
   const int tile_begin = min(tiles, chunk * tiles_per_chunk);
   const int tile_end = min(tiles, tile_begin + tiles_per_chunk);
+  // a tile's clip b and first frame and frequency
+  auto tile_origin = [&](int tile, int& b, int& t0, int& f0) {
+    b = tile / (tiles_t * f_tiles);
+    const int r = tile - b * tiles_t * f_tiles;
+    const int ti = r / f_tiles;
+    t0 = ti * rows;
+    f0 = (r - ti * f_tiles) * W;
+  };
 
   if (tid == 0) {
     for (int i = 0; i < stages; ++i) {
@@ -670,19 +797,26 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // the gy rows past P, which no copy writes: zeros, so the k16 steps
+  // that reach past the tile add nothing
+  for (int s = 0; s < stages; ++s)
+    for (int i = P * SWB + tid * 16; i < G_BYTES; i += 416 * 16)
+      *reinterpret_cast<uint4*>(smem + s * stage_stride + halo_stride + i) =
+          make_uint4(0u, 0u, 0u, 0u);
+  fence_proxy_async();
   __syncthreads();
 
   if (wg == 3) {
     if (tid == 384) {
       for (int tile = tile_begin, it = 0; tile < tile_end; ++tile, ++it) {
         const int s = it % stages;
-        const int b = tile / tiles_t;
-        const int t0 = (tile % tiles_t) * rows;
+        int b, t0, f0;
+        tile_origin(tile, b, t0, f0);
         mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], HR * HF * 128 + G_BYTES);
+        mbar_expect_tx(&full[s], HR * HF * 128 + P * SWB);
         uint8_t* stage = smem + s * stage_stride;
-        tma_load_4d(stage, &x_map, &full[s], ci0, -hf, t0 - ht, b);
-        tma_load_4d(stage + halo_stride, &gy_map, &full[s], co0, 0, t0, b);
+        tma_load_4d(stage, &x_map, &full[s], ci0, f0 - hf, t0 - ht, b);
+        tma_load_4d(stage + halo_stride, &gy_map, &full[s], co0, f0, t0, b);
       }
     }
   } else {
@@ -699,27 +833,29 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
     // would serialize them). This lane's ldmatrix address: pixel offset
     // within a 16-pixel k step and channel chunk
     const int nq = max(0, min(3, ntaps - 3 * wg));
-    int dts[3], dfs[3];
+    int toff[3];   // a tap's shift in halo rows
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const int tap = q < nq ? tap0 + 3 * wg + q : tap0;
-      dts[q] = tap / kf;
-      dfs[q] = tap - dts[q] * kf;
+      toff[q] = (tap / kf) * HF + tap % kf;
     }
     const int px_lane = (lane & 7) + (lane >> 4) * 8;
     const uint32_t chunk_off = (2 * warp + ((lane >> 3) & 1)) * 16;
+    // the k16 steps that cover the tile's P pixels, an even count (steps
+    // run in pairs); the pixels past P read the tile's last pixel
+    const int k_steps = (P + 31) / 32 * 2;
+    const uint32_t wmagic = wg_div_magic(W);
     // two sets of A fragments: a k step loads one while the products of
     // the step before still read the other
     uint32_t a[2][3][4];
     auto k_step = [&](auto set_tag, int k, uint32_t hbase, uint32_t gbase) {
       constexpr int SET = decltype(set_tag)::value;
-      const int px = 16 * k + px_lane;
-      const int pr = px >> fshift;
-      const int pf = px & (F - 1);
+      const int px = min(16 * k + px_lane, P - 1);
+      const int pr = static_cast<int>((px * wmagic) >> 16);  // px / W
+      const int base = pr * HF + px - pr * W;
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        const uint32_t row =
-            static_cast<uint32_t>((pr + dts[q]) * HF + pf + dfs[q]);
+        const uint32_t row = static_cast<uint32_t>(base + toff[q]);
         ldsm_x4_trans(a[SET][q], hbase + swz<128>(row * 128 + chunk_off));
       }
       const uint64_t desc = gmma_desc(gbase + k * 16 * SWB, 8 * SWB, 8 * SWB,
@@ -736,15 +872,16 @@ conv2d_dw_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,   // 64-ch
       uint8_t* stage = smem + s * stage_stride;
       mbar_wait(&full[s], (it / stages) & 1);
       if constexpr (AFFINE) {
-        const int t0 = (tile % tiles_t) * rows;
-        bnrelu_halo<128>(stage, HR * HF, HF, t0 - ht, -hf, T, F, ci0, Cin,
-                         scale, shift, tid, 384);
+        int b, t0, f0;
+        tile_origin(tile, b, t0, f0);
+        bnrelu_halo<128>(stage, HR * HF, HF, t0 - ht, f0 - hf, T, F, ci0,
+                         Cin, scale, shift, tid, 384);
         consumer_sync(384);
       }
       const uint32_t hbase = smem_u32(stage);
       const uint32_t gbase = smem_u32(stage + halo_stride);
 #pragma unroll 1
-      for (int k = 0; k < kWgTileM / 16; k += 2) {
+      for (int k = 0; k < k_steps; k += 2) {
         k_step(std::integral_constant<int, 0>{}, k, hbase, gbase);
         k_step(std::integral_constant<int, 1>{}, k + 1, hbase, gbase);
       }
@@ -851,7 +988,12 @@ inline cudaError_t act_map(CUtensorMap* map, const void* base, int B, int T,
 
 inline int wg_kc(int Cin) { return Cin <= 16 ? 16 : Cin <= 32 ? 32 : 64; }
 // 128 at most: an m64 x 256 accumulator (128 registers) leaves too few
-// of the 168 a thread has for the wgmma pipeline, and ptxas serializes it
+// of the 168 a thread has for the wgmma pipeline, and ptxas serializes it.
+// Below 16 output channels (the dx of a layer with Cin < 16) the 16-wide
+// tile with the packed epilogue: a narrow tile's time goes to its chain of
+// k16 steps (~6 000 cycles a 128-pixel tile on the H100, clock64 in
+// scripts/perf/wgmma_narrow_sweep.py), which an 8-wide one would not
+// shorten
 inline int wg_bn(int N) {
   return N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128;
 }
@@ -859,62 +1001,126 @@ inline int wg_bn(int N) {
 // two sets of A fragments fit the 128 registers of a 13-warp block; at 64
 // ptxas serializes the wgmmas for want of registers
 inline int dw_bn(int Cout) { return Cout <= 16 ? 16 : 32; }
+// the f32 pair's tile (conv2d_f32_wgmma.cuh): whole frequency rows only
 inline bool f_divides_tile(int F) {
   return F >= 1 && F <= kWgTileM && kWgTileM % F == 0;
 }
-inline int halo_bytes(int F, int kt, int kf, int row_bytes) {
-  return (kWgTileM / F + kt - 1) * (F + kf - 1) * row_bytes;
+// the bytes of a halo tile of (rows + kt - 1) frames x (W + kf - 1)
+// pixels of row_bytes each, for a tile of rows x W pixels (rows = 128 / W
+// where not given)
+inline int halo_bytes(int W, int kt, int kf, int row_bytes, int rows = 0) {
+  return ((rows > 0 ? rows : kWgTileM / W) + kt - 1) * (W + kf - 1) *
+         row_bytes;
 }
 
-// shared memory of the forward kernel with ``hstages`` halo tiles
-inline int conv2d_wgmma_smem(int F, int Cin, int N, int kt, int kf,
+// shared memory of the forward kernel with ``hstages`` halo tiles of KC
+// channels at a tile of rows x W pixels
+inline int conv2d_wgmma_smem(int W, int rows, int kc, int N, int kt, int kf,
                              int hstages) {
-  const int kc = wg_kc(Cin);
-  const int bw = wg_bn(N) < 64 ? wg_bn(N) : 64;
-  return 1024 + hstages * align1024(halo_bytes(F, kt, kf, 2 * kc)) +
-         kWgBStages * align1024(wg_taps_per_stage(kc, wg_bn(N)) * kc *
-                                wg_bn(N) * 2) +
-         8 * 16 * bw * 2 + (N + wg_bn(N) - 1) / wg_bn(N) * wg_bn(N) * 4 +
+  const int bn = wg_bn(N);
+  return 1024 + hstages * align1024(halo_bytes(W, kt, kf, 2 * kc, rows)) +
+         kWgBStages * align1024(wg_taps_per_stage(kc, bn) * kc * bn * 2) +
+         wg_epi_bytes(bn) + (N + bn - 1) / bn * bn * 4 +
          2 * (kWgMaxHaloStages + kWgBStages) * 8;
 }
 
-// as many halo tiles as fit, 2 to 4: the deeper the ring, the further
-// the producer fetches ahead of the consumers
-inline int conv2d_wgmma_stages(int F, int Cin, int N, int kt, int kf) {
-  int s = kWgMaxHaloStages;
-  while (s > 2 && conv2d_wgmma_smem(F, Cin, N, kt, kf, s) > kWgMaxSmem) --s;
-  return s;
-}
-
-inline int conv2d_dw_wgmma_smem(int F, int Cout, int kt, int kf,
+inline int conv2d_dw_wgmma_smem(int W, int rows, int Cout, int kt, int kf,
                                 int stages) {
   return 1024 +
-         stages * (align1024(halo_bytes(F, kt, kf, 128)) +
+         stages * (align1024(halo_bytes(W, kt, kf, 128, rows)) +
                    align1024(kWgTileM * dw_bn(Cout) * 2)) +
          2 * kDwMaxStages * 8;
 }
 
-// as many (x halo, gy) stages as fit, 3 to 6
-inline int conv2d_dw_wgmma_stages(int F, int Cout, int kt, int kf) {
-  int s = kDwMaxStages;
-  while (s > 3 && conv2d_dw_wgmma_smem(F, Cout, kt, kf, s) > kWgMaxSmem) --s;
-  return s;
+// How a wgmma kernel runs a shape: the K slice (kc; 64 for the dw
+// pass's x), the tile of rows x width pixels, the depth of the
+// activation ring and the dynamic shared memory; width = 0 where no tile
+// fits.
+struct WgPlan {
+  int kc, width, rows, stages, smem;
+};
+
+// The tile of a shape: rows = 128 / W whole frames of W = min(F, 128)
+// frequencies (whole frequency rows up to F = 128), at the widest K slice
+// whose ring of 2 stages fits 227 KB. Where none does (kernels of a dozen
+// taps and more a side), the tile of most pixels (then least halo) among
+// W = min(F, 128) / 2^i wide and 128 / W / 2^j frames tall whose ring
+// fits. As many ring stages as fit, up to ``max_stages``, under ``cap``
+// bytes where 2 stages fit there. ``smem(W, rows, kc, stages)`` gives a
+// plan's shared memory; kc runs from ``kc_first`` down to 16.
+template <typename Smem>
+inline WgPlan wg_plan(int F, int kt, int kf, int kc_first, int max_stages,
+                      int cap, const Smem& smem) {
+  WgPlan best = {0, 0, 0, 0, 0};
+  const int w0 = std::min(F, kWgTileM);
+  for (int w = w0; w >= 1; w /= 2)
+    for (int rows = kWgTileM / w; rows >= 1; rows /= 2) {
+      // TMA's boxes: at most 256 a dimension
+      if (rows + kt - 1 > 256 || w + kf - 1 > 256) continue;
+      const int halo = (rows + kt - 1) * (w + kf - 1);
+      const int best_halo =
+          (best.rows + kt - 1) * (best.width + kf - 1);
+      const bool better = best.width == 0 ||
+                          rows * w > best.rows * best.width ||
+                          (rows * w == best.rows * best.width &&
+                           halo < best_halo);
+      if (!better) continue;
+      for (int kc = kc_first; kc >= 16; kc /= 2)
+        if (smem(w, rows, kc, 2) <= kWgMaxSmem) {
+          // the deepest ring under ``cap`` (two blocks an SM where the
+          // kernel runs two) if 2 stages fit there, else under 227 KB
+          const int lim =
+              smem(w, rows, kc, 2) <= cap ? cap : kWgMaxSmem;
+          int s = max_stages;
+          while (smem(w, rows, kc, s) > lim) --s;
+          best = {kc, w, rows, s, smem(w, rows, kc, s)};
+          break;
+        }
+      // the default tile fits: taken as it is
+      if (w == w0 && rows == kWgTileM / w0 && best.width > 0) return best;
+    }
+  return best;
+}
+
+// The forward-type GEMM (x with Cin channels -> N): Cin >= 16 at a
+// multiple of 8, N below 16 or a multiple of 8; up to 4 halo stages (the
+// deeper the ring, the further the producer fetches ahead).
+inline WgPlan conv2d_wgmma_plan(int F, int Cin, int N, int kt, int kf) {
+  if (F < 1 || Cin < 16 || Cin % 8 != 0 || N < 1 || (N >= 16 && N % 8 != 0))
+    return {0, 0, 0, 0, 0};
+  // the narrow tiles run two blocks an SM (the kernel's launch bounds):
+  // a ring that leaves room for both (measured on the H100: a tile's
+  // latency, not the copies' bandwidth, bounds them, so a second block
+  // beats a deeper ring)
+  const int cap = wg_bn(N) <= 32 ? kWgMaxSmem / 2 - 1024 : kWgMaxSmem;
+  return wg_plan(F, kt, kf, wg_kc(Cin), kWgMaxHaloStages, cap,
+                 [&](int w, int rows, int kc, int s) {
+                   return conv2d_wgmma_smem(w, rows, kc, N, kt, kf, s);
+                 });
+}
+
+// The dw pass: Cin >= 16 and Cout >= 16, both multiples of 8; x in
+// 64-channel slices; up to 6 (x halo, gy) stages.
+inline WgPlan conv2d_dw_wgmma_plan(int F, int Cin, int Cout, int kt,
+                                   int kf) {
+  if (F < 1 || Cin < 16 || Cin % 8 != 0 || Cout < 16 || Cout % 8 != 0)
+    return {0, 0, 0, 0, 0};
+  return wg_plan(F, kt, kf, 64, kDwMaxStages, kWgMaxSmem,
+                 [&](int w, int rows, int kc, int s) {
+                   return kc == 64 ? conv2d_dw_wgmma_smem(w, rows, Cout, kt,
+                                                          kf, s)
+                                   : kWgMaxSmem + 1;
+                 });
 }
 
 // whether the forward-type GEMM (x with Cin channels -> N channels) runs
-// the wgmma kernel; else the narrow one
+// the wgmma kernel, and the dw pass the dw one
 inline bool conv2d_wgmma_ok(int F, int Cin, int N, int kt, int kf) {
-  return Cin >= 16 && Cin % 8 == 0 && N >= 16 && N % 8 == 0 &&
-         f_divides_tile(F) && F + kf - 1 <= 256 &&
-         kWgTileM / F + kt - 1 <= 256 &&
-         conv2d_wgmma_smem(F, Cin, N, kt, kf, 2) <= kWgMaxSmem;
+  return conv2d_wgmma_plan(F, Cin, N, kt, kf).width > 0;
 }
 
 inline bool conv2d_dw_wgmma_ok(int F, int Cin, int Cout, int kt, int kf) {
-  return Cin >= 16 && Cin % 8 == 0 && Cout >= 16 && Cout % 8 == 0 &&
-         f_divides_tile(F) && F + kf - 1 <= 256 &&
-         kWgTileM / F + kt - 1 <= 256 &&
-         conv2d_dw_wgmma_smem(F, Cout, kt, kf, 3) <= kWgMaxSmem;
+  return conv2d_dw_wgmma_plan(F, Cin, Cout, kt, kf).width > 0;
 }
 
 template <int KC, int BN, bool AFFINE>
@@ -922,26 +1128,32 @@ cudaError_t conv2d_wgmma_launch(const void* x, const void* w, const float* b,
                                 const float* scale, const float* shift,
                                 void* y, int B, int T, int F, int Cin, int N,
                                 int kt, int kf, cudaStream_t stream,
-                                int members) {
-  const int rows = kWgTileM / F;
+                                int members, const WgPlan& plan) {
+  const int W = plan.width;
+  const int rows = plan.rows;
   CUtensorMap x_map, w_map;
   cudaError_t err = act_map(&x_map, x, members * B, T, F, Cin, KC,
-                            F + kf - 1, rows + kt - 1);
+                            W + kf - 1, rows + kt - 1);
   if (err != cudaSuccess) return err;
+  // the weights' rows: N rounded up to 8, and to 16 below 16 (the
+  // wrapper's zero columns): a box past the rows' end (TMA's zero fill in
+  // the innermost dimension) took ~5 000 cycles a copy on the H100
   constexpr int BW = BN < 64 ? BN : 64;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
+  const int n8 = N < 16 ? 16 : (N + 7) / 8 * 8;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n8),
                               static_cast<cuuint64_t>(Cin),
                               static_cast<cuuint64_t>(members * kt * kf)};
-  const cuuint64_t strides[2] = {2ull * N, 2ull * N * Cin};
-  const cuuint32_t box[3] = {BW, KC, 1};
+  const cuuint64_t strides[2] = {2ull * n8, 2ull * n8 * Cin};
+  // a stage's taps in one box (wg_taps_per_stage, at most the kernel's)
+  const cuuint32_t box[3] = {
+      BW, KC, static_cast<cuuint32_t>(
+                  std::min(wg_taps_per_stage(KC, BN), kt * kf))};
   err = make_map(&w_map, w, 3, dims, strides, box, BW * 2);
   if (err != cudaSuccess) return err;
-  const int hstages = conv2d_wgmma_stages(F, Cin, N, kt, kf);
-  const int smem = conv2d_wgmma_smem(F, Cin, N, kt, kf, hstages);
   auto kernel = conv2d_wgmma_kernel<KC, BN, AFFINE>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             plan.smem);
   if (err != cudaSuccess) return err;
   // persistent blocks, as many as are resident at once: each walks the
   // (pixel, channel) tiles with the grid's stride, and its producer
@@ -953,16 +1165,17 @@ cudaError_t conv2d_wgmma_launch(const void* x, const void* w, const float* b,
                                  device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 288,
-                                                        smem);
+                                                        plan.smem);
   if (err != cudaSuccess) return err;
   const long long tiles = static_cast<long long>(members) * B *
-                          ((T + rows - 1) / rows) * ((N + BN - 1) / BN);
+                          ((T + rows - 1) / rows) * ((F + W - 1) / W) *
+                          ((N + BN - 1) / BN);
   const long long blocks = std::min<long long>(
       tiles, static_cast<long long>(std::max(per_sm, 1)) * sms);
-  kernel<<<static_cast<unsigned>(blocks), 288, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), 288, plan.smem, stream>>>(
       x_map, w_map, b, scale, shift, static_cast<__nv_bfloat16*>(y), B, T, F,
-      Cin, N, kt, kf, align1024(halo_bytes(F, kt, kf, 2 * KC)), hstages,
-      members);
+      Cin, N, kt, kf, W, rows, align1024(halo_bytes(W, kt, kf, 2 * KC, rows)),
+      plan.stages, members);
   return cudaGetLastError();
 }
 
@@ -970,45 +1183,51 @@ template <int KC, bool AFFINE>
 cudaError_t conv2d_wgmma_bn(const void* x, const void* w, const float* b,
                             const float* scale, const float* shift, void* y,
                             int B, int T, int F, int Cin, int N, int kt,
-                            int kf, cudaStream_t s, int members) {
+                            int kf, cudaStream_t s, int members,
+                            const WgPlan& plan) {
   switch (wg_bn(N)) {
     case 16:
       return conv2d_wgmma_launch<KC, 16, AFFINE>(x, w, b, scale, shift, y, B,
                                                  T, F, Cin, N, kt, kf, s,
-                                                 members);
+                                                 members, plan);
     case 32:
       return conv2d_wgmma_launch<KC, 32, AFFINE>(x, w, b, scale, shift, y, B,
                                                  T, F, Cin, N, kt, kf, s,
-                                                 members);
+                                                 members, plan);
     case 64:
       return conv2d_wgmma_launch<KC, 64, AFFINE>(x, w, b, scale, shift, y, B,
                                                  T, F, Cin, N, kt, kf, s,
-                                                 members);
+                                                 members, plan);
     default:
       return conv2d_wgmma_launch<KC, 128, AFFINE>(x, w, b, scale, shift, y,
                                                   B, T, F, Cin, N, kt, kf, s,
-                                                  members);
+                                                  members, plan);
   }
 }
 
 // the forward-type GEMM on the wgmma kernel; ``members`` stacked members
-// (x (members, B, T, F, Cin), w (members, kt, kf, Cin, N), b (members, N),
-// scale and shift (members, Cin), y (members, B, T, F, N)) in one launch
+// (x (members, B, T, F, Cin), w (members, kt, kf, Cin, N8) with N8 = N
+// rounded up to 8, 16 below 16, b (members, N), scale and shift (members,
+// Cin), y
+// (members, B, T, F, N)) in one launch
 template <bool AFFINE>
 cudaError_t conv2d_wgmma(const void* x, const void* w, const float* b,
                          const float* scale, const float* shift, void* y,
                          int B, int T, int F, int Cin, int N, int kt, int kf,
                          cudaStream_t s, int members = 1) {
-  switch (wg_kc(Cin)) {
+  const WgPlan plan = conv2d_wgmma_plan(F, Cin, N, kt, kf);
+  switch (plan.kc) {
     case 16:
       return conv2d_wgmma_bn<16, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s, members);
+                                         Cin, N, kt, kf, s, members, plan);
     case 32:
       return conv2d_wgmma_bn<32, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s, members);
-    default:
+                                         Cin, N, kt, kf, s, members, plan);
+    case 64:
       return conv2d_wgmma_bn<64, AFFINE>(x, w, b, scale, shift, y, B, T, F,
-                                         Cin, N, kt, kf, s, members);
+                                         Cin, N, kt, kf, s, members, plan);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -1017,30 +1236,30 @@ cudaError_t conv2d_dw_wgmma_launch(const void* x, const void* gy,
                                    const float* scale, const float* shift,
                                    void* ws, int Cin_pad, int B, int T, int F,
                                    int Cin, int Cout, int kt, int kf,
-                                   int chunks, cudaStream_t s) {
-  const int rows = kWgTileM / F;
+                                   int chunks, cudaStream_t s,
+                                   const WgPlan& plan) {
+  const int W = plan.width;
+  const int rows = plan.rows;
   CUtensorMap x_map, gy_map;
-  cudaError_t err = act_map(&x_map, x, B, T, F, Cin, 64, F + kf - 1,
+  cudaError_t err = act_map(&x_map, x, B, T, F, Cin, 64, W + kf - 1,
                             rows + kt - 1);
   if (err != cudaSuccess) return err;
-  err = act_map(&gy_map, gy, B, T, F, Cout, BN, F, rows);
+  err = act_map(&gy_map, gy, B, T, F, Cout, BN, W, rows);
   if (err != cudaSuccess) return err;
-  const int stages = conv2d_dw_wgmma_stages(F, Cout, kt, kf);
-  const int smem = conv2d_dw_wgmma_smem(F, Cout, kt, kf, stages);
   auto kernel = conv2d_dw_wgmma_kernel<BN, AFFINE>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             plan.smem);
   if (err != cudaSuccess) return err;
-  const int tiles = B * ((T + rows - 1) / rows);
+  const int tiles = B * ((T + rows - 1) / rows) * ((F + W - 1) / W);
   const int per_chunk = (tiles + chunks - 1) / chunks;
   const int ci_tiles = (Cin + 63) / 64;
   const int co_tiles = (Cout + BN - 1) / BN;
   const dim3 grid(ci_tiles * co_tiles * ((kt * kf + 8) / 9), chunks);
-  kernel<<<grid, 416, smem, s>>>(
+  kernel<<<grid, 416, plan.smem, s>>>(
       x_map, gy_map, scale, shift, static_cast<float*>(ws), T, F, Cin,
-      Cin_pad, Cout, kt, kf, tiles, per_chunk, ci_tiles, co_tiles,
-      align1024(halo_bytes(F, kt, kf, 128)), stages);
+      Cin_pad, Cout, kt, kf, W, rows, tiles, per_chunk, ci_tiles, co_tiles,
+      align1024(halo_bytes(W, kt, kf, 128, rows)), plan.stages);
   return cudaGetLastError();
 }
 
@@ -1049,15 +1268,17 @@ cudaError_t conv2d_dw_wgmma(const void* x, const void* gy, const float* scale,
                             const float* shift, void* ws, int Cin_pad, int B,
                             int T, int F, int Cin, int Cout, int kt, int kf,
                             int chunks, cudaStream_t s) {
+  const WgPlan plan = conv2d_dw_wgmma_plan(F, Cin, Cout, kt, kf);
+  if (plan.width == 0) return cudaErrorInvalidValue;
   switch (dw_bn(Cout)) {
     case 16:
       return conv2d_dw_wgmma_launch<16, AFFINE>(x, gy, scale, shift, ws,
                                                 Cin_pad, B, T, F, Cin, Cout,
-                                                kt, kf, chunks, s);
+                                                kt, kf, chunks, s, plan);
     default:
       return conv2d_dw_wgmma_launch<32, AFFINE>(x, gy, scale, shift, ws,
                                                 Cin_pad, B, T, F, Cin, Cout,
-                                                kt, kf, chunks, s);
+                                                kt, kf, chunks, s, plan);
   }
 }
 

@@ -12,14 +12,19 @@ width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores where the
 shape fits, ``csrc/conv2d_f32_wgmma.cuh``, else f32 FFMA;
 :func:`conv_f32_designs` says which).
 
-The conv kernels take odd extents and Cout a multiple of 16 (the wgmma
-ring's TMA loads need 16-byte rows). The wrappers give them every other
-shape exactly (:func:`_kernel_weights`): an even extent k with XLA's SAME
-pads ``((k - 1) // 2, k // 2)`` is the odd extent k + 1 with a zero tap
-first and the symmetric pad k // 2, and Cout is padded with zero weight
-columns and zero bias up to a multiple of 16; the extra output channels
-are sliced off, the cotangent is padded with zeros (so they add nothing to
-dx), and the dw of the padded tap and columns is dropped.
+The conv kernels take odd extents, Cout a multiple of 16 and Cin below
+16 or a multiple of 8 (the wgmma ring's TMA loads need 16-byte rows). The
+wrappers give them every other shape exactly: an even extent k with
+XLA's SAME pads ``((k - 1) // 2, k // 2)`` is the odd extent k + 1 with a
+zero tap first and the symmetric pad k // 2, and Cout is padded with zero
+weight columns and zero bias up to a multiple of 16
+(:func:`_kernel_weights`); the extra output channels are sliced off, the
+cotangent is padded with zeros (so they add nothing to dx), and the dw of
+the padded tap and columns is dropped. From Cin = 16 up, Cin off a
+multiple of 8 is padded with zero channels and zero weight rows
+(:func:`_kernel_channels`); dx and dw of those channels are dropped. A
+shape whose halo fits no kernel's shared memory (kernel extents of
+several dozen taps) is refused before any launch.
 
 A stacked ensemble (``models/base/ensemble.py``) calls the Functions
 under ``torch.func.vmap`` over its members; each Function's ``vmap`` rule
@@ -133,19 +138,51 @@ def _kernel_weights(w, b=None):
     return w, None if b is None else F.pad(b, (0, grow))
 
 
+def _kernel_channels(x, w, affine=()):
+    """``x (..., Cin)``, ``w (..., kt, kf, Cin, Cout)`` and each of
+    ``affine`` (scale, shift: ``(..., Cin)``) as the wgmma kernels take
+    them: from Cin = 16 up, Cin padded with zero channels, zero weight
+    rows and zero scale and shift to a multiple of 8 (the TMA copies' rows
+    are 16-byte multiples). A padded channel is 0 after the fused affine
+    too and meets zero weights, so the output is the unpadded one in every
+    bit; its dx and dw are dropped. Below 16 (the entry kernels take any
+    count) and at multiples of 8 the operands come back as they are."""
+    cin = x.shape[-1]
+    grow = -cin % 8 if cin >= 16 else 0
+    if not grow:
+        return x, w, tuple(affine)
+    return (F.pad(x, (0, grow)), F.pad(w, (0, 0, 0, grow)),
+            tuple(F.pad(a, (0, grow)) for a in affine))
+
+
+def _require_design(counter, query, f, cin, cout, kt, kf):
+    """The design the C query gives the shape; a ValueError, before any
+    launch, where no kernel takes it."""
+    design = _design(query, f, cin, cout, kt, kf)[0]
+    if design is None:
+        raise ValueError(f'{counter}: no conv kernel takes F = {f}, {cin} -> '
+                         f'{cout} channels at a {kt}x{kf} kernel (its halo '
+                         f'fits no tile in shared memory)')
+    return design
+
+
 def _launch_conv(counter, x, w, b, affine=(), padded=False):
     """Launch ``pbsed_<counter>`` on CUDA tensors with a leading member
     axis (x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
     None): the SAME conv of all M members in one launch, with ``affine =
     (scale, shift)``, each (M, Cin), for the BN+ReLU-fused one. Other
-    extents and widths go through :func:`_kernel_weights`; with
-    ``padded`` such a launch counts under ``<counter>_padded`` too."""
+    extents and widths go through :func:`_kernel_weights` and
+    :func:`_kernel_channels`; with ``padded`` such a launch counts under
+    ``<counter>_padded`` too."""
     build.require_cuda(x, w, *affine)
-    members, bsz, t, f, cin = x.shape
+    members, bsz, t, f, cin0 = x.shape
     width = w.shape[-1]
-    asked = (*w.shape[1:3], width)
+    asked = (*w.shape[1:3], cin0, width)
     w, b = _kernel_weights(w, b)
-    kt, kf, _, cout = w.shape[1:]
+    x, w, affine = _kernel_channels(x, w, affine)
+    kt, kf, cin, cout = w.shape[1:]
+    design = _require_design(counter, 'pbsed_conv2d_design', f, cin, cout,
+                             kt, kf)
     x = x.contiguous()
     w16 = w.to(torch.bfloat16).contiguous()
     b32 = (torch.zeros((members, cout), device=x.device) if b is None
@@ -159,11 +196,9 @@ def _launch_conv(counter, x, w, b, affine=(), padded=False):
                  x.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  *(a.data_ptr() for a in affine), y.data_ptr(),
                  members, bsz, t, f, cin, cout, kt, kf)
-    if padded and (kt, kf, cout) != asked:
+    if padded and (kt, kf, cin, cout) != asked:
         build.LAUNCHES[f'{counter}_padded'] += 1
-    if (f'{counter}_entry' in build.LAUNCHES
-            and _design('pbsed_conv2d_design', f, cin, cout, kt,
-                        kf)[0] == 'entry'):
+    if f'{counter}_entry' in build.LAUNCHES and design == 'entry':
         build.LAUNCHES[f'{counter}_entry'] += 1
     return y if cout == width else y[..., :width].contiguous()
 
@@ -246,7 +281,7 @@ def _dw_workspace(bsz, t, f, cin, cout, kt, kf, device):
     """The dw pass's pixel chunks and its f32 workspace, both as the C
     side sizes them for the kernel the shape runs
     (``csrc/conv2d_entry.cuh:conv2d_dw_chunks``: about four blocks per SM
-    for the entry and narrow kernels, one wave for the wgmma one;
+    for the entry kernel, one wave for the wgmma one;
     ``pbsed_conv2d_dw_workspace``: the elements of its layout)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     lib = build.lib()
@@ -255,8 +290,8 @@ def _dw_workspace(bsz, t, f, cin, cout, kt, kf, device):
     return chunks, torch.empty(size, dtype=torch.float32, device=device)
 
 
-# the C design queries' answers
-_DESIGNS = {0: 'narrow', 1: 'wgmma', 2: 'entry'}
+# the C design queries' answers (0: no kernel takes the shape)
+_DESIGNS = {0: None, 1: 'wgmma', 2: 'entry'}
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,9 +311,12 @@ def conv_designs(f, cin, cout, kt=3, kf=3):
     the card, as the C entry points decide: for each pass ``'fwd'``,
     ``'dx'`` and ``'dw'`` a dict of ``design`` ('entry',
     ``csrc/conv2d_entry.cuh``: the forward and dw at Cin < 16; 'wgmma',
-    ``csrc/conv2d_wgmma.cuh``; or 'narrow'), ``stages`` (the depth of the
-    kernel's activation ring, 0 for the narrow one) and ``smem`` (its
-    dynamic shared memory in bytes)."""
+    ``csrc/conv2d_wgmma.cuh``: every other pass, the dx at Cin < 16
+    included; None where no kernel takes the shape, which the wrappers
+    refuse), ``stages`` (the depth of the kernel's activation ring) and
+    ``smem`` (its dynamic shared memory in bytes). Cin and Cout as the
+    kernels take them (:func:`_kernel_weights`, :func:`_kernel_channels`
+    pad other counts first)."""
     queries = {'fwd': ('pbsed_conv2d_design', cin, cout),
                'dx': ('pbsed_conv2d_design', cout, cin),
                'dw': ('pbsed_conv2d_dw_design', cin, cout)}
@@ -297,8 +335,10 @@ def conv2d_same_bwd(x, w, gy, need_dx=True):
         w: (kt, kf, Cin, Cout) weights (rounded to bf16).
         gy: (B, T, F, Cout) cotangent of the bf16 output (rounded to
             bf16, as the output's type).
-        need_dx: False runs no dx pass (the input needs no gradient: a
-            tower's log-mel input); dw is the same in every bit.
+        need_dx: False runs no dx pass (where the input needs no
+            gradient); dw is the same in every bit. Every recipe's entry
+            layer needs its dx: its input comes through the features'
+            learnable affine and ``norm_0``'s learnable scale.
 
     Returns: dx (B, T, F, Cin) bfloat16 (None with ``need_dx=False``) and
     dw (kt, kf, Cin, Cout) float32. The bias gradient is the f32 sum of
@@ -319,10 +359,15 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
     the BN+ReLU-fused one; other extents and widths as
     :func:`_launch_conv` takes them (and counts them)."""
     build.require_cuda(x, w, gy, *affine)
-    bsz, t, f, cin = x.shape
+    bsz, t, f, cin0 = x.shape
     kt0, kf0, _, width = w.shape
     w, _ = _kernel_weights(w)
-    kt, kf, _, cout = w.shape
+    x, w, affine = _kernel_channels(x, w, affine)
+    kt, kf, cin, cout = w.shape
+    if need_dx:
+        _require_design(counter, 'pbsed_conv2d_design', f, cout, cin, kt, kf)
+    design = _require_design(counter, 'pbsed_conv2d_dw_design', f, cin, cout,
+                             kt, kf)
     x = x.contiguous()
     gy = gy.to(torch.bfloat16)
     if cout != width:
@@ -330,7 +375,11 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
     gy = gy.contiguous()
     dx = w_flip = None
     if need_dx:
-        w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3).contiguous()
+        # the dx GEMM's weight rows padded with zero columns to 16 at
+        # Cin < 16 (the wgmma kernel's 16-byte TMA strides and its 16-wide
+        # weight box)
+        w_flip = F.pad(w.to(torch.bfloat16).flip(0, 1).transpose(2, 3),
+                       (0, -cin % 16 if cin < 16 else 0)).contiguous()
         dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
                      device=x.device)
@@ -345,12 +394,12 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
                  None if dx is None else dx.data_ptr(),
                  dw.data_ptr(), workspace.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, chunks)
-    if (f'{counter}_entry' in build.LAUNCHES
-            and _design('pbsed_conv2d_dw_design', f, cin, cout, kt,
-                        kf)[0] == 'entry'):
+    if f'{counter}_entry' in build.LAUNCHES and design == 'entry':
         build.LAUNCHES[f'{counter}_entry'] += 1
-    if (kt, kf, cout) != (kt0, kf0, width):
-        dw = dw[kt - kt0:, kf - kf0:, :, :width].contiguous()
+    if (kt, kf, cin, cout) != (kt0, kf0, cin0, width):
+        dw = dw[kt - kt0:, kf - kf0:, :cin0, :width].contiguous()
+        if dx is not None and cin != cin0:
+            dx = dx[..., :cin0].contiguous()
         if padded:
             build.LAUNCHES[f'{counter}_padded'] += 1
     return dx, dw
@@ -359,7 +408,8 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
 @cache_signature
 class Conv2dSame(torch.autograd.Function):
     """:func:`conv2d_same` with its backward: dx (only where autograd
-    needs it: a tower's log-mel input needs none) and dw from
+    needs it; every recipe's entry layer needs it, its input coming
+    through learnable affines) and dw from
     :func:`conv2d_same_bwd`, db the f32 sum of the bf16 cotangent
     (``pb_sed_tpu/ops/pallas/conv.py:959-962``). Under ``torch.func.vmap``
     (a stacked ensemble) all members in one launch,

@@ -13,9 +13,11 @@ from pb_sed_tpu.ops.pallas import conv as pconv
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     AvgPoolFreq2, BnReluConv2dSame, Conv2dSame, MaxPoolFreq2,
-    avgpool_freq2, bnrelu_conv2d_same, bnrelu_conv2d_same_members,
-    bnrelu_conv2d_same_members_plain, conv2d_same, conv2d_same_bwd,
-    conv2d_same_members, conv2d_same_members_plain, maxpool_freq2)
+    _kernel_channels, avgpool_freq2, bnrelu_conv2d_same,
+    bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_members,
+    bnrelu_conv2d_same_members_plain, bnrelu_conv2d_same_plain, conv2d_same,
+    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
+    conv2d_same_members_plain, conv2d_same_plain, maxpool_freq2)
 
 torch.set_num_threads(2)
 
@@ -96,6 +98,50 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                     None)
 
 
+@pytest.mark.parametrize('cout', [16, 40])
+@pytest.mark.parametrize('cin', [17, 20, 36])
+def test_channel_padding_keeps_the_plain_conv_bit_for_bit(cin, cout):
+    """``_kernel_channels``, what the wrappers do before a launch to a
+    layer with Cin >= 16 off a multiple of 8 (zero channels, zero weight
+    rows, zero scale and shift up to the next multiple of 8), leaves the
+    plain forward, the fused forward, and dx (da) and dw of the real
+    channels equal in every bit to the unpadded ones: a padded channel is
+    0, after the fused affine too, and meets zero weights."""
+    rng = np.random.RandomState(cin + cout)
+    x = torch.from_numpy(rng.randn(2, 5, 12, cin).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, cin, cout)
+                          / np.sqrt(9 * cin)).astype(np.float32))
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(2, 5, 12, cout).astype(
+        np.float32)).to(torch.bfloat16)
+    scale = torch.from_numpy(.5 + rng.rand(cin).astype(np.float32))
+    shift = torch.from_numpy(.5 * rng.randn(cin).astype(np.float32))
+    xp, wp, (sp, tp) = _kernel_channels(x, w, (scale, shift))
+    cin_p = cin + -cin % 8
+    assert xp.shape[-1] == wp.shape[-2] == sp.shape[-1] == cin_p
+    assert not xp[..., cin:].any() and not wp[:, :, cin:].any()
+    assert not sp[cin:].any() and not tp[cin:].any()
+    assert torch.equal(conv2d_same_plain(xp, wp, b),
+                       conv2d_same_plain(x, w, b))
+    assert torch.equal(bnrelu_conv2d_same_plain(xp, sp, tp, wp, b),
+                       bnrelu_conv2d_same_plain(x, scale, shift, w, b))
+    for bwd, args, args_p in (
+            (conv2d_same_bwd_plain, (x, w), (xp, wp)),
+            (bnrelu_conv2d_same_bwd_plain, (x, scale, shift, w),
+             (xp, sp, tp, wp))):
+        dx, dw = bwd(*args, gy)
+        dx_p, dw_p = bwd(*args_p, gy)
+        assert torch.equal(dx_p[..., :cin], dx)
+        assert torch.equal(dw_p[:, :, :cin], dw)
+    # below 16 channels and at multiples of 8: as they are
+    for c in (1, 11, 16, 24):
+        xc = torch.zeros(1, 2, 4, c)
+        wc = torch.zeros(3, 3, c, 16)
+        got = _kernel_channels(xc, wc)
+        assert got[0] is xc and got[1] is wc
+
+
 @pytest.mark.parametrize('cin,k', [(1, 3), (11, 3), (16, 3), (32, 3),
                                    (16, 1), (11, 1)])
 def test_member_axis_convs_equal_per_member_calls(cin, k):
@@ -165,8 +211,7 @@ def test_member_axis_wrappers_reject_mismatched_members():
 @pytest.mark.parametrize('cin', [1, 11])
 def test_conv_backward_without_dx_keeps_dw_bit_for_bit(cin):
     """``conv2d_same_bwd(..., need_dx=False)`` (what ``Conv2dSame`` passes
-    where its input needs no gradient: the entry layer's log-mel input)
-    runs no dx pass and returns the dw of the pass with dx in every bit,
+    where its input needs no gradient) runs no dx pass and returns the dw of the pass with dx in every bit,
     at the entry layer's widths: Cin = 1 and the tag-conditioned 11."""
     rng = np.random.RandomState(cin)
     x = torch.from_numpy(rng.randn(2, 9, 16, cin).astype(

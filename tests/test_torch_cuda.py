@@ -6,7 +6,9 @@ pools, the BN+ReLU-fused conv with a positive shift at the borders, the
 fused GRU backward at batches off its tile, the GRU's cluster design at
 both widths with ragged row tiles and a random initial state beside the
 row-tiled one at small hidden sizes, the wgmma conv kernels'
-ragged pixel tiles, frequency rows and channel widths, the entry conv
+ragged pixel tiles, frequency rows and channel widths, and at every F
+(tiles of whole rows off a power of two, of 128 pixels of a frame above
+128), Cin off a multiple of 8 and the dx of Cin < 16, the entry conv
 pair at Cin < 16 (F 128, 40 and odd, extents 3x3, 5x3, 1x1 and even,
 Cout 16 to 48, with a member axis, dw with and without dx), the member
 axis of the forward convs and the GRU at D = 2N that a stacked ensemble
@@ -378,7 +380,7 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     (2, 5, 128, 16, 32),     # F = 128: one frequency row per tile
     (1, 7, 16, 256, 16),     # Cin 256: four K slices; dx N = 256
     (3, 17, 8, 32, 16),      # T = 17 off the 16-row tile, B * T * F = 408
-    (1, 2, 128, 1, 16),      # Cin = 1: the entry kernels, dx narrow
+    (1, 2, 128, 1, 16),      # Cin = 1: the entry kernels, dx wgmma
 ])
 def test_wgmma_conv_kernels_match_plain(gen, b, t, f, cin, cout):
     """The wgmma conv kernels (csrc/conv2d_wgmma.cuh), forward and
@@ -386,18 +388,19 @@ def test_wgmma_conv_kernels_match_plain(gen, b, t, f, cin, cout):
     channel (a halo lit with relu(shift) would show at every border), at
     ragged pixel tiles, F of 8, 16 and 128 and channel counts from 1 to
     512; dw bit-identical in two runs. Cin = 1 runs the entry kernels
-    (csrc/conv2d_entry.cuh) forward and dw, and the narrow one for its
-    dx (N = 1)."""
+    (csrc/conv2d_entry.cuh) forward and dw, and the wgmma one for its dx
+    (N = 1)."""
     want = ({'fwd': 'wgmma', 'dx': 'wgmma', 'dw': 'wgmma'} if cin >= 16
-            else {'fwd': 'entry', 'dx': 'narrow', 'dw': 'entry'})
+            else {'fwd': 'entry', 'dx': 'wgmma', 'dw': 'entry'})
     designs = conv_designs(f, cin, cout)
     assert {name: d['design'] for name, d in designs.items()} == want
-    # the wgmma kernels' activation rings hold at least 3 stages here, the
-    # entry kernels' 2 (forward) and 3 (dw), the narrow ones none
-    least = {'wgmma': 3, 'entry': 2, 'narrow': 0}
-    assert all((d['stages'] >= least[d['design']] > 0)
-               or d['stages'] == least[d['design']] == 0
-               for d in designs.values())
+    # the wgmma kernels' activation rings hold at least 3 stages here, or
+    # 2 where that leaves room for two blocks an SM (half of 227 KB: the
+    # narrow tiles); the entry kernels' 2 (forward) and 3 (dw)
+    least = {'wgmma': 3, 'entry': 2}
+    assert all(d['stages'] >= least[d['design']]
+               or (d['design'] == 'wgmma' and d['stages'] == 2
+                   and d['smem'] <= 232448 // 2) for d in designs.values())
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
         torch.bfloat16)
     w = torch.randn(3, 3, cin, cout, generator=gen, device='cuda') * (
@@ -424,6 +427,111 @@ def test_wgmma_conv_kernels_match_plain(gen, b, t, f, cin, cout):
         # dw: f32 sums in another order, reduced in a fixed order
         assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
         assert torch.equal(dw, bwd(x, *pre, w, gy)[1])
+
+
+# (B, T, F, Cin, Cout, kt, kf, M): the wgmma pair off its old tile of 128
+# / F whole rows at a power of two F: F 40, 20, 10 and 5 (the 40-mel
+# tower's, tiles of 120 and 125 pixels), 37, 96, and 200 and 256 (tiles of
+# 128 pixels of one frame); Cin 16, 20 and 24 (20 padded to 24); the dx at
+# N = 1, 3, 11 and 15 (Cin < 16: the entry kernels run forward and dw);
+# 3x3, 5x3, 1x1 and an even (padded) kernel; a 9x9 kernel whose dw halo
+# takes a narrower tile at F = 128; T off the tile; M > 1 adds member-axis
+# launches
+OFF_TILE_SHAPES = [
+    (2, 7, 40, 16, 32, 3, 3, 2),
+    (2, 9, 20, 20, 24, 3, 3, 1),
+    (1, 13, 10, 24, 64, 5, 3, 2),
+    (2, 11, 5, 24, 16, 3, 3, 1),
+    (1, 9, 37, 16, 16, 1, 1, 1),
+    (1, 5, 96, 20, 16, 2, 2, 1),
+    (1, 3, 200, 16, 32, 3, 3, 2),
+    (1, 2, 256, 24, 16, 5, 3, 1),
+    (2, 7, 40, 1, 16, 3, 3, 1),
+    (1, 6, 37, 3, 32, 5, 3, 1),
+    (2, 5, 128, 11, 16, 3, 3, 1),
+    (1, 3, 200, 15, 16, 3, 3, 1),
+    (1, 6, 128, 16, 16, 9, 9, 1),
+]
+
+
+@pytest.mark.parametrize('b,t,f,cin,cout,kt,kf,m', OFF_TILE_SHAPES)
+def test_off_tile_conv_shapes_match_plain(gen, b, t, f, cin, cout, kt, kf,
+                                          m):
+    """Every pass at these shapes runs the entry or the wgmma kernels (no
+    other conv kernel exists): forward, dx and dw, plain and BN+ReLU-fused
+    with a positive shift on every channel (a lit halo would show at
+    every border), against the plain versions within the conv gates
+    (2^-7 * max|ref| for y and dx, 1e-3 * max|ref| for dw); dw
+    bit-identical on a rerun; with M > 1 one member-axis launch equals M
+    single launches in every bit."""
+    kt_k, kf_k = kt + 1 - kt % 2, kf + 1 - kf % 2
+    cin_k = cin + -cin % 8 if cin >= 16 else cin
+    designs = conv_designs(f, cin_k, cout + -cout % 16, kt_k, kf_k)
+    want = 'entry' if cin < 16 else 'wgmma'
+    assert {name: d['design'] for name, d in designs.items()} == {
+        'fwd': want, 'dx': 'wgmma', 'dw': want}
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(cin, generator=gen, device='cuda')
+    for fwd, fwd_plain, bwd, bwd_plain, pre in (
+            (conv2d_same, conv2d_same_plain, conv2d_same_bwd,
+             conv2d_same_bwd_plain, ()),
+            (bnrelu_conv2d_same, bnrelu_conv2d_same_plain,
+             bnrelu_conv2d_same_bwd, bnrelu_conv2d_same_bwd_plain,
+             (scale, shift))):
+        y = fwd(x, *pre, w, bias)
+        ref = fwd_plain(x, *pre, w, bias)
+        assert y.shape == ref.shape
+        assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+        dx, dw = bwd(x, *pre, w, gy)
+        ref_dx, ref_dw = bwd_plain(x, *pre, w, gy)
+        assert dx.shape == x.shape and dw.shape == w.shape
+        assert _max_err(dx, ref_dx) <= 2. ** -7 * float(
+            ref_dx.float().abs().max())
+        assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+        assert torch.equal(dw, bwd(x, *pre, w, gy)[1])
+    if m == 1:
+        return
+    xm = torch.randn(m, b, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    wm = torch.randn(m, kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bm = .1 * torch.randn(m, cout, generator=gen, device='cuda')
+    sm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    hm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    n = build.LAUNCHES['conv2d_same']
+    y = conv2d_same_members(xm, wm, bm)
+    assert build.LAUNCHES['conv2d_same'] == n + 1
+    assert torch.equal(y, torch.stack([
+        conv2d_same(xm[i].clone(), wm[i], bm[i].clone()) for i in range(m)]))
+    y = bnrelu_conv2d_same_members(xm, sm, hm, wm, bm)
+    assert torch.equal(y, torch.stack([
+        bnrelu_conv2d_same(xm[i].clone(), sm[i].clone(), hm[i].clone(),
+                           wm[i], bm[i].clone()) for i in range(m)]))
+
+
+def test_conv_refuses_a_halo_no_tile_fits(gen):
+    """A kernel of 31 x 31 taps: its dw's x halo (64 channels) passes 227
+    KB of shared memory at every tile, so no dw kernel takes it;
+    ``conv2d_same_bwd`` raises before any launch, while the forward (a
+    16-channel K slice) still runs and matches its plain version."""
+    x = torch.randn(1, 4, 16, 16, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w = torch.randn(31, 31, 16, 16, generator=gen, device='cuda') * .01
+    assert conv_designs(16, 16, 16, 31, 31)['dw']['design'] is None
+    ref = conv2d_same_plain(x, w, None)
+    assert _max_err(conv2d_same(x, w, None), ref) <= 2. ** -7 * float(
+        ref.float().abs().max())
+    n = build.LAUNCHES['conv2d_same_bwd']
+    with pytest.raises(ValueError, match='no conv kernel'):
+        conv2d_same_bwd(x, w, x)
+    assert build.LAUNCHES['conv2d_same_bwd'] == n
 
 
 def test_new_kernels_raise_on_what_they_do_not_take(gen):

@@ -301,6 +301,13 @@ TOWERS = {
         _RELU, out_channels=[16, 24, 24, 48],
         kernel_size=[3, [2, 2], 1, [4, 3]], pool_size=[1, [2, 1], 1, 2],
         residual_connections=[None, 3, None, None]), 21, 16, True),
+    # 40 mel bins (F = 40 -> 20) and 20 channels: layers whose Cin is off
+    # a multiple of 8 and whose F does not divide 128, which the card's
+    # wrappers pad to 24 channels for the wgmma kernels' tiles of whole
+    # frequency rows
+    'cin20_f40': (True, dict(
+        _RELU, out_channels=[20, 20, 16], kernel_size=3,
+        pool_size=[1, [2, 1], 1]), 12, 40, True),
     # norm-free towers (no norm_{i}, no statistics) in both orders
     'norm_none': (True, dict(
         out_channels=[16, 24, 32], kernel_size=3,
