@@ -42,8 +42,9 @@
 // x (M, B, T, F, Cin) bf16, w (M, kt, kf, Cin, Cout) bf16, b (M, Cout)
 // f32, y (M, B, T, F, Cout) bf16; all contiguous and 16-byte aligned.
 // Requires odd kt and kf, Cout % 16 == 0 and Cin < 16 or Cin % 8 == 0
-// (the wrapper pads other channel counts); a shape whose halo ring fits
-// no kernel's shared memory (pbsed_conv2d_design 0) launches nothing.
+// (the wrapper pads other channel counts); a kernel whose halo ring fits
+// no kernel's shared memory (pbsed_conv2d_design 0) launches nothing: the
+// wrapper runs it as tap blocks that fit (ops/kernels/conv.py:_tap_blocks).
 // Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same(const void* x, const void* w, const void* b,
                                  void* y, int M, int B, int T, int F,

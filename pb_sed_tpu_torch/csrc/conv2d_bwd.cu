@@ -49,8 +49,9 @@
 // conv2d_dw_entry_kernel (conv2d_entry.cuh): taps and channels packed into
 // one GEMM dimension, x and gy read once through a cp.async ring. Every
 // other shape runs the wgmma kernel at any F (Cin off a multiple of 8
-// padded with zeros by the wrapper); a shape neither takes is refused
-// before the first launch.
+// padded with zeros by the wrapper); a shape neither takes launches
+// nothing, and the wrapper cuts its kernel into tap blocks that fit
+// (ops/kernels/conv.py:_tap_blocks).
 //
 // pbsed_bnrelu_conv2d_same_bwd is the backward of the BN+ReLU-fused conv
 // (conv2d.cu, pbsed_bnrelu_conv2d_same): it returns da, the gradient with

@@ -89,8 +89,10 @@
 // _kernel_channels), any F, and any odd extent whose halo ring fits 227 KB
 // at some tile width (conv2d_wgmma_plan, conv2d_dw_wgmma_plan); Cin < 16
 // runs the entry kernels of conv2d_entry.cuh (forward and dw), its dx (N
-// = Cin) this one. A shape that no kernel takes is refused before any
-// launch: pbsed_conv2d_design / pbsed_conv2d_dw_design report the choice.
+// = Cin) this one. A kernel whose halo fits no tile launches nothing here;
+// the wrappers run it as tap blocks that fit (ops/kernels/conv.py:
+// _tap_blocks): pbsed_conv2d_design / pbsed_conv2d_dw_design report the
+// choice.
 #pragma once
 
 #include <cuda.h>
@@ -379,17 +381,33 @@ __device__ __forceinline__ void bnrelu_halo(uint8_t* tile, int pixels, int HF,
       __ldg(reinterpret_cast<const float4*>(shift + c));
   *reinterpret_cast<float4*>(sh + 4) =
       __ldg(reinterpret_cast<const float4*>(shift + c + 4));
-  for (int h = tid / CPR; h < pixels; h += threads / CPR) {
-    const int t = t_org + h / HF;
-    const int f = f_org + h % HF;
+  // pixel h's halo row r and column col, stepped along with h (two
+  // divisions a call in place of two a pixel)
+  const int step = threads / CPR;
+  const int step_r = step / HF;
+  const int step_c = step - step_r * HF;
+  int h = tid / CPR;
+  int r = h / HF;
+  int col = h - r * HF;
+  for (; h < pixels; h += step) {
+    const int t = t_org + r;
+    const int f = f_org + col;
     // elements outside the clip: TMA's zeros stay
-    if (t < 0 || t >= T || f < 0 || f >= F) continue;
-    uint4* p = reinterpret_cast<uint4*>(tile + swz<SW>(h * SW + chunk * 16));
-    uint4 raw = *p;
-    __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
+    if (t >= 0 && t < T && f >= 0 && f < F) {
+      uint4* p =
+          reinterpret_cast<uint4*>(tile + swz<SW>(h * SW + chunk * 16));
+      uint4 raw = *p;
+      __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = bnrelu(v[i], sc[i], sh[i]);
-    *p = raw;
+      for (int i = 0; i < 8; ++i) v[i] = bnrelu(v[i], sc[i], sh[i]);
+      *p = raw;
+    }
+    r += step_r;
+    col += step_c;
+    if (col >= HF) {
+      col -= HF;
+      ++r;
+    }
   }
 }
 
@@ -991,9 +1009,8 @@ inline int wg_kc(int Cin) { return Cin <= 16 ? 16 : Cin <= 32 ? 32 : 64; }
 // of the 168 a thread has for the wgmma pipeline, and ptxas serializes it.
 // Below 16 output channels (the dx of a layer with Cin < 16) the 16-wide
 // tile with the packed epilogue: a narrow tile's time goes to its chain of
-// k16 steps (~6 000 cycles a 128-pixel tile on the H100, clock64 in
-// scripts/perf/wgmma_narrow_sweep.py), which an 8-wide one would not
-// shorten
+// k16 steps (~6 000 cycles a 128-pixel tile on the H100, clock64 on
+// each part of a tile), which an 8-wide one would not shorten
 inline int wg_bn(int N) {
   return N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128;
 }

@@ -23,8 +23,9 @@ cotangent is padded with zeros (so they add nothing to dx), and the dw of
 the padded tap and columns is dropped. From Cin = 16 up, Cin off a
 multiple of 8 is padded with zero channels and zero weight rows
 (:func:`_kernel_channels`); dx and dw of those channels are dropped. A
-shape whose halo fits no kernel's shared memory (kernel extents of
-several dozen taps) is refused before any launch.
+kernel whose halo fits no tile in shared memory (extents of a few dozen
+taps) runs as the sum of tap blocks that fit (:func:`_tap_blocks`), each
+launched on the input widened by its offset.
 
 A stacked ensemble (``models/base/ensemble.py``) calls the Functions
 under ``torch.func.vmap`` over its members; each Function's ``vmap`` rule
@@ -155,15 +156,106 @@ def _kernel_channels(x, w, affine=()):
             tuple(F.pad(a, (0, grow)) for a in affine))
 
 
-def _require_design(counter, query, f, cin, cout, kt, kf):
-    """The design the C query gives the shape; a ValueError, before any
-    launch, where no kernel takes it."""
-    design = _design(query, f, cin, cout, kt, kf)[0]
-    if design is None:
-        raise ValueError(f'{counter}: no conv kernel takes F = {f}, {cin} -> '
-                         f'{cout} channels at a {kt}x{kf} kernel (its halo '
-                         f'fits no tile in shared memory)')
-    return design
+def _pass_queries(cin, cout):
+    """The C design query of each pass and the (Cin, N) it takes: the
+    forward and the dx are forward-type GEMMs (the dx from Cout to Cin
+    channels), the dw has a query of its own."""
+    return {'fwd': ('pbsed_conv2d_design', cin, cout),
+            'dx': ('pbsed_conv2d_design', cout, cin),
+            'dw': ('pbsed_conv2d_dw_design', cin, cout)}
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_blocks(f, cin, cout, kt, kf, passes):
+    """The largest tap block (bt, bf) of a (F, Cin -> Cout, kt x kf) conv
+    whose ``passes`` ('fwd', 'dx', 'dw') all run on a kernel, the
+    extents and channels padded as the wrappers pad them: (kt, kf) where
+    the whole kernel fits, else the longer side halved (rounded up) until
+    each pass's halo ring fits shared memory (kernels of ~29 x 29 taps and
+    more at the dw, ~60 x 60 at the forward). Such a conv runs as the sum
+    of its tap blocks (:func:`_conv_by_blocks`,
+    :func:`_conv_bwd_by_blocks`)."""
+    cin += -cin % 8 if cin >= 16 else 0
+    cout += -cout % 16
+    queries = _pass_queries(cin, cout)
+    bt, bf = kt, kf
+    while not all(_design(queries[p][0], f, *queries[p][1:],
+                          bt + 1 - bt % 2, bf + 1 - bf % 2)[0] is not None
+                  for p in passes):
+        if bt == bf == 1:
+            raise ValueError(f'no conv kernel takes F = {f}, {cin} -> '
+                             f'{cout} channels at a 1x1 kernel')
+        if bt >= bf:
+            bt = (bt + 1) // 2
+        else:
+            bf = (bf + 1) // 2
+    return bt, bf
+
+
+def _blocks(kt, kf, bt, bf):
+    """The tap blocks of a kt x kf kernel cut into blocks of at most bt x
+    bf taps: (t0, f0, at, af, dt, df) for the block of taps [t0, t0 + at)
+    x [f0, f0 + af), whose own SAME conv reads, at each output, the input
+    moved by (dt, df) as those taps read it in the whole conv (XLA's SAME
+    pads put tap i of k at offset i - (k - 1) // 2)."""
+    for t0 in range(0, kt, bt):
+        for f0 in range(0, kf, bf):
+            at, af = min(bt, kt - t0), min(bf, kf - f0)
+            yield (t0, f0, at, af, t0 - (kt - 1) // 2 + (at - 1) // 2,
+                   f0 - (kf - 1) // 2 + (af - 1) // 2)
+
+
+def _widen(x, dt, df):
+    """``x (..., T, F, C)`` with |dt| zero frames and |df| zero bins put
+    before it where the offset is negative, after it where positive: a
+    block's SAME conv of it, narrowed by the same offset (:func:`_narrow`),
+    reads the input moved by (dt, df), zeros outside the input included."""
+    return F.pad(x, (0, 0, max(-df, 0), max(df, 0), max(-dt, 0), max(dt, 0)))
+
+
+def _narrow(z, dt, df, t, f):
+    """The (t, f) window of ``z (..., T', F', C)`` from (max(dt, 0),
+    max(df, 0)): a conv of :func:`_widen` (x, dt, df) back at the input's
+    extents (and, at (-dt, -df), the input gradient of such a conv)."""
+    t0, f0 = max(dt, 0), max(df, 0)
+    return z[..., t0:t0 + t, f0:f0 + f, :]
+
+
+def _conv_by_blocks(conv, x, w, b, bt, bf):
+    """The SAME conv of ``x (..., T, F, Cin)`` by ``w (..., kt, kf, Cin,
+    Cout)`` as the f32 sum over the tap blocks of at most bt x bf taps of
+    ``conv(widened x, tap block of w)`` (bf16 each), narrowed back, plus
+    the f32 bias ``b (..., Cout)``, rounded once to bf16."""
+    kt, kf = w.shape[-4:-2]
+    t, f = x.shape[-3:-1]
+    y = 0.
+    for t0, f0, at, af, dt, df in _blocks(kt, kf, bt, bf):
+        y = y + _narrow(conv(_widen(x, dt, df),
+                             w[..., t0:t0 + at, f0:f0 + af, :, :]),
+                        dt, df, t, f).float()
+    if b is not None:
+        y = y + b.float()[..., None, None, None, :]
+    return y.to(torch.bfloat16)
+
+
+def _conv_bwd_by_blocks(conv_bwd, x, w, gy, bt, bf, need_dx=True):
+    """dx and dw of the SAME conv of ``x (B, T, F, Cin)`` by ``w (kt, kf,
+    Cin, Cout)`` from ``conv_bwd(widened x, tap block of w, gy widened
+    the other way)`` over the tap blocks of at most bt x bf taps: each
+    block's dw is its slice of dw, and dx the f32 sum of the blocks' dx
+    (bf16 each) narrowed back, rounded once to bf16 (None with
+    ``need_dx=False``)."""
+    kt, kf = w.shape[:2]
+    t, f = x.shape[1:3]
+    dx = torch.zeros(x.shape, device=x.device) if need_dx else None
+    dw = torch.empty(w.shape, device=x.device)
+    for t0, f0, at, af, dt, df in _blocks(kt, kf, bt, bf):
+        dxb, dw[t0:t0 + at, f0:f0 + af] = conv_bwd(
+            _widen(x, dt, df), w[t0:t0 + at, f0:f0 + af],
+            _widen(gy, -dt, -df))
+        if need_dx:
+            dx += _narrow(dxb, -dt, -df, t, f).float()
+    return None if dx is None else dx.to(torch.bfloat16), dw
 
 
 def _launch_conv(counter, x, w, b, affine=(), padded=False):
@@ -173,16 +265,26 @@ def _launch_conv(counter, x, w, b, affine=(), padded=False):
     (scale, shift)``, each (M, Cin), for the BN+ReLU-fused one. Other
     extents and widths go through :func:`_kernel_weights` and
     :func:`_kernel_channels`; with ``padded`` such a launch counts under
-    ``<counter>_padded`` too."""
+    ``<counter>_padded`` too. A kernel whose halo fits no tile
+    (:func:`_tap_blocks`) runs as the sum of its tap blocks, one launch of
+    ``pbsed_conv2d_same`` each, the fused one on the post-activation
+    buffer :func:`bnrelu_plain` makes first (a widened input's zeros would
+    not stay 0 through the affine)."""
     build.require_cuda(x, w, *affine)
     members, bsz, t, f, cin0 = x.shape
     width = w.shape[-1]
     asked = (*w.shape[1:3], cin0, width)
+    blocks = _tap_blocks(f, cin0, width, *asked[:2], ('fwd',))
+    if blocks != asked[:2]:
+        if affine:
+            x = bnrelu_plain(x, *(a[:, None, None, None] for a in affine))
+        return _conv_by_blocks(
+            lambda xs, wb: _launch_conv('conv2d_same', xs, wb, None,
+                                        padded=padded), x, w, b, *blocks)
     w, b = _kernel_weights(w, b)
     x, w, affine = _kernel_channels(x, w, affine)
     kt, kf, cin, cout = w.shape[1:]
-    design = _require_design(counter, 'pbsed_conv2d_design', f, cin, cout,
-                             kt, kf)
+    design = _design('pbsed_conv2d_design', f, cin, cout, kt, kf)[0]
     x = x.contiguous()
     w16 = w.to(torch.bfloat16).contiguous()
     b32 = (torch.zeros((members, cout), device=x.device) if b is None
@@ -290,7 +392,7 @@ def _dw_workspace(bsz, t, f, cin, cout, kt, kf, device):
     return chunks, torch.empty(size, dtype=torch.float32, device=device)
 
 
-# the C design queries' answers (0: no kernel takes the shape)
+# the C design queries' answers (0: no kernel takes the whole kernel)
 _DESIGNS = {0: None, 1: 'wgmma', 2: 'entry'}
 
 
@@ -312,18 +414,21 @@ def conv_designs(f, cin, cout, kt=3, kf=3):
     ``'dx'`` and ``'dw'`` a dict of ``design`` ('entry',
     ``csrc/conv2d_entry.cuh``: the forward and dw at Cin < 16; 'wgmma',
     ``csrc/conv2d_wgmma.cuh``: every other pass, the dx at Cin < 16
-    included; None where no kernel takes the shape, which the wrappers
-    refuse), ``stages`` (the depth of the kernel's activation ring) and
-    ``smem`` (its dynamic shared memory in bytes). Cin and Cout as the
-    kernels take them (:func:`_kernel_weights`, :func:`_kernel_channels`
-    pad other counts first)."""
-    queries = {'fwd': ('pbsed_conv2d_design', cin, cout),
-               'dx': ('pbsed_conv2d_design', cout, cin),
-               'dw': ('pbsed_conv2d_dw_design', cin, cout)}
+    included), ``stages`` (the depth of the kernel's activation ring),
+    ``smem`` (its dynamic shared memory in bytes) and ``taps`` (the
+    extents of the tap block one launch takes: (kt, kf) but where the
+    whole kernel's halo fits no tile, :func:`_tap_blocks`; the dx and dw
+    share their blocks). Cin and Cout as the kernels take them
+    (:func:`_kernel_weights`, :func:`_kernel_channels` pad other counts
+    first)."""
     designs = {}
-    for name, (query, c_in, c_out) in queries.items():
-        design, stages, smem = _design(query, f, c_in, c_out, kt, kf)
-        designs[name] = {'design': design, 'stages': stages, 'smem': smem}
+    for name, (query, c_in, c_out) in _pass_queries(cin, cout).items():
+        bt, bf = _tap_blocks(f, cin, cout, kt, kf,
+                             ('fwd',) if name == 'fwd' else ('dx', 'dw'))
+        design, stages, smem = _design(query, f, c_in, c_out,
+                                       bt + 1 - bt % 2, bf + 1 - bf % 2)
+        designs[name] = {'design': design, 'stages': stages, 'smem': smem,
+                         'taps': (bt, bf)}
     return designs
 
 
@@ -356,18 +461,25 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
     """Launch ``pbsed_<counter>`` on CUDA tensors: dx (or da; None and
     no dx pass with ``need_dx=False``) and dw of the SAME conv, with
     ``affine = (scale, shift)`` f32 pointers after the flipped weights for
-    the BN+ReLU-fused one; other extents and widths as
-    :func:`_launch_conv` takes them (and counts them)."""
+    the BN+ReLU-fused one; other extents and widths, and kernels whose
+    halo fits no tile, as :func:`_launch_conv` takes them (and counts
+    them), the tap blocks' dx and dw from ``pbsed_conv2d_same_bwd``."""
     build.require_cuda(x, w, gy, *affine)
     bsz, t, f, cin0 = x.shape
     kt0, kf0, _, width = w.shape
+    blocks = _tap_blocks(f, cin0, width, kt0, kf0,
+                         ('dx', 'dw') if need_dx else ('dw',))
+    if blocks != (kt0, kf0):
+        if affine:
+            x = bnrelu_plain(x, *affine)
+        return _conv_bwd_by_blocks(
+            lambda xs, wb, g: _launch_conv_bwd(
+                'conv2d_same_bwd', xs, wb, g, padded=padded,
+                need_dx=need_dx), x, w, gy, *blocks, need_dx=need_dx)
     w, _ = _kernel_weights(w)
     x, w, affine = _kernel_channels(x, w, affine)
     kt, kf, cin, cout = w.shape
-    if need_dx:
-        _require_design(counter, 'pbsed_conv2d_design', f, cout, cin, kt, kf)
-    design = _require_design(counter, 'pbsed_conv2d_dw_design', f, cin, cout,
-                             kt, kf)
+    design = _design('pbsed_conv2d_dw_design', f, cin, cout, kt, kf)[0]
     x = x.contiguous()
     gy = gy.to(torch.bfloat16)
     if cout != width:
@@ -378,8 +490,10 @@ def _launch_conv_bwd(counter, x, w, gy, affine=(), padded=False,
         # the dx GEMM's weight rows padded with zero columns to 16 at
         # Cin < 16 (the wgmma kernel's 16-byte TMA strides and its 16-wide
         # weight box)
-        w_flip = F.pad(w.to(torch.bfloat16).flip(0, 1).transpose(2, 3),
-                       (0, -cin % 16 if cin < 16 else 0)).contiguous()
+        w_flip = w.to(torch.bfloat16).flip(0, 1).transpose(2, 3)
+        if cin < 16:
+            w_flip = F.pad(w_flip, (0, -cin % 16))
+        w_flip = w_flip.contiguous()
         dx = torch.empty_like(x)
     dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
                      device=x.device)

@@ -9,7 +9,11 @@ in a process of its own that imports that tree's ``pb_sed_tpu_torch`` and
 builds its kernels there. A process times, at every 3x3 layer of both
 towers (``chip_smoke.CONV_LAYERS``, ``chip_smoke.DEEP_CONV_LAYERS``, B = 32,
 T = 500), the forward ``conv2d_same``, its backward ``conv2d_same_bwd``
-and, but at the entry layers, the BN+ReLU-fused pair; at the shallow
+and, but at the entry layers, the BN+ReLU-fused pair; on the member axis
+of a stacked ensemble (M = 10 shallow members, 3 deep ones: the lane
+serves, so forward only) ``conv2d_same_members`` (``members_fwd``) and,
+but at the entry layers, ``bnrelu_conv2d_same_members``
+(``members_fused_fwd``); at the shallow
 tower's layers also the f32 conv of a ``compute_dtype='float32'`` tower,
 ``conv2d_same_f32`` (``f32_fwd``) and its backward ``conv2d_same_f32_bwd``
 with dx (``f32_bwd``): the median of 5 CUDA-event times after 2 warm-up
@@ -26,7 +30,9 @@ from pathlib import Path
 
 import ab
 
-PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd', 'f32_fwd', 'f32_bwd')
+PASSES = ('fwd', 'bwd', 'fused_fwd', 'fused_bwd', 'members_fwd',
+          'members_fused_fwd', 'f32_fwd', 'f32_bwd')
+MEMBERS = {'shallow': 10, 'deep': 3}
 
 
 def time_tree():
@@ -62,6 +68,19 @@ def time_tree():
                 times['fused_bwd'] = cs.cuda_ms(
                     lambda: K.bnrelu_conv2d_same_bwd(x, scale, shift, w, gy),
                     reps=5)
+            m = MEMBERS[tower]
+            xm = x.expand(m, *x.shape).contiguous()
+            wm = w.expand(m, *w.shape).contiguous()
+            bm = b.expand(m, *b.shape).contiguous()
+            times['members_fwd'] = cs.cuda_ms(
+                lambda: K.conv2d_same_members(xm, wm, bm), reps=5)
+            if cin > 1:
+                sm = scale.expand(m, *scale.shape).contiguous()
+                hm = shift.expand(m, *shift.shape).contiguous()
+                times['members_fused_fwd'] = cs.cuda_ms(
+                    lambda: K.bnrelu_conv2d_same_members(xm, sm, hm, wm, bm),
+                    reps=5)
+            del xm
             if tower == 'shallow':
                 xf, gyf = x.float(), gy.float()
                 times['f32_fwd'] = cs.cuda_ms(

@@ -1,22 +1,36 @@
 """Device time of the conv pair at the recipes' entry layers (Cin < 16)
-in one or two checkouts of this repository, on one CUDA card.
+and at the layers that run off the wgmma pair's old tile, in one or two
+checkouts of this repository, on one CUDA card.
 
     python3 scripts/perf/entry_conv_probe.py [TREE_A [TREE_B]] [--rounds 1]
 
-At the shallow (F 128, 1 -> 16), deep (128, 1 -> 32) and tag-conditioned
-BiCRNN (128, 11 -> 16) L0 shapes (B = 32, T = 500, 3x3) a process in each
-tree (its own ``pb_sed_tpu_torch``, its own kernel build) times with
+Shapes (B = 32, T = 500, 3x3): the shallow (F 128, 1 -> 16), deep (128,
+1 -> 32) and tag-conditioned BiCRNN (128, 11 -> 16) L0; 14b's 3x3 layers
+(the deep tower at 40 mel bins with 24 channels in its first four 2-D
+layers: F = 40, 20, 10, 5); a layer at Cin = 20 (F 40, 20 -> 24), which
+the wrappers pad to 24 channels; and, as a check on the recipes' own
+tiles, the shallow L1, L3, L5 and L8 and the deep L2, L6, L14 and L16.
+A process in each tree (its own ``pb_sed_tpu_torch``, its own kernel
+build) times with
 ``torch.profiler``, over 5 calls after a warm-up, the device ms of every
 kernel of: the forward ``conv2d_same``; the backward ``conv2d_same_bwd``
-with dx, split into its dx launch, its dw launches (partials and reduce)
-and the wrapper's glue; the backward without dx where the tree's wrapper
-takes ``need_dx``; and cuDNN's bf16 forward and weight gradient
-(``convolution_backward`` for the weight alone) on the channels-last
-tensors. With two trees the processes run A B B A (``--rounds`` pairs)
-and the report keeps each tree's best round. Each pass is printed beside
-its bound (bytes at 3.35 TB/s: each input read once, each output written
-once) and its share of it. The card's name and power limit come first.
-With no tree the working directory is timed once.
+split into its dx launch, its dw launches (partials and reduce) and the
+wrapper's glue (casts, the weight flip, the channel pad); the backward
+without dx where the tree's wrapper takes ``need_dx``; from Cin = 2 up
+the BN+ReLU-fused forward ``bnrelu_conv2d_same`` and its backward
+``bnrelu_conv2d_same_bwd`` (da and dw) alike; at the shallow and deep
+tower's layers both forwards on the member axis of a stacked ensemble
+(``conv2d_same_members``, ``bnrelu_conv2d_same_members``: 10 shallow
+members, 3 deep ones, as ``scripts/conv_ab.py`` times them by events);
+and cuDNN's bf16
+forward and ``convolution_backward`` for both gradients, for the input's
+alone (dgrad) and for the weight's alone, on the channels-last tensors.
+With two trees the processes run A B B A (``--rounds`` pairs) and the
+report keeps each tree's best round. Each pass is printed beside its
+bound (bytes at 3.35 TB/s, each input read once and each output written
+once, or bf16 operations at 989 TFLOP/s, whichever is larger) and its
+share of it. The card's name and power limit come first. With no tree
+the working directory is timed once.
 """
 import argparse
 import json
@@ -28,25 +42,38 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import ab  # noqa: E402
 
 SHAPES = (('shallow L0', 128, 1, 16), ('deep L0', 128, 1, 32),
-          ('BiCRNN L0', 128, 11, 16))
-B, T = 32, 500
+          ('BiCRNN L0', 128, 11, 16),
+          ('14b L0', 40, 1, 24), ('14b L2', 40, 24, 24),
+          ('14b L4', 20, 24, 64), ('14b L6', 20, 64, 64),
+          ('14b L8', 10, 64, 128), ('14b L10', 10, 128, 128),
+          ('14b L12', 5, 128, 256), ('14b L14', 5, 256, 256),
+          ('Cin 20', 40, 20, 24),
+          ('shallow L1', 128, 16, 16), ('shallow L3', 64, 32, 32),
+          ('shallow L5', 32, 64, 64), ('shallow L8', 8, 128, 256),
+          ('deep L2', 128, 32, 32), ('deep L6', 64, 64, 64),
+          ('deep L14', 16, 256, 256), ('deep L16', 8, 256, 512))
+B, T, TAPS = 32, 500, 9
+MEMBERS = {'shallow': 10, 'deep': 3}
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def bounds(f, cin, cout):
-    """The byte bounds (ms) of the forward, dx and dw passes."""
+    """The least ms of the forward, the dx, the dw and the backward (dx
+    and dw), each the larger of its bytes and its bf16 operations."""
     p = B * T * f
-    taps = 9
-    ms = 1e3 / HBM_BYTES_PER_S
-    return {'fwd': ms * (2 * p * cin + 2 * p * cout + 2 * taps * cin * cout
-                         + 4 * cout),
-            'dx': ms * (2 * p * cout + 2 * p * cin + 2 * taps * cin * cout),
-            'dw': ms * (2 * p * cin + 2 * p * cout + 4 * taps * cin * cout)}
+    w = 2 * TAPS * cin * cout
+
+    def ms(nbytes, flops):
+        return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+    gemm = 2. * p * TAPS * cin * cout
+    return {'fwd': ms(2 * p * cin + 2 * p * cout + w + 4 * cout, gemm),
+            'dx': ms(2 * p * cout + 2 * p * cin + w, gemm),
+            'dw': ms(2 * p * cin + 2 * p * cout + 2 * w, gemm),
+            'bwd': ms(4 * p * cin + 2 * p * cout + w + 2 * w, 2 * gemm)}
 
 
 def _part(key):
-    if 'dw_reduce' in key or 'dw_entry_reduce' in key:
-        return 'dw'
     if 'conv2d_dw_' in key:
         return 'dw'
     if 'conv2d_igemm' in key or 'conv2d_wgmma' in key:
@@ -57,7 +84,7 @@ def _part(key):
 
 
 def time_tree():
-    """Run inside a tree: print one line ``ENTRY {json}``."""
+    """Run inside a tree: print one line ``CONV {json}``."""
     sys.path.insert(0, os.getcwd())
     import inspect
 
@@ -98,42 +125,84 @@ def time_tree():
         xn, gyn = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
         wn = w.to(torch.bfloat16).permute(3, 0, 1, 2).contiguous().permute(
             0, 3, 1, 2)
-        row = {'designs': K.conv_designs(f, cin, cout),
+
+        def cudnn_bwd(mask):
+            return device(lambda: torch.ops.aten.convolution_backward(
+                gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                mask))['all']
+        row = {'designs': K.conv_designs(
+                   f, cin + (-cin % 8 if cin >= 16 else 0), cout + -cout % 16),
                'fwd': device(lambda: K.conv2d_same(x, w, b)),
                'bwd': device(lambda: K.conv2d_same_bwd(x, w, gy)),
                'cudnn_fwd': device(lambda: F.conv2d(
                    xn, wn, b.to(torch.bfloat16), padding=1))['all'],
-               'cudnn_dw': device(lambda: torch.ops.aten.convolution_backward(
-                   gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                   1, [False, True, False]))['all']}
+               'cudnn_bwd': cudnn_bwd([True, True, False]),
+               'cudnn_dx': cudnn_bwd([True, False, False]),
+               'cudnn_dw': cudnn_bwd([False, True, False])}
         if takes_need_dx:
             row['bwd_no_dx'] = device(lambda: K.conv2d_same_bwd(
                 x, w, gy, need_dx=False))
+        if cin > 1:
+            scale = .5 + torch.rand(cin, generator=gen, device=dev)
+            shift = .5 * torch.randn(cin, generator=gen, device=dev)
+            row['fused_fwd'] = device(lambda: K.bnrelu_conv2d_same(
+                x, scale, shift, w, b))
+            row['fused_bwd'] = device(lambda: K.bnrelu_conv2d_same_bwd(
+                x, scale, shift, w, gy))
+        m = MEMBERS.get(name.split()[0])
+        if m:
+            xm = x.expand(m, *x.shape).contiguous()
+            wm = w.expand(m, *w.shape).contiguous()
+            bm = b.expand(m, *b.shape).contiguous()
+            row['members_fwd'] = device(
+                lambda: K.conv2d_same_members(xm, wm, bm))['all']
+            if cin > 1:
+                sm = scale.expand(m, *scale.shape).contiguous()
+                hm = shift.expand(m, *shift.shape).contiguous()
+                row['members_fused_fwd'] = device(
+                    lambda: K.bnrelu_conv2d_same_members(
+                        xm, sm, hm, wm, bm))['all']
+            del xm
         out[name] = row
         del x, gy, xn, gyn
         torch.cuda.empty_cache()
-    print('ENTRY ' + json.dumps(out), flush=True)
+    print('CONV ' + json.dumps(out), flush=True)
 
 
 def report(label, res):
     for name, f, cin, cout in SHAPES:
         row = res[name]
         bnd = bounds(f, cin, cout)
-        fwd = row['fwd'].get('fwd', 0.) + row['fwd'].get('dx', 0.)
-        line = (f'{label} {name} ({cin} -> {cout}): designs '
-                f'{ {k: d["design"] for k, d in row["designs"].items()} }; '
-                f'forward {fwd:.4f} ms (bound {bnd["fwd"]:.4f}, share '
-                f'{bnd["fwd"] / fwd:.2f}; cuDNN {row["cudnn_fwd"]:.4f})')
-        bwd = row['bwd']
-        line += (f'; backward dx {bwd.get("dx", 0.):.4f} ms (bound '
-                 f'{bnd["dx"]:.4f}), dw {bwd.get("dw", 0.):.4f} (bound '
-                 f'{bnd["dw"]:.4f}, share {bnd["dw"] / bwd["dw"]:.2f}; '
-                 f'cuDNN dw {row["cudnn_dw"]:.4f}), glue '
-                 f'{bwd.get("glue", 0.):.4f}')
+        designs = {k: d['design'] for k, d in row['designs'].items()}
+        fwd, bwd = row['fwd'], row['bwd']
+        kernel = fwd.get('fwd', 0.) + fwd.get('dx', 0.)
+        dx, dw = bwd.get('dx', 0.), bwd.get('dw', 0.)
+        line = (f'{label} {name} ({f}, {cin} -> {cout}): designs {designs}; '
+                f'forward {kernel:.4f} ms (bound {bnd["fwd"]:.4f}, share '
+                f'{bnd["fwd"] / kernel:.2f}; cuDNN {row["cudnn_fwd"]:.4f}), '
+                f'glue {fwd.get("glue", 0.):.4f}; backward '
+                f'{bwd["all"]:.4f} ms (bound {bnd["bwd"]:.4f}, share '
+                f'{bnd["bwd"] / bwd["all"]:.2f}; cuDNN '
+                f'{row["cudnn_bwd"]:.4f}): dx {dx:.4f} (bound '
+                f'{bnd["dx"]:.4f}, share {bnd["dx"] / dx:.2f}; cuDNN dgrad '
+                f'{row["cudnn_dx"]:.4f}), dw {dw:.4f} (bound '
+                f'{bnd["dw"]:.4f}, share {bnd["dw"] / dw:.2f}; cuDNN dw '
+                f'{row["cudnn_dw"]:.4f}), glue {bwd.get("glue", 0.):.4f}')
         if 'bwd_no_dx' in row:
             alone = row['bwd_no_dx']
             line += (f'; without dx: dw {alone.get("dw", 0.):.4f}, glue '
                      f'{alone.get("glue", 0.):.4f}')
+        if 'fused_fwd' in row:
+            ffwd, fbwd = row['fused_fwd'], row['fused_bwd']
+            kernel = ffwd.get('fwd', 0.) + ffwd.get('dx', 0.)
+            line += (f'; fused forward {kernel:.4f} (glue '
+                     f'{ffwd.get("glue", 0.):.4f}), fused backward '
+                     f'{fbwd["all"]:.4f}: da {fbwd.get("dx", 0.):.4f}, dw '
+                     f'{fbwd.get("dw", 0.):.4f}, glue {fbwd.get("glue", 0.):.4f}')
+        if 'members_fwd' in row:
+            line += f'; members forward {row["members_fwd"]:.4f}'
+        if 'members_fused_fwd' in row:
+            line += f', fused {row["members_fused_fwd"]:.4f}'
         print(line, flush=True)
 
 
@@ -150,11 +219,11 @@ def main():
     script = Path(__file__).resolve()
     if len(args.trees) < 2:
         tree = args.trees[0] if args.trees else '.'
-        report(tree, ab.run_child(script, tree, ('ENTRY',))['ENTRY'])
+        report(tree, ab.run_child(script, tree, ('CONV',))['CONV'])
         return
     runs = ab.alternate(args.trees[0], args.trees[1], args.rounds,
                         lambda tree: ab.run_child(script, tree,
-                                                  ('ENTRY',))['ENTRY'])
+                                                  ('CONV',))['CONV'])
     for side, tree in zip('AB', args.trees[:2]):
         best = {}
         for res in runs[side]:

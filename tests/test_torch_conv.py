@@ -13,10 +13,10 @@ from pb_sed_tpu.ops.pallas import conv as pconv
 from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.conv import (
     AvgPoolFreq2, BnReluConv2dSame, Conv2dSame, MaxPoolFreq2,
-    _kernel_channels, avgpool_freq2, bnrelu_conv2d_same,
+    _conv_bwd_by_blocks, _conv_by_blocks, _kernel_channels, avgpool_freq2, bnrelu_conv2d_same,
     bnrelu_conv2d_same_bwd_plain, bnrelu_conv2d_same_members,
-    bnrelu_conv2d_same_members_plain, bnrelu_conv2d_same_plain, conv2d_same,
-    conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
+    bnrelu_conv2d_same_members_plain, bnrelu_conv2d_same_plain, bnrelu_plain,
+    conv2d_same, conv2d_same_bwd, conv2d_same_bwd_plain, conv2d_same_members,
     conv2d_same_members_plain, conv2d_same_plain, maxpool_freq2)
 
 torch.set_num_threads(2)
@@ -140,6 +140,57 @@ def test_channel_padding_keeps_the_plain_conv_bit_for_bit(cin, cout):
         wc = torch.zeros(3, 3, c, 16)
         got = _kernel_channels(xc, wc)
         assert got[0] is xc and got[1] is wc
+
+
+@pytest.mark.parametrize('kt,kf,bt,bf,cin', [
+    (7, 5, 4, 3, 16),    # even blocks (one zero tap each) and a rest
+    (6, 6, 3, 3, 16),    # an even kernel (XLA's one-sided pad) in 4 blocks
+    (9, 9, 5, 9, 1),     # a rest of 4 taps; the entry layer's Cin
+    (5, 3, 1, 1, 20),    # one tap a block
+])
+def test_tap_blocks_sum_to_the_whole_conv(kt, kf, bt, bf, cin):
+    """A kernel whose halo fits no tile runs as the sum of its tap blocks,
+    each a SAME conv of the input widened by the block's offset
+    (``_conv_by_blocks``, ``_conv_bwd_by_blocks``). Through the plain
+    versions the sum holds against the whole conv within the conv gates
+    (2^-7 * max|ref| for y and dx: each block rounds to bf16 once;
+    1e-3 * max|ref| for dw), on the member axis too, and the fused conv
+    on the post-activation buffer the blocks get."""
+    rng = np.random.RandomState(kt * 100 + kf * 10 + bt)
+    x = torch.from_numpy(rng.randn(2, 9, 7, cin).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(kt, kf, cin, 16)
+                          / np.sqrt(kt * kf * cin)).astype(np.float32))
+    b = torch.from_numpy(rng.randn(16).astype(np.float32))
+    gy = torch.from_numpy(rng.randn(2, 9, 7, 16).astype(
+        np.float32)).to(torch.bfloat16)
+    scale = torch.from_numpy(.5 + rng.rand(cin).astype(np.float32))
+    shift = torch.from_numpy(.5 * rng.randn(cin).astype(np.float32))
+
+    def gate(got, ref, rel=2. ** -7):
+        assert got.shape == ref.shape
+        assert float((got.float() - ref.float()).abs().max()) <= rel * float(
+            ref.float().abs().max())
+
+    def conv(xs, wb):
+        return conv2d_same_plain(xs, wb, None)
+    gate(_conv_by_blocks(conv, x, w, b, bt, bf), conv2d_same_plain(x, w, b))
+    a = bnrelu_plain(x, scale, shift)
+    gate(_conv_by_blocks(conv, a, w, b, bt, bf),
+         bnrelu_conv2d_same_plain(x, scale, shift, w, b))
+    xm, wm = torch.stack([x, x.flip(1)]), torch.stack([w, -w])
+    gate(_conv_by_blocks(
+        lambda xs, wb: conv2d_same_members_plain(xs, wb, None), xm, wm,
+        torch.stack([b, b]), bt, bf),
+         conv2d_same_members_plain(xm, wm, torch.stack([b, b])))
+    dx, dw = _conv_bwd_by_blocks(conv2d_same_bwd_plain, x, w, gy, bt, bf)
+    ref_dx, ref_dw = conv2d_same_bwd_plain(x, w, gy)
+    gate(dx, ref_dx)
+    gate(dw, ref_dw, 1e-3)
+    no_dx, dw_alone = _conv_bwd_by_blocks(
+        lambda xs, wb, g: conv2d_same_bwd_plain(xs, wb, g, need_dx=False),
+        x, w, gy, bt, bf, need_dx=False)
+    assert no_dx is None and torch.equal(dw_alone, dw)
 
 
 @pytest.mark.parametrize('cin,k', [(1, 3), (11, 3), (16, 3), (32, 3),

@@ -516,22 +516,72 @@ def test_off_tile_conv_shapes_match_plain(gen, b, t, f, cin, cout, kt, kf,
                            wm[i], bm[i].clone()) for i in range(m)]))
 
 
-def test_conv_refuses_a_halo_no_tile_fits(gen):
-    """A kernel of 31 x 31 taps: its dw's x halo (64 channels) passes 227
-    KB of shared memory at every tile, so no dw kernel takes it;
-    ``conv2d_same_bwd`` raises before any launch, while the forward (a
-    16-channel K slice) still runs and matches its plain version."""
-    x = torch.randn(1, 4, 16, 16, generator=gen, device='cuda').to(
+# (T, F, Cin, kt, kf, M): kernels whose halo fits no tile as a whole. 31 x
+# 31: the dw's x halo (64 channels) passes 227 KB at every tile, the
+# forward (16-channel K slices) still fits; 61 x 61: no pass fits, at
+# Cin = 16 and at Cin = 11 (the entry kernels' forward and dw)
+HUGE_KERNELS = [(12, 16, 16, 31, 31, 2), (40, 16, 16, 61, 61, 1),
+                (24, 20, 11, 61, 61, 1)]
+
+
+@pytest.mark.parametrize('t,f,cin,kt,kf,m', HUGE_KERNELS)
+def test_conv_runs_a_kernel_no_tile_fits_in_tap_blocks(gen, t, f, cin, kt,
+                                                       kf, m):
+    """Such a kernel runs as the sum of tap blocks that fit
+    (``conv.py:_tap_blocks``), each on the entry or wgmma kernels: forward,
+    dx and dw, plain and BN+ReLU-fused, against the plain versions within
+    the conv gates (2^-7 * max|ref| for y and dx, 1e-3 * max|ref| for
+    dw); dw bit-identical on a rerun; one launch a block; with M > 1 the
+    member axis equals M single calls in every bit."""
+    cin_k = cin + -cin % 8 if cin >= 16 else cin
+    designs = conv_designs(f, cin_k, 16, kt, kf)
+    assert all(d['design'] in ('entry', 'wgmma') for d in designs.values())
+    taps = designs['dw']['taps']
+    assert taps != (kt, kf) and designs['dx']['taps'] == taps
+    blocks = -(-kt // taps[0]) * -(-kf // taps[1])
+    x = torch.randn(2, t, f, cin, generator=gen, device='cuda').to(
         torch.bfloat16)
-    w = torch.randn(31, 31, 16, 16, generator=gen, device='cuda') * .01
-    assert conv_designs(16, 16, 16, 31, 31)['dw']['design'] is None
-    ref = conv2d_same_plain(x, w, None)
-    assert _max_err(conv2d_same(x, w, None), ref) <= 2. ** -7 * float(
-        ref.float().abs().max())
-    n = build.LAUNCHES['conv2d_same_bwd']
-    with pytest.raises(ValueError, match='no conv kernel'):
-        conv2d_same_bwd(x, w, x)
-    assert build.LAUNCHES['conv2d_same_bwd'] == n
+    w = torch.randn(kt, kf, cin, 16, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(16, generator=gen, device='cuda')
+    gy = torch.randn(2, t, f, 16, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    scale = .5 + torch.rand(cin, generator=gen, device='cuda')
+    shift = .5 + torch.rand(cin, generator=gen, device='cuda')
+    for fwd, fwd_plain, bwd, bwd_plain, pre in (
+            (conv2d_same, conv2d_same_plain, conv2d_same_bwd,
+             conv2d_same_bwd_plain, ()),
+            (bnrelu_conv2d_same, bnrelu_conv2d_same_plain,
+             bnrelu_conv2d_same_bwd, bnrelu_conv2d_same_bwd_plain,
+             (scale, shift))):
+        y = fwd(x, *pre, w, bias)
+        ref = fwd_plain(x, *pre, w, bias)
+        assert y.shape == ref.shape
+        assert _max_err(y, ref) <= 2. ** -7 * float(ref.float().abs().max())
+        n = build.LAUNCHES['conv2d_same_bwd']
+        dx, dw = bwd(x, *pre, w, gy)
+        assert build.LAUNCHES['conv2d_same_bwd'] == n + blocks
+        ref_dx, ref_dw = bwd_plain(x, *pre, w, gy)
+        assert dx.shape == x.shape and dw.shape == w.shape
+        assert _max_err(dx, ref_dx) <= 2. ** -7 * float(
+            ref_dx.float().abs().max())
+        assert _max_err(dw, ref_dw) <= 1e-3 * float(ref_dw.abs().max())
+        assert torch.equal(dw, bwd(x, *pre, w, gy)[1])
+    if m == 1:
+        return
+    xm = torch.randn(m, 2, t, f, cin, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    wm = torch.randn(m, kt, kf, cin, 16, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bm = .1 * torch.randn(m, 16, generator=gen, device='cuda')
+    sm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    hm = .5 + torch.rand(m, cin, generator=gen, device='cuda')
+    assert torch.equal(conv2d_same_members(xm, wm, bm), torch.stack([
+        conv2d_same(xm[i].clone(), wm[i], bm[i].clone()) for i in range(m)]))
+    assert torch.equal(
+        bnrelu_conv2d_same_members(xm, sm, hm, wm, bm), torch.stack([
+            bnrelu_conv2d_same(xm[i].clone(), sm[i].clone(), hm[i].clone(),
+                               wm[i], bm[i].clone()) for i in range(m)]))
 
 
 def test_new_kernels_raise_on_what_they_do_not_take(gen):
