@@ -331,12 +331,20 @@ runs, in order:
    backward (``csrc/conv2d_f32.cu``) at the shallow tower's nine 3x3
    shapes against the plain version (cuDNN off), with cuDNN's f32 conv
    (TF32 off) as the library call and its dw's distance from the plain
-   version printed. After phase 14: 15a, the shallow FBCRNN with
-   ``compute_dtype='float32'`` in both towers and both heads' output nets,
-   serves 3 batches of 32 ten-second clips by tagging and SED 51/1 and
-   trains 8 steps; 15b, the shallow FBCRNN with both heads at hidden size
-   768 (the paired D = 2 recurrence above 512), the same; 15c, the
-   tag-conditioned BiCRNN at hidden size 200, tags 3 batches and trains 8
+   version printed; then the recipes' three entry layers (shallow 1 -> 16,
+   deep 1 -> 32, BiCRNN 11 -> 16) on the f32 entry kernels
+   (``csrc/conv2d_f32_entry.cuh``): forward, dx and dw against the plain
+   versions, dw bit-identical on a rerun and without dx, each pass's
+   device time beside its bound and cuDNN's f32 call. After phase 14:
+   15a, the shallow FBCRNN with ``compute_dtype='float32'`` in both towers
+   and both heads' output nets (L0 on the entry kernels, forward, dx and
+   dw; L1-L8 on 3xTF32), serves 3 batches of 32 ten-second clips by
+   tagging and SED 51/1 and trains 8 steps; 15b, the shallow FBCRNN with
+   both heads at hidden size 768 (the paired D = 2 recurrence above 512),
+   the same; 15c, the tag-conditioned BiCRNN at hidden size 200, tags 3
+   batches and trains 8 steps; 15e, the tag-conditioned BiCRNN with
+   ``compute_dtype='float32'`` in both towers and the output net (its
+   Cin = 11 entry layer on the entry kernels), tags 32 clips and trains 4
    steps. Served runs agree with the CPU, trained ones pass the
    card-vs-CPU step (the CPU's noise with its bf16 convs and its GRU
    summed in f64 too); clips/s, steps/s and peak memory beside phases
@@ -535,6 +543,19 @@ KERNELS = {
         'route': 'cuda',
         'source': 'pb_sed_tpu_torch/csrc/conv2d_f32_wgmma.cuh',
         'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
+    # the f32 pair's entry kernels (Cin < 16: an f32 tower's first layer):
+    # the forward and the backward (dx and dw, with the dw's reduce),
+    # counted by the pair's wrappers where they run them; their times are
+    # device times (torch.profiler) of each pass at the recipes' three
+    # entry layers
+    'conv2d_same_f32_entry': {
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/conv2d_f32_entry.cuh',
+        'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
+    'conv2d_same_f32_bwd_entry': {
+        'route': 'cuda',
+        'source': 'pb_sed_tpu_torch/csrc/conv2d_f32_entry.cuh',
+        'replaces': 'pb_sed_tpu/ops/cnn.py:115'},
     'gru_scan_wide': {
         'route': 'cuda',
         'source': 'pb_sed_tpu_torch/csrc/gru_cluster_wide.cuh',
@@ -578,6 +599,8 @@ MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  conv2d_same_bwd_padded='towers_14b_training',
                  conv2d_same_f32='widths_15a_training',
                  conv2d_same_f32_bwd='widths_15a_training',
+                 conv2d_same_f32_entry='widths_15a_training',
+                 conv2d_same_f32_bwd_entry='widths_15a_training',
                  gru_scan_wide='widths_15b_training',
                  gru_scan_bwd_wide='widths_15b_training',
                  gru_scan_padded='widths_15c_training',
@@ -5292,8 +5315,9 @@ def _tower_config(name, fuse_bn=False, augment=True):
 
 
 def _train_towers(make_model, k, kernels, label, strong=False,
-                  conv_order=True, gru_order=False, profile=False):
-    """8 ``Trainer`` steps of a phase-14 (or 15) model at 32 ten-second
+                  conv_order=True, gru_order=False, profile=False,
+                  steps=TRAIN_STEPS):
+    """``steps`` ``Trainer`` steps of a phase-14 (or 15) model at 32 ten-second
     clips with augmentation on (the AudioSet recipe's Adam: lr 1e-4,
     clipping 0.1), the BiCRNN's strong batches with ``strong``: every
     kernel of ``kernels`` must launch and every loss be finite; then the
@@ -5308,13 +5332,13 @@ def _train_towers(make_model, k, kernels, label, strong=False,
     batches = _train_batches(stft, 4, BATCH, 10, seed=1, k=k, strong=strong)
     step_log = _StepLog()
     trainer = Trainer(model, optimizer=Adam(**_DEEP_RECIPE['adam']),
-                      stop_trigger=(TRAIN_STEPS, 'iteration'))
+                      stop_trigger=(steps, 'iteration'))
     trainer.register_hook(step_log)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     collect_garbage()
-    trainer.train(batches * (TRAIN_STEPS // len(batches)))
+    trainer.train(batches * (steps // len(batches)))
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     log(f'launches in the {label} training run: {launches}')
@@ -5324,7 +5348,7 @@ def _train_towers(make_model, k, kernels, label, strong=False,
                                  f'{label} training run')
     log(f'{label} loss per step: ' + ', '.join(
         f'{x:.5f}' for x in step_log.losses))
-    if len(step_log.losses) != TRAIN_STEPS or not np.isfinite(
+    if len(step_log.losses) != steps or not np.isfinite(
             step_log.losses).all():
         raise AssertionError(f'{label} training losses: {step_log.losses}')
     steady = np.diff(step_log.times)[2:]
@@ -5332,7 +5356,7 @@ def _train_towers(make_model, k, kernels, label, strong=False,
                'clips_per_s': BATCH / steady.mean(),
                'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f'{label} training: {metrics["steps_per_s"]:.3f} steps/s = '
-        f'{metrics["clips_per_s"]:.1f} clips/s over steps 3-{TRAIN_STEPS} '
+        f'{metrics["clips_per_s"]:.1f} clips/s over steps 3-{steps} '
         f'(batch {BATCH} x 10 s clips, augmentation on, host clock), peak '
         f'{metrics["peak_gib"]:.2f} GiB')
     if profile:
@@ -5482,6 +5506,10 @@ PADDED_GRU = ('gru_scan_padded', 'gru_scan_bwd_padded')
 # to ~83 GB beside the shape's operands
 WIDTH_BWD_UNTIMED = {(2, BATCH * FRAMES, 51, 1024)}
 F32 = ('conv2d_same_f32', 'conv2d_same_f32_bwd')
+F32_ENTRY = ('conv2d_same_f32_entry', 'conv2d_same_f32_bwd_entry')
+# the recipes' entry layers (F, Cin -> Cout) on the f32 entry kernels
+F32_ENTRY_LAYERS = [('shallow L0', 128, 1, 16), ('deep L0', 128, 1, 32),
+                    ('BiCRNN L0', 128, 11, 16)]
 # 15a's f32 towers; 15b's and 15c's hidden sizes
 F32_PATHS = ('cnn_2d', 'cnn_1d')
 WIDE_HIDDEN = 768
@@ -5522,9 +5550,10 @@ def check_width_kernels(records):
     also held against the plain version, printed) and its bound (3xTF32:
     3 TF32 products at 495 TFLOP/s per f32 product, or bytes; the FFMA
     route's at 67 TFLOP/s printed beside), with the design each pass runs
-    (3xTF32 at L1-L8, FFMA at L0, asserted), each largest error as a
-    fraction of its gate, and the backward without dx, into ``records``
-    under the label 'widths'."""
+    (3xTF32 at L1-L8, the entry kernels at L0, asserted), each largest
+    error as a fraction of its gate, and the backward without dx, into
+    ``records`` under the label 'widths'; then the recipes' three entry
+    layers (:func:`check_f32_entry_layers`)."""
     from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
                                                    conv2d_same_f32_bwd,
                                                    conv2d_same_f32_bwd_plain,
@@ -5625,8 +5654,8 @@ def check_width_kernels(records):
             log(f'f32 conv design {layer} ({f}, {cin} -> {cout}) {key}: '
                 f'{v["design"]}, {v["stages"]} stages, '
                 f'{v["smem"] / 1024:.0f} KiB shared memory')
-            # 3xTF32 at L1-L8, FFMA at the entry layer (Cin = 1)
-            want = 'ffma' if cin < 16 else '3xtf32'
+            # 3xTF32 at L1-L8, the entry kernels at L0 (Cin = 1)
+            want = 'entry' if cin < 16 else '3xtf32'
             if v['design'] != want:
                 raise AssertionError(f'f32 conv {key} at {layer} runs '
                                      f'{v["design"]}, not {want}')
@@ -5685,8 +5714,8 @@ def check_width_kernels(records):
         no_dx = cuda_ms(lambda: conv2d_same_f32_bwd(x, w, gy, need_dx=False),
                         reps=5)
         log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}), FFMA '
-            f'route {ffma[0]:.3f} ms ({ffma[1]}); without dx (as a training '
-            f'step runs the entry layer) {no_dx:.3f} ms')
+            f'route {ffma[0]:.3f} ms ({ffma[1]}); without dx (what a layer '
+            f'whose input needs no gradient runs) {no_dx:.3f} ms')
         _check('conv2d_same_f32_bwd dw', shape, dw, ref_dw,
                gated('dw', dw, ref_dw, 1e-4), 0., 0.,
                records['conv2d_same_f32_bwd'], 'widths')
@@ -5708,9 +5737,121 @@ def check_width_kernels(records):
                                  f'differs without dx')
         del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
         torch.cuda.empty_cache()
+    check_f32_entry_layers(records, randn)
     log('gru library (phase 15): ' + json.dumps(library))
     _padded_width_choice(randn)
     _padded_wide_width(randn)
+
+
+# the f32 entry kernels by the profiler's names: the forward-type GEMM
+# (the forward, or the dx inside the backward) with its weights' split,
+# and the dw pass with its reduce
+F32_ENTRY_KERNELS = {'fwd': ('conv2d_f32_entry',),
+                     'dx': ('conv2d_f32_entry',),
+                     'dw': ('conv2d_f32_dw_entry', 'conv2d_f32_dw_reduce')}
+
+
+def _f32_pass_work(p, cin, cout, taps=9):
+    """The least time of one pass of the f32 conv over ``p`` pixels: its
+    activations read and written once (forward: x in, y out; dx: gy in,
+    dx out; dw: x and gy in) and its weights, or its 3xTF32 products (3
+    TF32 products at 495 TFLOP/s per f32 product)."""
+    nbytes = 4 * (p * (cin + cout) + taps * cin * cout)
+    return bound(nbytes, tf32_flops=3. * 2. * p * taps * cin * cout)
+
+
+def check_f32_entry_layers(records, randn):
+    """Phase 15d at the recipes' three entry layers (``F32_ENTRY_LAYERS``,
+    B = 32 ten-second clips) on the f32 entry kernels
+    (``csrc/conv2d_f32_entry.cuh``): the design of each pass (asserted
+    'entry'); the forward, dx and dw against the plain versions (2e-5 of
+    the largest entry forward and dx, 1e-4 for dw); dw equal in every bit
+    on a rerun and without dx; each pass's device time (torch.profiler:
+    the entry kernels alone, the weights' split with the GEMM, the dw with
+    its reduce) beside its bound, its share of the bound and cuDNN's f32
+    call with TF32 off (``F.conv2d``; ``convolution_backward`` for the
+    input alone and for the weight alone), into
+    ``records['conv2d_same_f32_entry']`` and
+    ``records['conv2d_same_f32_bwd_entry']`` (label 'widths')."""
+    from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
+                                                   conv2d_same_f32_bwd,
+                                                   conv2d_same_f32_bwd_plain,
+                                                   conv2d_same_f32_plain,
+                                                   conv_f32_designs)
+    from pb_sed_tpu_torch.ops.kernels.functions import full_f32
+
+    def in_f32(call):
+        with full_f32():
+            return call()
+
+    rows = {}
+    for layer, f, cin, cout in F32_ENTRY_LAYERS:
+        designs = conv_f32_designs(f, cin, cout)
+        log(f'f32 entry design {layer} ({f}, {cin} -> {cout}): '
+            + json.dumps(designs))
+        if {v['design'] for v in designs.values()} != {'entry'}:
+            raise AssertionError(f'f32 conv at {layer}: {designs}, not the '
+                                 f'entry kernels')
+        x = randn(BATCH, FRAMES, f, cin)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
+        bias = randn(cout, scale=.1)
+        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3)
+        p = BATCH * FRAMES * f
+        shape = (layer, BATCH, FRAMES, f, cin, cout)
+        xn, gyn = _nchw(x), _nchw(gy)
+        wn = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        row = {}
+        got, ref = conv2d_same_f32(x, w, bias), conv2d_same_f32_plain(
+            x, w, bias)
+        ms = device_ms(lambda: conv2d_same_f32(x, w, bias),
+                       F32_ENTRY_KERNELS['fwd'])
+        lib = device_ms(lambda: in_f32(lambda: F.conv2d(xn, wn, bias,
+                                                        padding=1)))
+        work = _f32_pass_work(p, cin, cout)
+        _check('conv2d_same_f32_entry', shape, got, ref,
+               2e-5 * float(ref.abs().max()), ms,
+               device_ms(lambda: conv2d_same_f32_plain(x, w, bias), reps=2),
+               records['conv2d_same_f32_entry'], 'widths', lib, work)
+        row['fwd'] = [ms, lib, work[0]]
+        del got, ref
+        dx, dw = conv2d_same_f32_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
+        plain_ms = device_ms(lambda: conv2d_same_f32_bwd_plain(x, w, gy),
+                             reps=2)
+        for name, got, ref, gate in (('dx', dx, ref_dx, 2e-5),
+                                     ('dw', dw, ref_dw, 1e-4)):
+            keep = name == 'dx'
+            ms = device_ms(lambda: conv2d_same_f32_bwd(x, w, gy,
+                                                       need_dx=keep),
+                           F32_ENTRY_KERNELS[name])
+            lib = device_ms(lambda: in_f32(
+                lambda: torch.ops.aten.convolution_backward(
+                    gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [keep, not keep, False])))
+            work = _f32_pass_work(p, cin, cout)
+            # the plain backward is timed whole, once (beside dx)
+            _check(f'conv2d_same_f32_bwd_entry {name}', shape, got, ref,
+                   gate * float(ref.abs().max()), ms,
+                   plain_ms if keep else 0.,
+                   records['conv2d_same_f32_bwd_entry'], 'widths', lib,
+                   work)
+            row[name] = [ms, lib, work[0]]
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape}: a '
+                                 f'second run differs')
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy,
+                                                   need_dx=False)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape} '
+                                 f'differs without dx')
+        log(f'f32 entry {layer} ({cin} -> {cout}), device ms (kernel, cuDNN '
+            f'f32 TF32 off, bound, share): ' + '; '.join(
+                f'{key} {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}, '
+                f'{v[2] / v[0]:.2f}' for key, v in row.items()))
+        rows[layer] = row
+        del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
+        torch.cuda.empty_cache()
+    log('f32 entry layers (JSON, device ms: kernel, cuDNN, bound): '
+        + json.dumps(rows))
 
 
 def _padded_width_choice(randn):
@@ -5779,10 +5920,17 @@ def _width_config(name, augment=True):
     with ``compute_dtype='float32'`` in both towers and both heads' output
     nets; '15b' the shallow FBCRNN with both heads at ``hidden_size`` 768
     (the paired D = 2 recurrence above 512); '15c' the
-    tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 256)."""
-    if name == '15c':
+    tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 256);
+    '15e' that BiCRNN at the recipe's widths with
+    ``compute_dtype='float32'`` in both towers and the output net."""
+    if name in ('15c', '15e'):
         config = _strong_config(augment=augment)
-        config['rnn']['rnn']['hidden_size'] = PADDED_HIDDEN
+        if name == '15c':
+            config['rnn']['rnn']['hidden_size'] = PADDED_HIDDEN
+        else:
+            for tower in F32_PATHS:
+                config['cnn'][tower]['compute_dtype'] = 'float32'
+            config['rnn']['output_net']['compute_dtype'] = 'float32'
         return config
     config = _config('shallow', 10, augment=augment)
     if name == '15a':
@@ -5794,21 +5942,42 @@ def _width_config(name, augment=True):
     return config
 
 
+def _assert_f32_designs(label, layers):
+    """Log the f32 conv's design of each pass at ``layers`` and assert
+    the rule: the entry kernels at Cin < 16, 3xTF32 elsewhere (the
+    recipes' towers)."""
+    from pb_sed_tpu_torch.ops.kernels.conv import conv_f32_designs
+    chosen = {layer: {key: v['design'] for key, v in
+                      conv_f32_designs(f, cin, cout).items()}
+              for layer, f, cin, cout in layers}
+    log(f'{label}: f32 conv designs at the tower\'s 3x3 layers: '
+        + json.dumps(chosen))
+    for layer, f, cin, cout in layers:
+        want = 'entry' if cin < 16 else '3xtf32'
+        if set(chosen[layer].values()) != {want}:
+            raise AssertionError(f'{label}: {layer} runs {chosen[layer]}, '
+                                 f'not {want}')
+
+
 def phase_widths(earlier):
     """Phase 15. 15a: the f32 shallow FBCRNN serves 3 x 32 clips by
     tagging and SED 51/1 (against the CPU) and trains 8 steps; 15b: the
     shallow FBCRNN with both heads at H = 768 does the same on the GRU
-    pair's cluster design above 512; 15c: the tag-conditioned BiCRNN at H = 200 tags 3 x 32
-    clips and trains 8 steps. Each training run passes the card-vs-CPU
-    step; each path's launch counters are read. Returns (launches by
-    path, the measurements), printed beside ``earlier`` (phases 3-4)."""
+    pair's cluster design above 512; 15c: the tag-conditioned BiCRNN at
+    H = 200 tags 3 x 32 clips and trains 8 steps; 15e: the
+    tag-conditioned BiCRNN with f32 towers and output net (its entry
+    layer, Cin = 11, on the f32 entry kernels) tags 32 clips and trains 4
+    steps. Each training run passes the card-vs-CPU step; each path's
+    launch counters are read. Returns (launches by path, the
+    measurements), printed beside ``earlier`` (phases 3-4)."""
     from pb_sed_tpu_torch.models import base
-    from pb_sed_tpu_torch.ops.kernels.conv import conv_f32_designs
     launches, out = {}, {}
-    cases = [('15a', F32 + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
-                            'gru_scan_bwd'), 10, False),
+    f32_path = F32 + F32_ENTRY + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
+                                  'gru_scan_bwd')
+    cases = [('15a', f32_path, 10, False),
              ('15b', SHALLOW + WIDE, 10, False),
-             ('15c', SHALLOW + PADDED_GRU, 10, True)]
+             ('15c', SHALLOW + PADDED_GRU, 10, True),
+             ('15e', f32_path, 10, True)]
     for name, kernels, k, strong in cases:
         config = _width_config(name)
         flat = _random_flat(config, strong=strong)
@@ -5822,18 +5991,18 @@ def phase_widths(earlier):
             if dtypes != {torch.float32}:
                 raise AssertionError(f'15a: layers in {dtypes}')
             # the launches counted below run these designs: 3xTF32 at
-            # L1-L8, FFMA at the entry layer (whose backward runs no dx:
-            # the log-mel features need no gradient)
-            chosen = {layer: {key: v['design'] for key, v in
-                              conv_f32_designs(f, cin, cout).items()}
-                      for layer, f, cin, cout in CONV_LAYERS}
-            log(f'15a: f32 conv designs at the tower\'s 3x3 layers: '
-                + json.dumps(chosen))
-            for layer, f, cin, cout in CONV_LAYERS:
-                want = 'ffma' if cin < 16 else '3xtf32'
-                if set(chosen[layer].values()) != {want}:
-                    raise AssertionError(f'15a: {layer} runs '
-                                         f'{chosen[layer]}, not {want}')
+            # L1-L8, the entry kernels at L0, whose backward runs its dx
+            # too: the pre-activation norm_0's learnable scale and shift
+            # sit before it (a layer runs no dx only where nothing
+            # upstream needs a gradient)
+            _assert_f32_designs(name, CONV_LAYERS)
+        if name == '15e':
+            dtypes = {module.cnn.cnn_2d.conv_0.dtype,
+                      module.cnn.cnn_1d.conv_0.dtype,
+                      module.rnn.output_net.conv_0.dtype}
+            if dtypes != {torch.float32}:
+                raise AssertionError(f'15e: layers in {dtypes}')
+            _assert_f32_designs(name, STRONG_CONV_LAYERS)
         head = module.rnn.rnn if strong else module.rnn_fwd.rnn
         log(f'{name}: {model.num_parameters()} parameters, GRU hidden size '
             f'{head.hidden_size}, designs at (2, 32, 500): '
@@ -5846,20 +6015,23 @@ def phase_widths(earlier):
             methods = [('tagging', base.tagging, {})]
         else:
             methods = [_methods(base)[i] for i in (0, 2)]
+        if name == '15e':
+            batches = batches[1:2]     # 32 clips
         forward = tuple(kernel for kernel in kernels if 'bwd' not in kernel)
         stats = out.setdefault(f'{name}_serving', {})
         results, launches[f'widths_{name}_serving'] = _serve(
             model, methods, batches, k, name, forward, low=0. if strong
             else 1e-5, stats=stats)
         _agree_with_cpu(_model(config, flat, strong=strong), methods,
-                        results, batches[1])
+                        results, batches[min(1, len(batches) - 1)])
         del model, module, head
         torch.cuda.empty_cache()
         launches[f'widths_{name}_training'], out[f'{name}_training'] = \
             _train_towers(
                 lambda augment, n=name, s=strong: _model(
                     _width_config(n, augment), flat, strong=s),
-                k, kernels, name, strong=strong, gru_order=True)
+                k, kernels, name, strong=strong, gru_order=True,
+                steps=4 if name == '15e' else TRAIN_STEPS)
     log('phase 15 beside phases 3-4 (host clock, B = 32): tagging clips/s '
         + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
                     for key in out if key.endswith('_serving'))

@@ -15,7 +15,7 @@
 // CNN2d(compute_dtype='float32'), where the JAX package convolves with
 // lax.conv_general_dilated on f32 operands (pb_sed_tpu/ops/cnn.py:113-119).
 //
-// Two designs, chosen by shape before the launch
+// Three designs, chosen by shape before the launch
 // (pbsed_conv2d_f32_design reports which):
 //
 // - 3xTF32 on the tensor cores (conv2d_f32_wgmma.cuh): wgmma .tf32 fed by
@@ -24,14 +24,20 @@
 //   and added to f32 register sums. It takes the forward, dx and dw of
 //   every layer with Cin and Cout >= 16 (multiples of 4) and F a power of
 //   two dividing 128: the shallow tower's L1-L8.
-// - FFMA (below) for the rest, chiefly the entry layer (Cin = 1): an
-//   implicit GEMM (the im2col patch never exists in device memory). M =
-//   B * T * F output pixels, N = Cout, K = kt * kf * Cin, flattened as k
-//   = (dt * kf + df) * Cin + c, the weights' own layout. A block of 256
-//   threads owns 128 pixels x BN (16, 32 or 64) channels and walks K in
-//   slices of 16: it stages the slice's input values (the SAME halo and
-//   K's tail as zeros) k-major and the weights' 16 rows in shared memory,
-//   and each thread accumulates 8 pixels x BN / 16 channels in registers.
+// - The entry kernels (conv2d_f32_entry.cuh): 3xTF32 on mma.sync m16n8k8,
+//   taps and channels packed into one K, fed by cp.async rings of whole
+//   frequency rows at any F. They take the forward, dx and dw of every
+//   layer with Cin < 16 (the entry layer, Cin = 1, and the tag-conditioned
+//   BiCRNN's, Cin = 11) whose tiles fit shared memory.
+// - FFMA (below) for the rest: F off the 3xTF32 tile with Cin >= 16, and
+//   channel counts off a multiple of 4. An implicit GEMM (the im2col patch
+//   never exists in device memory): M = B * T * F output pixels, N = Cout,
+//   K = kt * kf * Cin, flattened as k = (dt * kf + df) * Cin + c, the
+//   weights' own layout. A block of 256 threads owns 128 pixels x BN (16,
+//   32 or 64) channels and walks K in slices of 16: it stages the slice's
+//   input values (the SAME halo and K's tail as zeros) k-major and the
+//   weights' 16 rows in shared memory, and each thread accumulates 8
+//   pixels x BN / 16 channels in registers.
 //
 // The input gradient is the forward's GEMM on the cotangent with the
 // flipped, transposed weights and the pads mirrored (lo' = k - 1 - lo);
@@ -46,6 +52,7 @@
 // GFLOP a forward at B = 32, T = 500: 1.72 ms at the TF32 tensor rate x 3
 // (495 TFLOP/s) against 4.23 at the FFMA rate (67 TFLOP/s); the entry
 // layer and L1's dw by bytes.
+#include "conv2d_f32_entry.cuh"
 #include "conv2d_f32_wgmma.cuh"
 
 #include <cuda_runtime.h>
@@ -265,15 +272,26 @@ conv2d_f32_dw_kernel(const float* __restrict__ x,   // (B, T, F, Cin)
   }
 }
 
-// dw[e] = sum over the chunks, in chunk order, of part[chunk][e]
+// dw[e] = sum over the chunks, in chunk order, of part[chunk][e]; the
+// loads of 16 chunks are issued before their adds (the entry dw pass adds
+// some 260 chunks of 144-1584 elements: a thread an element)
 __global__ void conv2d_f32_dw_reduce_kernel(const float* __restrict__ part,
                                             float* __restrict__ dw,
                                             int chunks, long long n) {
+  constexpr int kAhead = 16;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        e < n; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     float s = 0.f;
-    for (int i = 0; i < chunks; ++i) s += part[i * n + e];
+    int i = 0;
+    for (; i + kAhead <= chunks; i += kAhead) {
+      float v[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) v[u] = part[(i + u) * n + e];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) s += v[u];
+    }
+    for (; i < chunks; ++i) s += part[i * n + e];
     dw[e] = s;
   }
 }
@@ -317,12 +335,37 @@ long long f32_dw_chunk_len(int B, int T, int F, int Cin, int Cout, int kt,
   return (len + kF32BK - 1) / kF32BK * kF32BK;
 }
 
-// pixel chunks of the dw pass at this shape for either design
+// The design of each pass of a (F, Cin -> Cout, kt x kf) layer: 2 the
+// entry kernels (Cin < 16 where they fit), 1 3xTF32 on wgmma, 0 FFMA.
+// The dx runs the forward's GEMM on gy: C = Cout channels in, N = Cin
+// out, the frequency pads mirrored.
+int f32_fwd_design(int F, int Cin, int Cout, int kt, int kf) {
+  if (Cin < 16 && conv2d_f32_entry_ok(F, Cin, Cout, kt, kf, (kf - 1) / 2))
+    return 2;
+  return conv2d_f32_wgmma_ok(F, Cin, Cout, kt, kf) ? 1 : 0;
+}
+
+int f32_dx_design(int F, int Cin, int Cout, int kt, int kf) {
+  if (Cin < 16 &&
+      conv2d_f32_entry_ok(F, Cout, Cin, kt, kf, kf - 1 - (kf - 1) / 2))
+    return 2;
+  return conv2d_f32_wgmma_ok(F, Cout, Cin, kt, kf) ? 1 : 0;
+}
+
+int f32_dw_design(int F, int Cin, int Cout, int kt, int kf) {
+  if (Cin < 16 && conv2d_f32_dw_entry_ok(F, Cin, Cout, kt, kf)) return 2;
+  return conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf) ? 1 : 0;
+}
+
+// pixel chunks of the dw pass at this shape for each design
 int f32_dw_chunks(int B, int T, int F, int Cin, int Cout, int kt, int kf,
                   int sms) {
   const long long Mpix = static_cast<long long>(B) * T * F;
   if (Mpix == 0) return 1;
-  if (conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf))
+  const int design = f32_dw_design(F, Cin, Cout, kt, kf);
+  if (design == 2)
+    return conv2d_f32_dw_entry_chunks(B, T, F, Cin, Cout, kt, kf, sms);
+  if (design == 1)
     return conv2d_f32_dw_wgmma_chunks(B, T, F, Cin, Cout, kt, kf, sms);
   const long long len = f32_dw_chunk_len(B, T, F, Cin, Cout, kt, kf, sms);
   return static_cast<int>((Mpix + len - 1) / len);
@@ -333,9 +376,8 @@ int f32_dw_chunks(int B, int T, int F, int Cin, int Cout, int kt, int kf,
 // x (M, B, T, F, Cin) f32, w (M, kt, kf, Cin, Cout) f32, b (M, Cout) f32 or
 // null, y (M, B, T, F, Cout) f32; contiguous. Any kt, kf >= 1 (XLA's SAME
 // pads: (k - 1) / 2 before, k / 2 after), Cin, Cout >= 1. ``split`` holds
-// 2 M kt kf Cin Cout f32 (the weights' hi and lo) where
-// pbsed_conv2d_f32_design(0, ...) reports the 3xTF32 design, else may be
-// null. Returns a cudaError_t.
+// pbsed_conv2d_f32_split_floats(0, ...) f32 (the weights' hi and lo) where
+// that is not 0, else may be null. Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_f32(const void* x, const void* w,
                                      const void* b, void* y, void* split,
                                      int M, int B, int T, int F, int Cin,
@@ -348,37 +390,76 @@ extern "C" int pbsed_conv2d_same_f32(const void* x, const void* w,
   const float* ws = static_cast<const float*>(w);
   const float* bs = static_cast<const float*>(b);
   float* ys = static_cast<float*>(y);
-  if (conv2d_f32_wgmma_ok(F, Cin, Cout, kt, kf)) {
-    if (split == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int design = f32_fwd_design(F, Cin, Cout, kt, kf);
+  if (design != 0 && split == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (design == 2)
+    return static_cast<int>(conv2d_f32_entry(xs, ws, split, bs, ys, M, B, T,
+                                             F, Cin, Cout, kt, kf,
+                                             (kt - 1) / 2, (kf - 1) / 2, s));
+  if (design == 1)
     return static_cast<int>(conv2d_f32_wgmma(xs, ws, split, bs, ys, M, B, T,
                                              F, Cin, Cout, kt, kf,
                                              (kt - 1) / 2, (kf - 1) / 2, s));
-  }
   return static_cast<int>(conv2d_f32(xs, ws, bs, ys, M, B, T, F, Cin, Cout,
                                      kt, kf, (kt - 1) / 2, (kf - 1) / 2, s));
 }
 
 // Which design a pass of the f32 conv of a (F, Cin -> Cout, kt x kf)
-// layer runs: pass 0 the forward, 1 dx, 2 dw. Returns 1 for 3xTF32 on the
-// tensor cores (with its ring depth and dynamic shared memory in bytes
-// written to the pointers), 0 for FFMA (0 and 0).
+// layer runs: pass 0 the forward, 1 dx, 2 dw. Returns 2 for the entry
+// kernels (conv2d_f32_entry.cuh), 1 for 3xTF32 on wgmma, each with its
+// ring depth and dynamic shared memory in bytes written to the pointers,
+// 0 for FFMA (0 and 0).
 extern "C" int pbsed_conv2d_f32_design(int pass, int F, int Cin, int Cout,
                                        int kt, int kf, int* stages,
                                        int* smem) {
   *stages = 0;
   *smem = 0;
+  const int lo_f = (kf - 1) / 2;
   if (pass == 2) {
-    if (!conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf)) return 0;
-    *stages = conv2d_f32_dw_wgmma_stages(F, Cin, Cout, kt, kf);
-    *smem = conv2d_f32_dw_wgmma_smem(F, Cin, Cout, kt, kf, *stages);
-    return 1;
+    const int design = f32_dw_design(F, Cin, Cout, kt, kf);
+    if (design == 2) {
+      *stages = kF32eDwStages;
+      *smem = f32e_dw_smem(f32e_pick(F, Cin, Cout, kt, kf, lo_f, true),
+                           Cout);
+    } else if (design == 1) {
+      *stages = conv2d_f32_dw_wgmma_stages(F, Cin, Cout, kt, kf);
+      *smem = conv2d_f32_dw_wgmma_smem(F, Cin, Cout, kt, kf, *stages);
+    }
+    return design;
   }
+  const int design = pass == 0 ? f32_fwd_design(F, Cin, Cout, kt, kf)
+                               : f32_dx_design(F, Cin, Cout, kt, kf);
   const int c_in = pass == 0 ? Cin : Cout;
   const int n = pass == 0 ? Cout : Cin;
-  if (!conv2d_f32_wgmma_ok(F, c_in, n, kt, kf)) return 0;
-  *stages = conv2d_f32_wgmma_stages(F, c_in, n, kt, kf);
-  *smem = conv2d_f32_wgmma_smem(F, c_in, n, kt, kf, *stages);
-  return 1;
+  if (design == 2) {
+    *stages = kF32eFwdStages;
+    *smem = f32e_fwd_smem(
+        f32e_pick(F, c_in, n, kt, kf, pass == 0 ? lo_f : kf - 1 - lo_f,
+                  false),
+        n);
+  } else if (design == 1) {
+    *stages = conv2d_f32_wgmma_stages(F, c_in, n, kt, kf);
+    *smem = conv2d_f32_wgmma_smem(F, c_in, n, kt, kf, *stages);
+  }
+  return design;
+}
+
+// The f32 floats of the buffer the weights of pass 0 (the forward, M
+// members) or 1 (dx, M = 1) are split into: 2 M kt kf Cin Cout on 3xTF32,
+// the entry kernels' image (conv2d_f32_entry_split_floats), 0 on FFMA and
+// for pass 2 (dw splits no weights).
+extern "C" long long pbsed_conv2d_f32_split_floats(int pass, int F, int Cin,
+                                                   int Cout, int kt, int kf,
+                                                   int M) {
+  if (pass == 2) return 0;
+  const int design = pass == 0 ? f32_fwd_design(F, Cin, Cout, kt, kf)
+                               : f32_dx_design(F, Cin, Cout, kt, kf);
+  if (design == 2)
+    return pass == 0 ? conv2d_f32_entry_split_floats(Cin, Cout, kt, kf, M)
+                     : conv2d_f32_entry_split_floats(Cout, Cin, kt, kf, M);
+  if (design == 1) return 2LL * M * kt * kf * Cin * Cout;
+  return 0;
 }
 
 // The dw pass's chunks at this shape on a card of `sms` SMs: the first
@@ -393,9 +474,9 @@ extern "C" int pbsed_conv2d_f32_dw_chunks(int B, int T, int F, int Cin,
 // flipped in both extents, channels transposed); dx (B, T, F, Cin) f32 or
 // null (then no dx pass, and w_flip may be null), dw (kt, kf, Cin, Cout)
 // f32, workspace (chunks, kt * kf * Cin, Cout) f32 with chunks =
-// pbsed_conv2d_f32_dw_chunks(..., sms) for this card's sms, split 2 kt kf
-// Cin Cout f32 where pbsed_conv2d_f32_design(1, ...) reports 3xTF32 for
-// dx, else may be null. Contiguous. Returns a cudaError_t.
+// pbsed_conv2d_f32_dw_chunks(..., sms) for this card's sms, split
+// pbsed_conv2d_f32_split_floats(1, ...) f32 where that is not 0 and dx is
+// asked for, else may be null. Contiguous. Returns a cudaError_t.
 extern "C" int pbsed_conv2d_same_f32_bwd(const void* x, const void* gy,
                                          const void* w_flip, void* dx,
                                          void* dw, void* workspace,
@@ -418,8 +499,13 @@ extern "C" int pbsed_conv2d_same_f32_bwd(const void* x, const void* gy,
     // the forward's GEMM on gy with the flipped weights, pads mirrored
     const float* wf = static_cast<const float*>(w_flip);
     float* dxs = static_cast<float*>(dx);
-    if (conv2d_f32_wgmma_ok(F, Cout, Cin, kt, kf)) {
-      if (split == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int design = f32_dx_design(F, Cin, Cout, kt, kf);
+    if (design != 0 && split == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (design == 2) {
+      err = conv2d_f32_entry(gs, wf, split, nullptr, dxs, 1, B, T, F, Cout,
+                             Cin, kt, kf, kt - 1 - lo_t, kf - 1 - lo_f, s);
+    } else if (design == 1) {
       err = conv2d_f32_wgmma(gs, wf, split, nullptr, dxs, 1, B, T, F, Cout,
                              Cin, kt, kf, kt - 1 - lo_t, kf - 1 - lo_f, s);
     } else {
@@ -430,7 +516,11 @@ extern "C" int pbsed_conv2d_same_f32_bwd(const void* x, const void* gy,
   }
   const int chunks = f32_dw_chunks(B, T, F, Cin, Cout, kt, kf, sms);
   float* part = static_cast<float*>(workspace);
-  if (conv2d_f32_dw_wgmma_ok(F, Cin, Cout, kt, kf)) {
+  const int dw_design = f32_dw_design(F, Cin, Cout, kt, kf);
+  if (dw_design == 2) {
+    err = conv2d_f32_dw_entry(xs, gs, part, B, T, F, Cin, Cout, kt, kf,
+                              chunks, s);
+  } else if (dw_design == 1) {
     err = conv2d_f32_dw_wgmma(xs, gs, part, B, T, F, Cin, Cout, kt, kf,
                               lo_t, lo_f, chunks, s);
   } else {

@@ -33,7 +33,9 @@ NVCC_FLAGS = (
 # the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
 # GRU pair's launches above H = 512, the ``conv2d_same*_entry`` ones the
 # conv pair's launches that run the entry kernels (Cin < 16, forward and
-# dw); all of these count under the pair's own names too
+# dw), the ``conv2d_same_f32*_entry`` ones the f32 pair's (Cin < 16:
+# forward, and a backward whose dw or dx runs them); all of these count
+# under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
             'avgpool_freq2': 0, 'avgpool_freq2_bwd': 0,
@@ -44,7 +46,8 @@ LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_f32_bwd': 0, 'gru_scan_wide': 0,
             'gru_scan_bwd_wide': 0, 'gru_scan_padded': 0,
             'gru_scan_bwd_padded': 0, 'conv2d_same_entry': 0,
-            'conv2d_same_bwd_entry': 0}
+            'conv2d_same_bwd_entry': 0, 'conv2d_same_f32_entry': 0,
+            'conv2d_same_f32_bwd_entry': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +82,8 @@ _SIGNATURES = {
 # with its ring depth and shared memory written to the two int pointers,
 # the dw pass's pixel chunks and its workspace's f32 elements (a long
 # long; csrc/conv2d.cu, csrc/conv2d_bwd.cu; the
-# f32 conv's csrc/conv2d_f32.cu, whose design query takes the pass first);
+# f32 conv's csrc/conv2d_f32.cu, whose design and split-buffer queries
+# take the pass first, the latter a long long);
 # which GRU kernel a shape runs, forward, split and fused backward, with
 # its cluster size, rows, shared memory, co-resident clusters, units a
 # block and bytes of w_hh resident and streamed a block written to the
@@ -92,6 +96,7 @@ _QUERIES = {
     'pbsed_conv2d_dw_workspace': (_I,) * 6,
     'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
     'pbsed_conv2d_f32_design': (_I,) * 6 + (_IP, _IP),
+    'pbsed_conv2d_f32_split_floats': (_I,) * 7,
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 7,
     'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 7,
     'pbsed_gru_bwd_fused_design': (_I,) * 4 + (_IP,) * 7,
@@ -187,6 +192,7 @@ def lib():
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         loaded.pbsed_conv2d_dw_workspace.restype = ctypes.c_longlong
+        loaded.pbsed_conv2d_f32_split_floats.restype = ctypes.c_longlong
         loaded.pbsed_error_string.argtypes = (ctypes.c_int,)
         loaded.pbsed_error_string.restype = ctypes.c_char_p
         _lib = loaded

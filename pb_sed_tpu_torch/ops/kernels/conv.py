@@ -8,8 +8,9 @@ autograd Functions that tie each forward to its backward (``Conv2dSame``,
 ``BnReluConv2dSame``, ``MaxPoolFreq2``, ``MaxPool2d``, ``AvgPoolFreq2``,
 ``AvgPool2d``); and the same conv in float32 for a
 ``compute_dtype='float32'`` tower (``Conv2dSameF32``: any extent and
-width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores where the
-shape fits, ``csrc/conv2d_f32_wgmma.cuh``, else f32 FFMA;
+width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores, on wgmma
+where the shape fits its tile (``csrc/conv2d_f32_wgmma.cuh``) and on
+mma.sync at Cin < 16 (``csrc/conv2d_f32_entry.cuh``), else f32 FFMA;
 :func:`conv_f32_designs` says which).
 
 The conv kernels take odd extents, Cout a multiple of 16 and Cin below
@@ -569,41 +570,54 @@ def conv2d_same_f32_plain(x, w, b):
 
 
 _F32_PASSES = {'fwd': 0, 'dx': 1, 'dw': 2}
+# the C design query's answers
+_F32_DESIGNS = {0: 'ffma', 1: '3xtf32', 2: 'entry'}
 
 
 @functools.lru_cache(maxsize=None)
 def _f32_design(name, f, cin, cout, kt, kf):
-    """(3xTF32?, stages, smem) of one pass of the f32 conv, as the C entry
+    """(design, stages, smem) of one pass of the f32 conv, as the C entry
     points decide (``pbsed_conv2d_f32_design``)."""
     stages, smem = ctypes.c_int(), ctypes.c_int()
-    tc = build.lib().pbsed_conv2d_f32_design(
+    code = build.lib().pbsed_conv2d_f32_design(
         _F32_PASSES[name], f, cin, cout, kt, kf, ctypes.byref(stages),
         ctypes.byref(smem))
-    return bool(tc), stages.value, smem.value
+    return _F32_DESIGNS[code], stages.value, smem.value
 
 
 def conv_f32_designs(f, cin, cout, kt=3, kf=3):
     """Which kernels the f32 conv of a (F, Cin -> Cout, kt x kf) layer runs
     on the card, as the C entry points decide: for each pass ``'fwd'``,
-    ``'dx'`` and ``'dw'`` a dict of ``design`` ('3xtf32', wgmma on the
-    tensor cores, ``csrc/conv2d_f32_wgmma.cuh``, or 'ffma'), ``stages``
-    (the depth of the 3xTF32 kernel's activation ring, 0 for FFMA) and
+    ``'dx'`` and ``'dw'`` a dict of ``design`` ('entry', mma.sync 3xTF32,
+    ``csrc/conv2d_f32_entry.cuh``: all three passes at Cin < 16; '3xtf32',
+    wgmma on the tensor cores, ``csrc/conv2d_f32_wgmma.cuh``: Cin and
+    Cout >= 16, multiples of 4, F a power of two dividing 128; or 'ffma'),
+    ``stages`` (the depth of the kernel's activation ring, 0 for FFMA) and
     ``smem`` (its dynamic shared memory in bytes)."""
     designs = {}
     for name in _F32_PASSES:
-        tc, stages, smem = _f32_design(name, f, cin, cout, kt, kf)
-        designs[name] = {'design': '3xtf32' if tc else 'ffma',
-                         'stages': stages, 'smem': smem}
+        design, stages, smem = _f32_design(name, f, cin, cout, kt, kf)
+        designs[name] = {'design': design, 'stages': stages, 'smem': smem}
     return designs
 
 
 def _f32_split(name, f, cin, cout, kt, kf, members, device):
-    """The buffer the 3xTF32 kernel splits the weights into (hi and lo,
-    2 M kt kf Cin Cout f32) when that pass runs it, else None."""
-    if not _f32_design(name, f, cin, cout, kt, kf)[0]:
+    """The buffer that pass ``name`` splits the weights into (their tf32
+    hi and lo parts, laid out for its kernel:
+    ``pbsed_conv2d_f32_split_floats``), or None where it splits none
+    (FFMA)."""
+    floats = build.lib().pbsed_conv2d_f32_split_floats(
+        _F32_PASSES[name], f, cin, cout, kt, kf, members)
+    if not floats:
         return None
-    return torch.empty(2 * members * kt * kf * cin * cout,
-                       dtype=torch.float32, device=device)
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def _aligned16(t):
+    """``t``, or a copy of it where its data do not start 16-byte aligned
+    (a member's view of a stack): the f32 kernels copy activations in
+    16-byte units."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch_conv_f32(x, w, b):
@@ -613,7 +627,7 @@ def _launch_conv_f32(x, w, b):
     build.require_cuda(x, w)
     members, bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape[1:]
-    x = x.contiguous()
+    x = _aligned16(x.contiguous())
     w = w.float().contiguous()
     b = None if b is None else b.float().contiguous()
     y = torch.empty((members, bsz, t, f, cout), dtype=torch.float32,
@@ -624,6 +638,8 @@ def _launch_conv_f32(x, w, b):
                  None if b is None else b.data_ptr(), y.data_ptr(),
                  None if split is None else split.data_ptr(),
                  members, bsz, t, f, cin, cout, kt, kf)
+    if _f32_design('fwd', f, cin, cout, kt, kf)[0] == 'entry':
+        build.LAUNCHES['conv2d_same_f32_entry'] += 1
     return y
 
 
@@ -631,8 +647,8 @@ def conv2d_same_f32(x, w, b):
     """Stride-1 SAME conv (XLA's pads) in float32: ``(B, T, F, Cin)`` f32
     -> ``(B, T, F, Cout)`` f32, f32 sums and an f32 bias, any kernel
     extent and channel counts (``csrc/conv2d_f32.cu``: 3xTF32 on the
-    tensor cores or the FFMA implicit GEMM, :func:`conv_f32_designs`; no
-    plain TF32).
+    tensor cores, the entry kernels at Cin < 16, or the FFMA implicit
+    GEMM, :func:`conv_f32_designs`; no plain TF32).
 
     Args:
         x: (B, T, F, Cin) float32 activations.
@@ -712,8 +728,8 @@ def conv2d_same_f32_bwd(x, w, gy, need_dx=True):
     build.require_cuda(x, w, gy)
     bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape
-    x = x.contiguous()
-    gy = gy.float().contiguous()
+    x = _aligned16(x.contiguous())
+    gy = _aligned16(gy.float().contiguous())
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     chunks = build.lib().pbsed_conv2d_f32_dw_chunks(bsz, t, f, cin, cout,
                                                     kt, kf, sms)
@@ -733,13 +749,18 @@ def conv2d_same_f32_bwd(x, w, gy, need_dx=True):
                  workspace.data_ptr(),
                  None if split is None else split.data_ptr(),
                  bsz, t, f, cin, cout, kt, kf, sms)
+    if 'entry' in [_f32_design(name, f, cin, cout, kt, kf)[0]
+                   for name in (('dx', 'dw') if need_dx else ('dw',))]:
+        build.LAUNCHES['conv2d_same_f32_bwd_entry'] += 1
     return dx, dw
 
 
 @cache_signature
 class Conv2dSameF32(torch.autograd.Function):
     """:func:`conv2d_same_f32` with its backward: dx (only where autograd
-    needs it: a tower's log-mel input needs none) and dw from
+    needs it: the recipes' entry layer needs it, since their pre-activation
+    norm's learnable scale and shift sit before it; a layer with nothing
+    upstream that needs a gradient runs none) and dw from
     :func:`conv2d_same_f32_bwd`, db the sum of the cotangent. Under
     ``torch.func.vmap`` (a stacked ensemble) all members in one launch,
     :func:`conv2d_same_f32_members`."""

@@ -31,12 +31,13 @@ def alternate(tree_a, tree_b, rounds, measure):
     return runs
 
 
-def run_child(script, tree, tags, timeout=1500):
-    """Run ``script --time`` with ``tree`` as its working directory and
-    return, per tag of ``tags``, the JSON of its last output line that
-    starts with the tag and a space; raises on a failed run."""
-    proc = subprocess.run([sys.executable, str(script), '--time'], cwd=tree,
-                          capture_output=True, text=True, timeout=timeout)
+def run_child(script, tree, tags, timeout=1500, args=()):
+    """Run ``script --time`` (and ``args``) with ``tree`` as its working
+    directory and return, per tag of ``tags``, the JSON of its last output
+    line that starts with the tag and a space; raises on a failed run."""
+    proc = subprocess.run([sys.executable, str(script), '--time', *args],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f'{tree}: rc {proc.returncode}\n'
                            f'{proc.stderr[-3000:]}')

@@ -3,6 +3,7 @@ and at the layers that run off the wgmma pair's old tile, in one or two
 checkouts of this repository, on one CUDA card.
 
     python3 scripts/perf/entry_conv_probe.py [TREE_A [TREE_B]] [--rounds 1]
+        [--f32]
 
 Shapes (B = 32, T = 500, 3x3): the shallow (F 128, 1 -> 16), deep (128,
 1 -> 32) and tag-conditioned BiCRNN (128, 11 -> 16) L0; 14b's 3x3 layers
@@ -31,6 +32,15 @@ bound (bytes at 3.35 TB/s, each input read once and each output written
 once, or bf16 operations at 989 TFLOP/s, whichever is larger) and its
 share of it. The card's name and power limit come first. With no tree
 the working directory is timed once.
+
+With ``--f32`` it times the f32 conv (``compute_dtype='float32'``:
+``conv2d_same_f32`` and ``conv2d_same_f32_bwd``) at the three entry
+layers instead, f32 activations: per tree the device ms of the forward,
+the dx (the forward-type GEMM inside the backward, with its weights'
+split) and the dw (a backward without dx: the dw partials and their
+reduce), beside cuDNN's f32 forward, dgrad and wgrad with TF32 off and
+each pass's bound (bytes at 3.35 TB/s, each activation read or written
+once, or 3 TF32 products an f32 product at 495 TFLOP/s).
 """
 import argparse
 import json
@@ -81,6 +91,112 @@ def _part(key):
     if 'conv2d_entry' in key:
         return 'fwd'
     return 'glue'
+
+
+F32_SHAPES = SHAPES[:3]
+TF32_FLOPS = 495e12
+
+
+def f32_bounds(f, cin, cout):
+    """The least ms of each pass of the f32 conv: its activations' bytes
+    (the weights' too) or its 3xTF32 products, whichever is larger."""
+    p = B * T * f
+    nbytes = 4 * (p * (cin + cout) + TAPS * cin * cout)
+    ops = 3. * 2. * p * TAPS * cin * cout
+    ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / TF32_FLOPS)
+    return dict.fromkeys(('fwd', 'dx', 'dw'), ms)
+
+
+def _f32_part(key):
+    if 'dw_' in key:
+        return 'dw'
+    if 'conv2d_f32' in key:
+        return 'gemm'
+    return 'glue'
+
+
+def time_tree_f32():
+    """Run inside a tree: print one line ``F32 {json}`` of the f32 conv's
+    passes at the entry layers (device ms by part)."""
+    sys.path.insert(0, os.getcwd())
+
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from pb_sed_tpu_torch.ops.kernels import conv as K
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def device(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            rows = cs.profile_kernels(lambda: [fn() for _ in range(reps)])
+            if rows:
+                parts = {}
+                for ms, key, _ in rows:
+                    part = _f32_part(key)
+                    parts[part] = parts.get(part, 0.) + ms / reps
+                parts['all'] = sum(ms for ms, _, _ in rows) / reps
+                return parts
+        raise RuntimeError('the profiler recorded no device kernel')
+
+    out = {}
+    for name, f, cin, cout in F32_SHAPES:
+        x = torch.randn(B, T, f, cin, generator=gen, device=dev)
+        w = torch.randn(3, 3, cin, cout, generator=gen, device=dev) * (
+            9 * cin) ** -.5
+        b = .1 * torch.randn(cout, generator=gen, device=dev)
+        gy = 1e-3 * torch.randn(B, T, f, cout, generator=gen, device=dev)
+        xn, gyn = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        wn = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+        def cudnn_bwd(mask):
+            return device(lambda: torch.ops.aten.convolution_backward(
+                gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                mask))['all']
+        fwd = device(lambda: K.conv2d_same_f32(x, w, b))
+        bwd = device(lambda: K.conv2d_same_f32_bwd(x, w, gy))
+        no_dx = device(lambda: K.conv2d_same_f32_bwd(x, w, gy,
+                                                     need_dx=False))
+        out[name] = {
+            'designs': {k: d['design'] for k, d in
+                        K.conv_f32_designs(f, cin, cout).items()},
+            'fwd': fwd.get('gemm', 0.), 'dx': bwd.get('gemm', 0.),
+            'dw': no_dx.get('dw', 0.),
+            'glue': {'fwd': fwd.get('glue', 0.), 'bwd': bwd.get('glue', 0.),
+                     'no_dx': no_dx.get('glue', 0.)},
+            'cudnn_fwd': device(lambda: F.conv2d(xn, wn, b,
+                                                 padding=1))['all'],
+            'cudnn_dx': cudnn_bwd([True, False, False]),
+            'cudnn_dw': cudnn_bwd([False, True, False])}
+        del x, gy, xn, gyn
+        torch.cuda.empty_cache()
+    print('F32 ' + json.dumps(out), flush=True)
+
+
+def report_f32(runs):
+    """One line per entry layer and pass: each tree's best device ms, the
+    bound and the last tree's share of it, cuDNN's f32 call (the last
+    tree's last run)."""
+    sides = sorted(runs)
+    for name, f, cin, cout in F32_SHAPES:
+        bnd = f32_bounds(f, cin, cout)
+        last = runs[sides[-1]][-1][name]
+        for key in ('fwd', 'dx', 'dw'):
+            best = {side: min(r[name][key] for r in runs[side])
+                    for side in sides}
+            designs = ' / '.join(runs[side][-1][name]['designs'][key]
+                                 for side in sides)
+            ms = best[sides[-1]]
+            print(f'f32 {name} ({f}, {cin} -> {cout}) {key}: '
+                  + ', '.join(f'{side} {v:.4f}' for side, v in best.items())
+                  + f' ms ({designs}); bound {bnd[key]:.4f}, share '
+                  f'{bnd[key] / ms:.2f}; cuDNN f32 {last["cudnn_" + key]:.4f}',
+                  flush=True)
 
 
 def time_tree():
@@ -211,12 +327,28 @@ def main():
     parser.add_argument('trees', nargs='*')
     parser.add_argument('--rounds', type=int, default=1)
     parser.add_argument('--time', action='store_true')
+    parser.add_argument('--f32', action='store_true')
     args = parser.parse_args()
     if args.time:
-        time_tree()
+        (time_tree_f32 if args.f32 else time_tree)()
         return
     print(ab.card(), flush=True)
     script = Path(__file__).resolve()
+    if args.f32:
+        trees = args.trees or ['.']
+
+        def measure(tree):
+            return ab.run_child(script, tree, ('F32',),
+                                args=('--f32',))['F32']
+        if len(trees) < 2:
+            runs = {'A': [measure(trees[0])]}
+        else:
+            runs = ab.alternate(trees[0], trees[1], args.rounds, measure)
+        for side, tree in zip('AB', trees):
+            print(f'{side} = {tree}', flush=True)
+        report_f32(runs)
+        print('F32 JSON ' + json.dumps(runs), flush=True)
+        return
     if len(args.trees) < 2:
         tree = args.trees[0] if args.trees else '.'
         report(tree, ab.run_child(script, tree, ('CONV',))['CONV'])

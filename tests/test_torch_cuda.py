@@ -15,8 +15,10 @@ axis of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
 and f32; the conv at Cout off a multiple of 16 and even kernel extents;
 the GRU at hidden sizes off a multiple of 32 and on the cluster design of
-16 blocks above 512; the f32 conv and its backward on both designs,
-with a member axis, dw over 256 000 pixels), the determinism
+16 blocks above 512; the f32 conv and its backward on its three designs,
+the entry kernels at the recipes' entry widths, F 40 and odd, with a
+member axis, dw over 256 000 pixels on 3xTF32 and on the entry kernels),
+the determinism
 of the weight gradients, and the wrappers' raises. They need a CUDA card and
 skip without one; ``chip_smoke.py`` covers the main path's shapes.
 
@@ -875,22 +877,36 @@ def test_wide_gru_members_in_the_direction_axis(gen):
 # BN 16), Cout off 16 with an even kernel, a 4 x 3 kernel on a ragged
 # pixel tile, the late shallow layers' widths, and a 1x1; then shapes of
 # the 3xTF32 design: two column tiles of 64 (and, with the member axis
-# below, two members on it), and L8's Cout 256 at F = 8 on a ragged tile
+# below, two members on it), and L8's Cout 256 at F = 8 on a ragged tile;
+# then the recipes' three entry layers (1 -> 16, 1 -> 32, 11 -> 16) on the
+# entry kernels at T off their tiles and F = 40 (not a power of two),
+# the BiCRNN's also at F = 128, a 5 x 3 kernel at F = 37 (odd; its dw
+# pads its tile's pixels to 16), Cin = 8 (the forward's pair loads, Cout
+# 40 in 16-channel chunks), and a dx from 36 channels at F = 200 (its
+# halo in windows of frequencies, copied float by float)
 F32_CONV_SHAPES = [(2, 9, 16, 1, 16, 3, 3), (1, 7, 8, 16, 16, 3, 3),
                    (2, 9, 8, 24, 7, 2, 2), (1, 5, 6, 33, 40, 4, 3),
                    (2, 50, 16, 128, 256, 3, 3), (1, 7, 8, 64, 96, 1, 1),
-                   (2, 12, 16, 64, 128, 3, 3), (1, 40, 8, 128, 256, 3, 3)]
+                   (2, 12, 16, 64, 128, 3, 3), (1, 40, 8, 128, 256, 3, 3),
+                   (2, 9, 40, 1, 16, 3, 3), (1, 13, 40, 1, 32, 3, 3),
+                   (2, 7, 40, 11, 16, 3, 3), (1, 5, 128, 11, 16, 3, 3),
+                   (1, 11, 37, 3, 24, 5, 3), (1, 9, 24, 8, 40, 3, 3),
+                   (1, 5, 200, 3, 36, 3, 3)]
 
 
 def _f32_design_wanted(f, cin, cout):
-    """The design of each pass as the rule has it: 3xTF32 where the
-    GEMM's input and output channels are >= 16 and multiples of 4 and F
-    is a power of two dividing 128, FFMA elsewhere (the entry layer)."""
+    """The design of each pass as the rule has it: the entry kernels at
+    Cin < 16 (all three passes; the dx's output is then narrow), 3xTF32
+    where the GEMM's input and output channels are >= 16 and multiples of
+    4 and F is a power of two dividing 128, FFMA elsewhere."""
     def takes(c_in, n):
         return (c_in >= 16 and n >= 16 and c_in % 4 == 0 and n % 4 == 0
                 and 128 % f == 0)
-    return {'fwd': takes(cin, cout), 'dx': takes(cout, cin),
-            'dw': takes(cin, cout)}
+    if cin < 16:
+        return dict.fromkeys(('fwd', 'dx', 'dw'), 'entry')
+    return {name: '3xtf32' if tc else 'ffma' for name, tc in (
+        ('fwd', takes(cin, cout)), ('dx', takes(cout, cin)),
+        ('dw', takes(cin, cout)))}
 
 
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', F32_CONV_SHAPES)
@@ -903,9 +919,8 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
     rule gives its shape; the member axis one launch equal to each
     member's in every bit."""
     designs = conv_f32_designs(f, cin, cout, kt, kf)
-    for name, tc in _f32_design_wanted(f, cin, cout).items():
-        assert designs[name]['design'] == ('3xtf32' if tc else 'ffma'), (
-            name, designs[name])
+    for name, want in _f32_design_wanted(f, cin, cout).items():
+        assert designs[name]['design'] == want, (name, designs[name])
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
     w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
         kt * kf * cin) ** -.5
@@ -921,8 +936,11 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
     assert dx.shape == x.shape and dw.shape == w.shape
     assert _max_err(dx, ref_dx) <= 2e-5 * float(ref_dx.abs().max())
     assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
-    for name in ('conv2d_same_f32', 'conv2d_same_f32_bwd'):
-        assert build.LAUNCHES[name] == n[name] + 1, name
+    entry = int(cin < 16)
+    for name, more in (('conv2d_same_f32', 1), ('conv2d_same_f32_bwd', 1),
+                       ('conv2d_same_f32_entry', entry),
+                       ('conv2d_same_f32_bwd_entry', entry)):
+        assert build.LAUNCHES[name] == n[name] + more, name
     again = conv2d_same_f32_bwd(x, w, gy)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
     no_dx, dw_alone = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
@@ -943,6 +961,21 @@ def test_f32_conv_dw_over_a_long_run(gen):
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
     w = torch.randn(3, 3, cin, cout, generator=gen, device='cuda') * (
         9 * cin) ** -.5
+    gy = torch.randn(b, t, f, cout, generator=gen, device='cuda')
+    _, dw = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
+    ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)[1]
+    assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
+    assert torch.equal(dw, conv2d_same_f32_bwd(x, w, gy, need_dx=False)[1])
+
+
+def test_f32_entry_dw_over_a_long_run(gen):
+    """The entry kernels' dw at Cin = 1 summed over 256 000 pixels (8
+    ten-second clips at F = 64, 1 -> 32 channels): within 1e-4 of the
+    largest entry of the plain version's, bit-identical on a rerun."""
+    b, t, f, cin, cout = 8, 500, 64, 1, 32
+    assert conv_f32_designs(f, cin, cout)['dw']['design'] == 'entry'
+    x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
+    w = torch.randn(3, 3, cin, cout, generator=gen, device='cuda') / 3.
     gy = torch.randn(b, t, f, cout, generator=gen, device='cuda')
     _, dw = conv2d_same_f32_bwd(x, w, gy, need_dx=False)
     ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)[1]

@@ -172,6 +172,38 @@ def test_f32_conv_backward_skips_dx_without_changing_dw(monkeypatch):
     assert dx is None and torch.equal(dw, grads[True][0])
 
 
+@pytest.mark.parametrize('norm,input_grad,want', [
+    ('batch', False, True),   # the recipes: norm_0's scale and shift
+    (None, False, False),     # nothing upstream needs a gradient
+])
+def test_f32_entry_layer_asks_for_dx_where_upstream_needs_it(
+        monkeypatch, norm, input_grad, want):
+    """The entry layer (Cin = 1) of a pre-activation f32 tower, as the
+    shallow recipe builds it: under a batch norm, whose learnable scale and
+    shift sit before it, its backward asks for dx (``need_dx=True``) even
+    where the tower's input needs no gradient; without a norm, and with an
+    input that needs none, it asks for none."""
+    rng = np.random.RandomState(22)
+    tower = tcnn.CNN2d(out_channels=[4, 4], kernel_size=3,
+                       pool_size=[1, [2, 1]], pre_activation=True,
+                       norm=norm, compute_dtype='float32', in_channels=1)
+    bridge.load_flat(tower, bridge.random_flat(bridge.export_flat(tower), 5))
+    tower.train()
+    x = torch.from_numpy(rng.randn(2, 7, 8, 1).astype(np.float32))
+    x.requires_grad_(input_grad)
+    asked = []
+
+    def spy(*args, **kwargs):
+        asked.append((args[0].shape[-1], kwargs['need_dx']))
+        return conv2d_same_f32_bwd(*args, **kwargs)
+
+    monkeypatch.setattr(kconv, 'conv2d_same_f32_bwd', spy)
+    y, _ = tower(x, torch.tensor([7, 5]))
+    y.sum().backward()
+    assert dict(asked)[1] is want, asked
+    assert len(asked) == 2
+
+
 def _tf32(a):
     """``cvt.rna.tf32.f32``: f32 rounded to 10 mantissa bits, ties away
     from zero (half an ulp added to the magnitude, the low 13 bits
@@ -181,23 +213,34 @@ def _tf32(a):
         np.float32)
 
 
-def _split(a):
+def _tf32_truncated(a):
+    """An f32 value as the tensor cores read it as a tf32 operand: the low
+    13 bits dropped."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a, lo_rounded=True):
     hi = _tf32(a)
-    return hi, _tf32(a - hi)   # a - hi is exact in f32
+    lo = a - hi   # exact in f32
+    return hi, _tf32(lo) if lo_rounded else _tf32_truncated(lo)
 
 
-def _emulated_3xtf32(a, b, run):
+def _emulated_3xtf32(a, b, run, a_lo_rounded=True, b_lo_rounded=True):
     """``a (M, K) @ b (K, N)`` as the card's 3xTF32 kernels take it: each
     operand split into tf32 hi and lo, per k8 step the block sums of
     hi*lo, lo*hi and hi*hi (lo*lo dropped; products exact, each block sum
     rounded once to f32) added in that order to an f32 run sum, which
     starts afresh every ``run`` k8 steps and is then added to an f32
     register sum. The block sums round to nearest: this models the split
-    and the f32 sums, not the tensor cores' own accumulation."""
+    and the f32 sums, not the tensor cores' own accumulation. An operand
+    whose lo is not rounded (``*_lo_rounded=False``: the entry kernels'
+    activations, split in registers) has it truncated to tf32, as the
+    tensor cores read an f32 register."""
     pad = -a.shape[1] % 8
     a = np.pad(a, ((0, 0), (0, pad)))
     b = np.pad(b, ((0, pad), (0, 0)))
-    (ahi, alo), (bhi, blo) = _split(a), _split(b)
+    (ahi, alo), (bhi, blo) = _split(a, a_lo_rounded), _split(b, b_lo_rounded)
     steps = a.shape[1] // 8
 
     def blocks(p, q):
@@ -225,17 +268,31 @@ def _emulated_3xtf32(a, b, run):
     ('fwd', 2304, 36, 2e-5),
     # dw over 20 000 pixels, a run a 128-pixel tile of one tap
     ('dw', 20000, 16, 1e-4),
+    # the entry kernels (csrc/conv2d_f32_entry.cuh), a run one k8 step:
+    # the forward at Cin = 1 (K = 9) and at Cin = 11 (K = 99, padded to
+    # 112), the dx of a 16- and a 32-channel layer (K = 144, 288), the dw
+    # at Cin = 1 over 20 000 pixels (both operands activations)
+    ('entry fwd', 9, 1, 2e-5),
+    ('entry fwd', 112, 1, 2e-5),
+    ('entry dx', 144, 1, 2e-5),
+    ('entry dx', 288, 1, 2e-5),
+    ('entry dw', 20000, 1, 1e-4),
 ])
 def test_3xtf32_split_error_is_a_tenth_of_the_gate(name, k, run, gate):
     """The 3xTF32 split with f32 sums against the f64 sum of the f32
     operands: within a tenth of the card's gate (``gate * max|ref|``),
-    where plain TF32 (hi*hi alone) misses the whole gate."""
+    where plain TF32 (hi*hi alone) misses the whole gate. The entry
+    kernels split the weights with cvt.rna and the activations in
+    registers (their lo truncated by the tensor cores): the forward's and
+    dx's A operand, both of the dw's."""
     rng = np.random.RandomState(k)
     a = rng.randn(32, k).astype(np.float32)
     b = (rng.randn(k, 16) / np.sqrt(k)).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     scale = float(np.abs(ref).max())
-    got = _emulated_3xtf32(a, b, run)
+    entry = name.startswith('entry')
+    got = _emulated_3xtf32(a, b, run, a_lo_rounded=not entry,
+                           b_lo_rounded=name != 'entry dw')
     assert np.abs(got - ref).max() <= .1 * gate * scale, name
     plain = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
     assert np.abs(plain - ref).max() > gate * scale, name
