@@ -335,7 +335,14 @@ runs, in order:
    deep 1 -> 32, BiCRNN 11 -> 16) on the f32 entry kernels
    (``csrc/conv2d_f32_entry.cuh``): forward, dx and dw against the plain
    versions, dw bit-identical on a rerun and without dx, each pass's
-   device time beside its bound and cuDNN's f32 call. After phase 14:
+   device time beside its bound and cuDNN's f32 call; then 14b's seven
+   3x3 layers off a power-of-two F (F = 40, 20, 10, 5) and a layer at
+   Cout = 10 (F 40, 24 -> 10) in f32 on the 3xTF32 pair's rows x W tiles
+   (the narrow layer padded to 16 channels, its dx from 10 on the entry
+   kernels): forward, dx and dw against the plain versions, dw
+   bit-identical on a rerun and without dx, each pass's design and
+   device time beside its bound and cuDNN's f32 call, and the seven
+   layers' sums. After phase 14:
    15a, the shallow FBCRNN with ``compute_dtype='float32'`` in both towers
    and both heads' output nets (L0 on the entry kernels, forward, dx and
    dw; L1-L8 on 3xTF32), serves 3 batches of 32 ten-second clips by
@@ -345,7 +352,12 @@ runs, in order:
    batches and trains 8 steps; 15e, the tag-conditioned BiCRNN with
    ``compute_dtype='float32'`` in both towers and the output net (its
    Cin = 11 entry layer on the entry kernels), tags 32 clips and trains 4
-   steps. Served runs agree with the CPU, trained ones pass the
+   steps; 15f, 14b's configuration (the deep recipe at 40 mel bins, 24
+   channels in its first four 2-D layers, 527 classes) with
+   ``compute_dtype='float32'`` in both towers and the output net (L0 on
+   the entry kernels, every other 3x3 layer on 3xTF32 at F = 40 ... 5),
+   tags 32 clips and trains 4 steps, its steps/s, clips/s and peak memory
+   beside 14b's bf16 run. Served runs agree with the CPU, trained ones pass the
    card-vs-CPU step (the CPU's noise with its bf16 convs and its GRU
    summed in f64 too); clips/s, steps/s and peak memory beside phases
    3-4's.
@@ -709,8 +721,9 @@ def log_ptxas(text):
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
                            'avgpool2d', 'gru_scan_wide_cluster_kernel',
-                           'gru_bwd_wide_cluster_kernel', 'conv2d_f32_kernel',
-                           'conv2d_f32_dw_kernel',
+                           'gru_bwd_wide_cluster_kernel',
+                           'conv2d_f32_entry_kernel',
+                           'conv2d_f32_dw_entry_kernel',
                            'conv2d_f32_dw_reduce_kernel',
                            'conv2d_f32_wgmma_kernel',
                            'conv2d_f32_dw_wgmma_kernel',
@@ -5510,6 +5523,16 @@ F32_ENTRY = ('conv2d_same_f32_entry', 'conv2d_same_f32_bwd_entry')
 # the recipes' entry layers (F, Cin -> Cout) on the f32 entry kernels
 F32_ENTRY_LAYERS = [('shallow L0', 128, 1, 16), ('deep L0', 128, 1, 32),
                     ('BiCRNN L0', 128, 11, 16)]
+# 14b's 3x3 layers off a power-of-two F and a layer at Cout = 10 (padded
+# to 16 for the forward and dw; its dx from 10 channels) in f32
+F32_OFF_TILE_LAYERS = TOWER_14B_LAYERS[1:] + [('Cout 10', 40, 24, 10)]
+# the f32 kernels by the profiler's names: the forward-type GEMM (the
+# forward, or the dx inside the backward) with its weights' split on
+# either design, and the dw pass with its reduce
+F32_KERNELS = {'gemm': ('conv2d_f32_wgmma_kernel', 'conv2d_f32_split_kernel',
+                        'conv2d_f32_entry_kernel',
+                        'conv2d_f32_entry_split_kernel'),
+               'dw': ('conv2d_f32_dw_',)}
 # 15a's f32 towers; 15b's and 15c's hidden sizes
 F32_PATHS = ('cnn_2d', 'cnn_1d')
 WIDE_HIDDEN = 768
@@ -5535,6 +5558,35 @@ def _f32_work(p, cin, cout, taps=9, backward=False, ffma=False):
     return bound(nbytes, tf32_flops=3. * flops)
 
 
+def f32_designs_wanted(cin, cout):
+    """The f32 conv's design of each pass of a (Cin -> Cout) layer, as the
+    rule has it: the entry kernels at Cin < 16 (all three passes) and for
+    the dx of a layer with Cout < 16 (a GEMM from fewer than 16 channels),
+    3xTF32 on wgmma everywhere else."""
+    if cin < 16:
+        return dict.fromkeys(('fwd', 'dx', 'dw'), 'entry')
+    return {'fwd': '3xtf32', 'dx': 'entry' if cout < 16 else '3xtf32',
+            'dw': '3xtf32'}
+
+
+def _assert_f32_layer(label, layer, f, cin, cout):
+    """Log each pass's f32 design at a 3x3 layer (kernel, launch channels,
+    tile of width x rows pixels, ring, shared memory) and assert the rule
+    (:func:`f32_designs_wanted`), the kernel whole (no tap blocks)."""
+    from pb_sed_tpu_torch.ops.kernels.conv import conv_f32_designs
+    designs = conv_f32_designs(f, cin, cout)
+    log(f'{label}: f32 conv design {layer} ({f}, {cin} -> {cout}): '
+        + '; '.join(f'{key} {v["design"]} at {v["channels"]}, tile '
+                    f'{v["tile"][0]} x {v["tile"][1]}, {v["stages"]} '
+                    f'stages, {v["smem"] / 1024:.0f} KiB'
+                    for key, v in designs.items()))
+    want = f32_designs_wanted(cin, cout)
+    got = {key: v['design'] for key, v in designs.items()}
+    if got != want or any(v['taps'] != (3, 3) for v in designs.values()):
+        raise AssertionError(f'{label}: f32 conv at {layer} runs '
+                             f'{designs}, not {want}')
+
+
 def check_width_kernels(records):
     """Phase 15d, phases 2 and 2b for this phase's kernels (B = 32 ten-second
     clips): the GRU pair at ``WIDTH_GRU_SHAPES`` (the cluster design of 16
@@ -5557,8 +5609,7 @@ def check_width_kernels(records):
     from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
                                                    conv2d_same_f32_bwd,
                                                    conv2d_same_f32_bwd_plain,
-                                                   conv2d_same_f32_plain,
-                                                   conv_f32_designs)
+                                                   conv2d_same_f32_plain)
     from pb_sed_tpu_torch.ops.kernels.functions import full_f32
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -5649,16 +5700,8 @@ def check_width_kernels(records):
         del xw, y, g, args, part, grads, refs, again
         torch.cuda.empty_cache()
     for layer, f, cin, cout in CONV_LAYERS:
-        designs = conv_f32_designs(f, cin, cout)
-        for key, v in designs.items():
-            log(f'f32 conv design {layer} ({f}, {cin} -> {cout}) {key}: '
-                f'{v["design"]}, {v["stages"]} stages, '
-                f'{v["smem"] / 1024:.0f} KiB shared memory')
-            # 3xTF32 at L1-L8, the entry kernels at L0 (Cin = 1)
-            want = 'entry' if cin < 16 else '3xtf32'
-            if v['design'] != want:
-                raise AssertionError(f'f32 conv {key} at {layer} runs '
-                                     f'{v["design"]}, not {want}')
+        # 3xTF32 at L1-L8, the entry kernels at L0 (Cin = 1)
+        _assert_f32_layer('15d', layer, f, cin, cout)
         x = randn(BATCH, FRAMES, f, cin)
         w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
         bias = randn(cout, scale=.1)
@@ -5738,6 +5781,7 @@ def check_width_kernels(records):
         del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
         torch.cuda.empty_cache()
     check_f32_entry_layers(records, randn)
+    check_f32_off_tile_layers(records, randn)
     log('gru library (phase 15): ' + json.dumps(library))
     _padded_width_choice(randn)
     _padded_wide_width(randn)
@@ -5854,6 +5898,124 @@ def check_f32_entry_layers(records, randn):
         + json.dumps(rows))
 
 
+def check_f32_off_tile_layers(records, randn):
+    """Phase 15d at ``F32_OFF_TILE_LAYERS`` (B = 32 ten-second clips): 14b's
+    seven 3x3 layers at F = 40, 20, 10 and 5 in f32, on the 3xTF32 pair's
+    tiles of rows x W pixels (120 at F = 40, 125 at F = 5), and a layer at
+    Cout = 10 (padded to 16 for the forward and dw, its dx from 10
+    channels on the entry kernels). Per layer: each pass's design
+    (asserted, :func:`_assert_f32_layer`); the forward, dx and dw against
+    the plain versions (2e-5 of the largest entry forward and dx, 1e-4 for
+    dw); dw equal in every bit on a rerun and without dx; each pass's
+    device time (torch.profiler: the f32 kernels alone, the weights' split
+    with the GEMM, the dw with its reduce; the wrappers' glue, the channel
+    pad and narrowing, printed apart) beside its bound (3 TF32 products at
+    495 TFLOP/s per f32 product, or bytes) and cuDNN's f32 call with TF32
+    off, into ``records['conv2d_same_f32']`` and
+    ``records['conv2d_same_f32_bwd']`` (label 'widths'); then the seven
+    14b layers' sums, forward and backward (dx + dw), beside cuDNN's and
+    the bound."""
+    from pb_sed_tpu_torch.ops.kernels.conv import (conv2d_same_f32,
+                                                   conv2d_same_f32_bwd,
+                                                   conv2d_same_f32_bwd_plain,
+                                                   conv2d_same_f32_plain)
+    from pb_sed_tpu_torch.ops.kernels.functions import full_f32
+
+    def in_f32(call):
+        with full_f32():
+            return call()
+
+    def parts(fn, reps=5):
+        """Device ms per call of ``fn()`` by part, from one profile:
+        'gemm' and 'dw' (``F32_KERNELS``), 'glue' every other kernel."""
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            found = profile_kernels(lambda: [fn() for _ in range(reps)])
+            if found:
+                out = dict.fromkeys(('gemm', 'dw', 'glue'), 0.)
+                for ms, key, _ in found:
+                    part = next((name for name, keys in F32_KERNELS.items()
+                                 if any(k in key for k in keys)), 'glue')
+                    out[part] += ms / reps
+                return out
+        raise AssertionError('the profiler recorded no device kernel in '
+                             'three tries')
+
+    rows = {}
+    for layer, f, cin, cout in F32_OFF_TILE_LAYERS:
+        _assert_f32_layer('15d', layer, f, cin, cout)
+        x = randn(BATCH, FRAMES, f, cin)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -.5)
+        bias = randn(cout, scale=.1)
+        gy = randn(BATCH, FRAMES, f, cout, scale=1e-3)
+        p = BATCH * FRAMES * f
+        shape = (layer, BATCH, FRAMES, f, cin, cout)
+        xn, gyn = _nchw(x), _nchw(gy)
+        wn = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+        work = _f32_pass_work(p, cin, cout)
+        row = {}
+        got, ref = conv2d_same_f32(x, w, bias), conv2d_same_f32_plain(
+            x, w, bias)
+        fwd = parts(lambda: conv2d_same_f32(x, w, bias))
+        lib = device_ms(lambda: in_f32(lambda: F.conv2d(xn, wn, bias,
+                                                        padding=1)))
+        _check('conv2d_same_f32', shape, got, ref,
+               2e-5 * float(ref.abs().max()), fwd['gemm'],
+               device_ms(lambda: conv2d_same_f32_plain(x, w, bias), reps=2),
+               records['conv2d_same_f32'], 'widths', lib, work)
+        row['fwd'] = [fwd['gemm'], lib, work[0], fwd['glue']]
+        del got, ref
+        dx, dw = conv2d_same_f32_bwd(x, w, gy)
+        ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
+        plain_ms = device_ms(lambda: conv2d_same_f32_bwd_plain(x, w, gy),
+                             reps=2)
+        # dx and dw from one profile of the backward (its glue, the pad,
+        # the narrowing and the weight flip, beside dx)
+        bwd = parts(lambda: conv2d_same_f32_bwd(x, w, gy))
+        for name, got, ref, gate in (('dx', dx, ref_dx, 2e-5),
+                                     ('dw', dw, ref_dw, 1e-4)):
+            keep = name == 'dx'
+            ms = bwd['gemm' if keep else 'dw']
+            glue = bwd['glue'] if keep else 0.
+            lib = device_ms(lambda: in_f32(
+                lambda: torch.ops.aten.convolution_backward(
+                    gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [keep, not keep, False])))
+            # the plain backward is timed whole, once (beside dx)
+            _check(f'conv2d_same_f32_bwd {name}', shape, got, ref,
+                   gate * float(ref.abs().max()), ms,
+                   plain_ms if keep else 0.,
+                   records['conv2d_same_f32_bwd'], 'widths', lib, work)
+            row[name] = [ms, lib, work[0], glue]
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape}: a '
+                                 f'second run differs')
+        if not torch.equal(dw, conv2d_same_f32_bwd(x, w, gy,
+                                                   need_dx=False)[1]):
+            raise AssertionError(f'conv2d_same_f32_bwd dw at {shape} '
+                                 f'differs without dx')
+        log(f'f32 off-tile {layer} ({f}, {cin} -> {cout}), device ms '
+            f'(kernel, cuDNN f32 TF32 off, bound, share; glue): ' + '; '.join(
+                f'{key} {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}, '
+                f'{v[2] / v[0]:.2f}; {v[3]:.4f}' for key, v in row.items()))
+        rows[layer] = row
+        del x, gy, dx, dw, ref_dx, ref_dw, xn, gyn
+        torch.cuda.empty_cache()
+    seven = [rows[name] for name, *_ in TOWER_14B_LAYERS[1:]]
+    sums = {key: [sum(r[key][i] for r in seven) for i in range(3)]
+            for key in ('fwd', 'dx', 'dw')}
+    bwd = [sums['dx'][i] + sums['dw'][i] for i in range(3)]
+    log(f'f32 14b L2-L14 summed, device ms: forward {sums["fwd"][0]:.4f} '
+        f'(cuDNN f32 {sums["fwd"][1]:.4f}, bound {sums["fwd"][2]:.4f}, '
+        f'share {sums["fwd"][2] / sums["fwd"][0]:.3f}); backward '
+        f'{bwd[0]:.4f} = dx {sums["dx"][0]:.4f} + dw {sums["dw"][0]:.4f} '
+        f'(cuDNN f32 dgrad + wgrad {bwd[1]:.4f}, bound {bwd[2]:.4f}, share '
+        f'{bwd[2] / bwd[0]:.3f})')
+    log('f32 off-tile layers (JSON, device ms: kernel, cuDNN, bound, glue): '
+        + json.dumps(rows))
+
+
 def _padded_width_choice(randn):
     """Why H = 200 runs as 256 at the training shape: the forward at
     (2, 32, 500) of the row-tiled kernel at 224 (the next multiple of 32)
@@ -5922,7 +6084,16 @@ def _width_config(name, augment=True):
     (the paired D = 2 recurrence above 512); '15c' the
     tag-conditioned shallow BiCRNN at ``hidden_size`` 200 (run as 256);
     '15e' that BiCRNN at the recipe's widths with
-    ``compute_dtype='float32'`` in both towers and the output net."""
+    ``compute_dtype='float32'`` in both towers and the output net; '15f'
+    14b's configuration (:func:`_tower_config`) with
+    ``compute_dtype='float32'`` in both towers and both heads' output
+    nets."""
+    if name == '15f':
+        config = _tower_config('14b', augment=augment)
+        for tower in F32_PATHS:
+            config['cnn'][tower]['compute_dtype'] = 'float32'
+        config['rnn_fwd']['output_net']['compute_dtype'] = 'float32'
+        return config
     if name in ('15c', '15e'):
         config = _strong_config(augment=augment)
         if name == '15c':
@@ -5944,19 +6115,11 @@ def _width_config(name, augment=True):
 
 def _assert_f32_designs(label, layers):
     """Log the f32 conv's design of each pass at ``layers`` and assert
-    the rule: the entry kernels at Cin < 16, 3xTF32 elsewhere (the
-    recipes' towers)."""
-    from pb_sed_tpu_torch.ops.kernels.conv import conv_f32_designs
-    chosen = {layer: {key: v['design'] for key, v in
-                      conv_f32_designs(f, cin, cout).items()}
-              for layer, f, cin, cout in layers}
-    log(f'{label}: f32 conv designs at the tower\'s 3x3 layers: '
-        + json.dumps(chosen))
+    the rule (:func:`f32_designs_wanted`: the entry kernels at Cin < 16
+    and for a dx from fewer than 16 channels, 3xTF32 elsewhere), every
+    kernel whole."""
     for layer, f, cin, cout in layers:
-        want = 'entry' if cin < 16 else '3xtf32'
-        if set(chosen[layer].values()) != {want}:
-            raise AssertionError(f'{label}: {layer} runs {chosen[layer]}, '
-                                 f'not {want}')
+        _assert_f32_layer(label, layer, f, cin, cout)
 
 
 def phase_widths(earlier):
@@ -5967,9 +6130,13 @@ def phase_widths(earlier):
     H = 200 tags 3 x 32 clips and trains 8 steps; 15e: the
     tag-conditioned BiCRNN with f32 towers and output net (its entry
     layer, Cin = 11, on the f32 entry kernels) tags 32 clips and trains 4
-    steps. Each training run passes the card-vs-CPU step; each path's
-    launch counters are read. Returns (launches by path, the
-    measurements), printed beside ``earlier`` (phases 3-4)."""
+    steps; 15f: 14b's deep tower at 40 mel bins with f32 towers and output
+    nets (its 3x3 layers at F = 40 ... 5 on the 3xTF32 pair's rows x W
+    tiles, L0 on the entry kernels) tags 32 clips and trains 4 steps.
+    Each training run passes the card-vs-CPU step; each path's launch
+    counters are read. Returns (launches by path, the measurements),
+    printed beside ``earlier`` (phases 3-4, and 14b's bf16 run for
+    15f)."""
     from pb_sed_tpu_torch.models import base
     launches, out = {}, {}
     f32_path = F32 + F32_ENTRY + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
@@ -5977,7 +6144,8 @@ def phase_widths(earlier):
     cases = [('15a', f32_path, 10, False),
              ('15b', SHALLOW + WIDE, 10, False),
              ('15c', SHALLOW + PADDED_GRU, 10, True),
-             ('15e', f32_path, 10, True)]
+             ('15e', f32_path, 10, True),
+             ('15f', f32_path + CROSSED, 527, False)]
     for name, kernels, k, strong in cases:
         config = _width_config(name)
         flat = _random_flat(config, strong=strong)
@@ -6003,6 +6171,14 @@ def phase_widths(earlier):
             if dtypes != {torch.float32}:
                 raise AssertionError(f'15e: layers in {dtypes}')
             _assert_f32_designs(name, STRONG_CONV_LAYERS)
+        if name == '15f':
+            dtypes = {module.cnn.cnn_2d.conv_2.dtype,
+                      module.cnn.cnn_1d.conv_1.dtype,
+                      module.rnn_fwd.output_net.conv_0.dtype,
+                      module.rnn_bwd.output_net.conv_0.dtype}
+            if dtypes != {torch.float32}:
+                raise AssertionError(f'15f: layers in {dtypes}')
+            _assert_f32_designs(name, TOWER_14B_LAYERS)
         head = module.rnn.rnn if strong else module.rnn_fwd.rnn
         log(f'{name}: {model.num_parameters()} parameters, GRU hidden size '
             f'{head.hidden_size}, designs at (2, 32, 500): '
@@ -6013,9 +6189,11 @@ def phase_widths(earlier):
         if strong:
             batches = _tagged(batches, seed=9)
             methods = [('tagging', base.tagging, {})]
+        elif name == '15f':
+            methods = _methods(base)[:1]
         else:
             methods = [_methods(base)[i] for i in (0, 2)]
-        if name == '15e':
+        if name in ('15e', '15f'):
             batches = batches[1:2]     # 32 clips
         forward = tuple(kernel for kernel in kernels if 'bwd' not in kernel)
         stats = out.setdefault(f'{name}_serving', {})
@@ -6031,7 +6209,7 @@ def phase_widths(earlier):
                 lambda augment, n=name, s=strong: _model(
                     _width_config(n, augment), flat, strong=s),
                 k, kernels, name, strong=strong, gru_order=True,
-                steps=4 if name == '15e' else TRAIN_STEPS)
+                steps=4 if name in ('15e', '15f') else TRAIN_STEPS)
     log('phase 15 beside phases 3-4 (host clock, B = 32): tagging clips/s '
         + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
                     for key in out if key.endswith('_serving'))
@@ -6044,6 +6222,18 @@ def phase_widths(earlier):
                                 for key, value in out.items())
         + f' vs shallow serving {earlier["serving"]["peak_gib"]:.2f}, '
         f'training {earlier["shallow"]["peak_gib"]:.2f}')
+    bf16 = earlier['towers']
+    log('15f (f32) beside 14b (bf16), host clock, B = 32: tagging clips/s '
+        f'{out["15f_serving"]["tagging_clips_per_s"]:.1f} vs '
+        f'{bf16["14b_serving"]["tagging_clips_per_s"]:.1f}; training '
+        f'steps/s {out["15f_training"]["steps_per_s"]:.3f} vs '
+        f'{bf16["14b_training"]["steps_per_s"]:.3f}, clips/s '
+        f'{out["15f_training"]["clips_per_s"]:.1f} vs '
+        f'{bf16["14b_training"]["clips_per_s"]:.1f}; peak GiB serving '
+        f'{out["15f_serving"]["peak_gib"]:.2f} vs '
+        f'{bf16["14b_serving"]["peak_gib"]:.2f}, training '
+        f'{out["15f_training"]["peak_gib"]:.2f} vs '
+        f'{bf16["14b_training"]["peak_gib"]:.2f}')
     return launches, out
 
 
@@ -6188,7 +6378,7 @@ def run():
     launches.update(tower_launches)
     log('towers phase (JSON): ' + json.dumps(towers))
     width_launches, widths = phase_widths(
-        {'serving': serving, 'shallow': in_memory})
+        {'serving': serving, 'shallow': in_memory, 'towers': towers})
     launches.update(width_launches)
     log('widths phase (JSON): ' + json.dumps(widths))
     launches['kernel_phase'] = kernel_phase

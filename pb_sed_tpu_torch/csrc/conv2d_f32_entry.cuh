@@ -12,7 +12,8 @@
 //    It runs the forward of a layer with Cin < 16 (C = Cin input channels,
 //    N = Cout), and the backward's dx of such a layer: the same GEMM on gy
 //    (C = Cout) with the flipped, transposed weights and the pads mirrored
-//    (N = Cin = 1 or 11).
+//    (N = Cin = 1 or 11), and the dx of a layer with Cout < 16 (C = Cout,
+//    N = Cin).
 //
 // 2. conv2d_f32_dw_entry_kernel, the weight gradient's partials:
 //
@@ -27,7 +28,9 @@
 // 'float32' tower with lax.conv_general_dilated on f32 operands and
 // differentiates it with XLA (pb_sed_tpu/ops/cnn.py:115-119); these are
 // the port's kernels for that layer where it has fewer than 16 input
-// channels, which conv2d_f32_wgmma.cuh's 3xTF32 pair does not take.
+// channels, and for the dx of a layer with fewer than 16 output channels
+// (a GEMM from Cout < 16 channels), which conv2d_f32_wgmma.cuh's 3xTF32
+// pair takes only padded.
 //
 // What bounds it on the H100: bytes. At B = 32, T = 500, F = 128 each pass
 // moves (Cin + Cout) * 4 bytes a pixel: 0.042 ms at shallow L0 (1 -> 16),
@@ -316,18 +319,6 @@ __device__ __forceinline__ void mma_tf32_next(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// An activation's split, v = hi + lo + (a remainder below lo's tf32 bits):
-// hi = tf32(v) rounded to nearest, ties away from zero (the f32 bits +
-// half a tf32 ulp, the low 13 bits cleared: cvt.rna.tf32's result, in
-// three integer and float operations where cvt.rna is emulated in some
-// ten), lo = v - hi (exact) left as f32, whose low 13 bits the tensor
-// cores do not read (a tf32 truncation of lo)
-__device__ __forceinline__ void f32e_split(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
 // Copy a tile's halo to the stage `st`: the hrows frame rows from t0 -
 // lo_t of `clip`, frames outside the clip zero-filled; with whole rows
 // (copy 0) each row's F * C floats to the interior (the pad columns were
@@ -583,7 +574,7 @@ conv2d_f32_entry_kernel(const float* __restrict__ x,      // (M,B,T,F,C)
             }
 #pragma unroll
             for (int r = 0; r < 4; ++r)
-              f32e_split(v[r], ahi[h][r], alo[h][r]);
+              tf32_split_act(v[r], ahi[h][r], alo[h][r]);
 #pragma unroll
             for (int j = 0; j < J; ++j)
               bw[h][j] = wok[j] ? *reinterpret_cast<const float4*>(
@@ -794,18 +785,18 @@ conv2d_f32_dw_entry_kernel(const float* __restrict__ x,   // (B,T,F,Cin)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const float* ga = gs + p * S + 16 * mt + gq;
-          f32e_split(ga[0], ahi[h][mt][0], alo[h][mt][0]);
-          f32e_split(ga[8], ahi[h][mt][1], alo[h][mt][1]);
-          f32e_split(ga[4 * S], ahi[h][mt][2], alo[h][mt][2]);
-          f32e_split(ga[4 * S + 8], ahi[h][mt][3], alo[h][mt][3]);
+          tf32_split_act(ga[0], ahi[h][mt][0], alo[h][mt][0]);
+          tf32_split_act(ga[8], ahi[h][mt][1], alo[h][mt][1]);
+          tf32_split_act(ga[4 * S], ahi[h][mt][2], alo[h][mt][2]);
+          tf32_split_act(ga[4 * S + 8], ahi[h][mt][3], alo[h][mt][3]);
         }
         // B = the x halo: k = the same pixels, column gq = packed row
         const int pb0 = base[p];
         const int pb1 = base[p + 4];
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          f32e_split(st[pb0 + offk[j]], bhi[h][j][0], blo[h][j][0]);
-          f32e_split(st[pb1 + offk[j]], bhi[h][j][1], blo[h][j][1]);
+          tf32_split_act(st[pb0 + offk[j]], bhi[h][j][0], blo[h][j][0]);
+          tf32_split_act(st[pb1 + offk[j]], bhi[h][j][1], blo[h][j][1]);
         }
       }
       // each (step, row tile, co tile) a run: hi*lo, lo*hi, hi*hi from

@@ -1018,10 +1018,6 @@ inline int wg_bn(int N) {
 // two sets of A fragments fit the 128 registers of a 13-warp block; at 64
 // ptxas serializes the wgmmas for want of registers
 inline int dw_bn(int Cout) { return Cout <= 16 ? 16 : 32; }
-// the f32 pair's tile (conv2d_f32_wgmma.cuh): whole frequency rows only
-inline bool f_divides_tile(int F) {
-  return F >= 1 && F <= kWgTileM && kWgTileM % F == 0;
-}
 // the bytes of a halo tile of (rows + kt - 1) frames x (W + kf - 1)
 // pixels of row_bytes each, for a tile of rows x W pixels (rows = 128 / W
 // where not given)

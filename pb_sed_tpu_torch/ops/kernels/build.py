@@ -33,8 +33,9 @@ NVCC_FLAGS = (
 # the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
 # GRU pair's launches above H = 512, the ``conv2d_same*_entry`` ones the
 # conv pair's launches that run the entry kernels (Cin < 16, forward and
-# dw), the ``conv2d_same_f32*_entry`` ones the f32 pair's (Cin < 16:
-# forward, and a backward whose dw or dx runs them); all of these count
+# dw), the ``conv2d_same_f32*_entry`` ones the f32 pair's (the forward
+# at Cin < 16, and a backward whose dw or dx runs them: Cin < 16, or the
+# dx of Cout < 16); all of these count
 # under the pair's own names too
 LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'conv2d_same_bwd': 0, 'maxpool_freq2_bwd': 0, 'gru_scan_bwd': 0,
@@ -75,7 +76,7 @@ _SIGNATURES = {
     'pbsed_avgpool2d': (_P, _I, _P) + (_I,) * 7 + (_P,),
     'pbsed_avgpool2d_bwd': (_P, _P, _I) + (_I,) * 7 + (_P,),
     'pbsed_conv2d_same_f32': (_P,) * 5 + (_I,) * 8 + (_P,),
-    'pbsed_conv2d_same_f32_bwd': (_P,) * 7 + (_I,) * 8 + (_P,),
+    'pbsed_conv2d_same_f32_bwd': (_P,) * 8 + (_I,) * 9 + (_P,),
 }
 
 # shape queries (no stream, no launch): which conv kernel a shape runs,
@@ -83,7 +84,8 @@ _SIGNATURES = {
 # the dw pass's pixel chunks and its workspace's f32 elements (a long
 # long; csrc/conv2d.cu, csrc/conv2d_bwd.cu; the
 # f32 conv's csrc/conv2d_f32.cu, whose design and split-buffer queries
-# take the pass first, the latter a long long);
+# take the pass first, the former with the tile's width and rows written
+# to two more int pointers, the latter a long long);
 # which GRU kernel a shape runs, forward, split and fused backward, with
 # its cluster size, rows, shared memory, co-resident clusters, units a
 # block and bytes of w_hh resident and streamed a block written to the
@@ -95,7 +97,7 @@ _QUERIES = {
     'pbsed_conv2d_dw_chunks': (_I,) * 8,
     'pbsed_conv2d_dw_workspace': (_I,) * 6,
     'pbsed_conv2d_f32_dw_chunks': (_I,) * 8,
-    'pbsed_conv2d_f32_design': (_I,) * 6 + (_IP, _IP),
+    'pbsed_conv2d_f32_design': (_I,) * 6 + (_IP,) * 4,
     'pbsed_conv2d_f32_split_floats': (_I,) * 7,
     'pbsed_gru_design': (_I,) * 4 + (_IP,) * 7,
     'pbsed_gru_bwd_design': (_I,) * 4 + (_IP,) * 7,

@@ -8,9 +8,12 @@ autograd Functions that tie each forward to its backward (``Conv2dSame``,
 ``BnReluConv2dSame``, ``MaxPoolFreq2``, ``MaxPool2d``, ``AvgPoolFreq2``,
 ``AvgPool2d``); and the same conv in float32 for a
 ``compute_dtype='float32'`` tower (``Conv2dSameF32``: any extent and
-width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores, on wgmma
-where the shape fits its tile (``csrc/conv2d_f32_wgmma.cuh``) and on
-mma.sync at Cin < 16 (``csrc/conv2d_f32_entry.cuh``), else f32 FFMA;
+width, ``csrc/conv2d_f32.cu``: 3xTF32 on the tensor cores, on mma.sync at
+Cin < 16 and for the dx of Cout < 16 (``csrc/conv2d_f32_entry.cuh``),
+on wgmma's tiles of rows x W pixels everywhere else
+(``csrc/conv2d_f32_wgmma.cuh``: Cin and Cout padded with zeros to what
+its TMA copies take, :func:`_f32_channels`; kernels whose halo fits no
+tile as f32 sums of tap blocks, :func:`_f32_tap_blocks`);
 :func:`conv_f32_designs` says which).
 
 The conv kernels take odd extents, Cout a multiple of 16 and Cin below
@@ -166,6 +169,22 @@ def _pass_queries(cin, cout):
             'dw': ('pbsed_conv2d_dw_design', cin, cout)}
 
 
+def _halved_block(kt, kf, fits, what):
+    """The largest tap block (bt, bf) of a kt x kf kernel that ``fits``:
+    (kt, kf) where the whole kernel does, else the longer side halved
+    (rounded up) until it fits; raises, naming ``what``, where not even a
+    1 x 1 block does."""
+    bt, bf = kt, kf
+    while not fits(bt, bf):
+        if bt == bf == 1:
+            raise ValueError(f'no conv kernel takes {what} at a 1x1 kernel')
+        if bt >= bf:
+            bt = (bt + 1) // 2
+        else:
+            bf = (bf + 1) // 2
+    return bt, bf
+
+
 @functools.lru_cache(maxsize=None)
 def _tap_blocks(f, cin, cout, kt, kf, passes):
     """The largest tap block (bt, bf) of a (F, Cin -> Cout, kt x kf) conv
@@ -179,18 +198,11 @@ def _tap_blocks(f, cin, cout, kt, kf, passes):
     cin += -cin % 8 if cin >= 16 else 0
     cout += -cout % 16
     queries = _pass_queries(cin, cout)
-    bt, bf = kt, kf
-    while not all(_design(queries[p][0], f, *queries[p][1:],
-                          bt + 1 - bt % 2, bf + 1 - bf % 2)[0] is not None
-                  for p in passes):
-        if bt == bf == 1:
-            raise ValueError(f'no conv kernel takes F = {f}, {cin} -> '
-                             f'{cout} channels at a 1x1 kernel')
-        if bt >= bf:
-            bt = (bt + 1) // 2
-        else:
-            bf = (bf + 1) // 2
-    return bt, bf
+    return _halved_block(
+        kt, kf, lambda bt, bf: all(
+            _design(queries[p][0], f, *queries[p][1:], bt + 1 - bt % 2,
+                    bf + 1 - bf % 2)[0] is not None for p in passes),
+        f'F = {f}, {cin} -> {cout} channels')
 
 
 def _blocks(kt, kf, bt, bf):
@@ -225,8 +237,9 @@ def _narrow(z, dt, df, t, f):
 def _conv_by_blocks(conv, x, w, b, bt, bf):
     """The SAME conv of ``x (..., T, F, Cin)`` by ``w (..., kt, kf, Cin,
     Cout)`` as the f32 sum over the tap blocks of at most bt x bf taps of
-    ``conv(widened x, tap block of w)`` (bf16 each), narrowed back, plus
-    the f32 bias ``b (..., Cout)``, rounded once to bf16."""
+    ``conv(widened x, tap block of w)`` (each in x's dtype), narrowed
+    back, plus the f32 bias ``b (..., Cout)``, rounded once to x's dtype:
+    bf16 for the bf16 conv, none for the f32 one."""
     kt, kf = w.shape[-4:-2]
     t, f = x.shape[-3:-1]
     y = 0.
@@ -236,7 +249,7 @@ def _conv_by_blocks(conv, x, w, b, bt, bf):
                         dt, df, t, f).float()
     if b is not None:
         y = y + b.float()[..., None, None, None, :]
-    return y.to(torch.bfloat16)
+    return y.to(x.dtype)
 
 
 def _conv_bwd_by_blocks(conv_bwd, x, w, gy, bt, bf, need_dx=True):
@@ -244,8 +257,8 @@ def _conv_bwd_by_blocks(conv_bwd, x, w, gy, bt, bf, need_dx=True):
     Cin, Cout)`` from ``conv_bwd(widened x, tap block of w, gy widened
     the other way)`` over the tap blocks of at most bt x bf taps: each
     block's dw is its slice of dw, and dx the f32 sum of the blocks' dx
-    (bf16 each) narrowed back, rounded once to bf16 (None with
-    ``need_dx=False``)."""
+    (each in x's dtype) narrowed back, rounded once to x's dtype (None
+    with ``need_dx=False``)."""
     kt, kf = w.shape[:2]
     t, f = x.shape[1:3]
     dx = torch.zeros(x.shape, device=x.device) if need_dx else None
@@ -256,7 +269,7 @@ def _conv_bwd_by_blocks(conv_bwd, x, w, gy, bt, bf, need_dx=True):
             _widen(gy, -dt, -df))
         if need_dx:
             dx += _narrow(dxb, -dt, -df, t, f).float()
-    return None if dx is None else dx.to(torch.bfloat16), dw
+    return None if dx is None else dx.to(x.dtype), dw
 
 
 def _launch_conv(counter, x, w, b, affine=(), padded=False):
@@ -570,46 +583,98 @@ def conv2d_same_f32_plain(x, w, b):
 
 
 _F32_PASSES = {'fwd': 0, 'dx': 1, 'dw': 2}
-# the C design query's answers
-_F32_DESIGNS = {0: 'ffma', 1: '3xtf32', 2: 'entry'}
+# the C design query's answers (0: no kernel takes the whole kernel)
+_F32_DESIGNS = {0: None, 1: '3xtf32', 2: 'entry'}
 
 
 @functools.lru_cache(maxsize=None)
 def _f32_design(name, f, cin, cout, kt, kf):
-    """(design, stages, smem) of one pass of the f32 conv, as the C entry
-    points decide (``pbsed_conv2d_f32_design``)."""
-    stages, smem = ctypes.c_int(), ctypes.c_int()
+    """(design, stages, smem, (width, rows)) of one pass of the f32 conv
+    at the channel counts a launch gives the C entry points, as they
+    decide (``pbsed_conv2d_f32_design``); the tile is rows frames of
+    width frequencies."""
+    out = [ctypes.c_int() for _ in range(4)]
     code = build.lib().pbsed_conv2d_f32_design(
-        _F32_PASSES[name], f, cin, cout, kt, kf, ctypes.byref(stages),
-        ctypes.byref(smem))
-    return _F32_DESIGNS[code], stages.value, smem.value
+        _F32_PASSES[name], f, cin, cout, kt, kf,
+        *(ctypes.byref(v) for v in out))
+    stages, smem, width, rows = (v.value for v in out)
+    return _F32_DESIGNS[code], stages, smem, (width, rows)
+
+
+def _f32_channels(cin, cout):
+    """(Cin, Cout) as the f32 kernels take a layer's forward and dw: from
+    Cin = 16 up (the 3xTF32 pair), Cin padded to a multiple of 4 (TMA's
+    rows are 16-byte multiples) and Cout to one that is at least 16;
+    below (the entry kernels take any count) as they are."""
+    if cin < 16:
+        return cin, cout
+    return cin + -cin % 4, max(16, cout + -cout % 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_pass_shapes(f, cin, cout, kt, kf):
+    """The (Cin, Cout) each pass of an f32 layer launches at
+    (:func:`_f32_channels`): the dx of a layer with Cin >= 16 and
+    Cout < 16 is a GEMM from Cout < 16 channels, which the entry kernels
+    take unpadded where their tile fits; elsewhere the dx reads the
+    cotangent padded as the dw does."""
+    cin_k, cout_k = _f32_channels(cin, cout)
+    cout_dx = cout_k
+    if cout < 16 <= cin and _f32_design('dx', f, cin_k, cout, kt,
+                                        kf)[0] == 'entry':
+        cout_dx = cout
+    return {'fwd': (cin_k, cout_k), 'dx': (cin_k, cout_dx),
+            'dw': (cin_k, cout_k)}
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_tap_blocks(f, cin, cout, kt, kf, passes):
+    """The largest tap block (bt, bf) of a (F, Cin -> Cout, kt x kf) f32
+    conv whose ``passes`` ('fwd', 'dx', 'dw') all run on a kernel at
+    their launch shapes (:func:`_f32_pass_shapes`): (kt, kf) where the
+    whole kernel fits, else the longer side halved (rounded up) until each
+    pass's halo ring fits shared memory (f32 halos hold twice bf16's
+    bytes: kernels of ~25 x 25 taps and more at 64 channels). Such a conv
+    runs as the f32 sum of its tap blocks (:func:`_conv_by_blocks`,
+    :func:`_conv_bwd_by_blocks`)."""
+    return _halved_block(
+        kt, kf, lambda bt, bf: all(
+            _f32_design(p, f, *_f32_pass_shapes(f, cin, cout, bt, bf)[p],
+                        bt, bf)[0] is not None for p in passes),
+        f'F = {f}, {cin} -> {cout} f32 channels')
 
 
 def conv_f32_designs(f, cin, cout, kt=3, kf=3):
     """Which kernels the f32 conv of a (F, Cin -> Cout, kt x kf) layer runs
     on the card, as the C entry points decide: for each pass ``'fwd'``,
     ``'dx'`` and ``'dw'`` a dict of ``design`` ('entry', mma.sync 3xTF32,
-    ``csrc/conv2d_f32_entry.cuh``: all three passes at Cin < 16; '3xtf32',
-    wgmma on the tensor cores, ``csrc/conv2d_f32_wgmma.cuh``: Cin and
-    Cout >= 16, multiples of 4, F a power of two dividing 128; or 'ffma'),
-    ``stages`` (the depth of the kernel's activation ring, 0 for FFMA) and
-    ``smem`` (its dynamic shared memory in bytes)."""
+    ``csrc/conv2d_f32_entry.cuh``: all three passes at Cin < 16, and the
+    dx at Cout < 16 where it fits; '3xtf32', wgmma on the tensor cores,
+    ``csrc/conv2d_f32_wgmma.cuh``: every other pass), ``channels`` (the
+    (Cin, Cout) it launches at: :func:`_f32_pass_shapes`), ``stages``
+    (the depth of the kernel's activation ring), ``smem`` (its dynamic
+    shared memory in bytes), ``tile`` (width, rows: a tile of rows frames
+    of width frequencies) and ``taps`` (the extents of the tap block one
+    launch takes: (kt, kf) but where the whole kernel's halo fits no
+    tile, :func:`_f32_tap_blocks`; the dx and dw share their blocks)."""
     designs = {}
     for name in _F32_PASSES:
-        design, stages, smem = _f32_design(name, f, cin, cout, kt, kf)
-        designs[name] = {'design': design, 'stages': stages, 'smem': smem}
+        bt, bf = _f32_tap_blocks(f, cin, cout, kt, kf,
+                                 ('fwd',) if name == 'fwd' else ('dx', 'dw'))
+        channels = _f32_pass_shapes(f, cin, cout, bt, bf)[name]
+        design, stages, smem, tile = _f32_design(name, f, *channels, bt, bf)
+        designs[name] = {'design': design, 'channels': channels,
+                         'stages': stages, 'smem': smem, 'tile': tile,
+                         'taps': (bt, bf)}
     return designs
 
 
 def _f32_split(name, f, cin, cout, kt, kf, members, device):
-    """The buffer that pass ``name`` splits the weights into (their tf32
-    hi and lo parts, laid out for its kernel:
-    ``pbsed_conv2d_f32_split_floats``), or None where it splits none
-    (FFMA)."""
+    """The buffer that pass ``name`` ('fwd' or 'dx', at its launch
+    channels) splits the weights into: their tf32 hi and lo parts, laid
+    out for its kernel (``pbsed_conv2d_f32_split_floats``)."""
     floats = build.lib().pbsed_conv2d_f32_split_floats(
         _F32_PASSES[name], f, cin, cout, kt, kf, members)
-    if not floats:
-        return None
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
@@ -620,25 +685,83 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _pad_last(t, n):
+    """``t`` with zeros after its last dimension's entries up to ``n``."""
+    return t if t.shape[-1] == n else F.pad(t, (0, n - t.shape[-1]))
+
+
+def _f32_padded_conv(conv, x, w, b, cin_k, cout_k):
+    """The f32 conv of x (..., Cin), w (..., kt, kf, Cin, Cout), b (...,
+    Cout) or None as ``conv`` of the operands padded to ``cin_k`` and
+    ``cout_k`` channels: zero input channels meeting zero weight rows, and
+    zero weight columns and zero bias for the extra outputs, which are
+    dropped. Zero products add nothing, so the output is the unpadded
+    conv's within the kernels' summation order."""
+    cout = w.shape[-1]
+    x = _pad_last(x, cin_k)
+    w = F.pad(w, (0, cout_k - cout, 0, cin_k - w.shape[-2]))
+    b = None if b is None else _pad_last(b, cout_k)
+    y = conv(x, w, b)
+    return y if cout_k == cout else y[..., :cout].contiguous()
+
+
+def _f32_padded_conv_bwd(conv_bwd, x, w, gy, shapes, need_dx=True):
+    """dx and dw of the f32 conv of x (B, T, F, Cin) by w (kt, kf, Cin,
+    Cout) from ``conv_bwd(x, gy, gy_dx, w_dx, need_dx)`` at the padded
+    launch shapes ``shapes`` (:func:`_f32_pass_shapes`): x and w padded to
+    the dw's (Cin, Cout) and gy with zero channels to its Cout (they add
+    nothing to dw and dx), the dx's cotangent ``gy_dx`` and weights
+    ``w_dx`` (kt, kf, Cin, Cout_dx) at the dx's own Cout; the padded
+    channels' dx and dw are dropped."""
+    cin, cout = w.shape[-2:]
+    cin_k, cout_k = shapes['dw']
+    cout_dx = shapes['dx'][1]
+    xk = _pad_last(x, cin_k)
+    gyk = _pad_last(gy, cout_k)
+    gy_dx = w_dx = None
+    if need_dx:
+        gy_dx = gyk if cout_dx == cout_k else _pad_last(gy, cout_dx)
+        w_dx = F.pad(w, (0, cout_dx - cout, 0, cin_k - cin))
+    dx, dw = conv_bwd(xk, gyk, gy_dx, w_dx, need_dx)
+    if (cin_k, cout_k) != (cin, cout):
+        dw = dw[..., :cin, :cout].contiguous()
+        if dx is not None and cin_k != cin:
+            dx = dx[..., :cin].contiguous()
+    return dx, dw
+
+
 def _launch_conv_f32(x, w, b):
     """``pbsed_conv2d_same_f32`` on CUDA tensors with a leading member
     axis: x (M, B, T, F, Cin), w (M, kt, kf, Cin, Cout), b (M, Cout) or
-    None; one launch for all M."""
+    None; one launch for all M, at the channels :func:`_f32_channels`
+    gives; a kernel whose halo fits no tile as the f32 sum of its tap
+    blocks (:func:`_f32_tap_blocks`), one launch each."""
     build.require_cuda(x, w)
     members, bsz, t, f, cin = x.shape
     kt, kf, _, cout = w.shape[1:]
-    x = _aligned16(x.contiguous())
-    w = w.float().contiguous()
-    b = None if b is None else b.float().contiguous()
-    y = torch.empty((members, bsz, t, f, cout), dtype=torch.float32,
-                    device=x.device)
-    split = _f32_split('fwd', f, cin, cout, kt, kf, members, x.device)
-    build.launch('conv2d_same_f32', 'pbsed_conv2d_same_f32', x.device,
-                 x.data_ptr(), w.data_ptr(),
-                 None if b is None else b.data_ptr(), y.data_ptr(),
-                 None if split is None else split.data_ptr(),
-                 members, bsz, t, f, cin, cout, kt, kf)
-    if _f32_design('fwd', f, cin, cout, kt, kf)[0] == 'entry':
+    blocks = _f32_tap_blocks(f, cin, cout, kt, kf, ('fwd',))
+    if blocks != (kt, kf):
+        return _conv_by_blocks(lambda xs, wb: _launch_conv_f32(xs, wb, None),
+                               x, w, b, *blocks)
+    cin_k, cout_k = _f32_pass_shapes(f, cin, cout, kt, kf)['fwd']
+
+    def launch(x, w, b):
+        x = _aligned16(x.contiguous())
+        w = w.float().contiguous()
+        b = None if b is None else b.float().contiguous()
+        y = torch.empty((members, bsz, t, f, cout_k), dtype=torch.float32,
+                        device=x.device)
+        split = _f32_split('fwd', f, cin_k, cout_k, kt, kf, members,
+                           x.device)
+        build.launch('conv2d_same_f32', 'pbsed_conv2d_same_f32', x.device,
+                     x.data_ptr(), w.data_ptr(),
+                     None if b is None else b.data_ptr(), y.data_ptr(),
+                     split.data_ptr(), members, bsz, t, f, cin_k, cout_k,
+                     kt, kf)
+        return y
+
+    y = _f32_padded_conv(launch, x, w, b, cin_k, cout_k)
+    if _f32_design('fwd', f, cin_k, cout_k, kt, kf)[0] == 'entry':
         build.LAUNCHES['conv2d_same_f32_entry'] += 1
     return y
 
@@ -647,8 +770,8 @@ def conv2d_same_f32(x, w, b):
     """Stride-1 SAME conv (XLA's pads) in float32: ``(B, T, F, Cin)`` f32
     -> ``(B, T, F, Cout)`` f32, f32 sums and an f32 bias, any kernel
     extent and channel counts (``csrc/conv2d_f32.cu``: 3xTF32 on the
-    tensor cores, the entry kernels at Cin < 16, or the FFMA implicit
-    GEMM, :func:`conv_f32_designs`; no plain TF32).
+    tensor cores, on the entry kernels at Cin < 16, else on wgmma,
+    :func:`conv_f32_designs`; no plain TF32).
 
     Args:
         x: (B, T, F, Cin) float32 activations.
@@ -671,10 +794,10 @@ def conv2d_same_f32_members_plain(x, w, b):
 
 
 def conv2d_same_f32_members(x, w, b):
-    """:func:`conv2d_same_f32` of M stacked members in one launch (the
-    grid's z axis): x (M, B, T, F, Cin) f32, w (M, kt, kf, Cin, Cout), b
-    (M, Cout) or None; member m's output is ``conv2d_same_f32(x[m], w[m],
-    b[m])``, bit for bit on the card."""
+    """:func:`conv2d_same_f32` of M stacked members in one launch: x (M,
+    B, T, F, Cin) f32, w (M, kt, kf, Cin, Cout), b (M, Cout) or None;
+    member m's output is ``conv2d_same_f32(x[m], w[m], b[m])``, bit for
+    bit on the card."""
     if x.dim() != 5 or w.dim() != 5:
         raise ValueError(f'expected x (M, B, T, F, Cin) and w (M, kt, kf, '
                          f'Cin, Cout), got {tuple(x.shape)} and '
@@ -712,6 +835,58 @@ def conv2d_same_f32_bwd_plain(x, w, gy):
             dw.permute(2, 3, 1, 0).contiguous())
 
 
+def _launch_conv_f32_bwd(x, w, gy, need_dx):
+    """``pbsed_conv2d_same_f32_bwd`` on CUDA tensors: dx (None and no dx
+    pass with ``need_dx=False``) and dw at the launch shapes of
+    :func:`_f32_pass_shapes`, or, for a kernel whose halo fits no tile,
+    from its tap blocks (:func:`_f32_tap_blocks`), one launch each."""
+    build.require_cuda(x, w, gy)
+    bsz, t, f, cin = x.shape
+    kt, kf, _, cout = w.shape
+    blocks = _f32_tap_blocks(f, cin, cout, kt, kf,
+                             ('dx', 'dw') if need_dx else ('dw',))
+    if blocks != (kt, kf):
+        return _conv_bwd_by_blocks(
+            lambda xs, wb, g: _launch_conv_f32_bwd(xs, wb, g, need_dx), x,
+            w, gy, *blocks, need_dx=need_dx)
+    shapes = _f32_pass_shapes(f, cin, cout, kt, kf)
+    cin_k, cout_k = shapes['dw']
+    cout_dx = shapes['dx'][1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+
+    def launch(x, gy, gy_dx, w_dx, need_dx):
+        x = _aligned16(x.contiguous())
+        gy = _aligned16(gy.float().contiguous())
+        chunks = build.lib().pbsed_conv2d_f32_dw_chunks(
+            bsz, t, f, cin_k, cout_k, kt, kf, sms)
+        workspace = torch.empty((chunks, kt * kf * cin_k, cout_k),
+                                dtype=torch.float32, device=x.device)
+        dw = torch.empty((kt, kf, cin_k, cout_k), dtype=torch.float32,
+                         device=x.device)
+        dx = w_flip = split = None
+        if need_dx:
+            gy_dx = gy if cout_dx == cout_k else _aligned16(
+                gy_dx.float().contiguous())
+            dx = torch.empty_like(x)
+            w_flip = w_dx.float().flip(0, 1).transpose(2, 3).contiguous()
+            split = _f32_split('dx', f, cin_k, cout_dx, kt, kf, 1, x.device)
+        build.launch('conv2d_same_f32_bwd', 'pbsed_conv2d_same_f32_bwd',
+                     x.device, x.data_ptr(), gy.data_ptr(),
+                     None if dx is None else gy_dx.data_ptr(),
+                     None if w_flip is None else w_flip.data_ptr(),
+                     None if dx is None else dx.data_ptr(), dw.data_ptr(),
+                     workspace.data_ptr(),
+                     None if split is None else split.data_ptr(),
+                     bsz, t, f, cin_k, cout_k, cout_dx, kt, kf, sms)
+        return dx, dw
+
+    dx, dw = _f32_padded_conv_bwd(launch, x, w, gy, shapes, need_dx)
+    if 'entry' in [_f32_design(name, f, *shapes[name], kt, kf)[0]
+                   for name in (('dx', 'dw') if need_dx else ('dw',))]:
+        build.LAUNCHES['conv2d_same_f32_bwd_entry'] += 1
+    return dx, dw
+
+
 def conv2d_same_f32_bwd(x, w, gy, need_dx=True):
     """Backward of :func:`conv2d_same_f32` w.r.t. x and w: dx (B, T, F,
     Cin) and dw (kt, kf, Cin, Cout), both float32; dx is None (no dx pass)
@@ -725,34 +900,7 @@ def conv2d_same_f32_bwd(x, w, gy, need_dx=True):
     if x.device.type == 'cpu':
         dx, dw = conv2d_same_f32_bwd_plain(x, w, gy)
         return (dx if need_dx else None), dw
-    build.require_cuda(x, w, gy)
-    bsz, t, f, cin = x.shape
-    kt, kf, _, cout = w.shape
-    x = _aligned16(x.contiguous())
-    gy = _aligned16(gy.float().contiguous())
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunks = build.lib().pbsed_conv2d_f32_dw_chunks(bsz, t, f, cin, cout,
-                                                    kt, kf, sms)
-    workspace = torch.empty((chunks, kt * kf * cin, cout),
-                            dtype=torch.float32, device=x.device)
-    dw = torch.empty((kt, kf, cin, cout), dtype=torch.float32,
-                     device=x.device)
-    dx = w_flip = split = None
-    if need_dx:
-        dx = torch.empty_like(x)
-        w_flip = w.float().flip(0, 1).transpose(2, 3).contiguous()
-        split = _f32_split('dx', f, cin, cout, kt, kf, 1, x.device)
-    build.launch('conv2d_same_f32_bwd', 'pbsed_conv2d_same_f32_bwd',
-                 x.device, x.data_ptr(), gy.data_ptr(),
-                 None if w_flip is None else w_flip.data_ptr(),
-                 None if dx is None else dx.data_ptr(), dw.data_ptr(),
-                 workspace.data_ptr(),
-                 None if split is None else split.data_ptr(),
-                 bsz, t, f, cin, cout, kt, kf, sms)
-    if 'entry' in [_f32_design(name, f, cin, cout, kt, kf)[0]
-                   for name in (('dx', 'dw') if need_dx else ('dw',))]:
-        build.LAUNCHES['conv2d_same_f32_bwd_entry'] += 1
-    return dx, dw
+    return _launch_conv_f32_bwd(x, w, gy, need_dx)
 
 
 @cache_signature

@@ -34,13 +34,21 @@ share of it. The card's name and power limit come first. With no tree
 the working directory is timed once.
 
 With ``--f32`` it times the f32 conv (``compute_dtype='float32'``:
-``conv2d_same_f32`` and ``conv2d_same_f32_bwd``) at the three entry
-layers instead, f32 activations: per tree the device ms of the forward,
-the dx (the forward-type GEMM inside the backward, with its weights'
-split) and the dw (a backward without dx: the dw partials and their
-reduce), beside cuDNN's f32 forward, dgrad and wgrad with TF32 off and
-each pass's bound (bytes at 3.35 TB/s, each activation read or written
-once, or 3 TF32 products an f32 product at 495 TFLOP/s).
+``conv2d_same_f32`` and ``conv2d_same_f32_bwd``) instead, f32
+activations, at the three recipes' entry layers, 14b's 3x3 layers
+(L0 on the entry kernels, L2-L14 off a power-of-two F), a layer at
+Cout = 10 (F 40, 24 -> 10, padded to 16 for the forward and dw) and the
+shallow and deep recipes' own tiles (shallow L1, L3, L5, L8; deep L2,
+L6, L14, L16): per
+tree the device ms of the forward, the dx (the forward-type GEMM inside
+the backward, with its weights' split) and the dw (a backward without
+dx: the dw partials and their reduce), and the wrappers' glue (the
+channel pad and narrowing, the weight flip), beside cuDNN's f32 forward,
+dgrad and wgrad with TF32 off and each pass's bound (bytes at 3.35 TB/s,
+each activation read or written once, or 3 TF32 products an f32 product
+at 495 TFLOP/s); then the sums of each tree's best over 14b's seven
+off-tile layers (L2-L14), forward and backward (dx + dw), beside
+cuDNN's and the bound.
 """
 import argparse
 import json
@@ -93,7 +101,9 @@ def _part(key):
     return 'glue'
 
 
-F32_SHAPES = SHAPES[:3]
+F32_SHAPES = SHAPES[:11] + (('Cout 10', 40, 24, 10),) + SHAPES[12:]
+# 14b's seven layers off a power-of-two F, summed in the report
+F32_OFF_TILE = tuple(name for name, *_ in SHAPES[4:11])
 TF32_FLOPS = 495e12
 
 
@@ -179,24 +189,45 @@ def time_tree_f32():
 
 
 def report_f32(runs):
-    """One line per entry layer and pass: each tree's best device ms, the
-    bound and the last tree's share of it, cuDNN's f32 call (the last
-    tree's last run)."""
+    """One line per layer and pass: each tree's best device ms, the bound
+    and the last tree's share of it, cuDNN's f32 call (the last tree's
+    last run); then the sums over ``F32_OFF_TILE``."""
     sides = sorted(runs)
+    sums = {side: {'fwd': 0., 'dx': 0., 'dw': 0.} for side in sides}
+    lib = {'fwd': 0., 'dx': 0., 'dw': 0.}
+    bounds_sum = {'fwd': 0., 'dx': 0., 'dw': 0.}
     for name, f, cin, cout in F32_SHAPES:
         bnd = f32_bounds(f, cin, cout)
         last = runs[sides[-1]][-1][name]
         for key in ('fwd', 'dx', 'dw'):
             best = {side: min(r[name][key] for r in runs[side])
                     for side in sides}
-            designs = ' / '.join(runs[side][-1][name]['designs'][key]
+            designs = ' / '.join(str(runs[side][-1][name]['designs'][key])
                                  for side in sides)
             ms = best[sides[-1]]
+            glue = last['glue']['no_dx' if key == 'dw' else
+                                'bwd' if key == 'dx' else 'fwd']
             print(f'f32 {name} ({f}, {cin} -> {cout}) {key}: '
                   + ', '.join(f'{side} {v:.4f}' for side, v in best.items())
                   + f' ms ({designs}); bound {bnd[key]:.4f}, share '
-                  f'{bnd[key] / ms:.2f}; cuDNN f32 {last["cudnn_" + key]:.4f}',
-                  flush=True)
+                  f'{bnd[key] / ms:.2f}; cuDNN f32 {last["cudnn_" + key]:.4f}'
+                  f'; glue {glue:.4f}', flush=True)
+            if name in F32_OFF_TILE:
+                for side in sides:
+                    sums[side][key] += best[side]
+                lib[key] += last['cudnn_' + key]
+                bounds_sum[key] += bnd[key]
+    for side in sides:
+        s = sums[side]
+        bwd = s['dx'] + s['dw']
+        print(f'f32 14b L2-L14 summed, {side}: forward {s["fwd"]:.4f} ms '
+              f'(cuDNN f32 {lib["fwd"]:.4f}, bound {bounds_sum["fwd"]:.4f}, '
+              f'share {bounds_sum["fwd"] / s["fwd"]:.3f}); backward '
+              f'{bwd:.4f} ms = dx {s["dx"]:.4f} + dw {s["dw"]:.4f} (cuDNN '
+              f'f32 dgrad + wgrad {lib["dx"] + lib["dw"]:.4f}, bound '
+              f'{bounds_sum["dx"] + bounds_sum["dw"]:.4f}, share '
+              f'{(bounds_sum["dx"] + bounds_sum["dw"]) / bwd:.3f})',
+              flush=True)
 
 
 def time_tree():

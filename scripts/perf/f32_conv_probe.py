@@ -17,13 +17,16 @@ dx; median of 5 CUDA-event times after 2 warm-up calls):
   the split, the rings, the waits and the epilogue, without products;
 - ``hi_hi``: one wgmma a k8 step (hi*hi) in place of three;
 - ``one_run``: the forward with one tensor-core sum a K slice at every
-  BN (the kernel keeps the even and the odd k8 steps apart at BN <= 64).
+  BN (the kernel keeps the even and the odd k8 steps apart at BN <= 64);
+- ``cvt_split``: the activations split by two ``cvt.rna.tf32`` (lo
+  rounded too; the weights' split as it is) in place of
+  ``tf32_split_act``'s integer operations.
 
 Each variant's forward and dw are held against the plain versions
 (``conv2d_same_f32_plain``, ``conv2d_same_f32_bwd_plain``, TF32 off): the
 largest error as a fraction of its gate (2e-5 and 1e-4 of the largest
-entry) is printed beside its times (only ``kernel`` and ``one_run``
-compute the function). It prints the card's name and power limit, a line
+entry) is printed beside its times (only ``kernel``, ``one_run`` and
+``cvt_split`` compute the function). It prints the card's name and power limit, a line
 per layer and one JSON line of them all.
 """
 import argparse
@@ -55,6 +58,8 @@ DW_PRODUCTS = '''      wgmma_tf32<BN>(part, ahi[SET], dlo, s == 0 ? 0 : 1);
 KEEP = ('      asm volatile("" :: "r"(ahi[SET][0]), "r"(ahi[SET][1]), '
         '"r"(ahi[SET][2]), "r"(ahi[SET][3]), "r"(alo[SET][0]), '
         '"r"(alo[SET][1]), "r"(alo[SET][2]), "r"(alo[SET][3]));\n')
+INT_SPLIT = '''  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));'''
 VARIANTS = {
     'kernel': [],
     'no_products': [(FWD_PRODUCTS, KEEP), (DW_PRODUCTS, KEEP)],
@@ -64,6 +69,7 @@ VARIANTS = {
                             's == 0 ? 0 : 1);\n' + KEEP)],
     'one_run': [('constexpr int PARTS = BN <= 64 ? 2 : 1;',
                  'constexpr int PARTS = 1;')],
+    'cvt_split': [(INT_SPLIT, '  tf32_split(v, hi, lo);')],
 }
 LAYERS = [('L1', 128, 16, 16), ('L2', 64, 16, 32), ('L3', 64, 32, 32),
           ('L4', 32, 32, 64), ('L5', 32, 64, 64), ('L6', 16, 64, 128),
@@ -98,7 +104,7 @@ def build_variants():
         lib = ctypes.CDLL(str(BUILD / f'f32_conv_{name}' / 'lib.so'))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pbsed_conv2d_same_f32.argtypes = (p,) * 5 + (i,) * 8 + (p,)
-        lib.pbsed_conv2d_same_f32_bwd.argtypes = (p,) * 7 + (i,) * 8 + (p,)
+        lib.pbsed_conv2d_same_f32_bwd.argtypes = (p,) * 8 + (i,) * 9 + (p,)
         lib.pbsed_conv2d_f32_dw_chunks.argtypes = (i,) * 8
         libs[name] = lib
     return libs
@@ -162,9 +168,9 @@ def main():
 
             def dw_pass():
                 if lib.pbsed_conv2d_same_f32_bwd(
-                        x.data_ptr(), gy.data_ptr(), None, None,
+                        x.data_ptr(), gy.data_ptr(), None, None, None,
                         dw.data_ptr(), ws.data_ptr(), None, BATCH, FRAMES,
-                        f, cin, cout, 3, 3, sms, stream):
+                        f, cin, cout, cout, 3, 3, sms, stream):
                     raise RuntimeError(f'{name}: dw failed')
 
             fwd()

@@ -52,7 +52,7 @@ from pb_sed_tpu_torch.ops.kernels import build  # noqa: E402
 from pb_sed_tpu_torch.ops.kernels.conv import (  # noqa: E402
     conv2d_same_f32_bwd_plain, conv2d_same_f32_plain)
 
-HEADER = 'conv2d_f32_entry.cuh'
+HEADERS = ('conv2d_f32_entry.cuh', 'conv2d_f32_wgmma.cuh')
 INT_SPLIT = '''  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));'''
 CVT_SPLIT = '''  tf32_split(v, hi, lo);'''
@@ -114,14 +114,17 @@ def build_variants(names):
         src = BUILD / f'f32_entry_{name}'
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, src)
-        header = src / HEADER
-        text = header.read_text()
+        texts = {h: (src / h).read_text() for h in HEADERS}
         for old, new in VARIANTS[name]:
-            if old not in text:
+            # the header that holds the text (the activations' split is
+            # conv2d_f32_wgmma.cuh's, shared by both kernel families)
+            header = next((h for h in HEADERS if old in texts[h]), None)
+            if header is None:
                 raise RuntimeError(f'{name}: the kernel text to edit is gone:'
                                    f'\n{old}')
-            text = text.replace(old, new)
-        header.write_text(text)
+            texts[header] = texts[header].replace(old, new)
+        for header, text in texts.items():
+            (src / header).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, '-shared', '-o', str(src / 'lib.so'),
              str(src / 'conv2d_f32.cu')], stdout=subprocess.PIPE,
@@ -134,7 +137,7 @@ def build_variants(names):
         lib = ctypes.CDLL(str(BUILD / f'f32_entry_{name}' / 'lib.so'))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pbsed_conv2d_same_f32.argtypes = (p,) * 5 + (i,) * 8 + (p,)
-        lib.pbsed_conv2d_same_f32_bwd.argtypes = (p,) * 7 + (i,) * 8 + (p,)
+        lib.pbsed_conv2d_same_f32_bwd.argtypes = (p,) * 8 + (i,) * 9 + (p,)
         lib.pbsed_conv2d_f32_dw_chunks.argtypes = (i,) * 8
         lib.pbsed_conv2d_f32_split_floats.argtypes = (i,) * 7
         lib.pbsed_conv2d_f32_split_floats.restype = ctypes.c_longlong
@@ -238,10 +241,10 @@ def main():
 
             def bwd():
                 if lib.pbsed_conv2d_same_f32_bwd(
-                        x.data_ptr(), gy.data_ptr(), w_flip.data_ptr(),
-                        dx.data_ptr(), dw.data_ptr(), ws.data_ptr(),
-                        split.data_ptr(), BATCH, FRAMES, f, cin, cout, 3, 3,
-                        sms, stream):
+                        x.data_ptr(), gy.data_ptr(), gy.data_ptr(),
+                        w_flip.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                        ws.data_ptr(), split.data_ptr(), BATCH, FRAMES, f,
+                        cin, cout, cout, 3, 3, sms, stream):
                     raise RuntimeError(f'{name}: backward failed')
 
             fwd()

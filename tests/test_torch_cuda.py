@@ -874,16 +874,21 @@ def test_wide_gru_members_in_the_direction_axis(gen):
 
 
 # (B, T, F, Cin, Cout, kt, kf): the entry layer, a narrow tile (Cout 16,
-# BN 16), Cout off 16 with an even kernel, a 4 x 3 kernel on a ragged
-# pixel tile, the late shallow layers' widths, and a 1x1; then shapes of
-# the 3xTF32 design: two column tiles of 64 (and, with the member axis
-# below, two members on it), and L8's Cout 256 at F = 8 on a ragged tile;
-# then the recipes' three entry layers (1 -> 16, 1 -> 32, 11 -> 16) on the
-# entry kernels at T off their tiles and F = 40 (not a power of two),
-# the BiCRNN's also at F = 128, a 5 x 3 kernel at F = 37 (odd; its dw
-# pads its tile's pixels to 16), Cin = 8 (the forward's pair loads, Cout
-# 40 in 16-channel chunks), and a dx from 36 channels at F = 200 (its
-# halo in windows of frequencies, copied float by float)
+# BN 16), Cout off 16 with an even kernel (padded to 16 on the 3xTF32
+# pair; its dx from 7 channels on the entry kernels), a 4 x 3 kernel at
+# Cin 33 (padded to 36) on a ragged pixel tile, the late shallow layers'
+# widths, and a 1x1; then shapes of the 3xTF32 design: two column tiles
+# of 64 (and, with the member axis below, two members on it), and L8's
+# Cout 256 at F = 8 on a ragged tile; then the recipes' three entry layers
+# (1 -> 16, 1 -> 32, 11 -> 16) on the entry kernels at T off their tiles
+# and F = 40 (not a power of two), the BiCRNN's also at F = 128, a 5 x 3
+# kernel at F = 37 (odd; its dw pads its tile's pixels to 16), Cin = 8
+# (the forward's pair loads, Cout 40 in 16-channel chunks), and a dx from
+# 36 channels at F = 200 (its halo in windows of frequencies, copied float
+# by float); then 14b's 3x3 layers off a power of two F (40, 20, 10, 5:
+# tiles of 120 and 125 pixels, rows x W) and a 3x3 layer at Cout = 10
+# (padded to 16 for the forward and dw, its dx from 10 channels on the
+# entry kernels)
 F32_CONV_SHAPES = [(2, 9, 16, 1, 16, 3, 3), (1, 7, 8, 16, 16, 3, 3),
                    (2, 9, 8, 24, 7, 2, 2), (1, 5, 6, 33, 40, 4, 3),
                    (2, 50, 16, 128, 256, 3, 3), (1, 7, 8, 64, 96, 1, 1),
@@ -891,22 +896,22 @@ F32_CONV_SHAPES = [(2, 9, 16, 1, 16, 3, 3), (1, 7, 8, 16, 16, 3, 3),
                    (2, 9, 40, 1, 16, 3, 3), (1, 13, 40, 1, 32, 3, 3),
                    (2, 7, 40, 11, 16, 3, 3), (1, 5, 128, 11, 16, 3, 3),
                    (1, 11, 37, 3, 24, 5, 3), (1, 9, 24, 8, 40, 3, 3),
-                   (1, 5, 200, 3, 36, 3, 3)]
+                   (1, 5, 200, 3, 36, 3, 3),
+                   (2, 9, 40, 24, 24, 3, 3), (2, 7, 20, 24, 64, 3, 3),
+                   (1, 13, 20, 64, 64, 3, 3), (1, 11, 10, 64, 128, 3, 3),
+                   (2, 7, 10, 128, 128, 3, 3), (1, 27, 5, 128, 256, 3, 3),
+                   (2, 9, 5, 256, 256, 3, 3), (2, 9, 40, 24, 10, 3, 3)]
 
 
 def _f32_design_wanted(f, cin, cout):
     """The design of each pass as the rule has it: the entry kernels at
-    Cin < 16 (all three passes; the dx's output is then narrow), 3xTF32
-    where the GEMM's input and output channels are >= 16 and multiples of
-    4 and F is a power of two dividing 128, FFMA elsewhere."""
-    def takes(c_in, n):
-        return (c_in >= 16 and n >= 16 and c_in % 4 == 0 and n % 4 == 0
-                and 128 % f == 0)
+    Cin < 16 (all three passes; the dx's output is then narrow) and for
+    the dx of a layer with Cout < 16 (a GEMM from fewer than 16 channels;
+    at these shapes its tile fits), 3xTF32 on wgmma everywhere else."""
     if cin < 16:
         return dict.fromkeys(('fwd', 'dx', 'dw'), 'entry')
-    return {name: '3xtf32' if tc else 'ffma' for name, tc in (
-        ('fwd', takes(cin, cout)), ('dx', takes(cout, cin)),
-        ('dw', takes(cin, cout)))}
+    return {'fwd': '3xtf32', 'dx': 'entry' if cout < 16 else '3xtf32',
+            'dw': '3xtf32'}
 
 
 @pytest.mark.parametrize('b,t,f,cin,cout,kt,kf', F32_CONV_SHAPES)
@@ -916,11 +921,12 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
     on the tensor cores), 2e-5 of the largest entry forward and dx, 1e-4
     for dw (sums over every pixel); dw's chunks added in a fixed order:
     bit-identical reruns, also without dx; each pass on the design the
-    rule gives its shape; the member axis one launch equal to each
-    member's in every bit."""
+    rule gives its shape, whole (no tap blocks); the member axis one
+    launch equal to each member's in every bit."""
     designs = conv_f32_designs(f, cin, cout, kt, kf)
     for name, want in _f32_design_wanted(f, cin, cout).items():
         assert designs[name]['design'] == want, (name, designs[name])
+        assert designs[name]['taps'] == (kt, kf), (name, designs[name])
     x = torch.randn(b, t, f, cin, generator=gen, device='cuda')
     w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
         kt * kf * cin) ** -.5
@@ -936,10 +942,12 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
     assert dx.shape == x.shape and dw.shape == w.shape
     assert _max_err(dx, ref_dx) <= 2e-5 * float(ref_dx.abs().max())
     assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
-    entry = int(cin < 16)
+    entry = int(designs['fwd']['design'] == 'entry')
+    bwd_entry = int('entry' in (designs['dx']['design'],
+                                designs['dw']['design']))
     for name, more in (('conv2d_same_f32', 1), ('conv2d_same_f32_bwd', 1),
                        ('conv2d_same_f32_entry', entry),
-                       ('conv2d_same_f32_bwd_entry', entry)):
+                       ('conv2d_same_f32_bwd_entry', bwd_entry)):
         assert build.LAUNCHES[name] == n[name] + more, name
     again = conv2d_same_f32_bwd(x, w, gy)
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
@@ -950,6 +958,54 @@ def test_f32_conv_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
         torch.stack([bias, -bias])
     assert torch.equal(conv2d_same_f32_members(xm, wm, bm), torch.stack(
         [conv2d_same_f32(xm[i], wm[i], bm[i]) for i in range(2)]))
+
+
+# (T, F, Cin, Cout, kt, kf, M): f32 kernels whose halo fits no tile as a
+# whole (f32 halos hold twice bf16's bytes): 31 x 31 at F = 64, 64 -> 64
+# on the 3xTF32 pair, and at Cin = 11 on the entry kernels (61 x 61); two
+# members on the first
+F32_HUGE_KERNELS = [(12, 64, 64, 64, 31, 31, 2), (20, 24, 11, 16, 61, 61, 1)]
+
+
+@pytest.mark.parametrize('t,f,cin,cout,kt,kf,m', F32_HUGE_KERNELS)
+def test_f32_conv_runs_a_kernel_no_tile_fits_in_tap_blocks(gen, t, f, cin,
+                                                           cout, kt, kf, m):
+    """Such an f32 kernel runs as the f32 sum of tap blocks that fit
+    (``conv.py:_f32_tap_blocks``), each on the entry or 3xTF32 kernels:
+    forward, dx and dw against the plain versions at the f32 gates (2e-5
+    of the largest entry for y and dx, 1e-4 for dw); dw bit-identical on
+    a rerun; one launch a block; with M > 1 the member axis equals M
+    single calls in every bit."""
+    designs = conv_f32_designs(f, cin, cout, kt, kf)
+    assert all(d['design'] in ('entry', '3xtf32') for d in designs.values())
+    taps = designs['dw']['taps']
+    assert taps != (kt, kf) and designs['dx']['taps'] == taps
+    blocks = -(-kt // taps[0]) * -(-kf // taps[1])
+    x = torch.randn(2, t, f, cin, generator=gen, device='cuda')
+    w = torch.randn(kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bias = .1 * torch.randn(cout, generator=gen, device='cuda')
+    gy = torch.randn(2, t, f, cout, generator=gen, device='cuda')
+    y = conv2d_same_f32(x, w, bias)
+    ref = conv2d_same_f32_plain(x, w, bias)
+    assert y.dtype == torch.float32 and y.shape == ref.shape
+    assert _max_err(y, ref) <= 2e-5 * float(ref.abs().max())
+    n = build.LAUNCHES['conv2d_same_f32_bwd']
+    dx, dw = conv2d_same_f32_bwd(x, w, gy)
+    assert build.LAUNCHES['conv2d_same_f32_bwd'] == n + blocks
+    ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert _max_err(dx, ref_dx) <= 2e-5 * float(ref_dx.abs().max())
+    assert _max_err(dw, ref_dw) <= 1e-4 * float(ref_dw.abs().max())
+    assert torch.equal(dw, conv2d_same_f32_bwd(x, w, gy)[1])
+    if m == 1:
+        return
+    xm = torch.randn(m, 2, t, f, cin, generator=gen, device='cuda')
+    wm = torch.randn(m, kt, kf, cin, cout, generator=gen, device='cuda') * (
+        kt * kf * cin) ** -.5
+    bm = .1 * torch.randn(m, cout, generator=gen, device='cuda')
+    assert torch.equal(conv2d_same_f32_members(xm, wm, bm), torch.stack(
+        [conv2d_same_f32(xm[i], wm[i], bm[i]) for i in range(m)]))
 
 
 def test_f32_conv_dw_over_a_long_run(gen):

@@ -172,6 +172,110 @@ def test_f32_conv_backward_skips_dx_without_changing_dw(monkeypatch):
     assert dx is None and torch.equal(dw, grads[True][0])
 
 
+def _lax_conv(x, w, b):
+    return jax.lax.conv_general_dilated(
+        x, w, (1, 1), 'SAME',
+        dimension_numbers=('NHWC', 'HWIO', 'NHWC')) + b
+
+
+def _gate(got, ref, gate=2e-5):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=gate * float(np.abs(ref).max()))
+
+
+def _plain_padded_bwd(kt, kf):
+    """The f32 backward's launch at its padded shapes for a kt x kf
+    kernel, by the plain versions: dx from the dx's own cotangent and
+    weights, dw from the padded input and cotangent."""
+    def launch(xk, gyk, gy_dx, w_dx, need_dx):
+        dx = (kconv.conv2d_same_f32_bwd_plain(xk, w_dx, gy_dx)[0]
+              if need_dx else None)
+        shape = (kt, kf, xk.shape[-1], gyk.shape[-1])
+        return dx, kconv.conv2d_same_f32_bwd_plain(xk, torch.zeros(shape),
+                                                   gyk)[1]
+    return launch
+
+
+@pytest.mark.parametrize('kt,kf,cin,cout', [
+    (3, 3, 33, 10),    # Cin padded to 36, Cout to 16
+    (2, 2, 24, 7),     # Cout to 16 at an even kernel
+])
+def test_f32_channel_pad_matches_lax(kt, kf, cin, cout):
+    """What the f32 wrappers do before a launch to the 3xTF32 pair
+    (``_f32_channels``, ``_f32_padded_conv``, ``_f32_padded_conv_bwd``):
+    Cin from 16 up padded with zero channels and zero weight rows to a
+    multiple of 4, Cout with zero weight columns and zero bias to a
+    multiple of 4 that is at least 16, the extra outputs, dx and dw
+    dropped. Through the plain versions at the padded shapes, forward and
+    VJP against ``lax.conv_general_dilated(..., 'SAME')`` at 2e-5 of the
+    largest entry; the dx both from the cotangent padded as the dw's and
+    from the unpadded one (the entry kernels' dx of Cout < 16)."""
+    cin_k, cout_k = kconv._f32_channels(cin, cout)
+    assert cin_k % 4 == 0 and cin_k >= cin and cout_k == 16
+    rng = np.random.RandomState(7 * cin + cout)
+    x = rng.randn(2, 7, 10, cin).astype(np.float32)
+    w = (rng.randn(kt, kf, cin, cout) / np.sqrt(kt * kf * cin)).astype(
+        np.float32)
+    b = (.1 * rng.randn(cout)).astype(np.float32)
+    gy = rng.randn(2, 7, 10, cout).astype(np.float32)
+    y_ref, vjp = jax.vjp(_lax_conv, *map(jnp.asarray, (x, w, b)))
+    dx_ref, dw_ref, _ = vjp(jnp.asarray(gy))
+    xt, wt, bt, gyt = map(torch.from_numpy, (x, w, b, gy))
+    y = kconv._f32_padded_conv(kconv.conv2d_same_f32_plain, xt, wt, bt,
+                               cin_k, cout_k)
+    assert y.shape == (2, 7, 10, cout)
+    _gate(y.numpy(), y_ref)
+    for cout_dx in (cout_k, cout):
+        shapes = {'fwd': (cin_k, cout_k), 'dx': (cin_k, cout_dx),
+                  'dw': (cin_k, cout_k)}
+        dx, dw = kconv._f32_padded_conv_bwd(_plain_padded_bwd(kt, kf), xt,
+                                            wt, gyt, shapes)
+        _gate(dx.numpy(), dx_ref)
+        _gate(dw.numpy(), dw_ref)
+        no_dx, dw_alone = kconv._f32_padded_conv_bwd(
+            _plain_padded_bwd(kt, kf), xt, wt, gyt, shapes, need_dx=False)
+        assert no_dx is None and torch.equal(dw, dw_alone)
+    assert kconv._f32_channels(11, 10) == (11, 10)
+
+
+@pytest.mark.parametrize('kt,kf,bt,bf', [
+    (7, 5, 4, 3),      # odd extents cut unevenly
+    (6, 4, 3, 2),      # even extents (XLA's asymmetric SAME pads)
+    (5, 5, 1, 5),      # one frame of taps a block
+])
+def test_f32_tap_blocks_sum_to_the_whole_conv(kt, kf, bt, bf):
+    """A kernel whose halo fits no tile runs as the sum of its tap blocks
+    (``_conv_by_blocks``, ``_conv_bwd_by_blocks``), which for the f32 conv
+    stays in f32 (no rounding to bf16 at its end): through the plain f32
+    versions, the blocks' sum against ``lax.conv_general_dilated`` at 2e-5
+    of the largest entry, forward and VJP, dw the same without dx."""
+    rng = np.random.RandomState(10 * kt + bt)
+    x = rng.randn(2, 9, 11, 5).astype(np.float32)
+    w = (rng.randn(kt, kf, 5, 6) / np.sqrt(kt * kf * 5)).astype(np.float32)
+    b = (.1 * rng.randn(6)).astype(np.float32)
+    gy = rng.randn(2, 9, 11, 6).astype(np.float32)
+    y_ref, vjp = jax.vjp(_lax_conv, *map(jnp.asarray, (x, w, b)))
+    dx_ref, dw_ref, _ = vjp(jnp.asarray(gy))
+    xt, wt, bt_, gyt = map(torch.from_numpy, (x, w, b, gy))
+    y = kconv._conv_by_blocks(
+        lambda xs, wb: kconv.conv2d_same_f32_plain(xs, wb, None), xt, wt,
+        bt_, bt, bf)
+    assert y.dtype == torch.float32
+    _gate(y.numpy(), y_ref)
+    dx, dw = kconv._conv_bwd_by_blocks(kconv.conv2d_same_f32_bwd_plain, xt,
+                                       wt, gyt, bt, bf)
+    assert dx.dtype == torch.float32
+    _gate(dx.numpy(), dx_ref)
+    _gate(dw.numpy(), dw_ref)
+    no_dx, dw_alone = kconv._conv_bwd_by_blocks(
+        kconv.conv2d_same_f32_bwd_plain, xt, wt, gyt, bt, bf,
+        need_dx=False)
+    assert no_dx is None and torch.equal(dw, dw_alone)
+
+
 @pytest.mark.parametrize('norm,input_grad,want', [
     ('batch', False, True),   # the recipes: norm_0's scale and shift
     (None, False, False),     # nothing upstream needs a gradient
@@ -234,9 +338,9 @@ def _emulated_3xtf32(a, b, run, a_lo_rounded=True, b_lo_rounded=True):
     starts afresh every ``run`` k8 steps and is then added to an f32
     register sum. The block sums round to nearest: this models the split
     and the f32 sums, not the tensor cores' own accumulation. An operand
-    whose lo is not rounded (``*_lo_rounded=False``: the entry kernels'
-    activations, split in registers) has it truncated to tf32, as the
-    tensor cores read an f32 register."""
+    whose lo is not rounded (``*_lo_rounded=False``: the activations,
+    split in registers) has it truncated to tf32, as the tensor cores
+    read an f32 register."""
     pad = -a.shape[1] % 8
     a = np.pad(a, ((0, 0), (0, pad)))
     b = np.pad(b, ((0, pad), (0, 0)))
@@ -281,18 +385,17 @@ def _emulated_3xtf32(a, b, run, a_lo_rounded=True, b_lo_rounded=True):
 def test_3xtf32_split_error_is_a_tenth_of_the_gate(name, k, run, gate):
     """The 3xTF32 split with f32 sums against the f64 sum of the f32
     operands: within a tenth of the card's gate (``gate * max|ref|``),
-    where plain TF32 (hi*hi alone) misses the whole gate. The entry
-    kernels split the weights with cvt.rna and the activations in
-    registers (their lo truncated by the tensor cores): the forward's and
-    dx's A operand, both of the dw's."""
+    where plain TF32 (hi*hi alone) misses the whole gate. Both kernel
+    families split the weights with cvt.rna and the activations in
+    registers (``tf32_split_act``: their lo truncated by the tensor
+    cores): the forward's and dx's A operand, both of the dw's."""
     rng = np.random.RandomState(k)
     a = rng.randn(32, k).astype(np.float32)
     b = (rng.randn(k, 16) / np.sqrt(k)).astype(np.float32)
     ref = a.astype(np.float64) @ b.astype(np.float64)
     scale = float(np.abs(ref).max())
-    entry = name.startswith('entry')
-    got = _emulated_3xtf32(a, b, run, a_lo_rounded=not entry,
-                           b_lo_rounded=name != 'entry dw')
+    got = _emulated_3xtf32(a, b, run, a_lo_rounded=False,
+                           b_lo_rounded=not name.endswith('dw'))
     assert np.abs(got - ref).max() <= .1 * gate * scale, name
     plain = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
     assert np.abs(plain - ref).max() > gate * scale, name
@@ -324,6 +427,13 @@ TOWERS = {
     # pool and an even kernel
     'eval': (True, dict(out_channels=[16, 24], kernel_size=[3, [2, 2]],
                         pool_size=[[2, 2], 1], **_BN), 11, 16, False),
+    # off the 3xTF32 pair's old tile: F = 10 pooled to 5, a 24- and a
+    # 10-channel 3x3 layer (padded to 16 on the card, the 10-channel
+    # layer's dx from 10 channels and the next layer's Cin = 10 on the
+    # entry kernels)
+    'off_tile': (True, dict(out_channels=[24, 10, 24], kernel_size=3,
+                            pool_size=[[2, 1], 1, 1], pre_activation=True,
+                            **_BN), 11, 10, True),
     'cnn1d': (False, dict(out_channels=[16, 32, 32], kernel_size=[1, 3, 3],
                           pool_size=[1, 2, 1],
                           residual_connections=[2, None, None],
