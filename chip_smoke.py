@@ -42,13 +42,18 @@ runs, in order:
    are timed by replaying a CUDA graph of 10 calls (one call of the
    max-pool forward timed on an idle card is logged beside it). Per GRU
    shape one line per pass says which design ran (w_hh resident in a
-   thread-block cluster's shared memory, ``csrc/gru_cluster.cuh``, with
-   the cluster's size, its rows, the shared memory a block and the
-   clusters the card holds at once; or the row-tiled kernels) and one
-   gives the wrapper's ms, the kernel's alone, its time per serial step
-   and the row-tiled kernel's ms of before; at the training shape
-   (2, 32, 500, H) anything but the cluster design fails the run (the
-   fused backward's too), as does a spill in a cluster kernel, a second
+   thread-block cluster's shared memory, ``csrc/gru_cluster.cuh``; the
+   forward's wgmma rows design, ``csrc/gru_rows.cuh``; the backwards'
+   row-tiled sweeps; with the cluster's size, its rows, the shared memory
+   a block and the clusters the card holds at once) and one gives the
+   wrapper's ms, the kernel's alone, its time per serial step and the
+   kernel's ms of before its redesign where that was recorded; at the
+   training shape (2, 32, 500, H) anything but the cluster design fails
+   the run (the fused backward's too), as does a many-row forward at
+   H <= 256 on anything but the wgmma rows design (each many-row shape
+   also logs that design's ms, bound, share of the bound and cuDNN's ms,
+   and counts under ``gru_scan_rows`` too), a spill in a cluster or rows
+   kernel, a second
    run of a GRU backward that differs in any bit, or a fused backward
    whose dxw or dh0 differs from the split one's in any bit. After the
    kernel phases: the max-pool forward's share of its bound over the 8
@@ -56,7 +61,8 @@ runs, in order:
    at the two training shapes, and cuDNN's GRU times per shape as JSON.
    The GRU forward also runs at the two shapes that only the tuning chain
    (phase 8) gives it: (2, 8 000, 11, 256), the shortest SED window over
-   16 clips (row-tiled), and (2, 32, 250, 256), scenario 2's window of 250
+   16 clips (wgmma rows, beside cuDNN), and (2, 32, 250, 256), scenario
+   2's window of 250
    at shift 250 (the cluster design); held against its plain version,
    its times printed and left out of the kernels line's sums. So do the
    shapes only the strong-label BiCRNN gives the kernels (phase 9): the
@@ -76,7 +82,8 @@ runs, in order:
    clips through ``models.base.inference``'s tagging, boundaries
    detection and sound event detection; outputs are checked for shape,
    range and against the same model on the CPU, and every forward
-   kernel's launch counter must have risen.
+   kernel's launch counter must have risen, the wgmma rows GRU's too
+   (SED's 16 000 windows).
 4. training: ``Trainer.train`` runs 8 steps of the full-width shallow
    FBCRNN with augmentation on, on batches of 32 ten-second clips
    (steps/s, clips/s, peak memory, the loss per step); all six launch
@@ -188,9 +195,10 @@ runs, in order:
    of cuDNN's grouped conv (``groups=M``) and the bound. The GRU forward
    at D = 2N (``ENSEMBLE_GRU_SHAPES``: 10 members' tagging, a tuning
    batch and one SED chunk of windows, and shapes on either side of the
-   shape rule's limit) under both designs (``scripts/perf/
-   gru_designs.py``), each against its plain version, with the design
-   the rule (``gru_cluster_takes``) takes. 10b: 10 shallow FBCRNNs
+   shape rule's limit) under both designs, the cluster design and the
+   wgmma rows design (``scripts/perf/gru_designs.py``), each against its
+   plain version, with the design the rule (``gru_fwd_cluster_takes``)
+   takes, the bound and its share. 10b: 10 shallow FBCRNNs
    (random weights from seeds 0-9) serve phase 3's 3 x 32 clips through
    ``models.base``'s tagging, boundaries detection and SED 51/1, stacked
    (the engine's default, which runs sliding-window SED in chunks of
@@ -325,8 +333,10 @@ runs, in order:
    first 2 048 rows, which are independent, and timed whole but at 1024,
    where the wrapper's f32 weight-gradient contraction would need ~83 GB),
    with the design each pass runs, cuDNN's GRU and the bound; H = 200's
-   forward on the row-tiled kernel at 224 against the cluster at 256
-   (``scripts/perf/gru_designs.py``'s ``scan_as``); H = 600 (run as 768)
+   forward at 224 against 256, at (2, 32, 500) on the wgmma rows design
+   against the cluster design and at (2, 16 000, 51) on the rows design
+   at both (``scripts/perf/gru_designs.py``'s ``scan_as``); H = 600 (run
+   as 768)
    beside 768; the f32 conv and its
    backward (``csrc/conv2d_f32.cu``) at the shallow tower's nine 3x3
    shapes against the plain version (cuDNN off), with cuDNN's f32 conv
@@ -404,7 +414,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     maxpool_freq2_plain, avgpool2d, avgpool2d_bwd, avgpool2d_bwd_plain,
     avgpool2d_plain, maxpool2d, maxpool2d_bwd, maxpool2d_bwd_plain,
     maxpool2d_plain)
-from pb_sed_tpu_torch.ops.kernels.gru import (gru_designs, gru_scan,
+from pb_sed_tpu_torch.ops.kernels.gru import (ROWS, gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
                                               gru_scan_plain)
@@ -458,22 +468,27 @@ DEEP_MEMBERS = 3
 SED_CHUNK = -(-BATCH // ENSEMBLE_MEMBERS)
 # the GRU forward at D = 2N, timed under both designs: tagging (32 clips),
 # a tuning batch (16 clips) and one SED chunk of windows at 51 / 1; and
-# shapes on either side of the rule's limit of 192 row tiles of 16
-# (csrc/gru_cluster.cuh): 180 and 240 tiles at T = 500, 192 and 224 at
-# T = 51
+# shapes on either side of the cluster design's former limit of 192 row
+# tiles of 16: 180 and 240 tiles at T = 500, 192 and 224 at T = 51. The
+# rule (csrc/gru_cluster.cuh:gru_fwd_cluster_takes) sends all of them to
+# the wgmma rows design
 ENSEMBLE_GRU_SHAPES = [(2 * ENSEMBLE_MEMBERS, BATCH, FRAMES, 256),
                        (2 * ENSEMBLE_MEMBERS, BATCH // 2, FRAMES, 256),
                        (2 * ENSEMBLE_MEMBERS, SED_CHUNK * FRAMES, 51, 256),
                        (2 * ENSEMBLE_MEMBERS, 144, FRAMES, 256),
                        (2 * ENSEMBLE_MEMBERS, 192, FRAMES, 256),
                        (2, 1536, 51, 256), (2, 1792, 51, 256)]
-# The row-tiled GRU kernels' ms at (2, 32, 500, H) before the cluster
-# design, kernel alone: the parent tree in `scripts/gru_ab.py
-# chip_tmp/parent . --rounds 2` (NVIDIA H100 80GB HBM3, 700.00 W), printed
-# beside this run's
+# The GRU kernels' ms before their redesign, kernel alone, printed beside
+# this run's (NVIDIA H100 80GB HBM3, 700.00 W): at (2, 32, 500, H) the
+# row-tiled kernels before the cluster design (`scripts/gru_ab.py` on the
+# tree before it); at the many-row shapes the forward before the wgmma
+# rows design (the row-tiled kernel, the cluster design at H = 512;
+# chip_smoke.py on the tree before it)
 EARLIER_GRU_MS = {
     ('fwd', 256): 15.751, ('bwd', 256): 32.225,
-    ('fwd', 512): 38.278, ('bwd', 512): 82.779}
+    ('fwd', 512): 38.278, ('bwd', 512): 82.779,
+    ('fwd', (2, 16000, 51, 256)): 12.972, ('fwd', (2, 16000, 51, 512)): 48.814,
+    ('fwd', (20, 2000, 51, 256)): 16.130, ('fwd', (2, 1792, 51, 256)): 1.824}
 
 # name: route, source, the TPU kernel(s) it replaces, and the path whose
 # launch count the kernels line reports as ``launches``
@@ -582,6 +597,12 @@ KERNELS = {
     'gru_scan_bwd_padded': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd.cu',
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:357'},
+    # the GRU forward's wgmma rows design (many rows: sliding-window SED),
+    # its launches counted under gru_scan too; its times those of the
+    # many-row shapes of phases 2 and 2c
+    'gru_scan_rows': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_rows.cuh',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:50'},
     # the conv pair's entry kernels (Cin < 16: every tower's first layer):
     # the forward and the dw pass (with its reduce), counted by the pair's
     # wrappers where they run them; their times are device times
@@ -616,8 +637,12 @@ MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  gru_scan_wide='widths_15b_training',
                  gru_scan_bwd_wide='widths_15b_training',
                  gru_scan_padded='widths_15c_training',
-                 gru_scan_bwd_padded='widths_15c_training')
+                 gru_scan_bwd_padded='widths_15c_training',
+                 gru_scan_rows='shallow_serving')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_entry')
+# what an inference-only chain launches: the forward kernels, the GRU
+# forward on the wgmma rows design too (sliding-window SED)
+CHAIN_FORWARD = FORWARD + ('gru_scan_rows',)
 SHALLOW = FORWARD + ('conv2d_same_bwd', 'maxpool_freq2_bwd', 'gru_scan_bwd',
                      'conv2d_same_bwd_entry')
 DEEP = SHALLOW + ('avgpool_freq2', 'avgpool_freq2_bwd')
@@ -708,15 +733,15 @@ def log_ptxas(text):
     cut), once per kernel although two sources instantiate some, and
     ptxas's performance advisories (a serialized wgmma pipeline). The
     wgmma kernels' dynamic shared memory is in the per-layer lines, the
-    GRU cluster kernels' in the per-shape lines; a spill in a GRU cluster
-    kernel fails the run."""
+    GRU cluster and rows kernels' in the per-shape lines; a spill in a GRU
+    cluster or rows kernel fails the run."""
     name = ''
     seen = set()
     for line in text.splitlines():
         if 'Compiling entry function' in line:
             mangled = line.split("'")[1]
             for kernel in ('conv2d_wgmma_kernel', 'conv2d_dw_wgmma_kernel',
-                           'conv2d_dw_reduce_kernel', 'gru_scan_kernel',
+                           'conv2d_dw_reduce_kernel', 'gru_rows_kernel',
                            'gru_scan_cluster_kernel', 'gru_bwd_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
@@ -745,7 +770,8 @@ def log_ptxas(text):
             if (name, info) not in seen:
                 seen.add((name, info))
                 log(f'  ptxas {name}: {info}')
-            if ('_cluster_kernel' in name and 'spill' in info
+            if (('_cluster_kernel' in name or 'gru_rows_kernel' in name)
+                    and 'spill' in info
                     and '0 bytes spill stores, 0 bytes spill loads'
                     not in info):
                 raise AssertionError(f'{name} spills: {info}')
@@ -1276,17 +1302,23 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
             if b == BATCH and v['design'] != 'cluster':
                 raise AssertionError(f'GRU {key} at {(d, b, t, h)} runs the '
                                      f'{v["design"]} kernel')
+        _assert_many_rows((d, b, t, h), designs['fwd'])
         y = gru_scan(xw, w_hh, b_hh, h0)
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
         torch.cuda.synchronize()
         k_ms = cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5)
+        p_ms = cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
+                       warmup=1)
         g = randn(d, b, t, h, scale=1e-2) if b == BATCH else None
         lib = cudnn_gru(xw, w_hh, b_hh, h0, ref, g)
         lib.update(shape=(d, b, t, h), fwd_kernel_ms=k_ms)
-        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3, k_ms,
-               cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
-                       warmup=1),
+        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3, k_ms, p_ms,
                records['gru_scan'], label, lib['fwd'], gru_work(d, b, t, h))
+        if designs['fwd']['design'] == ROWS:
+            _check('gru_scan_rows', (d, b, t, h), y, ref, 5.3e-3, k_ms, p_ms,
+                   records['gru_scan_rows'], label, lib['fwd'],
+                   gru_work(d, b, t, h))
+            _log_many_rows((d, b, t, h), designs['fwd'], k_ms, lib)
         _log_gru_step('fwd', (d, b, t, h), k_ms,
                       lambda: gru_scan(xw, w_hh, b_hh, h0))
         log(f'cudnn gru {(d, b, t, h)} forward: {lib["fwd"]:.3f} ms, '
@@ -1360,10 +1392,10 @@ def check_kernels(records, label, seed, convs, pools, grus, crossings=(),
 def check_chain_gru_shapes(records):
     """The GRU forward at ``CHAIN_GRU_SHAPES`` against its plain version,
     with the design that ran: 32 rows of 250 steps must take the cluster
-    design (``gru_cluster_takes``), 8 000 rows of 11 steps take the
-    row-tiled one. The error joins the kernel's ``max_abs_err``; its times
-    are printed and stay out of the kernels line's sums, which keep the
-    shapes of the earlier runs."""
+    design (``gru_fwd_cluster_takes``), 8 000 rows of 11 steps the wgmma
+    rows design, logged beside cuDNN. The errors join the kernels'
+    ``max_abs_err``; their times are printed and stay out of the kernels
+    line's sums, which keep the shapes of the earlier runs."""
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(5)
     for d, b, t, h in CHAIN_GRU_SHAPES:
@@ -1377,21 +1409,27 @@ def check_chain_gru_shapes(records):
             f'{design["design"]}, cluster of {design["cluster"]}, '
             f'{design["rows"]} rows, {design["smem"] / 1024:.0f} KiB shared '
             f'memory a block')
-        want = 'cluster' if b == BATCH else 'row_tiled'
+        want = 'cluster' if b == BATCH else ROWS
         if design['design'] != want:
             raise AssertionError(f'GRU at {(d, b, t, h)} runs the '
                                  f'{design["design"]} kernel, not {want}')
+        _assert_many_rows((d, b, t, h), design)
         y = gru_scan(xw, w_hh, b_hh, h0)
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
         torch.cuda.synchronize()
         scratch = new_record()
-        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3,
-               cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5),
+        k_ms = cuda_ms(lambda: gru_scan(xw, w_hh, b_hh, h0), reps=5)
+        lib = cudnn_gru(xw, w_hh, b_hh, h0, ref) if b > BATCH else None
+        _check('gru_scan', (d, b, t, h), y, ref, 5.3e-3, k_ms,
                cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh, h0), reps=3,
                        warmup=1), scratch, 'shallow',
-               work=gru_work(d, b, t, h))
-        records['gru_scan']['max_abs_err'] = max(
-            records['gru_scan']['max_abs_err'], scratch['max_abs_err'])
+               None if lib is None else lib['fwd'], gru_work(d, b, t, h))
+        for name in ('gru_scan',) + (('gru_scan_rows',) if b > BATCH
+                                     else ()):
+            records[name]['max_abs_err'] = max(
+                records[name]['max_abs_err'], scratch['max_abs_err'])
+        if lib is not None:
+            _log_many_rows((d, b, t, h), design, k_ms, lib)
         del xw, y, ref
     torch.cuda.empty_cache()
 
@@ -1516,19 +1554,47 @@ def _log_gru_step(key, shape, k_ms, fn):
     """A GRU wrapper's ms (``k_ms``, of ``fn()``) and its kernel's alone
     (``torch.profiler``: the wrapper adds casts and, backward, the
     weight-gradient contraction), the kernel's time per serial step, and
-    the row-tiled kernel's ms of before the cluster design where that was
-    recorded."""
+    the kernel's ms of before its redesign where that was recorded
+    (``EARLIER_GRU_MS``)."""
     t, h = shape[2], shape[3]
     kernel = sum(ms for ms, name, _ in profile_kernels(fn)
-                 if any(part in name for part in ('gru_scan', 'gru_bwd')))
-    earlier = EARLIER_GRU_MS.get((key, h)) if shape[1] == BATCH else None
+                 if any(part in name
+                        for part in ('gru_scan', 'gru_bwd', 'gru_rows')))
+    earlier = EARLIER_GRU_MS.get(
+        (key, h) if shape[1] == BATCH else (key, tuple(shape)))
     was = ('' if earlier is None else
-           f'; the row-tiled kernel took {earlier:.3f} ms '
+           f'; the kernel before its redesign took {earlier:.3f} ms '
            f'({1e3 * earlier / t:.1f} us a step)')
     alone = ('kernel alone not recorded' if not kernel else
              f'kernel alone {kernel:.3f} ms, {1e3 * kernel / t:.2f} us a '
              f'serial step')
     log(f'gru {key} {shape}: wrapper {k_ms:.3f} ms; {alone}{was}')
+
+
+def _assert_many_rows(shape, design):
+    """A many-row forward (more rows than the B clips of training and
+    tagging) at H <= 256 must run the wgmma rows design."""
+    if shape[1] > BATCH and shape[3] <= 256 and design['design'] != ROWS:
+        raise AssertionError(f'GRU forward at {shape} runs the '
+                             f'{design["design"]} kernel, not {ROWS}')
+
+
+def _log_many_rows(shape, design, k_ms, lib=None):
+    """One line of a many-row GRU forward: the design that ran with its
+    layout, the kernel's ms, its bound and share of the bound, and cuDNN's
+    ms (``lib``, :func:`cudnn_gru`'s; None where no call runs the same
+    D GRUs)."""
+    bound_ms, side = gru_work(*shape)
+    cudnn = ('cuDNN: no single call' if lib is None else
+             f'cuDNN {lib["fwd"]:.3f} ms ({lib["fwd"] - lib["ident"]:.3f} '
+             f'without its identity product), kernel / cuDNN '
+             f'{k_ms / lib["fwd"]:.3f}')
+    log(f'gru many rows {shape}: {design["design"]} (cluster of '
+        f'{design["cluster"]}, {design["units"]} units a block, '
+        f'{design["rows"]} rows, {design["smem"] / 1024:.0f} KiB, '
+        f'{design["coresident"]} clusters co-resident), kernel '
+        f'{k_ms:.3f} ms, bound {bound_ms:.3f} ms ({side}), share '
+        f'{bound_ms / k_ms:.3f}; {cudnn}')
 
 
 def check_1x1():
@@ -1742,8 +1808,10 @@ def phase_slice(stats=None):
         f'{len(flat)} flat tensors')
     batches = _synthetic_batches(model.module.feature_extractor.stft)
     methods = _methods(base)
+    # SED at window 51 / shift 1 runs the GRU forward on 16 000 rows: the
+    # wgmma rows design
     results, launches = _serve(model, methods, batches, 10, 'shallow',
-                               stats=stats)
+                               FORWARD + ('gru_scan_rows',), stats=stats)
     _agree_with_cpu(_model(config, flat), methods, results, batches[1])
     return launches
 
@@ -2169,7 +2237,7 @@ def _profile_step(trainer, batch, label):
         'conv entry': ('conv2d_entry_kernel', 'conv2d_dw_entry_kernel',
                        'conv2d_dw_entry_reduce_kernel'),
         'conv dw reduce': ('conv2d_dw_reduce_kernel',),
-        'GRU fwd': ('gru_scan_kernel', 'gru_scan_cluster_kernel'),
+        'GRU fwd': ('gru_rows_kernel', 'gru_scan_cluster_kernel'),
         'GRU bwd': ('gru_bwd',),
         'pools': ('maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
                   'avgpool2d')}
@@ -2990,7 +3058,7 @@ def phase_tuning_chain(tmp, runs):
         inference.storage_root = saved_root
     log(f'launches in the tuning chain: {launches}')
     for kernel, count in launches.items():
-        if (count > 0) != (kernel in FORWARD):
+        if (count > 0) != (kernel in CHAIN_FORWARD):
             raise AssertionError(f'kernel {kernel} launched {count} times in '
                                  f'the tuning chain (inference only)')
     log(f'tuning members: {[str(m.relative_to(tmp)) for m in members]}')
@@ -3323,7 +3391,7 @@ def phase_strong_chain(tmp, weak_hp_dir, in_memory):
             raise AssertionError(f'kernel {kernel} never launched in the '
                                  f'strong CLI training run')
     for kernel, count in out['launches']['strong_chain'].items():
-        if (count > 0) != (kernel in FORWARD):
+        if (count > 0) != (kernel in CHAIN_FORWARD):
             raise AssertionError(f'kernel {kernel} launched {count} times in '
                                  f'the strong tuning chain (inference only)')
     if result != str(run_dir):
@@ -3562,11 +3630,14 @@ def _gru_inputs(d, b, t, h, gen):
 
 def check_member_gru(records):
     """The GRU forward at D = 2N (``ENSEMBLE_GRU_SHAPES``) under both
-    designs (``scripts/perf/gru_designs.py``'s ``scan_as``, which the
-    port's library does not export), each against the plain version
-    (5.3e-3), with the ms of each and of the plain version, the design
-    the rule takes (``gru_cluster_takes``) and the bound; the errors join
-    ``max_abs_err``. No single library call runs D independent GRUs."""
+    designs, the cluster design and the wgmma rows design
+    (``scripts/perf/gru_designs.py``'s ``scan_as``, which the port's
+    library does not export), each against the plain version (5.3e-3),
+    with the ms of each and of the plain version, the design the rule
+    takes (``gru_fwd_cluster_takes``: at H = 256 every one of these
+    shapes must take the rows design), the bound and the rows design's
+    share of it; the errors join ``max_abs_err``. No single library call
+    runs D independent GRUs."""
     import importlib.util
     path = Path(__file__).resolve().parent / 'scripts/perf/gru_designs.py'
     spec = importlib.util.spec_from_file_location('gru_designs', path)
@@ -3577,13 +3648,15 @@ def check_member_gru(records):
     for d, b, t, h in ENSEMBLE_GRU_SHAPES:
         xw, w_hh, b_hh, h0 = _gru_inputs(d, b, t, h, gen)
         ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        takes = gru_designs(d, b, t, h)['fwd']
+        _assert_many_rows((d, b, t, h), takes)
         row = {'shape': (d, b, t, h), 'tiles16': d * -(-b // 16),
-               'takes': gru_designs(d, b, t, h)['fwd']['design'],
+               'takes': takes['design'],
                'bound_ms': gru_work(d, b, t, h)[0],
                'plain_ms': cuda_ms(lambda: gru_scan_plain(xw, w_hh, b_hh,
                                                           h0),
                                    reps=1, warmup=0)}
-        for design in ('cluster', 'row_tiled'):
+        for design in ('cluster', ROWS):
             y = scan_as(design, xw, w_hh, b_hh, h0)
             torch.cuda.synchronize()
             err = float((y - ref).abs().max())
@@ -3591,25 +3664,28 @@ def check_member_gru(records):
             if not err <= 5.3e-3:
                 raise AssertionError(f'gru_scan {design} at {(d, b, t, h)} '
                                      f'differs from plain by {err}')
-            records['gru_scan']['max_abs_err'] = max(
-                records['gru_scan']['max_abs_err'], err)
+            for name in ('gru_scan',) + (('gru_scan_rows',)
+                                         if design == ROWS else ()):
+                records[name]['max_abs_err'] = max(
+                    records[name]['max_abs_err'], err)
             row[f'{design}_ms'] = cuda_ms(
                 lambda: scan_as(design, xw, w_hh, b_hh, h0), reps=3)
             row[f'{design}_max_abs_err'] = err
         rec = records['gru_scan']
         _add(rec, 'member_ms', row[f'{row["takes"]}_ms'])
         _add(rec, 'member_cluster_ms', row['cluster_ms'])
-        _add(rec, 'member_row_tiled_ms', row['row_tiled_ms'])
+        _add(rec, f'member_{ROWS}_ms', row[f'{ROWS}_ms'])
         _add(rec, 'member_bound_ms', row['bound_ms'])
         _add(rec, 'member_plain_ms', row['plain_ms'])
-        faster = min(('cluster', 'row_tiled'), key=lambda k: row[f'{k}_ms'])
+        faster = min(('cluster', ROWS), key=lambda k: row[f'{k}_ms'])
         log(f'gru_scan at D = 2N {(d, b, t, h)} ({row["tiles16"]} row tiles '
-            f'of 16): cluster {row["cluster_ms"]:.3f} ms, row-tiled '
-            f'{row["row_tiled_ms"]:.3f} ms (max|d| vs plain '
+            f'of 16): cluster {row["cluster_ms"]:.3f} ms, {ROWS} '
+            f'{row[f"{ROWS}_ms"]:.3f} ms (max|d| vs plain '
             f'{row["cluster_max_abs_err"]:.2e}, '
-            f'{row["row_tiled_max_abs_err"]:.2e}); the rule takes '
+            f'{row[f"{ROWS}_max_abs_err"]:.2e}); the rule takes '
             f'{row["takes"]}, the faster is {faster}; plain '
-            f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.3f} ms')
+            f'{row["plain_ms"]:.3f} ms')
+        _log_many_rows((d, b, t, h), takes, row[f'{ROWS}_ms'])
         MEMBER_GRU_ROWS.append(row)
         del xw, ref
         torch.cuda.empty_cache()
@@ -3696,7 +3772,8 @@ def _lanes(members, methods, batches, k, label, expected):
     once per layer and forward (one forward a batch, or a chunk), whatever
     the members: per method its launches of each kernel in ``expected``
     must be ``expected[kernel]`` a forward, and of every kernel the
-    in-turn lane's divided by the members (times the chunks a batch).
+    in-turn lane's divided by the members (times the chunks a batch), but
+    ``gru_scan_rows``, whose design the shape rule picks by D.
     Returns (the measurements, the stacked lanes' launches summed over
     the methods)."""
     n = len(members)
@@ -3723,6 +3800,11 @@ def _lanes(members, methods, batches, k, label, expected):
                     f'forwards, not {per_forward} each')
         for kernel, count in stacked_launches.items():
             total[kernel] += count
+            # which GRU design runs follows D: 10 members' tagging stacked
+            # (D = 20) takes the rows design, one member's (D = 2) the
+            # cluster one; gru_scan counts both
+            if kernel == 'gru_scan_rows':
+                continue
             if count * n != lanes['in_turn'][1][kernel] * chunks:
                 raise AssertionError(
                     f'{label} {name}: {kernel} launched {count} times '
@@ -6017,10 +6099,12 @@ def check_f32_off_tile_layers(records, randn):
 
 
 def _padded_width_choice(randn):
-    """Why H = 200 runs as 256 at the training shape: the forward at
-    (2, 32, 500) of the row-tiled kernel at 224 (the next multiple of 32)
-    against the cluster design at 256 (``scripts/perf/gru_designs.py``'s
-    ``scan_as``, which runs the design it is told), both on H = 200's
+    """Which width H = 200 runs at (``ops/kernels/gru.py:kernel_hidden``):
+    the forward at 224 (the next multiple of 32) against 256, at the
+    training shape (2, 32, 500) on the wgmma rows design against the
+    cluster design, and at sliding-window SED's (2, 16 000, 51) on the
+    rows design at both widths (``scripts/perf/gru_designs.py``'s
+    ``scan_as``, which runs the design it is told), all on H = 200's
     operands padded exactly, each within the GRU ceiling of the plain
     version at 200."""
     import importlib.util
@@ -6029,24 +6113,29 @@ def _padded_width_choice(randn):
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
     from pb_sed_tpu_torch.ops.kernels.gru import pad_hidden, unpad_hidden
-    d, b, t, h = 2, BATCH, FRAMES, PADDED_HIDDEN
-    xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
-    w_hh = randn(d, h, 3 * h, scale=h ** -.5)
-    b_hh = randn(d, 3 * h, scale=.1)
-    h0 = torch.zeros(d, b, h, device=xw.device)
-    ref = gru_scan_plain(xw, w_hh, b_hh, h0)
-    times = {}
-    for design, hp in (('row_tiled', 224), ('cluster', 256)):
-        args = pad_hidden(xw, w_hh.to(torch.bfloat16), b_hh, h0, hp=hp)
-        y = unpad_hidden(h, y=probe.scan_as(design, *args))[0]
-        err = float((y - ref).abs().max())
-        if not err <= 5.3e-3:
-            raise AssertionError(f'H = 200 as {hp} ({design}) differs from '
-                                 f'the plain version by {err}')
-        times[f'{design}_{hp}_ms'] = cuda_ms(
-            lambda: probe.scan_as(design, *args), reps=5)
-    log(f'H = 200 at (2, 32, 500): ' + json.dumps(times) + '; the wrapper '
-        f'runs {gru_designs(d, b, t, h)["fwd"]["hidden"]}')
+    h = PADDED_HIDDEN
+    for d, b, t, designs in ((2, BATCH, FRAMES, (ROWS, 'cluster')),
+                             (2, BATCH * FRAMES, 51, (ROWS, ROWS))):
+        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+        b_hh = randn(d, 3 * h, scale=.1)
+        h0 = torch.zeros(d, b, h, device=xw.device)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        times = {}
+        for design, hp in zip(designs, (224, 256)):
+            args = pad_hidden(xw, w_hh.to(torch.bfloat16), b_hh, h0, hp=hp)
+            y = unpad_hidden(h, y=probe.scan_as(design, *args))[0]
+            err = float((y - ref).abs().max())
+            if not err <= 5.3e-3:
+                raise AssertionError(f'H = 200 as {hp} ({design}) differs '
+                                     f'from the plain version by {err}')
+            times[f'{design}_{hp}_ms'] = cuda_ms(
+                lambda: probe.scan_as(design, *args), reps=5)
+            del args, y
+        log(f'H = 200 at {(d, b, t)}: ' + json.dumps(times) + '; the '
+            f'wrapper runs {gru_designs(d, b, t, h)["fwd"]["hidden"]}')
+        del xw, ref
+        torch.cuda.empty_cache()
 
 
 def _padded_wide_width(randn):

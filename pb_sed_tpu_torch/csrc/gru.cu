@@ -9,25 +9,25 @@
 // _gru_scan_pallas_tm / gru_scan). xw streams as bf16 as it does there;
 // the hidden state and the gate math stay f32.
 //
-// What bounds it on the H100: the recurrence is serial in t, and a step's
-// work is nothing (a thin (rows x H) state times the (H x 3H) recurrent
-// weight: 50 MFLOP per direction at H = 512, B = 32). What a step costs
-// is the latency of its chain: fetch w_hh, multiply, gate math, make the
-// new state visible to whoever multiplies next. w_hh is 384 KiB of bf16
-// per direction at H = 256 and 1.5 MiB at H = 512, more than the 227 KB
-// of shared memory a block can hold.
+// What bounds it on the H100: the recurrence is serial in t. With few
+// rows a step's work is nothing (a thin (rows x H) state times the
+// (H x 3H) recurrent weight: 50 MFLOP per direction at H = 512, B = 32)
+// and a step costs the latency of its chain: fetch w_hh, multiply, gate
+// math, make the new state visible to whoever multiplies next. With many
+// rows the bytes of xw and y bound it. w_hh is 384 KiB of bf16 per
+// direction at H = 256 and 1.5 MiB at H = 512, more than the 227 KB of
+// shared memory a block can hold.
 //
-// Two designs, chosen by shape in pbsed_gru_scan (pbsed_gru_design says
+// Three designs, chosen by shape in pbsed_gru_scan (pbsed_gru_design says
 // which, and with how much shared memory):
 //
 // 1. Few rows, many steps (training and tagging: B = 32, T = 500, also a
-//    stacked ensemble's D = 2N), and at H = 512 every shape (the rule is
-//    gru_cluster_takes in
-//    gru_cluster.cuh): a thread-block cluster per (direction, tile of 16
-//    rows while all clusters are on the card at once, else of 32:
-//    gru_cluster_row_tiles), w_hh spread over the cluster's shared
-//    memory, the state exchanged through distributed shared memory
-//    (gru_scan_cluster_kernel below). Block c of C = H / 32
+//    stacked ensemble's D = 2N) at H = 256 and 512 (the rule is
+//    gru_fwd_cluster_takes in gru_cluster.cuh): a thread-block cluster
+//    per (direction, tile of 16 rows while all clusters are on the card
+//    at once, else of 32: gru_cluster_row_tiles), w_hh spread over the
+//    cluster's shared memory, the state exchanged through distributed
+//    shared memory (gru_scan_cluster_kernel below). Block c of C = H / 32
 //    owns 32 hidden units and their 96 gate columns; its slice of w_hh is
 //    copied into shared memory once and never read from global memory
 //    again. Each step: 12 warps multiply the tile's full bf16 state (a
@@ -42,181 +42,26 @@
 //    passed the barrier of step t - 1, that is, has finished reading it.
 //    xw[t + 1] of the block's columns is loaded into registers a step
 //    ahead; it depends on nothing in the loop.
-// 2. Many rows, few steps at H = 256 (sliding-window SED: 16 000 windows
-//    of 51 frames) and every other H: one block per (direction, tile of
-//    32 batch rows, 16 when H > 256), which fill the card by their number
-//    (gru_scan_kernel below). The tile's state lives in shared memory;
-//    each step, warp w computes the 96 gate columns [96w, 96w + 96) with
-//    wmma products, loading w_hh fragments straight from global memory
-//    (L2-resident after the first step), one K slice ahead of the products
-//    that use them; the step's xw rows arrive by cp.async meanwhile. Two
-//    barriers per step. blockDim = H, so H must be a multiple of 32.
+// 2. Many rows (sliding-window SED: 16 000 windows of 51 frames), and
+//    every H up to 512 other than 256 and 512: the wgmma rows design of
+//    gru_rows.cuh, a cluster of H / 32 blocks per (direction, tile of 64
+//    rows), block c owning 32 units and their slice of w_hh, the
+//    products on wgmma, the gate math on the accumulators, the state
+//    exchanged by bulk copies into the other blocks' shared memory.
 // 3. H above 512 (a multiple of 256, to 2048): the cluster design with
 //    H / 16 units a block (gru_cluster_wide.cuh): a cluster of 16 blocks
 //    per (direction, tile of 16 or 32 rows), the slice of w_hh that does
 //    not fit a block's shared memory streamed from L2 every step through
 //    a cp.async ring.
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "gru_cluster.cuh"
 #include "gru_cluster_wide.cuh"
-
-using namespace nvcuda;
+#include "gru_rows.cuh"
 
 namespace {
-
-constexpr int kColsPerWarp = 96;  // 6 wmma column fragments
-constexpr int kFragsPerWarp = kColsPerWarp / 16;
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
-template <int MT>
-__global__ void __launch_bounds__(MT == 2 ? 256 : 512)
-gru_scan_kernel(const __nv_bfloat16* __restrict__ xw,    // (D, B, T, 3H)
-                const __nv_bfloat16* __restrict__ w_hh,  // (D, H, 3H)
-                const float* __restrict__ b_hh,          // (D, 3H)
-                const float* __restrict__ h0,            // (D, B, H)
-                float* __restrict__ y,                   // (D, B, T, H)
-                int B, int T, int H) {
-  constexpr int BT = 16 * MT;  // batch rows per block
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               wmma::row_major>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int G = 3 * H;
-  float* gates = reinterpret_cast<float*>(smem);      // (BT, 3H)
-  float* h_f32 = gates + BT * G;                      // (BT, H)
-  __nv_bfloat16* h_bf16 =
-      reinterpret_cast<__nv_bfloat16*>(h_f32 + BT * H);  // (BT, H)
-  __nv_bfloat16* x_s = h_bf16 + BT * H;                  // (BT, 3H)
-
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int j = threadIdx.x;  // hidden unit owned in the elementwise phase
-  const int warp = j / 32;
-  const __nv_bfloat16* w = w_hh + static_cast<size_t>(d) * H * G;
-  const float br = b_hh[static_cast<size_t>(d) * G + j];
-  const float bz = b_hh[static_cast<size_t>(d) * G + H + j];
-  const float bn = b_hh[static_cast<size_t>(d) * G + 2 * H + j];
-  const int rows = min(BT, B - b0);
-  const int chunks = G / 8;  // 16-byte chunks of one xw row
-
-  for (int r = 0; r < BT; ++r) {
-    const float h = r < rows ? h0[(static_cast<size_t>(d) * B + b0 + r) * H + j]
-                             : 0.f;
-    h_f32[r * H + j] = h;
-    h_bf16[r * H + j] = __float2bfloat16(h);
-  }
-  __syncthreads();
-
-  const int col0 = warp * kColsPerWarp;
-  const int nk = H / 16;  // even: H % 32 == 0
-  for (int t = 0; t < T; ++t) {
-    // xw[t] of the tile's rows -> shared memory, overlapping the matmul
-    for (int c = j; c < rows * chunks; c += blockDim.x) {
-      const int r = c / chunks;
-      const int q = c - r * chunks;
-      const size_t row = (static_cast<size_t>(d) * B + b0 + r) * T + t;
-      __pipeline_memcpy_async(x_s + r * G + q * 8, xw + row * G + q * 8, 16);
-    }
-    __pipeline_commit();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT][kFragsPerWarp];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int f = 0; f < kFragsPerWarp; ++f) wmma::fill_fragment(acc[m][f], 0.f);
-    // w_hh fragments of slice k + 1 load while slice k multiplies
-    FragB b_even[kFragsPerWarp], b_odd[kFragsPerWarp];
-    FragA a_frag[MT];
-#pragma unroll
-    for (int f = 0; f < kFragsPerWarp; ++f)
-      wmma::load_matrix_sync(b_even[f], w + col0 + f * 16, G);
-    for (int kk = 0; kk < nk; kk += 2) {
-#pragma unroll
-      for (int f = 0; f < kFragsPerWarp; ++f)
-        wmma::load_matrix_sync(
-            b_odd[f], w + static_cast<size_t>(kk + 1) * 16 * G + col0 + f * 16,
-            G);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        wmma::load_matrix_sync(a_frag[m], h_bf16 + m * 16 * H + kk * 16, H);
-#pragma unroll
-      for (int f = 0; f < kFragsPerWarp; ++f)
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-          wmma::mma_sync(acc[m][f], a_frag[m], b_even[f], acc[m][f]);
-      if (kk + 2 < nk) {
-#pragma unroll
-        for (int f = 0; f < kFragsPerWarp; ++f)
-          wmma::load_matrix_sync(
-              b_even[f],
-              w + static_cast<size_t>(kk + 2) * 16 * G + col0 + f * 16, G);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-        wmma::load_matrix_sync(a_frag[m], h_bf16 + m * 16 * H + kk * 16 + 16,
-                               H);
-#pragma unroll
-      for (int f = 0; f < kFragsPerWarp; ++f)
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-          wmma::mma_sync(acc[m][f], a_frag[m], b_odd[f], acc[m][f]);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int f = 0; f < kFragsPerWarp; ++f)
-        wmma::store_matrix_sync(gates + m * 16 * G + col0 + f * 16, acc[m][f],
-                                G, wmma::mem_row_major);
-    __pipeline_wait_prior(0);
-    __syncthreads();
-
-    for (int r = 0; r < rows; ++r) {
-      const __nv_bfloat16* x_t = x_s + r * G;
-      const float* g = gates + r * G;
-      const float rr = sigmoidf(__bfloat162float(x_t[j]) + g[j] + br);
-      const float zz = sigmoidf(__bfloat162float(x_t[H + j]) + g[H + j] + bz);
-      const float nn =
-          tanhf(__bfloat162float(x_t[2 * H + j]) + rr * (g[2 * H + j] + bn));
-      const float h = (1.f - zz) * nn + zz * h_f32[r * H + j];
-      h_f32[r * H + j] = h;
-      h_bf16[r * H + j] = __float2bfloat16(h);
-      y[((static_cast<size_t>(d) * B + b0 + r) * T + t) * H + j] = h;
-    }
-    __syncthreads();
-  }
-}
-
-template <int MT>
-size_t smem_bytes(int H) {
-  // gates f32 (3H) + h f32 + h bf16 + xw bf16 (3H) per row
-  return static_cast<size_t>(16 * MT) * H * (3 * 4 + 4 + 2 + 3 * 2);
-}
-
-template <int MT>
-cudaError_t launch(const void* xw, const void* w_hh, const void* b_hh,
-                   const void* h0, void* y, int D, int B, int T, int H,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<MT>(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + 16 * MT - 1) / (16 * MT), D);
-  gru_scan_kernel<MT><<<grid, H, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(xw),
-      static_cast<const __nv_bfloat16*>(w_hh), static_cast<const float*>(b_hh),
-      static_cast<const float*>(h0), static_cast<float*>(y), B, T, H);
-  return cudaGetLastError();
-}
 
 // The cluster design (1. above). grid = (C * row tiles, D) in clusters of
 // C = H / 32 along x; 512 threads.
@@ -397,14 +242,12 @@ cudaError_t launch_cluster(const void* xw, const void* w_hh, const void* b_hh,
 }
 
 // The forward under one design: the cluster design (cluster != 0) or the
-// row-tiled kernel.
+// wgmma rows design.
 cudaError_t gru_scan_design(const void* xw, const void* w_hh,
                             const void* b_hh, const void* h0, void* y, int D,
                             int B, int T, int H, bool cluster,
                             cudaStream_t s) {
-  if (!cluster)
-    return H <= 256 ? launch<2>(xw, w_hh, b_hh, h0, y, D, B, T, H, s)
-                    : launch<1>(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
+  if (!cluster) return gru_rows_fwd(xw, w_hh, b_hh, h0, y, D, B, T, H, s);
   int mt = 0;
   cudaError_t err = cluster_row_tiles(D, B, H, &mt);
   if (err == cudaSuccess)
@@ -416,14 +259,13 @@ cudaError_t gru_scan_design(const void* xw, const void* w_hh,
 }  // namespace
 
 // xw (D, B, T, 3H) bf16, w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32,
-// h0 (D, B, H) f32, y (D, B, T, H) f32; contiguous, xw 16-byte aligned;
-// above H = 512 w_hh packed, (D, 16, H, 3H / 16 + 8)
-// (ops/kernels/gru.py:pack_wide), and 16-byte aligned. Requires H % 32 ==
-// 0 up to 512 and H % 256 == 0 above, to 2048 (the wrapper pads any other
-// H with zero units). Above H = 512 the cluster design of
-// gru_cluster_wide.cuh; else the cluster design where gru_cluster_takes
-// says so, else the row-tiled kernel (blockDim = H), in tiles of 32 rows
-// up to H = 256, of 16 rows above (shared memory). Returns a cudaError_t
+// h0 (D, B, H) f32, y (D, B, T, H) f32; contiguous, xw and w_hh 16-byte
+// aligned; above H = 512 w_hh packed, (D, 16, H, 3H / 16 + 8)
+// (ops/kernels/gru.py:pack_wide). Requires H % 32 == 0 up to 512 and
+// H % 256 == 0 above, to 2048 (the wrapper pads any other H with zero
+// units). Above H = 512 the cluster design of gru_cluster_wide.cuh; else
+// the cluster design where gru_fwd_cluster_takes says so, else the wgmma
+// rows design (gru_rows.cuh). Returns a cudaError_t
 // (cudaErrorLaunchOutOfResources where the card holds no cluster of the
 // design at all).
 extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
@@ -437,36 +279,32 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
     return static_cast<int>(gru_wide_fwd(xw, w_hh, b_hh, h0, y, D, B, T, H,
                                          static_cast<cudaStream_t>(stream)));
   return static_cast<int>(gru_scan_design(
-      xw, w_hh, b_hh, h0, y, D, B, T, H,
-      gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd),
+      xw, w_hh, b_hh, h0, y, D, B, T, H, gru_fwd_cluster_takes(D, B, T, H),
       static_cast<cudaStream_t>(stream)));
 }
 
 // Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
-// cluster designs (above H = 512 that of gru_cluster_wide.cuh), 0 for the
-// row-tiled kernel, minus a cudaError_t when the query fails.
-// *cluster: blocks a cluster (1 row-tiled); *rows: batch rows a cluster or
-// block; *smem: dynamic shared memory a block, bytes; *coresident:
-// clusters the card holds at once (0 row-tiled); *units: hidden units a
-// block owns (0 row-tiled); *resident, *streamed: bytes of a block's
-// slice of w_hh kept in its shared memory and read from L2 at every step
-// (row-tiled: all of w_hh streamed).
+// cluster designs (above H = 512 that of gru_cluster_wide.cuh), 2 for the
+// wgmma rows design, minus a cudaError_t when the query fails.
+// *cluster: blocks a cluster; *rows: batch rows a cluster; *smem: dynamic
+// shared memory a block, bytes; *coresident: clusters the card holds at
+// once; *units: hidden units a block owns; *resident, *streamed: bytes of
+// a block's slice of w_hh kept in its shared memory and read from L2 at
+// every step.
 extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
                                 int* rows, int* smem, int* coresident,
                                 int* units, int* resident, int* streamed) {
   if (gru_wide_takes(H))
     return gru_wide_design<false>(D, B, H, cluster, rows, smem, coresident,
                                   units, resident, streamed);
-  if (!gru_cluster_takes(D, B, T, H, kClMaxTiles16Fwd)) {
-    *cluster = 1;
-    *rows = H <= 256 ? 32 : 16;
-    *smem = static_cast<int>(H <= 256 ? smem_bytes<2>(H) : smem_bytes<1>(H));
-    *coresident = 0;
-    gru_row_tiled_slice(H, units, resident, streamed);
-    return 0;
+  cudaError_t err;
+  if (!gru_fwd_cluster_takes(D, B, T, H)) {
+    err = gru_rows_design(H, cluster, rows, smem, coresident, units, resident,
+                          streamed);
+    return err == cudaSuccess ? 2 : -static_cast<int>(err);
   }
   int mt = 0;
-  cudaError_t err = cluster_row_tiles(D, B, H, &mt);
+  err = cluster_row_tiles(D, B, H, &mt);
   if (err == cudaSuccess)
     err = mt == 2 ? cluster_design<2>(H, smem, coresident)
                   : cluster_design<1>(H, smem, coresident);

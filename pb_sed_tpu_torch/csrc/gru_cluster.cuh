@@ -41,11 +41,12 @@ constexpr int kClThreads = 32 * kClWarps;
 constexpr int kClMmaWarps = 2 * kClColTiles;  // column tile x half of K
 constexpr int kClPad = 8;         // bf16 values of padding per H-long row
 constexpr int kClLdg = 100;       // f32 row stride of the gate buffers
-// At H = 256 the design takes a shape whose row tiles of 16 (over all
-// directions) number at most this many: the split and fused backwards',
-// and the forward's, re-timed up to D = 20 (see gru_cluster_takes).
+// At H = 256 the backwards take the design at a shape whose row tiles of
+// 16 (over all directions) number at most this many (see
+// gru_cluster_takes); the forward at H = 256 and 512 at most the next one
+// (see gru_fwd_cluster_takes).
 constexpr int kClMaxTiles16 = 32;
-constexpr int kClMaxTiles16Fwd = 192;
+constexpr int kClMaxTiles16Fwd = 4;
 
 __device__ __forceinline__ float cl_sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -159,31 +160,15 @@ __device__ __forceinline__ void cl_gate_product(const __nv_bfloat16* a,
   }
 }
 
-// Does (D, B, T, H) take the cluster design? H = 256 or 512 (C = 8 or
-// 16 blocks of 32 units) and at least one step. The design is made for
-// few rows and many steps (training, tagging: B = 32, T = 500), where the
-// row-tiled kernels leave the card idle. With many rows and few steps
-// (sliding-window SED, (2, 16 000, 51, H)) it still wins at H = 512, where
-// the row-tiled forward re-reads 1.5 MiB of w_hh a step (48.6 against
-// 62.8 ms, the backward 111.1 against 136.9), and loses at H = 256 (14.4
-// against 13.1 ms; NVIDIA H100 80GB HBM3, 700 W): there it takes few row
-// tiles only, up to ``max_tiles16``.
-//
-// The forward's limit, 192 tiles of 16 rows (over all directions), is
-// where the two designs cross (same card and limit,
-// scripts/perf/gru_designs.py). Beyond the clusters the card holds at
-// once, clusters run in waves of about 30 us plus 4.5 us a step, while
-// the row-tiled kernel holds up to 132 blocks of 32 rows in one wave at
-// about 32 us a step, so the crossing moves little with T. Cluster
-// against row-tiled ms: at T = 500, 160 tiles ((20, 128)) 11.44 vs 15.58,
-// 192 ((12, 256), (2, 1536)) 13.54 vs 15.89, 224 ((2, 1792)) 15.59 vs
-// 15.93, 240 ((20, 192)) 15.46 vs 15.70, 256 ((2, 2048)) 17.00 vs 15.63;
-// at T = 51, 160 ((2, 1280)) 1.37 vs 1.67, 192 ((2, 1536), (4, 768))
-// 1.62 / 1.57 vs 1.70, 224 ((2, 1792), (4, 896)) 1.98 / 1.83 vs 1.84 /
-// 1.73, 256 ((2, 2048)) 2.01 vs 1.69, and 1 000-2 500 tiles 1.1x the
-// row-tiled time; at T = 11, 128 ((4, 512)) 0.36 vs 0.42 and 192
-// ((2, 1536)) 0.46 vs 0.41, the one measured shape under the limit that
-// the cluster design loses. The backwards keep 32: not re-timed there.
+// Does (D, B, T, H) take the cluster design in the split and fused
+// backwards? H = 256 or 512 (C = 8 or 16 blocks of 32 units) and at least
+// one step. The design is made for few rows and many steps (training,
+// tagging: B = 32, T = 500), where the row-tiled sweeps leave the card
+// idle. With many rows and few steps (sliding-window SED,
+// (2, 16 000, 51, H)) it still wins at H = 512, where the row-tiled sweep
+// re-reads 1.5 MiB of w_hh a step (111.1 against 136.9 ms; NVIDIA H100
+// 80GB HBM3, 700 W); at H = 256 it takes few row tiles only, up to
+// ``max_tiles16`` (re-timed up to D = 20). No path trains at many rows.
 inline bool gru_cluster_takes(int D, int B, int T, int H,
                               int max_tiles16 = kClMaxTiles16) {
   if (T < 1 || B < 1) return false;
@@ -192,9 +177,27 @@ inline bool gru_cluster_takes(int D, int B, int T, int H,
          static_cast<long long>(D) * ((B + 15) / 16) <= max_tiles16;
 }
 
-// What the design queries (pbsed_gru_design) report of w_hh: the cluster
-// design keeps each block's slice (H x 96 bf16) in shared memory; the
-// row-tiled kernels own no units and read all of w_hh from L2 every step.
+// Does the forward at (D, B, T, H) take the cluster design? At H = 256
+// and 512 up to 4 row tiles of 16 over all directions: the training and
+// tagging shape (2, 32, 500, H) and smaller; every other shape runs the
+// wgmma rows design of gru_rows.cuh. Rows against cluster ms
+// (scripts/perf/gru_designs.py; NVIDIA H100 80GB HBM3, 700 W): H = 512,
+// 4 tiles ((2, 32)) 2.210 vs 2.115 at T = 500, 0.288 vs 0.288 at T = 51;
+// 8 ((2, 64)) 2.226 vs 3.074; 12 ((6, 32)) 2.164 vs 3.095. H = 256,
+// 4 tiles 1.362 vs 1.451 at T = 500, 0.175 vs 0.189 at T = 51, 0.098 vs
+// 0.107 at T = 11; 8 ((2, 64)) 1.376 vs 1.382; 16 ((2, 128)) 1.402 vs
+// 2.073; 40 ((20, 32)) 1.584 vs 4.149. At H = 256 the rows design is
+// the faster one at 4 tiles too, by 6-8%; the training shape keeps the
+// cluster design all the same, the one its backwards run.
+inline bool gru_fwd_cluster_takes(int D, int B, int T, int H) {
+  if (T < 1 || B < 1 || (H != 256 && H != 512)) return false;
+  return static_cast<long long>(D) * ((B + 15) / 16) <= kClMaxTiles16Fwd;
+}
+
+// What the design queries (pbsed_gru_design, pbsed_gru_bwd_design) report
+// of w_hh: the cluster design keeps each block's slice (H x 96 bf16) in
+// shared memory; the backwards' row-tiled sweeps own no units and read
+// all of w_hh from L2 every step.
 inline void gru_cluster_slice(int H, int* cluster, int* units, int* resident,
                               int* streamed) {
   *cluster = H / kClUnits;
@@ -219,12 +222,14 @@ inline int gru_cluster_row_tiles(int D, int B, int coresident16) {
   return static_cast<long long>(D) * ((B + 15) / 16) <= coresident16 ? 1 : 2;
 }
 
-// Set up a launch of `kernel` in clusters of C blocks along x. Clusters
-// of 16 are beyond the portable size of 8 and are asked for by name.
+// Set up a launch of `kernel` in clusters of C blocks of `threads` along
+// x. Clusters above 8 are beyond the portable size and are asked for by
+// name.
 template <typename Kernel>
 cudaError_t gru_cluster_config(Kernel kernel, int C, size_t smem, dim3 grid,
                                cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                               cudaLaunchAttribute* attr) {
+                               cudaLaunchAttribute* attr,
+                               int threads = kClThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -239,7 +244,7 @@ cudaError_t gru_cluster_config(Kernel kernel, int C, size_t smem, dim3 grid,
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg->gridDim = grid;
-  cfg->blockDim = dim3(kClThreads);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   cfg->attrs = attr;
@@ -252,11 +257,11 @@ cudaError_t gru_cluster_config(Kernel kernel, int C, size_t smem, dim3 grid,
 // error: the caller returns it, and no other kernel is tried.
 template <typename Kernel>
 cudaError_t gru_cluster_coresident(Kernel kernel, int C, size_t smem,
-                                   int* clusters) {
+                                   int* clusters, int threads = kClThreads) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err =
-      gru_cluster_config(kernel, C, smem, dim3(C), nullptr, &cfg, &attr);
+  cudaError_t err = gru_cluster_config(kernel, C, smem, dim3(C), nullptr,
+                                       &cfg, &attr, threads);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   if (err != cudaSuccess) return err;

@@ -4,10 +4,13 @@ their plain PyTorch versions and the autograd Function ``GruScan`` that
 ties them together.
 
 The forward and both backwards each have two designs up to H = 512,
-chosen by shape inside the C entry points
-(``csrc/gru_cluster.cuh:gru_cluster_takes``): with few rows and many
-steps (training, tagging) a thread-block cluster of H / 32 blocks per row
-tile that keeps w_hh in its shared memory; else one block per row tile.
+chosen by shape inside the C entry points (``csrc/gru_cluster.cuh``:
+``gru_fwd_cluster_takes``, ``gru_cluster_takes``): with few rows and
+many steps (training, tagging) at H = 256 and 512 a thread-block cluster
+of H / 32 blocks per row tile that keeps w_hh in its shared memory; else
+the forward runs the wgmma rows design (``csrc/gru_rows.cuh``: a cluster
+of H / 32 blocks per tile of 64 rows, each block's slice of w_hh
+resident, the products on wgmma), the backwards one block per row tile.
 Above H = 512 the forward and the split backward run the cluster design
 with 16 blocks of H / 16 units (``csrc/gru_cluster_wide.cuh``, up to
 ``GRU_MAX_HIDDEN``), which streams the part of w_hh that does not fit the
@@ -74,9 +77,9 @@ def kernel_hidden(d, b, t, h, name='fwd'):
     ('fwd', 'bwd' or 'bwd_fused') at xw (D, B, T, 3H): 256 for
     128 < h < 256 and 512 for 256 < h < 512 where the cluster design takes
     that width at the shape (it takes H = 256 and 512 only, and at few
-    rows runs a step in a tenth of the row-tiled kernel's time, ``PERF.md``
-    §6), else :func:`padded_hidden` (above 512 the next multiple of
-    256)."""
+    rows runs a step in a tenth of the row-tiled backward's time,
+    ``PERF.md`` §6), else :func:`padded_hidden` (above 512 the next
+    multiple of 256)."""
     for width in (256, 512):
         if (width // 2 < h < width
                 and _design(name, d, b, t, width)['design'] == 'cluster'):
@@ -224,6 +227,8 @@ def gru_scan(xw, w_hh, b_hh, h0):
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  h32.data_ptr(), y.data_ptr(), d, b, t, hp)
     _count_shape('gru_scan', hdim, hp)
+    if hp <= _WIDE_ABOVE and _design('fwd', d, b, t, hp)['design'] == ROWS:
+        build.LAUNCHES['gru_scan_rows'] += 1
     return unpad_hidden(hdim, y=y)[0]
 
 
@@ -248,6 +253,9 @@ def _hidden(h0, limit, what):
 
 _DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
                    'bwd_fused': 'pbsed_gru_bwd_fused_design'}
+# the design names, by the queries' return codes
+ROWS = 'wgmma_rows'
+_DESIGNS = ('row_tiled', 'cluster', ROWS)
 
 
 def _design(name, d, b, t, h):
@@ -261,7 +269,7 @@ def _design(name, d, b, t, h):
                            f'failed: CUDA error {-rc} ({msg})')
     return dict(zip(('cluster', 'rows', 'smem', 'coresident', 'units',
                      'resident', 'streamed'), (v.value for v in out)),
-                design=('row_tiled', 'cluster')[rc])
+                design=_DESIGNS[rc])
 
 
 def gru_designs(d, b, t, h):
@@ -270,14 +278,16 @@ def gru_designs(d, b, t, h):
     for ``'fwd'``, ``'bwd'`` (the split backward) and ``'bwd_fused'`` a dict
     of ``design`` ('cluster': w_hh spread over a thread-block cluster's
     shared memory, ``csrc/gru_cluster.cuh`` and above H = 512
-    ``csrc/gru_cluster_wide.cuh``; or 'row_tiled'), ``hidden`` (the H it
-    runs), ``cluster`` (blocks a cluster, 1 row-tiled), ``rows`` (batch
-    rows a cluster or block), ``smem`` (dynamic shared memory a block,
-    bytes), ``coresident`` (clusters the card holds at once, 0
-    row-tiled), ``units`` (hidden units a block owns: 32, H / 16 above
-    512, 0 row-tiled), ``resident`` and ``streamed`` (bytes of a block's
-    slice of w_hh kept in its shared memory and read from L2 at every
-    step; row-tiled: all of w_hh streamed); ``'bwd_fused'`` is None above
+    ``csrc/gru_cluster_wide.cuh``; the forward's ``ROWS``, 'wgmma_rows':
+    tiles of 64 rows on wgmma, ``csrc/gru_rows.cuh``; the backwards'
+    'row_tiled'), ``hidden`` (the H it runs), ``cluster`` (blocks a
+    cluster, 1 row-tiled), ``rows`` (batch rows a cluster or block),
+    ``smem`` (dynamic shared memory a block, bytes), ``coresident``
+    (clusters the card holds at once, 0 row-tiled), ``units`` (hidden
+    units a block owns: 32, H / 16 above 512, 0 row-tiled), ``resident``
+    and ``streamed`` (bytes of a block's slice of w_hh kept in its shared
+    memory and read from L2 at every step; row-tiled: all of w_hh
+    streamed); ``'bwd_fused'`` is None above
     ``GRU_FUSED_MAX_HIDDEN``. Raises where the card can hold no cluster
     of the design."""
     out = {}

@@ -12,8 +12,11 @@ builds its kernels there. A process times the forward kernel
 the sweep alone, without the wrapper's weight-gradient contraction) on
 prepared buffers at the training and tagging shape (2, 32, 500, H) and the
 sliding-window shape (2, 16 000, 51, H), H = 256, 512, 768 and 1024 (a
-tree whose backward above 512 takes a workspace gets one); at the
-training shapes up to H = 512 also the fused backward's wrapper
+tree whose backward above 512 takes a workspace gets one), and the
+forward alone at the other many-row shapes of the main path
+(``FWD_SHAPES``: a stacked ensemble's SED chunk, the tuning chain's
+shortest window, 224 row tiles of 16); at the training shapes up to
+H = 512 also the fused backward's wrapper
 (``gru_scan_bwd(..., split=False)``: its workspace, the sweep and the
 reduction of the partials); and the max-pool forward's wrapper
 (``maxpool_freq2``) at the 8
@@ -37,6 +40,7 @@ import ab
 SHAPES = [(2, 32, 500, 256), (2, 16000, 51, 256), (2, 32, 500, 512),
           (2, 16000, 51, 512), (2, 32, 500, 768), (2, 16000, 51, 768),
           (2, 32, 500, 1024), (2, 16000, 51, 1024)]
+FWD_SHAPES = [(20, 2000, 51, 256), (2, 8000, 11, 256), (2, 1792, 51, 256)]
 # (F, C) entering the max-pools of the shallow and the deep tower
 POOLS = [(128, 16), (64, 32), (32, 64), (16, 128), (128, 32), (64, 64),
          (32, 128), (16, 256)]
@@ -86,7 +90,7 @@ def time_tree():
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
     times, designs = {}, {}
-    for d, b, t, h in SHAPES:
+    for d, b, t, h in SHAPES + FWD_SHAPES:
         xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev).to(
             torch.bfloat16)
         w_hh = (torch.randn(d, h, 3 * h, generator=gen, device=dev)
@@ -106,6 +110,14 @@ def time_tree():
 
         key = str((d, b, t, h))
         times[key] = {'fwd': cuda_ms(fwd)}
+        if (d, b, t, h) in FWD_SHAPES:
+            if hasattr(K, 'gru_designs'):
+                v = K.gru_designs(d, b, t, h)['fwd']
+                designs[key] = {'fwd': f'{v["design"]} (cluster '
+                                       f'{v["cluster"]}, {v["rows"]} rows)'}
+            del xw, y, w_k
+            torch.cuda.empty_cache()
+            continue
         h_prev = torch.cat([h0[:, :, None], y[:, :, :-1]], dim=2).to(
             torch.bfloat16).contiguous()
         g = 1e-2 * torch.randn(d, b, t, h, generator=gen, device=dev)

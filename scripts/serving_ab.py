@@ -12,7 +12,10 @@ process of its own that imports that tree's ``chip_smoke.py`` (and so its
 ``phase_deep_serving`` with all their checks: tagging, boundaries
 detection and SED at 51/1 and 250/250 of 3 x 32 ten-second clips by the
 shallow model, 527-class tagging of them and 10-class SED 51/1 of one
-batch by the deep one. The report gives per method every run's clips/s
+batch by the deep one; then the tuning chain's SED engine calls (two
+shallow members stacked, 32 clips in batches of 16, windows 51, 41, 31,
+21 and 11 at shift 1; ``chain sed_w*``, the model's build and a warm-up
+call left out). The report gives per method every run's clips/s
 (host clock, inference engine included, as the phases print it) and B / A
 of the medians. The card's name and power limit come first.
 """
@@ -27,8 +30,29 @@ import numpy as np
 import ab
 
 LINE = re.compile(r'^(\S+) (\S+): \d+ clips in [\d.]+ s = ([\d.]+) clips/s')
-CHILD = ('import chip_smoke as c; c.phase_card(); c.phase_slice(); '
-         'c.phase_deep_serving()')
+CHILD = '''
+import time
+import torch
+import chip_smoke as c
+from pb_sed_tpu_torch.models import base
+c.phase_card()
+c.phase_slice()
+c.phase_deep_serving()
+members = c._members(c._config('shallow', 10), 2)
+batch = c._synthetic_batches(members[0].module.feature_extractor.stft)[0]
+halves = [{key: val[i:i + 16] for key, val in batch.items()}
+          for i in (0, 16)]
+for window in (51, 41, 31, 21, 11):
+    kwargs = {'window_length': window, 'window_shift': 1}
+    base.sound_event_detection(members, halves[:1], model_kwargs=kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base.sound_event_detection(members, halves, model_kwargs=kwargs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'chain sed_w{window}: 32 clips in {dt:.3f} s = {32 / dt:.1f} '
+          f'clips/s', flush=True)
+'''
 
 
 def serve(tree):

@@ -5,7 +5,9 @@ Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
 pools, the BN+ReLU-fused conv with a positive shift at the borders, the
 fused GRU backward at batches off its tile, the GRU's cluster design at
 both widths with ragged row tiles and a random initial state beside the
-row-tiled one at small hidden sizes, the wgmma conv kernels'
+wgmma rows forward and the row-tiled backwards at small hidden sizes, the
+rows forward at the main path's many-row shapes, a ragged batch, one
+step and H from 32 to 512, the wgmma conv kernels'
 ragged pixel tiles, frequency rows and channel widths, and at every F
 (tiles of whole rows off a power of two, of 128 pixels of a frame above
 128), Cin off a multiple of 8 and the dx of Cin < 16, the entry conv
@@ -45,7 +47,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_f32, conv2d_same_f32_bwd, conv2d_same_f32_bwd_plain,
     conv2d_same_f32_members, conv2d_same_f32_plain, conv_f32_designs)
 from pb_sed_tpu_torch.ops.kernels.gru import (GRU_FUSED_MAX_HIDDEN,
-                                              GRU_MAX_HIDDEN, GruScan,
+                                              GRU_MAX_HIDDEN, ROWS, GruScan,
                                               gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
@@ -107,18 +109,28 @@ def test_maxpool_kernel_bit_exact(gen, shape):
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
 
 
-# (D, B, T, H): H = 32 and 64 run the row-tiled kernels; H = 256 and 512
-# with few rows the cluster design, here with one and two row tiles, rows
-# past the batch in a tile (B = 5, 3, 33) and T odd and even
+# (D, B, T, H): H = 32 and 64 run the wgmma rows forward and the
+# row-tiled backwards; H = 256 and 512 with few rows the cluster design,
+# here with one and two row tiles, rows past the batch in a tile (B = 5,
+# 3, 33) and T odd and even; (2, 33, 17, 512), six row tiles of 16, runs
+# the forward on the rows design and the backwards on the cluster one
 GRU_SHAPES = [(1, 5, 9, 32), (2, 33, 17, 64), (2, 3, 4, 512),
               (2, 32, 40, 256), (2, 33, 17, 512), (1, 5, 9, 256),
               (2, 16, 1, 512)]
 
 
 def _gru_design_is_expected(d, b, t, h):
-    want = 'cluster' if h in (256, 512) else 'row_tiled'
+    """The forward takes the cluster design at H = 256 and 512 up to 4
+    row tiles of 16 (csrc/gru_cluster.cuh:gru_fwd_cluster_takes), else
+    the rows design; the split backward the cluster design at 512 and at
+    256 up to 32 tiles, else its row-tiled sweep."""
+    tiles = d * -(-b // 16)
+    fwd = 'cluster' if h in (256, 512) and tiles <= 4 else ROWS
+    bwd = ('cluster' if h == 512 or (h == 256 and tiles <= 32)
+           else 'row_tiled')
     designs = gru_designs(d, b, t, h)
-    return all(designs[k]['design'] == want for k in ('fwd', 'bwd'))
+    return (designs['fwd']['design'], designs['bwd']['design']) == (fwd,
+                                                                     bwd)
 
 
 @pytest.mark.parametrize('d,b,t,h', GRU_SHAPES)
@@ -142,9 +154,10 @@ def test_gru_kernel_matches_plain(gen, d, b, t, h):
 def test_gru_design_by_shape(gen):
     """The cluster design takes the training shapes (16 rows a cluster
     while all clusters are on the card at once) and, at H = 512, the
-    sliding-window one (32 rows a cluster forward); at H = 256 that shape
-    keeps the row-tiled kernels. The fused backward follows the split
-    one."""
+    sliding-window backwards; the sliding-window forward runs the wgmma
+    rows design at both widths (clusters of H / 32 blocks of 32 units, 64
+    rows), the H = 256 backwards their row-tiled sweeps. The fused
+    backward follows the split one."""
     for h, cluster in ((256, 8), (512, 16)):
         train = gru_designs(2, 32, 500, h)
         for key in ('fwd', 'bwd', 'bwd_fused'):
@@ -156,15 +169,21 @@ def test_gru_design_by_shape(gen):
             # clusters of 16 rows are all on the card at once
             assert train[key]['coresident'] >= 4
             assert train[key]['rows'] == 16
+    for h, cluster in ((256, 8), (512, 16)):
+        fwd = gru_designs(2, 16000, 51, h)['fwd']
+        assert (fwd['design'], fwd['cluster'], fwd['units'], fwd['rows'],
+                fwd['streamed']) == (ROWS, cluster, 32, 64, 0)
+        assert fwd['resident'] == 2 * h * 3 * 32
+        assert fwd['smem'] <= 232448 and fwd['coresident'] >= 1
     sed = gru_designs(2, 16000, 51, 512)
-    assert all(sed[key]['design'] == 'cluster' for key in sed)
-    assert (sed['fwd']['rows'], sed['bwd']['rows']) == (32, 16)
-    assert sed['bwd_fused']['rows'] == 16
+    assert (sed['bwd']['design'], sed['bwd_fused']['design']) == (
+        'cluster', 'cluster')
+    assert (sed['bwd']['rows'], sed['bwd_fused']['rows']) == (16, 16)
     sed = gru_designs(2, 16000, 51, 256)
-    for key in ('fwd', 'bwd', 'bwd_fused'):
+    for key in ('bwd', 'bwd_fused'):
         assert sed[key]['design'] == 'row_tiled'
         assert sed[key]['cluster'] == 1
-    assert gru_designs(2, 16000, 51, 64)['fwd']['design'] == 'row_tiled'
+    assert gru_designs(2, 16000, 51, 64)['fwd']['design'] == ROWS
 
 
 @pytest.mark.parametrize('shape,cout,dtype', [
@@ -666,20 +685,63 @@ def test_gru_members_in_the_direction_axis(gen, n, b, t, h):
 
 
 def test_gru_forward_design_at_stacked_shapes(gen):
-    """A stacked ensemble's GRU forward at D = 2N keeps the cluster design
-    up to 192 row tiles of 16 (10 members' tagging: 40), where clusters
-    running in waves beat the row-tiled kernel, and takes the row-tiled
-    one beyond (its sliding-window shapes); the backwards keep their
+    """The GRU forward keeps the cluster design up to 4 row tiles of 16
+    at H = 256 and 512 (the training and tagging shape and smaller) and
+    takes the wgmma rows design beyond: a stacked ensemble's tagging at
+    D = 2N (10 members: 40 tiles), its sliding-window chunks and every
+    shape the row-tiled kernel took before; the backwards keep their
     limit of 32."""
-    for d, b, t in ((20, 32, 500), (40, 32, 500), (20, 64, 500),
-                    (12, 256, 500), (2, 1536, 51)):
-        designs = gru_designs(d, b, t, 256)
-        assert designs['fwd']['design'] == 'cluster'
-        assert designs['fwd']['rows'] == 32
-        assert designs['bwd']['design'] == 'row_tiled'
-    for d, b, t in ((20, 176, 500), (2, 1792, 51), (20, 2000, 51),
-                    (4, 4000, 11)):
-        assert gru_designs(d, b, t, 256)['fwd']['design'] == 'row_tiled'
+    for d, b, t, h in ((2, 32, 500, 256), (2, 16, 500, 256),
+                       (1, 64, 51, 256), (2, 32, 500, 512),
+                       (2, 16, 11, 512)):
+        assert gru_designs(d, b, t, h)['fwd']['design'] == 'cluster'
+    for d, b, t, h in ((2, 64, 500, 256), (4, 32, 51, 256),
+                       (20, 32, 500, 256), (40, 32, 500, 256),
+                       (20, 64, 500, 256), (12, 256, 500, 256),
+                       (2, 1536, 51, 256), (20, 176, 500, 256),
+                       (2, 1792, 51, 256), (20, 2000, 51, 256),
+                       (4, 4000, 11, 256), (2, 128, 500, 256),
+                       (6, 32, 500, 512), (2, 64, 500, 512)):
+        designs = gru_designs(d, b, t, h)
+        assert designs['fwd']['design'] == ROWS
+        assert designs['fwd']['rows'] == 64
+        if h == 256:
+            assert designs['bwd']['design'] == ('cluster' if d * -(-b // 16)
+                                                <= 32 else 'row_tiled')
+
+
+# (D, B, T, H) of the forward's wgmma rows design: the main path's
+# many-row shapes (sliding-window SED, the tuning chain's shortest
+# window, a stacked ensemble's SED chunk), a ragged batch (B = 1 037, and
+# 130: rows past the batch in the last tile of 64), one step, and H = 32
+# (one block a cluster), 64, 96 (3 blocks), 224 (7), 480 (15) and 512
+# (16, the slice in two boxes a stripe), each with a random initial
+# state
+ROWS_SHAPES = [(2, 16000, 51, 256), (2, 8000, 11, 256), (20, 2000, 51, 256),
+               (2, 1037, 5, 256), (2, 300, 1, 256), (2, 130, 7, 32),
+               (2, 130, 7, 64), (2, 130, 7, 96), (2, 130, 7, 224),
+               (2, 130, 7, 480), (2, 130, 7, 512)]
+
+
+@pytest.mark.parametrize('d,b,t,h', ROWS_SHAPES)
+def test_gru_rows_kernel_matches_plain(gen, d, b, t, h):
+    """The rows design against the plain version within the GRU ceiling
+    (5.3e-3), its launch counted under ``gru_scan`` and
+    ``gru_scan_rows``, and a rerun equal in every bit."""
+    xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
+    b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+    h0 = .5 * torch.randn(d, b, h, generator=gen, device='cuda')
+    design = gru_designs(d, b, t, h)['fwd']
+    assert (design['design'], design['hidden'], design['rows']) == (
+        ROWS, h, 64)
+    n = dict(build.LAUNCHES)
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    for name in ('gru_scan', 'gru_scan_rows'):
+        assert build.LAUNCHES[name] == n[name] + 1
+    assert _max_err(y, gru_scan_plain(xw, w_hh, b_hh, h0)) <= 5.3e-3
+    assert torch.equal(y, gru_scan(xw, w_hh, b_hh, h0))
 
 
 # (B, T, F, C), (pt, pf): odd T and F (rows and columns past the last
@@ -795,9 +857,10 @@ def _gru_case(gen, d, b, t, h, g_scale=1.):
 # (D, B, T, H): the cluster design of 16 blocks above 512 at 768, 1024
 # and 2048 (its limit), with a ragged row tile (B = 17, 3) and T = 1, and
 # at 768 with 3 000 rows (the forward's clusters of 32 rows); H off a
-# multiple of 32 below 512 (padded into the row-tiled kernel, or to 256
-# for the cluster design at few rows: 400 row tiles keep 200 at 224,
-# row-tiled) and above (600 -> 768)
+# multiple of 32 below 512 (padded into the rows forward and the
+# row-tiled backwards, or to 256 for the cluster design at few rows: 376
+# row tiles keep 200 at 224, the forward on the rows design) and above
+# (600 -> 768)
 @pytest.mark.parametrize('d,b,t,h', [
     (2, 17, 9, 768), (2, 3, 1, 768), (1, 5, 6, 1024), (2, 3, 4, 2048),
     (2, 3000, 3, 768), (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200),
@@ -806,7 +869,8 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
     """Forward and the split backward against the plain version at the
     real H (the GRU ceiling: 5.3e-3, and 5.3e-3 of each gradient's
     largest entry), with the design the H each pass runs takes (200 runs
-    as 256 on the cluster design at few rows, as 224 row-tiled at 16 000;
+    as 256 on the cluster design at few rows, as 224 at 3 000, the
+    forward on the wgmma rows design, the backward row-tiled;
     above 512 clusters of 16 blocks of H / 16 units, the forward's of 32
     rows where 16-row clusters would wait their turn), the launches
     counted under the pair's names and the wide and padded ones, and
@@ -826,6 +890,8 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
         elif hp != -(-h // 32) * 32:
             # the width the cluster design takes
             assert hp in (256, 512) and v['design'] == 'cluster'
+        elif key == 'fwd':
+            assert v['design'] in ('cluster', ROWS)
     if h > 512:
         assert designs['bwd_fused'] is None
     n = dict(build.LAUNCHES)
