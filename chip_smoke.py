@@ -43,18 +43,20 @@ runs, in order:
    max-pool forward timed on an idle card is logged beside it). Per GRU
    shape one line per pass says which design ran (w_hh resident in a
    thread-block cluster's shared memory, ``csrc/gru_cluster.cuh``; the
-   forward's wgmma rows design, ``csrc/gru_rows.cuh``; the backwards'
-   row-tiled sweeps; with the cluster's size, its rows, the shared memory
-   a block and the clusters the card holds at once) and one gives the
+   wgmma rows designs, ``csrc/gru_rows.cuh`` forward and
+   ``csrc/gru_bwd_rows.cuh`` backwards; with the cluster's size, its
+   rows, the shared memory a block and the clusters the card holds at
+   once) and one gives the
    wrapper's ms, the kernel's alone, its time per serial step and the
    kernel's ms of before its redesign where that was recorded; at the
    training shape (2, 32, 500, H) anything but the cluster design fails
    the run (the fused backward's too), as does a many-row forward at
    H <= 256 on anything but the wgmma rows design (each many-row shape
    also logs that design's ms, bound, share of the bound and cuDNN's ms,
-   and counts under ``gru_scan_rows`` too), a spill in a cluster or rows
-   kernel, a second
-   run of a GRU backward that differs in any bit, or a fused backward
+   and counts under ``gru_scan_rows`` too), a spill in a cluster or
+   forward rows kernel (of more than 32 bytes in the backwards' rows
+   kernel), a second run of a GRU backward that differs in any bit, or
+   a fused backward
    whose dxw or dh0 differs from the split one's in any bit. After the
    kernel phases: the max-pool forward's share of its bound over the 8
    pools, the fused GRU backward's wrapper time against the split one's
@@ -367,10 +369,24 @@ runs, in order:
    ``compute_dtype='float32'`` in both towers and the output net (L0 on
    the entry kernels, every other 3x3 layer on 3xTF32 at F = 40 ... 5),
    tags 32 clips and trains 4 steps, its steps/s, clips/s and peak memory
-   beside 14b's bf16 run. Served runs agree with the CPU, trained ones pass the
-   card-vs-CPU step (the CPU's noise with its bf16 convs and its GRU
-   summed in f64 too); clips/s, steps/s and peak memory beside phases
-   3-4's.
+   beside 14b's bf16 run; 15g, the tag-conditioned BiCRNN at the DCASE
+   2022 baseline's hidden size 128 (two bidirectional layers at
+   (2, 32, 500, 128)), tags 3 batches and trains 8 steps: both backwards
+   at that shape must take the GRU backwards' wgmma rows design
+   (``csrc/gru_bwd_rows.cuh``) and every backward launch of the run count
+   under ``gru_scan_bwd_rows`` too (any other design fails the run), its
+   steps/s beside 15c's and phase 9's. Served runs agree with the CPU,
+   trained ones pass the card-vs-CPU step (the CPU's noise with its bf16
+   convs and its GRU summed in f64 too); clips/s, steps/s and peak memory
+   beside phases 3-4's. Phase 15d ends with the GRU backwards' wgmma rows
+   design at ``BWD_ROWS_SHAPES`` (a BiCRNN layer at 128 units, H = 64
+   and 224 at the training shape, (2, 288 and 512, 500, 256), (2, 3000,
+   3, 200)): split and fused against their plain versions whole, each
+   launch counted under ``gru_scan_bwd_rows`` /
+   ``gru_scan_bwd_fused_rows``, bit-identical reruns, the fused dxw and
+   dh0 equal to the split ones in every bit, each wrapper's ms beside its
+   kernel's alone, the row-tiled sweep's ms before the redesign, cuDNN's
+   backward and the bound (``check_bwd_rows_kernels``).
 
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
@@ -483,12 +499,18 @@ ENSEMBLE_GRU_SHAPES = [(2 * ENSEMBLE_MEMBERS, BATCH, FRAMES, 256),
 # row-tiled kernels before the cluster design (`scripts/gru_ab.py` on the
 # tree before it); at the many-row shapes the forward before the wgmma
 # rows design (the row-tiled kernel, the cluster design at H = 512;
-# chip_smoke.py on the tree before it)
+# chip_smoke.py on the tree before it); the split backward's row-tiled
+# sweep before its wgmma rows design at H = 128 and 64 (B = 32), at
+# (2, 288 and 512, 500, 256) and at (2, 3000, 3, 200), run as 224
+# (`scripts/gru_ab.py --time --bwd` on the tree before it)
 EARLIER_GRU_MS = {
     ('fwd', 256): 15.751, ('bwd', 256): 32.225,
     ('fwd', 512): 38.278, ('bwd', 512): 82.779,
     ('fwd', (2, 16000, 51, 256)): 12.972, ('fwd', (2, 16000, 51, 512)): 48.814,
-    ('fwd', (20, 2000, 51, 256)): 16.130, ('fwd', (2, 1792, 51, 256)): 1.824}
+    ('fwd', (20, 2000, 51, 256)): 16.130, ('fwd', (2, 1792, 51, 256)): 1.824,
+    ('bwd', 128): 14.100, ('bwd', 64): 9.645,
+    ('bwd', (2, 288, 500, 256)): 32.423, ('bwd', (2, 512, 500, 256)): 32.414,
+    ('bwd', (2, 3000, 3, 200)): 0.297}
 
 # name: route, source, the TPU kernel(s) it replaces, and the path whose
 # launch count the kernels line reports as ``launches``
@@ -603,6 +625,16 @@ KERNELS = {
     'gru_scan_rows': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_rows.cuh',
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:50'},
+    # the GRU backwards' wgmma rows design (every H up to 256 off the
+    # cluster design: the BiCRNN at 128 units, training past 32 row tiles
+    # of 16), its launches counted under gru_scan_bwd and
+    # gru_scan_bwd_fused too; its times those of BWD_ROWS_SHAPES
+    'gru_scan_bwd_rows': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd_rows.cuh',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:357'},
+    'gru_scan_bwd_fused_rows': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd_rows.cuh',
+        'replaces': 'pb_sed_tpu/ops/pallas/gru.py:237'},
     # the conv pair's entry kernels (Cin < 16: every tower's first layer):
     # the forward and the dw pass (with its reduce), counted by the pair's
     # wrappers where they run them; their times are device times
@@ -619,7 +651,8 @@ KERNELS = {
 # the path each kernel's ``launches`` is read from: the deep training run
 # drives the unfused kernels, the deep fuse_bn training run the fused
 # conv pair; no path selects the fused GRU backward (as in the JAX
-# package), so its count is that of its kernel phase
+# package), so its count is that of its kernel phase (its rows design's
+# that of phase 15d)
 MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  bnrelu_conv2d_same='deep_fuse_bn_training',
                  bnrelu_conv2d_same_bwd='deep_fuse_bn_training',
@@ -638,7 +671,9 @@ MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  gru_scan_bwd_wide='widths_15b_training',
                  gru_scan_padded='widths_15c_training',
                  gru_scan_bwd_padded='widths_15c_training',
-                 gru_scan_rows='shallow_serving')
+                 gru_scan_rows='shallow_serving',
+                 gru_scan_bwd_rows='widths_15g_training',
+                 gru_scan_bwd_fused_rows='width_kernel_phase')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_entry')
 # what an inference-only chain launches: the forward kernels, the GRU
 # forward on the wgmma rows design too (sliding-window SED)
@@ -734,7 +769,8 @@ def log_ptxas(text):
     ptxas's performance advisories (a serialized wgmma pipeline). The
     wgmma kernels' dynamic shared memory is in the per-layer lines, the
     GRU cluster and rows kernels' in the per-shape lines; a spill in a GRU
-    cluster or rows kernel fails the run."""
+    cluster or forward rows kernel fails the run, one of more than 32
+    bytes in the backwards' rows kernel too."""
     name = ''
     seen = set()
     for line in text.splitlines():
@@ -742,7 +778,7 @@ def log_ptxas(text):
             mangled = line.split("'")[1]
             for kernel in ('conv2d_wgmma_kernel', 'conv2d_dw_wgmma_kernel',
                            'conv2d_dw_reduce_kernel', 'gru_rows_kernel',
-                           'gru_scan_cluster_kernel', 'gru_bwd_kernel',
+                           'gru_scan_cluster_kernel', 'gru_bwd_rows_kernel',
                            'gru_bwd_cluster_kernel', 'gru_part_reduce_kernel',
                            'maxpool_freq2', 'avgpool_freq2', 'maxpool2d',
                            'avgpool2d', 'gru_scan_wide_cluster_kernel',
@@ -761,7 +797,8 @@ def log_ptxas(text):
                     args = (args[:args.find('EE') + 1] if 'EE' in args
                             else args[:args.find('E')])
                     name = kernel + args.replace('ILi', '<').replace(
-                        'ELi', ',').replace('ELb', ',').replace('E', '>')
+                        'ILb', '<').replace('ELi', ',').replace(
+                        'ELb', ',').replace('E', '>')
                     break
             else:
                 name = mangled[-40:]
@@ -774,6 +811,12 @@ def log_ptxas(text):
                     and 'spill' in info
                     and '0 bytes spill stores, 0 bytes spill loads'
                     not in info):
+                raise AssertionError(f'{name} spills: {info}')
+            # the backwards' rows kernel holds 250-255 registers from C = 5
+            # and ptxas spills 4-16 bytes of it at some C: more fails
+            if ('gru_bwd_rows_kernel' in name and 'spill stores' in info
+                    and int(info.split(' bytes spill stores')[0]
+                            .split()[-1]) > 32):
                 raise AssertionError(f'{name} spills: {info}')
         elif 'Potential Performance Loss' in line:
             log(f'  ptxas advisory: {line.split(":", 1)[1].strip()[:160]}')
@@ -5596,6 +5639,16 @@ WIDTH_GRU_SHAPES = [(2, BATCH, FRAMES, 768), (2, BATCH, FRAMES, 1024),
 WIDTH_CHECK_ROWS = 2048
 WIDE = ('gru_scan_wide', 'gru_scan_bwd_wide')
 PADDED_GRU = ('gru_scan_padded', 'gru_scan_bwd_padded')
+# the GRU pair on the wgmma rows designs (15g's BiCRNN at H = 128)
+ROWS_GRU = ('gru_scan_rows', 'gru_scan_bwd_rows')
+# (D, B, T, H) of the GRU backwards' wgmma rows design
+# (csrc/gru_bwd_rows.cuh), split and fused, held against their plain
+# versions whole: a BiCRNN layer at the DCASE baseline's 128 units (15g),
+# narrower and in-between widths, training at H = 256 past 32 row tiles of
+# 16, the card test's ragged many-row shape (run as 224)
+BWD_ROWS_SHAPES = [(2, BATCH, FRAMES, 128), (2, BATCH, FRAMES, 64),
+                   (2, BATCH, FRAMES, 224), (2, 288, FRAMES, 256),
+                   (2, 512, FRAMES, 256), (2, 3000, 3, 200)]
 # at SED's shape the backward is not timed at H = 1024: the wrapper's f32
 # weight-gradient contraction over 1.6 M rows would take the card's memory
 # to ~83 GB beside the shape's operands
@@ -5619,6 +5672,10 @@ F32_KERNELS = {'gemm': ('conv2d_f32_wgmma_kernel', 'conv2d_f32_split_kernel',
 F32_PATHS = ('cnn_2d', 'cnn_1d')
 WIDE_HIDDEN = 768
 PADDED_HIDDEN = 200
+# 15g's hidden size: the DCASE 2022 Task 4 baseline's recurrent part, two
+# bidirectional GRU layers of 128 cells (DESED_task,
+# recipes/dcase2022_task4_baseline/confs/default.yaml: n_RNN_cell 128)
+DCASE_HIDDEN = 128
 # an H above 512 the cluster design takes padded (to 768)
 PADDED_WIDE_HIDDEN = 600
 
@@ -6098,6 +6155,106 @@ def check_f32_off_tile_layers(records, randn):
         + json.dumps(rows))
 
 
+def check_bwd_rows_kernels(records):
+    """Phase 15d at ``BWD_ROWS_SHAPES``: the split and fused GRU backwards
+    on the design the rule picks (``csrc/gru_bwd_rows.cuh``'s wgmma rows
+    design, but at (2, 32, 500, 224), which runs as 256 on the cluster
+    design, the faster there: ``ops/kernels/gru.py:kernel_hidden``; any
+    other design fails the run) against their plain versions whole
+    (5.3e-3 of each gradient's largest entry), each launch on the rows
+    design counted under ``gru_scan_bwd_rows`` / ``gru_scan_bwd_fused_rows``,
+    a second run equal in every bit, the fused dxw and dh0 equal to the
+    split ones in every bit, each wrapper's ms beside its kernel's alone,
+    its time a serial step, the kernel before the redesign
+    (``EARLIER_GRU_MS``), cuDNN's backward (:func:`cudnn_gru`) and the
+    bound; the rows design's shapes into ``records`` under the label
+    'widths'."""
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape, scale=1.):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    names = {True: 'gru_scan_bwd_rows', False: 'gru_scan_bwd_fused_rows'}
+    table = []
+    for d, b, t, h in BWD_ROWS_SHAPES:
+        shape = (d, b, t, h)
+        designs = gru_designs(*shape)
+        # few rows above H = 192: the cluster design at 256
+        want = (('cluster', 256) if b == BATCH and h > 192
+                else (ROWS, h + -h % 32))
+        for key in ('bwd', 'bwd_fused'):
+            v = designs[key]
+            log(f'gru design {shape} {key}: {v["design"]} at H = '
+                f'{v["hidden"]}, {v["cluster"]} blocks of {v["units"]} '
+                f'units, {v["rows"]} rows a cluster, '
+                f'{v["smem"] / 1024:.0f} KiB shared memory, '
+                f'{v["coresident"]} co-resident clusters')
+            if (v['design'], v['hidden']) != want:
+                raise AssertionError(f'GRU {key} at {shape} runs '
+                                     f'{v["design"]} at {v["hidden"]}, not '
+                                     f'{want}')
+        rows = want[0] == ROWS
+        xw = randn(d, b, t, 3 * h).to(torch.bfloat16)
+        w_hh = randn(d, h, 3 * h, scale=h ** -.5)
+        b_hh = randn(d, 3 * h, scale=.1)
+        h0 = torch.zeros(d, b, h, device=dev)
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        # at T = 500 the training step's cotangent scale
+        g = randn(d, b, t, h, scale=1e-2 if t >= 100 else 1.)
+        lib = cudnn_gru(xw, w_hh, b_hh, h0,
+                        gru_scan_plain(xw, w_hh, b_hh, h0), g)
+        args = (xw, w_hh, b_hh, h0, y, g)
+        row = {'shape': shape, 'cudnn_bwd_ms': lib['bwd']}
+        grads = {}
+        for split, name in names.items():
+            n = dict(build.LAUNCHES)
+            got = gru_scan_bwd(*args, split=split)
+            if build.LAUNCHES[name] != n[name] + rows:
+                raise AssertionError(f'{name} at {shape}: launch counted '
+                                     f'{build.LAUNCHES[name] - n[name]} '
+                                     f'times')
+            refs = gru_scan_bwd_plain(*args, split=split)
+            torch.cuda.synchronize()
+            k_ms = cuda_ms(lambda: gru_scan_bwd(*args, split=split), reps=5)
+            p_ms = cuda_ms(lambda: gru_scan_bwd_plain(*args, split), reps=2,
+                           warmup=1)
+            # the rows design's shapes join its kernels' sums
+            record = records[name] if rows else new_record()
+            for i, part in enumerate(('dxw', 'dw_hh', 'db_hh', 'dh0')):
+                _check(f'{name} {part}', shape, got[i], refs[i],
+                       5.3e-3 * float(refs[i].float().abs().max()),
+                       k_ms if i == 0 else 0., p_ms if i == 0 else 0.,
+                       record, 'widths', lib['bwd'] if i == 0 else None,
+                       gru_work(*shape, True) if i == 0 else None)
+            again = gru_scan_bwd(*args, split=split)
+            if not all(torch.equal(a, r) for a, r in zip(got, again)):
+                raise AssertionError(f'{name} {shape}: two runs differ')
+            _log_gru_step('bwd' if split else 'bwd_fused', shape, k_ms,
+                          lambda: gru_scan_bwd(*args, split=split))
+            row[f'{name}_ms'] = k_ms
+            grads[split] = got
+            del refs, again
+        # the same chain: dxw and dh0 of the fused backward in every bit
+        for i, part in ((0, 'dxw'), (3, 'dh0')):
+            if not torch.equal(grads[True][i], grads[False][i]):
+                raise AssertionError(f'{shape}: the fused {part} differs '
+                                     f'from the split one')
+        bound_ms = gru_work(*shape, True)[0]
+        log(f'gru backward rows {shape} ({want[0]} at {want[1]}): split '
+            f'wrapper '
+            f'{row["gru_scan_bwd_rows_ms"]:.3f} ms, fused '
+            f'{row["gru_scan_bwd_fused_rows_ms"]:.3f}, cuDNN backward '
+            f'{lib["bwd"]:.3f} (split / cuDNN '
+            f'{row["gru_scan_bwd_rows_ms"] / lib["bwd"]:.3f}), bound '
+            f'{bound_ms:.3f} ms; two runs agree in every bit, fused dxw and '
+            f'dh0 equal the split ones')
+        table.append(row)
+        del xw, y, g, args, grads
+        torch.cuda.empty_cache()
+    log('gru backward rows (JSON): ' + json.dumps(table))
+
+
 def _padded_width_choice(randn):
     """Which width H = 200 runs at (``ops/kernels/gru.py:kernel_hidden``):
     the forward at 224 (the next multiple of 32) against 256, at the
@@ -6176,17 +6333,20 @@ def _width_config(name, augment=True):
     ``compute_dtype='float32'`` in both towers and the output net; '15f'
     14b's configuration (:func:`_tower_config`) with
     ``compute_dtype='float32'`` in both towers and both heads' output
-    nets."""
+    nets; '15g' the tag-conditioned shallow BiCRNN at the DCASE baseline's
+    ``hidden_size`` 128."""
     if name == '15f':
         config = _tower_config('14b', augment=augment)
         for tower in F32_PATHS:
             config['cnn'][tower]['compute_dtype'] = 'float32'
         config['rnn_fwd']['output_net']['compute_dtype'] = 'float32'
         return config
-    if name in ('15c', '15e'):
+    if name in ('15c', '15e', '15g'):
         config = _strong_config(augment=augment)
         if name == '15c':
             config['rnn']['rnn']['hidden_size'] = PADDED_HIDDEN
+        elif name == '15g':
+            config['rnn']['rnn']['hidden_size'] = DCASE_HIDDEN
         else:
             for tower in F32_PATHS:
                 config['cnn'][tower]['compute_dtype'] = 'float32'
@@ -6200,6 +6360,27 @@ def _width_config(name, augment=True):
     else:
         config['rnn_fwd']['rnn']['hidden_size'] = WIDE_HIDDEN
     return config
+
+
+def _assert_dcase_backwards(trained):
+    """15g: both backwards of the BiCRNN-128's GRU layers ((2, 32, 500,
+    128) each) take the wgmma rows design at the real width, and every
+    backward launch of its training run (``trained``, the launch counts)
+    ran it: as many under ``gru_scan_bwd_rows`` as under ``gru_scan_bwd``,
+    two layers a step."""
+    designs = gru_designs(2, BATCH, FRAMES, DCASE_HIDDEN)
+    for key in ('bwd', 'bwd_fused'):
+        got = (designs[key]['design'], designs[key]['hidden'])
+        if got != (ROWS, DCASE_HIDDEN):
+            raise AssertionError(f'15g: the {key} backward runs {got}')
+    if not (trained['gru_scan_bwd_rows'] == trained['gru_scan_bwd']
+            >= 2 * TRAIN_STEPS):
+        raise AssertionError(
+            f'15g: {trained["gru_scan_bwd"]} backward launches, '
+            f'{trained["gru_scan_bwd_rows"]} of them on {ROWS}')
+    log(f'15g: {trained["gru_scan_bwd_rows"]} of '
+        f'{trained["gru_scan_bwd"]} GRU backward launches on {ROWS} at '
+        f'H = {DCASE_HIDDEN}')
 
 
 def _assert_f32_designs(label, layers):
@@ -6221,11 +6402,14 @@ def phase_widths(earlier):
     layer, Cin = 11, on the f32 entry kernels) tags 32 clips and trains 4
     steps; 15f: 14b's deep tower at 40 mel bins with f32 towers and output
     nets (its 3x3 layers at F = 40 ... 5 on the 3xTF32 pair's rows x W
-    tiles, L0 on the entry kernels) tags 32 clips and trains 4 steps.
-    Each training run passes the card-vs-CPU step; each path's launch
-    counters are read. Returns (launches by path, the measurements),
-    printed beside ``earlier`` (phases 3-4, and 14b's bf16 run for
-    15f)."""
+    tiles, L0 on the entry kernels) tags 32 clips and trains 4 steps;
+    15g: the tag-conditioned BiCRNN at the DCASE baseline's H = 128 tags 3
+    x 32 clips and trains 8 steps, every GRU backward on the wgmma rows
+    design (:func:`_assert_dcase_backwards`). Each training run passes the
+    card-vs-CPU step; each path's launch counters are read. Returns
+    (launches by path, the measurements), printed beside ``earlier``
+    (phases 3-4, 14b's bf16 run for 15f, phase 9's BiCRNN training for
+    15g)."""
     from pb_sed_tpu_torch.models import base
     launches, out = {}, {}
     f32_path = F32 + F32_ENTRY + ('maxpool2d', 'maxpool2d_bwd', 'gru_scan',
@@ -6234,7 +6418,8 @@ def phase_widths(earlier):
              ('15b', SHALLOW + WIDE, 10, False),
              ('15c', SHALLOW + PADDED_GRU, 10, True),
              ('15e', f32_path, 10, True),
-             ('15f', f32_path + CROSSED, 527, False)]
+             ('15f', f32_path + CROSSED, 527, False),
+             ('15g', SHALLOW + ROWS_GRU, 10, True)]
     for name, kernels, k, strong in cases:
         config = _width_config(name)
         flat = _random_flat(config, strong=strong)
@@ -6299,6 +6484,8 @@ def phase_widths(earlier):
                     _width_config(n, augment), flat, strong=s),
                 k, kernels, name, strong=strong, gru_order=True,
                 steps=4 if name in ('15e', '15f') else TRAIN_STEPS)
+        if name == '15g':
+            _assert_dcase_backwards(launches['widths_15g_training'])
     log('phase 15 beside phases 3-4 (host clock, B = 32): tagging clips/s '
         + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
                     for key in out if key.endswith('_serving'))
@@ -6311,6 +6498,13 @@ def phase_widths(earlier):
                                 for key, value in out.items())
         + f' vs shallow serving {earlier["serving"]["peak_gib"]:.2f}, '
         f'training {earlier["shallow"]["peak_gib"]:.2f}')
+    log('15g (the BiCRNN at H = 128) beside 15c (H = 200) and phase 9 (the '
+        'recipe\'s H = 256), host clock, B = 32: training steps/s '
+        f'{out["15g_training"]["steps_per_s"]:.3f} vs '
+        f'{out["15c_training"]["steps_per_s"]:.3f} vs '
+        f'{earlier["strong"]["steps_per_s"]:.3f}; tagging clips/s '
+        f'{out["15g_serving"]["tagging_clips_per_s"]:.1f} vs '
+        f'{out["15c_serving"]["tagging_clips_per_s"]:.1f}')
     bf16 = earlier['towers']
     log('15f (f32) beside 14b (bf16), host clock, B = 32: tagging clips/s '
         f'{out["15f_serving"]["tagging_clips_per_s"]:.1f} vs '
@@ -6421,6 +6615,7 @@ def run():
     tower_kernel_phase = dict(build.LAUNCHES)
     build.reset_launches()
     check_width_kernels(records)
+    check_bwd_rows_kernels(records)
     width_kernel_phase = dict(build.LAUNCHES)
     serving = {}
     launches = {'shallow_serving': phase_slice(serving)}
@@ -6467,7 +6662,8 @@ def run():
     launches.update(tower_launches)
     log('towers phase (JSON): ' + json.dumps(towers))
     width_launches, widths = phase_widths(
-        {'serving': serving, 'shallow': in_memory, 'towers': towers})
+        {'serving': serving, 'shallow': in_memory, 'towers': towers,
+         'strong': strong['training']})
     launches.update(width_launches)
     log('widths phase (JSON): ' + json.dumps(widths))
     launches['kernel_phase'] = kernel_phase

@@ -20,48 +20,54 @@
 // bf16 h_prev and the bf16 product dxw_n * r (gru.py:546-552).
 //
 // What bounds it on the H100: like the forward, the sweep is serial in t
-// and a step's work is nothing; what a step costs is the latency of its
-// chain. Only dh is carried from step to step: the gate product
-// h_prev[t] @ w_hh reads a saved input and depends on nothing the sweep
-// computes. w_hh (384 KiB of bf16 per direction at H = 256, 1.5 MiB at
-// H = 512) does not fit one block's shared memory, and a step needs it
+// and at few rows a step's work is nothing; what a step costs is the
+// latency of its chain. Only dh is carried from step to step: the gate
+// product h_prev[t] @ w_hh reads a saved input and depends on nothing the
+// sweep computes. w_hh (384 KiB of bf16 per direction at H = 256, 1.5 MiB
+// at H = 512) does not fit one block's shared memory, and a step needs it
 // twice: h_prev @ w_hh for the gates and dgates @ w_hh^T for dh.
 //
-// Two designs, chosen by shape in pbsed_gru_scan_bwd
-// (pbsed_gru_bwd_design says which):
+// Three designs, chosen by shape in pbsed_gru_scan_bwd
+// (pbsed_gru_bwd_design says which), each spreading w_hh over a
+// thread-block cluster (block c owns 32 hidden units and keeps its slice
+// w_hh[:, cols(U_c)] in shared memory) and adding the partials of dh in
+// rank order:
 //
-// 1. Few rows, many steps (the training step: B = 32, T = 500), and at
-//    H = 512 every shape (the rule is gru_cluster_takes in
-//    gru_cluster.cuh): gru_bwd_cluster_kernel (gru_bwd_cluster.cuh), the
-//    forward's cluster layout: a cluster of H / 32 blocks per row tile,
-//    each block with its slice of w_hh in shared memory, the partials of
-//    dh exchanged through distributed shared memory, one cluster barrier
-//    a step, the next step's gate product between its arrive and wait.
-// 2. Every other shape up to H = 512: the row-tiled sweep of gru_bwd.cuh
-//    (one block per (direction, tile of 32 batch rows, 16 when H > 256),
-//    w_hh fragments from global memory twice a step, four barriers a
-//    step).
+// 1. Few rows, many steps (the training step: B = 32, T = 500) at
+//    H = 256, up to 15 row tiles of 16, and at H = 512 every shape (the
+//    rule is gru_cluster_takes in gru_cluster.cuh):
+//    gru_bwd_cluster_kernel (gru_bwd_cluster.cuh), the forward's cluster
+//    layout: a cluster of H / 32 blocks per row tile of 16 or 32, the
+//    partials of dh exchanged through distributed shared memory, one
+//    cluster barrier a step, the next step's gate product between its
+//    arrive and wait; wmma.
+// 2. Every other shape up to H = 256 (every H below 256 at any batch, 256
+//    past 15 row tiles of 16): the wgmma rows design (gru_bwd_rows.cuh), a
+//    cluster of H / 32 blocks per tile of 64 rows, both products on wgmma
+//    with the gate math on the accumulators, the partials of dh sent by
+//    bulk copies counted on mbarriers.
 // 3. H above 512 (a multiple of 256, to 2048): the cluster design with
 //    H / 16 units a block (gru_cluster_wide.cuh): the slice of w_hh that
 //    does not fit a block's shared memory streams from L2 through a
 //    cp.async ring once a step for both products, dh's partials go into
 //    single-buffered receive slots under two split cluster barriers.
 // The fused variant (gru_bwd_fused.cu) runs the first two designs, so up
-// to H = 512.
-#include "gru_bwd_cluster.cuh"
+// to H = 512. H from 288 to 480 fits none of them: the wrapper runs it
+// as 512.
+#include "gru_bwd_rows.cuh"
 #include "gru_cluster_wide.cuh"
 
 // xw (D, B, T, 3H) bf16, h_prev (D, B, T, H) bf16 (= concat(h0, y[:-1])
 // along T), w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32, g (D, B, T, H) f32;
 // outputs dxw (D, B, T, 3H) bf16, r (D, B, T, H) bf16, dh0 (D, B, H) f32.
-// Contiguous, h_prev 16-byte aligned; above H = 512 w_hh packed, (D, 16,
-// H, 3H / 16 + 8) (ops/kernels/gru.py:pack_wide), and 16-byte aligned.
-// Requires H % 32 == 0 up to 512 and H % 256 == 0 above, to 2048 (the
-// wrapper pads any other H with zero units). Above H = 512 the cluster
-// design of gru_cluster_wide.cuh; else the cluster design where
-// gru_cluster_takes says so, else the row-tiled sweep (blockDim = H; tiles
-// of 32 rows up to H = 256, of 16 above). Returns a cudaError_t
-// (cudaErrorLaunchOutOfResources where the card holds no cluster of the
+// Contiguous, xw, h_prev and w_hh 16-byte aligned; above H = 512 w_hh
+// packed, (D, 16, H, 3H / 16 + 8) (ops/kernels/gru.py:pack_wide).
+// Requires H % 32 == 0 up to 256, H = 512, or H % 256 == 0 above, to 2048
+// (the wrapper pads any other H with zero units). Above H = 512 the
+// cluster design of gru_cluster_wide.cuh; else the cluster design where
+// gru_cluster_takes says so, else the wgmma rows design. Returns a
+// cudaError_t (cudaErrorInvalidValue for an H no design takes,
+// cudaErrorLaunchOutOfResources where the card holds no cluster of the
 // design at all).
 extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
                                   const void* w_hh, const void* b_hh,
@@ -73,21 +79,22 @@ extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(dh0, 0, sizeof(float) * D * B * H, s));
   if (gru_wide_takes(H))
     return static_cast<int>(
         gru_wide_bwd(xw, h_prev, w_hh, b_hh, g, dxw, r, dh0, D, B, T, H, s));
-  if (!gru_cluster_takes(D, B, T, H))
-    return static_cast<int>(gru_bwd_sweep<false>(xw, h_prev, w_hh, b_hh, g,
-                                                 dxw, r, dh0, nullptr, nullptr,
-                                                 nullptr, D, B, T, H, s));
   int rows = 0;
-  return static_cast<int>(bwd_cluster<false>(xw, h_prev, w_hh, b_hh, g, dxw,
-                                             r, dh0, nullptr, nullptr,
-                                             nullptr, D, B, T, H, s, &rows));
+  return static_cast<int>(gru_bwd_sweep<false>(xw, h_prev, w_hh, b_hh, g,
+                                               dxw, r, dh0, nullptr, nullptr,
+                                               nullptr, D, B, T, H, s,
+                                               &rows));
 }
 
-// Which design pbsed_gru_scan_bwd runs at (D, B, T, H); the arguments and
-// the result as pbsed_gru_design (gru.cu).
+// Which design pbsed_gru_scan_bwd runs at (D, B, T, H): 1 for the cluster
+// designs (above H = 512 that of gru_cluster_wide.cuh), 2 for the wgmma
+// rows design; the arguments and the failure as pbsed_gru_design (gru.cu).
 extern "C" int pbsed_gru_bwd_design(int D, int B, int T, int H, int* cluster,
                                     int* rows, int* smem, int* coresident,
                                     int* units, int* resident, int* streamed) {

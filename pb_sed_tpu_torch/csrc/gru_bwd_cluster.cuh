@@ -60,10 +60,11 @@
 // db's final sum reuses the gate buffer.
 #pragma once
 
-#include "gru_bwd.cuh"
 #include "gru_cluster.cuh"
 
 namespace {
+
+constexpr int kDwSteps = 16;  // FUSED: steps per dw_hh accumulation
 
 constexpr int kClLdr = 36;   // f32 row stride of a receive slot (32 units)
 constexpr int kClLdd = 104;  // bf16 row stride of the dgates_own buffer
@@ -87,20 +88,22 @@ __device__ __forceinline__ void cl_fetch_h_prev(
 // FUSED: the block's slice of dw_hh ((H, 3H) f32 at dw_blk, its columns
 // cols(U_c)) += h_prev[b, t0 .. t0 + 15]^T @ ring[b] summed over the
 // tile's rows b (ring: (rows, 16, 96) bf16, slot k = step t0 + k);
-// `first` stores without reading the slice. kDwTiles of the 6
-// gate-column tiles a pass: that many accumulators fit in registers
-// beside the chain's without a spill (6 do not)
+// `first` stores without reading the slice; the block's `warps` warps
+// take the passes in turn. kDwTiles of the 6 gate-column tiles a pass:
+// that many accumulators fit in registers beside the chain's without a
+// spill (6 do not)
 constexpr int kDwTiles = 3;
 
 __device__ __forceinline__ void cl_dw_group(float* dw_blk,
                                             const __nv_bfloat16* h_prev_tile,
                                             const __nv_bfloat16* ring,
                                             int t0, int rows, int T, int H,
-                                            int u0, bool first, int warp) {
+                                            int u0, bool first, int warp,
+                                            int warps) {
   using namespace nvcuda;
   const int G = 3 * H;
   constexpr int kPasses = kClColTiles / kDwTiles;  // per 16 hidden units
-  for (int pass = warp; pass < (H / 16) * kPasses; pass += kClWarps) {
+  for (int pass = warp; pass < (H / 16) * kPasses; pass += warps) {
     const int mh = pass / kPasses;                // 16 hidden units
     const int n0 = pass % kPasses * kDwTiles;     // first column tile
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kDwTiles];
@@ -363,7 +366,7 @@ gru_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ xw,      // (D, B, T, 3
       // block barrier below
       if ((t & (kDwSteps - 1)) == 0)
         cl_dw_group(dw_blk, h_prev_tile, ring, t, rows, T, H, u0,
-                    t + kDwSteps >= T, warp);
+                    t + kDwSteps >= T, warp, kClWarps);
     }
     if (t > 0) {
       // the next step's gate product, while the partials are in flight
@@ -474,23 +477,14 @@ cudaError_t launch_bwd_cluster(const void* xw, const void* h_prev,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The design the backward (split or FUSED) runs at (D, B, T, H), as
-// pbsed_gru_design (gru.cu) reports it: 1 and the cluster's size, rows,
-// shared memory a block, co-resident clusters and the slice of w_hh; 0
-// and the row-tiled sweep's (rows_tiled rows a block); -cudaError_t on a
-// failed query.
+// What the design queries report of the cluster design at (D, B, H)
+// (split or FUSED; gru_bwd_rows.cuh:bwd_design): 1 and the cluster's
+// size, rows, shared memory a block, co-resident clusters and the slice
+// of w_hh; -cudaError_t on a failed query.
 template <bool FUSED>
-int bwd_design(int D, int B, int T, int H, int* cluster, int* rows,
-               int* smem, int* coresident, int* units, int* resident,
-               int* streamed) {
-  if (!gru_cluster_takes(D, B, T, H)) {
-    *cluster = 1;
-    *rows = H <= 256 ? 32 : 16;
-    *smem = static_cast<int>(H <= 256 ? smem_bytes<2>(H) : smem_bytes<1>(H));
-    *coresident = 0;
-    gru_row_tiled_slice(H, units, resident, streamed);
-    return 0;
-  }
+int bwd_cluster_report(int D, int B, int H, int* cluster, int* rows,
+                       int* smem, int* coresident, int* units, int* resident,
+                       int* streamed) {
   int mt = 0;
   cudaError_t err = bwd_cluster_row_tiles<FUSED>(D, B, H, &mt);
   if (err == cudaSuccess)

@@ -19,22 +19,23 @@
 // direction, 3 MiB at H = 512, far more than a block's shared memory (on
 // the TPU it was what kept this kernel out of VMEM above H = 256).
 //
-// What the design does about it: the split backward's two designs, chosen
-// by the same rule (pbsed_gru_bwd_fused_design says which), each with the
-// accumulation added off its chain:
-// 1. the cluster sweep (gru_bwd_cluster.cuh, FUSED): block c of a cluster
-//    owns the gate columns cols(U_c), so it alone writes dw_hh[:, cols(U_c)]
-//    of its (direction, row tile): every 16 steps one K = 16 product a
-//    batch row from a global ring of its bf16 dgates and h_prev in global
-//    memory into that f32 slice, between the cluster barrier's arrive and
-//    wait; db_hh in per-thread registers;
-// 2. the row-tiled sweep (gru_bwd.cuh, FUSED): each block owns an f32
-//    (H, 3H) slice, filled every 16 steps from a scratch ring of its bf16
-//    h_prev and dgates rows.
+// What the design does about it: the split backward's two designs up to
+// H = 512, chosen by the same rule (pbsed_gru_bwd_fused_design says which),
+// each with the accumulation added off its chain. In both, block c of a
+// cluster owns the gate columns cols(U_c), so it alone writes
+// dw_hh[:, cols(U_c)] of its (direction, row tile): every 16 steps one
+// K = 16 product a batch row from a global ring of its bf16 dgates and
+// h_prev in global memory into that f32 slice (cl_dw_group), while the
+// partials of dh are in flight; db_hh summed on the side, in a fixed
+// order:
+// 1. the cluster sweep (gru_bwd_cluster.cuh, FUSED), row tiles of 16 or
+//    32, db_hh in per-thread registers;
+// 2. the wgmma rows sweep (gru_bwd_rows.cuh, FUSED), row tiles of 64,
+//    db_hh in each warp's shared-memory sums.
 // Either way the slices are disjoint and need no zeroing; a second kernel
 // adds them over the row tiles in tile order: two runs give bit-identical
 // dw_hh and db_hh (no float atomics).
-#include "gru_bwd_cluster.cuh"
+#include "gru_bwd_rows.cuh"
 
 namespace {
 
@@ -70,15 +71,15 @@ cudaError_t reduce_parts(const float* part, float* out, int D, int blocks,
 }  // namespace
 
 // Inputs as pbsed_gru_scan_bwd (gru_bwd.cu), but h_prev followed in
-// memory by at least 15 H finite values (the cluster sweep reads up to 15
-// steps past the last row's end, with zero weight). Outputs dxw (D, B, T,
-// 3H) bf16, dw_hh (D, H, 3H) f32, db_hh (D, 3H) f32, dh0 (D, B, H) f32.
+// memory by at least 15 H finite values (the sweeps read up to 15 steps
+// past the last row's end, with zero weight). Outputs dxw (D, B, T, 3H)
+// bf16, dw_hh (D, H, 3H) f32, db_hh (D, 3H) f32, dh0 (D, B, H) f32.
 // Workspace, with rows as pbsed_gru_bwd_fused_design reports and parts =
 // D * ceil(B / rows): dw_part (parts, H, 3H) f32, db_part (parts, 3H) f32,
 // scratch (parts, 16 * rows, 4H) bf16; none needs zeroing. Contiguous,
-// h_prev 16-byte aligned, dw_part and scratch 32-byte aligned. Requires
-// H % 32 == 0 and H <= 512 (the wrapper pads any other H up to 512 with
-// zero units). Returns a cudaError_t.
+// xw, h_prev and w_hh 16-byte aligned, dw_part and scratch 32-byte
+// aligned. Requires H % 32 == 0 up to 256, or H = 512 (the wrapper pads
+// any other H up to 512 with zero units). Returns a cudaError_t.
 extern "C" int pbsed_gru_scan_bwd_fused(
     const void* xw, const void* h_prev, const void* w_hh, const void* b_hh,
     const void* g, void* dxw, void* dw_hh, void* db_hh, void* dh0,
@@ -88,19 +89,18 @@ extern "C" int pbsed_gru_scan_bwd_fused(
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long G = 3LL * H;
-  if (B == 0) {
+  if (B == 0 || T == 0) {
     cudaError_t err = cudaMemsetAsync(dw_hh, 0, sizeof(float) * D * H * G, s);
     if (err == cudaSuccess)
       err = cudaMemsetAsync(db_hh, 0, sizeof(float) * D * G, s);
+    if (err == cudaSuccess && B > 0)
+      err = cudaMemsetAsync(dh0, 0, sizeof(float) * D * B * H, s);
     return static_cast<int>(err);
   }
-  int rows = H <= 256 ? 32 : 16;
+  int rows = 0;
   cudaError_t err =
-      gru_cluster_takes(D, B, T, H)
-          ? bwd_cluster<true>(xw, h_prev, w_hh, b_hh, g, dxw, nullptr, dh0,
-                              dw_part, db_part, scratch, D, B, T, H, s, &rows)
-          : gru_bwd_sweep<true>(xw, h_prev, w_hh, b_hh, g, dxw, nullptr, dh0,
-                                dw_part, db_part, scratch, D, B, T, H, s);
+      gru_bwd_sweep<true>(xw, h_prev, w_hh, b_hh, g, dxw, nullptr, dh0,
+                          dw_part, db_part, scratch, D, B, T, H, s, &rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + rows - 1) / rows;
   err = reduce_parts(static_cast<const float*>(dw_part),
@@ -112,8 +112,8 @@ extern "C" int pbsed_gru_scan_bwd_fused(
 }
 
 // Which design pbsed_gru_scan_bwd_fused runs at (D, B, T, H); the
-// arguments and the result as pbsed_gru_design (gru.cu). `rows` sizes the
-// workspace.
+// arguments and the result as pbsed_gru_bwd_design (gru_bwd.cu). `rows`
+// sizes the workspace.
 extern "C" int pbsed_gru_bwd_fused_design(int D, int B, int T, int H,
                                           int* cluster, int* rows, int* smem,
                                           int* coresident, int* units,

@@ -45,7 +45,7 @@ constexpr int kClLdg = 100;       // f32 row stride of the gate buffers
 // 16 (over all directions) number at most this many (see
 // gru_cluster_takes); the forward at H = 256 and 512 at most the next one
 // (see gru_fwd_cluster_takes).
-constexpr int kClMaxTiles16 = 32;
+constexpr int kClMaxTiles16 = 15;
 constexpr int kClMaxTiles16Fwd = 4;
 
 __device__ __forceinline__ float cl_sigmoid(float v) {
@@ -163,12 +163,16 @@ __device__ __forceinline__ void cl_gate_product(const __nv_bfloat16* a,
 // Does (D, B, T, H) take the cluster design in the split and fused
 // backwards? H = 256 or 512 (C = 8 or 16 blocks of 32 units) and at least
 // one step. The design is made for few rows and many steps (training,
-// tagging: B = 32, T = 500), where the row-tiled sweeps leave the card
-// idle. With many rows and few steps (sliding-window SED,
-// (2, 16 000, 51, H)) it still wins at H = 512, where the row-tiled sweep
-// re-reads 1.5 MiB of w_hh a step (111.1 against 136.9 ms; NVIDIA H100
-// 80GB HBM3, 700 W); at H = 256 it takes few row tiles only, up to
-// ``max_tiles16`` (re-timed up to D = 20). No path trains at many rows.
+// tagging: B = 32, T = 500). At H = 512 it takes every shape: the wgmma
+// rows design of gru_bwd_rows.cuh does not fit a block above H = 256. At
+// H = 256 it takes few row tiles only, up to ``max_tiles16``: as many as
+// the card holds clusters of 8 blocks of 16 rows at once (15 on an H100
+// SXM); beyond, its clusters take 32 rows and the rows design is the
+// faster. Every other shape up to H = 256 runs the rows design. Split
+// sweep ms at T = 500, cluster against rows (scripts/perf/
+// gru_bwd_designs.py; NVIDIA H100 80GB HBM3, 700 W): 4 tiles ((2, 32))
+// 2.426 vs 2.832, 8 2.440 vs 3.231, 12 2.364 vs 3.127, 16 3.699 vs 3.118,
+// 30 6.453 vs 3.118, 36 7.059 vs 3.085.
 inline bool gru_cluster_takes(int D, int B, int T, int H,
                               int max_tiles16 = kClMaxTiles16) {
   if (T < 1 || B < 1) return false;
@@ -196,21 +200,13 @@ inline bool gru_fwd_cluster_takes(int D, int B, int T, int H) {
 
 // What the design queries (pbsed_gru_design, pbsed_gru_bwd_design) report
 // of w_hh: the cluster design keeps each block's slice (H x 96 bf16) in
-// shared memory; the backwards' row-tiled sweeps own no units and read
-// all of w_hh from L2 every step.
+// shared memory and streams none of it.
 inline void gru_cluster_slice(int H, int* cluster, int* units, int* resident,
                               int* streamed) {
   *cluster = H / kClUnits;
   *units = kClUnits;
   *resident = 2 * H * kClCols;
   *streamed = 0;
-}
-
-inline void gru_row_tiled_slice(int H, int* units, int* resident,
-                                int* streamed) {
-  *units = 0;
-  *resident = 0;
-  *streamed = 2 * H * 3 * H;
 }
 
 // Rows a cluster: 16 while every cluster of the launch is on the card at

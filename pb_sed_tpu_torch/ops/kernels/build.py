@@ -31,8 +31,9 @@ NVCC_FLAGS = (
 # ``*_padded`` entries count the conv pair's launches at shapes its
 # kernels take only padded (Cout off a multiple of 16, an even extent) and
 # the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
-# GRU pair's launches above H = 512, ``gru_scan_rows`` the forward's
-# launches on the wgmma rows design, the ``conv2d_same*_entry`` ones the
+# GRU pair's launches above H = 512, ``gru_scan_rows``,
+# ``gru_scan_bwd_rows`` and ``gru_scan_bwd_fused_rows`` the GRU passes'
+# launches on the wgmma rows designs, the ``conv2d_same*_entry`` ones the
 # conv pair's launches that run the entry kernels (Cin < 16, forward and
 # dw), the ``conv2d_same_f32*_entry`` ones the f32 pair's (the forward
 # at Cin < 16, and a backward whose dw or dx runs them: Cin < 16, or the
@@ -49,7 +50,8 @@ LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'gru_scan_bwd_wide': 0, 'gru_scan_padded': 0,
             'gru_scan_bwd_padded': 0, 'conv2d_same_entry': 0,
             'conv2d_same_bwd_entry': 0, 'conv2d_same_f32_entry': 0,
-            'conv2d_same_f32_bwd_entry': 0, 'gru_scan_rows': 0}
+            'conv2d_same_f32_bwd_entry': 0, 'gru_scan_rows': 0,
+            'gru_scan_bwd_rows': 0, 'gru_scan_bwd_fused_rows': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -6,11 +6,12 @@ ties them together.
 The forward and both backwards each have two designs up to H = 512,
 chosen by shape inside the C entry points (``csrc/gru_cluster.cuh``:
 ``gru_fwd_cluster_takes``, ``gru_cluster_takes``): with few rows and
-many steps (training, tagging) at H = 256 and 512 a thread-block cluster
-of H / 32 blocks per row tile that keeps w_hh in its shared memory; else
-the forward runs the wgmma rows design (``csrc/gru_rows.cuh``: a cluster
-of H / 32 blocks per tile of 64 rows, each block's slice of w_hh
-resident, the products on wgmma), the backwards one block per row tile.
+many steps (training, tagging) at H = 256 and 512 (the backwards at 512
+at any shape) a thread-block cluster of H / 32 blocks per row tile of 16
+or 32 that keeps w_hh in its shared memory; else the wgmma rows designs
+(``csrc/gru_rows.cuh`` forward, ``csrc/gru_bwd_rows.cuh`` backwards: a
+cluster of H / 32 blocks per tile of 64 rows, each block's slice of w_hh
+resident, the products on wgmma, the backwards up to H = 256).
 Above H = 512 the forward and the split backward run the cluster design
 with 16 blocks of H / 16 units (``csrc/gru_cluster_wide.cuh``, up to
 ``GRU_MAX_HIDDEN``), which streams the part of w_hh that does not fit the
@@ -24,7 +25,7 @@ at every step (r = z = 1/2, n = 0) and reach the real units only through
 zero rows of w_hh; the padding is sliced off the outputs and gradients
 (:func:`unpad_hidden`). The width padded to is the next one the kernels
 take (:func:`padded_hidden`), or 256 / 512 where the cluster design takes
-that width at the shape (:func:`kernel_hidden`).
+that width at the shape and is the faster there (:func:`kernel_hidden`).
 
 ``gru_scan`` keeps the JAX package's signature and layouts
 (``ops/pallas/gru.py:gru_scan``): a leading direction axis D, input
@@ -72,16 +73,30 @@ def padded_hidden(h):
     return -(-h // step) * step
 
 
+# the backwards run a hidden size from 129 to 255 as 256 on the cluster
+# design (where it takes 256 at the shape) only above this one: up to it
+# the wgmma rows design at the real width is the faster. Split sweep ms
+# at (2, 32, 500, H), rows at H against the cluster design at 256
+# (scripts/perf/gru_bwd_designs.py; NVIDIA H100 80GB HBM3, 700 W): 128
+# 1.781 vs 2.316, 160 2.035 vs 2.338, 192 2.262 vs 2.285, 224 2.490 vs
+# 2.284
+_BWD_AS_256_ABOVE = 192
+
+
 def kernel_hidden(d, b, t, h, name='fwd'):
     """The H the kernels run hidden size ``h`` at, for pass ``name``
-    ('fwd', 'bwd' or 'bwd_fused') at xw (D, B, T, 3H): 256 for
-    128 < h < 256 and 512 for 256 < h < 512 where the cluster design takes
-    that width at the shape (it takes H = 256 and 512 only, and at few
-    rows runs a step in a tenth of the row-tiled backward's time,
-    ``PERF.md`` §6), else :func:`padded_hidden` (above 512 the next
+    ('fwd', 'bwd' or 'bwd_fused') at xw (D, B, T, 3H): 512 for
+    256 < h < 512 where the cluster design takes 512 (the backwards take
+    it at every shape: their wgmma rows design stops at 256), 256 for
+    128 < h < 256 where the cluster design takes 256 and is the faster
+    there (the forward at few rows; the backwards above
+    ``_BWD_AS_256_ABOVE``), else :func:`padded_hidden` (above 512 the next
     multiple of 256)."""
     for width in (256, 512):
-        if (width // 2 < h < width
+        low = width // 2
+        if width == 256 and name != 'fwd':
+            low = _BWD_AS_256_ABOVE
+        if (low < h < width
                 and _design(name, d, b, t, width)['design'] == 'cluster'):
             return width
     return padded_hidden(h)
@@ -227,9 +242,15 @@ def gru_scan(xw, w_hh, b_hh, h0):
                  xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
                  h32.data_ptr(), y.data_ptr(), d, b, t, hp)
     _count_shape('gru_scan', hdim, hp)
-    if hp <= _WIDE_ABOVE and _design('fwd', d, b, t, hp)['design'] == ROWS:
-        build.LAUNCHES['gru_scan_rows'] += 1
+    _count_rows('gru_scan_rows', 'fwd', d, b, t, hp)
     return unpad_hidden(hdim, y=y)[0]
+
+
+def _count_rows(counter, name, d, b, t, hp):
+    """Count a launch of pass ``name`` that ran the wgmma rows design
+    under ``counter`` too."""
+    if hp <= _WIDE_ABOVE and _design(name, d, b, t, hp)['design'] == ROWS:
+        build.LAUNCHES[counter] += 1
 
 
 def _count_shape(counter, hdim, hp):
@@ -255,7 +276,7 @@ _DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
                    'bwd_fused': 'pbsed_gru_bwd_fused_design'}
 # the design names, by the queries' return codes
 ROWS = 'wgmma_rows'
-_DESIGNS = ('row_tiled', 'cluster', ROWS)
+_DESIGNS = {1: 'cluster', 2: ROWS}
 
 
 def _design(name, d, b, t, h):
@@ -277,19 +298,18 @@ def gru_designs(d, b, t, h):
     C entry points decide at the H each pass runs (:func:`kernel_hidden`):
     for ``'fwd'``, ``'bwd'`` (the split backward) and ``'bwd_fused'`` a dict
     of ``design`` ('cluster': w_hh spread over a thread-block cluster's
-    shared memory, ``csrc/gru_cluster.cuh`` and above H = 512
-    ``csrc/gru_cluster_wide.cuh``; the forward's ``ROWS``, 'wgmma_rows':
-    tiles of 64 rows on wgmma, ``csrc/gru_rows.cuh``; the backwards'
-    'row_tiled'), ``hidden`` (the H it runs), ``cluster`` (blocks a
-    cluster, 1 row-tiled), ``rows`` (batch rows a cluster or block),
-    ``smem`` (dynamic shared memory a block, bytes), ``coresident``
-    (clusters the card holds at once, 0 row-tiled), ``units`` (hidden
-    units a block owns: 32, H / 16 above 512, 0 row-tiled), ``resident``
-    and ``streamed`` (bytes of a block's slice of w_hh kept in its shared
-    memory and read from L2 at every step; row-tiled: all of w_hh
-    streamed); ``'bwd_fused'`` is None above
-    ``GRU_FUSED_MAX_HIDDEN``. Raises where the card can hold no cluster
-    of the design."""
+    shared memory, rows in tiles of 16 or 32, ``csrc/gru_cluster.cuh``
+    and above H = 512 ``csrc/gru_cluster_wide.cuh``; ``ROWS``,
+    'wgmma_rows': the same spread, tiles of 64 rows on wgmma,
+    ``csrc/gru_rows.cuh`` forward and ``csrc/gru_bwd_rows.cuh``
+    backwards), ``hidden`` (the H it runs), ``cluster`` (blocks a
+    cluster), ``rows`` (batch rows a cluster), ``smem`` (dynamic shared
+    memory a block, bytes), ``coresident`` (clusters the card holds at
+    once), ``units`` (hidden units a block owns: 32, H / 16 above 512),
+    ``resident`` and ``streamed`` (bytes of a block's slice of w_hh kept
+    in its shared memory and read from L2 at every step);
+    ``'bwd_fused'`` is None above ``GRU_FUSED_MAX_HIDDEN``. Raises where
+    the card can hold no cluster of the design."""
     out = {}
     for name in _DESIGN_QUERIES:
         if name == 'bwd_fused' and padded_hidden(h) > GRU_FUSED_MAX_HIDDEN:
@@ -413,7 +433,7 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
     if hp > _WIDE_ABOVE:
         w16 = pack_wide(w16)
     d, b, t, _ = xw16.shape
-    # the fused cluster sweep reads up to 15 steps past the last row
+    # the fused sweeps read up to 15 steps past the last row
     h_prev = _h_prev(h0, y, pad=0 if split else 16)
     dxw = torch.empty_like(xw16)
     dh0 = torch.empty((d, b, hp), dtype=torch.float32, device=xw.device)
@@ -429,6 +449,7 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
                  b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
                  r.data_ptr(), dh0.data_ptr(), d, b, t, hp)
     _count_shape('gru_scan_bwd', hdim, hp)
+    _count_rows('gru_scan_bwd_rows', 'bwd', d, b, t, hp)
     dw_hh, db_hh = _weight_grads(h_prev, dxw, r)
     return unpad_hidden(hdim, None, dxw, dw_hh, db_hh, dh0)[1:]
 
@@ -437,10 +458,11 @@ def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):
     """The fused kernel with its workspace (``csrc/gru_bwd_fused.cu``):
     per (direction, row tile of the design's rows) an f32 (H, 3H) dw_hh
     partial, an f32 (3H,) db_hh partial and a bf16 ring of 16 steps of
-    dgates (and, row-tiled, h_prev) rows."""
+    dgates rows."""
     d, b, t, three_h = xw16.shape
     hdim = three_h // 3
-    rows = _design('bwd_fused', d, b, t, hdim)['rows']
+    design = _design('bwd_fused', d, b, t, hdim)
+    rows = design['rows']
     parts = d * -(-b // rows)
     dev = xw16.device
     dw_part = torch.empty((parts, hdim, three_h), dtype=torch.float32,
@@ -456,6 +478,8 @@ def _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0):
                  dw_hh.data_ptr(), db_hh.data_ptr(), dh0.data_ptr(),
                  dw_part.data_ptr(), db_part.data_ptr(), scratch.data_ptr(),
                  d, b, t, hdim)
+    if design['design'] == ROWS:
+        build.LAUNCHES['gru_scan_bwd_fused_rows'] += 1
     return dxw, dw_hh, db_hh, dh0
 
 

@@ -5,9 +5,10 @@ Cin = 1 input gradient, batches off the GRU tile, tie- and NaN-heavy
 pools, the BN+ReLU-fused conv with a positive shift at the borders, the
 fused GRU backward at batches off its tile, the GRU's cluster design at
 both widths with ragged row tiles and a random initial state beside the
-wgmma rows forward and the row-tiled backwards at small hidden sizes, the
-rows forward at the main path's many-row shapes, a ragged batch, one
-step and H from 32 to 512, the wgmma conv kernels'
+wgmma rows designs at small hidden sizes, the rows forward at the main
+path's many-row shapes, a ragged batch, one step and H from 32 to 512,
+the rows backwards past the 64-row tile, at one and odd steps, H from 32
+to 256 and training past 32 row tiles, the wgmma conv kernels'
 ragged pixel tiles, frequency rows and channel widths, and at every F
 (tiles of whole rows off a power of two, of 128 pixels of a frame above
 128), Cin off a multiple of 8 and the dx of Cin < 16, the entry conv
@@ -109,8 +110,8 @@ def test_maxpool_kernel_bit_exact(gen, shape):
     assert torch.equal(got.nan_to_num(), ref.nan_to_num())
 
 
-# (D, B, T, H): H = 32 and 64 run the wgmma rows forward and the
-# row-tiled backwards; H = 256 and 512 with few rows the cluster design,
+# (D, B, T, H): H = 32 and 64 run the wgmma rows designs, forward and
+# backwards; H = 256 and 512 with few rows the cluster design,
 # here with one and two row tiles, rows past the batch in a tile (B = 5,
 # 3, 33) and T odd and even; (2, 33, 17, 512), six row tiles of 16, runs
 # the forward on the rows design and the backwards on the cluster one
@@ -123,11 +124,10 @@ def _gru_design_is_expected(d, b, t, h):
     """The forward takes the cluster design at H = 256 and 512 up to 4
     row tiles of 16 (csrc/gru_cluster.cuh:gru_fwd_cluster_takes), else
     the rows design; the split backward the cluster design at 512 and at
-    256 up to 32 tiles, else its row-tiled sweep."""
+    256 up to 15 tiles, else its wgmma rows design."""
     tiles = d * -(-b // 16)
     fwd = 'cluster' if h in (256, 512) and tiles <= 4 else ROWS
-    bwd = ('cluster' if h == 512 or (h == 256 and tiles <= 32)
-           else 'row_tiled')
+    bwd = 'cluster' if h == 512 or (h == 256 and tiles <= 15) else ROWS
     designs = gru_designs(d, b, t, h)
     return (designs['fwd']['design'], designs['bwd']['design']) == (fwd,
                                                                      bwd)
@@ -156,8 +156,9 @@ def test_gru_design_by_shape(gen):
     while all clusters are on the card at once) and, at H = 512, the
     sliding-window backwards; the sliding-window forward runs the wgmma
     rows design at both widths (clusters of H / 32 blocks of 32 units, 64
-    rows), the H = 256 backwards their row-tiled sweeps. The fused
-    backward follows the split one."""
+    rows), the H = 256 backwards theirs, and so do the backwards at the
+    DCASE baseline's 128 units at the training shape and at 256 past 32
+    row tiles of 16. The fused backward follows the split one."""
     for h, cluster in ((256, 8), (512, 16)):
         train = gru_designs(2, 32, 500, h)
         for key in ('fwd', 'bwd', 'bwd_fused'):
@@ -179,10 +180,20 @@ def test_gru_design_by_shape(gen):
     assert (sed['bwd']['design'], sed['bwd_fused']['design']) == (
         'cluster', 'cluster')
     assert (sed['bwd']['rows'], sed['bwd_fused']['rows']) == (16, 16)
-    sed = gru_designs(2, 16000, 51, 256)
-    for key in ('bwd', 'bwd_fused'):
-        assert sed[key]['design'] == 'row_tiled'
-        assert sed[key]['cluster'] == 1
+    for shape in ((2, 16000, 51, 256), (2, 32, 500, 128), (2, 288, 500, 256),
+                  (2, 512, 500, 256)):
+        rows = gru_designs(*shape)
+        h = shape[3]
+        for key in ('bwd', 'bwd_fused'):
+            v = rows[key]
+            assert (v['design'], v['hidden'], v['cluster'], v['units'],
+                    v['rows'], v['streamed']) == (ROWS, h, h // 32, 32, 64,
+                                                  0)
+            assert v['resident'] == 2 * h * 3 * 32
+            assert v['smem'] <= 232448 and v['coresident'] >= 1
+    # an H100 SXM holds 15 clusters of 8 blocks of one block an SM at once
+    # (2 x 512 rows are 16 tiles of 64: one waits its turn)
+    assert gru_designs(2, 512, 500, 256)['bwd']['coresident'] >= 15
     assert gru_designs(2, 16000, 51, 64)['fwd']['design'] == ROWS
 
 
@@ -287,10 +298,49 @@ def test_gru_backward_kernel_matches_plain(gen, d, b, t, h):
     # rounding of dgates before the next step: the GRU ceiling, 5.3e-3
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
-    # the cluster design sums its partials of dh in rank order: reruns
-    # agree in every bit
+    # both designs sum their partials of dh in rank order: reruns agree in
+    # every bit
     again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+# (D, B, T, H) of the backwards' wgmma rows design: rows past the 64-row
+# tile (70, 130, 65, 300) and within it (5), one step, odd T, H = 32 (one
+# block a cluster) to 224 (seven), and H = 256 past 32 row tiles of 16
+BWD_ROWS_SHAPES = [(2, 70, 9, 32), (1, 130, 1, 64), (2, 65, 7, 96),
+                   (2, 5, 33, 128), (1, 33, 12, 160), (2, 70, 5, 192),
+                   (2, 130, 3, 224), (2, 300, 20, 256), (2, 257, 1, 256)]
+
+
+@pytest.mark.parametrize('d,b,t,h', BWD_ROWS_SHAPES)
+def test_gru_backward_rows_design_matches_plain(gen, d, b, t, h):
+    """The split and fused backwards on the rows design against their
+    plain versions (the GRU ceiling: 5.3e-3 of each gradient's largest
+    entry), their launches counted under ``gru_scan_bwd_rows`` and
+    ``gru_scan_bwd_fused_rows``, reruns equal in every bit, and dxw and
+    dh0 of the two equal in every bit (the same chain; the fused one adds
+    its weight gradients off it)."""
+    xw, w_hh, b_hh, h0, g = _gru_case(gen, d, b, t, h)
+    designs = gru_designs(d, b, t, h)
+    for key in ('bwd', 'bwd_fused'):
+        assert (designs[key]['design'], designs[key]['hidden'],
+                designs[key]['rows']) == (ROWS, h, 64)
+    y = gru_scan(xw, w_hh, b_hh, h0)
+    got = {}
+    for split, name in ((True, 'gru_scan_bwd'),
+                        (False, 'gru_scan_bwd_fused')):
+        n = dict(build.LAUNCHES)
+        got[split] = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=split)
+        for counter in (name, f'{name}_rows'):
+            assert build.LAUNCHES[counter] == n[counter] + 1, counter
+        ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=split)
+        for a, r in zip(got[split], ref):
+            assert a.shape == r.shape and a.dtype == r.dtype
+            assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
+        again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=split)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got[split], again))
+    assert torch.equal(got[True][0], got[False][0])
+    assert torch.equal(got[True][3], got[False][3])
 
 
 @pytest.mark.parametrize('d,b,t,h', [(2, 33, 17, 64), (2, 32, 40, 256),
@@ -356,13 +406,18 @@ def test_bnrelu_conv2d_kernels_match_plain(gen, b, t, f, cin, cout, kt, kf):
                                      (2, 3, 40, 512), (2, 33, 21, 256),
                                      (2, 32, 500, 256), (2, 32, 500, 512),
                                      (2, 16, 45, 512), (2, 40, 37, 256),
-                                     (2, 300, 20, 256)])
+                                     (2, 300, 20, 256), (2, 70, 1, 128),
+                                     (1, 130, 33, 96), (2, 65, 16, 160),
+                                     (2, 32, 17, 224), (2, 3, 9, 192),
+                                     (2, 32, 500, 128)])
 def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     """B = 3 (rows past the batch in the tile), T past one and across
     several 16-step accumulation groups with a partial one (T = 45, 37,
-    500), two and three batch tiles (B = 33, 40), the training shapes;
-    H = 32 and 64 and (2, 300, 20, 256) keep the row-tiled sweep, the
-    rest the cluster one."""
+    33, 500), one step, two and three batch tiles (B = 33, 40; 70, 130 and
+    65 past the 64-row tile), the training shapes; H = 32 to 192,
+    (2, 300, 20, 256) (38 row tiles of 16) and the DCASE baseline's
+    (2, 32, 500, 128) run the wgmma rows design, the rest (224 as 256) the
+    cluster one."""
     xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda').to(
         torch.bfloat16)
     w_hh = torch.randn(d, h, 3 * h, generator=gen, device='cuda') * h ** -.5
@@ -374,14 +429,16 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     # it is more than the bound of its max
     g = torch.randn(d, b, t, h, generator=gen, device='cuda') * (
         1e-2 if t == 500 else 1.)
-    cluster = h in (256, 512) and (d, b, t, h) != (2, 300, 20, 256)
+    cluster = h == 512 or (h > 192 and d * -(-b // 16) <= 15)
     designs = gru_designs(d, b, t, h)
     assert designs['bwd_fused']['design'] == ('cluster' if cluster
-                                              else 'row_tiled')
+                                              else ROWS)
     assert designs['bwd_fused']['rows'] == designs['bwd']['rows']
-    n = build.LAUNCHES['gru_scan_bwd_fused']
+    n = dict(build.LAUNCHES)
     got = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
-    assert build.LAUNCHES['gru_scan_bwd_fused'] == n + 1
+    assert build.LAUNCHES['gru_scan_bwd_fused'] == n['gru_scan_bwd_fused'] + 1
+    assert (build.LAUNCHES['gru_scan_bwd_fused_rows']
+            == n['gru_scan_bwd_fused_rows'] + (not cluster))
     ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split=False)
     for a, r in zip(got, ref):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
@@ -390,6 +447,8 @@ def test_gru_fused_backward_kernel_matches_plain(gen, d, b, t, h):
     # every bit. dw_hh/db_hh are reduced in a fixed order: bit-identical
     # reruns
     split = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g)
+    assert (build.LAUNCHES['gru_scan_bwd_rows']
+            == n['gru_scan_bwd_rows'] + (not cluster))
     assert torch.equal(got[0], split[0]) and torch.equal(got[3], split[3])
     again = gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=False)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
@@ -689,8 +748,8 @@ def test_gru_forward_design_at_stacked_shapes(gen):
     at H = 256 and 512 (the training and tagging shape and smaller) and
     takes the wgmma rows design beyond: a stacked ensemble's tagging at
     D = 2N (10 members: 40 tiles), its sliding-window chunks and every
-    shape the row-tiled kernel took before; the backwards keep their
-    limit of 32."""
+    shape the row-tiled kernel took before; the backwards take the
+    cluster design up to 15 tiles, their wgmma rows design beyond."""
     for d, b, t, h in ((2, 32, 500, 256), (2, 16, 500, 256),
                        (1, 64, 51, 256), (2, 32, 500, 512),
                        (2, 16, 11, 512)):
@@ -707,7 +766,7 @@ def test_gru_forward_design_at_stacked_shapes(gen):
         assert designs['fwd']['rows'] == 64
         if h == 256:
             assert designs['bwd']['design'] == ('cluster' if d * -(-b // 16)
-                                                <= 32 else 'row_tiled')
+                                                <= 15 else ROWS)
 
 
 # (D, B, T, H) of the forward's wgmma rows design: the main path's
@@ -857,10 +916,9 @@ def _gru_case(gen, d, b, t, h, g_scale=1.):
 # (D, B, T, H): the cluster design of 16 blocks above 512 at 768, 1024
 # and 2048 (its limit), with a ragged row tile (B = 17, 3) and T = 1, and
 # at 768 with 3 000 rows (the forward's clusters of 32 rows); H off a
-# multiple of 32 below 512 (padded into the rows forward and the
-# row-tiled backwards, or to 256 for the cluster design at few rows: 376
-# row tiles keep 200 at 224, the forward on the rows design) and above
-# (600 -> 768)
+# multiple of 32 below 512 (padded into the rows designs, or to 256 for
+# the cluster design at few rows: 376 row tiles keep 200 at 224) and
+# above (600 -> 768)
 @pytest.mark.parametrize('d,b,t,h', [
     (2, 17, 9, 768), (2, 3, 1, 768), (1, 5, 6, 1024), (2, 3, 4, 2048),
     (2, 3000, 3, 768), (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200),
@@ -868,13 +926,13 @@ def _gru_case(gen, d, b, t, h, g_scale=1.):
 def test_gru_any_width_matches_plain(gen, d, b, t, h):
     """Forward and the split backward against the plain version at the
     real H (the GRU ceiling: 5.3e-3, and 5.3e-3 of each gradient's
-    largest entry), with the design the H each pass runs takes (200 runs
-    as 256 on the cluster design at few rows, as 224 at 3 000, the
-    forward on the wgmma rows design, the backward row-tiled;
-    above 512 clusters of 16 blocks of H / 16 units, the forward's of 32
-    rows where 16-row clusters would wait their turn), the launches
-    counted under the pair's names and the wide and padded ones, and
-    bit-identical reruns."""
+    largest entry), with the design the H each pass runs takes (both
+    passes run 200 as 256 on the cluster design at few rows, as 224 on the
+    wgmma rows designs at 3 000, 48 as 64 on the rows designs; above 512
+    clusters of 16 blocks of H / 16 units, the forward's of 32 rows where
+    16-row clusters would wait their turn), the launches counted under the
+    pair's names and the wide, padded and rows ones, and bit-identical
+    reruns."""
     xw, w_hh, b_hh, h0, g = _gru_case(gen, d, b, t, h)
     designs = gru_designs(d, b, t, h)
     for key in ('fwd', 'bwd'):
@@ -892,6 +950,9 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
             assert hp in (256, 512) and v['design'] == 'cluster'
         elif key == 'fwd':
             assert v['design'] in ('cluster', ROWS)
+        else:
+            # the backward at the next multiple of 32
+            assert v['design'] == ROWS
     if h > 512:
         assert designs['bwd_fused'] is None
     n = dict(build.LAUNCHES)
@@ -904,6 +965,8 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
             hp > 512)
         assert build.LAUNCHES[f'{name}_padded'] == n[f'{name}_padded'] + (
             hp != h)
+        assert build.LAUNCHES[f'{name}_rows'] == n[f'{name}_rows'] + (
+            designs[key]['design'] == ROWS)
     assert y.shape == (d, b, t, h)
     assert _max_err(y, gru_scan_plain(xw, w_hh, b_hh, h0)) <= 5.3e-3
     ref = gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g)

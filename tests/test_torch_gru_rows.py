@@ -77,8 +77,8 @@ def test_kernel_hidden_pads_for_the_design(monkeypatch, h, cluster_widths,
 
 
 def test_design_names():
-    """The C queries' return codes name the designs: 0 the backwards'
-    row-tiled sweeps, 1 the cluster designs, 2 the forward's rows
-    design."""
-    assert kgru._DESIGNS == ('row_tiled', 'cluster', 'wgmma_rows')
+    """The C queries' return codes name the designs: 1 the cluster
+    designs, 2 the wgmma rows designs (forward and backwards); no design
+    is row-tiled any more."""
+    assert kgru._DESIGNS == {1: 'cluster', 2: 'wgmma_rows'}
     assert kgru.ROWS == 'wgmma_rows'
