@@ -53,9 +53,9 @@ runs, in order:
    the run (the fused backward's too), as does a many-row forward at
    H <= 256 on anything but the wgmma rows design (each many-row shape
    also logs that design's ms, bound, share of the bound and cuDNN's ms,
-   and counts under ``gru_scan_rows`` too), a spill in a cluster or
-   forward rows kernel (of more than 32 bytes in the backwards' rows
-   kernel), a second run of a GRU backward that differs in any bit, or
+   and counts under ``gru_scan_rows`` too), a spill in a cluster,
+   forward rows or grid kernel (of more than 32 bytes in the backwards'
+   rows kernel), a second run of a GRU backward that differs in any bit, or
    a fused backward
    whose dxw or dh0 differs from the split one's in any bit. After the
    kernel phases: the max-pool forward's share of its bound over the 8
@@ -386,7 +386,29 @@ runs, in order:
    ``gru_scan_bwd_fused_rows``, bit-identical reruns, the fused dxw and
    dh0 equal to the split ones in every bit, each wrapper's ms beside its
    kernel's alone, the row-tiled sweep's ms before the redesign, cuDNN's
-   backward and the bound (``check_bwd_rows_kernels``).
+   backward and the bound (``check_bwd_rows_kernels``); then the GRU
+   pair's grid design above H = 2048 (``csrc/gru_grid.cuh``, one
+   persistent block an SM, launched cooperatively) at
+   ``GRID_GRU_SHAPES`` ((2, 32, 500, 2304), (2, 16 000, 51, 2304) forward
+   only and checked on its first 2 048 rows, (2, 32, 500, 4096) and
+   (2, 32, 500, 3000), run as 3008) and at D = 4 under ``torch.func.vmap``
+   (two members of 15h's heads: one launch, equal in every bit to the
+   members' D = 2 launches): forward and split backward against the plain
+   versions, bit-identical reruns, the design each pass runs, each
+   wrapper's and kernel's ms, the plain version's, cuDNN's forward and
+   backward, the work bound and the floor of w_hh's bytes that do not fit
+   on the chip read at every step; the grid design at H = 2048 beside the
+   design of 16 blocks, kernels alone; and the GRU shapes no record had
+   timed (``UNTIMED_GRU_SHAPES``: the split backward at (2, 512, 500,
+   512), the forward at H = 384 at (2, 16 000, 51) and (2, 32, 500)) with
+   their design and cuDNN's time (``check_grid_kernels``). Last, 15h: the
+   shallow FBCRNN with both heads at ``rnn_config(9)``'s hidden size 2304
+   serves 3 x 32 clips in batches of 8 (SED over 32 clips does not fit the
+   card at that width) by tagging and SED 51/1 (8 and 1 clips against the
+   CPU, whose model costs ~3.3 TFLOP an SED clip) and trains 8 steps,
+   every GRU launch of both runs on the grid design (counted under
+   ``gru_scan_grid`` / ``gru_scan_bwd_grid`` too; any other fails the
+   run), and the loss falls over 5 steps on a repeated batch.
 
 Each path (shallow serving and training, deep serving and training, the
 fused ones, the training entry point, the tuning chain, the strong
@@ -396,10 +418,11 @@ the data-preparation path's two training runs, each rank's mesh training
 and ensemble, the NCCL world's training, phase 14's and phase 15's served
 and trained runs) runs with the launch counters set to 0 just before it
 and read just after.
-Any failure raises (non-zero exit). Before it prints its last lines, or
-fails, the run stops every process it started: the evaluation pools'
-forkserver and resource tracker, and any other process still below it
-(logged). The line before the last is the kernels' JSON record, the last
+Each phase logs its seconds (``seconds: ...``: its share of the time
+limit). Any failure raises (non-zero exit). Before it prints its last
+lines, or fails, the run stops every process it started: the evaluation
+pools' forkserver and resource tracker, and any other process still
+below it (logged). The line before the last is the kernels' JSON record, the last
 line ``{"ok": true, "device": ...}``.
 """
 import contextlib
@@ -430,6 +453,7 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
     maxpool_freq2_plain, avgpool2d, avgpool2d_bwd, avgpool2d_bwd_plain,
     avgpool2d_plain, maxpool2d, maxpool2d_bwd, maxpool2d_bwd_plain,
     maxpool2d_plain)
+from pb_sed_tpu_torch.ops.kernels.gru import GRID as GRID_DESIGN
 from pb_sed_tpu_torch.ops.kernels.gru import (ROWS, gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
@@ -635,6 +659,16 @@ KERNELS = {
     'gru_scan_bwd_fused_rows': {
         'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_bwd_rows.cuh',
         'replaces': 'pb_sed_tpu/ops/pallas/gru.py:237'},
+    # the GRU pair's grid design above H = 2048 (no Pallas site: the JAX
+    # package's lax.scan; phase 15h's heads at 2304), its launches counted
+    # under gru_scan and gru_scan_bwd too; its times those of
+    # GRID_GRU_SHAPES
+    'gru_scan_grid': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_grid.cuh',
+        'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
+    'gru_scan_bwd_grid': {
+        'route': 'cuda', 'source': 'pb_sed_tpu_torch/csrc/gru_grid.cuh',
+        'replaces': 'pb_sed_tpu/ops/rnn.py:136'},
     # the conv pair's entry kernels (Cin < 16: every tower's first layer):
     # the forward and the dw pass (with its reduce), counted by the pair's
     # wrappers where they run them; their times are device times
@@ -673,7 +707,9 @@ MAIN_PATH = dict({name: 'deep_training' for name in KERNELS},
                  gru_scan_bwd_padded='widths_15c_training',
                  gru_scan_rows='shallow_serving',
                  gru_scan_bwd_rows='widths_15g_training',
-                 gru_scan_bwd_fused_rows='width_kernel_phase')
+                 gru_scan_bwd_fused_rows='width_kernel_phase',
+                 gru_scan_grid='widths_15h_training',
+                 gru_scan_bwd_grid='widths_15h_training')
 FORWARD = ('conv2d_same', 'maxpool_freq2', 'gru_scan', 'conv2d_same_entry')
 # what an inference-only chain launches: the forward kernels, the GRU
 # forward on the wgmma rows design too (sliding-window SED)
@@ -693,6 +729,17 @@ TF32_FLOPS = 495e12
 
 def log(*args):
     print(*args, flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(what):
+    """Log the seconds since the previous lap: each phase's share of the
+    run's time limit."""
+    now = time.perf_counter()
+    log(f'seconds: {what} {now - _LAP[0]:.1f}')
+    _LAP[0] = now
 
 
 def collect_garbage():
@@ -769,8 +816,8 @@ def log_ptxas(text):
     ptxas's performance advisories (a serialized wgmma pipeline). The
     wgmma kernels' dynamic shared memory is in the per-layer lines, the
     GRU cluster and rows kernels' in the per-shape lines; a spill in a GRU
-    cluster or forward rows kernel fails the run, one of more than 32
-    bytes in the backwards' rows kernel too."""
+    cluster, forward rows or grid kernel fails the run, one of more than
+    32 bytes in the backwards' rows kernel too."""
     name = ''
     seen = set()
     for line in text.splitlines():
@@ -790,7 +837,8 @@ def log_ptxas(text):
                            'conv2d_f32_dw_wgmma_kernel',
                            'conv2d_f32_split_kernel', 'conv2d_entry_kernel',
                            'conv2d_dw_entry_kernel',
-                           'conv2d_dw_entry_reduce_kernel'):
+                           'conv2d_dw_entry_reduce_kernel',
+                           'gru_grid_fwd_kernel', 'gru_grid_bwd_kernel'):
                 if kernel in mangled:
                     args = mangled.split(kernel, 1)[1]
                     # template arguments end in EE, a plain name in E
@@ -807,7 +855,8 @@ def log_ptxas(text):
             if (name, info) not in seen:
                 seen.add((name, info))
                 log(f'  ptxas {name}: {info}')
-            if (('_cluster_kernel' in name or 'gru_rows_kernel' in name)
+            if (('_cluster_kernel' in name or 'gru_rows_kernel' in name
+                 or 'gru_grid_' in name)
                     and 'spill' in info
                     and '0 bytes spill stores, 0 bytes spill loads'
                     not in info):
@@ -1507,7 +1556,8 @@ def cudnn_gru(xw, w_hh, b_hh, h0, ref, g=None):
     r * (h W_hn + b_hn)) plus one identity product. Returns the forward's
     ms in eval mode (both directions), ``ident`` (the identity product
     alone: a bf16 (B*T, 3H) x (3H, 3H) matmul a direction), ``err`` (max|d|
-    of its output against ``ref``, gru_scan_plain's), the three largest
+    of its output against ``ref``, gru_scan_plain's; None without a
+    ``ref``), the three largest
     device kernels of a forward, and with a cotangent ``g`` ``bwd``: the
     time of forward and backward (dxw, dh0, dw_hh, db_hh) less that of the
     training-mode forward."""
@@ -1538,7 +1588,7 @@ def cudnn_gru(xw, w_hh, b_hh, h0, ref, g=None):
         res = {'fwd': cuda_ms(forward, reps=5),
                'ident': cuda_ms(lambda: [x.reshape(-1, g3) @ eye for x in xs],
                                 reps=5),
-               'err': float((out - ref).abs().max()),
+               'err': None if ref is None else float((out - ref).abs().max()),
                'kernels': [key[:48] for _, key, _ in
                            profile_kernels(forward)[:3]]}
     del out
@@ -1600,9 +1650,7 @@ def _log_gru_step(key, shape, k_ms, fn):
     the kernel's ms of before its redesign where that was recorded
     (``EARLIER_GRU_MS``)."""
     t, h = shape[2], shape[3]
-    kernel = sum(ms for ms, name, _ in profile_kernels(fn)
-                 if any(part in name
-                        for part in ('gru_scan', 'gru_bwd', 'gru_rows')))
+    kernel = _kernel_alone(fn)
     earlier = EARLIER_GRU_MS.get(
         (key, h) if shape[1] == BATCH else (key, tuple(shape)))
     was = ('' if earlier is None else
@@ -1708,6 +1756,12 @@ def _synthetic_batches(stft, seed=0):
     return batches
 
 
+def _rebatch(batches, size):
+    """The clips of ``batches`` in batches of ``size``."""
+    return [{key: value[i:i + size] for key, value in batch.items()}
+            for batch in batches for i in range(0, BATCH, size)]
+
+
 # (name, inference function, kwargs) of the served methods
 def _methods(base):
     return [
@@ -1787,7 +1841,7 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5,
         results[name] = fn(model, batches, **kwargs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        clips = len(batches) * BATCH
+        clips = sum(len(batch['example_id']) for batch in batches)
         log(f'{label} {name}: {clips} clips in {dt:.3f} s = '
             f'{clips / dt:.1f} clips/s (host clock, inference engine '
             f'included)')
@@ -1821,12 +1875,14 @@ def _serve(model, methods, batches, k, label, kernels=FORWARD, low=1e-5,
     return results, launches
 
 
-def _agree_with_cpu(cpu_model, methods, results, batch):
+def _agree_with_cpu(cpu_model, methods, results, batch, clips=None):
     """The same model on the CPU (plain versions) for the first two clips
-    of ``batch``; tolerance atol = 1e-4 + 3e-2 * max|ref| (bf16 paths that
+    of ``batch`` (``clips``: {method: clips} where other counts are
+    wanted); tolerance atol = 1e-4 + 3e-2 * max|ref| (bf16 paths that
     round at different points)."""
-    first = {key: val[:2] for key, val in batch.items()}
     for name, fn, kwargs in methods:
+        n = (clips or {}).get(name, 2)
+        first = {key: val[:n] for key, val in batch.items()}
         ref = fn(cpu_model, [first], **kwargs)
         for clip in first['example_id']:
             a, b = results[name][clip], ref[clip]
@@ -4124,8 +4180,7 @@ def phase_transformer_training(tmp):
     if sorted(times) != [3, 4, 5]:
         raise AssertionError(f'profiled steps {sorted(times)}, not 3-5')
     by_family, names = _device_ms_by_family(traces[0], windows)
-    for what, keys in (('conv forward', ('conv2d_wgmma_kernel',
-                                         'conv2d_igemm_kernel')),
+    for what, keys in (('conv forward', ('conv2d_wgmma_kernel',)),
                        ('conv backward', ('conv2d_dw_',)),
                        ('max-pool', ('maxpool_freq2',))):
         if not any(k in name for name in names for k in keys):
@@ -5678,13 +5733,39 @@ PADDED_HIDDEN = 200
 DCASE_HIDDEN = 128
 # an H above 512 the cluster design takes padded (to 768)
 PADDED_WIDE_HIDDEN = 600
+# 15h's hidden size: rnn_config(9)'s (256 x 9), the first width above 2048
+# that net_configs reaches, run on the GRU pair's grid design
+# (csrc/gru_grid.cuh)
+GRID_HIDDEN = 2304
+GRID = ('gru_scan_grid', 'gru_scan_bwd_grid')
+# (D, B, T, H) of the grid design's checks: 15h's training and tagging
+# shape, its sliding-window SED at 51 / 1 (forward only: the backward's
+# f32 weight-gradient contraction over 1.6 M rows would not fit beside
+# the operands), rnn_config(16)'s 4096 and an H off the design's step of
+# 64 (3000, run as 3008); the forward checked on the first
+# WIDTH_CHECK_ROWS rows at SED's shape, where cuDNN is timed on the first
+# GRID_CUDNN_ROWS: its input projection's workspace at all 16 000 rows
+# (~25 GiB a direction beside the 21 GiB xw) does not fit the card, so no
+# single call computes the function there
+GRID_CUDNN_ROWS = 8000
+GRID_GRU_SHAPES = [(2, BATCH, FRAMES, GRID_HIDDEN),
+                   (2, BATCH * FRAMES, 51, GRID_HIDDEN),
+                   (2, BATCH, FRAMES, 4096), (2, BATCH, FRAMES, 3000)]
+GRID_FWD_ONLY = {(2, BATCH * FRAMES, 51, GRID_HIDDEN)}
+# GRU shapes that no record had timed: the split backward at H = 512 past
+# 4 row tiles of 16 (the cluster design: gru_cluster_takes), the forward
+# at H = 384 (the wgmma rows design's clusters of 12 blocks) at SED's and
+# the training shape
+UNTIMED_GRU_SHAPES = [('bwd', (2, 512, FRAMES, 512)),
+                      ('fwd', (2, BATCH * FRAMES, 51, 384)),
+                      ('fwd', (2, BATCH, FRAMES, 384))]
 
 
-def _f32_work(p, cin, cout, taps=9, backward=False, ffma=False):
+def _f32_work(p, cin, cout, taps=9, backward=False):
     """The least time of the f32 SAME conv (forward, or dx + dw) over
     ``p`` pixels, f32 activations, weights and bias: its bytes, or its
     f32 products on the 3xTF32 route (3 TF32 products each at 495
-    TFLOP/s, faster than FFMA's 67); ``ffma=True``: on the FFMA route."""
+    TFLOP/s)."""
     if backward:
         nbytes = 4 * (2 * p * cin + taps * cin * cout + p * cout
                       + taps * cin * cout)
@@ -5692,8 +5773,6 @@ def _f32_work(p, cin, cout, taps=9, backward=False, ffma=False):
     else:
         nbytes = 4 * (p * cin + taps * cin * cout + cout + p * cout)
         flops = 2. * p * taps * cin * cout
-    if ffma:
-        return bound(nbytes, 0., flops)
     return bound(nbytes, tf32_flops=3. * flops)
 
 
@@ -5739,8 +5818,8 @@ def check_width_kernels(records):
     off: 2e-5 of the largest entry forward and dx, 1e-4 for dw), each
     timed beside cuDNN's f32 conv with TF32 off (the library call; its dw
     also held against the plain version, printed) and its bound (3xTF32:
-    3 TF32 products at 495 TFLOP/s per f32 product, or bytes; the FFMA
-    route's at 67 TFLOP/s printed beside), with the design each pass runs
+    3 TF32 products at 495 TFLOP/s per f32 product, or bytes), with the
+    design each pass runs
     (3xTF32 at L1-L8, the entry kernels at L0, asserted), each largest
     error as a fraction of its gate, and the backward without dx, into
     ``records`` under the label 'widths'; then the recipes' three entry
@@ -5874,9 +5953,7 @@ def check_width_kernels(records):
                cuda_ms(lambda: in_f32(lambda: F.conv2d(xn, wn, bias,
                                                        padding=1)), reps=5),
                work)
-        ffma = _f32_work(p, cin, cout, ffma=True)
-        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}), FFMA '
-            f'route {ffma[0]:.3f} ms ({ffma[1]})')
+        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]})')
         del got, ref
         dx, dw = conv2d_same_f32_bwd(x, w, gy)
         ref_dx, ref_dw = conv2d_same_f32_bwd_plain(x, w, gy)
@@ -5892,12 +5969,11 @@ def check_width_kernels(records):
                        gyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False,
                        [0, 0], 1, [True, True, False])), reps=5),
                work)
-        ffma = _f32_work(p, cin, cout, backward=True, ffma=True)
         no_dx = cuda_ms(lambda: conv2d_same_f32_bwd(x, w, gy, need_dx=False),
                         reps=5)
-        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}), FFMA '
-            f'route {ffma[0]:.3f} ms ({ffma[1]}); without dx (what a layer '
-            f'whose input needs no gradient runs) {no_dx:.3f} ms')
+        log(f'  bound {work[0]:.3f} ms (3xTF32 or bytes; {work[1]}); '
+            f'without dx (what a layer whose input needs no gradient runs) '
+            f'{no_dx:.3f} ms')
         _check('conv2d_same_f32_bwd dw', shape, dw, ref_dw,
                gated('dw', dw, ref_dw, 1e-4), 0., 0.,
                records['conv2d_same_f32_bwd'], 'widths')
@@ -6255,6 +6331,252 @@ def check_bwd_rows_kernels(records):
     log('gru backward rows (JSON): ' + json.dumps(table))
 
 
+def _on_chip_floor(d, t, h, products=1):
+    """The least time of reading, at every step, the bytes of w_hh (bf16,
+    D x H x 3H) that do not fit on the chip (the SMs' shared memory and
+    the L2 together), at the card's memory rate; ``products`` reads a
+    step (2 for the backward: the gate product's recompute and dh's):
+    (ms, bytes that do not fit)."""
+    props = torch.cuda.get_device_properties(0)
+    on_chip = props.multi_processor_count * 232448 + props.L2_cache_size
+    spill = max(0, 2 * d * h * 3 * h - on_chip)
+    return 1e3 * products * t * spill / HBM_BYTES_PER_S, spill
+
+
+def _log_grid_design(shape):
+    """Log the grid design of both passes at ``shape`` (blocks a
+    direction, rows a row tile, shared memory, units of the largest
+    block, w_hh's resident and streamed KiB a step) and assert it."""
+    d, b, t, h = shape
+    designs = gru_designs(d, b, t, h)
+    for key in ('fwd', 'bwd'):
+        v = designs[key]
+        log(f'gru design {shape} {key}: {v["design"]} at H = {v["hidden"]}, '
+            f'{v["cluster"]} blocks a direction ({v["coresident"]} in the '
+            f'grid), {v["units"]} units and {v["rows"]} rows a tile, '
+            f'{v["smem"] / 1024:.0f} KiB shared memory, w_hh '
+            f'{v["resident"] / 1024:.0f} KiB resident and '
+            f'{v["streamed"] / 1024:.0f} KiB streamed a block and step')
+        if v['design'] != GRID_DESIGN or v['hidden'] != -(-h // 64) * 64:
+            raise AssertionError(f'GRU {key} at {shape} runs {v}, not the '
+                                 f'grid design')
+
+
+def check_grid_kernels(records):
+    """Phase 15d for the GRU pair's grid design above H = 2048
+    (``csrc/gru_grid.cuh``) at ``GRID_GRU_SHAPES``: the forward and the
+    split backward against their plain versions at the real H (the GRU
+    ceiling, 5.3e-3 and 5.3e-3 of each gradient's largest entry; SED's
+    shape forward only, on its first rows), bit-identical reruns, each
+    wrapper's ms and its kernel's alone, the plain version's, cuDNN's
+    bf16 ``torch.nn.GRU`` forward and backward, the work bound and the
+    floor of w_hh's bytes that do not fit on the chip read every step;
+    two members of 15h's heads under ``torch.func.vmap`` (one D = 4
+    launch, equal to the members' D = 2 launches in every bit) and the
+    D = 4 backward; the grid design at H = 2048 beside the design of 16
+    blocks that the wrappers run there, kernels alone, for the record
+    (``scripts/perf/gru_grid_probe.py``); then ``UNTIMED_GRU_SHAPES``."""
+    from pb_sed_tpu_torch.ops.kernels.gru import GruScan
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(26)
+    table = []
+
+    def operands(d, b, t, h):
+        xw = torch.randn(d, b, t, 3 * h, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        w_hh = torch.randn(d, h, 3 * h, generator=gen, device=dev) * h ** -.5
+        b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device=dev)
+        return xw, w_hh, b_hh, torch.zeros(d, b, h, device=dev)
+
+    for shape in GRID_GRU_SHAPES + [(4, BATCH, FRAMES, GRID_HIDDEN)]:
+        d, b, t, h = shape
+        _log_grid_design(shape)
+        xw, w_hh, b_hh, h0 = operands(*shape)
+        rows = min(b, WIDTH_CHECK_ROWS)
+        whole = rows == b
+        part = (xw[:, :rows], w_hh, b_hh, h0[:, :rows])
+        row = {'shape': shape}
+        if d == 4:
+            # two members of 15h's heads, the stacked ensemble's one launch
+            def call():
+                return torch.func.vmap(GruScan.apply)(*(
+                    a.reshape(2, 2, *a.shape[1:])
+                    for a in (xw, w_hh, b_hh, h0))).reshape(d, b, t, h)
+            n = build.LAUNCHES['gru_scan_grid']
+            y = call()
+            if build.LAUNCHES['gru_scan_grid'] != n + 1:
+                raise AssertionError('the D = 4 fold did not run one grid '
+                                     'launch')
+            if not torch.equal(y, torch.cat([gru_scan(
+                    xw[i:i + 2], w_hh[i:i + 2], b_hh[i:i + 2],
+                    h0[i:i + 2]) for i in (0, 2)])):
+                raise AssertionError('the D = 4 fold differs from its '
+                                     'members\' D = 2 launches')
+        else:
+            def call():
+                return gru_scan(xw, w_hh, b_hh, h0)
+            y = call()
+        if not torch.equal(y, call()):
+            raise AssertionError(f'gru_scan at {shape}: a second run '
+                                 f'differs')
+        ref = gru_scan_plain(*part)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(call, reps=3)
+        p_ms = cuda_ms(lambda: gru_scan_plain(*part), reps=2, warmup=1)
+        fwd_only = shape in GRID_FWD_ONLY
+        g = None if fwd_only else _cotangent(gen, d, b, t, h)
+        got = y[:, :rows].clone()
+        if not whole:
+            del y
+            y = None
+        torch.cuda.empty_cache()
+        if whole:
+            lib = cudnn_gru(xw, w_hh, b_hh, h0, ref, g)
+        else:
+            lib = cudnn_gru(xw[:, :GRID_CUDNN_ROWS], w_hh, b_hh,
+                            h0[:, :GRID_CUDNN_ROWS], None)
+            log(f'cudnn gru {shape}: no single call fits the card; on the '
+                f'first {GRID_CUDNN_ROWS} rows {lib["fwd"]:.3f} ms')
+        work = gru_work(*shape)
+        floor = _on_chip_floor(d, t, h)
+        _check('gru_scan', shape if whole else (d, rows, t, h), got, ref,
+               5.3e-3, k_ms, p_ms if whole else 0.,
+               records['gru_scan_grid'], 'widths',
+               lib['fwd'] if whole else None, work)
+        kernel = _kernel_alone(call)
+        log(f'gru grid {shape} forward: wrapper {k_ms:.3f} ms, kernel alone '
+            f'{kernel:.3f} ms ({1e3 * kernel / t:.2f} us a serial step), '
+            f'plain {p_ms:.3f} ms '
+            f'({"whole" if whole else f"first {rows} rows"}), cuDNN '
+            f'{lib["fwd"]:.3f} ms'
+            f'{"" if whole else f" on {GRID_CUDNN_ROWS} rows"} (kernel / '
+            f'cuDNN {kernel / lib["fwd"]:.3f}); '
+            f'bounds: work {work[0]:.3f} ms ({work[1]}), w_hh off the chip '
+            f'{floor[0]:.3f} ms ({floor[1] / 2 ** 20:.1f} MiB a step)')
+        row.update(fwd_ms=k_ms, fwd_kernel_ms=kernel, fwd_plain_ms=p_ms,
+                   fwd_plain_rows=rows, fwd_cudnn_ms=lib['fwd'],
+                   fwd_cudnn_rows=b if whole else GRID_CUDNN_ROWS,
+                   fwd_bound_ms=work[0], fwd_floor_ms=floor[0])
+        del ref, got
+        if not fwd_only:
+            args = (xw, w_hh, b_hh, h0, y, g)
+            grads = gru_scan_bwd(*args)
+            refs = gru_scan_bwd_plain(*args)
+            torch.cuda.synchronize()
+            k_ms = cuda_ms(lambda: gru_scan_bwd(*args), reps=3)
+            p_ms = cuda_ms(lambda: gru_scan_bwd_plain(*args), reps=1,
+                           warmup=1)
+            work = gru_work(*shape, backward=True)
+            floor = _on_chip_floor(d, t, h, products=2)
+            for i, name in enumerate(('dxw', 'dw_hh', 'db_hh', 'dh0')):
+                first = i == 0
+                _check(f'gru_scan_bwd {name}', shape, grads[i], refs[i],
+                       5.3e-3 * float(refs[i].float().abs().max()),
+                       k_ms if first else 0., p_ms if first else 0.,
+                       records['gru_scan_bwd_grid'], 'widths',
+                       lib['bwd'] if first else None,
+                       work if first else None)
+            again = gru_scan_bwd(*args)
+            if not all(torch.equal(a, r) for a, r in zip(grads, again)):
+                raise AssertionError(f'gru_scan_bwd at {shape}: a second '
+                                     f'run differs')
+            kernel = _kernel_alone(lambda: gru_scan_bwd(*args))
+            log(f'gru grid {shape} backward: wrapper {k_ms:.3f} ms, kernel '
+                f'alone {kernel:.3f} ms ({1e3 * kernel / t:.2f} us a serial '
+                f'step), plain {p_ms:.3f} ms, cuDNN '
+                f'{lib["bwd"]:.3f} ms (kernel / cuDNN '
+                f'{kernel / lib["bwd"]:.3f}); bounds: work {work[0]:.3f} ms '
+                f'({work[1]}), w_hh off the chip {floor[0]:.3f} ms')
+            row.update(bwd_ms=k_ms, bwd_kernel_ms=kernel, bwd_plain_ms=p_ms,
+                       bwd_cudnn_ms=lib['bwd'], bwd_bound_ms=work[0],
+                       bwd_floor_ms=floor[0])
+            del args, grads, refs, again
+        table.append(row)
+        del xw, w_hh, b_hh, h0, y, g, part
+        torch.cuda.empty_cache()
+    log('gru grid (JSON): ' + json.dumps(table))
+    probe = _load_script('scripts/perf/gru_grid_probe.py')
+    log('gru grid at 2048 beside the design of 16 blocks, kernels alone '
+        '(JSON): ' + json.dumps(probe.at_2048()))
+    check_untimed_gru_shapes()
+
+
+def _cotangent(gen, d, b, t, h):
+    """A cotangent of the GRU's output, (D, B, T, H) f32 at 1e-2."""
+    return 1e-2 * torch.randn(d, b, t, h, generator=gen, device='cuda')
+
+
+def _kernel_alone(fn):
+    """Device ms of the GRU kernels of one ``fn()`` (``torch.profiler``)."""
+    return sum(ms for ms, name, _ in profile_kernels(fn)
+               if any(part in name for part in ('gru_scan', 'gru_bwd',
+                                                'gru_rows', 'gru_grid')))
+
+
+def _load_script(relative):
+    """A script of the repository as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / relative
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_untimed_gru_shapes():
+    """``UNTIMED_GRU_SHAPES``: each pass against its plain version (the
+    GRU ceiling), the design it runs, the wrapper's ms and its kernel's
+    alone, the plain version's and cuDNN's (forward, or backward), and
+    the bound (JSON)."""
+    gen = torch.Generator(device='cuda').manual_seed(261)
+    table = []
+    for key, shape in UNTIMED_GRU_SHAPES:
+        d, b, t, h = shape
+        xw = torch.randn(d, b, t, 3 * h, generator=gen, device='cuda',
+                         dtype=torch.bfloat16)
+        w_hh = torch.randn(d, h, 3 * h, generator=gen,
+                           device='cuda') * h ** -.5
+        b_hh = .1 * torch.randn(d, 3 * h, generator=gen, device='cuda')
+        h0 = torch.zeros(d, b, h, device='cuda')
+        design = gru_designs(d, b, t, h)[key]
+        y = gru_scan(xw, w_hh, b_hh, h0)
+        ref = gru_scan_plain(xw, w_hh, b_hh, h0)
+        record = new_record()
+        if key == 'fwd':
+            def call():
+                return gru_scan(xw, w_hh, b_hh, h0)
+            plain = (lambda: gru_scan_plain(xw, w_hh, b_hh, h0))
+            tol = 5.3e-3
+            got = y
+            lib = cudnn_gru(xw, w_hh, b_hh, h0, ref)
+        else:
+            g = _cotangent(gen, d, b, t, h)
+            args = (xw, w_hh, b_hh, h0, y, g)
+
+            def call():
+                return gru_scan_bwd(*args)
+            plain = (lambda: gru_scan_bwd_plain(*args))
+            lib = cudnn_gru(xw, w_hh, b_hh, h0, ref, g)
+            got, ref = call()[0], plain()[0]
+            tol = 5.3e-3 * float(ref.float().abs().max())
+        k_ms = cuda_ms(call, reps=3)
+        p_ms = cuda_ms(plain, reps=1, warmup=1)
+        work = gru_work(*shape, backward=key == 'bwd')
+        _check(f'gru {key} (untimed before)', shape, got, ref, tol, k_ms,
+               p_ms, record, 'widths', lib[key], work)
+        kernel = _kernel_alone(call)
+        table.append({'pass': key, 'shape': shape,
+                      'design': design['design'],
+                      'cluster': design['cluster'], 'rows': design['rows'],
+                      'wrapper_ms': k_ms, 'kernel_ms': kernel,
+                      'plain_ms': p_ms, 'cudnn_ms': lib[key],
+                      'bound_ms': work[0], 'kernel_over_cudnn':
+                      kernel / lib[key]})
+        del xw, w_hh, b_hh, h0, y, ref, got
+        torch.cuda.empty_cache()
+    log('gru shapes untimed before (JSON): ' + json.dumps(table))
+
+
 def _padded_width_choice(randn):
     """Which width H = 200 runs at (``ops/kernels/gru.py:kernel_hidden``):
     the forward at 224 (the next multiple of 32) against 256, at the
@@ -6264,11 +6586,7 @@ def _padded_width_choice(randn):
     ``scan_as``, which runs the design it is told), all on H = 200's
     operands padded exactly, each within the GRU ceiling of the plain
     version at 200."""
-    import importlib.util
-    path = Path(__file__).resolve().parent / 'scripts/perf/gru_designs.py'
-    spec = importlib.util.spec_from_file_location('gru_designs', path)
-    probe = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probe)
+    probe = _load_script('scripts/perf/gru_designs.py')
     from pb_sed_tpu_torch.ops.kernels.gru import pad_hidden, unpad_hidden
     h = PADDED_HIDDEN
     for d, b, t, designs in ((2, BATCH, FRAMES, (ROWS, 'cluster')),
@@ -6334,7 +6652,9 @@ def _width_config(name, augment=True):
     14b's configuration (:func:`_tower_config`) with
     ``compute_dtype='float32'`` in both towers and both heads' output
     nets; '15g' the tag-conditioned shallow BiCRNN at the DCASE baseline's
-    ``hidden_size`` 128."""
+    ``hidden_size`` 128; '15h' the shallow FBCRNN with both heads at
+    ``rnn_config(9)``'s ``hidden_size`` 2304 (the GRU pair's grid
+    design)."""
     if name == '15f':
         config = _tower_config('14b', augment=augment)
         for tower in F32_PATHS:
@@ -6358,7 +6678,8 @@ def _width_config(name, augment=True):
             config['cnn'][tower]['compute_dtype'] = 'float32'
         config['rnn_fwd']['output_net']['compute_dtype'] = 'float32'
     else:
-        config['rnn_fwd']['rnn']['hidden_size'] = WIDE_HIDDEN
+        config['rnn_fwd']['rnn']['hidden_size'] = (
+            GRID_HIDDEN if name == '15h' else WIDE_HIDDEN)
     return config
 
 
@@ -6383,6 +6704,50 @@ def _assert_dcase_backwards(trained):
         f'H = {DCASE_HIDDEN}')
 
 
+def _assert_grid_launches(label, launches, passes):
+    """15h: every GRU launch of a run (``launches``, its counts) ran the
+    grid design: as many under ``gru_scan_grid`` (and
+    ``gru_scan_bwd_grid``) as under ``gru_scan`` (``gru_scan_bwd``), one
+    or more of each of ``passes``."""
+    for name in passes:
+        if not launches[f'{name}_grid'] == launches[name] > 0:
+            raise AssertionError(
+                f'{label}: {launches[name]} {name} launches, '
+                f'{launches[f"{name}_grid"]} of them on the grid design')
+    log(f'{label}: ' + ', '.join(
+        f'{launches[f"{name}_grid"]} of {launches[name]} {name} launches'
+        for name in passes) + f' on the grid design at H = {GRID_HIDDEN}')
+
+
+def _loss_falls(make_model, k, label):
+    """5 steps on one repeated batch of 32 ten-second clips, augmentation
+    off, Adam at 1e-3: the loss falls."""
+    from pb_sed_tpu_torch.train.optimizer import Adam
+    from pb_sed_tpu_torch.train.trainer import Trainer
+    model = make_model(augment=False).to('cuda')
+    batch = _train_batches(model.module.feature_extractor.stft, 1, BATCH,
+                           10, seed=1, k=k)[0]
+    trainer = Trainer(model, optimizer=Adam(lr=1e-3))
+    losses = [float(trainer.train_step(batch)) for _ in range(5)]
+    log(f'{label} repeated batch, augmentation off: loss '
+        + ', '.join(f'{x:.5f}' for x in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'{label}: the loss did not fall: {losses}')
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
+# 15h's clips held against the CPU: its two layers' recurrences at
+# H = 2304 cost the CPU model ~64 GFLOP a tagged clip and ~3.3 TFLOP an
+# SED 51/1 one (500 windows of 51 steps), ~15 s of the card's host
+GRID_CPU_CLIPS = {'tagging': 8, 'sed_w51_s1': 1}
+# 15h serves its 3 x 32 clips in batches of 8: SED 51/1 over 32 clips at
+# H = 2304 holds the paired heads' projections of 16 000 windows (2 x 11.3
+# GB bf16), their D = 2 stack (22.6 GB) and the f32 output (15 GB) at
+# once, more than the card's 80 GB beside the model
+GRID_SERVE_BATCH = 8
+
+
 def _assert_f32_designs(label, layers):
     """Log the f32 conv's design of each pass at ``layers`` and assert
     the rule (:func:`f32_designs_wanted`: the entry kernels at Cin < 16
@@ -6405,7 +6770,12 @@ def phase_widths(earlier):
     tiles, L0 on the entry kernels) tags 32 clips and trains 4 steps;
     15g: the tag-conditioned BiCRNN at the DCASE baseline's H = 128 tags 3
     x 32 clips and trains 8 steps, every GRU backward on the wgmma rows
-    design (:func:`_assert_dcase_backwards`). Each training run passes the
+    design (:func:`_assert_dcase_backwards`); 15h: the shallow FBCRNN with
+    both heads at rnn_config(9)'s H = 2304 serves 3 x 32 clips in batches
+    of 8 (``GRID_SERVE_BATCH``) by tagging and SED 51/1 (8 and 1 clips
+    against the CPU: ``GRID_CPU_CLIPS``) and
+    trains 8 steps, every GRU launch of both runs on the grid design
+    (:func:`_assert_grid_launches`). Each training run passes the
     card-vs-CPU step; each path's launch counters are read. Returns
     (launches by path, the measurements), printed beside ``earlier``
     (phases 3-4, 14b's bf16 run for 15f, phase 9's BiCRNN training for
@@ -6419,7 +6789,8 @@ def phase_widths(earlier):
              ('15c', SHALLOW + PADDED_GRU, 10, True),
              ('15e', f32_path, 10, True),
              ('15f', f32_path + CROSSED, 527, False),
-             ('15g', SHALLOW + ROWS_GRU, 10, True)]
+             ('15g', SHALLOW + ROWS_GRU, 10, True),
+             ('15h', SHALLOW + GRID, 10, False)]
     for name, kernels, k, strong in cases:
         config = _width_config(name)
         flat = _random_flat(config, strong=strong)
@@ -6469,13 +6840,24 @@ def phase_widths(earlier):
             methods = [_methods(base)[i] for i in (0, 2)]
         if name in ('15e', '15f'):
             batches = batches[1:2]     # 32 clips
+        if name == '15h':
+            batches = _rebatch(batches, GRID_SERVE_BATCH)
         forward = tuple(kernel for kernel in kernels if 'bwd' not in kernel)
         stats = out.setdefault(f'{name}_serving', {})
         results, launches[f'widths_{name}_serving'] = _serve(
             model, methods, batches, k, name, forward, low=0. if strong
             else 1e-5, stats=stats)
+        if name == '15h':
+            _assert_grid_launches(name, launches[f'widths_{name}_serving'],
+                                  ('gru_scan',))
+            log(f'15h: card vs CPU on {GRID_CPU_CLIPS} clips (the CPU model '
+                f'at H = {GRID_HIDDEN}: ~3.3 TFLOP an SED 51/1 clip)')
+        # 15h: the first batch of the clips of unequal lengths
         _agree_with_cpu(_model(config, flat, strong=strong), methods,
-                        results, batches[min(1, len(batches) - 1)])
+                        results, batches[BATCH // GRID_SERVE_BATCH]
+                        if name == '15h' else
+                        batches[min(1, len(batches) - 1)],
+                        GRID_CPU_CLIPS if name == '15h' else None)
         del model, module, head
         torch.cuda.empty_cache()
         launches[f'widths_{name}_training'], out[f'{name}_training'] = \
@@ -6486,6 +6868,12 @@ def phase_widths(earlier):
                 steps=4 if name in ('15e', '15f') else TRAIN_STEPS)
         if name == '15g':
             _assert_dcase_backwards(launches['widths_15g_training'])
+        if name == '15h':
+            _assert_grid_launches(name, launches['widths_15h_training'],
+                                  ('gru_scan', 'gru_scan_bwd'))
+            _loss_falls(lambda augment: _model(_width_config(name, augment),
+                                               flat), k, name)
+        lap(f'phase {name}')
     log('phase 15 beside phases 3-4 (host clock, B = 32): tagging clips/s '
         + ', '.join(f'{key} {out[key]["tagging_clips_per_s"]:.1f}'
                     for key in out if key.endswith('_serving'))
@@ -6591,6 +6979,7 @@ def main():
 
 def run():
     card = phase_card()
+    lap('the card and the kernels\' build')
     records = {name: new_record() for name in KERNELS}
     log('TF32 off for cuDNN and cuBLAS (plain versions in full f32)')
     build.reset_launches()
@@ -6610,12 +6999,17 @@ def run():
             f'cuDNN {sums[1]:.3f} ms, bound {sums[2]:.3f} ms')
     log_redesigned(records)
     check_1x1()
+    lap('phases 2-2c')
     build.reset_launches()
     check_tower_kernels(records)
     tower_kernel_phase = dict(build.LAUNCHES)
+    lap('phase 14\'s kernels')
     build.reset_launches()
     check_width_kernels(records)
     check_bwd_rows_kernels(records)
+    lap('phase 15d')
+    check_grid_kernels(records)
+    lap('phase 15d, the grid design')
     width_kernel_phase = dict(build.LAUNCHES)
     serving = {}
     launches = {'shallow_serving': phase_slice(serving)}
@@ -6629,6 +7023,7 @@ def run():
                     for key in ('steps_per_s', 'clips_per_s', 'peak_gib')))
     (launches['shallow_fuse_bn_serving'],
      launches['shallow_fuse_bn_training']) = phase_shallow_fuse_bn()
+    lap('phases 3-6')
     with tempfile.TemporaryDirectory() as tmp, recording_gru_shapes():
         launches['cli_training'], cli_metrics, runs = phase_cli_training(
             in_memory, Path(tmp))
@@ -6640,26 +7035,32 @@ def run():
         strong_chain = phase_strong_chain(Path(tmp), weak_hp_dir,
                                           strong['training'])
         launches.update(strong_chain.pop('launches'))
+    lap('phases 7-9')
     log('strong phase (JSON): ' + json.dumps(strong))
     log('strong chain (JSON): ' + json.dumps(strong_chain))
     ensemble = phase_stacked_ensemble(records)
     ensemble['gru_against_plain'] = check_stacked_gru_shapes(records)
     launches.update(ensemble.pop('launches'))
+    lap('phase 10')
     log('stacked ensemble (JSON): ' + json.dumps(ensemble))
     with tempfile.TemporaryDirectory() as tmp:
         transformer_launches, transformer = phase_transformer(tmp)
     launches.update(transformer_launches)
+    lap('phase 11')
     log('transformer phase (JSON): ' + json.dumps(transformer))
     with tempfile.TemporaryDirectory() as tmp:
         prep_launches, prep = phase_data_prep(Path(tmp), card, cli_metrics)
     launches.update(prep_launches)
+    lap('phase 12')
     log('data-preparation phase (JSON): ' + json.dumps(prep))
     mesh_launches, mesh = phase_mesh(card)
     launches.update(mesh_launches)
+    lap('phase 13')
     log('mesh phase (JSON): ' + json.dumps(mesh))
     tower_launches, towers = phase_towers(
         {'serving': serving, 'shallow': in_memory, 'deep': unfused})
     launches.update(tower_launches)
+    lap('phase 14')
     log('towers phase (JSON): ' + json.dumps(towers))
     width_launches, widths = phase_widths(
         {'serving': serving, 'shallow': in_memory, 'towers': towers,

@@ -53,12 +53,18 @@
 //    per (direction, tile of 16 or 32 rows), the slice of w_hh that does
 //    not fit a block's shared memory streamed from L2 every step through
 //    a cp.async ring.
+// 4. H above 2048 (a multiple of 64, any size the card's memory holds):
+//    the grid design (gru_grid.cuh), pbsed_gru_scan_grid below: one
+//    persistent block an SM, launched cooperatively, the blocks of a
+//    direction splitting its units, the state exchanged through a global
+//    buffer in L2 under one grid-wide barrier a step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gru_cluster.cuh"
 #include "gru_cluster_wide.cuh"
+#include "gru_grid.cuh"
 #include "gru_rows.cuh"
 
 namespace {
@@ -265,9 +271,9 @@ cudaError_t gru_scan_design(const void* xw, const void* w_hh,
 // H % 256 == 0 above, to 2048 (the wrapper pads any other H with zero
 // units). Above H = 512 the cluster design of gru_cluster_wide.cuh; else
 // the cluster design where gru_fwd_cluster_takes says so, else the wgmma
-// rows design (gru_rows.cuh). Returns a cudaError_t
-// (cudaErrorLaunchOutOfResources where the card holds no cluster of the
-// design at all).
+// rows design (gru_rows.cuh). H above 2048 is pbsed_gru_scan_grid's.
+// Returns a cudaError_t (cudaErrorLaunchOutOfResources where the card
+// holds no cluster of the design at all).
 extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
                               const void* b_hh, const void* h0, void* y, int D,
                               int B, int T, int H, void* stream) {
@@ -283,9 +289,30 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Which design pbsed_gru_scan runs at (D, B, T, H): returns 1 for the
-// cluster designs (above H = 512 that of gru_cluster_wide.cuh), 2 for the
-// wgmma rows design, minus a cudaError_t when the query fails.
+// The forward above H = 2048: the grid design (gru_grid.cuh). Operands as
+// pbsed_gru_scan's, w_hh packed by unit tile, (D, H / 16, H, 48)
+// (ops/kernels/gru.py:pack_grid); H a multiple of 64;
+// workspace: 256 + 4 D B H bytes, 16-byte aligned (the barrier's counter,
+// then the exchanged state (2, min(D, SMs), B, H) bf16). Returns a
+// cudaError_t (cudaErrorCooperativeLaunchTooLarge where the card cannot
+// hold the grid at once).
+extern "C" int pbsed_gru_scan_grid(const void* xw, const void* w_hh,
+                                   const void* b_hh, const void* h0, void* y,
+                                   void* workspace, int D, int B, int T,
+                                   int H, void* stream) {
+  if (!gru_grid_takes(H) || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || T == 0) return 0;
+  return static_cast<int>(gru_grid_fwd(xw, w_hh, b_hh, h0, y, workspace, D,
+                                       B, T, H,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// Which design pbsed_gru_scan (pbsed_gru_scan_grid above H = 2048) runs at
+// (D, B, T, H): returns 1 for the cluster designs (above H = 512 that of
+// gru_cluster_wide.cuh), 2 for the wgmma rows design, 3 for the grid
+// design (its meanings of the outputs at gru_grid_design), minus a
+// cudaError_t when the query fails.
 // *cluster: blocks a cluster; *rows: batch rows a cluster; *smem: dynamic
 // shared memory a block, bytes; *coresident: clusters the card holds at
 // once; *units: hidden units a block owns; *resident, *streamed: bytes of
@@ -294,6 +321,9 @@ extern "C" int pbsed_gru_scan(const void* xw, const void* w_hh,
 extern "C" int pbsed_gru_design(int D, int B, int T, int H, int* cluster,
                                 int* rows, int* smem, int* coresident,
                                 int* units, int* resident, int* streamed) {
+  if (gru_grid_runs(H))
+    return gru_grid_design<false>(D, B, T, H, cluster, rows, smem, coresident,
+                                  units, resident, streamed);
   if (gru_wide_takes(H))
     return gru_wide_design<false>(D, B, H, cluster, rows, smem, coresident,
                                   units, resident, streamed);

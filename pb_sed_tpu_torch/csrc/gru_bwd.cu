@@ -51,11 +51,17 @@
 //    does not fit a block's shared memory streams from L2 through a
 //    cp.async ring once a step for both products, dh's partials go into
 //    single-buffered receive slots under two split cluster barriers.
+// 4. H above 2048 (a multiple of 64): the grid design (gru_grid.cuh),
+//    pbsed_gru_scan_bwd_grid below: one persistent block an SM, launched
+//    cooperatively, the bf16 dgates exchanged through a global buffer in
+//    L2, one grid-wide barrier a step, dh of a block's units from all
+//    dgates and its rows of w_hh.
 // The fused variant (gru_bwd_fused.cu) runs the first two designs, so up
 // to H = 512. H from 288 to 480 fits none of them: the wrapper runs it
 // as 512.
 #include "gru_bwd_rows.cuh"
 #include "gru_cluster_wide.cuh"
+#include "gru_grid.cuh"
 
 // xw (D, B, T, 3H) bf16, h_prev (D, B, T, H) bf16 (= concat(h0, y[:-1])
 // along T), w_hh (D, H, 3H) bf16, b_hh (D, 3H) f32, g (D, B, T, H) f32;
@@ -68,7 +74,7 @@
 // gru_cluster_takes says so, else the wgmma rows design. Returns a
 // cudaError_t (cudaErrorInvalidValue for an H no design takes,
 // cudaErrorLaunchOutOfResources where the card holds no cluster of the
-// design at all).
+// design at all). H above 2048 is pbsed_gru_scan_bwd_grid's.
 extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
                                   const void* w_hh, const void* b_hh,
                                   const void* g, void* dxw, void* r,
@@ -92,12 +98,42 @@ extern "C" int pbsed_gru_scan_bwd(const void* xw, const void* h_prev,
                                                &rows));
 }
 
-// Which design pbsed_gru_scan_bwd runs at (D, B, T, H): 1 for the cluster
-// designs (above H = 512 that of gru_cluster_wide.cuh), 2 for the wgmma
-// rows design; the arguments and the failure as pbsed_gru_design (gru.cu).
+// The split backward above H = 2048: the grid design (gru_grid.cuh).
+// Operands as pbsed_gru_scan_bwd's, but w_hh twice, packed for each
+// product (ops/kernels/gru.py:pack_grid): w_gate (D, H / 16, H, 48) and
+// w_dh (D, H / 16, 3H / 64, 16, 64); H a multiple of 64;
+// workspace: 256 + 12 D B H bytes, 16-byte aligned (the
+// barrier's counter, then the exchanged dgates (2, min(D, SMs), B, 3H)
+// bf16); dh0 also carries dh through the sweep. Returns a cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge where the card cannot hold the grid
+// at once).
+extern "C" int pbsed_gru_scan_bwd_grid(const void* xw, const void* h_prev,
+                                       const void* w_gate, const void* w_dh,
+                                       const void* b_hh, const void* g,
+                                       void* dxw, void* r, void* dh0,
+                                       void* workspace, int D, int B, int T,
+                                       int H, void* stream) {
+  if (!gru_grid_takes(H) || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0)
+    return static_cast<int>(cudaMemsetAsync(
+        dh0, 0, sizeof(float) * static_cast<size_t>(D) * B * H, s));
+  return static_cast<int>(gru_grid_bwd(xw, h_prev, w_gate, w_dh, b_hh, g, dxw,
+                                       r, dh0, workspace, D, B, T, H, s));
+}
+
+// Which design pbsed_gru_scan_bwd (pbsed_gru_scan_bwd_grid above H = 2048)
+// runs at (D, B, T, H): 1 for the cluster designs (above H = 512 that of
+// gru_cluster_wide.cuh), 2 for the wgmma rows design, 3 for the grid
+// design; the arguments and the failure as pbsed_gru_design (gru.cu).
 extern "C" int pbsed_gru_bwd_design(int D, int B, int T, int H, int* cluster,
                                     int* rows, int* smem, int* coresident,
                                     int* units, int* resident, int* streamed) {
+  if (gru_grid_runs(H))
+    return gru_grid_design<true>(D, B, T, H, cluster, rows, smem, coresident,
+                                 units, resident, streamed);
   if (gru_wide_takes(H))
     return gru_wide_design<true>(D, B, H, cluster, rows, smem, coresident,
                                  units, resident, streamed);

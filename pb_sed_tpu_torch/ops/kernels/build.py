@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 # ``*_padded`` entries count the conv pair's launches at shapes its
 # kernels take only padded (Cout off a multiple of 16, an even extent) and
 # the GRU pair's at an H it takes padded, the ``gru_*_wide`` ones the
-# GRU pair's launches above H = 512, ``gru_scan_rows``,
+# GRU pair's launches above H = 512 up to 2048, the ``gru_*_grid`` ones
+# its launches above 2048 (the grid design), ``gru_scan_rows``,
 # ``gru_scan_bwd_rows`` and ``gru_scan_bwd_fused_rows`` the GRU passes'
 # launches on the wgmma rows designs, the ``conv2d_same*_entry`` ones the
 # conv pair's launches that run the entry kernels (Cin < 16, forward and
@@ -51,7 +52,8 @@ LAUNCHES = {'conv2d_same': 0, 'maxpool_freq2': 0, 'gru_scan': 0,
             'gru_scan_bwd_padded': 0, 'conv2d_same_entry': 0,
             'conv2d_same_bwd_entry': 0, 'conv2d_same_f32_entry': 0,
             'conv2d_same_f32_bwd_entry': 0, 'gru_scan_rows': 0,
-            'gru_scan_bwd_rows': 0, 'gru_scan_bwd_fused_rows': 0}
+            'gru_scan_bwd_rows': 0, 'gru_scan_bwd_fused_rows': 0,
+            'gru_scan_grid': 0, 'gru_scan_bwd_grid': 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +63,8 @@ _SIGNATURES = {
                           _P),
     'pbsed_maxpool_freq2': (_P, _P, ctypes.c_longlong, _I, _P),
     'pbsed_gru_scan': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'pbsed_gru_scan_grid': (_P,) * 6 + (_I,) * 4 + (_P,),
+    'pbsed_gru_scan_bwd_grid': (_P,) * 10 + (_I,) * 4 + (_P,),
     'pbsed_conv2d_same_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     'pbsed_maxpool_freq2_bwd': (_P, _P, _P, ctypes.c_longlong, _I, _P),

@@ -14,12 +14,17 @@ cluster of H / 32 blocks per tile of 64 rows, each block's slice of w_hh
 resident, the products on wgmma, the backwards up to H = 256).
 Above H = 512 the forward and the split backward run the cluster design
 with 16 blocks of H / 16 units (``csrc/gru_cluster_wide.cuh``, up to
-``GRU_MAX_HIDDEN``), which streams the part of w_hh that does not fit the
-blocks' shared memory from L2 at every step; the fused backward stops at
+2048), which streams the part of w_hh that does not fit the blocks'
+shared memory from L2 at every step; above 2048, with no upper limit but
+the card's memory, the grid design (``csrc/gru_grid.cuh``: one persistent
+block an SM, launched cooperatively, the blocks of a direction splitting
+its units, the state or the backward's dgates exchanged through a global
+buffer under one grid-wide barrier a step). The fused backward stops at
 ``GRU_FUSED_MAX_HIDDEN``. :func:`gru_designs` reports the choice.
 
-The kernels take H a multiple of 32 up to 512 and of 256 above. The
-wrappers take any H >= 1 up to those limits and pad the others exactly
+The kernels take H a multiple of 32 up to 512, of 256 up to 2048 and of
+64 above. The wrappers take any H >= 1 (the fused backward's up to its
+limit) and pad the others exactly
 (:func:`pad_hidden`): zero units appended to each gate block keep h = 0
 at every step (r = z = 1/2, n = 0) and reach the real units only through
 zero rows of w_hh; the padding is sliced off the outputs and gradients
@@ -54,22 +59,27 @@ from pb_sed_tpu_torch.ops.kernels import build
 from pb_sed_tpu_torch.ops.kernels.functions import (cache_signature,
                                                     members_first)
 
-# the largest H the forward and the split backward take (the cluster
-# design of 16 blocks, csrc/gru_cluster_wide.cuh:kWideMaxH), and the fused
-# backward's
-GRU_MAX_HIDDEN = 2048
+# the largest H the fused backward takes (the forward and the split
+# backward take any)
 GRU_FUSED_MAX_HIDDEN = 512
 # the C entry points run the design of 16 blocks of H / 16 units above
 # this H (kWideMinH), at a multiple of _WIDE_STEP (wmma's 16-column tiles
 # of each block's units: kWideStep)
 _WIDE_ABOVE = 512
 _WIDE_STEP = 256
+# above this H (kGridMinH, the wide design's kWideMaxH) the grid design
+# (pbsed_gru_scan_grid, pbsed_gru_scan_bwd_grid), at a multiple of
+# _GRID_STEP (its K chunk: kGridStep)
+_GRID_ABOVE = 2048
+_GRID_STEP = 64
 
 
 def padded_hidden(h):
     """The next H from hidden size ``h`` that the kernels take: a multiple
-    of 32 up to 512, of 256 above (600 -> 768)."""
-    step = _WIDE_STEP if h > _WIDE_ABOVE else 32
+    of 32 up to 512, of 256 up to 2048 (600 -> 768), of 64 above (3000 ->
+    3008)."""
+    step = (32 if h <= _WIDE_ABOVE else _WIDE_STEP if h <= _GRID_ABOVE
+            else _GRID_STEP)
     return -(-h // step) * step
 
 
@@ -91,7 +101,7 @@ def kernel_hidden(d, b, t, h, name='fwd'):
     128 < h < 256 where the cluster design takes 256 and is the faster
     there (the forward at few rows; the backwards above
     ``_BWD_AS_256_ABOVE``), else :func:`padded_hidden` (above 512 the next
-    multiple of 256)."""
+    multiple of 256, above 2048 of 64)."""
     for width in (256, 512):
         low = width // 2
         if width == 256 and name != 'fwd':
@@ -164,6 +174,25 @@ def pack_wide(w16):
     return F.pad(w, (0, 8)).contiguous()
 
 
+def pack_grid(w16, dh=False):
+    """``w_hh`` (D, H, 3H) bf16 as the grid design above H = 2048 reads it
+    (``csrc/gru_grid.cuh``): by unit tile of 16 and K chunk of 64, so that
+    a chunk of a tile is one contiguous range (one bulk copy), each 8 x 8
+    matrix of its ldmatrix loads 128 contiguous bytes. For the gate product
+    (the forward, the backward's recompute): (D, H / 16, H / 64, 8, 3, 2,
+    8, 8), tile j's rows k = 64 kc + 8 kb + kr of its gate g's units 16 j +
+    8 nh + n at [d, j, kc, kb, g, nh, kr, n]; with ``dh``, for the
+    backward's dh product: (D, H / 16, 3H / 64, 8, 2, 8, 8), tile j's rows
+    16 j + 8 uh + ur at columns c = 64 kc + 8 cb + c8 at [d, j, kc, cb, uh,
+    ur, c8]."""
+    d, h, g3 = w16.shape
+    if dh:
+        return w16.reshape(d, h // 16, 2, 8, g3 // 64, 8, 8).permute(
+            0, 1, 4, 5, 2, 3, 6).contiguous()
+    return w16.reshape(d, h // 64, 8, 8, 3, h // 16, 2, 8).permute(
+        0, 5, 1, 2, 4, 6, 3, 7).contiguous()
+
+
 def _check(xw, w_hh, b_hh, h0):
     if xw.dim() != 4 or w_hh.dim() != 3 or b_hh.dim() != 2 or h0.dim() != 3:
         raise ValueError(
@@ -225,22 +254,30 @@ def gru_scan(xw, w_hh, b_hh, h0):
     if xw.device.type == 'cpu':
         return gru_scan_plain(xw, w_hh, b_hh, h0)
     build.require_cuda(xw)
-    hdim = _hidden(h0, GRU_MAX_HIDDEN, 'GRU kernel')
+    hdim = _hidden(h0, None, 'GRU kernel')
     hp = kernel_hidden(*xw.shape[:3], hdim)
     xw16, w16, b32, h32 = pad_hidden(
         xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(),
         h0.float(), hp=hp)
     xw16, w16, b32, h32 = (a.contiguous() for a in (xw16, w16, b32, h32))
-    if hp > _WIDE_ABOVE:
+    if _WIDE_ABOVE < hp <= _GRID_ABOVE:
         w16 = pack_wide(w16)
+    elif hp > _GRID_ABOVE:
+        w16 = pack_grid(w16)
     d, b, t, _ = xw16.shape
     y = torch.empty((d, b, t, hp), dtype=torch.float32, device=xw.device)
     if xw16.data_ptr() % 16 or w16.data_ptr() % 16:
         raise ValueError('gru_scan needs 16-byte aligned xw and w_hh '
                          'buffers')
-    build.launch('gru_scan', 'pbsed_gru_scan', xw.device,
-                 xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(),
-                 h32.data_ptr(), y.data_ptr(), d, b, t, hp)
+    ptrs = (xw16.data_ptr(), w16.data_ptr(), b32.data_ptr(), h32.data_ptr(),
+            y.data_ptr())
+    if hp > _GRID_ABOVE:
+        ws = _grid_workspace(d, b, hp, xw.device)
+        build.launch('gru_scan', 'pbsed_gru_scan_grid', xw.device, *ptrs,
+                     ws.data_ptr(), d, b, t, hp)
+    else:
+        build.launch('gru_scan', 'pbsed_gru_scan', xw.device, *ptrs, d, b, t,
+                     hp)
     _count_shape('gru_scan', hdim, hp)
     _count_rows('gru_scan_rows', 'fwd', d, b, t, hp)
     return unpad_hidden(hdim, y=y)[0]
@@ -254,21 +291,33 @@ def _count_rows(counter, name, d, b, t, hp):
 
 
 def _count_shape(counter, hdim, hp):
-    """Count a launch at a padded H, or above H = 512 (the design of 16
-    blocks of H / 16 units), under ``<counter>_padded`` /
-    ``<counter>_wide`` too."""
+    """Count a launch at a padded H, above H = 512 up to 2048 (the design
+    of 16 blocks of H / 16 units) or above 2048 (the grid design) under
+    ``<counter>_padded``, ``<counter>_wide`` or ``<counter>_grid`` too."""
     if hp != hdim:
         build.LAUNCHES[f'{counter}_padded'] += 1
-    if hp > _WIDE_ABOVE:
+    if _WIDE_ABOVE < hp <= _GRID_ABOVE:
         build.LAUNCHES[f'{counter}_wide'] += 1
+    if hp > _GRID_ABOVE:
+        build.LAUNCHES[f'{counter}_grid'] += 1
+
+
+def _grid_workspace(d, b, hp, device, backward=False):
+    """The grid design's workspace (``csrc/gru_grid.cuh``): 256 bytes for
+    its barrier's counter, then the exchanged bf16 state (2, D, B, H), or
+    the backward's dgates (2, D, B, 3H)."""
+    width = 3 * hp if backward else hp
+    return torch.empty(256 + 2 * 2 * d * b * width, dtype=torch.uint8,
+                       device=device)
 
 
 def _hidden(h0, limit, what):
-    """H of the operands, checked against the kernel's ``limit``."""
+    """H of the operands, checked against the kernel's ``limit`` (None:
+    no upper limit)."""
     hdim = h0.shape[-1]
-    if not 1 <= hdim <= limit:
-        raise ValueError(f'the {what} takes 1 <= H <= {limit}; got '
-                         f'H={hdim}')
+    if hdim < 1 or (limit is not None and hdim > limit):
+        bounds = '1 <= H' if limit is None else f'1 <= H <= {limit}'
+        raise ValueError(f'the {what} takes {bounds}; got H={hdim}')
     return hdim
 
 
@@ -276,7 +325,8 @@ _DESIGN_QUERIES = {'fwd': 'pbsed_gru_design', 'bwd': 'pbsed_gru_bwd_design',
                    'bwd_fused': 'pbsed_gru_bwd_fused_design'}
 # the design names, by the queries' return codes
 ROWS = 'wgmma_rows'
-_DESIGNS = {1: 'cluster', 2: ROWS}
+GRID = 'grid'
+_DESIGNS = {1: 'cluster', 2: ROWS, 3: GRID}
 
 
 def _design(name, d, b, t, h):
@@ -302,12 +352,16 @@ def gru_designs(d, b, t, h):
     and above H = 512 ``csrc/gru_cluster_wide.cuh``; ``ROWS``,
     'wgmma_rows': the same spread, tiles of 64 rows on wgmma,
     ``csrc/gru_rows.cuh`` forward and ``csrc/gru_bwd_rows.cuh``
-    backwards), ``hidden`` (the H it runs), ``cluster`` (blocks a
-    cluster), ``rows`` (batch rows a cluster), ``smem`` (dynamic shared
-    memory a block, bytes), ``coresident`` (clusters the card holds at
-    once), ``units`` (hidden units a block owns: 32, H / 16 above 512),
-    ``resident`` and ``streamed`` (bytes of a block's slice of w_hh kept
-    in its shared memory and read from L2 at every step);
+    backwards; ``GRID``, 'grid', above H = 2048: one block an SM, launched
+    cooperatively, ``csrc/gru_grid.cuh``), ``hidden`` (the H it runs),
+    ``cluster`` (blocks a cluster; the grid design's blocks a direction),
+    ``rows`` (batch rows a cluster; the grid design's rows a row tile),
+    ``smem`` (dynamic shared memory a block, bytes), ``coresident``
+    (clusters the card holds at once; the grid design's blocks of its
+    launch), ``units`` (hidden units a block owns: 32, H / 16 above 512,
+    those of the largest block above 2048), ``resident`` and ``streamed``
+    (bytes of a block's slice of w_hh kept in its shared memory and read
+    from L2 at every step);
     ``'bwd_fused'`` is None above ``GRU_FUSED_MAX_HIDDEN``. Raises where
     the card can hold no cluster of the design."""
     out = {}
@@ -422,7 +476,7 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
     if xw.device.type == 'cpu':
         return gru_scan_bwd_plain(xw, w_hh, b_hh, h0, y, g, split)
     build.require_cuda(xw, w_hh, b_hh, h0, y, g)
-    hdim = _hidden(h0, GRU_MAX_HIDDEN if split else GRU_FUSED_MAX_HIDDEN,
+    hdim = _hidden(h0, None if split else GRU_FUSED_MAX_HIDDEN,
                    'GRU backward kernel' if split
                    else 'fused GRU backward kernel')
     hp = kernel_hidden(*xw.shape[:3], hdim, 'bwd' if split else 'bwd_fused')
@@ -430,8 +484,11 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
         xw.to(torch.bfloat16), w_hh.to(torch.bfloat16), b_hh.float(), h0,
         y, g.float(), hp=hp)
     xw16, w16, b32, g32 = (a.contiguous() for a in (xw16, w16, b32, g32))
-    if hp > _WIDE_ABOVE:
+    w_dh = None
+    if _WIDE_ABOVE < hp <= _GRID_ABOVE:
         w16 = pack_wide(w16)
+    elif hp > _GRID_ABOVE:
+        w16, w_dh = pack_grid(w16), pack_grid(w16, dh=True)
     d, b, t, _ = xw16.shape
     # the fused sweeps read up to 15 steps past the last row
     h_prev = _h_prev(h0, y, pad=0 if split else 16)
@@ -444,10 +501,17 @@ def gru_scan_bwd(xw, w_hh, b_hh, h0, y, g, split=True):
         out = _launch_fused(xw16, h_prev, w16, b32, g32, dxw, dh0)
         return unpad_hidden(hdim, None, *out)[1:]
     r = torch.empty_like(h_prev)
-    build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
-                 xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
-                 b32.data_ptr(), g32.data_ptr(), dxw.data_ptr(),
-                 r.data_ptr(), dh0.data_ptr(), d, b, t, hp)
+    outs = (g32.data_ptr(), dxw.data_ptr(), r.data_ptr(), dh0.data_ptr())
+    if hp > _GRID_ABOVE:
+        ws = _grid_workspace(d, b, hp, xw.device, backward=True)
+        build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd_grid', xw.device,
+                     xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
+                     w_dh.data_ptr(), b32.data_ptr(), *outs, ws.data_ptr(),
+                     d, b, t, hp)
+    else:
+        build.launch('gru_scan_bwd', 'pbsed_gru_scan_bwd', xw.device,
+                     xw16.data_ptr(), h_prev.data_ptr(), w16.data_ptr(),
+                     b32.data_ptr(), *outs, d, b, t, hp)
     _count_shape('gru_scan_bwd', hdim, hp)
     _count_rows('gru_scan_bwd_rows', 'bwd', d, b, t, hp)
     dw_hh, db_hh = _weight_grads(h_prev, dxw, r)

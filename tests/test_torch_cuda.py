@@ -17,8 +17,9 @@ Cout 16 to 48, with a member axis, dw with and without dx), the member
 axis of the forward convs and the GRU at D = 2N that a stacked ensemble
 launches; the max and average pools of any window, odd extents, bf16
 and f32; the conv at Cout off a multiple of 16 and even kernel extents;
-the GRU at hidden sizes off a multiple of 32 and on the cluster design of
-16 blocks above 512; the f32 conv and its backward on its three designs,
+the GRU at hidden sizes off a multiple of 32, on the cluster design of
+16 blocks above 512 and on the grid design above 2048 (also a D = 4
+member fold); the f32 conv and its backward on its three designs,
 the entry kernels at the recipes' entry widths, F 40 and odd, with a
 member axis, dw over 256 000 pixels on 3xTF32 and on the entry kernels),
 the determinism
@@ -47,8 +48,8 @@ from pb_sed_tpu_torch.ops.kernels.conv import (
 from pb_sed_tpu_torch.ops.kernels.conv import (
     conv2d_same_f32, conv2d_same_f32_bwd, conv2d_same_f32_bwd_plain,
     conv2d_same_f32_members, conv2d_same_f32_plain, conv_f32_designs)
-from pb_sed_tpu_torch.ops.kernels.gru import (GRU_FUSED_MAX_HIDDEN,
-                                              GRU_MAX_HIDDEN, ROWS, GruScan,
+from pb_sed_tpu_torch.ops.kernels.gru import (GRID, GRU_FUSED_MAX_HIDDEN,
+                                              ROWS, GruScan,
                                               gru_designs, gru_scan,
                                               gru_scan_bwd,
                                               gru_scan_bwd_plain,
@@ -222,10 +223,17 @@ def test_kernels_raise_on_unsupported_shapes(gen):
     x = torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16, device='cuda')
     with pytest.raises(ValueError):  # a kernel of 8 input channels
         conv2d_same(x, torch.zeros(3, 3, 8, 16, device='cuda'), None)
-    h = GRU_MAX_HIDDEN + 1
+    # the GRU takes any H >= 1 (above 2048 on the grid design), but not
+    # H = 0, nor a w_hh of another H than the state's
+    xw = torch.zeros(1, 2, 3, 0, device='cuda')
+    with pytest.raises(ValueError, match='1 <= H'):
+        gru_scan(xw, torch.zeros(1, 0, 0, device='cuda'),
+                 torch.zeros(1, 0, device='cuda'),
+                 torch.zeros(1, 2, 0, device='cuda'))
+    h = 2304
     xw = torch.zeros(1, 2, 3, 3 * h, device='cuda')
-    with pytest.raises(ValueError, match=str(GRU_MAX_HIDDEN)):
-        gru_scan(xw, torch.zeros(1, h, 3 * h, device='cuda'),  # H > 2048
+    with pytest.raises(ValueError, match='inconsistent'):
+        gru_scan(xw, torch.zeros(1, h - 64, 3 * h, device='cuda'),
                  torch.zeros(1, 3 * h, device='cuda'),
                  torch.zeros(1, 2, h, device='cuda'))
 
@@ -918,11 +926,16 @@ def _gru_case(gen, d, b, t, h, g_scale=1.):
 # at 768 with 3 000 rows (the forward's clusters of 32 rows); H off a
 # multiple of 32 below 512 (padded into the rows designs, or to 256 for
 # the cluster design at few rows: 376 row tiles keep 200 at 224) and
-# above (600 -> 768)
+# above (600 -> 768); the grid design above 2048: rnn_config(9)'s 2304
+# at the training shape's 32 rows, 2112 on one direction (132 blocks of
+# one unit tile) with two row tiles of 64 (the second ragged), 3000 off
+# its step (run as 3008), 4096 at T = 1, and D = 3 (44 blocks a
+# direction, column chunks of 4 unit tiles and fewer)
 @pytest.mark.parametrize('d,b,t,h', [
     (2, 17, 9, 768), (2, 3, 1, 768), (1, 5, 6, 1024), (2, 3, 4, 2048),
     (2, 3000, 3, 768), (2, 5, 9, 48), (2, 17, 11, 200), (2, 32, 12, 200),
-    (2, 3000, 3, 200), (2, 3, 5, 600)])
+    (2, 3000, 3, 200), (2, 3, 5, 600), (2, 32, 7, 2304), (1, 70, 5, 2112),
+    (2, 5, 6, 3000), (2, 3, 1, 4096), (3, 9, 4, 2304)])
 def test_gru_any_width_matches_plain(gen, d, b, t, h):
     """Forward and the split backward against the plain version at the
     real H (the GRU ceiling: 5.3e-3, and 5.3e-3 of each gradient's
@@ -930,15 +943,27 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
     passes run 200 as 256 on the cluster design at few rows, as 224 on the
     wgmma rows designs at 3 000, 48 as 64 on the rows designs; above 512
     clusters of 16 blocks of H / 16 units, the forward's of 32 rows where
-    16-row clusters would wait their turn), the launches counted under the
-    pair's names and the wide, padded and rows ones, and bit-identical
-    reruns."""
+    16-row clusters would wait their turn; above 2048 the grid design, one
+    block an SM, row tiles of up to 64), the launches counted under the
+    pair's names and the wide, grid, padded and rows ones, and
+    bit-identical reruns."""
     xw, w_hh, b_hh, h0, g = _gru_case(gen, d, b, t, h)
     designs = gru_designs(d, b, t, h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for key in ('fwd', 'bwd'):
         v = designs[key]
         hp = v['hidden']
-        if hp > 512:
+        if hp > 2048:
+            # the next multiple of 64, over min(SMs / D, H / 16) blocks a
+            # direction
+            assert hp == -(-h // 64) * 64
+            assert v['design'] == GRID
+            assert v['cluster'] == min(sms // d, hp // 16)
+            assert v['coresident'] == v['cluster'] * d <= sms
+            assert v['rows'] == min(64, -(-b // 16) * 16)
+            assert v['units'] == 16 * -(-(hp // 16) // v['cluster'])
+            assert v['smem'] <= 232448
+        elif hp > 512:
             # the next multiple of 256, on 16 blocks of hp / 16 units
             assert hp == -(-h // 256) * 256
             assert (v['design'], v['cluster'], v['units']) == (
@@ -962,7 +987,9 @@ def test_gru_any_width_matches_plain(gen, d, b, t, h):
         hp = designs[key]['hidden']
         assert build.LAUNCHES[name] == n[name] + 1
         assert build.LAUNCHES[f'{name}_wide'] == n[f'{name}_wide'] + (
-            hp > 512)
+            512 < hp <= 2048)
+        assert build.LAUNCHES[f'{name}_grid'] == n[f'{name}_grid'] + (
+            hp > 2048)
         assert build.LAUNCHES[f'{name}_padded'] == n[f'{name}_padded'] + (
             hp != h)
         assert build.LAUNCHES[f'{name}_rows'] == n[f'{name}_rows'] + (
@@ -990,11 +1017,13 @@ def test_gru_fused_backward_at_a_padded_width(gen, h):
         assert _max_err(a, r) <= 5.3e-3 * float(r.float().abs().max())
 
 
-def test_wide_gru_members_in_the_direction_axis(gen):
-    """Two members at H = 768 under ``torch.func.vmap``: one D = 4 launch
-    of the cluster design above 512 equal to each member's D = 2 launch in
-    every bit."""
-    xw, w_hh, b_hh, h0, _ = _gru_case(gen, 4, 3, 6, 768)
+@pytest.mark.parametrize('h', [768, 2304])
+def test_wide_gru_members_in_the_direction_axis(gen, h):
+    """Two members at H = 768 and 2304 under ``torch.func.vmap``: one D = 4
+    launch of the cluster design above 512 (of the grid design above 2048:
+    33 blocks a direction where D = 2 has 66) equal to each member's D = 2
+    launch in every bit."""
+    xw, w_hh, b_hh, h0, _ = _gru_case(gen, 4, 3, 6, h)
     member = (lambda a: a.reshape(2, 2, *a.shape[1:]))
     got = torch.func.vmap(GruScan.apply)(*map(member, (xw, w_hh, b_hh, h0)))
     for i in range(2):

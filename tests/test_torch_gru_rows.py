@@ -78,7 +78,7 @@ def test_kernel_hidden_pads_for_the_design(monkeypatch, h, cluster_widths,
 
 def test_design_names():
     """The C queries' return codes name the designs: 1 the cluster
-    designs, 2 the wgmma rows designs (forward and backwards); no design
-    is row-tiled any more."""
-    assert kgru._DESIGNS == {1: 'cluster', 2: 'wgmma_rows'}
-    assert kgru.ROWS == 'wgmma_rows'
+    designs, 2 the wgmma rows designs (forward and backwards), 3 the grid
+    design above H = 2048; no design is row-tiled any more."""
+    assert kgru._DESIGNS == {1: 'cluster', 2: 'wgmma_rows', 3: 'grid'}
+    assert kgru.ROWS == 'wgmma_rows' and kgru.GRID == 'grid'

@@ -111,7 +111,7 @@ from pb_sed_tpu_torch.models import strong_label
 cfg = training.ex.build_config({'timestamp': 't', 'debug': True})
 assert cfg['trainer']['model']['factory'] is strong_label.CRNN
 assert cfg['trainer']['model']['rnn']['rnn']['bidirectional'] is True
-assert len(build.LAUNCHES) == 30
+assert len(build.LAUNCHES) == 32
 assert all(v == 0 for v in build.LAUNCHES.values())
 loaded = [n for n, m in sys.modules.items() if m is not None and (
     n.split('.')[0] in BLOCKED)]
